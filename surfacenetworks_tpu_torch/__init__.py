@@ -1,0 +1,32 @@
+"""surfacenetworks_tpu_torch: Surface Networks in PyTorch with hand-written CUDA kernels.
+
+The PyTorch and CUDA port of ``surfacenetworks_tpu`` (JAX/Flax/Pallas), which
+stays beside it as the reference.  This package imports torch, numpy and
+scipy, and nothing of jax, flax, optax or ``surfacenetworks_tpu``; what it
+needs from the host side of the JAX package it keeps as its own copy.  Its
+entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+
+Module map (port -> JAX package):
+
+==============================  =================================================
+``geometry/mesh_ops.py``        ``geometry/mesh_ops.py`` (igl-style Laplacian,
+                                vertex normals, permutations)
+``data/datasets.py``            ``data/datasets.py`` (``random_blob_mesh``,
+                                ``synthetic_normal_dataset`` Lap branch)
+``data/batching.py``            ``data/batching.py`` (buckets, RCM, BSR slot
+                                fit, ``laplacian_batch``)
+``sparse/ell.py``               ``sparse/ell.py`` (``EllMatrix``, packing)
+``sparse/bsr.py``               ``sparse/bsr.py`` (``BsrMatrix``, RCM, packing)
+``sparse/ops.py``               ``sparse/ops.py`` + apply half of ``sparse/bsr.py``
+``sparse/kernels.py``           ``sparse/pallas_kernels.py`` (``bsr_matmul``,
+                                ``ell_matmul``)
+``sparse/csrc/spmm.cu``         the Pallas kernels' bodies, as CUDA for sm_90a
+``sparse/_build.py``            (new) nvcc build + ctypes binding
+``nn/layers.py``                ``nn/layers.py``
+``nn/blocks.py``                ``nn/blocks.py`` (Lap/Avg blocks)
+``models/normal_models.py``     ``models/normal_models.py`` (``LapDeepModel``)
+``convert.py``                  (new) flax params -> ``state_dict``
+``serve.py``                    ``serve.py`` + ``cli/export_model.py``
+                                (``NormalServer``)
+==============================  =================================================
+"""

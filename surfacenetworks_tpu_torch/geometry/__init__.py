@@ -1,0 +1,23 @@
+"""Host-side geometry (counterpart of ``surfacenetworks_tpu/geometry``)."""
+
+from surfacenetworks_tpu_torch.geometry.mesh_ops import (
+    cotangent_weights,
+    edge_lengths,
+    face_areas,
+    hackit,
+    igl_style_laplacian,
+    invert_permutation,
+    laplacian,
+    vertex_normals,
+)
+
+__all__ = [
+    "cotangent_weights",
+    "edge_lengths",
+    "face_areas",
+    "hackit",
+    "igl_style_laplacian",
+    "invert_permutation",
+    "laplacian",
+    "vertex_normals",
+]

@@ -1,0 +1,175 @@
+"""Sparse operator kernels (counterpart of ``surfacenetworks_tpu/sparse/pallas_kernels.py``).
+
+Each kernel has three parts here: the wrapper the model calls, its plain
+PyTorch version, and a launch count.  A tensor on the CPU takes the plain
+version; a CUDA tensor launches the hand-written kernel in ``csrc/spmm.cu``
+(built by ``_build.py``) or raises.  Both kernels take an optional leading
+batch axis, so one launch applies a whole batch of operators.
+
+``bsr_matmul`` replaces ``_bsr_matmul_call`` (``pallas_kernels.py:133-178``).
+  Bound on the H100: operations.  It multiplies every stored 128x128 block,
+  ``2*NB*KB*128*128*C`` flops (about 1.15 GFLOP at NB=55, KB=5, C=128),
+  against about 25 MB of blocks and activations; fp32 FMA outside the tensor
+  cores peaks at 67 TFLOP/s.  Design: one CTA per (64-channel tile,
+  block-row, batch) loops over its block-row's slots, stages each block and
+  the matching slice of x through shared memory in depth chunks of 32, and
+  keeps an 8x4 output tile per thread in registers.  The TPU kernel's single
+  wide MXU product does not carry over; running the same blocks on the
+  tensor cores (TF32 or bf16 through ``wgmma``) is the later redesign.
+
+``ell_matmul`` replaces ``_ell_matmul_call`` (``pallas_kernels.py:186-274``).
+  Bound on the H100: bytes.  At R=N=7040, K=16, C=128 it moves about 8 MB
+  (slots once, x once, out once) for about 13 MFLOP.  Design: one warp per
+  output row reads the row's K (col, val) pairs once and gathers rows of x
+  with 16-byte loads along the channel axis, so each gathered row is one
+  coalesced read and the L2 cache serves the reuse of x between rows.  The
+  TPU kernel's banded densify (``window``) was a matrix-unit device; on this
+  card the gather is the contract (``sparse/ops.py:44-47`` in the JAX
+  package), so ``window`` is accepted and ignored, and R need not be a
+  multiple of 128.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from surfacenetworks_tpu_torch.sparse import _build
+
+# Launches of each CUDA kernel since the last reset (plain-version calls on
+# CPU tensors do not count).
+launches = {"bsr_matmul": 0, "ell_matmul": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _batched(*ts: torch.Tensor) -> tuple[bool, list[torch.Tensor]]:
+    """Add a batch axis of 1 to unbatched operands."""
+    if ts[0].dim() == 2:
+        return False, [t.unsqueeze(0) for t in ts]
+    return True, list(ts)
+
+
+def _check_cuda(name: str, **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected cuda")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands on different devices {devices}")
+
+
+def _raise_on(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {code}")
+
+
+# ---------------------------------------------------------------------------
+# block-ELL SpMM
+# ---------------------------------------------------------------------------
+
+
+def bsr_matmul_plain(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``out[i*bs:(i+1)*bs] = sum_k block_vals[i,k] @ x[block_cols[i,k]*bs : +bs]``.
+
+    ``block_cols [..., NB, KB]``, ``block_vals [..., NB, KB, bs, bs]``,
+    ``x [..., N, C]`` -> fp32 ``[..., NB*bs, C]`` (``_bsr_matmul_xla``).
+    """
+    batched, (cols, vals, xb) = _batched(block_cols, block_vals, x)
+    bs = vals.shape[-1]
+    B, n, c = xb.shape
+    blocks = xb.reshape(B, n // bs, bs, c)
+    gathered = blocks[torch.arange(B, device=xb.device)[:, None, None], cols.long()]
+    out = torch.einsum("bnkij,bnkjc->bnic", vals.float(), gathered.float()).reshape(B, -1, c)
+    return out if batched else out[0]
+
+
+def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Block-ELL SpMM over 128x128 blocks; fp32 in and out on the card.
+
+    Block-columns must lie in ``[0, N/128)``.  ``BsrMatrix.to`` checks that
+    on the host and ``bsr_spmm`` checks N, so the port's path never hands
+    the kernel another.  Called directly with one, the two versions differ:
+    the plain version raises, the kernel skips the slot rather than read out
+    of bounds (checking here would cost a device sync per launch)."""
+    if x.device.type == "cpu":
+        return bsr_matmul_plain(block_cols, block_vals, x)
+    _check_cuda("bsr_matmul", block_cols=block_cols, block_vals=block_vals, x=x)
+    if block_cols.dtype != torch.int32:
+        raise TypeError(f"bsr_matmul: block_cols must be int32, got {block_cols.dtype}")
+    if block_vals.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(
+            f"bsr_matmul: the kernel takes fp32 blocks and x, got {block_vals.dtype} and {x.dtype}"
+        )
+    batched, (cols, vals, xb) = _batched(block_cols, block_vals, x)
+    B, nb, kb = cols.shape
+    if vals.shape != (B, nb, kb, 128, 128):
+        raise ValueError(f"bsr_matmul: block_vals {tuple(vals.shape)} is not [{B},{nb},{kb},128,128]")
+    if xb.dim() != 3 or xb.shape[0] != B or xb.shape[1] % 128:
+        raise ValueError(f"bsr_matmul: x {tuple(xb.shape)} is not [{B}, 128*m, C]")
+    n, c = xb.shape[1:]
+    out = torch.empty((B, nb * 128, c), device=x.device, dtype=torch.float32)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.snx_bsr_spmm(
+        cols.data_ptr(), vals.data_ptr(), xb.data_ptr(), out.data_ptr(),
+        B, nb, kb, n, c, ctypes.c_void_p(stream),
+    )
+    _raise_on(code, "bsr_matmul")
+    launches["bsr_matmul"] += 1
+    return out if batched else out[0]
+
+
+# ---------------------------------------------------------------------------
+# scalar-ELL SpMM
+# ---------------------------------------------------------------------------
+
+
+def ell_matmul_plain(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``out[r] = sum_k vals[r,k] * x[cols[r,k]]``; ``cols [..., R, K]``,
+    ``x [..., N, C]`` -> ``[..., R, C]`` (``_ell_matmul_xla``)."""
+    batched, (c_, v_, xb) = _batched(cols, vals, x)
+    B = xb.shape[0]
+    gathered = xb[torch.arange(B, device=xb.device)[:, None, None], c_.long()]  # [B, R, K, C]
+    out = (v_[..., None] * gathered).sum(dim=-2)
+    return out if batched else out[0]
+
+
+def ell_matmul(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Scalar-ELL SpMM.  ``window`` (the TPU kernel's banded bound) is
+    accepted and ignored: the CUDA kernel gathers rows directly.  Columns
+    must lie in ``[0, N)``; ``EllMatrix.to`` and ``spmm`` see to that on the
+    port's path.  Called directly with another, the plain version raises and
+    the kernel skips the slot rather than read out of bounds."""
+    del window
+    if x.device.type == "cpu":
+        return ell_matmul_plain(cols, vals, x)
+    _check_cuda("ell_matmul", cols=cols, vals=vals, x=x)
+    if cols.dtype != torch.int32:
+        raise TypeError(f"ell_matmul: cols must be int32, got {cols.dtype}")
+    if vals.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"ell_matmul: the kernel takes fp32 vals and x, got {vals.dtype} and {x.dtype}")
+    batched, (c_, v_, xb) = _batched(cols, vals, x)
+    B, R, K = c_.shape
+    if v_.shape != c_.shape:
+        raise ValueError(f"ell_matmul: vals {tuple(v_.shape)} != cols {tuple(c_.shape)}")
+    if xb.dim() != 3 or xb.shape[0] != B:
+        raise ValueError(f"ell_matmul: x {tuple(xb.shape)} is not [{B}, N, C]")
+    n, c = xb.shape[1:]
+    out = torch.empty((B, R, c), device=x.device, dtype=torch.float32)
+    vec4 = c % 4 == 0 and xb.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    lib = _build.load()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.snx_ell_spmm(
+        c_.data_ptr(), v_.data_ptr(), xb.data_ptr(), out.data_ptr(),
+        B, R, K, n, c, int(vec4), ctypes.c_void_p(stream),
+    )
+    _raise_on(code, "ell_matmul")
+    launches["ell_matmul"] += 1
+    return out if batched else out[0]

@@ -1,0 +1,101 @@
+"""The port imports nothing of JAX: ``surfacenetworks_tpu_torch`` and
+``chip_smoke.py`` must import where jax, jaxlib, flax, optax and the JAX
+package cannot be imported (as on the machine with the card), and no port
+source names them.  Also: the port's entry points refuse to run on the CPU
+unless asked, and ``chip_smoke.py`` fails without a card or without the
+package beside it."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "surfacenetworks_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "surfacenetworks_tpu")
+
+_IMPORT_ALL = f"""
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = {BLOCKED!r}
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"import of {{name}} refused")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import surfacenetworks_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert hasattr(chip_smoke, "main")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("imported", len(names), "modules")
+"""
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(extra)
+    return env
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    n = int(res.stdout.split()[1])
+    assert n >= 15, res.stdout
+
+
+def test_port_sources_name_no_jax():
+    sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) >= 15
+    for path in sources:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in BLOCKED, f"{path.relative_to(REPO)}: imports {name}"
+
+
+def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
+    import torch
+
+    from surfacenetworks_tpu_torch.models import LapDeepModel
+    from surfacenetworks_tpu_torch.serve import NormalServer, resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        NormalServer(LapDeepModel(3, 3, layers=15))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_card_or_package(tmp_path):
+    """No card: non-zero exit and no result line.  Alone in a directory (as
+    if there were a card): the package import fails, non-zero exit."""
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=_env(CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout, res.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    alone = ("import runpy, torch; torch.cuda.is_available = lambda: True; "
+             "runpy.run_path('chip_smoke.py', run_name='__main__')")
+    res = subprocess.run([sys.executable, "-c", alone], cwd=tmp_path, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout, res.stdout
+    assert "surfacenetworks_tpu_torch" in res.stderr, res.stderr[-2000:]
