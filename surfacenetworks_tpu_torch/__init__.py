@@ -8,25 +8,37 @@ entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 Module map (port -> JAX package):
 
-==============================  =================================================
-``geometry/mesh_ops.py``        ``geometry/mesh_ops.py`` (igl-style Laplacian,
-                                vertex normals, permutations)
-``data/datasets.py``            ``data/datasets.py`` (``random_blob_mesh``,
-                                ``synthetic_normal_dataset`` Lap branch)
-``data/batching.py``            ``data/batching.py`` (buckets, RCM, BSR slot
-                                fit, ``laplacian_batch``)
-``sparse/ell.py``               ``sparse/ell.py`` (``EllMatrix``, packing)
-``sparse/bsr.py``               ``sparse/bsr.py`` (``BsrMatrix``, RCM, packing)
-``sparse/ops.py``               ``sparse/ops.py`` + apply half of ``sparse/bsr.py``
-``sparse/kernels.py``           ``sparse/pallas_kernels.py`` (``bsr_matmul``,
-                                ``ell_matmul``)
-``sparse/csrc/spmm.cu``         the Pallas kernels' bodies, as CUDA for sm_90a
-``sparse/_build.py``            (new) nvcc build + ctypes binding
-``nn/layers.py``                ``nn/layers.py``
-``nn/blocks.py``                ``nn/blocks.py`` (Lap/Avg blocks)
-``models/normal_models.py``     ``models/normal_models.py`` (``LapDeepModel``)
-``convert.py``                  (new) flax params -> ``state_dict``
-``serve.py``                    ``serve.py`` + ``cli/export_model.py``
-                                (``NormalServer``)
-==============================  =================================================
+================================  =================================================
+``geometry/mesh_ops.py``          ``geometry/mesh_ops.py`` (igl-style Laplacian,
+                                  vertex normals, permutations)
+``data/datasets.py``              ``data/datasets.py`` (``random_blob_mesh``,
+                                  ``synthetic_normal_dataset`` Lap branch,
+                                  ``synthetic_correspondence_dataset``,
+                                  ``load_faust_npz``)
+``data/batching.py``              ``data/batching.py`` (buckets, RCM, BSR slot
+                                  fit, ``laplacian_batch``,
+                                  ``correspondence_batch``)
+``sparse/ell.py``                 ``sparse/ell.py`` (``EllMatrix``, packing)
+``sparse/bsr.py``                 ``sparse/bsr.py`` (``BsrMatrix``, RCM, packing)
+``sparse/ops.py``                 ``sparse/ops.py`` + apply half of ``sparse/bsr.py``
+                                  (autograd Functions: ``spmm``, ``bsr_spmm``,
+                                  ``sddmm``)
+``sparse/kernels.py``             ``sparse/pallas_kernels.py`` (``bsr_matmul``,
+                                  ``ell_matmul``, ``sddmm``)
+``sparse/csrc/spmm.cu``           the Pallas kernels' bodies, as CUDA for sm_90a
+``sparse/_build.py``              (new) nvcc build + ctypes binding
+``nn/layers.py``                  ``nn/layers.py``
+``nn/blocks.py``                  ``nn/blocks.py`` (Lap/Avg blocks)
+``models/normal_models.py``       ``models/normal_models.py`` (``LapDeepModel``)
+``models/correspondence.py``      ``models/correspondence.py`` (Lap ``Model``,
+                                  ``SiameseModel``)
+``train/losses.py``               ``train/losses.py`` (dcel, streaming dcel,
+                                  smoothness, FAUST metrics)
+``train/optim.py``                ``train/optim.py`` (``adam``)
+``cli/train_correspondence.py``   ``cli/train_correspondence.py`` (single-device
+                                  Lap/dcel path)
+``convert.py``                    (new) flax params -> ``state_dict``
+``serve.py``                      ``serve.py`` + ``cli/export_model.py``
+                                  (``NormalServer``)
+================================  =================================================
 """

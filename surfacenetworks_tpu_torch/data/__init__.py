@@ -7,6 +7,7 @@ from surfacenetworks_tpu_torch.data.batching import (
     MeshBatch,
     bsr_k_needed,
     choose_operator_format,
+    correspondence_batch,
     fit_bsr_k,
     laplacian_batch,
     pad_rows,
@@ -19,6 +20,7 @@ __all__ = [
     "MeshBatch",
     "bsr_k_needed",
     "choose_operator_format",
+    "correspondence_batch",
     "datasets",
     "fit_bsr_k",
     "laplacian_batch",

@@ -55,10 +55,11 @@ class Buckets:
 class MeshBatch:
     """One padded batch: ``inputs``/``targets`` ``[B, N, C]``, ``mask``
     ``[B, N, 1]`` and the batched operator (``EllOperator``,
-    ``BsrOperator`` or a dense ``[B, N, N]`` tensor)."""
+    ``BsrOperator`` or a dense ``[B, N, N]`` tensor).  A correspondence
+    batch's ``targets`` is the host tuple ``(G, label, label_inv)``."""
 
     inputs: torch.Tensor
-    targets: torch.Tensor
+    targets: Any
     mask: torch.Tensor
     operator: Any
     faces: torch.Tensor | None = None  # [B, M, 3] (padded with 0)
@@ -74,9 +75,11 @@ def pad_rows(a: np.ndarray, n: int) -> np.ndarray:
 def rcm_reorder_sample(sample: dict) -> dict:
     """Reorder a sample's vertices by reverse-Cuthill-McKee on its Laplacian,
     so the operator is banded and few BSR blocks cover it.  Faces are
-    reindexed, per-vertex arrays and square operators permuted, and the
-    permutation is kept as ``rcm_perm`` (new row i holds old vertex
-    ``rcm_perm[i]``)."""
+    reindexed; per-vertex arrays, square operators and the geodesic matrix
+    ``G`` are permuted (``G`` along both axes); ``label_inv``, whose values
+    are vertex indices, is remapped; Dirac coefficients, which bake in the
+    vertex order, become ``None``.  The permutation is kept as ``rcm_perm``
+    (new row i holds old vertex ``rcm_perm[i]``)."""
     perm = rcm_permutation(sample["L"])
     inv = geo.invert_permutation(perm)
     n = sample["V"].shape[0]
@@ -86,6 +89,12 @@ def rcm_reorder_sample(sample: dict) -> dict:
             out[key] = inv[val].astype(np.int32)
         elif sp.issparse(val) and val.shape == (n, n):
             out[key] = val.tocsr()[perm][:, perm].tocsr()
+        elif key in ("dirac", "flat_dirac"):
+            out[key] = None
+        elif key == "G":
+            out[key] = val[perm][:, perm]
+        elif key == "label_inv":
+            out[key] = inv[val]
         elif isinstance(val, np.ndarray) and val.ndim >= 1 and val.shape[0] == n:
             out[key] = val[perm]
     out["rcm_perm"] = perm
@@ -139,6 +148,11 @@ def _fixed_k_operator(L: sp.spmatrix, buckets: Buckets, N: int) -> EllOperator:
     return EllOperator(fwd=fwd, bwd=bwd)
 
 
+def _bsr_sample_operator(L: sp.spmatrix, buckets: Buckets, N: int):
+    """BSR operator with the dataset's fitted block slot count."""
+    return bsr_operator_from_scipy(L, block_size=buckets.bsr_block, k=buckets.bsr_k, n_rows=N, n_cols=N)
+
+
 def _dense_operator(L: sp.spmatrix, N: int) -> np.ndarray:
     out = np.zeros((N, N), dtype=np.float32)
     Ld = np.asarray(L.todense(), dtype=np.float32)
@@ -169,14 +183,7 @@ def laplacian_batch(
     if fmt == "ell":
         operator = stack_operators([_fixed_k_operator(s["L"], buckets, N) for s in samples])
     elif fmt == "bsr":
-        operator = stack_bsr_operators(
-            [
-                bsr_operator_from_scipy(
-                    s["L"], block_size=buckets.bsr_block, k=buckets.bsr_k, n_rows=N, n_cols=N
-                )
-                for s in samples
-            ]
-        )
+        operator = stack_bsr_operators([_bsr_sample_operator(s["L"], buckets, N) for s in samples])
     elif fmt == "dense":
         operator = torch.from_numpy(np.stack([_dense_operator(s["L"], N) for s in samples]))
     else:
@@ -194,4 +201,31 @@ def laplacian_batch(
         operator=operator,
         faces=faces,
         names=[s.get("name") for s in samples],
+    )
+
+
+def correspondence_batch(sample: dict, buckets: Buckets, fmt: str = "ell") -> MeshBatch:
+    """Single-shape batch (B=1) for the siamese trainer; ``targets`` is
+    ``(G, label, label_inv)`` as the sample holds them.
+
+    ``fmt='bsr'`` packs the block-sparse operator: the sample must be
+    RCM-ordered (``rcm_reorder_sample``), the bucket a multiple of 128 and
+    ``buckets.bsr_k`` fitted."""
+    N = buckets.n_vertices
+    n = sample["V"].shape[0]
+    inputs = pad_rows(np.asarray(sample["input"], np.float32), N)[None]
+    mask = np.zeros((1, N, 1), dtype=np.float32)
+    mask[0, :n] = 1.0
+    if fmt == "bsr":
+        operator = stack_bsr_operators([_bsr_sample_operator(sample["L"], buckets, N)])
+    elif fmt == "ell":
+        operator = stack_operators([_fixed_k_operator(sample["L"], buckets, N)])
+    else:
+        raise ValueError(f"unknown operator format {fmt!r}: expected 'ell' or 'bsr'")
+    return MeshBatch(
+        inputs=torch.from_numpy(inputs),
+        targets=(sample["G"], sample["label"], sample["label_inv"]),
+        mask=torch.from_numpy(mask),
+        operator=operator,
+        names=[sample.get("name")],
     )

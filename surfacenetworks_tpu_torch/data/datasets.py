@@ -1,8 +1,11 @@
-"""Seeded synthetic meshes (counterpart of ``surfacenetworks_tpu/data/datasets.py``).
+"""Seeded synthetic meshes and the FAUST loader (counterpart of
+``surfacenetworks_tpu/data/datasets.py``).
 
-``random_blob_mesh`` and the ``operator="lap"`` branch of
-``synthetic_normal_dataset`` are copies of the JAX package's generators, so
-the same seed gives the same meshes, normals and Laplacians in both packages.
+``random_blob_mesh``, the ``operator="lap"`` branch of
+``synthetic_normal_dataset`` and ``synthetic_correspondence_dataset`` are
+copies of the JAX package's generators (same RNG call order), so the same
+seed gives the same meshes, labels, geodesic proxies and Laplacians in both
+packages.  ``load_faust_npz`` reads the reference's FAUST ``.npz`` layout.
 """
 
 from __future__ import annotations
@@ -61,4 +64,60 @@ def synthetic_normal_dataset(
                 "L": geo.igl_style_laplacian(V, F, hack=hack),
             }
         )
+    return out
+
+
+def synthetic_correspondence_dataset(num: int, n_points: int = 200, seed: int = 0) -> list[dict]:
+    """FAUST-style samples: deformations of one base shape with known
+    correspondence labels and a geodesic-proxy distance matrix ``G``
+    (Euclidean distances on the base shape)."""
+    rng = np.random.default_rng(seed)
+    base_V, F = random_blob_mesh(rng, n_points)
+    n = base_V.shape[0]
+    # row-chunked: the [n, n, 3] difference would not fit at large n
+    Vf = base_V.astype(np.float32)
+    G = np.empty((n, n), np.float32)
+    chunk = max(1, (256 << 20) // max(n * 12, 1))
+    for i0 in range(0, n, chunk):
+        d = Vf[i0 : i0 + chunk, None, :] - Vf[None, :, :]
+        G[i0 : i0 + chunk] = np.sqrt((d * d).sum(-1))
+    out = []
+    for i in range(num):
+        a = rng.uniform(-0.2, 0.2, size=3)
+        V = base_V * (1.0 + a[None, :] * np.sin(2 * base_V))
+        perm = rng.permutation(n)
+        inv = geo.invert_permutation(perm)
+        Vp = V[perm].astype(np.float32)  # scan vertex i <-> template id perm[i]
+        Fp = inv[F].astype(np.int32)
+        out.append(
+            {
+                "V": Vp,
+                "F": Fp,
+                "input": Vp,
+                "L": geo.igl_style_laplacian(Vp, Fp, hack=1.0),
+                "label": perm.astype(np.int64),  # scan vertex -> template id
+                "label_inv": inv.astype(np.int64),  # template id -> scan vertex
+                "G": G[perm][:, perm],
+                "name": f"faustlike_{i}",
+            }
+        )
+    return out
+
+
+def load_faust_npz(path: str) -> dict:
+    """Load a FAUST ``.npz`` in the reference layout: V, F, the Laplacian
+    ``L`` as a pickled scipy matrix, label, label_inv and ``dist_mat`` (kept
+    as ``G``)."""
+    with np.load(path, allow_pickle=True) as seq:
+        out = {
+            "V": seq["V"].astype(np.float32),
+            "F": seq["F"].astype(np.int32),
+            "label": seq["label"].astype(np.int64),
+            "label_inv": seq["label_inv"].astype(np.int64),
+            "G": seq["dist_mat"].astype(np.float32),
+            "name": path,
+        }
+        if "L" in seq:
+            out["L"] = seq["L"].item().astype(np.float32).tocsr()
+        out["input"] = out["V"]
     return out

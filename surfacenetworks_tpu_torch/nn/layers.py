@@ -4,7 +4,7 @@
   norm before ('pre') or after ('post') it; any other string means no norm.
 * ``GraphBatchNorm``: batch norm over all ``B*N`` rows per channel, always
   with batch statistics (the reference keeps BN in training mode when it
-  evaluates).  By default padding rows take part in the statistics, as in the
+  evaluates), taken in fp32, or in fp64 for fp64 inputs.  By default padding rows take part in the statistics, as in the
   reference; ``masked=True`` weights rows by the mask instead.
 * ``global_average``: masked mean over the vertex axis, keepdim.
 
@@ -18,9 +18,14 @@ import torch
 from torch import nn
 
 
+def _stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """Statistics in fp32, or in fp64 for an fp64 reference run."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def global_average(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked mean over the vertex axis, keepdim. ``x [B,N,C]``, ``mask [B,N,1]``."""
-    xf = x.float()
+    xf = x.to(_stat_dtype(x))
     mf = mask.to(xf.dtype)
     num = (xf * mf).sum(dim=-2, keepdim=True)
     den = (mf * torch.ones_like(xf)).sum(dim=-2, keepdim=True)
@@ -29,7 +34,7 @@ def global_average(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 class GraphBatchNorm(nn.Module):
     """Batch normalization over all (batch, vertex) rows per channel, with
-    biased variance and eps 1e-5; statistics in fp32."""
+    biased variance and eps 1e-5; statistics in fp32 (fp64 for fp64 x)."""
 
     def __init__(self, features: int, eps: float = 1e-5, masked: bool = False):
         super().__init__()
@@ -40,7 +45,7 @@ class GraphBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         out_dtype = x.dtype
-        x = x.float()
+        x = x.to(_stat_dtype(x))
         dims = tuple(range(x.dim() - 1))
         if self.masked and mask is not None:
             w = mask.to(x.dtype) * torch.ones_like(x)

@@ -1,4 +1,5 @@
-"""Sparse operators and their kernels (counterpart of ``surfacenetworks_tpu/sparse``)."""
+"""Sparse operators, their applies and the SDDMM, and their kernels
+(counterpart of ``surfacenetworks_tpu/sparse``)."""
 
 from surfacenetworks_tpu_torch.sparse.bsr import (
     BsrMatrix,
@@ -15,7 +16,7 @@ from surfacenetworks_tpu_torch.sparse.ell import (
     operator_from_scipy,
     stack_operators,
 )
-from surfacenetworks_tpu_torch.sparse.ops import bsr_spmm, dense_bmm, spmm
+from surfacenetworks_tpu_torch.sparse.ops import bsr_spmm, dense_bmm, sddmm, spmm
 
 __all__ = [
     "BsrMatrix",
@@ -29,6 +30,7 @@ __all__ = [
     "ell_from_scipy",
     "operator_from_scipy",
     "rcm_permutation",
+    "sddmm",
     "spmm",
     "stack_bsr_operators",
     "stack_operators",

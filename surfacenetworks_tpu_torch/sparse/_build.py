@@ -71,5 +71,7 @@ def load() -> ctypes.CDLL:
         lib.snx_ell_spmm.restype = i32
         lib.snx_bsr_spmm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.snx_bsr_spmm.restype = i32
+        lib.snx_sddmm.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        lib.snx_sddmm.restype = i32
         _lib = lib
     return _lib

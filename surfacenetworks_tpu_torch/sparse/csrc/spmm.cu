@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the port's sparse operator applies.
+// Hand-written Hopper (sm_90a) kernels for the port's sparse operator applies
+// and the sampled dense-dense product (SDDMM).
 //
 // Built by sparse/_build.py with one plain nvcc call into a shared library
 // with a C interface, loaded with ctypes (no PyTorch headers).  Every entry
@@ -172,6 +173,71 @@ bsr_spmm_kernel(const int* __restrict__ block_cols, const float* __restrict__ bl
   }
 }
 
+// ---------------------------------------------------------------------------
+// SDDMM at an ELL pattern:
+//   out[b, r, k] = <a[b, r], b[b, cols[b, r, k]]> where vals[b, r, k] != 0, else 0
+//
+// One warp per row r.  Each lane keeps its float4 of a[r] in registers (the
+// first 128 channels; wider rows read the rest again from L1).  The row's K
+// (col, val) pairs are handed round with shuffles, as in ell_spmm_kernel; for
+// each live slot the warp reads b[col] with 16-byte loads, forms the lanes'
+// partial products and reduces them with an xor butterfly, after which every
+// lane holds the dot product.  Lane s keeps slot s's result, so the row's K
+// outputs leave in one coalesced store.  Padding slots (val == 0) give 0, and
+// a column outside [0, n) gives 0 rather than a read out of bounds (a guard
+// only: the host range-checks the pattern).
+// ---------------------------------------------------------------------------
+template <bool VEC4>
+__device__ __forceinline__ float4 load4(const float* p, int j) {
+  if (VEC4) return reinterpret_cast<const float4*>(p)[j];
+  return make_float4(p[j], 0.f, 0.f, 0.f);
+}
+
+__device__ __forceinline__ float dot4(float4 u, float4 v) {
+  return fmaf(u.x, v.x, fmaf(u.y, v.y, fmaf(u.z, v.z, u.w * v.w)));
+}
+
+template <bool VEC4>
+__global__ void sddmm_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
+                             const float* __restrict__ a, const float* __restrict__ b,
+                             float* __restrict__ out, int batch, int rows, int k, int n, int c) {
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= static_cast<long long>(batch) * rows) return;  // whole warp leaves together
+  const long long bi = row / rows;
+  const int* row_cols = cols + row * k;
+  const float* row_vals = vals + row * k;
+  const float* arow = a + row * c;
+  const float* bb = b + bi * n * static_cast<long long>(c);
+  float* orow = out + row * k;
+
+  const int width = VEC4 ? c / 4 : c;  // channel axis in units of float4 or float
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 a0 = lane < width ? load4<VEC4>(arow, lane) : zero;
+  for (int s0 = 0; s0 < k; s0 += 32) {
+    int my_col = 0;
+    float my_val = 0.f;
+    if (s0 + lane < k) {
+      my_col = row_cols[s0 + lane];
+      my_val = row_vals[s0 + lane];
+    }
+    float my_out = 0.f;
+    const int ns = min(32, k - s0);
+    for (int s = 0; s < ns; ++s) {
+      const float v = __shfl_sync(0xffffffffu, my_val, s);
+      const int col = __shfl_sync(0xffffffffu, my_col, s);
+      if (v == 0.f || col < 0 || col >= n) continue;  // warp-uniform
+      const float* brow = bb + static_cast<long long>(col) * c;
+      float p = lane < width ? dot4(a0, load4<VEC4>(brow, lane)) : 0.f;
+      for (int j = lane + 32; j < width; j += 32) p += dot4(load4<VEC4>(arow, j), load4<VEC4>(brow, j));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
+      if (lane == s) my_out = p;
+    }
+    if (lane < ns) orow[s0 + lane] = my_out;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -207,6 +273,28 @@ int snx_bsr_spmm(const void* block_cols, const void* block_vals, const void* x, 
   bsr_spmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(block_cols), static_cast<const float*>(block_vals),
       static_cast<const float*>(x), static_cast<float*>(out), nb, kb, n, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cols int32 [batch, rows, k], vals fp32 [batch, rows, k], a fp32
+// [batch, rows, c], b fp32 [batch, n, c] -> out fp32 [batch, rows, k].
+// vec4 != 0 needs c % 4 == 0 and 16-byte aligned a and b.
+int snx_sddmm(const void* cols, const void* vals, const void* a, const void* b, void* out,
+              int batch, int rows, int k, int n, int c, int vec4, void* stream) {
+  const long long total = static_cast<long long>(batch) * rows;
+  if (total == 0 || k == 0) return static_cast<int>(cudaGetLastError());
+  const int threads = 256;  // 8 warps, one row each
+  const unsigned blocks = static_cast<unsigned>((total + threads / 32 - 1) / (threads / 32));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec4) {
+    sddmm_kernel<true><<<blocks, threads, 0, s>>>(
+        static_cast<const int*>(cols), static_cast<const float*>(vals), static_cast<const float*>(a),
+        static_cast<const float*>(b), static_cast<float*>(out), batch, rows, k, n, c);
+  } else {
+    sddmm_kernel<false><<<blocks, threads, 0, s>>>(
+        static_cast<const int*>(cols), static_cast<const float*>(vals), static_cast<const float*>(a),
+        static_cast<const float*>(b), static_cast<float*>(out), batch, rows, k, n, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,8 +3,9 @@
 Each kernel has three parts here: the wrapper the model calls, its plain
 PyTorch version, and a launch count.  A tensor on the CPU takes the plain
 version; a CUDA tensor launches the hand-written kernel in ``csrc/spmm.cu``
-(built by ``_build.py``) or raises.  Both kernels take an optional leading
-batch axis, so one launch applies a whole batch of operators.
+(built by ``_build.py``) or raises.  Every kernel takes an optional leading
+batch axis, so one launch serves a whole batch of operators.  The wrappers
+are not differentiable: ``sparse/ops.py`` wraps them in autograd Functions.
 
 ``bsr_matmul`` replaces ``_bsr_matmul_call`` (``pallas_kernels.py:133-178``).
   Bound on the H100: operations.  It multiplies every stored 128x128 block,
@@ -27,6 +28,17 @@ batch axis, so one launch applies a whole batch of operators.
   card the gather is the contract (``sparse/ops.py:44-47`` in the JAX
   package), so ``window`` is accepted and ignored, and R need not be a
   multiple of 128.
+
+``sddmm`` replaces ``_sddmm_call`` (``pallas_kernels.py:277-352``).
+  Bound on the H100: bytes.  At R=N=7040, K=16, C=120 it reads a and b
+  (3.4 MB each) and the pattern (0.9 MB) once and writes 0.45 MB, about
+  8.1 MB, for about 27 MFLOP.  Design: as ``ell_matmul`` read the other way
+  round.  One warp per row keeps its a[r] in registers (C=120 is 30 lanes of
+  float4), takes the row's (col, val) pairs by shuffles, reads each live
+  slot's b[col] with 16-byte loads and reduces the lanes' products with an
+  xor butterfly.  The TPU kernel's one MXU product per 128-row tile against
+  a densified ``window`` band, with the K slots picked out by
+  compare-selects, was matrix-unit machinery; ``window`` is ignored here.
 """
 
 from __future__ import annotations
@@ -39,7 +51,7 @@ from surfacenetworks_tpu_torch.sparse import _build
 
 # Launches of each CUDA kernel since the last reset (plain-version calls on
 # CPU tensors do not count).
-launches = {"bsr_matmul": 0, "ell_matmul": 0}
+launches = {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -79,14 +91,16 @@ def bsr_matmul_plain(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torc
     """``out[i*bs:(i+1)*bs] = sum_k block_vals[i,k] @ x[block_cols[i,k]*bs : +bs]``.
 
     ``block_cols [..., NB, KB]``, ``block_vals [..., NB, KB, bs, bs]``,
-    ``x [..., N, C]`` -> fp32 ``[..., NB*bs, C]`` (``_bsr_matmul_xla``).
+    ``x [..., N, C]`` -> ``[..., NB*bs, C]`` accumulated in fp32
+    (``_bsr_matmul_xla``), or in fp64 for an fp64 reference run.
     """
     batched, (cols, vals, xb) = _batched(block_cols, block_vals, x)
     bs = vals.shape[-1]
     B, n, c = xb.shape
     blocks = xb.reshape(B, n // bs, bs, c)
     gathered = blocks[torch.arange(B, device=xb.device)[:, None, None], cols.long()]
-    out = torch.einsum("bnkij,bnkjc->bnic", vals.float(), gathered.float()).reshape(B, -1, c)
+    acc = torch.promote_types(torch.promote_types(vals.dtype, xb.dtype), torch.float32)
+    out = torch.einsum("bnkij,bnkjc->bnic", vals.to(acc), gathered.to(acc)).reshape(B, -1, c)
     return out if batched else out[0]
 
 
@@ -172,4 +186,54 @@ def ell_matmul(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, window: 
     )
     _raise_on(code, "ell_matmul")
     launches["ell_matmul"] += 1
+    return out if batched else out[0]
+
+
+# ---------------------------------------------------------------------------
+# SDDMM at an ELL pattern
+# ---------------------------------------------------------------------------
+
+
+def sddmm_plain(cols: torch.Tensor, vals: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``out[r,k] = <a[r], b[cols[r,k]]>`` where ``vals[r,k] != 0``, else 0;
+    ``cols [..., R, K]``, ``a [..., R, C]``, ``b [..., N, C]`` ->
+    ``[..., R, K]`` (``_sddmm_xla``)."""
+    batched, (c_, v_, ab, bb) = _batched(cols, vals, a, b)
+    B = bb.shape[0]
+    gathered = bb[torch.arange(B, device=bb.device)[:, None, None], c_.long()]  # [B, R, K, C]
+    out = torch.einsum("brc,brkc->brk", ab, gathered)
+    out = torch.where(v_ != 0, out, torch.zeros_like(out))
+    return out if batched else out[0]
+
+
+def sddmm(cols: torch.Tensor, vals: torch.Tensor, a: torch.Tensor, b: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Sampled dense-dense product at an ELL pattern; fp32 in and out on the
+    card.  ``window`` is accepted and ignored, as in ``ell_matmul``.  Columns
+    must lie in ``[0, N)`` (``EllMatrix.to`` checks); called directly with
+    another, the plain version raises and the kernel writes 0 there."""
+    del window
+    if b.device.type == "cpu":
+        return sddmm_plain(cols, vals, a, b)
+    _check_cuda("sddmm", cols=cols, vals=vals, a=a, b=b)
+    if cols.dtype != torch.int32:
+        raise TypeError(f"sddmm: cols must be int32, got {cols.dtype}")
+    if vals.dtype != torch.float32 or a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"sddmm: the kernel takes fp32 vals, a and b, got {vals.dtype}, {a.dtype}, {b.dtype}")
+    batched, (c_, v_, ab, bb) = _batched(cols, vals, a, b)
+    B, R, K = c_.shape
+    if v_.shape != c_.shape:
+        raise ValueError(f"sddmm: vals {tuple(v_.shape)} != cols {tuple(c_.shape)}")
+    if bb.dim() != 3 or bb.shape[0] != B or ab.shape[:2] != (B, R) or ab.shape[2] != bb.shape[2]:
+        raise ValueError(f"sddmm: a {tuple(ab.shape)} and b {tuple(bb.shape)} do not fit cols [{B}, {R}, {K}]")
+    n, c = bb.shape[1:]
+    out = torch.empty((B, R, K), device=b.device, dtype=torch.float32)
+    vec4 = c % 4 == 0 and ab.data_ptr() % 16 == 0 and bb.data_ptr() % 16 == 0
+    lib = _build.load()
+    stream = torch.cuda.current_stream(b.device).cuda_stream
+    code = lib.snx_sddmm(
+        c_.data_ptr(), v_.data_ptr(), ab.data_ptr(), bb.data_ptr(), out.data_ptr(),
+        B, R, K, n, c, int(vec4), ctypes.c_void_p(stream),
+    )
+    _raise_on(code, "sddmm")
+    launches["sddmm"] += 1
     return out if batched else out[0]

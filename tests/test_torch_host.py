@@ -3,6 +3,7 @@ package's on seeded blob meshes.  Both run the same NumPy/SciPy code, so the
 arrays must be equal, not only close."""
 
 import dataclasses
+import pathlib
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from surfacenetworks_tpu_torch.data import batching as tbat
 from surfacenetworks_tpu_torch.data import datasets as tdatasets
 
 N_POINTS = 300  # pads to 384 rows: three BSR block-rows
+FAUST = sorted(str(p) for p in (pathlib.Path(__file__).parent / "fixtures" / "faust").glob("*.npz"))
 
 
 def _mesh(seed=0):
@@ -124,6 +126,38 @@ def case_rcm_reorder_sample():
     _sparse_equal(t["L"], j["L"])
 
 
+def _equal_sample(t, j):
+    """Every key of two sample dicts equal (sparse operators by structure
+    and values, ``None`` as ``None``)."""
+    assert sorted(t) == sorted(j), (sorted(t), sorted(j))
+    for key in j:
+        if j[key] is None or isinstance(j[key], str):
+            assert t[key] == j[key], key
+        elif hasattr(j[key], "tocsr"):
+            _sparse_equal(t[key], j[key])
+        else:
+            _equal(t[key], j[key], key)
+
+
+def case_rcm_reorder_correspondence_sample():
+    """A correspondence sample: ``G`` permuted along both axes, ``label_inv``
+    remapped (its values are vertex indices), Dirac coefficients dropped."""
+    (s,) = jdatasets.synthetic_correspondence_dataset(1, n_points=60, seed=1)
+    s["dirac"] = np.zeros((3, 3), np.float32)
+    _equal_sample(tbat.rcm_reorder_sample(s), jbat.rcm_reorder_sample(s))
+
+
+def case_synthetic_correspondence_dataset():
+    for t, j in zip(tdatasets.synthetic_correspondence_dataset(3, n_points=80, seed=2),
+                    jdatasets.synthetic_correspondence_dataset(3, n_points=80, seed=2)):
+        _equal_sample(t, j)
+
+
+def case_load_faust_npz():
+    for path in FAUST:
+        _equal_sample(tdatasets.load_faust_npz(path), jdatasets.load_faust_npz(path))
+
+
 def case_buckets_and_format():
     samples = jdatasets.synthetic_normal_dataset(2, 150, seed=3)
     t, j = tbat.Buckets.for_samples(samples), jbat.Buckets.for_samples(samples)
@@ -159,6 +193,33 @@ def test_laplacian_batch_matches_jax(fmt):
                 assert tv == jv, f.name
             else:
                 _equal(tv.numpy(), jv, f"{side}.{f.name}")
+
+
+@pytest.mark.parametrize("fmt", ["ell", "bsr"])
+def test_correspondence_batch_matches_jax(fmt):
+    """The siamese trainer's per-shape batch on the committed FAUST scans."""
+    samples = [jdatasets.load_faust_npz(p) for p in FAUST]
+    if fmt == "bsr":
+        samples = [jbat.rcm_reorder_sample(s) for s in samples]
+    multiple = 128 if fmt == "bsr" else 8
+    jb, tb = jbat.Buckets.for_samples(samples, multiple), tbat.Buckets.for_samples(samples, multiple)
+    if fmt == "bsr":
+        assert tbat.fit_bsr_k(samples, tb) == jbat.fit_bsr_k(samples, jb)
+    for s in samples:
+        j = jbat.correspondence_batch(s, jb, fmt=fmt)
+        t = tbat.correspondence_batch(s, tb, fmt=fmt)
+        _equal(t.inputs.numpy(), j.inputs, "inputs")
+        _equal(t.mask.numpy(), j.mask, "mask")
+        for tv, jv, what in zip(t.targets, j.targets, ("G", "label", "label_inv")):
+            _equal(tv, jv, what)
+        for side in ("fwd", "bwd"):
+            tm, jm = getattr(t.operator, side), getattr(j.operator, side)
+            for f in dataclasses.fields(tm):
+                tv, jv = getattr(tm, f.name), getattr(jm, f.name)
+                if isinstance(tv, int):
+                    assert tv == jv, f.name
+                else:
+                    _equal(tv.numpy(), jv, f"{side}.{f.name}")
 
 
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}

@@ -72,15 +72,19 @@ def test_port_sources_name_no_jax():
                 assert name.split(".")[0] not in BLOCKED, f"{path.relative_to(REPO)}: imports {name}"
 
 
-def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
+def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
     import torch
 
+    from surfacenetworks_tpu_torch.cli import train_correspondence
     from surfacenetworks_tpu_torch.models import LapDeepModel
     from surfacenetworks_tpu_torch.serve import NormalServer, resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         NormalServer(LapDeepModel(3, 3, layers=15))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_correspondence.main(["--datapath", str(REPO / "tests" / "fixtures" / "faust"),
+                                   "--result-dir", str(tmp_path), "--num-epoch", "1", "--num-updates", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
