@@ -3,9 +3,12 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``surfacenetworks_tpu_torch/sparse/csrc``
-with one ``nvcc`` call, holds each kernel against its plain PyTorch version
-at the paths' shapes and times both, and holds each autograd Function's
-backward against autograd through the plain versions.  Then it drives two
+with one ``nvcc`` call (logging each kernel's registers and spills, and
+checking in the SASS that the BSR kernel runs TF32 tensor-core products),
+holds each kernel against its plain PyTorch version in fp32 and in fp64 at
+the paths' shapes and more, times both (and each kernel again with a cold
+L2 cache), and holds each autograd Function's backward against autograd
+through the plain versions.  Then it drives two
 paths, each with the launch counts set to 0 just before it and read just
 after:
 
@@ -17,7 +20,9 @@ after:
   scans in both formats, then its test pass; step 0's loss and gradients
   are checked against the same step in fp64 with dense operators and no
   kernel, and a trunk whose operator applies return detached outputs must
-  fail that check.
+  fail that check.  Then each format runs the 8 updates and the test pass
+  again from step 0's weights, optimizer state and random state, and the
+  two runs' losses and test metrics must be bit-identical.
 
 It needs a CUDA card; without one (or without the package beside it) it
 exits non-zero and prints no result.  The last two lines are a JSON
@@ -34,10 +39,13 @@ import time
 
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 FMA
-# outside the tensor cores, flop/s.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FMA
+# outside the tensor cores and dense TF32 on the tensor cores, flop/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+TF32_PASSES = 3  # bsr_matmul's 3xTF32: three tensor-core products per multiply-add
+L2_FLUSH_BYTES = 128 << 20  # written between cold-L2 launches: over twice the 50 MB L2
 
 BUCKET = 7040  # one 128-multiple bucket for every ~7,000-vertex request
 WIDTH = 128
@@ -68,14 +76,18 @@ PIPELINE_RTOL = 1e-5
 SERVE_FRO_RTOL = 0.75
 # Training: the correspondence trunk's feature width (the SDDMM's C), the
 # synthetic FAUST-like data, and launches expected per step: 16 applies per
-# trunk forward, two trunks, forward and stored-transpose backward; one
-# SDDMM per smoothness term, whose backward's da is one ELL SpMM.
+# trunk forward, two trunks, forward and stored-transpose backward (64); one
+# SDDMM per smoothness term (2), whose backward runs two ELL SpMMs, da and
+# db over the pattern's transpose slot map (4); and one ELL SpMM for the
+# streaming dcel head's mirror over the target's inverse (1).  So ELL steps
+# launch 64 + 4 + 1 = 69 ell_matmul, BSR steps 64 bsr_matmul and 5
+# ell_matmul.
 FEATURES = 120
 TRAIN_ARGS = ["--synthetic", "4", "--synthetic-points", "7000", "--seed", "0", "--layer", str(LAYERS),
               "--smooth-reg", "0.1", "--xz-rotate", "--num-updates", "8", "--num-epoch", "1", "--device", "cuda"]
 EXPECTED_PER_STEP = {
-    "ell": {"bsr_matmul": 0, "ell_matmul": 66, "sddmm": 2},
-    "bsr": {"bsr_matmul": 64, "ell_matmul": 2, "sddmm": 2},
+    "ell": {"bsr_matmul": 0, "ell_matmul": 69, "sddmm": 2},
+    "bsr": {"bsr_matmul": 64, "ell_matmul": 5, "sddmm": 2},
 }
 # Step 0 on the card (fp32, kernels) against the same step in fp64 with
 # dense operators and no kernel.  The whole step's loss, as a relative error,
@@ -141,10 +153,36 @@ def host_us(fn, calls: int = 50) -> float:
     return dt
 
 
-def bound_ms(n_bytes: int, flops: int) -> tuple[float, str]:
+def bound_ms(n_bytes: int, flops: int, flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """The least time for the work: bytes over HBM's rate or operations over
+    ``flop_per_s`` (fp32 FMA unless given), whichever is larger."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cold_ms(fn, flush, reps: int = 15) -> float:
+    """Device time of one ``fn()`` with a cold L2 cache: before each launch
+    ``flush`` (``L2_FLUSH_BYTES``) is written, which evicts what the cache
+    held, and the launch alone is timed by its own events.  Median over
+    ``reps``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # the host queues the rest meanwhile
+        flush.add_(1.0)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
 
 
 def nbytes(*ts) -> int:
@@ -185,9 +223,19 @@ def refused(name: str, got, ref, scale, rtol: float) -> None:
         raise AssertionError(f"mutant {name} passes the check")
 
 
+def tf32_round(t):
+    """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero: what one tensor-core pass makes of an fp32 input."""
+    import torch
+
+    return ((t.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
 def kernel_phase(device) -> dict:
-    """Hold both kernels against their plain versions at the serving shapes
-    and time kernel, plain version and one library call."""
+    """Hold the three kernels against their plain versions, in fp32 and in
+    fp64, at the paths' shapes and at ragged, narrow, wide and batched ones;
+    prove the checks refuse wrong results; time kernel, plain version and
+    one library call, warm and with a cold L2 cache."""
     import torch
 
     from surfacenetworks_tpu_torch.data import Buckets, fit_bsr_k, laplacian_batch, rcm_reorder_sample
@@ -210,32 +258,54 @@ def kernel_phase(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED)
     errs = {"ell_matmul": 0.0, "bsr_matmul": 0.0}
 
+    def held(kname, name, got, plain, c_, v_, *dense):
+        """``got`` against ``plain`` on the same fp32 inputs and on them
+        widened to fp64, each element within KERNEL_RTOL of its |A||x|."""
+        ref = plain(c_, v_, *dense)
+        scale = plain(c_, v_.double().abs(), *(t.double().abs() for t in dense))
+        errs[kname] = max(errs[kname], check(f"{name} vs fp32 plain", got, ref, scale, KERNEL_RTOL))
+        check(f"{name} vs fp64 plain", got, plain(c_, v_.double(), *(t.double() for t in dense)), scale, KERNEL_RTOL)
+
     def ell(name, c_, v_, x):
-        ref = kernels.ell_matmul_plain(c_, v_, x)
-        scale = kernels.ell_matmul_plain(c_, v_.abs(), x.abs())
-        errs["ell_matmul"] = max(errs["ell_matmul"], check(
-            name, kernels.ell_matmul(c_, v_, x), ref, scale, KERNEL_RTOL))
+        held("ell_matmul", name, kernels.ell_matmul(c_, v_, x), kernels.ell_matmul_plain, c_, v_, x)
 
-    def bsr(name, c_, v_, x):
-        ref = kernels.bsr_matmul_plain(c_, v_, x)
-        scale = kernels.bsr_matmul_plain(c_, v_.abs(), x.abs())
-        errs["bsr_matmul"] = max(errs["bsr_matmul"], check(
-            name, kernels.bsr_matmul(c_, v_, x), ref, scale, KERNEL_RTOL))
+    def bsr(name, c_, v_, x, ref_cols=None, ref_vals=None):
+        got = kernels.bsr_matmul(c_, v_, x)
+        held("bsr_matmul", name, got, kernels.bsr_matmul_plain,
+             c_ if ref_cols is None else ref_cols, v_ if ref_vals is None else ref_vals, x)
 
-    for c in (WIDTH, 3):
+    for c in (WIDTH, FEATURES, 3):
         x = torch.randn(BUCKET, c, device=device, generator=gen)
         ell(f"ell_matmul R={BUCKET} K={cols.shape[1]} C={c}", cols, vals, x)
+    for c in (WIDTH, FEATURES, 3, 136):
+        x = torch.randn(BUCKET, c, device=device, generator=gen)
         bsr(f"bsr_matmul NB={bcols.shape[0]} KB={bcols.shape[1]} C={c}", bcols, bvals, x)
     # ragged ELL: the unpadded operator, R = n not a multiple of 128
     rag = operator_from_scipy(sample["L"]).fwd.to(device)
     x = torch.randn(rag.n_cols, WIDTH, device=device, generator=gen)
     ell(f"ell_matmul ragged R={rag.n_rows} K={rag.k} C={WIDTH}", rag.cols, rag.vals, x)
+    # ragged K: 13 slots (the scalar pair loads), and 40 (two vector chunks and a partial one)
+    x = torch.randn(BUCKET, FEATURES, device=device, generator=gen)
+    ell(f"ell_matmul ragged K=13 C={FEATURES}", cols[:, :13].contiguous(), vals[:, :13].contiguous(), x)
+    c40 = torch.cat([cols, cols.roll(1, 0), cols[:, :8].roll(2, 0)], 1).contiguous()
+    v40 = torch.cat([vals, vals.roll(1, 0) * 0.5, vals[:, :8].roll(2, 0) * 0.25], 1).contiguous()
+    ell(f"ell_matmul ragged K=40 C={FEATURES}", c40, v40, x)
     # batched launch (B=2): the leading batch axis is one launch
     xb = torch.randn(2, BUCKET, WIDTH, device=device, generator=gen)
     ell("ell_matmul batched B=2", torch.stack([cols, cols]), torch.stack([vals, vals.flip(0)]), xb)
     bsr("bsr_matmul batched B=2", torch.stack([bcols, bcols]), torch.stack([bvals, bvals * 0.5]), xb)
+    # block-columns outside [0, N/128): skipped by the kernel, held against
+    # the plain version on the same slots emptied
+    oob_cols, oob_vals = bcols.clone(), bvals.clone()
+    n_blocks = BUCKET // 128
+    for i, s, col in ((3, 0, -1), (bcols.shape[0] // 2, 1, n_blocks), (bcols.shape[0] - 1, 0, 1 << 20)):
+        oob_cols[i, s] = col
+        oob_vals[i, s] = 0
+    ref_cols = torch.where((oob_cols < 0) | (oob_cols >= n_blocks), 0, oob_cols)
+    x = torch.randn(BUCKET, WIDTH, device=device, generator=gen)
+    bsr("bsr_matmul with 3 block-columns out of range", oob_cols, bvals, x, ref_cols, oob_vals)
 
-    # the check's power: a kernel that dropped one slot of one row must fail it
+    # the checks' power: a kernel that dropped one slot of one row must fail them
     x = torch.randn(BUCKET, WIDTH, device=device, generator=gen)
     r = BUCKET // 2
     s = int(torch.nonzero(vals[r])[0])
@@ -248,9 +318,13 @@ def kernel_phase(device) -> dict:
     s = int(torch.nonzero(bvals[i].flatten(1).abs().sum(1))[0])
     dropped = bvals.clone()
     dropped[i, s] = 0
-    refused(f"bsr_matmul without slot {s} of block-row {i}", kernels.bsr_matmul(bcols, dropped, x),
-            kernels.bsr_matmul_plain(bcols, bvals, x), kernels.bsr_matmul_plain(bcols, bvals.abs(), x.abs()),
+    bscale = kernels.bsr_matmul_plain(bcols, bvals.abs(), x.abs())
+    bref = kernels.bsr_matmul_plain(bcols, bvals, x)
+    refused(f"bsr_matmul without slot {s} of block-row {i}", kernels.bsr_matmul(bcols, dropped, x), bref, bscale,
             KERNEL_RTOL)
+    # ... and one TF32 pass instead of three: the product of TF32-rounded inputs
+    refused("bsr_matmul in one TF32 pass (inputs rounded to TF32)",
+            kernels.bsr_matmul_plain(bcols, tf32_round(bvals), tf32_round(x)), bref, bscale, KERNEL_RTOL)
 
     # SDDMM at the smoothness term's shapes: the same fixed-k pattern, C=120
     errs["sddmm"] = 0.0
@@ -280,6 +354,7 @@ def kernel_phase(device) -> dict:
             kernels.sddmm_plain(cols, vals, a, b), kernels.sddmm_plain(cols, vals, a.abs(), b.abs()), KERNEL_RTOL)
 
     # timing at the serving shape (C=128)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
     x = torch.randn(BUCKET, WIDTH, device=device, generator=gen)
     csr = sample["L"].tocsr().astype(np.float32)
     csr.resize((BUCKET, BUCKET))
@@ -291,9 +366,13 @@ def kernel_phase(device) -> dict:
 
     nnz = int((vals != 0).sum())
     out = torch.empty(BUCKET, WIDTH, device=device)
+    log(f"  ell_matmul: {nnz} live slots, {nnz / BUCKET:.2f} per row: the gathers read "
+        f"{nnz * WIDTH * 4 / 1e6:.1f} MB of x rows through the L2 cache at C={WIDTH}, x itself is "
+        f"{BUCKET * WIDTH * 4 / 1e6:.1f} MB")
     b_ms, b_by = bound_ms(nbytes(cols, vals, x, out), 2 * nnz * WIDTH)
     report["ell_matmul"] = {
         "ms": time_ms(lambda: kernels.ell_matmul(cols, vals, x)),
+        "cold_ms": cold_ms(lambda: kernels.ell_matmul(cols, vals, x), flush),
         "plain_ms": time_ms(lambda: kernels.ell_matmul_plain(cols, vals, x)),
         "library_ms": csr_ms,
         "library_call": "torch.sparse.mm(csr, x)",
@@ -301,7 +380,10 @@ def kernel_phase(device) -> dict:
     }
     nnzb = int((bvals != 0).flatten(2).any(dim=2).sum())
     flops = 2 * nnzb * 128 * 128 * WIDTH
-    b_ms, b_by = bound_ms(nbytes(bcols, bvals, x, out), flops)
+    # the kernel's products run on the tensor cores in three TF32 passes;
+    # the fp32-FMA bound (67 TFLOP/s, outside the tensor cores) is kept beside it
+    b_ms, b_by = bound_ms(nbytes(bcols, bvals, x, out), TF32_PASSES * flops, TF32_FLOP_PER_S)
+    fma_ms, fma_by = bound_ms(nbytes(bcols, bvals, x, out), flops)
     lib_ms, lib_call = csr_ms, "torch.sparse.mm(csr, x)"
     try:  # the same operator in PyTorch's own BSR layout, where CUDA supports it
         lib_bsr = lib_csr.to_dense().to_sparse_bsr((128, 128))
@@ -310,11 +392,21 @@ def kernel_phase(device) -> dict:
         log(f"  library BSR call unavailable ({type(e).__name__}: {str(e)[:120]}); using CSR")
     report["bsr_matmul"] = {
         "ms": time_ms(lambda: kernels.bsr_matmul(bcols, bvals, x)),
+        "cold_ms": cold_ms(lambda: kernels.bsr_matmul(bcols, bvals, x), flush),
         "plain_ms": time_ms(lambda: kernels.bsr_matmul_plain(bcols, bvals, x)),
         "library_ms": lib_ms, "library_call": lib_call,
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(bcols, bvals, x, out), "flops": flops,
+        "fp32_fma_bound_ms": fma_ms, "fp32_fma_bound_by": fma_by,
         "nonzero_blocks": nnzb, "slots": bcols.numel(),
     }
+    # how much of the stored blocks is zero in each CTA's 64-row x 32-deep chunk
+    sub = (bvals != 0).reshape(bvals.shape[0], bvals.shape[1], 2, 64, 4, 32).any(dim=5).any(dim=3)
+    log(f"  bsr_matmul: {float(sub.float().mean()):.3f} of the stored blocks' 64x32 chunks hold a nonzero "
+        f"(the rest multiply zeros); {nnzb} of {bcols.numel()} stored blocks do")
+    log(f"  bsr_matmul bound: {b_ms:.5f} ms by {b_by} (3 TF32 passes at 495 TFLOP/s: "
+        f"{TF32_PASSES * flops / TF32_FLOP_PER_S * 1e3:.5f} ms; bytes at 3.35 TB/s: "
+        f"{nbytes(bcols, bvals, x, out) / HBM_BYTES_PER_S * 1e3:.5f} ms); the fp32-FMA bound "
+        f"(67 TFLOP/s) reads {fma_ms:.5f} ms by {fma_by}")
     # SDDMM timing at the smoothness term's shape (C=120)
     live = vals != 0
     nnz = int(live.sum())
@@ -332,20 +424,26 @@ def kernel_phase(device) -> dict:
         log(f"  library SDDMM unavailable ({type(e).__name__}: {str(e)[:120]})")
     report["sddmm"] = {
         "ms": time_ms(lambda: kernels.sddmm(cols, vals, a, b)),
+        "cold_ms": cold_ms(lambda: kernels.sddmm(cols, vals, a, b), flush),
         "plain_ms": time_ms(lambda: kernels.sddmm_plain(cols, vals, a, b)),
         "library_ms": lib_ms, "library_call": lib_call,
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(cols, vals, a, b, sd_out),
         "flops": 2 * nnz * FEATURES,
     }
+    # ell_matmul at the widths of the backward's sums: C=120 over the transpose map
+    x120 = torch.randn(BUCKET, FEATURES, device=device, generator=gen)
+    report["ell_matmul"]["ms_c120"] = time_ms(lambda: kernels.ell_matmul(cols, vals, x120))
     report["sddmm"]["host_us"] = host_us(lambda: kernels.sddmm(cols, vals, a, b))
     report["ell_matmul"]["host_us"] = host_us(lambda: kernels.ell_matmul(cols, vals, x))
     report["bsr_matmul"]["host_us"] = host_us(lambda: kernels.bsr_matmul(bcols, bvals, x))
+    del flush
     for name, r in report.items():
         r["max_abs_err"] = errs[name]
         lib = "not measured" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, {r['library_call']} "
-            f"{lib}, bound {r['bound_ms']:.4f} by {r['bound_by']}); "
+        log(f"  {name}: {r['ms']:.5f} ms warm, {r['cold_ms']:.5f} ms cold L2 (plain {r['plain_ms']:.4f}, "
+            f"{r['library_call']} {lib}, bound {r['bound_ms']:.5f} by {r['bound_by']}); "
             f"host {r['host_us']:.1f} us per call")
+    log(f"  ell_matmul at C={FEATURES}: {report['ell_matmul']['ms_c120']:.5f} ms warm")
     return report
 
 
@@ -494,9 +592,9 @@ def profile_phase(served: dict) -> dict:
 
 def backward_phase(device) -> None:
     """Each autograd Function's backward on the card (the kernels on
-    ``op.bwd``, and for the SDDMM ``ell_matmul`` plus the segment sum)
-    against autograd through the plain forward versions, which derives the
-    transpose itself.  The cotangent is a slice of a wider tensor, not
+    ``op.bwd``; for the SDDMM two ``ell_matmul``, ``da`` on the pattern and
+    ``db`` on its transpose slot map) against autograd through the plain
+    forward versions, which derives the transpose itself.  The cotangent is a slice of a wider tensor, not
     contiguous, as the ``[x || L x]`` concat's backward hands it on."""
     import torch
 
@@ -540,8 +638,11 @@ def backward_phase(device) -> None:
     ref_a, ref_b = plain_grads(lambda p, q: kernels.sddmm_plain(m.cols, m.vals, p, q), [a, b], g)
     gm = torch.where(m.vals != 0, g, 0.0).abs()
     check("sddmm backward da (|g||b|)", a.grad, ref_a, kernels.ell_matmul_plain(m.cols, gm, b.abs()), KERNEL_RTOL)
-    check("sddmm backward db (|g||a|)", b.grad, ref_b, ops.segment_sum_rows(m.cols, gm, a.abs(), BUCKET),
-          KERNEL_RTOL)
+    # |g||a| summed into each row of b, in fp64: a tolerance's scale, in any order
+    contrib = (gm[0, :, :, None].double() * a.detach()[0, :, None, :].double().abs()).reshape(-1, FEATURES)
+    scale_b = torch.zeros(BUCKET, FEATURES, dtype=torch.float64, device=device).index_add_(
+        0, m.cols[0].reshape(-1).long(), contrib)[None]
+    check("sddmm backward db over the transpose slot map (|g||a|)", b.grad, ref_b, scale_b, KERNEL_RTOL)
 
 
 def _plain_smoothness(op, f):
@@ -760,22 +861,30 @@ def train_phase(device, smi: str) -> tuple[dict, dict]:
     from surfacenetworks_tpu_torch.cli import train_correspondence as tc
     from surfacenetworks_tpu_torch.sparse import kernels
 
-    trainers, plans, states = {}, {}, {}
+    trainers, plans, states, opt_states, rng_states = {}, {}, {}, {}, {}
     for fmt in ("ell", "bsr"):
         t0 = time.perf_counter()
         argv = TRAIN_ARGS + ["--operator-format", fmt]
         trainer = tc.CorrespondenceTrainer(tc.parser.parse_args(argv), log=lambda m: log(f"  [{fmt}] {m}"))
+        rng_states[fmt] = copy.deepcopy(trainer.rng.bit_generator.state)
         plans[fmt] = trainer.epoch_plan()
-        for ia, ib in plans[fmt][0]:  # operators, geodesics and pair targets on the card first
+        for ia, ib in plans[fmt][0]:  # operators, geodesics, pair targets and their inverses on the card first
             trainer.pair_target(int(ia), int(ib))
+            if trainer.use_stream:
+                trainer.pair_inverse(int(ia), int(ib))
         for i in range(trainer.n_train, len(trainer.data)):
             trainer.dev_sample(i)
         torch.cuda.synchronize()
         states[fmt] = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+        opt_states[fmt] = copy.deepcopy(trainer.opt.state_dict())
         trainers[fmt] = trainer
         log(f"  {fmt}: bucket {trainer.N}, n_train {trainer.n_train}, streaming head {trainer.use_stream}, "
             f"{'bsr_k ' + str(trainer.buckets.bsr_k) if fmt == 'bsr' else 'ell_k 16'}; "
             f"set-up {time.perf_counter() - t0:.2f} s; plan pairs {plans[fmt][0].tolist()}")
+        mult = {f"{a},{b}": int(inv[0].shape[1]) for (a, b), inv in trainer._inverses.items()}
+        log(f"  {fmt}: largest multiplicity of each pair's dcel target (the mirror's ELL width) {mult}; "
+            f"transpose slot map of the smoothness pattern K_t "
+            f"{[int(trainer.dev_sample(i)['reg_op'].transpose_map()[0].shape[-1]) for i in range(len(trainer.data))]}")
 
     # the main path: every count is 0 just before it and read just after
     kernels.reset_launch_counts()
@@ -820,6 +929,17 @@ def train_phase(device, smi: str) -> tuple[dict, dict]:
     counts = dict(kernels.launches)
     log(f"  launches on the train path (8 updates + test pass per format): {counts}")
 
+    # the same 8 updates and test pass again, from step 0's weights, Adam
+    # state and random state, on the same data and device caches
+    for fmt, trainer in trainers.items():
+        trainer.model.load_state_dict(states[fmt])
+        trainer.opt.load_state_dict(opt_states[fmt])
+        trainer.rng.bit_generator.state = rng_states[fmt]
+        pair_idx, rots = trainer.epoch_plan()
+        same_plan = np.array_equal(pair_idx, plans[fmt][0]) and np.array_equal(rots, plans[fmt][1])
+        again = [float(trainer.update(int(ia), int(ib), r)) for (ia, ib), r in zip(pair_idx, rots)]
+        results[fmt]["repeat"] = {"same_plan": same_plan, "loss": again, "test": trainer.test_pass(0)}
+
     for fmt, res in results.items():
         steady = slice(1, len(res["loss"]) - 1)  # not the first step, not the profiled one
         dev_med = float(np.median(res["device_ms"][steady]))
@@ -835,6 +955,11 @@ def train_phase(device, smi: str) -> tuple[dict, dict]:
         log(f"  {fmt}: launches per step {res['per_step'][0]} (expected {EXPECTED_PER_STEP[fmt]}); "
             f"test pass {res['test_launches']} ({smi})")
         log(f"  {fmt}: test metrics {res['test']} ({smi})")
+        rep = res["repeat"]
+        res["reproduced"] = rep["same_plan"] and rep["loss"] == res["loss"] and rep["test"] == res["test"]
+        log(f"  {fmt}: two runs of 8 steps from the same state: losses run 1 {[repr(v) for v in res['loss']]}, "
+            f"run 2 {[repr(v) for v in rep['loss']]}; test metrics run 1 {res['test']}, run 2 {rep['test']}; "
+            f"{'bit-identical' if res['reproduced'] else 'DIFFERENT'}")
 
     # the checks: each failure below fails the run
     failures = []
@@ -844,6 +969,8 @@ def train_phase(device, smi: str) -> tuple[dict, dict]:
             failures.append(f"{fmt}: a loss is not finite")
         if any(step != EXPECTED_PER_STEP[fmt] for step in res["per_step"]):
             failures.append(f"{fmt}: launches per step {res['per_step']} != {EXPECTED_PER_STEP[fmt]}")
+        if not res["reproduced"]:
+            failures.append(f"{fmt}: a second run of the 8 steps from the same state gave other losses or metrics")
         for k, g in res["grads0"].items():
             if not (bool(torch.isfinite(g).all()) and bool((g != 0).any())):
                 failures.append(f"{fmt}: step-0 gradient of {k} is not finite and non-zero")
@@ -853,6 +980,67 @@ def train_phase(device, smi: str) -> tuple[dict, dict]:
     if failures:
         raise AssertionError("; ".join(failures))
     return counts, results
+
+
+KERNEL_SYMBOLS = {"bsr_matmul": "bsr_spmm_kernel", "ell_matmul": "ell_spmm_kernel", "sddmm": "sddmm_kernel"}
+
+
+def _variant(symbol: str) -> str:
+    """A kernel's name and template argument from its mangled symbol."""
+    for kname, fn in KERNEL_SYMBOLS.items():
+        if fn in symbol:
+            return f"{fn}<{'true' if 'ILb1E' in symbol else 'false'}>"
+    return symbol[:60]
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spills of each kernel from ``nvcc -Xptxas -v``; logs
+    them and returns ``{variant: {"registers": n, "spill_stores": n,
+    "spill_loads": n}}``."""
+    import re
+
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            cur = _variant(m.group(1))
+            out.setdefault(cur, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    for name, r in sorted(out.items()):
+        log(f"  ptxas: {name}: {r.get('registers')} registers, spill stores {r.get('spill_stores')} bytes, "
+            f"spill loads {r.get('spill_loads')} bytes")
+    return out
+
+
+def sass_check(lib_path: str) -> None:
+    """``cuobjdump -sass`` of the built library, where the toolkit has it:
+    every variant of the BSR kernel must run TF32 tensor-core products
+    (``HMMA`` on ``TF32`` operands), or the run fails."""
+    import os
+    import re
+    import shutil
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if not tool:
+        log("  SASS check: no cuobjdump in this toolkit; not checked")
+        return
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, check=True).stdout
+    found = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = _variant(part.split("\n", 1)[0].strip())
+        hmma = [ln.strip() for ln in part.splitlines() if "HMMA" in ln]
+        found[name] = (len(hmma), sum("TF32" in ln for ln in hmma), hmma[0] if hmma else "")
+    for name, (n_hmma, n_tf32, first) in sorted(found.items()):
+        log(f"  SASS: {name}: {n_hmma} HMMA, {n_tf32} on TF32 operands{'; e.g. ' + first[:90] if first else ''}")
+    bsr = [v for k, v in found.items() if k.startswith("bsr_spmm_kernel")]
+    if not bsr or any(n_tf32 == 0 for _, n_tf32, _ in bsr):
+        raise AssertionError("the BSR kernel's SASS holds no TF32 HMMA instruction")
 
 
 def main() -> int:
@@ -880,9 +1068,8 @@ def main() -> int:
     info = _build.build_info
     log(f"  nvcc build {info['seconds']:.2f} s -> {info['path']}" if "seconds" in info
         else f"  library already built: {info['path']}")
-    for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Function properties" in line:
-            log(f"  {line.strip()}")
+    registers = ptxas_report(info.get("log", ""))
+    sass_check(info["path"])
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -925,8 +1112,11 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_call": r["library_call"], "max_err_vs_plain": r["max_abs_err"], "kernel_ms": r["ms"],
-            "bytes": r["bytes"], "flops": r["flops"], "card": smi,
+            "bytes": r["bytes"], "flops": r["flops"], "card": smi, "cold_ms": r["cold_ms"],
+            "registers": {k: v.get("registers") for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS[kname])},
         })
+        if kname == "bsr_matmul":
+            entries[-1].update(fp32_fma_bound_ms=r["fp32_fma_bound_ms"], fp32_fma_bound_by=r["fp32_fma_bound_by"])
     log(f"serve median ms per request: ell {latency['ell']['median_ms']:.3f}, "
         f"bsr {latency['bsr']['median_ms']:.3f} ({smi})")
     log("train median per step: " + ", ".join(

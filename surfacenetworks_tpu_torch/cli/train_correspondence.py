@@ -15,7 +15,8 @@ consumer).  Runs on ``cuda`` unless given ``--device cpu``::
 
 Each sample's operator, mask, unrotated inputs, padded geodesic matrix and
 label tables go to the device once; each (shape A, shape B) pair's dcel
-target is computed once on the device and cached.  Updates run one per step
+target is computed once on the device and cached, with its inverse (built on
+the host) for the streaming head's backward.  Updates run one per step
 in the order of the epoch plan (the JAX trainer's ``--no-epoch-scan``
 order).  Flags of the JAX trainer that later slices bring (other trunks and
 losses, checkpoints, multihost, graph-parallel, the light path, bf16, remat,
@@ -123,15 +124,18 @@ def rot_matrix(txz: float, txy: float, device, dtype=torch.float32) -> torch.Ten
     return Rxz @ Rxy
 
 
-def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stream: bool) -> torch.Tensor:
+def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stream: bool,
+              target_inv=None) -> torch.Tensor:
     """The training loss of one pair: dcel (streaming or over the full
-    logits) plus ``smooth_w`` times both shapes' smoothness terms."""
+    logits) plus ``smooth_w`` times both shapes' smoothness terms.
+    ``target_inv`` is the target's cached inverse for the streaming head's
+    backward (``losses.target_inverse``)."""
     dt = da["inputs"].dtype
     inx = da["inputs"] @ rot_matrix(rots[0], rots[1], target.device, dt)
     iny = db["inputs"] @ rot_matrix(rots[2], rots[3], target.device, dt)
     fa, fb = model.features((da["op"], da["mask"]), (db["op"], db["mask"]), inx, iny)
     if use_stream:
-        loss = losses.corr_dcel_streaming(fa[0], fb[0], target)
+        loss = losses.corr_dcel_streaming(fa[0], fb[0], target, target_inv=target_inv)
     else:
         loss = losses.corr_delta_cross_entropy_from_target(torch.einsum("bnc,bmc->bnm", fa, fb)[0], target)
     if smooth_w > 0:
@@ -141,11 +145,12 @@ def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stre
     return loss
 
 
-def train_step(model, opt, da: dict, db: dict, rots, target, smooth_w: float, use_stream: bool) -> torch.Tensor:
+def train_step(model, opt, da: dict, db: dict, rots, target, smooth_w: float, use_stream: bool,
+               target_inv=None) -> torch.Tensor:
     """One update; returns the loss (on the device).  The gradients stay in
     each parameter's ``.grad`` until the next step."""
     opt.zero_grad(set_to_none=True)
-    loss = objective(model, da, db, rots, target, smooth_w, use_stream)
+    loss = objective(model, da, db, rots, target, smooth_w, use_stream, target_inv)
     loss.backward()
     opt.step()
     return loss.detach()
@@ -204,6 +209,7 @@ class CorrespondenceTrainer:
         self.smooth_w = float(args.smooth_reg)
         self._dev: dict[int, dict] = {}
         self._targets: dict[tuple[int, int], torch.Tensor] = {}
+        self._inverses: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
     def angles(self) -> tuple[float, float]:
         a = self.args
@@ -226,6 +232,14 @@ class CorrespondenceTrainer:
         lab_pad, li_pad = np.zeros(N, np.int64), np.zeros(N, np.int64)
         lab_pad[: lab.shape[0]] = lab
         li_pad[: li.shape[0]] = li
+        reg = None
+        if self.smooth_w > 0:
+            # the smoothness pattern is the fixed-k ELL operator, whatever
+            # format the trunk runs (in ELL it is the trunk's own operator);
+            # its transpose map, for the SDDMM's backward, is built here
+            reg = pack.operator if self.fmt == "ell" else stack_operators(
+                [_fixed_k_operator(sample["L"], self.buckets, N)])
+            reg.transpose_map()
         entry = {
             "op": pack.operator.to(dev),
             "mask": pack.mask.to(dev),
@@ -235,11 +249,8 @@ class CorrespondenceTrainer:
             "li": torch.from_numpy(li_pad).to(dev),
             "n": sample["V"].shape[0],
         }
-        if self.smooth_w > 0:
-            # the smoothness pattern is the fixed-k ELL operator, whatever
-            # format the trunk runs (in ELL it is the trunk's own operator)
-            entry["reg_op"] = entry["op"] if self.fmt == "ell" else stack_operators(
-                [_fixed_k_operator(sample["L"], self.buckets, N)]).to(dev)
+        if reg is not None:
+            entry["reg_op"] = entry["op"] if reg is pack.operator else reg.to(dev)
         self._dev[i] = entry
         return entry
 
@@ -262,6 +273,17 @@ class CorrespondenceTrainer:
             self._targets[(ia, ib)] = t
         return t
 
+    def pair_inverse(self, ia: int, ib: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The inverse of the pair's target (``losses.target_inverse``),
+        built once on the host and cached on the device: the streaming
+        head's backward sums ``fa`` by target through it in a fixed order.
+        Its width is the target's largest multiplicity."""
+        inv = self._inverses.get((ia, ib))
+        if inv is None:
+            inv = losses.target_inverse(self.pair_target(ia, ib), self.N)
+            self._inverses[(ia, ib)] = inv
+        return inv
+
     def epoch_plan(self) -> tuple[np.ndarray, np.ndarray]:
         """The epoch's pair indices and rotation angles, in the JAX
         trainer's draw order."""
@@ -274,8 +296,9 @@ class CorrespondenceTrainer:
         return pair_idx, rots
 
     def update(self, ia: int, ib: int, rots) -> torch.Tensor:
+        inv = self.pair_inverse(ia, ib) if self.use_stream else None
         return train_step(self.model, self.opt, self.dev_sample(ia), self.dev_sample(ib),
-                          [float(r) for r in rots], self.pair_target(ia, ib), self.smooth_w, self.use_stream)
+                          [float(r) for r in rots], self.pair_target(ia, ib), self.smooth_w, self.use_stream, inv)
 
     def train_epoch(self, epoch: int) -> float:
         pair_idx, rots = self.epoch_plan()

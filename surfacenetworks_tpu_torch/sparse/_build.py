@@ -67,9 +67,9 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.snx_ell_spmm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        lib.snx_ell_spmm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
         lib.snx_ell_spmm.restype = i32
-        lib.snx_bsr_spmm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+        lib.snx_bsr_spmm.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         lib.snx_bsr_spmm.restype = i32
         lib.snx_sddmm.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         lib.snx_sddmm.restype = i32

@@ -14,19 +14,40 @@ namespace {
 // ---------------------------------------------------------------------------
 // Scalar-ELL SpMM: out[b, r] = sum_k vals[b, r, k] * x[b, cols[b, r, k]]
 //
-// One warp per output row.  The warp reads the row's K (col, val) pairs once
-// (one pair per lane, handed round with shuffles) and gathers whole rows of
-// x: with VEC4 each lane moves 16 bytes, so one gathered row of 128 fp32
-// channels is one fully coalesced 512-byte read.  Padding slots (val == 0)
-// are skipped, which gives the same sum as multiplying them in for finite x.
-// A column outside [0, n) is skipped too, rather than read out of bounds: a
-// guard only.  The operators' columns are range-checked on the host when
-// they are copied to the card, so the port's path never relies on it.
+// Replaces surfacenetworks_tpu/sparse/pallas_kernels.py::_ell_matmul_call.
+// Bound: bytes (the slots, x and out once each).  But each row of x is
+// gathered by every row that references it (about 7 of a Laplacian's), so
+// the L2 cache serves several times x's bytes, and a row's gathers are round
+// trips to it: that traffic and its latency hold the kernel back.  Design:
+// one warp per output row, 16-byte lanes along the channel axis (one
+// gathered row of 128 fp32 channels is one coalesced 512-byte read).  The
+// warp takes the row's slots in chunks of kEllChunk: every lane reads the
+// chunk's (col, val) pairs itself (16-byte broadcast loads where K and the
+// pointers allow), issues all the chunk's gathers into registers, each
+// predicated on a live slot (val != 0) and an in-range column rather than
+// branched on, and only then does the FMAs.  A warp so has up to kEllChunk
+// gathers in flight instead of one.  The FMAs run in slot order, one fixed
+// order of summation, which the deterministic sums of the training backward
+// (the SDDMM's db, the dcel head's mirror) rely on.  A column outside
+// [0, n) adds nothing rather than being read out of bounds: a guard only,
+// the operators' columns are range-checked on the host.
 // ---------------------------------------------------------------------------
+constexpr int kEllChunk = 8;  // slots whose gathers are in flight together
+
 template <bool VEC4>
-__global__ void ell_spmm_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
-                                const float* __restrict__ x, float* __restrict__ out,
-                                int batch, int rows, int k, int n, int c) {
+__device__ __forceinline__ float4 load4(const float* p, int j) {
+  if (VEC4) return reinterpret_cast<const float4*>(p)[j];
+  return make_float4(p[j], 0.f, 0.f, 0.f);
+}
+
+// At most 64 registers, so that 4 CTAs of 8 warps fit on an SM: on the H100
+// the kernel is faster with more rows in flight than with more gathers per
+// row (chunks of 16 slots at 108 registers, 2 CTAs per SM, measured slower).
+template <bool VEC4>
+__global__ void __launch_bounds__(256, 4)
+ell_spmm_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
+                const float* __restrict__ x, float* __restrict__ out,
+                int batch, int rows, int k, int n, int c, int pairs4) {
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= static_cast<long long>(batch) * rows) return;  // whole warp leaves together
@@ -35,32 +56,47 @@ __global__ void ell_spmm_kernel(const int* __restrict__ cols, const float* __res
   const float* row_vals = vals + row * k;
   const float* xb = x + b * n * static_cast<long long>(c);
   float* orow = out + row * c;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
   const int width = VEC4 ? c / 4 : c;  // channel axis in units of float4 or float
   for (int j0 = 0; j0 < width; j0 += 32) {
     const int j = j0 + lane;
     const bool live = j < width;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s0 = 0; s0 < k; s0 += 32) {
-      int my_col = 0;
-      float my_val = 0.f;
-      if (s0 + lane < k) {
-        my_col = row_cols[s0 + lane];
-        my_val = row_vals[s0 + lane];
+    float4 acc = zero;
+    for (int s0 = 0; s0 < k; s0 += kEllChunk) {
+      int col[kEllChunk];
+      float val[kEllChunk];
+      if (pairs4 && s0 + kEllChunk <= k) {
+#pragma unroll
+        for (int q = 0; q < kEllChunk / 4; ++q) {
+          const int4 cq = __ldg(reinterpret_cast<const int4*>(row_cols + s0) + q);
+          const float4 vq = __ldg(reinterpret_cast<const float4*>(row_vals + s0) + q);
+          col[4 * q + 0] = cq.x; col[4 * q + 1] = cq.y; col[4 * q + 2] = cq.z; col[4 * q + 3] = cq.w;
+          val[4 * q + 0] = vq.x; val[4 * q + 1] = vq.y; val[4 * q + 2] = vq.z; val[4 * q + 3] = vq.w;
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < kEllChunk; ++s) {
+          const bool in = s0 + s < k;
+          col[s] = in ? __ldg(row_cols + s0 + s) : 0;
+          val[s] = in ? __ldg(row_vals + s0 + s) : 0.f;
+        }
       }
-      const int ns = min(32, k - s0);
-      for (int s = 0; s < ns; ++s) {
-        const float v = __shfl_sync(0xffffffffu, my_val, s);
-        const int col = __shfl_sync(0xffffffffu, my_col, s);
-        if (v == 0.f || !live || col < 0 || col >= n) continue;  // warp-uniform
+      // every gather of the chunk in flight before any FMA
+      float4 xv[kEllChunk];
+#pragma unroll
+      for (int s = 0; s < kEllChunk; ++s) {
+        const bool take = live && val[s] != 0.f && col[s] >= 0 && col[s] < n;
+        val[s] = take ? val[s] : 0.f;
+        xv[s] = take ? load4<VEC4>(xb + static_cast<long long>(col[s]) * c, j) : zero;
+      }
+#pragma unroll
+      for (int s = 0; s < kEllChunk; ++s) {
+        acc.x = fmaf(val[s], xv[s].x, acc.x);
         if (VEC4) {
-          const float4 xv = reinterpret_cast<const float4*>(xb + static_cast<long long>(col) * c)[j];
-          acc.x = fmaf(v, xv.x, acc.x);
-          acc.y = fmaf(v, xv.y, acc.y);
-          acc.z = fmaf(v, xv.z, acc.z);
-          acc.w = fmaf(v, xv.w, acc.w);
-        } else {
-          acc.x = fmaf(v, xb[static_cast<long long>(col) * c + j], acc.x);
+          acc.y = fmaf(val[s], xv[s].y, acc.y);
+          acc.z = fmaf(val[s], xv[s].z, acc.z);
+          acc.w = fmaf(val[s], xv[s].w, acc.w);
         }
       }
     }
@@ -75,102 +111,261 @@ __global__ void ell_spmm_kernel(const int* __restrict__ cols, const float* __res
 }
 
 // ---------------------------------------------------------------------------
-// Block-ELL SpMM over 128x128 blocks:
+// Block-ELL SpMM over 128x128 blocks on the tensor cores, in 3xTF32:
 //   out[b, i*128 + m, ch] = sum_s sum_j vals[b, i, s, m, j] * x[b, cols[b, i, s]*128 + j, ch]
 //
-// One CTA per (channel tile of 64, block-row i, batch b); it loops over the
-// block-row's KB slots itself, reading cols[b, i, s].  Each slot's 128x128
-// block and the matching 128 x 64 slice of x pass through shared memory in
-// depth chunks of 32; every thread keeps an 8 x 4 tile of the 128 x 64 output
-// in registers and accumulates with fp32 FMA.  The ragged channel edge is
-// masked on load and store.  A block-column outside [0, n/128) is skipped, as
-// a guard against reading out of bounds (the host checks the range).
+// Replaces surfacenetworks_tpu/sparse/pallas_kernels.py::_bsr_matmul_call.
+// Bound: bytes.  At NB=55, KB=5, C=128 the kernel reads 18 MB of stored
+// blocks and 3.6 MB of x and writes 3.6 MB, about 0.0075 ms at 3.35 TB/s;
+// its 1.15 GFLOP take three TF32 passes, 0.007 ms at 495 TFLOP/s.  fp32 FMA
+// (67 TFLOP/s) would make it bound by operations at 0.017 ms.
+//
+// Accuracy: the port holds fp32, every element within 1e-5 of |A||x|.  One
+// TF32 pass rounds each input to a 10-bit mantissa (about 5e-4 per
+// product), so each operand is split in registers into a TF32 high part and
+// a TF32 low part (hi = v rounded to nearest, lo = the rest rounded to
+// nearest) and the three large cross products are summed in fp32 (A_lo x_hi
+// + A_hi x_lo + A_hi x_hi, the small ones first): about 2^-21 relative per
+// product.
+//
+// Design: one CTA of 4 warps per (64-channel tile, 64-row half of a
+// block-row, batch item): 2 x 2 x 55 = 220 CTAs at C=128, several resident
+// on each SM.  Each warp owns a 32 x 32 tile of the output in fp32
+// registers and runs mma.sync m16n8k8 (row.col, tf32 in, f32 accumulate).
+// The CTA walks its block-row's slots and each slot's depth in chunks of 32
+// as one sequence; a 3-stage ring in shared memory holds each chunk of the
+// block (64 x 32) and of x (32 x 64), filled by 16-byte cp.async.cg (4-byte
+// cp.async.ca where x's rows are not 16-byte aligned), so the next two
+// chunks, across slot boundaries, load while the current one multiplies.
+// Row pitches of 36 and 72 floats make every fragment load free of bank
+// conflicts.  wgmma, Hopper's route to the full tensor rate, takes TF32
+// operands K-major only, which x (channels last) is not: it would need a
+// transpose in shared memory.  The ragged channel edge and a block-column outside
+// [0, n/128) are zero-filled on load (the source size of the copy is 0), so
+// they add nothing; the channel edge is masked on store.
 // ---------------------------------------------------------------------------
-constexpr int kBs = 128;      // block size (rows and columns of a block)
-constexpr int kTileC = 64;    // channels per CTA
-constexpr int kDepth = 32;    // depth chunk staged in shared memory
-constexpr int kThreads = 256; // 16 x 16 threads, 8 rows x 4 channels each
+constexpr int kBs = 128;               // block size (rows and columns of a block)
+constexpr int kTileM = 64;             // output rows per CTA: half a block-row
+constexpr int kTileN = 64;             // channels per CTA
+constexpr int kChunk = 32;             // depth per pipeline stage
+constexpr int kStages = 3;             // ring of stages in shared memory
+constexpr int kWarpsM = 2;             // warps along the rows of the CTA tile
+constexpr int kWarpsN = 2;             // ... and along its channels
+constexpr int kBsrThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kWarpM = kTileM / kWarpsM;  // 32 rows per warp: 2 mma tiles of 16
+constexpr int kWarpN = kTileN / kWarpsN;  // 32 channels per warp: 4 mma tiles of 8
+constexpr int kMT = kWarpM / 16;
+constexpr int kNT = kWarpN / 8;
+constexpr int kAPitch = kChunk + 4;    // 36 floats: A fragment loads conflict-free
+constexpr int kXPitch = kTileN + 8;    // 72 floats: B fragment loads conflict-free
+constexpr int kAStage = kTileM * kAPitch;
+constexpr int kXStage = kChunk * kXPitch;
+constexpr int kBsrSmemBytes = kStages * (kAStage + kXStage) * static_cast<int>(sizeof(float));  // 55,296
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared, or 16 zero bytes if !full
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
+// 4 bytes from global to shared, or 4 zero bytes if !full
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// v ~ hi + lo with hi and lo each a TF32 value: hi = rna(v), lo = rna(v - hi),
+// rounding to nearest with ties away from zero as cvt.rna.tf32.f32 does for
+// a finite value, but in two integer operations (half of the 13 dropped
+// bits' unit added, then the 13 bits cleared): ptxas expands
+// cvt.rna.tf32.f32 into a longer sequence that also tests for special values
+// (an FSETP and a select in the SASS).  v - hi is exact in fp32.  Rounding lo to
+// nearest rather than truncating it keeps its error unbiased: a truncated lo
+// errs toward zero in every product, and a sum over thousands of rows
+// downstream (a batch norm's statistics) adds that bias up.
+__device__ __forceinline__ unsigned rna_tf32(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = rna_tf32(v);
+  lo = rna_tf32(v - __uint_as_float(hi));
+}
+
+// d += a (16x8, row) * b (8x8, col) in TF32 with fp32 accumulation.  Not
+// volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <bool VEC4>
+__global__ void __launch_bounds__(kBsrThreads)
 bsr_spmm_kernel(const int* __restrict__ block_cols, const float* __restrict__ block_vals,
                 const float* __restrict__ x, float* __restrict__ out,
                 int nb, int kb, int n, int c) {
-  // a_s is stored transposed ([depth][row]) so the compute loop reads rows
-  // contiguously; the +4 pad keeps float4 alignment and spreads banks.
-  __shared__ __align__(16) float a_s[kDepth][kBs + 4];
-  __shared__ __align__(16) float x_s[kDepth][kTileC];
+  extern __shared__ __align__(16) float smem[];
+  float* a_ring = smem;                       // [kStages][kTileM][kAPitch]: block rows m, depth d
+  float* x_ring = smem + kStages * kAStage;   // [kStages][kChunk][kXPitch]: depth d, channels
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // channel group: 4 channels
-  const int ty = tid / 16;  // row group: 8 rows
-  const int c0 = blockIdx.x * kTileC;
-  const long long i = blockIdx.y;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // mma groupID
+  const int t = lane & 3;   // mma threadID_in_group
+  const int wm = (warp / kWarpsN) * kWarpM;  // the warp's rows in the CTA tile
+  const int wn = (warp % kWarpsN) * kWarpN;  // the warp's channels in the CTA tile
+  const int c0 = blockIdx.x * kTileN;
+  constexpr int kParts = kBs / kTileM;  // CTAs per block-row
+  const int part = blockIdx.y % kParts;
+  const long long i = blockIdx.y / kParts;
   const long long b = blockIdx.z;
 
   const int* cols_i = block_cols + (b * nb + i) * kb;
-  const float* vals_i = block_vals + (b * nb + i) * kb * static_cast<long long>(kBs * kBs);
+  const float* vals_i = block_vals + (b * nb + i) * kb * static_cast<long long>(kBs * kBs) + part * kTileM * kBs;
   const float* xb = x + b * n * static_cast<long long>(c);
+  const int n_blocks = n / kBs;
+  constexpr int kChunksPerSlot = kBs / kChunk;
+  const int iters = kb * kChunksPerSlot;
 
-  float acc[8][4];
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+  // Each thread's copies lie at fixed offsets from a stage's origin, the
+  // same for every stage: rows a_m + u * kARowStep of the block chunk, depth
+  // rows x_d + u * kXRowStep of the x chunk, one column each.  Only the two
+  // source pointers change from stage to stage.
+  constexpr int kAQuads = kChunk / 4;                   // 16-byte copies per row of a block chunk
+  constexpr int kARowStep = kBsrThreads / kAQuads;
+  constexpr int kXLanes = VEC4 ? kTileN / 4 : kTileN;  // copies per depth row of an x chunk
+  constexpr int kXRowStep = kBsrThreads / kXLanes;
+  static_assert(kBsrThreads % kAQuads == 0 && kTileM % kARowStep == 0, "block chunk copies");
+  static_assert(kBsrThreads % kXLanes == 0 && kChunk % kXRowStep == 0, "x chunk copies");
+  const int a_m = tid / kAQuads;
+  const int a_q = (tid % kAQuads) * 4;
+  const int x_d = tid / kXLanes;
+  const int x_ch = (tid % kXLanes) * (VEC4 ? 4 : 1);  // channel within the tile
+  const bool ch_live = c0 + x_ch < c;
+  const float* a_thread = vals_i + a_m * kBs + a_q;
+  const long long x_thread = static_cast<long long>(x_d) * c + (ch_live ? c0 + x_ch : 0);
+  const long long x_step = static_cast<long long>(kXRowStep) * c;
+  float* a_dst = a_ring + a_m * kAPitch + a_q;
+  float* x_dst = x_ring + x_d * kXPitch + x_ch;
 
-  for (int s = 0; s < kb; ++s) {
-    const long long col = cols_i[s];
-    if (col < 0 || col >= n / kBs) continue;  // out of range: skipped, same for the whole CTA
-    const float* a = vals_i + s * static_cast<long long>(kBs * kBs);  // row-major [m][j]
-    const float* xs = xb + col * kBs * c;                               // rows col*128 ...
-    for (int d0 = 0; d0 < kBs; d0 += kDepth) {
-      // block chunk a[m][d0 .. d0+32): 128 rows x 8 float4, 4 float4 per thread
+  // stage `it` (slot it / 4, depth chunk it % 4) into ring slot `buf`
+  auto load = [&](int it, int buf) {
+    const int s = it / kChunksPerSlot;
+    const int d0 = (it % kChunksPerSlot) * kChunk;
+    const int col = cols_i[s];
+    const bool ok = col >= 0 && col < n_blocks;
+    // a slot out of range copies nothing (zero fill), from valid addresses
+    const float* a = ok ? a_thread + s * static_cast<long long>(kBs * kBs) + d0 : block_vals;
+    float* as = a_dst + buf * kAStage;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int idx = tid + t * kThreads;
-        const int m = idx / (kDepth / 4);
-        const int dq = idx % (kDepth / 4);
-        const float4 v = *reinterpret_cast<const float4*>(a + m * kBs + d0 + dq * 4);
-        a_s[dq * 4 + 0][m] = v.x;
-        a_s[dq * 4 + 1][m] = v.y;
-        a_s[dq * 4 + 2][m] = v.z;
-        a_s[dq * 4 + 3][m] = v.w;
+    for (int u = 0; u < kTileM / kARowStep; ++u) cp_async16(as + u * kARowStep * kAPitch, a + u * kARowStep * kBs, ok);
+    const float* xs = ok ? xb + static_cast<long long>(col * kBs + d0) * c + x_thread : x;
+    const bool full = ok && ch_live;
+    float* xd = x_dst + buf * kXStage;
+#pragma unroll
+    for (int u = 0; u < kChunk / kXRowStep; ++u) {
+      if (VEC4) {
+        cp_async16(xd + u * kXRowStep * kXPitch, xs + u * x_step, full);
+      } else {
+        cp_async4(xd + u * kXRowStep * kXPitch, xs + u * x_step, full);
       }
-      // x chunk rows d0 .. d0+32, channels c0 .. c0+64: 8 values per thread
+    }
+  };
+
+  float acc[kMT][kNT][4];
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int idx = tid + t * kThreads;
-        const int dd = idx / kTileC;
-        const int cc = idx % kTileC;
-        const int ch = c0 + cc;
-        x_s[dd][cc] = ch < c ? xs[static_cast<long long>(d0 + dd) * c + ch] : 0.f;
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < iters) load(st, st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<kStages - 2>();  // stage `it` has landed (this thread's copies)
+    __syncthreads();               // ... and every thread's; stage it-1 is free again
+    const int next = it + kStages - 1;
+    if (next < iters) load(next, next % kStages);
+    cp_async_commit();
+
+    const float* as = a_ring + (it % kStages) * kAStage;
+    const float* xsm = x_ring + (it % kStages) * kXStage;
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += 8) {
+      unsigned a_hi[kMT][4], a_lo[kMT][4], b_hi[kNT][2], b_lo[kNT][2];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        // A fragment: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+        const float* ap = as + (wm + mt * 16 + g) * kAPitch + kk + t;
+        split_tf32(ap[0], a_hi[mt][0], a_lo[mt][0]);
+        split_tf32(ap[8 * kAPitch], a_hi[mt][1], a_lo[mt][1]);
+        split_tf32(ap[4], a_hi[mt][2], a_lo[mt][2]);
+        split_tf32(ap[8 * kAPitch + 4], a_hi[mt][3], a_lo[mt][3]);
       }
-      __syncthreads();
 #pragma unroll
-      for (int dd = 0; dd < kDepth; ++dd) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&a_s[dd][ty * 8]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&a_s[dd][ty * 8 + 4]);
-        const float4 xv = *reinterpret_cast<const float4*>(&x_s[dd][tx * 4]);
-        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+      for (int nt = 0; nt < kNT; ++nt) {
+        // B fragment: b0 (k = t, n = g), b1 (k = t+4, n = g)
+        const float* bp = xsm + (kk + t) * kXPitch + wn + nt * 8 + g;
+        split_tf32(bp[0], b_hi[nt][0], b_lo[nt][0]);
+        split_tf32(bp[4 * kXPitch], b_hi[nt][1], b_lo[nt][1]);
       }
-      __syncthreads();
+      // the small products first, each pass over every tile before the
+      // next, so that products into one accumulator are kMT * kNT apart
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma_tf32(acc[mt][nt], a_lo[mt], b_hi[nt]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma_tf32(acc[mt][nt], a_hi[mt], b_lo[nt]);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma_tf32(acc[mt][nt], a_hi[mt], b_hi[nt]);
     }
   }
+  cp_async_wait<0>();
 
-  float* ob = out + (b * nb * kBs + i * kBs) * static_cast<long long>(c);
+  // C fragment: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+  float* ob = out + (b * nb * kBs + i * kBs + part * kTileM) * static_cast<long long>(c);
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const long long m = ty * 8 + r;
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ch = c0 + tx * 4 + q;
-      if (ch < c) ob[m * c + ch] = acc[r][q];
-    }
-  }
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm + mt * 16 + g + h * 8;
+        const int ch = c0 + wn + nt * 8 + 2 * t;
+        float* p = ob + static_cast<long long>(m) * c + ch;
+        const float v0 = acc[mt][nt][2 * h];
+        const float v1 = acc[mt][nt][2 * h + 1];
+        if (VEC4) {  // c % 4 == 0 and ch even: both channels live together, 8-byte aligned
+          if (ch < c) *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          if (ch < c) p[0] = v0;
+          if (ch + 1 < c) p[1] = v1;
+        }
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -187,12 +382,6 @@ bsr_spmm_kernel(const int* __restrict__ block_cols, const float* __restrict__ bl
 // a column outside [0, n) gives 0 rather than a read out of bounds (a guard
 // only: the host range-checks the pattern).
 // ---------------------------------------------------------------------------
-template <bool VEC4>
-__device__ __forceinline__ float4 load4(const float* p, int j) {
-  if (VEC4) return reinterpret_cast<const float4*>(p)[j];
-  return make_float4(p[j], 0.f, 0.f, 0.f);
-}
-
 __device__ __forceinline__ float dot4(float4 u, float4 v) {
   return fmaf(u.x, v.x, fmaf(u.y, v.y, fmaf(u.z, v.z, u.w * v.w)));
 }
@@ -244,9 +433,10 @@ extern "C" {
 
 // cols int32 [batch, rows, k], vals fp32 [batch, rows, k], x fp32 [batch, n, c]
 // -> out fp32 [batch, rows, c].  vec4 != 0 needs c % 4 == 0 and 16-byte
-// aligned x and out.
+// aligned x and out; pairs4 != 0 needs k % 4 == 0 and 16-byte aligned cols
+// and vals.
 int snx_ell_spmm(const void* cols, const void* vals, const void* x, void* out,
-                 int batch, int rows, int k, int n, int c, int vec4, void* stream) {
+                 int batch, int rows, int k, int n, int c, int vec4, int pairs4, void* stream) {
   const long long total = static_cast<long long>(batch) * rows;
   if (total == 0 || c == 0) return static_cast<int>(cudaGetLastError());
   const int threads = 256;  // 8 warps, one row each
@@ -255,24 +445,45 @@ int snx_ell_spmm(const void* cols, const void* vals, const void* x, void* out,
   if (vec4) {
     ell_spmm_kernel<true><<<blocks, threads, 0, s>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(x), static_cast<float*>(out), batch, rows, k, n, c);
+        static_cast<const float*>(x), static_cast<float*>(out), batch, rows, k, n, c, pairs4);
   } else {
     ell_spmm_kernel<false><<<blocks, threads, 0, s>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const float*>(x), static_cast<float*>(out), batch, rows, k, n, c);
+        static_cast<const float*>(x), static_cast<float*>(out), batch, rows, k, n, c, pairs4);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// block_cols int32 [batch, nb, kb], block_vals fp32 [batch, nb, kb, 128, 128],
-// x fp32 [batch, n, c] with n a multiple of 128 -> out fp32 [batch, nb*128, c].
+// block_cols int32 [batch, nb, kb], block_vals fp32 [batch, nb, kb, 128, 128]
+// (16-byte aligned), x fp32 [batch, n, c] with n a multiple of 128 -> out
+// fp32 [batch, nb*128, c].  vec4 != 0 needs c % 4 == 0 and 16-byte aligned x
+// and out.
 int snx_bsr_spmm(const void* block_cols, const void* block_vals, const void* x, void* out,
-                 int batch, int nb, int kb, int n, int c, void* stream) {
+                 int batch, int nb, int kb, int n, int c, int vec4, void* stream) {
   if (batch == 0 || nb == 0 || c == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((c + kTileC - 1) / kTileC, nb, batch);
-  bsr_spmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(block_cols), static_cast<const float*>(block_vals),
-      static_cast<const float*>(x), static_cast<float*>(out), nb, kb, n, c);
+  // the ring exceeds the 48 KB of static shared memory: allow it once per
+  // variant and device
+  static bool ready[2][64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !ready[vec4 ? 1 : 0][dev]) {
+    e = vec4 ? cudaFuncSetAttribute(bsr_spmm_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBsrSmemBytes)
+             : cudaFuncSetAttribute(bsr_spmm_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBsrSmemBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) ready[vec4 ? 1 : 0][dev] = true;
+  }
+  const dim3 grid((c + kTileN - 1) / kTileN, nb * (kBs / kTileM), batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec4) {
+    bsr_spmm_kernel<true><<<grid, kBsrThreads, kBsrSmemBytes, s>>>(
+        static_cast<const int*>(block_cols), static_cast<const float*>(block_vals),
+        static_cast<const float*>(x), static_cast<float*>(out), nb, kb, n, c);
+  } else {
+    bsr_spmm_kernel<false><<<grid, kBsrThreads, kBsrSmemBytes, s>>>(
+        static_cast<const int*>(block_cols), static_cast<const float*>(block_vals),
+        static_cast<const float*>(x), static_cast<float*>(out), nb, kb, n, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

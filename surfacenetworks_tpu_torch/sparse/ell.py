@@ -65,13 +65,31 @@ class EllMatrix:
 @dataclasses.dataclass
 class EllOperator:
     """A linear operator with its stored transpose (for the training slice's
-    backward)."""
+    backward), and, once ``transpose_map`` has built it on the host,
+    ``fwd``'s pattern transposed as slot references (``transpose_slot_map``:
+    ``(t_slots, t_cols)``), through which the SDDMM's backward sums ``db``
+    with ``ell_matmul`` in a fixed order.  Only SDDMM operators need it, so
+    it is built on request and then travels with the operator."""
 
     fwd: EllMatrix
     bwd: EllMatrix  # ELL of the transpose
+    fwd_t: tuple[torch.Tensor, torch.Tensor] | None = None  # int32 [..., n_cols, K_t] each
 
     def to(self, device) -> "EllOperator":
-        return EllOperator(fwd=self.fwd.to(device), bwd=self.bwd.to(device))
+        fwd_t = None if self.fwd_t is None else tuple(t.to(device) for t in self.fwd_t)
+        return EllOperator(fwd=self.fwd.to(device), bwd=self.bwd.to(device), fwd_t=fwd_t)
+
+    def transpose_map(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``fwd``'s ``(t_slots, t_cols)``, built once, on the host."""
+        if self.fwd_t is None:
+            m = self.fwd
+            cols, vals = m.cols.cpu().numpy(), m.vals.cpu().numpy()
+            lead = cols.shape[:-2]
+            maps = [tuple(map(torch.from_numpy, transpose_slot_map(c, v, m.n_cols)))
+                    for c, v in zip(cols.reshape(-1, *cols.shape[-2:]), vals.reshape(-1, *vals.shape[-2:]))]
+            self.fwd_t = tuple(t.reshape(lead + t.shape[1:]).to(m.cols.device)
+                               for t in _stack_maps(maps, m.n_rows * m.k))
+        return self.fwd_t
 
 
 def _ell_window(cols: np.ndarray, vals: np.ndarray, n_cols: int, tr: int = 128) -> int:
@@ -96,6 +114,45 @@ def _ell_window(cols: np.ndarray, vals: np.ndarray, n_cols: int, tr: int = 128) 
     has = nz.any(axis=1)
     spans = np.where(has, maxs - (mins // 8) * 8 + 1, 1)
     return int(min(_round_up(int(spans.max()), 128), n_cols))
+
+
+def transpose_slot_map(cols: np.ndarray, vals: np.ndarray, n_cols: int) -> tuple[np.ndarray, np.ndarray]:
+    """The transpose of an ELL pattern ``cols, vals [R, K]`` as slot
+    references: ``t_slots, t_cols`` int32 ``[n_cols, K_t]``.
+
+    Row ``j`` lists the live slots (value nonzero) whose column is ``j``, in
+    ascending flat slot ``r*K + k`` (so ascending ``r``): ``t_slots[j, t]``
+    is that flat slot and ``t_cols[j, t] = r``.  ``K_t`` is the largest
+    column count (at least 1).  Padding entries hold slot ``R*K``, which
+    points at a zero appended to the flattened values, and column 0.  So for
+    per-slot weights ``w [R, K]``, ``ell_matmul(t_cols, w_pad[t_slots], a)``
+    is ``sum over (r, k) with cols[r, k] == j of w[r, k] a[r]`` summed in
+    that fixed order: the SDDMM's ``db`` without a scatter.
+    """
+    R, K = cols.shape
+    slots = np.flatnonzero(vals.reshape(-1) != 0)  # ascending
+    col = cols.reshape(-1)[slots].astype(np.int64)
+    if col.size and (col.min() < 0 or col.max() >= n_cols):
+        raise ValueError(f"ELL column outside [0, {n_cols}): min {col.min()}, max {col.max()}")
+    order = np.argsort(col, kind="stable")  # by column, ascending slot within one
+    col_sorted, slot_sorted = col[order], slots[order]
+    counts = np.bincount(col, minlength=n_cols)
+    k_t = max(int(counts.max()) if counts.size else 0, 1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(col.size) - starts[col_sorted]
+    t_slots = np.full((n_cols, k_t), R * K, np.int32)
+    t_cols = np.zeros((n_cols, k_t), np.int32)
+    t_slots[col_sorted, pos] = slot_sorted
+    t_cols[col_sorted, pos] = slot_sorted // K
+    return t_slots, t_cols
+
+
+def _stack_maps(maps: list[tuple[torch.Tensor, torch.Tensor]], pad_slot: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stack ``(t_slots, t_cols)`` pairs, padding each to the largest
+    ``K_t`` with slot ``pad_slot`` and column 0."""
+    k_t = max(s.shape[-1] for s, _ in maps)
+    pad = lambda a, v: torch.nn.functional.pad(a, (0, k_t - a.shape[-1]), value=v)
+    return torch.stack([pad(s, pad_slot) for s, _ in maps]), torch.stack([pad(c, 0) for _, c in maps])
 
 
 def ell_from_scipy(
@@ -169,4 +226,8 @@ def _stack_ell(ms: list[EllMatrix]) -> EllMatrix:
 def stack_operators(ops: list[EllOperator]) -> EllOperator:
     """Stack per-mesh operators of one padded shape into a batched operator
     (leading axis)."""
-    return EllOperator(fwd=_stack_ell([o.fwd for o in ops]), bwd=_stack_ell([o.bwd for o in ops]))
+    m = ops[0].fwd
+    fwd_t = None
+    if all(o.fwd_t is not None for o in ops):
+        fwd_t = _stack_maps([o.fwd_t for o in ops], m.n_rows * m.k)
+    return EllOperator(fwd=_stack_ell([o.fwd for o in ops]), bwd=_stack_ell([o.bwd for o in ops]), fwd_t=fwd_t)

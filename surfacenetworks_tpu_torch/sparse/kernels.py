@@ -8,26 +8,37 @@ batch axis, so one launch serves a whole batch of operators.  The wrappers
 are not differentiable: ``sparse/ops.py`` wraps them in autograd Functions.
 
 ``bsr_matmul`` replaces ``_bsr_matmul_call`` (``pallas_kernels.py:133-178``).
-  Bound on the H100: operations.  It multiplies every stored 128x128 block,
-  ``2*NB*KB*128*128*C`` flops (about 1.15 GFLOP at NB=55, KB=5, C=128),
-  against about 25 MB of blocks and activations; fp32 FMA outside the tensor
-  cores peaks at 67 TFLOP/s.  Design: one CTA per (64-channel tile,
-  block-row, batch) loops over its block-row's slots, stages each block and
-  the matching slice of x through shared memory in depth chunks of 32, and
-  keeps an 8x4 output tile per thread in registers.  The TPU kernel's single
-  wide MXU product does not carry over; running the same blocks on the
-  tensor cores (TF32 or bf16 through ``wgmma``) is the later redesign.
+  Bound on the H100: bytes.  At NB=55, KB=5, C=128 it reads 18 MB of stored
+  128x128 blocks and 3.6 MB of x and writes 3.6 MB: about 0.0075 ms at
+  3.35 TB/s.  Its ``2*NB*KB*128*128*C`` flops (1.15 GFLOP) run on the
+  tensor cores in three TF32 passes, 0.007 ms at 495 TFLOP/s; in fp32 FMA
+  (67 TFLOP/s) they would bound it at 0.017 ms.  Accuracy: the TPU kernel
+  lets the MXU round its inputs to bf16; the port holds fp32, every element
+  within 1e-5 of ``|A||x|``, which one TF32 pass (about 5e-4 per product)
+  does not meet.  So each operand is split into a TF32 high part and a TF32
+  low part (the rest), each rounded to nearest, and three products are
+  summed (3xTF32: about 2^-21 per product).  Design: one CTA of 4 warps per
+  (64-channel tile, half block-row, batch item), 220 CTAs at C=128;
+  ``mma.sync`` m16n8k8 TF32 with fp32 accumulators in registers; each
+  slot's block and slice of x stream through a 3-stage ring in shared
+  memory by ``cp.async`` in depth chunks of 32, the next chunks (and slots)
+  loading while the current one multiplies.
 
 ``ell_matmul`` replaces ``_ell_matmul_call`` (``pallas_kernels.py:186-274``).
   Bound on the H100: bytes.  At R=N=7040, K=16, C=128 it moves about 8 MB
-  (slots once, x once, out once) for about 13 MFLOP.  Design: one warp per
-  output row reads the row's K (col, val) pairs once and gathers rows of x
-  with 16-byte loads along the channel axis, so each gathered row is one
-  coalesced read and the L2 cache serves the reuse of x between rows.  The
-  TPU kernel's banded densify (``window``) was a matrix-unit device; on this
-  card the gather is the contract (``sparse/ops.py:44-47`` in the JAX
-  package), so ``window`` is accepted and ignored, and R need not be a
-  multiple of 128.
+  (slots once, x once, out once) for about 13 MFLOP; but each row of x is
+  gathered by every row that references it (about 7), so the L2 cache
+  serves several times x's bytes, a round trip per gather.  Design: one
+  warp per output row with 16-byte lanes along the channel axis, so each
+  gathered row is one coalesced read.  Each lane reads the row's (col, val)
+  pairs with vector loads, then issues all gathers of a chunk of 8 slots,
+  predicated on live slots, before any FMA: a warp keeps up to 8 gathers in
+  flight, at 64 registers or fewer so that 32 warps fit on an SM.  The FMAs
+  run in slot order, a fixed order of summation, which the deterministic
+  sums of the training backward rely on.  The TPU kernel's banded densify
+  (``window``) was a matrix-unit device; on this card the gather is the
+  contract (``sparse/ops.py:44-47`` in the JAX package), so ``window`` is
+  accepted and ignored, and R need not be a multiple of 128.
 
 ``sddmm`` replaces ``_sddmm_call`` (``pallas_kernels.py:277-352``).
   Bound on the H100: bytes.  At R=N=7040, K=16, C=120 it reads a and b
@@ -127,13 +138,16 @@ def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tens
         raise ValueError(f"bsr_matmul: block_vals {tuple(vals.shape)} is not [{B},{nb},{kb},128,128]")
     if xb.dim() != 3 or xb.shape[0] != B or xb.shape[1] % 128:
         raise ValueError(f"bsr_matmul: x {tuple(xb.shape)} is not [{B}, 128*m, C]")
+    if vals.data_ptr() % 16:
+        raise ValueError("bsr_matmul: block_vals must be 16-byte aligned")
     n, c = xb.shape[1:]
     out = torch.empty((B, nb * 128, c), device=x.device, dtype=torch.float32)
+    vec4 = c % 4 == 0 and xb.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = _build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.snx_bsr_spmm(
         cols.data_ptr(), vals.data_ptr(), xb.data_ptr(), out.data_ptr(),
-        B, nb, kb, n, c, ctypes.c_void_p(stream),
+        B, nb, kb, n, c, int(vec4), ctypes.c_void_p(stream),
     )
     _raise_on(code, "bsr_matmul")
     launches["bsr_matmul"] += 1
@@ -178,11 +192,12 @@ def ell_matmul(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, window: 
     n, c = xb.shape[1:]
     out = torch.empty((B, R, c), device=x.device, dtype=torch.float32)
     vec4 = c % 4 == 0 and xb.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    pairs4 = K % 4 == 0 and c_.data_ptr() % 16 == 0 and v_.data_ptr() % 16 == 0
     lib = _build.load()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = lib.snx_ell_spmm(
         c_.data_ptr(), v_.data_ptr(), xb.data_ptr(), out.data_ptr(),
-        B, R, K, n, c, int(vec4), ctypes.c_void_p(stream),
+        B, R, K, n, c, int(vec4), int(pairs4), ctypes.c_void_p(stream),
     )
     _raise_on(code, "ell_matmul")
     launches["ell_matmul"] += 1

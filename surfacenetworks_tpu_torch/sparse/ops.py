@@ -8,10 +8,14 @@ JAX package's are ``custom_vjp``s, on the CPU and on the card alike:
   ``x_bar = op.bwd @ g`` through the same kernel (the stored transpose); the
   operator gets no gradient.
 * ``sddmm``: forward ``<a[r], b[cols[r,k]]>`` at the pattern's live slots;
-  backward ``da = ELL-SpMM(cols, gm, b)`` through ``ell_matmul`` and
-  ``db`` = the segment sum of ``gm[r,k] a[r]`` into row ``cols[r,k]``, with
-  ``gm`` the cotangent at live slots.  The JAX package leaves that segment
-  sum to XLA (``jax.ops.segment_sum``); here it is ``index_add_``.
+  backward ``da = ELL-SpMM(cols, gm, b)`` and ``db`` = the segment sum of
+  ``gm[r,k] a[r]`` into row ``cols[r,k]``, with ``gm`` the cotangent at
+  live slots.  The JAX package leaves that segment sum to XLA
+  (``jax.ops.segment_sum``).  Here it is an ELL SpMM too, over the
+  pattern's transpose slot map (``EllOperator.transpose_map``): both sums go
+  through ``ell_matmul``, which adds each row's slots in a fixed order, so
+  the backward gives the same bits on every run (a scatter with atomics
+  would not).
 
 The kernel wrappers write into fresh tensors, so autograd would see no graph
 through them: these Functions are what carries the gradient.  Cotangents
@@ -85,21 +89,6 @@ def dense_bmm(L: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(L, x)
 
 
-def segment_sum_rows(cols: torch.Tensor, w: torch.Tensor, a: torch.Tensor, n: int) -> torch.Tensor:
-    """``out[j] = sum over (r, k) with cols[r,k] == j of w[r,k] a[r]``:
-    ``cols, w [..., R, K]``, ``a [..., R, C]`` -> ``[..., n, C]`` (the
-    transpose scatter of the SDDMM's backward)."""
-    batched = cols.dim() == 3
-    c_, w_, a_ = (t if batched else t[None] for t in (cols, w, a))
-    B, R, K = c_.shape
-    C = a_.shape[-1]
-    contrib = (w_[..., None].to(a_.dtype) * a_[:, :, None, :]).reshape(B * R * K, C)
-    rows = (c_.long() + n * torch.arange(B, device=a_.device)[:, None, None]).reshape(-1)
-    out = torch.zeros(B * n, C, dtype=contrib.dtype, device=a_.device).index_add_(0, rows, contrib)
-    out = out.reshape(B, n, C)
-    return out if batched else out[0]
-
-
 class _Sddmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op: EllOperator, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -117,7 +106,11 @@ class _Sddmm(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             da = kernels.ell_matmul(m.cols, gm, b.contiguous()).to(a.dtype)
         if ctx.needs_input_grad[2]:
-            db = segment_sum_rows(m.cols, gm, a, b.shape[-2]).to(b.dtype)
+            # gm at each transposed entry's slot; padding entries read the appended 0
+            t_slots, t_cols = ctx.op.transpose_map()
+            flat = torch.cat([gm.flatten(-2), gm.new_zeros(gm.shape[:-2] + (1,))], dim=-1)
+            tv = torch.gather(flat, -1, t_slots.flatten(-2).long()).reshape(t_slots.shape)
+            db = kernels.ell_matmul(t_cols, tv, a.contiguous()).to(b.dtype)
         return None, da, db
 
 

@@ -11,15 +11,21 @@ smoothness term and the FAUST metrics).
 * ``corr_dcel_streaming``: the same loss without the ``[N, M]`` logits; an
   autograd Function over 512-row tiles whose backward recomputes each tile's
   logits from the saved logsumexp.  The tile products are ``torch.matmul``,
-  as the JAX package leaves them to XLA.
+  as the JAX package leaves them to XLA.  The backward's mirror of the
+  ``-fb[target]`` term, a segment sum of ``fa`` by target
+  (``jax.ops.segment_sum`` in the JAX package), is an ELL SpMM over the
+  target's inverse (``target_inverse``), so it sums in a fixed order.
 * ``streaming_corr_argmax``, ``corr_metrics_from_pred`` and
   ``corr_accuracy_metrics``: the FAUST accuracy metrics.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from surfacenetworks_tpu_torch.sparse import kernels
+from surfacenetworks_tpu_torch.sparse.ell import transpose_slot_map
 from surfacenetworks_tpu_torch.sparse.ops import sddmm
 
 BLOCK = 512  # rows per tile of the streaming head
@@ -68,12 +74,25 @@ def _stream_lse(fa, fb, target, block):
     return torch.cat(lse), torch.cat(tlogit)
 
 
+def target_inverse(target: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of a row -> column map ``target [N]`` (values in
+    ``[0, m)``) as an ELL matrix on ``target``'s device: row ``j`` lists the
+    rows ``r`` with ``target[r] == j`` in ascending order, with value 1,
+    padded (column 0, value 0) to the largest multiplicity.  Then
+    ``ell_matmul(cols, vals, fa)`` is ``segment_sum(fa, target, m)`` summed
+    in that fixed order.  Built on the host, once per target."""
+    t = target.detach().cpu().numpy().astype(np.int32)[:, None]
+    slots, cols = transpose_slot_map(t, np.ones(t.shape, np.float32), m)
+    vals = (slots != t.shape[0]).astype(np.float32)
+    return torch.from_numpy(cols).to(target.device), torch.from_numpy(vals).to(target.device)
+
+
 class _StreamingDcel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, fa, fb, target, block):
+    def forward(ctx, fa, fb, target, block, target_inv):
         lse, tlogit = _stream_lse(fa, fb, target, block)
         ctx.save_for_backward(fa, fb, target, lse)
-        ctx.block = block
+        ctx.block, ctx.target_inv = block, target_inv
         return -(tlogit - lse).mean()
 
     @staticmethod
@@ -90,25 +109,30 @@ class _StreamingDcel(torch.autograd.Function):
             dfa[i0 : i0 + block] = scale * (p @ fb - fb[tgt[i0 : i0 + block]])
             dfb += scale * (p.T @ fa_b)
         # the -fb[target] term of dfa has its mirror in dfb
-        dfb -= scale * torch.zeros_like(fb).index_add_(0, tgt, fa)
-        return dfa, dfb, None, None
+        inv_cols, inv_vals = ctx.target_inv or target_inverse(target, fb.shape[0])
+        dfb -= scale * kernels.ell_matmul(inv_cols, inv_vals, fa.contiguous())
+        return dfa, dfb, None, None, None
 
 
-def streaming_corr_delta_cross_entropy(fa, fb, target, block: int = BLOCK) -> torch.Tensor:
+def streaming_corr_delta_cross_entropy(fa, fb, target, block: int = BLOCK, target_inv=None) -> torch.Tensor:
     """dcel of ``fa @ fb.T`` against ``target`` without the ``[N, M]``
     logits (``fa [N, C]``, ``fb [M, C]``, ``target [N]``): equal to
-    ``corr_delta_cross_entropy_from_target(fa @ fb.T, target)``."""
-    return _StreamingDcel.apply(fa, fb, target, block)
+    ``corr_delta_cross_entropy_from_target(fa @ fb.T, target)``.
+    ``target_inv`` is ``target_inverse(target, M)`` where the caller caches
+    it; without it the backward builds it (a copy to the host)."""
+    return _StreamingDcel.apply(fa, fb, target, block, target_inv)
 
 
-def corr_dcel_streaming(fa, fb, target, block: int = BLOCK) -> torch.Tensor:
-    """Batched front end: ``[B, N, C]`` features and ``[B, N]`` targets give
-    the mean of the per-sample losses; the 2-D form passes through."""
+def corr_dcel_streaming(fa, fb, target, block: int = BLOCK, target_inv=None) -> torch.Tensor:
+    """Batched front end: ``[B, N, C]`` features and ``[B, N]`` targets (and
+    a list of per-sample ``target_inv`` maps) give the mean of the
+    per-sample losses; the 2-D form passes through."""
     if fa.dim() == 3:
+        target_inv = target_inv or [None] * fa.shape[0]
         return torch.stack(
-            [streaming_corr_delta_cross_entropy(a, b, t, block) for a, b, t in zip(fa, fb, target)]
+            [streaming_corr_delta_cross_entropy(a, b, t, block, i) for a, b, t, i in zip(fa, fb, target, target_inv)]
         ).mean()
-    return streaming_corr_delta_cross_entropy(fa, fb, target, block)
+    return streaming_corr_delta_cross_entropy(fa, fb, target, block, target_inv)
 
 
 def streaming_corr_argmax(fa, fb, mask_b, block: int = BLOCK) -> torch.Tensor:

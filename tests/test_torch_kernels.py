@@ -199,3 +199,120 @@ def test_operator_columns_checked_before_the_card(fmt):
         top.to("cpu")
     with pytest.raises(ValueError, match="rows"):
         apply(top, torch.zeros(1, 128, 4))
+
+
+def _index_add_db(cols, w, a, n):
+    """The SDDMM's ``db`` as the port computed it before, by ``index_add_``:
+    ``out[j] = sum over (r, k) with cols[r,k] == j of w[r,k] a[r]``."""
+    B, R, K = cols.shape
+    contrib = (w[..., None] * a[:, :, None, :]).reshape(B * R * K, -1)
+    rows = (cols.long() + n * torch.arange(B)[:, None, None]).reshape(-1)
+    return torch.zeros(B * n, a.shape[-1], dtype=a.dtype).index_add_(0, rows, contrib).reshape(B, n, -1)
+
+
+def _map_pattern(case: str):
+    """ELL patterns for the transpose slot map: ragged (R=200 rows over
+    N=150 columns, not multiples of 128), batched (3 different patterns),
+    padded (a packed mesh Laplacian in a 256-row bucket)."""
+    rng = np.random.default_rng(21)
+    if case == "padded":
+        _, _, L = blob_laplacian(5, 200)
+        op = tell.operator_from_scipy(L, k=16, n_rows=256, n_cols=256)
+        return op.fwd.cols.numpy()[None], op.fwd.vals.numpy()[None], 256
+    B = 3 if case == "batched" else 1
+    R, K, N = 200, 7, 150
+    cols = rng.integers(0, N, size=(B, R, K)).astype(np.int32)
+    vals = rng.normal(size=(B, R, K)).astype(np.float32)
+    vals[..., -3:][rng.random(size=(B, R, 3)) < 0.6] = 0.0  # padding slots
+    cols[vals == 0] = 0
+    return cols, vals, N
+
+
+@pytest.mark.parametrize("case", ["ragged", "batched", "padded"])
+def test_transpose_slot_map(case):
+    """``transpose_slot_map``: each column's live slots in ascending slot
+    order, ``t_cols`` their rows, padding at slot R*K, K_t the largest
+    column count; padding slots (value 0, column 0) are not listed."""
+    cols, vals, N = _map_pattern(case)
+    for c, v in zip(cols, vals):
+        R, K = c.shape
+        t_slots, t_cols = tell.transpose_slot_map(c, v, N)
+        live = v.reshape(-1) != 0
+        counts = np.bincount(c.reshape(-1)[live], minlength=N)
+        assert t_slots.shape == (N, max(counts.max(), 1)) and t_slots.dtype == np.int32
+        for j in range(N):
+            want = np.flatnonzero(live & (c.reshape(-1) == j))
+            got = t_slots[j]
+            np.testing.assert_array_equal(got[: want.size], want)
+            assert (got[want.size :] == R * K).all() and (t_cols[j, want.size :] == 0).all()
+            np.testing.assert_array_equal(t_cols[j, : want.size], want // K)
+
+
+@pytest.mark.parametrize("case", ["ragged", "batched", "padded"])
+def test_sddmm_db_through_transpose_map(case):
+    """The SDDMM's ``db``, now ``ell_matmul`` over the transpose slot map,
+    equals the former ``index_add_`` segment sum and ``jax.vjp`` of the JAX
+    package's ``sparse.sddmm`` (``jax.ops.segment_sum``); ``da`` too."""
+    from surfacenetworks_tpu import sparse as jsparse
+
+    cols, vals, N = _map_pattern(case)
+    B, R, K = cols.shape
+    rng = np.random.default_rng(22)
+    a = rng.normal(size=(B, R, 12)).astype(np.float32)
+    b = rng.normal(size=(B, N, 12)).astype(np.float32)
+    g = rng.normal(size=(B, R, K)).astype(np.float32)
+    top = tell.EllOperator(fwd=tell.EllMatrix(torch.from_numpy(cols), torch.from_numpy(vals), N),
+                           bwd=tell.EllMatrix(torch.from_numpy(cols), torch.from_numpy(vals), N))
+    ta, tb = (torch.from_numpy(t).requires_grad_() for t in (a, b))
+    ops.sddmm(top, ta, tb).backward(torch.from_numpy(g))
+    gm = torch.from_numpy(np.where(vals != 0, g, 0.0).astype(np.float32))
+    old = _index_add_db(torch.from_numpy(cols), gm, torch.from_numpy(a), N)
+    assert_close(tb.grad.numpy(), old.numpy(), RTOL, "db vs index_add_")
+    jm = jell.EllMatrix(cols=jnp.asarray(cols), vals=jnp.asarray(vals), n_cols=N, window=0)
+    _, vjp = jax.vjp(lambda p, q: jsparse.sddmm(jell.EllOperator(fwd=jm, bwd=jm), p, q),
+                     jnp.asarray(a), jnp.asarray(b))
+    ja, jb = vjp(jnp.asarray(g))
+    assert_close(tb.grad.numpy(), jb, RTOL, "db vs jax.vjp")
+    assert_close(ta.grad.numpy(), ja, RTOL, "da vs jax.vjp")
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: add half of the 13 dropped bits'
+    unit, then clear them."""
+    return ((v.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def _tensor_core_bsr_row(A: torch.Tensor, x: torch.Tensor, passes: int) -> torch.Tensor:
+    """``bsr_spmm_kernel``'s arithmetic for one block-row: per depth step of
+    8 (one ``mma.sync`` m16n8k8), the TF32 products summed exactly and added
+    to the fp32 accumulator.  ``passes=3`` is 3xTF32 (``A_lo x_hi``,
+    ``A_hi x_lo``, ``A_hi x_hi``), split as the kernel splits: the high part
+    and the rest each rounded to nearest; ``passes=1`` one TF32 product."""
+    a_hi, x_hi = _tf32(A), _tf32(x)
+    a_lo, x_lo = _tf32(A - a_hi), _tf32(x - x_hi)
+    terms = [(a_lo, x_hi), (a_hi, x_lo), (a_hi, x_hi)] if passes == 3 else [(a_hi, x_hi)]
+    acc = torch.zeros(A.shape[0], x.shape[1], dtype=torch.float32)
+    for k0 in range(0, A.shape[1], 8):
+        for a, b in terms:
+            acc = (acc.double() + a[:, k0 : k0 + 8].double() @ b[k0 : k0 + 8].double()).float()
+    return acc
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_3xtf32_meets_the_fp32_contract(passes):
+    """The BSR kernel's accuracy argument: at one block-row of 5 dense
+    128x128 blocks (128 x 640) against x [640, 64], 3xTF32 keeps every
+    element within 1e-5 of ``|A||x|`` of the fp64 product, as
+    ``chip_smoke.py`` requires of the kernel; one TF32 pass does not."""
+    rng = np.random.default_rng(23)
+    A = torch.from_numpy(rng.normal(size=(128, 640)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(640, 64)).astype(np.float32))
+    ref, scale = A.double() @ x.double(), A.double().abs() @ x.double().abs()
+    worst = float(((_tensor_core_bsr_row(A, x, passes).double() - ref).abs() / (RTOL * scale)).max())
+    if passes == 3:
+        assert worst <= 0.1, f"3xTF32 reaches {worst:.3f} of the limit"
+    else:
+        assert worst > 1.0, f"one TF32 pass stays within the limit ({worst:.3f})"
+    assert torch.equal(_tf32(torch.tensor([1.0 + 2**-11, -(1.0 + 2**-11), 1.0 + 2**-12])),
+                       torch.tensor([1.0 + 2**-10, -(1.0 + 2**-10), 1.0]))

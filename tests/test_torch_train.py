@@ -279,3 +279,85 @@ def test_train_correspondence_main_cpu(fmt, tmp_path):
 def test_train_correspondence_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):
         ttrain.main(["--datapath", str(FAUST), "--device", "cpu", "--result-dir", str(tmp_path), *flag])
+
+
+@pytest.mark.parametrize("case", ["ties", "padded_rows"])
+def test_target_inverse_matches_segment_sum(case):
+    """The dcel mirror's map: ``target_inverse`` lists each column's rows in
+    ascending order with value 1, padded to the largest multiplicity, and
+    ``ell_matmul`` over it equals ``jax.ops.segment_sum(fa, target, M)``.
+    ``ties``: many rows on few columns (argmin ties); ``padded_rows``: a
+    bucket's padded rows all on column 0, as the trainer's cost gives them."""
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    rng = np.random.default_rng(31)
+    N, M = 300, 260
+    if case == "ties":
+        target = rng.integers(0, 12, size=N).astype(np.int32)
+    else:
+        target = rng.permutation(M)[:N - 40].astype(np.int32)
+        target = np.concatenate([target, np.zeros(40, np.int32)])
+    fa = rng.normal(size=(N, 24)).astype(np.float32)
+    cols, vals = tlosses.target_inverse(_t(target), M)
+    counts = np.bincount(target, minlength=M)
+    assert cols.shape == vals.shape == (M, counts.max()) and cols.dtype == torch.int32
+    for j in range(M):
+        rows = np.flatnonzero(target == j)
+        np.testing.assert_array_equal(cols[j, : rows.size].numpy(), rows)
+        assert (vals[j, : rows.size] == 1).all() and (vals[j, rows.size :] == 0).all()
+    got = kernels.ell_matmul(cols, vals, _t(fa))
+    ref = jax.ops.segment_sum(jnp.asarray(fa), jnp.asarray(target), num_segments=M)
+    assert_close(got.numpy(), ref, RTOL, "mirror vs segment_sum")
+
+
+def test_streaming_dcel_with_cached_inverse_matches_jax():
+    """The streaming dcel given the target's cached inverse, as the trainer
+    passes it, against the JAX package's value and gradients (with argmin
+    ties in the target)."""
+    rng = np.random.default_rng(32)
+    fa = rng.normal(size=(700, 16)).astype(np.float32)
+    fb = rng.normal(size=(650, 16)).astype(np.float32)
+    target = rng.integers(0, 90, size=700).astype(np.int32)
+    jval, (jga, jgb) = jax.value_and_grad(
+        lambda a, b: jlosses.corr_dcel_streaming(a, b, jnp.asarray(target)), argnums=(0, 1))(
+        jnp.asarray(fa), jnp.asarray(fb))
+    ta, tb = _t(fa, grad=True), _t(fb, grad=True)
+    tval = tlosses.corr_dcel_streaming(ta, tb, _t(target), target_inv=tlosses.target_inverse(_t(target), 650))
+    tval.backward()
+    assert_close(tval.detach().numpy(), jval, RTOL, "value")
+    assert_close(ta.grad.numpy(), jga, RTOL, "d fa")
+    assert_close(tb.grad.numpy(), jgb, RTOL, "d fb")
+
+
+@pytest.mark.parametrize("fmt", ["ell", "bsr"])
+def test_train_step_sums_through_the_kernels(fmt, monkeypatch, tmp_path):
+    """One update of the trainer (streaming head, ``--smooth-reg``) calls
+    the kernel wrappers as ``chip_smoke.py``'s ``EXPECTED_PER_STEP`` counts
+    them: the applies of two trunks forward and backward (4 per trunk
+    apply), and ``ell_matmul`` five times besides: the two SDDMMs' ``da``
+    and ``db`` and the dcel mirror.  No ``index_add_`` is left on the step."""
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    calls = {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0}
+    for name in calls:
+        def counted(*args, _fn=getattr(kernels, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(kernels, name, counted)
+    monkeypatch.setattr(torch.Tensor, "index_add_", lambda *a, **k: pytest.fail("index_add_ on the train step"))
+    args = ttrain.parser.parse_args(["--datapath", str(FAUST), "--device", "cpu", "--layer", "2",
+                                     "--num-updates", "1", "--smooth-reg", "0.1", "--streaming-head",
+                                     "--operator-format", fmt, "--result-dir", str(tmp_path)])
+    trainer = ttrain.CorrespondenceTrainer(args, log=lambda m: None)
+    (ia, ib), rots = (int(v) for v in trainer.epoch_plan()[0][0]), [0.0] * 4
+    d = trainer.dev_sample(ia)
+    with torch.no_grad():
+        trainer.model.trunk(d["op"], d["mask"], d["inputs"])
+    applies = calls[f"{fmt}_matmul"]
+    assert applies > 0
+    calls.update({k: 0 for k in calls})
+    trainer.update(ia, ib, rots)
+    if fmt == "ell":
+        assert calls == {"bsr_matmul": 0, "ell_matmul": 4 * applies + 5, "sddmm": 2}, calls
+    else:
+        assert calls == {"bsr_matmul": 4 * applies, "ell_matmul": 5, "sddmm": 2}, calls
