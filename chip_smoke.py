@@ -6,11 +6,12 @@ Builds the port's CUDA kernels from ``surfacenetworks_tpu_torch/sparse/csrc``
 with one ``nvcc`` call (logging each kernel's registers and spills, and
 checking in the SASS that the BSR kernel runs TF32 tensor-core products),
 holds each kernel against its plain PyTorch version in fp32 and in fp64 at
-the paths' shapes and more, times both (and each kernel again with a cold
-L2 cache), and holds each autograd Function's backward against autograd
-through the plain versions.  Then it drives two
-paths, each with the launch counts set to 0 just before it and read just
-after:
+the paths' shapes and more (the SDDMM also with padding between live slots,
+K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
+both (and each kernel again with a cold L2 cache), and holds each autograd
+Function's backward against autograd through the plain versions.  Then it
+drives two paths, each with the launch counts set to 0 just before it and
+read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
   ~7,000-vertex meshes in the ELL and the BSR operator format, checked
@@ -344,14 +345,52 @@ def kernel_phase(device) -> dict:
     sdd(f"sddmm ragged R={rag.n_rows} K={rag.k}", rag.cols, rag.vals, a, a.flip(0))
     ab = torch.randn(2, BUCKET, FEATURES, device=device, generator=gen)
     sdd("sddmm batched B=2", torch.stack([cols, cols]), torch.stack([vals, vals.flip(0)]), ab, ab.flip(0))
+    # the kernel's edges: each row's slots permuted, so padding sits between
+    # live slots; K cut to 5, or widened past one chunk (17) and past one
+    # group of 32 slots (33); C on the scalar path (3, 130, 257) and past 128
+    # channels on the float4 path (264)
+    perm = torch.argsort(torch.rand(cols.shape, device=device, generator=gen), dim=1)
+    pc, pv = cols.gather(1, perm), vals.gather(1, perm)
+    live = pv != 0
+    log(f"  sddmm permuted pattern: {int((~live[:, :-1] & live[:, 1:]).any(1).sum())} of {BUCKET} rows have a "
+        f"live slot after a padding slot")
+    wide = {5: (pc[:, :5], pv[:, :5]),
+            17: (torch.cat([pc, pc[:, :1].roll(1, 0)], 1), torch.cat([pv, pv[:, :1].roll(1, 0)], 1)),
+            33: (torch.cat([pc, pc.roll(1, 0), pc[:, :1].roll(2, 0)], 1),
+                 torch.cat([pv, pv.roll(1, 0) * 0.5, pv[:, :1].roll(2, 0)], 1))}
+    wide = {kk: (c_.contiguous(), v_.contiguous()) for kk, (c_, v_) in wide.items()}
+    for kk, (c_, v_) in [(cols.shape[1], (pc, pv)), *wide.items()]:
+        a = torch.randn(BUCKET, FEATURES, device=device, generator=gen)
+        b = torch.randn(BUCKET, FEATURES, device=device, generator=gen)
+        sdd(f"sddmm permuted slots K={kk} C={FEATURES} (up to {int((v_ != 0).sum(1).max())} live slots a row)",
+            c_, v_, a, b)
+    for c in (3, 130, 257, 264):
+        a = torch.randn(BUCKET, c, device=device, generator=gen)
+        b = torch.randn(BUCKET, c, device=device, generator=gen)
+        sdd(f"sddmm permuted slots K={cols.shape[1]} C={c}", pc, pv, a, b)
     a = torch.randn(BUCKET, FEATURES, device=device, generator=gen)
     b = torch.randn(BUCKET, FEATURES, device=device, generator=gen)
+    for label, (c_, v_) in {"K=16": (cols, vals), "permuted K=33": wide[33]}.items():
+        same = torch.equal(kernels.sddmm(c_, v_, a, b), kernels.sddmm(c_, v_, a, b))
+        log(f"  sddmm {label}: two launches on the same inputs {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"sddmm {label}: two launches on the same inputs differ")
+    # the checks' power: a kernel that dropped one slot of one row must fail
+    # them, and so must one that stopped after its first chunk of live slots
     r = BUCKET // 2
     s = int(torch.nonzero(vals[r])[0])
     dropped = vals.clone()
     dropped[r, s] = 0
     refused(f"sddmm without slot {s} of row {r}", kernels.sddmm(cols, dropped, a, b),
             kernels.sddmm_plain(cols, vals, a, b), kernels.sddmm_plain(cols, vals, a.abs(), b.abs()), KERNEL_RTOL)
+    c33, v33 = wide[33]
+    r = int((v33 != 0).sum(1).argmax())
+    s = int(torch.nonzero(v33[r])[-1])
+    dropped = v33.clone()
+    dropped[r, s] = 0
+    refused(f"sddmm permuted K=33 without the last live slot ({s}) of row {r}, which has "
+            f"{int((v33[r] != 0).sum())}", kernels.sddmm(c33, dropped, a, b),
+            kernels.sddmm_plain(c33, v33, a, b), kernels.sddmm_plain(c33, v33, a.abs(), b.abs()), KERNEL_RTOL)
 
     # timing at the serving shape (C=128)
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
@@ -422,6 +461,10 @@ def kernel_phase(device) -> dict:
         lib_ms = time_ms(lambda: torch.sparse.sampled_addmm(pattern, a, bt, beta=0.0))
     except (RuntimeError, NotImplementedError) as e:
         log(f"  library SDDMM unavailable ({type(e).__name__}: {str(e)[:120]})")
+    log(f"  sddmm bound: {b_ms:.5f} ms by {b_by} ({nbytes(cols, vals, a, b, sd_out) / 1e6:.1f} MB, a and b read "
+        f"once each); where a and b are one tensor, as in the smoothness term, it reads "
+        f"{nbytes(cols, vals, a, sd_out) / 1e6:.1f} MB: {nbytes(cols, vals, a, sd_out) / HBM_BYTES_PER_S * 1e3:.5f} ms "
+        f"(information only)")
     report["sddmm"] = {
         "ms": time_ms(lambda: kernels.sddmm(cols, vals, a, b)),
         "cold_ms": cold_ms(lambda: kernels.sddmm(cols, vals, a, b), flush),
@@ -430,6 +473,10 @@ def kernel_phase(device) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(cols, vals, a, b, sd_out),
         "flops": 2 * nnz * FEATURES,
     }
+    l2_bytes = nnz * FEATURES * 4 + nbytes(cols, vals, a, sd_out)
+    log(f"  sddmm: the gathers read {nnz * FEATURES * 4 / 1e6:.1f} MB of b rows through the L2 cache; with a, the "
+        f"pattern and the output the kernel moves {l2_bytes / 1e6:.1f} MB, {l2_bytes / report['sddmm']['ms'] / 1e9:.2f} "
+        f"TB/s at its warm time")
     # ell_matmul at the widths of the backward's sums: C=120 over the transpose map
     x120 = torch.randn(BUCKET, FEATURES, device=device, generator=gen)
     report["ell_matmul"]["ms_c120"] = time_ms(lambda: kernels.ell_matmul(cols, vals, x120))
@@ -1069,6 +1116,10 @@ def main() -> int:
     log(f"  nvcc build {info['seconds']:.2f} s -> {info['path']}" if "seconds" in info
         else f"  library already built: {info['path']}")
     registers = ptxas_report(info.get("log", ""))
+    sddmm_regs = {k: v for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS["sddmm"])}
+    if not sddmm_regs or any(v.get("registers", 99) > 64 or v.get("spill_stores") or v.get("spill_loads")
+                             for v in sddmm_regs.values()):
+        raise AssertionError(f"the SDDMM kernel must fit in 64 registers without spills: {sddmm_regs}")
     sass_check(info["path"])
     phase("build", t0)
 
@@ -1114,6 +1165,8 @@ def main() -> int:
             "library_call": r["library_call"], "max_err_vs_plain": r["max_abs_err"], "kernel_ms": r["ms"],
             "bytes": r["bytes"], "flops": r["flops"], "card": smi, "cold_ms": r["cold_ms"],
             "registers": {k: v.get("registers") for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS[kname])},
+            "spill_bytes": {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                            for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS[kname])},
         })
         if kname == "bsr_matmul":
             entries[-1].update(fp32_fma_bound_ms=r["fp32_fma_bound_ms"], fp32_fma_bound_by=r["fp32_fma_bound_by"])

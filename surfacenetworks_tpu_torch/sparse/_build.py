@@ -26,7 +26,8 @@ NVCC_FLAGS = [
 ]
 
 _lib: ctypes.CDLL | None = None
-# what the last build did: seconds, nvcc's report, the library's path
+# what the last build did: seconds, nvcc's report (registers and spills of
+# each kernel), the library's path
 build_info: dict = {}
 
 
@@ -45,8 +46,10 @@ def build() -> Path:
     exists; return the library's path."""
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libsnx_spmm_{digest}.so"
+    report = lib.with_suffix(".ptxas.txt")  # nvcc's report, kept for later loads of the same build
     if lib.exists():
         build_info.setdefault("path", str(lib))
+        build_info.setdefault("log", report.read_text() if report.exists() else "")
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
@@ -56,6 +59,7 @@ def build() -> Path:
     seconds = time.perf_counter() - t0
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stderr}")
+    report.write_text(res.stderr + res.stdout)
     os.replace(tmp, lib)
     build_info.update(seconds=seconds, log=res.stderr + res.stdout, path=str(lib))
     return lib

@@ -372,26 +372,80 @@ bsr_spmm_kernel(const int* __restrict__ block_cols, const float* __restrict__ bl
 // SDDMM at an ELL pattern:
 //   out[b, r, k] = <a[b, r], b[b, cols[b, r, k]]> where vals[b, r, k] != 0, else 0
 //
-// One warp per row r.  Each lane keeps its float4 of a[r] in registers (the
-// first 128 channels; wider rows read the rest again from L1).  The row's K
-// (col, val) pairs are handed round with shuffles, as in ell_spmm_kernel; for
-// each live slot the warp reads b[col] with 16-byte loads, forms the lanes'
-// partial products and reduces them with an xor butterfly, after which every
-// lane holds the dot product.  Lane s keeps slot s's result, so the row's K
-// outputs leave in one coalesced store.  Padding slots (val == 0) give 0, and
-// a column outside [0, n) gives 0 rather than a read out of bounds (a guard
-// only: the host range-checks the pattern).
+// Replaces surfacenetworks_tpu/sparse/pallas_kernels.py::_sddmm_call.
+// Bound: bytes.  At R=N=7040, K=16, C=120 it reads a and b (3.4 MB each)
+// and the pattern (0.9 MB) once and writes 0.45 MB: 8.1 MB, 0.0024 ms at
+// 3.35 TB/s (4.7 MB, 0.0014 ms, where a and b are one tensor, as in the
+// smoothness term).  As in ell_spmm_kernel, each row of b is gathered by
+// every row that references it (about 7), so the L2 cache serves several
+// times b's bytes, and a row's gathers are round trips to it.
+//
+// Design: one warp per row r, 16-byte lanes along the channel axis.  Dead
+// slots cost nothing: each lane reads one (col, val) pair of the row's
+// current 32 slots, and a ballot over val != 0 (and a column in [0, n))
+// gives the live slots as a mask, walked in slot order wherever the padding
+// sits.  They are taken in chunks of kSddmmChunk: the warp learns the
+// chunk's columns by shuffles, issues all its gathers of b[col] into
+// registers and only then forms each lane's partial dots, one per slot.  A
+// transposing reduction sums them over the warp: each xor step hands half
+// of a lane's values to its partner and adds the half it keeps, so a chunk
+// of 4 costs 2 + 1 + 1 + 1 + 1 = 6 shuffles where a butterfly per slot costs
+// 20, and slot i's dot lands in lane 8 i, from where its own lane takes it;
+// the row's K outputs leave in one coalesced store.  It adds the same pairs
+// of lanes in the same tree as a butterfly, so its sums have a butterfly's
+// bits.  Channels past the first 128 (C > 128) take further passes over the
+// same chunks, each adding its reduced dots to the outputs, so nothing is
+// held across passes.  Every output is summed in one fixed order without
+// atomics: two launches on the same inputs agree bit for bit.  Padding
+// slots give exactly 0; a column outside [0, n) gives 0 and is never read (a
+// guard only: the host range-checks the pattern).
+//
+// Chunks of 4 rather than 8, and blocks of 4 warps rather than 8: at 48
+// registers 40 warps fit on an SM, and rows in flight matter more here than
+// gathers in flight per row (chunks of 8 need 64 registers and ran slower;
+// so did blocks of 8 warps).
+//
+// Measured by chip_smoke.py at R=N=7040, K=16, C=120 on an NVIDIA H100 80GB
+// HBM3 at 700.00 W: 0.00728 ms warm (33% of the byte bound), 0.01229 ms with
+// a cold L2 cache; 48 registers, no spills.  The L2 cache then serves about
+// 28 MB (b's rows gathered ~7 times each, a, the pattern), 3.9 TB/s, about
+// what ell_spmm_kernel reaches on the same gathers: that rate, not the byte
+// bound, is what holds the kernel.
 // ---------------------------------------------------------------------------
+constexpr int kSddmmChunk = 4;      // live slots whose gathers are in flight together
+constexpr int kSddmmThreads = 128;  // 4 warps, one row each
+
 __device__ __forceinline__ float dot4(float4 u, float4 v) {
   return fmaf(u.x, v.x, fmaf(u.y, v.y, fmaf(u.z, v.z, u.w * v.w)));
 }
 
+// Sums each of v[0..N) over the warp's 32 lanes (N a power of 2 up to 32);
+// on return lane l holds the sum of v[l / (32 / N)].  Each of the first
+// log2 N steps keeps half of a lane's values, adds the partner's matching
+// half and hands its other half on; the rest is a butterfly on one value.
+template <int N>
+__device__ __forceinline__ float transposing_sum(float (&v)[N], int lane) {
+  int off = 16;
+#pragma unroll
+  for (int h = N / 2; h >= 1; h /= 2, off /= 2) {
+    const bool upper = lane & off;  // this lane keeps v[h, 2h), its partner v[0, h)
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      v[i] = (upper ? v[i + h] : v[i]) + __shfl_xor_sync(0xffffffffu, upper ? v[i] : v[i + h], off);
+    }
+  }
+#pragma unroll
+  for (; off >= 1; off /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+  return v[0];
+}
+
 template <bool VEC4>
-__global__ void sddmm_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
-                             const float* __restrict__ a, const float* __restrict__ b,
-                             float* __restrict__ out, int batch, int rows, int k, int n, int c) {
+__global__ void __launch_bounds__(kSddmmThreads, 8)
+sddmm_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
+             const float* __restrict__ a, const float* __restrict__ b,
+             float* __restrict__ out, int batch, int rows, int k, int n, int c) {
   const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const long long row = static_cast<long long>(blockIdx.x) * (kSddmmThreads / 32) + (threadIdx.x >> 5);
   if (row >= static_cast<long long>(batch) * rows) return;  // whole warp leaves together
   const long long bi = row / rows;
   const int* row_cols = cols + row * k;
@@ -402,26 +456,42 @@ __global__ void sddmm_kernel(const int* __restrict__ cols, const float* __restri
 
   const int width = VEC4 ? c / 4 : c;  // channel axis in units of float4 or float
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 a0 = lane < width ? load4<VEC4>(arow, lane) : zero;
   for (int s0 = 0; s0 < k; s0 += 32) {
+    const int ns = min(32, k - s0);
     int my_col = 0;
     float my_val = 0.f;
-    if (s0 + lane < k) {
+    if (lane < ns) {
       my_col = row_cols[s0 + lane];
       my_val = row_vals[s0 + lane];
     }
+    const bool my_live = my_val != 0.f && my_col >= 0 && my_col < n;
+    const unsigned live_slots = __ballot_sync(0xffffffffu, my_live);
+    const int n_live = __popc(live_slots);
+    const int my_rank = __popc(live_slots & ((1u << lane) - 1u));  // live slots before mine
     float my_out = 0.f;
-    const int ns = min(32, k - s0);
-    for (int s = 0; s < ns; ++s) {
-      const float v = __shfl_sync(0xffffffffu, my_val, s);
-      const int col = __shfl_sync(0xffffffffu, my_col, s);
-      if (v == 0.f || col < 0 || col >= n) continue;  // warp-uniform
-      const float* brow = bb + static_cast<long long>(col) * c;
-      float p = lane < width ? dot4(a0, load4<VEC4>(brow, lane)) : 0.f;
-      for (int j = lane + 32; j < width; j += 32) p += dot4(load4<VEC4>(arow, j), load4<VEC4>(brow, j));
+    for (int j0 = 0; j0 < width; j0 += 32) {
+      const int j = j0 + lane;
+      const bool live = j < width;
+      unsigned todo = live_slots;
+      for (int r0 = 0; r0 < n_live; r0 += kSddmmChunk) {
+        // every gather of the chunk in flight before any product
+        float4 bv[kSddmmChunk];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (lane == s) my_out = p;
+        for (int i = 0; i < kSddmmChunk; ++i) {
+          const int s = todo ? __ffs(todo) - 1 : 0;  // live slot r0 + i, if any
+          todo &= todo - 1;
+          const int col = __shfl_sync(0xffffffffu, my_col, s);
+          bv[i] = live && r0 + i < n_live ? load4<VEC4>(bb + static_cast<long long>(col) * c, j) : zero;
+        }
+        const float4 av = live ? load4<VEC4>(arow, j) : zero;
+        float part[kSddmmChunk];
+#pragma unroll
+        for (int i = 0; i < kSddmmChunk; ++i) part[i] = dot4(av, bv[i]);
+        const float dot = transposing_sum(part, lane);  // live slot r0 + i's dot in lane i * 32 / kSddmmChunk
+        const int i = my_rank - r0;
+        const float mine = __shfl_sync(0xffffffffu, dot, (i & (kSddmmChunk - 1)) * (32 / kSddmmChunk));
+        if (my_live && i >= 0 && i < kSddmmChunk) my_out += mine;
+      }
     }
     if (lane < ns) orow[s0 + lane] = my_out;
   }
@@ -494,15 +564,14 @@ int snx_sddmm(const void* cols, const void* vals, const void* a, const void* b, 
               int batch, int rows, int k, int n, int c, int vec4, void* stream) {
   const long long total = static_cast<long long>(batch) * rows;
   if (total == 0 || k == 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;  // 8 warps, one row each
-  const unsigned blocks = static_cast<unsigned>((total + threads / 32 - 1) / (threads / 32));
+  const unsigned blocks = static_cast<unsigned>((total + kSddmmThreads / 32 - 1) / (kSddmmThreads / 32));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec4) {
-    sddmm_kernel<true><<<blocks, threads, 0, s>>>(
+    sddmm_kernel<true><<<blocks, kSddmmThreads, 0, s>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals), static_cast<const float*>(a),
         static_cast<const float*>(b), static_cast<float*>(out), batch, rows, k, n, c);
   } else {
-    sddmm_kernel<false><<<blocks, threads, 0, s>>>(
+    sddmm_kernel<false><<<blocks, kSddmmThreads, 0, s>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals), static_cast<const float*>(a),
         static_cast<const float*>(b), static_cast<float*>(out), batch, rows, k, n, c);
   }

@@ -43,13 +43,21 @@ are not differentiable: ``sparse/ops.py`` wraps them in autograd Functions.
 ``sddmm`` replaces ``_sddmm_call`` (``pallas_kernels.py:277-352``).
   Bound on the H100: bytes.  At R=N=7040, K=16, C=120 it reads a and b
   (3.4 MB each) and the pattern (0.9 MB) once and writes 0.45 MB, about
-  8.1 MB, for about 27 MFLOP.  Design: as ``ell_matmul`` read the other way
-  round.  One warp per row keeps its a[r] in registers (C=120 is 30 lanes of
-  float4), takes the row's (col, val) pairs by shuffles, reads each live
-  slot's b[col] with 16-byte loads and reduces the lanes' products with an
-  xor butterfly.  The TPU kernel's one MXU product per 128-row tile against
-  a densified ``window`` band, with the K slots picked out by
-  compare-selects, was matrix-unit machinery; ``window`` is ignored here.
+  8.1 MB (0.0024 ms), for about 12 MFLOP; where a and b are one tensor, as
+  in the smoothness term, 4.7 MB (0.0014 ms).  Design: as ``ell_matmul``
+  read the other way round, one warp per row with 16-byte lanes along the
+  channel axis.  A ballot over the row's slots gives its live ones in slot
+  order, wherever the padding sits, so dead slots cost nothing.  They are
+  taken in chunks of 4: all of a chunk's gathers of b[col] are issued
+  before any product, and one transposing reduction (6 shuffles, where a
+  butterfly per slot takes 20) leaves each slot's dot in a fixed lane, from
+  which the row's K outputs leave in one coalesced store.  One fixed order
+  of summation, no atomics: two launches agree bit for bit.  48 registers,
+  so 40 warps fit on an SM.  Measured by ``chip_smoke.py`` on an NVIDIA
+  H100 80GB HBM3 at 700.00 W: 0.00728 ms warm, 0.01229 ms with a cold L2
+  cache.  The TPU kernel's one MXU product per 128-row tile against a densified
+  ``window`` band, with the K slots picked out by compare-selects, was
+  matrix-unit machinery; ``window`` is ignored here.
 """
 
 from __future__ import annotations

@@ -103,21 +103,50 @@ def test_wrapper_refuses_other_devices(name):
         getattr(kernels, name)(*t)
 
 
-def test_sddmm_plain_matches_xla_and_pallas():
-    """Unbatched, on a mesh Laplacian's packed pattern (``window > 0``), and
-    with padding slots: against ``_sddmm_xla`` and the Pallas kernel."""
+def _sddmm_pattern(case: str):
+    """A mesh Laplacian's packed pattern (R=N=256, K=16, with padding slots)
+    and the channel count for ``case``: as packed (``mesh``); each row's
+    slots permuted, so padding sits between live slots (``interleaved``);
+    permuted and cut to K=5 or widened to K=17 by one more live slot; or
+    permuted at C=3 and C=130 (the kernel's scalar path, and more than 128
+    channels)."""
     _, _, L = blob_laplacian(5, 200)
     m = tell.ell_from_scipy(L, k=16, n_rows=256, n_cols=256)
-    assert m.window > 0 and (m.vals == 0).any()
+    cols, vals = m.cols.numpy(), m.vals.numpy()
+    c = {"c3": 3, "c130": 130}.get(case, 120)
+    if case != "mesh":
+        perm = np.argsort(np.random.default_rng(11).random(cols.shape), axis=1)
+        cols, vals = np.take_along_axis(cols, perm, 1), np.take_along_axis(vals, perm, 1)
+        live = vals != 0
+        assert (~live[:, :-1] & live[:, 1:]).any()  # a live slot after a padding slot
+    if case == "k5":
+        cols, vals = cols[:, :5], vals[:, :5]
+    elif case == "k17":  # one more live slot: the previous row's first live column
+        first = np.argmax(vals != 0, axis=1)[:, None]
+        extra_cols = np.roll(np.take_along_axis(cols, first, 1), 1, 0)
+        extra_vals = np.roll(np.take_along_axis(vals, first, 1), 1, 0)
+        cols, vals = np.concatenate([cols, extra_cols], 1), np.concatenate([vals, extra_vals], 1)
+    cols, vals = np.ascontiguousarray(cols), np.ascontiguousarray(vals)
+    window = m.window if case == "mesh" else tell._ell_window(cols, vals, 256)
+    assert window == jell._ell_window(cols, vals, 256) and window > 0 and (vals == 0).any()
+    return cols, vals, window, c
+
+
+@pytest.mark.parametrize("case", ["mesh", "interleaved", "k5", "k17", "c3", "c130"])
+def test_sddmm_plain_matches_xla_and_pallas(case):
+    """Unbatched, on a mesh Laplacian's packed pattern (``window > 0``) with
+    padding slots, at the kernel's edges (``_sddmm_pattern``): against
+    ``_sddmm_xla`` and the Pallas kernel."""
+    cols, vals, window, c = _sddmm_pattern(case)
     rng = np.random.default_rng(7)
-    a = rng.normal(size=(256, 120)).astype(np.float32)
-    b = rng.normal(size=(256, 120)).astype(np.float32)
-    port = kernels.sddmm_plain(m.cols, m.vals, torch.from_numpy(a), torch.from_numpy(b))
-    assert port.shape == (256, 16) and port.dtype == torch.float32
-    assert (port[m.vals == 0] == 0).all()
-    args = (jnp.asarray(m.cols.numpy()), jnp.asarray(m.vals.numpy()), jnp.asarray(a), jnp.asarray(b))
+    a = rng.normal(size=(256, c)).astype(np.float32)
+    b = rng.normal(size=(256, c)).astype(np.float32)
+    port = kernels.sddmm_plain(torch.from_numpy(cols), torch.from_numpy(vals), torch.from_numpy(a), torch.from_numpy(b))
+    assert port.shape == (256, cols.shape[1]) and port.dtype == torch.float32
+    assert (port[torch.from_numpy(vals) == 0] == 0).all()
+    args = (jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(a), jnp.asarray(b))
     assert_close(port.numpy(), jops._sddmm_xla(*args), RTOL, "vs _sddmm_xla")
-    assert_close(port.numpy(), pallas_kernels.sddmm(*args, m.window), RTOL, "vs pallas sddmm")
+    assert_close(port.numpy(), pallas_kernels.sddmm(*args, window), RTOL, "vs pallas sddmm")
 
 
 def test_sddmm_plain_batched_matches_xla():
