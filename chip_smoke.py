@@ -10,7 +10,7 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives two paths, each with the launch counts set to 0 just before it and
+drives three paths, each with the launch counts set to 0 just before it and
 read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
@@ -23,7 +23,13 @@ read just after:
   kernel, and a trunk whose operator applies return detached outputs must
   fail that check.  Then each format runs the 8 updates and the test pass
   again from step 0's weights, optimizer state and random state, and the
-  two runs' losses and test metrics must be bit-identical.
+  two runs' losses and test metrics must be bit-identical;
+* normal training: ``cli/train_normal.py`` (LapDeepModel-15 at width 128,
+  batch 1) taking 8 updates on ~7,000-vertex synthetic meshes in ELL and
+  in BSR, then its test pass; step 0 is checked against fp64 as above (the
+  detached mutant refused); the run is repeated from step 0's state, and
+  resumed in a fresh trainer from a checkpoint saved after step 4, and both
+  must be bit-identical.  The dense format, at 2,000 vertices, is measured.
 
 It needs a CUDA card; without one (or without the package beside it) it
 exits non-zero and prints no result.  The last two lines are a JSON
@@ -32,10 +38,14 @@ exits non-zero and prints no result.  The last two lines are a JSON
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,7 +95,8 @@ SERVE_FRO_RTOL = 0.75
 # ell_matmul.
 FEATURES = 120
 TRAIN_ARGS = ["--synthetic", "4", "--synthetic-points", "7000", "--seed", "0", "--layer", str(LAYERS),
-              "--smooth-reg", "0.1", "--xz-rotate", "--num-updates", "8", "--num-epoch", "1", "--device", "cuda"]
+              "--smooth-reg", "0.1", "--xz-rotate", "--num-updates", "8", "--num-epoch", "1", "--device", "cuda",
+              "--deser-option", "no"]
 EXPECTED_PER_STEP = {
     "ell": {"bsr_matmul": 0, "ell_matmul": 69, "sddmm": 2},
     "bsr": {"bsr_matmul": 64, "ell_matmul": 5, "sddmm": 2},
@@ -105,6 +116,32 @@ EXPECTED_PER_STEP = {
 STEP0_LOSS_RTOL = 1.0
 STEP0_CHAIN_RTOL = 0.2
 STEP0_PARAM_RTOL = 0.5
+# Normal training, the JAX package's first workload: LapDeepModel-15 at width
+# 128 regressing vertex normals, batch 1 (the trainer's defaults), on five
+# synthetic ~7,000-vertex meshes (the 80/20 split gives 4 train meshes and 1
+# test mesh), 8 updates and the test pass per format; only the run length is
+# cut.  Per step 16 applies forward and 16 stored-transpose applies backward:
+# 32 launches of the format's kernel and nothing else.  The dense run, at one
+# bucket of at most 2,048 vertices where ``auto`` picks dense, is measured
+# only: it launches no kernel.
+NORMAL_ARGS = ["--synthetic", "5", "--synthetic-points", "7000", "--seed", "0", "--layer", str(LAYERS),
+               "--batch-size", "1", "--num-updates", "8", "--num-epoch", "1", "--device", "cuda"]
+NORMAL_DENSE_ARGS = ["--synthetic", "5", "--synthetic-points", "2000", "--seed", "0", "--layer", str(LAYERS),
+                     "--batch-size", "1", "--num-updates", "8", "--num-epoch", "1", "--device", "cuda"]
+NORMAL_PER_STEP = {
+    "ell": {"bsr_matmul": 0, "ell_matmul": 32, "sddmm": 0},
+    "bsr": {"bsr_matmul": 32, "ell_matmul": 0, "sddmm": 0},
+    "dense": {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0},
+}
+NORMAL_RESUME_AFTER = 4  # the checkpoint is saved after this many updates
+# Normal step 0 against the same step in fp64 with dense operators and no
+# kernel: the loss as a relative error, then module by module with the FAUST
+# step's bounds (STEP0_CHAIN_RTOL, STEP0_PARAM_RTOL).  fp32 rounding alone
+# moves the loss: the same step in fp32 with dense operators and no kernel
+# read 0.034 of fp64 on the card, the kernel steps 0.0044 (ELL) and 0.022
+# (BSR); module by module the chain read at most 0.084 and the parameter
+# gradients 0.20, the detached mutant's chain 1.0 (PERF.md, section 6).
+NORMAL_STEP0_LOSS_RTOL = 0.1
 
 
 def log(msg: str) -> None:
@@ -706,17 +743,21 @@ def _plain_smoothness(op, f):
     return -(w * scores).sum() / (w.sum() + 1e-9)
 
 
-def _dense64(trainer, i):
-    """Sample ``i``'s operator as a dense fp64 ``[1, N, N]`` on the card (the
-    fp32 values the kernels see, widened)."""
+def _dense_fp64(L, N: int, device):
+    """A scipy operator as a dense fp64 ``[1, N, N]`` on the card (the fp32
+    values the kernels see, widened)."""
     import torch
 
-    dev, N = trainer.device, trainer.N
-    L = trainer.data[i]["L"].tocoo()
-    dense = torch.zeros(N, N, dtype=torch.float64, device=dev)
-    dense.index_put_((torch.from_numpy(L.row).long().to(dev), torch.from_numpy(L.col).long().to(dev)),
-                     torch.from_numpy(L.data.astype(np.float32).astype(np.float64)).to(dev), accumulate=True)
+    L = L.tocoo()
+    dense = torch.zeros(N, N, dtype=torch.float64, device=device)
+    dense.index_put_((torch.from_numpy(L.row).long().to(device), torch.from_numpy(L.col).long().to(device)),
+                     torch.from_numpy(L.data.astype(np.float32).astype(np.float64)).to(device), accumulate=True)
     return dense[None]
+
+
+def _dense64(trainer, i):
+    """Sample ``i``'s operator as a dense fp64 ``[1, N, N]`` on the card."""
+    return _dense_fp64(trainer.data[i]["L"], trainer.N, trainer.device)
 
 
 def _plain_head(trainer, fa, fb, ia, ib):
@@ -786,27 +827,28 @@ def _rel_fro(got, ref) -> float:
     return float((got.double() - ref).norm() / ref.norm().clamp_min(1e-300))
 
 
-def modulewise_errors(trainer, state0, cap: StepCapture, loss: float, grads: dict, ia, ib, dense) -> dict:
-    """Step 0 against fp64, module by module at the card's own activations:
-    the loss and the features' cotangent from the head in fp64 on the card's
-    features; then for each trunk module, both shapes' calls in fp64 (dense
-    operators, no kernel) from the card's inputs and output cotangents, and
-    their input cotangents and parameter gradients held against the card's.
-    Returns each comparison's relative (Frobenius) error."""
+def modulewise_errors(cap: StepCapture, loss: float, grads: dict, head64, trunk64, masks, dense,
+                      prefix: str) -> dict:
+    """A step against fp64, module by module at the card's own activations:
+    the loss and the trunk outputs' cotangents from ``head64`` (the loss in
+    fp64, no kernel) on the card's trunk outputs; then for each trunk
+    module, each of its calls in fp64 on ``trunk64`` (dense operators, no
+    kernel) from the card's inputs and output cotangents, and their input
+    cotangents and parameter gradients (``grads[prefix + name]``) held
+    against the card's.  Returns each comparison's relative (Frobenius)
+    error."""
     import torch
 
     errs = {}
     feats = [rec["out"].double().requires_grad_() for rec in cap.calls["trunk"]]
-    loss64 = _plain_head(trainer, feats[0], feats[1], ia, ib)
+    loss64 = head64(*feats)
     loss64.backward()
     errs["loss on the card's features"] = abs(loss - float(loss64.detach())) / abs(float(loss64.detach()))
     for k, (f, rec) in enumerate(zip(feats, cap.calls["trunk"])):
         errs[f"head cotangent of features {'AB'[k]}"] = _rel_fro(rec["g"], f.grad)
-    model64 = _model(state0, trainer.device, torch.float64)
-    masks = [trainer.dev_sample(i)["mask"].double() for i in (ia, ib)]
     for j, name in enumerate(cap.names):
-        mod = getattr(model64.trunk, name)
-        for k in range(2):
+        mod = getattr(trunk64, name)
+        for k in range(len(feats)):
             rec = cap.calls[name][k]
             if name == "conv2":  # from the last block's output, through the trunk's ELU
                 x = cap.calls[cap.names[j - 1]][k]["out"].double().requires_grad_()
@@ -818,32 +860,41 @@ def modulewise_errors(trainer, state0, cap: StepCapture, loss: float, grads: dic
             if j > 0:  # the card's cotangent at this input is the one at the previous module's output
                 errs[f"{name} input cotangent {'AB'[k]}"] = _rel_fro(cap.calls[cap.names[j - 1]][k]["g"], x.grad)
         for pname, p in mod.named_parameters():
-            errs[f"{name}.{pname} gradient"] = _rel_fro(grads[f"trunk.{name}.{pname}"], p.grad)
+            errs[f"{name}.{pname} gradient"] = _rel_fro(grads[f"{prefix}{name}.{pname}"], p.grad)
     return errs
 
 
-def _detached_step0(trainer, state0, ia, ib, rots):
-    """The mutant: step 0 with operator applies that return the kernel's
-    output detached (no gradient flows through L), captured like the real
-    step.  Returns (loss, gradients, capture)."""
-    from surfacenetworks_tpu_torch.cli.train_correspondence import objective
-    from surfacenetworks_tpu_torch.models import SiameseModel
+@contextlib.contextmanager
+def detached_applies():
+    """The mutant's operator applies: the kernel's output detached, so no
+    gradient flows through L."""
     from surfacenetworks_tpu_torch.nn import blocks
     from surfacenetworks_tpu_torch.sparse import kernels
 
-    model = SiameseModel("lap", LAYERS)
-    model.load_state_dict(state0)
-    model = model.to(trainer.device)
-    cap = StepCapture(model.trunk)
     saved = blocks.spmm, blocks.bsr_spmm
     blocks.spmm = lambda op, x: kernels.ell_matmul(op.fwd.cols, op.fwd.vals, x.contiguous()).detach()
     blocks.bsr_spmm = lambda op, x: kernels.bsr_matmul(op.fwd.block_cols, op.fwd.block_vals, x.contiguous()).detach()
     try:
-        loss = objective(model, trainer.dev_sample(ia), trainer.dev_sample(ib), [float(r) for r in rots],
-                         trainer.pair_target(ia, ib), trainer.smooth_w, trainer.use_stream)
-        loss.backward()
+        yield
     finally:
         blocks.spmm, blocks.bsr_spmm = saved
+
+
+def _detached_step0(trainer, state0, ia, ib, rots):
+    """The mutant: step 0 with detached operator applies, captured like the
+    real step.  Returns (loss, gradients, capture)."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli.train_correspondence import objective
+
+    model = _model(state0, trainer.device, torch.float32)
+    cap = StepCapture(model.trunk)
+    try:
+        with detached_applies():
+            loss = objective(model, trainer.dev_sample(ia), trainer.dev_sample(ib), [float(r) for r in rots],
+                             trainer.pair_target(ia, ib), trainer.smooth_w, trainer.use_stream)
+            loss.backward()
+    finally:
         cap.remove()
     return float(loss.detach()), {k: p.grad.detach() for k, p in model.named_parameters()}, cap
 
@@ -870,9 +921,11 @@ def step0_check(fmt, trainer, state0, res, ia, ib, rots) -> list[str]:
         f"max {max(plain):.3e}")
     if not loss_rel <= STEP0_LOSS_RTOL:
         failures.append(f"{fmt}: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
+    masks = [trainer.dev_sample(i)["mask"].double() for i in (ia, ib)]
     for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
                                       "mutant detached applies": _detached_step0(trainer, state0, ia, ib, rots)}.items():
-        errs = modulewise_errors(trainer, state0, cap, loss, grads, ia, ib, dense)
+        errs = modulewise_errors(cap, loss, grads, lambda fa, fb: _plain_head(trainer, fa, fb, ia, ib),
+                                 _model(state0, trainer.device, torch.float64).trunk, masks, dense, "trunk.")
         groups = {"chain": {k: v for k, v in errs.items() if not k.endswith("gradient")},
                   "parameter": {k: v for k, v in errs.items() if k.endswith("gradient")}}
         worst = {g: max(e.items(), key=lambda kv: kv[1]) for g, e in groups.items()}
@@ -1029,6 +1082,297 @@ def train_phase(device, smi: str) -> tuple[dict, dict]:
     return counts, results
 
 
+def _lap_model(state0, device, dtype):
+    from surfacenetworks_tpu_torch.models import LapDeepModel
+
+    model = LapDeepModel(3, 3, layers=LAYERS)
+    model.load_state_dict(state0)
+    return model.to(device, dtype)
+
+
+def _normal_trainer(argv, label: str, logged: list | None = None):
+    from surfacenetworks_tpu_torch.cli import train_normal as tn
+
+    def tlog(m):
+        if logged is not None:
+            logged.append(str(m))
+        log(f"  [normal {label}] {m}")
+
+    return tn.NormalTrainer(tn.parser.parse_args(argv), log=tlog)
+
+
+def _sampler_like(saved, samples):
+    """A copy of the sampler ``saved`` (order, position, random state) over
+    ``samples``, a trainer's own sample dicts, matched by name: the device
+    dataset finds a sample by the object."""
+    by_name = {s["name"]: s for s in samples}
+    out = copy.copy(saved)
+    out.items = [by_name[s["name"]] for s in saved.items]
+    out.rng = copy.deepcopy(saved.rng)
+    return out
+
+
+def _normal_snapshot(trainer) -> dict:
+    """What a repeat of the run starts from: weights, optimizer state, both
+    samplers' state and the update count."""
+    return {"params": {k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+            "opt": copy.deepcopy(trainer.opt.state_dict()),
+            "train_sampler": _sampler_like(trainer.train_sampler, trainer.train_samples),
+            "test_sampler": _sampler_like(trainer.test_sampler, trainer.test_samples), "step": trainer.step}
+
+
+def _normal_run(trainer, steps: int, capture: bool = False, profile_last: bool = False,
+                save_after: int = 0, ckpt: str = "") -> dict:
+    """``steps`` updates, each timed (host wall of a synchronised update,
+    batch gather included, and CUDA events), then the test pass; the launch
+    counts of each step and of the test pass; step 0 under the module-wise
+    capture, the last step under the profiler, a checkpoint after
+    ``save_after`` updates."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    res = {"loss": [], "mad": [], "wall_ms": [], "device_ms": [], "per_step": [], "names": []}
+    for u in range(steps):
+        samples = trainer.train_sampler.next_batch()
+        res["names"].append([s["name"] for s in samples])
+        before = dict(kernels.launches)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        batch = trainer.batch(samples)
+        if capture and u == 0:
+            cap = StepCapture(trainer.model)
+            loss, mad = trainer.update(batch)
+            cap.remove()
+            res.update(capture=cap, batch0=batch, samples0=samples)
+        elif profile_last and u == steps - 1:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                loss, mad = trainer.update(batch)
+                torch.cuda.synchronize()
+        else:
+            loss, mad = trainer.update(batch)
+        end.record()
+        end.synchronize()
+        res["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["device_ms"].append(start.elapsed_time(end))
+        res["loss"].append(float(loss))
+        res["mad"].append(float(mad))
+        res["per_step"].append({k: kernels.launches[k] - before[k] for k in before})
+        if capture and u == 0:
+            res["grads0"] = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+        if save_after and u + 1 == save_after:
+            trainer.save(ckpt, 0)
+            res["sampler_after_save"] = _sampler_like(trainer.train_sampler, trainer.train_samples)
+    res["params"] = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    before = dict(kernels.launches)
+    res["test"] = trainer.test_pass(0)
+    res["test_launches"] = {k: kernels.launches[k] - before[k] for k in before}
+    if profile_last:
+        rows = device_rows(prof)
+        res["busy_ms"] = sum(r[0] for r in rows) / 1e3
+        res["device_ops"] = sum(r[1] for r in rows)
+        res["top"] = rows[:8] + [r for r in rows[8:] if "spmm_kernel" in r[2]]
+    steady = slice(1, steps - 1)  # not the first step, not the profiled one
+    res["device_ms_median"] = float(np.median(res["device_ms"][steady]))
+    res["wall_ms_median"] = float(np.median(res["wall_ms"][steady]))
+    if profile_last:
+        res["idle_share"] = 1 - res["busy_ms"] / res["wall_ms_median"]
+    return res
+
+
+def normal_step0_check(fmt, trainer, state0, res) -> list[str]:
+    """Step 0 against the same step in fp64 with dense operators and no
+    kernel: the loss, then module by module (``modulewise_errors``); the
+    detached-apply mutant must fail the module-wise check.  Returns the
+    failures."""
+    import torch
+
+    from surfacenetworks_tpu_torch.train import losses
+
+    dev, b = trainer.device, res["batch0"]
+    dense = torch.cat([_dense_fp64(s["L"], trainer.buckets.n_vertices, dev) for s in res["samples0"]])
+    mask64, tgt64 = b.mask.double(), b.targets.double()
+
+    def dense_step(dtype):
+        model = _lap_model(state0, dev, dtype)
+        out = model(dense.to(dtype), b.mask.to(dtype), b.inputs.to(dtype))
+        loss = losses.normal_cosine_loss(out, b.mask.to(dtype), b.targets.to(dtype))
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.detach() for k, p in model.named_parameters()}
+
+    ref_loss, ref_grads = dense_step(torch.float64)
+    loss_rel = abs(res["loss"][0] - ref_loss) / abs(ref_loss)
+    whole = [_rel_fro(g, ref_grads[k]) for k, g in res["grads0"].items()]
+    p_loss, p_grads = dense_step(torch.float32)
+    plain = [_rel_fro(g, ref_grads[k]) for k, g in p_grads.items()]
+    log(f"  normal {fmt}: step 0 vs the whole fp64 step: loss {res['loss'][0]:.8f} vs {ref_loss:.8f} "
+        f"(rel {loss_rel:.3e}, tol {NORMAL_STEP0_LOSS_RTOL:g}); gradient rel_fro median {np.median(whole):.3e}, "
+        f"max {max(whole):.3e}; the same step in fp32 with dense operators and no kernel: loss rel "
+        f"{abs(p_loss - ref_loss) / abs(ref_loss):.3e}, gradient rel_fro median {np.median(plain):.3e}, "
+        f"max {max(plain):.3e}")
+    failures = []
+    if not loss_rel <= NORMAL_STEP0_LOSS_RTOL:
+        failures.append(f"normal {fmt}: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
+
+    mutant = _lap_model(state0, dev, torch.float32)
+    mcap = StepCapture(mutant)
+    try:
+        with detached_applies():
+            mloss = losses.normal_cosine_loss(mutant(b.operator, b.mask, b.inputs), b.mask, b.targets)
+            mloss.backward()
+    finally:
+        mcap.remove()
+    mgrads = {k: p.grad.detach() for k, p in mutant.named_parameters()}
+
+    def head64(out):
+        return losses.normal_cosine_loss(out, mask64, tgt64)
+
+    res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(whole)),
+                    "whole_grad_fro_max": max(whole)}
+    for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
+                                      "mutant detached applies": (float(mloss.detach()), mgrads, mcap)}.items():
+        errs = modulewise_errors(cap, loss, grads, head64, _lap_model(state0, dev, torch.float64), [mask64], [dense], "")
+        groups = {"chain": {k: v for k, v in errs.items() if not k.endswith("gradient")},
+                  "parameter": {k: v for k, v in errs.items() if k.endswith("gradient")}}
+        worst_ = {g: max(e.items(), key=lambda kv: kv[1]) for g, e in groups.items()}
+        ok = worst_["chain"][1] <= STEP0_CHAIN_RTOL and worst_["parameter"][1] <= STEP0_PARAM_RTOL
+        verdict = ("ok" if ok else "FAIL") if label == "real" else ("NOT refused" if ok else "refused")
+        log(f"  normal {fmt} {label}: module-wise vs fp64: loss on the card's output rel "
+            f"{errs['loss on the card\'s features']:.3e}; chain ({len(groups['chain'])}) worst "
+            f"{worst_['chain'][0]} {worst_['chain'][1]:.3e} (tol {STEP0_CHAIN_RTOL:g}), median "
+            f"{np.median(list(groups['chain'].values())):.3e}; parameter gradients ({len(groups['parameter'])}) "
+            f"worst {worst_['parameter'][0]} {worst_['parameter'][1]:.3e} (tol {STEP0_PARAM_RTOL:g}), "
+            f"median {np.median(list(groups['parameter'].values())):.3e}; {verdict}")
+        if label == "real":
+            res["step0"]["worst"] = worst_
+            if not ok:
+                failures.append(f"normal {fmt}: step 0 disagrees with fp64 at {worst_}")
+        else:
+            res["step0"]["mutant_worst"] = worst_
+            if ok:
+                failures.append(f"normal {fmt}: the detached-apply mutant passes the step-0 check")
+    return failures
+
+
+def normal_phase(device, smi: str) -> tuple[dict, dict]:
+    """The normal trainer (``cli/train_normal.py``) in ELL and BSR at ~7,000
+    vertices: per format, counts at 0, 8 updates and the test pass; step 0
+    against fp64; the run repeated from step 0's state, and resumed from a
+    checkpoint saved after step 4 in a fresh trainer, both bit for bit.
+    Then the dense run at 2,000 vertices, measured.  Returns the launch
+    counts of the ELL and BSR paths together, and per-format results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    tmp = tempfile.mkdtemp(prefix="normal_smoke_")
+    try:
+        trainers, snaps, results, path_counts = {}, {}, {}, {}
+        for fmt in ("ell", "bsr"):
+            t0 = time.perf_counter()
+            trainer = _normal_trainer(NORMAL_ARGS + ["--operator-format", fmt], fmt)
+            snaps[fmt] = _normal_snapshot(trainer)
+            trainers[fmt] = trainer
+            log(f"  normal {fmt}: bucket {trainer.buckets.n_vertices}, "
+                f"{'bsr_k ' + str(trainer.buckets.bsr_k) if fmt == 'bsr' else 'ell_k 16'}, train meshes "
+                f"{[s['V'].shape[0] for s in trainer.train_samples]}, test meshes "
+                f"{[s['V'].shape[0] for s in trainer.test_samples]}; {trainer.data_stats()}; "
+                f"set-up {time.perf_counter() - t0:.2f} s")
+        for fmt, trainer in trainers.items():
+            # the main path of this format: every count is 0 just before it and read just after
+            kernels.reset_launch_counts()
+            results[fmt] = _normal_run(trainer, 8, capture=True, profile_last=True,
+                                       save_after=NORMAL_RESUME_AFTER, ckpt=os.path.join(tmp, f"{fmt}.pt"))
+            path_counts[fmt] = dict(kernels.launches)
+            log(f"  normal {fmt}: launches on the path (8 updates + test pass) {path_counts[fmt]}")
+
+        for fmt, trainer in trainers.items():
+            res, snap = results[fmt], snaps[fmt]
+            # the same 8 updates and test pass from step 0's weights, optimizer and sampler state
+            trainer.model.load_state_dict(snap["params"])
+            trainer.opt.load_state_dict(snap["opt"])
+            trainer.train_sampler = _sampler_like(snap["train_sampler"], trainer.train_samples)
+            trainer.test_sampler = _sampler_like(snap["test_sampler"], trainer.test_samples)
+            trainer.step = snap["step"]
+            again = _normal_run(trainer, 8)
+            res["reproduced"] = all(again[k] == res[k] for k in ("names", "loss", "mad", "test")) and all(
+                torch.equal(v, res["params"][k]) for k, v in again["params"].items())
+            log(f"  normal {fmt}: two runs of 8 steps from the same state: losses run 1 "
+                f"{[repr(v) for v in res['loss']]}, run 2 {[repr(v) for v in again['loss']]}; test (loss, mad) "
+                f"run 1 {res['test']}, run 2 {again['test']}; {'bit-identical' if res['reproduced'] else 'DIFFERENT'}")
+            # a fresh trainer resumed from the checkpoint saved after step 4
+            logged = []
+            fresh = _normal_trainer(NORMAL_ARGS + ["--operator-format", fmt, "--deser", os.path.join(tmp, f"{fmt}.pt")],
+                                    f"{fmt} resumed", logged)
+            # the sampler is not in a checkpoint, as in the JAX package
+            fresh.train_sampler = _sampler_like(res["sampler_after_save"], fresh.train_samples)
+            resumed = _normal_run(fresh, 8 - NORMAL_RESUME_AFTER)
+            res["resumed"] = (fresh.start_epoch == 0 and not any("not loaded" in m for m in logged)
+                              and resumed["names"] == res["names"][NORMAL_RESUME_AFTER:]
+                              and resumed["loss"] == res["loss"][NORMAL_RESUME_AFTER:]
+                              and resumed["mad"] == res["mad"][NORMAL_RESUME_AFTER:]
+                              and resumed["test"] == res["test"] and fresh.step == 8
+                              and all(torch.equal(v, res["params"][k]) for k, v in resumed["params"].items()))
+            log(f"  normal {fmt}: resumed after step {NORMAL_RESUME_AFTER} in a fresh trainer: steps "
+                f"{NORMAL_RESUME_AFTER + 1}-8 losses {[repr(v) for v in resumed['loss']]} vs "
+                f"{[repr(v) for v in res['loss'][NORMAL_RESUME_AFTER:]]}; test {resumed['test']}; update count "
+                f"{fresh.step}; {'bit-identical' if res['resumed'] else 'DIFFERENT'}")
+            del fresh
+
+        t0 = time.perf_counter()
+        dense_trainer = _normal_trainer(NORMAL_DENSE_ARGS, "dense")
+        log(f"  normal dense: format {dense_trainer.fmt}, bucket {dense_trainer.buckets.n_vertices}; "
+            f"set-up {time.perf_counter() - t0:.2f} s")
+        kernels.reset_launch_counts()
+        results["dense"] = _normal_run(dense_trainer, 8, profile_last=True)
+        path_counts["dense"] = dict(kernels.launches)
+        results["dense"]["fmt"] = dense_trainer.fmt
+
+        failures = []
+        for fmt, res in results.items():
+            log(f"  normal {fmt}: losses {['%.6f' % v for v in res['loss']]}, mad {['%.4f' % v for v in res['mad']]}; "
+                f"test (loss, mad) {res['test']} ({smi})")
+            log(f"  normal {fmt}: device ms per step (CUDA events) {['%.2f' % v for v in res['device_ms']]}, median "
+                f"of steps 1-6 {res['device_ms_median']:.3f}; host wall per step {['%.2f' % v for v in res['wall_ms']]}, "
+                f"median {res['wall_ms_median']:.3f}; profiled step device busy {res['busy_ms']:.3f} ms in "
+                f"{res['device_ops']} device ops, idle share {res['idle_share']:.3f} ({smi})")
+            for dev_us, count, key in res["top"]:
+                log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+            log(f"  normal {fmt}: launches per step {res['per_step'][0]} (expected {NORMAL_PER_STEP[fmt]}); "
+                f"test pass {res['test_launches']}")
+            if not (np.isfinite(res["loss"]).all() and np.isfinite(res["mad"]).all() and np.isfinite(res["test"]).all()):
+                failures.append(f"normal {fmt}: a loss or metric is not finite")
+            if any(step != NORMAL_PER_STEP[fmt] for step in res["per_step"]):
+                failures.append(f"normal {fmt}: launches per step {res['per_step']} != {NORMAL_PER_STEP[fmt]}")
+            test_expected = {k: v // 2 for k, v in NORMAL_PER_STEP[fmt].items()}  # one test mesh, forward only
+            if res["test_launches"] != test_expected:
+                failures.append(f"normal {fmt}: test-pass launches {res['test_launches']} != {test_expected}")
+        if results["dense"]["fmt"] != "dense":
+            failures.append(f"normal: auto picked {results['dense']['fmt']} at 2,000 vertices, not dense")
+        for fmt in ("ell", "bsr"):
+            res = results[fmt]
+            if not res["reproduced"]:
+                failures.append(f"normal {fmt}: a second run of the 8 steps from the same state differs")
+            if not res["resumed"]:
+                failures.append(f"normal {fmt}: steps 5-8 resumed from the checkpoint differ from the run")
+            for k, g in res["grads0"].items():
+                if not (bool(torch.isfinite(g).all()) and bool((g != 0).any())):
+                    failures.append(f"normal {fmt}: step-0 gradient of {k} is not finite and non-zero")
+            failures += normal_step0_check(fmt, trainers[fmt], snaps[fmt]["params"], res)
+            for key in ("capture", "grads0", "batch0", "samples0", "params", "sampler_after_save"):
+                del res[key]
+        if failures:
+            raise AssertionError("; ".join(failures))
+        counts = {k: path_counts["ell"][k] + path_counts["bsr"][k] for k in path_counts["ell"]}
+        return counts, results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNEL_SYMBOLS = {"bsr_matmul": "bsr_spmm_kernel", "ell_matmul": "ell_spmm_kernel", "sddmm": "sddmm_kernel"}
 
 
@@ -1143,13 +1487,18 @@ def main() -> int:
     train_counts, trained = train_phase(device, smi)
     phase("train", t0)
 
+    t0 = time.perf_counter()
+    normal_counts, normal = normal_phase(device, smi)
+    phase("normal train", t0)
+
     replaces = {
         "bsr_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:163",
         "ell_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:239",
         "sddmm": "surfacenetworks_tpu/sparse/pallas_kernels.py:320",
     }
-    # ``launches`` counts the train path, which runs all three kernels;
-    # ``serve_launches`` the serving path.  ``ms`` and ``max_abs_err`` are
+    # ``launches`` counts the FAUST train path, which runs all three kernels;
+    # ``serve_launches`` the serving path, ``normal_train_launches`` the
+    # normal trainer's ELL and BSR paths.  ``ms`` and ``max_abs_err`` are
     # kept under the names ``kernel_ms`` and ``max_err_vs_plain`` too, so
     # readers of either set of names find them.
     entries = []
@@ -1160,6 +1509,7 @@ def main() -> int:
         entries.append({
             "name": kname, "route": "cuda", "source": "surfacenetworks_tpu_torch/sparse/csrc/spmm.cu",
             "replaces": replaces[kname], "launches": train_counts[kname], "serve_launches": counts[kname],
+            "normal_train_launches": normal_counts[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_call": r["library_call"], "max_err_vs_plain": r["max_abs_err"], "kernel_ms": r["ms"],
@@ -1175,6 +1525,9 @@ def main() -> int:
     log("train median per step: " + ", ".join(
         f"{fmt} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms"
         for fmt, r in trained.items()) + f" ({smi})")
+    log("normal train median per step: " + ", ".join(
+        f"{fmt} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms, "
+        f"idle share {r['idle_share']:.3f}" for fmt, r in normal.items()) + f" ({smi})")
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

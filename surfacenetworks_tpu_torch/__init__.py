@@ -10,14 +10,19 @@ Module map (port -> JAX package):
 
 ================================  =================================================
 ``geometry/mesh_ops.py``          ``geometry/mesh_ops.py`` (igl-style Laplacian,
-                                  vertex normals, permutations)
+                                  vertex normals, permutations,
+                                  ``uniform_mesh_scale``)
+``geometry/io.py``                ``geometry/io.py`` (OBJ and ascii PLY)
 ``data/datasets.py``              ``data/datasets.py`` (``random_blob_mesh``,
                                   ``synthetic_normal_dataset`` Lap branch,
                                   ``synthetic_correspondence_dataset``,
-                                  ``load_faust_npz``)
+                                  ``load_faust_npz``, ``load_normal_sample``,
+                                  ``scan_mesh_tree``, ``load_normal_npz``)
 ``data/batching.py``              ``data/batching.py`` (buckets, RCM, BSR slot
                                   fit, ``laplacian_batch``,
                                   ``correspondence_batch``)
+``data/pipeline.py``              ``data/pipeline.py`` (pack-once samples,
+                                  ``DeviceDataset``, ``IndexedBatch``)
 ``sparse/ell.py``                 ``sparse/ell.py`` (``EllMatrix``, packing)
 ``sparse/bsr.py``                 ``sparse/bsr.py`` (``BsrMatrix``, RCM, packing)
 ``sparse/ops.py``                 ``sparse/ops.py`` + apply half of ``sparse/bsr.py``
@@ -32,12 +37,23 @@ Module map (port -> JAX package):
 ``models/normal_models.py``       ``models/normal_models.py`` (``LapDeepModel``)
 ``models/correspondence.py``      ``models/correspondence.py`` (Lap ``Model``,
                                   ``SiameseModel``)
-``train/losses.py``               ``train/losses.py`` (dcel, streaming dcel,
+``train/losses.py``               ``train/losses.py`` (normal cosine loss and
+                                  angle metric, dcel, streaming dcel,
                                   smoothness, FAUST metrics)
-``train/optim.py``                ``train/optim.py`` (``adam``)
+``train/optim.py``                ``train/optim.py`` (``adam``, optax's
+                                  AMSGrad, ``sgd``, ``epoch_halving_schedule``)
+``train/checkpoint.py``           ``train/checkpoint.py`` + ``train/loop.py::
+                                  check_finite`` (the port's ``torch.save``
+                                  files and the JAX package's flax-msgpack
+                                  files)
+``cli/common.py``                 ``cli/common.py`` (log, metrics and config
+                                  files, ``EpochSampler``, ``Throughput``)
+``cli/train_normal.py``           ``cli/train_normal.py`` (single-device
+                                  ``--model lap`` path)
 ``cli/train_correspondence.py``   ``cli/train_correspondence.py`` (single-device
                                   Lap/dcel path)
-``convert.py``                    (new) flax params -> ``state_dict``
+``convert.py``                    (new) flax params -> ``state_dict``, optax
+                                  state -> optimizer ``state_dict``
 ``serve.py``                      ``serve.py`` + ``cli/export_model.py``
                                   (``NormalServer``)
 ================================  =================================================

@@ -18,9 +18,15 @@ label tables go to the device once; each (shape A, shape B) pair's dcel
 target is computed once on the device and cached, with its inverse (built on
 the host) for the streaming head's backward.  Updates run one per step
 in the order of the epoch plan (the JAX trainer's ``--no-epoch-scan``
-order).  Flags of the JAX trainer that later slices bring (other trunks and
-losses, checkpoints, multihost, graph-parallel, the light path, bf16, remat,
-the intrinsic Laplacian, eval-only) are refused when given.
+order).  The run writes the JAX trainer's files: ``log/<prefix>.log``,
+``log/<prefix>.metrics.jsonl``, ``cfg/<prefix>.json``, and checkpoints at
+``pts/<prefix>_state.pt`` every 10th epoch and at the end; with
+``--deser-option auto`` (the default) or ``force`` it resumes from
+``--deser-path`` or that checkpoint where the file exists (the port's ``.pt``
+or the JAX package's ``.msgpack``).  Flags of the JAX trainer that later
+slices bring (other trunks and losses, multihost, graph-parallel, the light
+path, bf16, remat, the intrinsic Laplacian, eval-only) are refused when
+given.
 """
 
 from __future__ import annotations
@@ -31,11 +37,11 @@ import itertools
 import os
 import random
 import sys
-import time
 
 import numpy as np
 import torch
 
+from surfacenetworks_tpu_torch.cli.common import MetricsLogger, Throughput, dump_config, make_logger
 from surfacenetworks_tpu_torch.data import Buckets, correspondence_batch, datasets, round_up
 from surfacenetworks_tpu_torch.data.batching import (
     _fixed_k_operator,
@@ -46,7 +52,7 @@ from surfacenetworks_tpu_torch.data.batching import (
 from surfacenetworks_tpu_torch.models import SiameseModel, init_weights
 from surfacenetworks_tpu_torch.serve import resolve_device
 from surfacenetworks_tpu_torch.sparse import stack_operators
-from surfacenetworks_tpu_torch.train import losses, optim
+from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
 
 parser = argparse.ArgumentParser(description="Dense correspondence (PyTorch, one device)")
 parser.add_argument("--datapath", default="train_FAUST_npz/")
@@ -75,9 +81,10 @@ parser.add_argument("--smooth-reg", type=float, default=0.0,
                     help="weight of the feature-smoothness term (losses.corr_feature_smoothness)")
 parser.add_argument("--seed", type=int, default=17)
 parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-# flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--deser-option", default="no", choices=["auto", "no", "force"])
+parser.add_argument("--deser-option", default="auto", choices=["auto", "no", "force"],
+                    help="resume from --deser-path or the run's checkpoint where it exists (auto, force), or not (no)")
 parser.add_argument("--deser-path", default=None)
+# flags of the JAX trainer that later slices bring: refused when given
 parser.add_argument("--bf16", action="store_true")
 parser.add_argument("--remat", action="store_true")
 parser.add_argument("--intrinsic", action="store_true")
@@ -98,8 +105,6 @@ def refuse_unported(args) -> None:
     refused = {
         "--model other than lap": args.model != "lap",
         "--loss other than dcel": args.loss != "dcel",
-        "--deser-option other than no (checkpoints are not ported yet)": args.deser_option != "no",
-        "--deser-path (checkpoints are not ported yet)": args.deser_path is not None,
         "--bf16": args.bf16,
         "--remat": args.remat,
         "--intrinsic": args.intrinsic,
@@ -203,6 +208,7 @@ class CorrespondenceTrainer:
         self.model.to(self.device)
         self.opt = optim.adam(self.model.parameters(), float(args.lr), weight_decay=1e-5)
         log(f"Num parameters {sum(p.numel() for p in self.model.parameters())}")
+        self.step = 0  # updates taken (the JAX trainer's TrainState.step)
         self.use_stream = bool(args.streaming_head) or (not args.no_streaming_head and self.N >= 4096)
         if self.use_stream and not args.streaming_head:
             log("streaming head ON by default (bucket >= 4096 vertices; --no-streaming-head opts out)")
@@ -297,18 +303,22 @@ class CorrespondenceTrainer:
 
     def update(self, ia: int, ib: int, rots) -> torch.Tensor:
         inv = self.pair_inverse(ia, ib) if self.use_stream else None
-        return train_step(self.model, self.opt, self.dev_sample(ia), self.dev_sample(ib),
+        loss = train_step(self.model, self.opt, self.dev_sample(ia), self.dev_sample(ib),
                           [float(r) for r in rots], self.pair_target(ia, ib), self.smooth_w, self.use_stream, inv)
+        self.step += 1
+        return loss
 
-    def train_epoch(self, epoch: int) -> float:
+    def train_epoch(self, epoch: int, metrics_log: MetricsLogger | None = None) -> float:
         pair_idx, rots = self.epoch_plan()
-        t0 = time.perf_counter()
+        meter = Throughput()
         total = torch.zeros((), device=self.device)
         for (ia, ib), r in zip(pair_idx, rots):
             total += self.update(int(ia), int(ib), r)
+            meter.tick()
         mean = float(total) / len(pair_idx)
-        dt = time.perf_counter() - t0
-        self.log(f"Train epoch {epoch}, loss {mean}, {len(pair_idx) / dt:.2f} steps/s")
+        self.log(f"Train epoch {epoch}, loss {mean}, {meter.report()}")
+        if metrics_log is not None:
+            metrics_log.write(epoch, "train", loss=mean, steps_per_s=meter.steps_per_s)
         return mean
 
     @torch.no_grad()
@@ -328,7 +338,7 @@ class CorrespondenceTrainer:
                                                da["mask"][0, :, 0], db["mask"][0, :, 0])
         return losses.corr_delta_cross_entropy(logits, GAB), metrics
 
-    def test_pass(self, epoch: int) -> dict | None:
+    def test_pass(self, epoch: int, metrics_log: MetricsLogger | None = None) -> dict | None:
         """Mean loss and metrics over the test pairs (20 drawn ones unless
         ``--complete-test``); None without test samples."""
         test_ids = list(range(self.n_train, len(self.data)))
@@ -345,30 +355,36 @@ class CorrespondenceTrainer:
         mean = {k: v / len(pairs) for k, v in sums.items()}
         mstr = " ".join(f"{k} {mean[k]:.4f}" for k in sorted(mean) if k != "loss")
         self.log(f"Test epoch {epoch}, loss {mean['loss']}, {mstr}")
+        if metrics_log is not None:
+            metrics_log.write(epoch, "test", **mean)
         return mean
 
-
-def _file_logger(path: str):
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-
-    def log(msg) -> None:
-        print(msg, flush=True)
-        with open(path, "a") as f:
-            f.write(f"{msg}\n")
-
-    return log
+    def save(self, path: str, epoch: int) -> None:
+        checkpoint.save_checkpoint(path, self.model, self.opt, epoch, self.step)
 
 
 def main(argv=None) -> dict:
     """Train; returns each epoch's mean train loss and test results."""
     args = parser.parse_args(argv)
-    log = _file_logger(os.path.join(args.result_dir, "log", f"{args.result_prefix}.txt"))
+    log_dir = os.path.join(args.result_dir, "log")
+    log = make_logger(args.result_prefix, log_dir)
     log(args)
+    dump_config(args, os.path.join(args.result_dir, "cfg", f"{args.result_prefix}.json"))
     trainer = CorrespondenceTrainer(args, log)
+    ckpt_path = os.path.join(args.result_dir, "pts", f"{args.result_prefix}_state.pt")
+    if args.deser_option != "no":
+        path = args.deser_path or ckpt_path
+        if os.path.isfile(path):
+            log("Continue...")
+            _, trainer.step, _ = checkpoint.restore_training(path, trainer.model, trainer.opt)
+    metrics_log = MetricsLogger(args.result_prefix, log_dir)
     history: dict = {"train_loss": [], "test": []}
     for epoch in range(args.num_epoch):
-        history["train_loss"].append(trainer.train_epoch(epoch))
-        history["test"].append(trainer.test_pass(epoch))
+        history["train_loss"].append(trainer.train_epoch(epoch, metrics_log))
+        history["test"].append(trainer.test_pass(epoch, metrics_log))
+        if epoch % 10 == 9:
+            trainer.save(ckpt_path, epoch)
+    trainer.save(ckpt_path, args.num_epoch - 1)
     return history
 
 

@@ -5,12 +5,19 @@
 ``synthetic_normal_dataset`` and ``synthetic_correspondence_dataset`` are
 copies of the JAX package's generators (same RNG call order), so the same
 seed gives the same meshes, labels, geodesic proxies and Laplacians in both
-packages.  ``load_faust_npz`` reads the reference's FAUST ``.npz`` layout.
+packages.  ``load_faust_npz`` reads the reference's FAUST ``.npz`` layout;
+``load_normal_sample``, ``scan_mesh_tree`` and ``load_normal_npz`` read the
+normal trainer's mesh trees and the JAX package's ``cli.preprocess normal``
+output (Laplacian samples only).
 """
 
 from __future__ import annotations
 
+import glob
+import os
+
 import numpy as np
+import scipy.sparse as sp
 from scipy.spatial import ConvexHull
 
 from surfacenetworks_tpu_torch import geometry as geo
@@ -121,3 +128,60 @@ def load_faust_npz(path: str) -> dict:
             out["L"] = seq["L"].item().astype(np.float32).tocsr()
         out["input"] = out["V"]
     return out
+
+
+def load_normal_sample(obj_path: str, hack: float = 1.0, uniform_mesh: bool = False) -> dict | None:
+    """One ``.obj``/``.ply`` as a normal-prediction sample with its
+    igl-style Laplacian (the JAX package's ``operator="lap"``): the target
+    is the vertex normals of the mesh as read, the input and the Laplacian
+    those of the mesh after ``uniform_mesh`` scaling.  NaN or empty meshes,
+    and Laplacians with non-finite values, give None."""
+    loader = geo.load_ply if obj_path.lower().endswith(".ply") else geo.load_obj
+    V, F = loader(obj_path)
+    if V.size == 0 or F.size == 0:
+        return None
+    target = geo.vertex_normals(V, F)
+    if not np.isfinite(target).all():
+        return None
+    if uniform_mesh:
+        V = geo.uniform_mesh_scale(V)
+    L = geo.igl_style_laplacian(V, F, hack=hack)
+    if not np.isfinite(L.data).all():
+        return None
+    return {
+        "V": V.astype(np.float32),
+        "F": F.astype(np.int32),
+        "input": V.astype(np.float32),
+        "target": target.astype(np.float32),
+        "name": obj_path,
+        "L": L,
+    }
+
+
+def scan_obj_tree(data_path: str) -> list[str]:
+    """Every ``.obj`` under ``data_path``, recursively, sorted."""
+    return sorted(glob.glob(os.path.join(data_path, "**/*.obj"), recursive=True))
+
+
+def scan_mesh_tree(data_path: str) -> list[str]:
+    """Preprocessed ``.npz`` samples under ``data_path`` if there are any,
+    else its ``.obj`` files (sorted, recursive)."""
+    npz = sorted(glob.glob(os.path.join(data_path, "**/*.npz"), recursive=True))
+    return npz if npz else scan_obj_tree(data_path)
+
+
+def load_normal_npz(path: str) -> dict:
+    """One normal-prediction sample written by the JAX package's
+    ``cli.preprocess normal`` (Laplacian already assembled)."""
+    with np.load(path, allow_pickle=False) as z:
+        if "L_data" not in z:
+            raise NotImplementedError(f"{path}: a Dirac sample; only Laplacian samples are ported")
+        V = z["V"].astype(np.float32)
+        return {
+            "V": V,
+            "F": z["F"].astype(np.int32),
+            "input": V,
+            "target": z["target"].astype(np.float32),
+            "name": path,
+            "L": sp.csr_matrix((z["L_data"], z["L_indices"], z["L_indptr"]), shape=tuple(z["L_shape"])),
+        }

@@ -1,5 +1,6 @@
 """Host-side geometry (counterpart of ``surfacenetworks_tpu/geometry``)."""
 
+from surfacenetworks_tpu_torch.geometry.io import load_obj, load_ply, save_obj, save_ply
 from surfacenetworks_tpu_torch.geometry.mesh_ops import (
     cotangent_weights,
     edge_lengths,
@@ -8,6 +9,7 @@ from surfacenetworks_tpu_torch.geometry.mesh_ops import (
     igl_style_laplacian,
     invert_permutation,
     laplacian,
+    uniform_mesh_scale,
     vertex_normals,
 )
 
@@ -19,5 +21,10 @@ __all__ = [
     "igl_style_laplacian",
     "invert_permutation",
     "laplacian",
+    "load_obj",
+    "load_ply",
+    "save_obj",
+    "save_ply",
+    "uniform_mesh_scale",
     "vertex_normals",
 ]

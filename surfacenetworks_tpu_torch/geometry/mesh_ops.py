@@ -160,6 +160,13 @@ def vertex_normals(V: np.ndarray, F: np.ndarray) -> np.ndarray:
     return N / np.maximum(norm, 1e-30)
 
 
+def uniform_mesh_scale(V: np.ndarray) -> np.ndarray:
+    """The normal trainer's ``--uniform-mesh`` scaling: shift to the origin
+    corner, divide by the largest coordinate."""
+    V = V - np.min(V, axis=0)
+    return V / np.max(V)
+
+
 def invert_permutation(p: np.ndarray) -> np.ndarray:
     s = np.empty(p.size, p.dtype)
     s[p] = np.arange(p.size)

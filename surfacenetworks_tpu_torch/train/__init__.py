@@ -1,5 +1,5 @@
-"""Losses, metrics and the optimizer (counterpart of ``surfacenetworks_tpu/train``)."""
+"""Losses, metrics, optimizers and checkpoints (counterpart of ``surfacenetworks_tpu/train``)."""
 
-from surfacenetworks_tpu_torch.train import losses, optim
+from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
 
-__all__ = ["losses", "optim"]
+__all__ = ["checkpoint", "losses", "optim"]

@@ -1,7 +1,10 @@
-"""Dense-correspondence losses and metrics (counterpart of
-``surfacenetworks_tpu/train/losses.py``, the dcel family, the SDDMM
+"""Losses and metrics (counterpart of ``surfacenetworks_tpu/train/losses.py``:
+the normal-prediction loss and metric, the dcel family, the SDDMM
 smoothness term and the FAUST metrics).
 
+* ``normal_cosine_loss`` and ``mean_angle_deviation``: the normal trainer's
+  masked ``1 - <n_hat, n>^2`` loss and its angle metric, which is computed
+  without a graph (``arccos`` has an infinite derivative at 1).
 * ``aggregate_G``: the ground-truth cost ``GA[:, liA[lB]] + GB[liB[lA], :]``.
 * ``corr_feature_smoothness``: ``--smooth-reg``; cosine scores of
   neighbouring vertices' features through ``sparse.sddmm``, at the operator's
@@ -29,6 +32,30 @@ from surfacenetworks_tpu_torch.sparse.ell import transpose_slot_map
 from surfacenetworks_tpu_torch.sparse.ops import sddmm
 
 BLOCK = 512  # rows per tile of the streaming head
+
+
+def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of ``values [B,N]`` over the entries where ``mask [B,N,1]`` is 1."""
+    m = mask[..., 0]
+    return (values * m).sum() / m.sum().clamp_min(1.0)
+
+
+def _unit(outputs: torch.Tensor) -> torch.Tensor:
+    return outputs / torch.linalg.vector_norm(outputs, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def normal_cosine_loss(outputs: torch.Tensor, mask: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean over valid vertices of ``1 - <n_hat, n>^2``, ``n_hat`` the
+    L2-normalised prediction (norm clamped at 1e-12)."""
+    inner = (_unit(outputs) * targets).sum(-1)
+    return _masked_mean(1.0 - inner**2, mask)
+
+
+@torch.no_grad()
+def mean_angle_deviation(outputs: torch.Tensor, mask: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean over valid vertices of ``arccos |<n_hat, n>|`` (radians)."""
+    inner = (_unit(outputs) * targets).sum(-1).abs().clamp(0.0, 1.0)
+    return _masked_mean(torch.arccos(inner), mask)
 
 
 def aggregate_G(GA, lA, liA, GB, lB, liB):

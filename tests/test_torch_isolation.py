@@ -1,7 +1,7 @@
 """The port imports nothing of JAX: ``surfacenetworks_tpu_torch`` and
-``chip_smoke.py`` must import where jax, jaxlib, flax, optax and the JAX
-package cannot be imported (as on the machine with the card), and no port
-source names them.  Also: the port's entry points refuse to run on the CPU
+``chip_smoke.py`` must import where jax, jaxlib, flax, optax, the JAX
+package, msgpack and matplotlib cannot be imported (as on the machine with
+the card, which has none of them), and no port source names them.  Also: the port's entry points refuse to run on the CPU
 unless asked, and ``chip_smoke.py`` fails without a card or without the
 package beside it."""
 
@@ -16,7 +16,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "surfacenetworks_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "surfacenetworks_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "surfacenetworks_tpu", "msgpack", "matplotlib")
 
 _IMPORT_ALL = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -75,7 +75,7 @@ def test_port_sources_name_no_jax():
 def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
     import torch
 
-    from surfacenetworks_tpu_torch.cli import train_correspondence
+    from surfacenetworks_tpu_torch.cli import train_correspondence, train_normal
     from surfacenetworks_tpu_torch.models import LapDeepModel
     from surfacenetworks_tpu_torch.serve import NormalServer, resolve_device
 
@@ -85,6 +85,9 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_correspondence.main(["--datapath", str(REPO / "tests" / "fixtures" / "faust"),
                                    "--result-dir", str(tmp_path), "--num-epoch", "1", "--num-updates", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_normal.main(["--data-path", str(REPO / "tests" / "fixtures" / "objs"), "--layer", "2",
+                           "--result-dir", str(tmp_path), "--num-epoch", "1", "--num-updates", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

@@ -9,6 +9,7 @@ given features (fp32, another summation order); the whole step's are in
 ``test_siamese_step_matches_jax``."""
 
 import copy
+import json
 import pathlib
 
 import jax
@@ -270,10 +271,12 @@ def test_train_correspondence_main_cpu(fmt, tmp_path):
     assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"][0])
     (test,) = hist["test"]
     assert np.isfinite(test["loss"]) and 0.0 <= test["exact"] <= 1.0 and np.isfinite(test["geo_mean"])
-    assert (tmp_path / "log" / "test.txt").read_text().count("Train epoch 0") == 1
+    assert (tmp_path / "log" / "test.log").read_text().count("Train epoch 0") == 1
+    assert [r["split"] for r in map(json.loads, (tmp_path / "log" / "test.metrics.jsonl").read_text().splitlines())] == [
+        "train", "test"]
 
 
-@pytest.mark.parametrize("flag", [["--loss", "sl1"], ["--model", "dir"], ["--deser-option", "auto"], ["--bf16"],
+@pytest.mark.parametrize("flag", [["--loss", "sl1"], ["--model", "dir"], ["--loss", "cel"], ["--bf16"],
                                   ["--remat"], ["--intrinsic"], ["--eval-only"], ["--graph-parallel", "2"],
                                   ["--multihost"]])
 def test_train_correspondence_refuses_unported_flags(flag, tmp_path):
