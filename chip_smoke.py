@@ -10,7 +10,7 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives three paths, each with the launch counts set to 0 just before it and
+drives four paths, each with the launch counts set to 0 just before it and
 read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
@@ -29,7 +29,14 @@ read just after:
   in BSR, then its test pass; step 0 is checked against fp64 as above (the
   detached mutant refused); the run is repeated from step 0's state, and
   resumed in a fresh trainer from a checkpoint saved after step 4, and both
-  must be bit-identical.  The dense format, at 2,000 vertices, is measured.
+  must be bit-identical.  The dense format, at 2,000 vertices, is measured;
+* Dirac training: the same trainer with ``--model dirac`` (DirDeepModel-15,
+  the structured Dirac tables packed to a base valence): each Dirac apply
+  and backward against the fp64 scipy pair (mutants without a slot or
+  without the overflow rows refused) and timed, then 8 updates and the test
+  pass, which must launch none of the three kernels; step 0 against fp64
+  module by module (the detached mutant refused); the repeat and the resume
+  bit-identical; the applies' device time and share of the step.
 
 It needs a CUDA card; without one (or without the package beside it) it
 exits non-zero and prints no result.  The last two lines are a JSON
@@ -142,6 +149,37 @@ NORMAL_RESUME_AFTER = 4  # the checkpoint is saved after this many updates
 # (BSR); module by module the chain read at most 0.084 and the parameter
 # gradients 0.20, the detached mutant's chain 1.0 (PERF.md, section 6).
 NORMAL_STEP0_LOSS_RTOL = 0.1
+# Dirac training: the normal trainer with ``--model dirac`` at its defaults,
+# DirDeepModel-15 (8 Dirac blocks, 7 Avg blocks) at width 128, batch 1, on
+# the same five synthetic ~7,000-vertex meshes with Dirac coefficients
+# (buckets 7,000 x 14,000, max valence 16 packed to a base of 8 with 280
+# overflow rows); 8 updates and the test pass.  The Dirac applies are plain
+# PyTorch (a gather and a batched product), so the path launches none of the
+# three kernels, and the smoke asserts so.  Each apply and each backward is
+# held element by element to 1e-5 of its own sum |q| |x| against the fp64
+# scipy pair on the host (|q_fv| reaches 2e4 where the areas are small, so
+# D x cancels as L x does); step 0 against the same step in fp64 on the
+# dense fp64 pair of the float64 vertices (no structured apply), module by
+# module: the parameter gradients with the Lap phases' bound, the chain with
+# its own, DIRAC_STEP0_CHAIN_RTOL.  Against the structured path in fp64 the
+# chain read at most 1.8e-4 on the card, the detached mutant's 1.0: 1e-2
+# leaves a factor of about 50 on the real side and 100 on the mutant's
+# (PERF.md, section 6).
+# Two parameters have a zero gradient in exact arithmetic (DIRAC_NULL_GRADS:
+# the last block's output biases, whose per-channel constant conv2's 'pre'
+# batch norm removes): each card gradient is held to DIRAC_NULL_GRAD_RTOL of
+# the largest fp64 gradient instead, as a Frobenius ratio.
+DIRAC_POINTS = 7000
+DIRAC_ARGS = ["--synthetic", "5", "--synthetic-points", str(DIRAC_POINTS), "--seed", str(SEED), "--model", "dirac",
+              "--layer", str(LAYERS), "--batch-size", "1", "--num-updates", "8", "--num-epoch", "1", "--device", "cuda"]
+DIRAC_STEPS = 8
+DIRAC_BLOCKS = (LAYERS + 1) // 2  # Dirac blocks on even layers: one vf and one fv apply each
+DIRAC_APPLY_RTOL = 1e-5
+DIRAC_STEP0_CHAIN_RTOL = 1e-2
+DIRAC_MUTANT_SCALE = 1.03  # a mutant whose applies pass back cotangents 3% too large must fail it
+DIRAC_NULL_GRAD_RTOL = 1e-4
+DIRAC_RANGE = "dirac apply"  # the profiler range around each apply in the profiled step
+DIRAC_NULL_GRADS = {f"rn{LAYERS - 1}.bn_fc1.fc.bias", f"rn{LAYERS - 1}.bn_fc1.bn.bias"}
 
 
 def log(msg: str) -> None:
@@ -800,22 +838,32 @@ def _dense_step0(trainer, state0, ia, ib, rots, dense, dtype):
 
 
 class StepCapture:
-    """Forward hooks on the trunk and its modules that keep, for each call
-    (shape A, then shape B), the module's inputs and output and, once
-    backward has run, the output's cotangent.  Reading only: the step runs
-    as without them."""
+    """Forward hooks on a model's modules (``conv1``, the blocks ``rn{i}``,
+    ``conv2``) and on the model itself (``trunk``) that keep, for each call
+    (FAUST: shape A, then shape B), the module's inputs and outputs and,
+    once backward has run, each output's cotangent (None where nothing
+    reads the output).  A Dirac block's face output is also read inside the
+    block, so the hook hands on a view of each output and takes the
+    cotangent there: the readers outside the module only.  The values are
+    the same; each tensor's gradient gains at most one more term, and a sum
+    of two terms does not depend on their order.  Reading only: the step
+    runs as without them."""
 
-    def __init__(self, trunk):
-        self.names = ["conv1"] + [f"rn{i}" for i in range(trunk.layers)] + ["conv2"]
+    def __init__(self, model):
+        self.names = ["conv1"] + [f"rn{i}" for i in range(model.layers)] + ["conv2"]
         self.calls = {name: [] for name in self.names + ["trunk"]}
-        mods = [(n, getattr(trunk, n)) for n in self.names] + [("trunk", trunk)]
+        mods = [(n, getattr(model, n)) for n in self.names] + [("trunk", model)]
         self.handles = [m.register_forward_hook(self._hook(n)) for n, m in mods]
 
     def _hook(self, name):
         def hook(module, args, out):
-            rec = {"args": [a.detach() if hasattr(a, "detach") else a for a in args], "out": out.detach()}
-            out.register_hook(lambda g: rec.__setitem__("g", g.detach()))
+            outs = tuple(o.view_as(o) for o in (out if isinstance(out, tuple) else (out,)))
+            rec = {"args": [a.detach() if hasattr(a, "detach") else a for a in args],
+                   "out": [o.detach() for o in outs], "g": [None] * len(outs)}
+            for k, o in enumerate(outs):
+                o.register_hook(lambda g, k=k: rec["g"].__setitem__(k, g.detach()))
             self.calls[name].append(rec)
+            return outs if isinstance(out, tuple) else outs[0]
         return hook
 
     def remove(self) -> None:
@@ -840,28 +888,65 @@ def modulewise_errors(cap: StepCapture, loss: float, grads: dict, head64, trunk6
     import torch
 
     errs = {}
-    feats = [rec["out"].double().requires_grad_() for rec in cap.calls["trunk"]]
+    feats = [rec["out"][0].double().requires_grad_() for rec in cap.calls["trunk"]]
     loss64 = head64(*feats)
     loss64.backward()
     errs["loss on the card's features"] = abs(loss - float(loss64.detach())) / abs(float(loss64.detach()))
     for k, (f, rec) in enumerate(zip(feats, cap.calls["trunk"])):
-        errs[f"head cotangent of features {'AB'[k]}"] = _rel_fro(rec["g"], f.grad)
+        errs[f"head cotangent of features {'AB'[k]}"] = _rel_fro(rec["g"][0], f.grad)
     for j, name in enumerate(cap.names):
         mod = getattr(trunk64, name)
         for k in range(len(feats)):
             rec = cap.calls[name][k]
             if name == "conv2":  # from the last block's output, through the trunk's ELU
-                x = cap.calls[cap.names[j - 1]][k]["out"].double().requires_grad_()
+                x = cap.calls[cap.names[j - 1]][k]["out"][0].double().requires_grad_()
                 out = mod(torch.nn.functional.elu(x))
             else:
                 x = rec["args"][-1].double().requires_grad_()
                 out = mod(x) if name == "conv1" else mod(dense[k], masks[k], x)
-            out.backward(rec["g"].double())
+            out.backward(rec["g"][0].double())
             if j > 0:  # the card's cotangent at this input is the one at the previous module's output
-                errs[f"{name} input cotangent {'AB'[k]}"] = _rel_fro(cap.calls[cap.names[j - 1]][k]["g"], x.grad)
+                errs[f"{name} input cotangent {'AB'[k]}"] = _rel_fro(cap.calls[cap.names[j - 1]][k]["g"][0], x.grad)
         for pname, p in mod.named_parameters():
             errs[f"{name}.{pname} gradient"] = _rel_fro(grads[f"{prefix}{name}.{pname}"], p.grad)
     return errs
+
+
+def judge_step0(what: str, runs: dict, bounds: dict, res: dict) -> list[str]:
+    """The module-wise verdict on step 0.  ``runs`` maps "real" and each
+    mutant's label to their errors against fp64; each run's errors fall in
+    the chain (the loss and the cotangents), the parameter gradients and,
+    where there are any, the null gradients (``... null gradient``), and
+    each group's worst is held to its bound in ``bounds``.  Logs each run,
+    keeps the worst in ``res["step0"]``; the real step must pass and no
+    mutant may.  Returns the failures."""
+    failures = []
+    for label, errs in runs.items():
+        groups = {"chain": {k: v for k, v in errs.items() if not k.endswith("gradient")},
+                  "parameter": {k: v for k, v in errs.items() if k.endswith("gradient") and not k.endswith("null gradient")},
+                  "null": {k: v for k, v in errs.items() if k.endswith("null gradient")}}
+        worst_ = {g: max(e.items(), key=lambda kv: kv[1]) for g, e in groups.items() if e}
+        ok = all(worst_[g][1] <= bounds[g] for g in worst_)
+        verdict = ("ok" if ok else "FAIL") if label == "real" else ("NOT refused" if ok else "refused")
+        loss_key = next(k for k in errs if k.startswith("loss on"))
+        null = (f"; null gradients {sorted(groups['null'])} worst {worst_['null'][1]:.3e} of the largest "
+                f"(tol {bounds['null']:g})" if "null" in worst_ else "")
+        log(f"  {what} {label}: module-wise vs fp64: {loss_key} rel {errs[loss_key]:.3e}; chain ({len(groups['chain'])}) "
+            f"worst {worst_['chain'][0]} {worst_['chain'][1]:.3e} (tol {bounds['chain']:g}), median "
+            f"{np.median(list(groups['chain'].values())):.3e}; parameter gradients ({len(groups['parameter'])}) worst "
+            f"{worst_['parameter'][0]} {worst_['parameter'][1]:.3e} (tol {bounds['parameter']:g}), median "
+            f"{np.median(list(groups['parameter'].values())):.3e}{null}; {verdict}")
+        if label == "real":
+            top = sorted(errs.items(), key=lambda kv: -kv[1])[:6]
+            log(f"  {what} real: largest: " + ", ".join(f"{k} {v:.3e}" for k, v in top))
+            res["step0"]["worst"] = worst_
+            if not ok:
+                failures.append(f"{what}: step 0 disagrees with fp64 at {worst_}")
+        else:
+            res["step0"].setdefault("mutant_worst", {})[label] = worst_
+            if ok:
+                failures.append(f"{what}: the {label} passes the step-0 check")
+    return failures
 
 
 @contextlib.contextmanager
@@ -922,33 +1007,13 @@ def step0_check(fmt, trainer, state0, res, ia, ib, rots) -> list[str]:
     if not loss_rel <= STEP0_LOSS_RTOL:
         failures.append(f"{fmt}: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
     masks = [trainer.dev_sample(i)["mask"].double() for i in (ia, ib)]
-    for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
-                                      "mutant detached applies": _detached_step0(trainer, state0, ia, ib, rots)}.items():
-        errs = modulewise_errors(cap, loss, grads, lambda fa, fb: _plain_head(trainer, fa, fb, ia, ib),
-                                 _model(state0, trainer.device, torch.float64).trunk, masks, dense, "trunk.")
-        groups = {"chain": {k: v for k, v in errs.items() if not k.endswith("gradient")},
-                  "parameter": {k: v for k, v in errs.items() if k.endswith("gradient")}}
-        worst = {g: max(e.items(), key=lambda kv: kv[1]) for g, e in groups.items()}
-        ok = worst["chain"][1] <= STEP0_CHAIN_RTOL and worst["parameter"][1] <= STEP0_PARAM_RTOL
-        verdict = ("ok" if ok else "FAIL") if label == "real" else ("NOT refused" if ok else "refused")
-        log(f"  {fmt} {label}: module-wise vs fp64: loss on the card's features rel "
-            f"{errs['loss on the card\'s features']:.3e}; chain ({len(groups['chain'])}) worst "
-            f"{worst['chain'][0]} {worst['chain'][1]:.3e} (tol {STEP0_CHAIN_RTOL:g}), median "
-            f"{np.median(list(groups['chain'].values())):.3e}; parameter gradients ({len(groups['parameter'])}) "
-            f"worst {worst['parameter'][0]} {worst['parameter'][1]:.3e} (tol {STEP0_PARAM_RTOL:g}), median "
-            f"{np.median(list(groups['parameter'].values())):.3e}; {verdict}")
-        if label == "real":
-            top = sorted(errs.items(), key=lambda kv: -kv[1])[:6]
-            log(f"  {fmt} {label}: largest: " + ", ".join(f"{k} {v:.3e}" for k, v in top))
-            res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(list(whole.values()))),
-                            "worst": worst}
-            if not ok:
-                failures.append(f"{fmt}: step 0 disagrees with fp64 at {worst}")
-        else:
-            res["step0"]["mutant_worst"] = worst
-            if ok:
-                failures.append(f"{fmt}: the detached-apply mutant passes the step-0 check")
-    return failures
+    res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(list(whole.values())))}
+    runs = {label: modulewise_errors(cap, loss, grads, lambda fa, fb: _plain_head(trainer, fa, fb, ia, ib),
+                                     _model(state0, trainer.device, torch.float64).trunk, masks, dense, "trunk.")
+            for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
+                                              "mutant detached applies": _detached_step0(trainer, state0, ia, ib,
+                                                                                         rots)}.items()}
+    return failures + judge_step0(fmt, runs, {"chain": STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL}, res)
 
 
 def train_phase(device, smi: str) -> tuple[dict, dict]:
@@ -1121,13 +1186,15 @@ def _normal_snapshot(trainer) -> dict:
             "test_sampler": _sampler_like(trainer.test_sampler, trainer.test_samples), "step": trainer.step}
 
 
-def _normal_run(trainer, steps: int, capture: bool = False, profile_last: bool = False,
-                save_after: int = 0, ckpt: str = "") -> dict:
+def _normal_run(trainer, steps: int, capture=None, profile_last: bool = False,
+                save_after: int = 0, ckpt: str = "", annotate=None) -> dict:
     """``steps`` updates, each timed (host wall of a synchronised update,
     batch gather included, and CUDA events), then the test pass; the launch
     counts of each step and of the test pass; step 0 under the module-wise
-    capture, the last step under the profiler, a checkpoint after
-    ``save_after`` updates."""
+    capture ``capture(model)``, the last step under the profiler, a
+    checkpoint after ``save_after`` updates.  ``annotate``, a pair
+    (context manager, range name), is entered around the profiled step, and
+    the device time of that range's kernels is kept as ``range_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1144,13 +1211,14 @@ def _normal_run(trainer, steps: int, capture: bool = False, profile_last: bool =
         t0 = time.perf_counter()
         start.record()
         batch = trainer.batch(samples)
-        if capture and u == 0:
-            cap = StepCapture(trainer.model)
+        if capture is not None and u == 0:
+            cap = capture(trainer.model)
             loss, mad = trainer.update(batch)
             cap.remove()
             res.update(capture=cap, batch0=batch, samples0=samples)
         elif profile_last and u == steps - 1:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ranges = annotate[0]() if annotate else contextlib.nullcontext()
+            with ranges, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 loss, mad = trainer.update(batch)
                 torch.cuda.synchronize()
         else:
@@ -1162,7 +1230,7 @@ def _normal_run(trainer, steps: int, capture: bool = False, profile_last: bool =
         res["loss"].append(float(loss))
         res["mad"].append(float(mad))
         res["per_step"].append({k: kernels.launches[k] - before[k] for k in before})
-        if capture and u == 0:
+        if capture is not None and u == 0:
             res["grads0"] = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
         if save_after and u + 1 == save_after:
             trainer.save(ckpt, 0)
@@ -1176,12 +1244,51 @@ def _normal_run(trainer, steps: int, capture: bool = False, profile_last: bool =
         res["busy_ms"] = sum(r[0] for r in rows) / 1e3
         res["device_ops"] = sum(r[1] for r in rows)
         res["top"] = rows[:8] + [r for r in rows[8:] if "spmm_kernel" in r[2]]
+        if annotate:
+            res["range_ms"], res["range_ops"] = range_device_ms(prof, annotate[1])
     steady = slice(1, steps - 1)  # not the first step, not the profiled one
     res["device_ms_median"] = float(np.median(res["device_ms"][steady]))
     res["wall_ms_median"] = float(np.median(res["wall_ms"][steady]))
     if profile_last:
         res["idle_share"] = 1 - res["busy_ms"] / res["wall_ms_median"]
     return res
+
+
+def repeat_and_resume(label: str, trainer, snap: dict, res: dict, resume_argv: list) -> None:
+    """The run's updates and test pass again from step 0's weights,
+    optimizer and sampler state (``snap``), then a fresh trainer resumed
+    from the checkpoint saved after NORMAL_RESUME_AFTER updates
+    (``resume_argv``) taking the rest; sets ``res["reproduced"]`` and
+    ``res["resumed"]``: each bit-identical to the run."""
+    import torch
+
+    steps = len(res["loss"])
+    trainer.model.load_state_dict(snap["params"])
+    trainer.opt.load_state_dict(snap["opt"])
+    trainer.train_sampler = _sampler_like(snap["train_sampler"], trainer.train_samples)
+    trainer.test_sampler = _sampler_like(snap["test_sampler"], trainer.test_samples)
+    trainer.step = snap["step"]
+    again = _normal_run(trainer, steps)
+    res["reproduced"] = all(again[k] == res[k] for k in ("names", "loss", "mad", "test")) and all(
+        torch.equal(v, res["params"][k]) for k, v in again["params"].items())
+    log(f"  {label}: two runs of {steps} steps from the same state: losses run 1 "
+        f"{[repr(v) for v in res['loss']]}, run 2 {[repr(v) for v in again['loss']]}; test (loss, mad) "
+        f"run 1 {res['test']}, run 2 {again['test']}; {'bit-identical' if res['reproduced'] else 'DIFFERENT'}")
+    logged = []
+    fresh = _normal_trainer(resume_argv, f"{label} resumed", logged)
+    # the sampler is not in a checkpoint, as in the JAX package
+    fresh.train_sampler = _sampler_like(res["sampler_after_save"], fresh.train_samples)
+    resumed = _normal_run(fresh, steps - NORMAL_RESUME_AFTER)
+    res["resumed"] = (fresh.start_epoch == 0 and not any("not loaded" in m for m in logged)
+                      and resumed["names"] == res["names"][NORMAL_RESUME_AFTER:]
+                      and resumed["loss"] == res["loss"][NORMAL_RESUME_AFTER:]
+                      and resumed["mad"] == res["mad"][NORMAL_RESUME_AFTER:]
+                      and resumed["test"] == res["test"] and fresh.step == steps
+                      and all(torch.equal(v, res["params"][k]) for k, v in resumed["params"].items()))
+    log(f"  {label}: resumed after step {NORMAL_RESUME_AFTER} in a fresh trainer: steps "
+        f"{NORMAL_RESUME_AFTER + 1}-{steps} losses {[repr(v) for v in resumed['loss']]} vs "
+        f"{[repr(v) for v in res['loss'][NORMAL_RESUME_AFTER:]]}; test {resumed['test']}; update count "
+        f"{fresh.step}; {'bit-identical' if res['resumed'] else 'DIFFERENT'}")
 
 
 def normal_step0_check(fmt, trainer, state0, res) -> list[str]:
@@ -1233,29 +1340,12 @@ def normal_step0_check(fmt, trainer, state0, res) -> list[str]:
 
     res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(whole)),
                     "whole_grad_fro_max": max(whole)}
-    for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
-                                      "mutant detached applies": (float(mloss.detach()), mgrads, mcap)}.items():
-        errs = modulewise_errors(cap, loss, grads, head64, _lap_model(state0, dev, torch.float64), [mask64], [dense], "")
-        groups = {"chain": {k: v for k, v in errs.items() if not k.endswith("gradient")},
-                  "parameter": {k: v for k, v in errs.items() if k.endswith("gradient")}}
-        worst_ = {g: max(e.items(), key=lambda kv: kv[1]) for g, e in groups.items()}
-        ok = worst_["chain"][1] <= STEP0_CHAIN_RTOL and worst_["parameter"][1] <= STEP0_PARAM_RTOL
-        verdict = ("ok" if ok else "FAIL") if label == "real" else ("NOT refused" if ok else "refused")
-        log(f"  normal {fmt} {label}: module-wise vs fp64: loss on the card's output rel "
-            f"{errs['loss on the card\'s features']:.3e}; chain ({len(groups['chain'])}) worst "
-            f"{worst_['chain'][0]} {worst_['chain'][1]:.3e} (tol {STEP0_CHAIN_RTOL:g}), median "
-            f"{np.median(list(groups['chain'].values())):.3e}; parameter gradients ({len(groups['parameter'])}) "
-            f"worst {worst_['parameter'][0]} {worst_['parameter'][1]:.3e} (tol {STEP0_PARAM_RTOL:g}), "
-            f"median {np.median(list(groups['parameter'].values())):.3e}; {verdict}")
-        if label == "real":
-            res["step0"]["worst"] = worst_
-            if not ok:
-                failures.append(f"normal {fmt}: step 0 disagrees with fp64 at {worst_}")
-        else:
-            res["step0"]["mutant_worst"] = worst_
-            if ok:
-                failures.append(f"normal {fmt}: the detached-apply mutant passes the step-0 check")
-    return failures
+    runs = {label: modulewise_errors(cap, loss, grads, head64, _lap_model(state0, dev, torch.float64), [mask64],
+                                     [dense], "")
+            for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
+                                              "mutant detached applies": (float(mloss.detach()), mgrads, mcap)}.items()}
+    return failures + judge_step0(f"normal {fmt}", runs, {"chain": STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL},
+                                  res)
 
 
 def normal_phase(device, smi: str) -> tuple[dict, dict]:
@@ -1285,43 +1375,14 @@ def normal_phase(device, smi: str) -> tuple[dict, dict]:
         for fmt, trainer in trainers.items():
             # the main path of this format: every count is 0 just before it and read just after
             kernels.reset_launch_counts()
-            results[fmt] = _normal_run(trainer, 8, capture=True, profile_last=True,
+            results[fmt] = _normal_run(trainer, 8, capture=StepCapture, profile_last=True,
                                        save_after=NORMAL_RESUME_AFTER, ckpt=os.path.join(tmp, f"{fmt}.pt"))
             path_counts[fmt] = dict(kernels.launches)
             log(f"  normal {fmt}: launches on the path (8 updates + test pass) {path_counts[fmt]}")
 
         for fmt, trainer in trainers.items():
-            res, snap = results[fmt], snaps[fmt]
-            # the same 8 updates and test pass from step 0's weights, optimizer and sampler state
-            trainer.model.load_state_dict(snap["params"])
-            trainer.opt.load_state_dict(snap["opt"])
-            trainer.train_sampler = _sampler_like(snap["train_sampler"], trainer.train_samples)
-            trainer.test_sampler = _sampler_like(snap["test_sampler"], trainer.test_samples)
-            trainer.step = snap["step"]
-            again = _normal_run(trainer, 8)
-            res["reproduced"] = all(again[k] == res[k] for k in ("names", "loss", "mad", "test")) and all(
-                torch.equal(v, res["params"][k]) for k, v in again["params"].items())
-            log(f"  normal {fmt}: two runs of 8 steps from the same state: losses run 1 "
-                f"{[repr(v) for v in res['loss']]}, run 2 {[repr(v) for v in again['loss']]}; test (loss, mad) "
-                f"run 1 {res['test']}, run 2 {again['test']}; {'bit-identical' if res['reproduced'] else 'DIFFERENT'}")
-            # a fresh trainer resumed from the checkpoint saved after step 4
-            logged = []
-            fresh = _normal_trainer(NORMAL_ARGS + ["--operator-format", fmt, "--deser", os.path.join(tmp, f"{fmt}.pt")],
-                                    f"{fmt} resumed", logged)
-            # the sampler is not in a checkpoint, as in the JAX package
-            fresh.train_sampler = _sampler_like(res["sampler_after_save"], fresh.train_samples)
-            resumed = _normal_run(fresh, 8 - NORMAL_RESUME_AFTER)
-            res["resumed"] = (fresh.start_epoch == 0 and not any("not loaded" in m for m in logged)
-                              and resumed["names"] == res["names"][NORMAL_RESUME_AFTER:]
-                              and resumed["loss"] == res["loss"][NORMAL_RESUME_AFTER:]
-                              and resumed["mad"] == res["mad"][NORMAL_RESUME_AFTER:]
-                              and resumed["test"] == res["test"] and fresh.step == 8
-                              and all(torch.equal(v, res["params"][k]) for k, v in resumed["params"].items()))
-            log(f"  normal {fmt}: resumed after step {NORMAL_RESUME_AFTER} in a fresh trainer: steps "
-                f"{NORMAL_RESUME_AFTER + 1}-8 losses {[repr(v) for v in resumed['loss']]} vs "
-                f"{[repr(v) for v in res['loss'][NORMAL_RESUME_AFTER:]]}; test {resumed['test']}; update count "
-                f"{fresh.step}; {'bit-identical' if res['resumed'] else 'DIFFERENT'}")
-            del fresh
+            repeat_and_resume(f"normal {fmt}", trainer, snaps[fmt], results[fmt],
+                              NORMAL_ARGS + ["--operator-format", fmt, "--deser", os.path.join(tmp, f"{fmt}.pt")])
 
         t0 = time.perf_counter()
         dense_trainer = _normal_trainer(NORMAL_DENSE_ARGS, "dense")
@@ -1369,6 +1430,447 @@ def normal_phase(device, smi: str) -> tuple[dict, dict]:
             raise AssertionError("; ".join(failures))
         counts = {k: path_counts["ell"][k] + path_counts["bsr"][k] for k in path_counts["ell"]}
         return counts, results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dir_model(state0, device, dtype):
+    from surfacenetworks_tpu_torch.models import DirDeepModel
+
+    model = DirDeepModel(3, 3, layers=LAYERS)
+    model.load_state_dict(state0)
+    return model.to(device, dtype)
+
+
+def _dirac_meshes64(trainer) -> dict:
+    """The synthetic set's float64 vertices by sample name, drawn again from
+    the seed as ``synthetic_normal_dataset`` draws them; each must be the
+    trainer's sample before its float32 cast."""
+    from surfacenetworks_tpu_torch.data import datasets
+
+    rng = np.random.default_rng(SEED)
+    samples = {s["name"]: s for s in trainer.train_samples + trainer.test_samples}
+    out = {}
+    for i in range(len(samples)):
+        V, F = datasets.random_blob_mesh(rng, DIRAC_POINTS)
+        s = samples[f"synthetic_{i}"]
+        if not (np.array_equal(s["F"], F) and np.array_equal(s["V"], V.astype(np.float32))):
+            raise AssertionError(f"the regenerated mesh {i} differs from the trainer's synthetic_{i}")
+        out[s["name"]] = V
+    return out
+
+
+def _quaternion_apply(M, x: np.ndarray) -> np.ndarray:
+    """A scipy Dirac matrix ``[4R, 4S]`` on ``x [S, C]`` in quaternion layout."""
+    return np.asarray(M @ x.reshape(-1, x.shape[-1] // 4)).reshape(-1, x.shape[-1])
+
+
+PROFILED_CALLS = 50
+
+
+def profiled_device_ms(fn) -> tuple[float, list]:
+    """Device time of one ``fn()`` that launches several kernels: the device
+    work of PROFILED_CALLS calls under ``torch.profiler``, divided by their
+    number (CUDA events around the calls would also count the gaps while
+    the host launches the next kernel); and the profiler's rows.  The
+    window may lose an event or so at its start, so it holds many calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return sum(r[0] for r in rows) / 1e3 / PROFILED_CALLS, rows
+
+
+def _dirac_apply_work(op, C: int, side: str, m: int) -> tuple[int, int]:
+    """(bytes, flops) of one apply at width ``C``: the features read once,
+    the tables read once, the result written once; 8 C flops per live
+    (row, slot) pair (a 4 x 4 Hamilton block on C/4 channels), and there
+    are 3 m live pairs on either side (one per face corner)."""
+    face_tables = nbytes(op.faces, op.q_fv)
+    vertex_tables = nbytes(*(t for t in (op.vf_face, op.q_vf, op.ov_face, op.q_ov_vf, op.ov_map) if t is not None))
+    n_in, n_out = (op.n_vertices, op.n_faces) if side.startswith("vf") else (op.n_faces, op.n_vertices)
+    if side in ("vf forward", "fv backward"):
+        tables = face_tables
+    else:
+        tables = vertex_tables
+    if side.endswith("backward"):
+        n_in, n_out = n_out, n_in
+    return (n_in + n_out) * C * 4 + tables, 8 * C * 3 * m
+
+
+def dirac_apply_checks(trainer, device, meshes64: dict) -> dict:
+    """The Dirac applies on the card at the path's shapes (the first
+    synthetic mesh's packed tables, width 128): ``vf`` and ``fv`` and each
+    backward, every element within DIRAC_APPLY_RTOL of its own sum |q| |x|
+    against the fp64 scipy pair (``geometry.dirac`` of the float64
+    vertices) on the host; mutants without one slot (each side) or without
+    the overflow rows must fail.  Then each apply's device time, bytes and
+    bound.  Returns the timings."""
+    import dataclasses
+
+    import torch
+
+    from surfacenetworks_tpu_torch import geometry as geo
+    from surfacenetworks_tpu_torch.sparse import dirac_apply_fv, dirac_apply_vf
+    from surfacenetworks_tpu_torch.sparse import ops as sparse_ops
+
+    sample = next(s for s in trainer.train_samples + trainer.test_samples if s["name"] == "synthetic_0")
+    V, F = meshes64["synthetic_0"], sample["F"]
+    D, DA = geo.dirac(V, F)
+    n, m = V.shape[0], F.shape[0]
+    op = trainer.packed.one(sample).operator.to(device)
+    N, M, C = op.n_vertices, op.n_faces, WIDTH
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(1, N, C, generator=gen, device=device)
+    f = torch.randn(1, M, C, generator=gen, device=device)
+    gy = torch.randn(1, M, C, generator=gen, device=device)
+    gz = torch.randn(1, N, C, generator=gen, device=device)
+    host = lambda t, rows: t[0, :rows].double().cpu().numpy()
+
+    def run(o, side):
+        inp = (x if side == "vf" else f).clone().requires_grad_()
+        out = (dirac_apply_vf if side == "vf" else dirac_apply_fv)(o, inp)
+        out.backward(gy if side == "vf" else gz)
+        return out.detach(), inp.grad
+
+    x64, f64, gy64, gz64 = host(x, n), host(f, m), host(gy, m), host(gz, n)
+    refs = {
+        "vf": (_quaternion_apply(D, x64), _quaternion_apply(abs(D), np.abs(x64)),
+               _quaternion_apply(D.T.tocsr(), gy64), _quaternion_apply(abs(D).T.tocsr(), np.abs(gy64))),
+        "fv": (_quaternion_apply(DA, f64), _quaternion_apply(abs(DA), np.abs(f64)),
+               _quaternion_apply(DA.T.tocsr(), gz64), _quaternion_apply(abs(DA).T.tocsr(), np.abs(gz64))),
+    }
+    rows = {"vf": (m, n), "fv": (n, m)}  # (output rows, input rows)
+    for side in ("vf", "fv"):
+        out, grad = run(op, side)
+        ref, scale, gref, gscale = refs[side]
+        check(f"dirac_apply_{side} (card) vs the fp64 scipy pair", host(out, rows[side][0]), ref, scale, DIRAC_APPLY_RTOL)
+        check(f"dirac_apply_{side} backward (card) vs the pair's transpose", host(grad, rows[side][1]), gref, gscale,
+              DIRAC_APPLY_RTOL)
+        if out[0, rows[side][0]:].any() or grad[0, rows[side][1]:].any():
+            raise AssertionError(f"dirac_apply_{side}: padded rows are not zero")
+    slot_vf = op.q_fv.clone()
+    slot_vf[..., 2, :] = 0
+    slot_fv = op.q_vf.clone()
+    slot_fv[..., 0, :] = 0
+    no_ov = dataclasses.replace(op, ov_rows=None, ov_face=None, q_ov_vf=None, q_ov_bwd_v=None, ov_map=None)
+    refused("dirac_apply_vf without its third slot", host(run(dataclasses.replace(op, q_fv=slot_vf), "vf")[0], m),
+            refs["vf"][0], refs["vf"][1], DIRAC_APPLY_RTOL)
+    refused("dirac_apply_fv without its first slot", host(run(dataclasses.replace(op, q_vf=slot_fv), "fv")[0], n),
+            refs["fv"][0], refs["fv"][1], DIRAC_APPLY_RTOL)
+    refused("dirac_apply_fv without the overflow rows", host(run(no_ov, "fv")[0], n), refs["fv"][0], refs["fv"][1],
+            DIRAC_APPLY_RTOL)
+    refused("dirac_apply_vf backward without the overflow rows", host(run(no_ov, "vf")[1], n), refs["vf"][2],
+            refs["vf"][3], DIRAC_APPLY_RTOL)
+
+    calls = {
+        "vf forward": lambda: sparse_ops._gather_apply(op.faces, op.q_fv, x),
+        "vf backward": lambda: sparse_ops._vertex_side(op, op.q_bwd_v, op.q_ov_bwd_v, gy),
+        "fv forward": lambda: sparse_ops._vertex_side(op, op.q_vf, op.q_ov_vf, f),
+        "fv backward": lambda: sparse_ops._gather_apply(op.faces, op.q_bwd_f, gz),
+    }
+    out = {"applies": {}, "n": n, "m": m, "N": N, "M": M, "base_valence": op.vf_face.shape[-1],
+           "overflow_rows": op.ov_face.shape[-2], "max_q_fv": float(op.q_fv.abs().max()),
+           "max_q_vf": float(op.q_vf.abs().max())}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            ms, rows = profiled_device_ms(fn)
+            b, fl = _dirac_apply_work(op, C, name, m)
+            bms, by = bound_ms(b, fl)
+            out["applies"][name] = {"ms": ms, "bytes": b, "flops": fl, "bound_ms": bms, "bound_by": by,
+                                    "device_ops": sum(r[1] for r in rows) / PROFILED_CALLS}
+            log(f"  dirac {name}: device {ms:.5f} ms in {out['applies'][name]['device_ops']:.2f} device ops, "
+                f"{b / 1e6:.2f} MB ({b / ms / 1e6:.0f} GB/s of the bytes it must move), bound {bms:.5f} ms ({by}), "
+                f"{bms / ms:.1%} of it")
+            for dev_us, count, key in rows[:4]:
+                log(f"    {dev_us / 1e3 / PROFILED_CALLS:9.5f} ms  x{count / PROFILED_CALLS:<5.2f} {key[:90]}")
+    out["per_step_ms"] = DIRAC_BLOCKS * sum(a["ms"] for a in out["applies"].values())
+    out["per_step_bytes"] = DIRAC_BLOCKS * sum(a["bytes"] for a in out["applies"].values())
+    return out
+
+
+def dirac_modulewise_errors(cap: StepCapture, loss: float, grads: dict, model64, pair64, mask64, tgt64) -> dict:
+    """A Dirac step against fp64 module by module at the card's own
+    activations: the loss and conv2's output cotangent from the head (ELU
+    and the cosine loss) in fp64 on the card's conv2 output; then each
+    module in fp64 (the Dirac blocks on ``pair64``, the dense fp64 pair,
+    not the structured applies) from the card's inputs and output
+    cotangents: its input cotangents (the vertex
+    stream from the previous module, the face stream from the previous Dirac
+    block) and parameter gradients against the card's.  A parameter in
+    DIRAC_NULL_GRADS (zero gradient in exact arithmetic) is held by its card
+    gradient's size against the largest fp64 gradient instead (key suffix
+    ``null gradient``).  Returns each comparison's relative (Frobenius)
+    error."""
+    import torch
+    import torch.nn.functional as F
+
+    from surfacenetworks_tpu_torch.train import losses
+
+    errs = {}
+    conv2 = cap.calls["conv2"][0]
+    x = conv2["out"][0].double().requires_grad_()
+    loss64 = losses.normal_cosine_loss(F.elu(x), mask64, tgt64)
+    loss64.backward()
+    errs["loss on the card's conv2 output"] = abs(loss - float(loss64.detach())) / abs(float(loss64.detach()))
+    errs["head cotangent"] = _rel_fro(conv2["g"][0], x.grad)
+    pgrads, prev, last_dirac = {}, None, None
+    for name in cap.names:
+        rec, mod = cap.calls[name][0], getattr(model64, name)
+        ins, src = [], []  # inputs needing a cotangent, and the card's (module, output) that produced each
+        if name == "conv1":
+            outs = [mod(rec["args"][0].double())]
+        elif name == "conv2":
+            ins = [rec["args"][0].double().requires_grad_()]
+            src = [(prev, 0)]
+            outs = [mod(ins[0])]
+        elif int(name[2:]) % 2 == 0:
+            v = rec["args"][1].double().requires_grad_()
+            f = rec["args"][2].double().requires_grad_(last_dirac is not None)
+            ins, src = ([v, f], [(prev, 0), (last_dirac, 1)]) if last_dirac is not None else ([v], [(prev, 0)])
+            outs = list(mod(pair64, v, f))
+            last_dirac = name
+        else:
+            ins = [rec["args"][2].double().requires_grad_()]
+            src = [(prev, 0)]
+            outs = [mod(None, rec["args"][1].double(), ins[0])]
+        pairs = [(o, g.double()) for o, g in zip(outs, rec["g"]) if g is not None]
+        torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+        for t, (pname, k) in zip(ins, src):
+            g = cap.calls[pname][0]["g"][k]  # None where no gradient reached the card's output (the mutant's)
+            ref = torch.zeros_like(t) if t.grad is None else t.grad
+            errs[f"{name} input cotangent {'vf'[k]}"] = _rel_fro(torch.zeros_like(ref) if g is None else g, ref)
+        for pname, p in mod.named_parameters():
+            pgrads[f"{name}.{pname}"] = p.grad
+        prev = name
+    top = max(float(g.norm()) for k, g in pgrads.items() if k not in DIRAC_NULL_GRADS)
+    for k, g in pgrads.items():
+        if k in DIRAC_NULL_GRADS:
+            errs[f"{k} null gradient"] = float(grads[k].double().norm()) / top
+        else:
+            errs[f"{k} gradient"] = _rel_fro(grads[k], g)
+    return errs
+
+
+@contextlib.contextmanager
+def detached_dirac_applies():
+    """The mutant's Dirac applies: their outputs detached, so no gradient
+    flows through Di or DiA."""
+    from surfacenetworks_tpu_torch.nn import blocks
+
+    saved = blocks.apply_dirac_vf, blocks.apply_dirac_fv
+    blocks.apply_dirac_vf = lambda op, v: saved[0](op, v).detach()
+    blocks.apply_dirac_fv = lambda op, f: saved[1](op, f).detach()
+    try:
+        yield
+    finally:
+        blocks.apply_dirac_vf, blocks.apply_dirac_fv = saved
+
+
+@contextlib.contextmanager
+def annotated_dirac_applies():
+    """Each Dirac apply (forward or backward, its overflow included) inside
+    a profiler range named DIRAC_RANGE, so that the kernels of a profiled
+    step can be told apart.  Reading only."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import ops
+
+    saved = ops._gather_apply, ops._vertex_side
+    depth = [0]  # the overflow's gather runs inside _vertex_side's range
+
+    def ranged(fn):
+        def call(*args):
+            if depth[0]:
+                return fn(*args)
+            depth[0] += 1
+            try:
+                with torch.profiler.record_function(DIRAC_RANGE):
+                    return fn(*args)
+            finally:
+                depth[0] -= 1
+        return call
+
+    ops._gather_apply, ops._vertex_side = (ranged(fn) for fn in saved)
+    try:
+        yield
+    finally:
+        ops._gather_apply, ops._vertex_side = saved
+
+
+def range_device_ms(prof, name: str) -> tuple[float, int]:
+    """Device time (ms) and count of the kernels that the host operators
+    inside the profiler ranges called ``name`` launched."""
+    def kernels(e):
+        return list(e.kernels) + [k for c in e.cpu_children for k in kernels(c)]
+
+    found = [k for e in prof.events() if e.name == name for k in kernels(e)]
+    return sum(k.duration for k in found) / 1e3, len(found)
+
+
+@contextlib.contextmanager
+def scaled_dirac_backward(scale: float = DIRAC_MUTANT_SCALE):
+    """The mutant's Dirac applies: the values as they are, the cotangent
+    through each apply multiplied by ``scale``."""
+    from surfacenetworks_tpu_torch.nn import blocks
+
+    saved = blocks.apply_dirac_vf, blocks.apply_dirac_fv
+
+    def scaled(fn):
+        def call(op, x):
+            y = fn(op, x)
+            return y + (scale - 1) * (y - y.detach())
+        return call
+
+    blocks.apply_dirac_vf, blocks.apply_dirac_fv = (scaled(fn) for fn in saved)
+    try:
+        yield
+    finally:
+        blocks.apply_dirac_vf, blocks.apply_dirac_fv = saved
+
+
+def dirac_step0_check(trainer, state0, res, meshes64: dict) -> list[str]:
+    """Step 0 against the same step in fp64 on the dense fp64 Dirac pair
+    of the float64 vertices (``dense_dirac_pair``; no structured apply):
+    the loss, then module by module; two mutants must fail the module-wise
+    check: the applies detached, and their cotangents DIRAC_MUTANT_SCALE
+    times too large.  Returns the failures."""
+    import torch
+
+    from surfacenetworks_tpu_torch.data.batching import dense_dirac_pair
+    from surfacenetworks_tpu_torch.train import losses
+
+    dev, b = trainer.device, res["batch0"]
+    mask64, tgt64 = b.mask.double(), b.targets.double()
+    pair64 = dense_dirac_pair([{"V": meshes64[s["name"]], "F": s["F"]} for s in res["samples0"]],
+                              trainer.buckets.n_vertices, trainer.buckets.n_faces, torch.float64, dev)
+    model64 = _dir_model(state0, dev, torch.float64)
+    ref_loss_t = losses.normal_cosine_loss(model64(pair64, mask64, b.inputs.double()), mask64, tgt64)
+    ref_loss_t.backward()
+    ref_loss = float(ref_loss_t.detach())
+    loss_rel = abs(res["loss"][0] - ref_loss) / abs(ref_loss)
+    ref_grads = {k: p.grad for k, p in model64.named_parameters()}
+    whole = [_rel_fro(g, ref_grads[k]) for k, g in res["grads0"].items() if k not in DIRAC_NULL_GRADS]
+    log(f"  dirac: step 0 vs the whole fp64 step on the dense fp64 pair: loss {res['loss'][0]:.8f} vs "
+        f"{ref_loss:.8f} (rel {loss_rel:.3e}, tol {NORMAL_STEP0_LOSS_RTOL:g}); gradient rel_fro median "
+        f"{np.median(whole):.3e}, max {max(whole):.3e}")
+    failures = []
+    if not loss_rel <= NORMAL_STEP0_LOSS_RTOL:
+        failures.append(f"dirac: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
+    del model64, ref_grads
+
+    def mutant_step(applies):
+        model = _dir_model(state0, dev, torch.float32)
+        cap = StepCapture(model)
+        try:
+            with applies():
+                loss = losses.normal_cosine_loss(model(b.operator, b.mask, b.inputs), b.mask, b.targets)
+                loss.backward()
+        finally:
+            cap.remove()
+        # with the applies detached the face stream reaches no loss: its parameters get no gradient
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach() for k, p in model.named_parameters()}
+        return float(loss.detach()), grads, cap
+
+    res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(whole)),
+                    "whole_grad_fro_max": max(whole)}
+    steps = {"real": (res["loss"][0], res["grads0"], res["capture"]),
+             "mutant detached applies": mutant_step(detached_dirac_applies),
+             f"mutant cotangents x{DIRAC_MUTANT_SCALE:g}": mutant_step(scaled_dirac_backward)}
+    runs = {label: dirac_modulewise_errors(cap, loss, grads, _dir_model(state0, dev, torch.float64), pair64,
+                                           mask64, tgt64)
+            for label, (loss, grads, cap) in steps.items()}
+    del pair64
+    torch.cuda.empty_cache()
+    return failures + judge_step0(
+        "dirac", runs, {"chain": DIRAC_STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL, "null": DIRAC_NULL_GRAD_RTOL},
+        res)
+
+
+def dirac_phase(device, smi: str) -> dict:
+    """The normal trainer with ``--model dirac`` at ~7,000 vertices: the
+    applies checked and timed, then (counts at 0) 8 updates and the test
+    pass, which must launch none of the three kernels; step 0 against fp64;
+    the run repeated from step 0's state, and resumed from a checkpoint
+    saved after step 4 in a fresh trainer, both bit for bit.  Returns the
+    results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    tmp = tempfile.mkdtemp(prefix="dirac_smoke_")
+    try:
+        t0 = time.perf_counter()
+        logged = []
+        trainer = _normal_trainer(DIRAC_ARGS, "dirac", logged)
+        b = trainer.buckets
+        log(f"  dirac: format {trainer.fmt}, buckets {b.n_vertices} x {b.n_faces}, max valence {b.max_valence} "
+            f"packed to {b.dirac_base_valence} with {b.dirac_overflow} overflow rows; train meshes "
+            f"{[(s['V'].shape[0], s['F'].shape[0]) for s in trainer.train_samples]}, test meshes "
+            f"{[(s['V'].shape[0], s['F'].shape[0]) for s in trainer.test_samples]}; {trainer.data_stats()}; "
+            f"set-up {time.perf_counter() - t0:.2f} s")
+        snap = _normal_snapshot(trainer)
+        meshes64 = _dirac_meshes64(trainer)
+        applies = dirac_apply_checks(trainer, device, meshes64)
+
+        # the main path: every count is 0 just before it and read just after
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        res = _normal_run(trainer, DIRAC_STEPS, capture=StepCapture, profile_last=True,
+                          save_after=NORMAL_RESUME_AFTER, ckpt=os.path.join(tmp, "dirac.pt"),
+                          annotate=(annotated_dirac_applies, DIRAC_RANGE))
+        path_counts = dict(kernels.launches)
+        res["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
+        res["applies"] = applies
+        res["apply_share"] = res["range_ms"] / res["busy_ms"]
+        log(f"  dirac: launches on the path ({DIRAC_STEPS} updates + test pass) {path_counts} (expected none)")
+
+        repeat_and_resume("dirac", trainer, snap, res, DIRAC_ARGS + ["--deser", os.path.join(tmp, "dirac.pt")])
+
+        log(f"  dirac: losses {['%.6f' % v for v in res['loss']]}, mad {['%.4f' % v for v in res['mad']]}; "
+            f"test (loss, mad) {res['test']} ({smi})")
+        log(f"  dirac: device ms per step (CUDA events) {['%.2f' % v for v in res['device_ms']]}, median of steps "
+            f"1-6 {res['device_ms_median']:.3f}; host wall per step {['%.2f' % v for v in res['wall_ms']]}, median "
+            f"{res['wall_ms_median']:.3f}; profiled step device busy {res['busy_ms']:.3f} ms in {res['device_ops']} "
+            f"device ops, idle share {res['idle_share']:.3f}; peak device memory {res['peak_mib']:.1f} MiB ({smi})")
+        for dev_us, count, key in res["top"]:
+            log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+        log(f"  dirac: the applies in the profiled step ({DIRAC_BLOCKS} blocks x vf and fv, forward and backward): "
+            f"{res['range_ms']:.4f} ms in {res['range_ops']} device ops, {res['apply_share']:.1%} of its busy time; "
+            f"each apply alone under the profiler, times {DIRAC_BLOCKS} blocks: {applies['per_step_ms']:.4f} ms; "
+            f"{applies['per_step_bytes'] / 1e6:.1f} MB they must move, "
+            f"{applies['per_step_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s ({smi})")
+
+        failures = []
+        if any(path_counts.values()) or any(any(step.values()) for step in res["per_step"]) or any(
+                res["test_launches"].values()):
+            failures.append(f"dirac: the path launched a kernel: {path_counts}")
+        if not (np.isfinite(res["loss"]).all() and np.isfinite(res["mad"]).all() and np.isfinite(res["test"]).all()):
+            failures.append("dirac: a loss or metric is not finite")
+        if not any("structured Dirac tables" in m for m in logged):
+            failures.append("dirac: the trainer did not log its operator format")
+        if not res["reproduced"]:
+            failures.append("dirac: a second run of the 8 steps from the same state differs")
+        if not res["resumed"]:
+            failures.append("dirac: steps 5-8 resumed from the checkpoint differ from the run")
+        for k, g in res["grads0"].items():
+            if not (bool(torch.isfinite(g).all()) and (k in DIRAC_NULL_GRADS or bool((g != 0).any()))):
+                failures.append(f"dirac: step-0 gradient of {k} is not finite and non-zero")
+        if not 0 < res["range_ms"] <= res["busy_ms"]:
+            failures.append(f"dirac: the applies' device time in the profiled step reads {res['range_ms']} ms of "
+                            f"{res['busy_ms']} ms busy")
+        failures += dirac_step0_check(trainer, snap["params"], res, meshes64)
+        for key in ("capture", "grads0", "batch0", "samples0", "params", "sampler_after_save"):
+            del res[key]
+        if failures:
+            raise AssertionError("; ".join(failures))
+        return res
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1491,6 +1993,10 @@ def main() -> int:
     normal_counts, normal = normal_phase(device, smi)
     phase("normal train", t0)
 
+    t0 = time.perf_counter()
+    dirac = dirac_phase(device, smi)
+    phase("dirac train", t0)
+
     replaces = {
         "bsr_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:163",
         "ell_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:239",
@@ -1528,6 +2034,10 @@ def main() -> int:
     log("normal train median per step: " + ", ".join(
         f"{fmt} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms, "
         f"idle share {r['idle_share']:.3f}" for fmt, r in normal.items()) + f" ({smi})")
+    log(f"dirac train median per step: device {dirac['device_ms_median']:.3f} ms, wall {dirac['wall_ms_median']:.3f} ms, "
+        f"busy {dirac['busy_ms']:.3f} ms in {dirac['device_ops']} device ops, idle share {dirac['idle_share']:.3f}, "
+        f"Dirac applies {dirac['range_ms']:.4f} ms ({dirac['apply_share']:.1%} of busy), peak "
+        f"{dirac['peak_mib']:.1f} MiB ({smi})")
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

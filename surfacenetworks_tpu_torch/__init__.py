@@ -10,31 +10,35 @@ Module map (port -> JAX package):
 
 ================================  =================================================
 ``geometry/mesh_ops.py``          ``geometry/mesh_ops.py`` (igl-style Laplacian,
+                                  Dirac coefficients and the scipy pair,
                                   vertex normals, permutations,
                                   ``uniform_mesh_scale``)
 ``geometry/io.py``                ``geometry/io.py`` (OBJ and ascii PLY)
 ``data/datasets.py``              ``data/datasets.py`` (``random_blob_mesh``,
-                                  ``synthetic_normal_dataset`` Lap branch,
+                                  ``synthetic_normal_dataset``,
                                   ``synthetic_correspondence_dataset``,
                                   ``load_faust_npz``, ``load_normal_sample``,
-                                  ``scan_mesh_tree``, ``load_normal_npz``)
+                                  ``scan_mesh_tree``, ``load_normal_npz``
+                                  with Dirac samples)
 ``data/batching.py``              ``data/batching.py`` (buckets, RCM, BSR slot
-                                  fit, ``laplacian_batch``,
-                                  ``correspondence_batch``)
+                                  fit, Dirac packing, ``laplacian_batch``,
+                                  ``dirac_batch``, ``correspondence_batch``)
 ``data/pipeline.py``              ``data/pipeline.py`` (pack-once samples,
                                   ``DeviceDataset``, ``IndexedBatch``)
-``sparse/ell.py``                 ``sparse/ell.py`` (``EllMatrix``, packing)
+``sparse/ell.py``                 ``sparse/ell.py`` (``EllMatrix``, packing,
+                                  ``DiracOperator``, ``dirac_from_coeffs``)
 ``sparse/bsr.py``                 ``sparse/bsr.py`` (``BsrMatrix``, RCM, packing)
 ``sparse/ops.py``                 ``sparse/ops.py`` + apply half of ``sparse/bsr.py``
                                   (autograd Functions: ``spmm``, ``bsr_spmm``,
-                                  ``sddmm``)
+                                  ``sddmm``, ``dirac_apply_vf``/``fv``)
 ``sparse/kernels.py``             ``sparse/pallas_kernels.py`` (``bsr_matmul``,
                                   ``ell_matmul``, ``sddmm``)
 ``sparse/csrc/spmm.cu``           the Pallas kernels' bodies, as CUDA for sm_90a
 ``sparse/_build.py``              (new) nvcc build + ctypes binding
 ``nn/layers.py``                  ``nn/layers.py``
-``nn/blocks.py``                  ``nn/blocks.py`` (Lap/Avg blocks)
-``models/normal_models.py``       ``models/normal_models.py`` (``LapDeepModel``)
+``nn/blocks.py``                  ``nn/blocks.py`` (Lap/Avg/Dirac blocks)
+``models/normal_models.py``       ``models/normal_models.py`` (``LapDeepModel``,
+                                  ``DirDeepModel``, ``DirModelToFace``)
 ``models/correspondence.py``      ``models/correspondence.py`` (Lap ``Model``,
                                   ``SiameseModel``)
 ``train/losses.py``               ``train/losses.py`` (normal cosine loss and
@@ -49,7 +53,7 @@ Module map (port -> JAX package):
 ``cli/common.py``                 ``cli/common.py`` (log, metrics and config
                                   files, ``EpochSampler``, ``Throughput``)
 ``cli/train_normal.py``           ``cli/train_normal.py`` (single-device
-                                  ``--model lap`` path)
+                                  ``--model lap`` and ``dirac`` paths)
 ``cli/train_correspondence.py``   ``cli/train_correspondence.py`` (single-device
                                   Lap/dcel path)
 ``convert.py``                    (new) flax params -> ``state_dict``, optax

@@ -1,15 +1,21 @@
 """Normal-prediction trainer on one device (counterpart of
 ``surfacenetworks_tpu/cli/train_normal.py``: its single-device path for
-``--model lap``).
+``--model lap`` and ``--model dirac``).
 
-LapDeepModel regresses per-vertex normals with the masked cosine loss; the
-mean angle deviation is its metric.  Operators are ELL, BSR (over
-RCM-ordered vertices) or dense; ``auto`` resolves against the dataset as the
-JAX trainer does.  Runs on ``cuda`` unless given ``--device cpu``::
+LapDeepModel or DirDeepModel regresses per-vertex normals with the masked
+cosine loss; the mean angle deviation is its metric.  Laplacian operators
+are ELL, BSR (over RCM-ordered vertices) or dense; ``auto`` resolves against
+the dataset as the JAX trainer does.  Dirac models (``--model`` starting
+with ``dirac``) take the structured Dirac tables whatever the format flag
+says, and keep the vertex order; ``--operator-format bsr`` only rounds their
+buckets to 128, as in the JAX trainer.  Runs on ``cuda`` unless given
+``--device cpu``::
 
     python -m surfacenetworks_tpu_torch.cli.train_normal --synthetic 8 \\
         --layer 3 --num-epoch 2 --num-updates 10 --batch-size 2
     python -m surfacenetworks_tpu_torch.cli.train_normal --device cpu \\
+        --data-path tests/fixtures/objs --layer 2 --num-epoch 1 --num-updates 3 --batch-size 2
+    python -m surfacenetworks_tpu_torch.cli.train_normal --device cpu --model dirac \\
         --data-path tests/fixtures/objs --layer 2 --num-epoch 1 --num-updates 3 --batch-size 2
 
 The train/test split, the batch order, the log lines and the files
@@ -37,15 +43,16 @@ import numpy as np
 import torch
 
 from surfacenetworks_tpu_torch.cli.common import EpochSampler, MetricsLogger, Throughput, dump_config, make_logger
-from surfacenetworks_tpu_torch.data import Buckets, datasets, laplacian_batch, round_up
+from surfacenetworks_tpu_torch.data import Buckets, datasets, dirac_batch, laplacian_batch, round_up
 from surfacenetworks_tpu_torch.data.batching import choose_operator_format, fit_bsr_k, rcm_reorder_sample
 from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, to_device
-from surfacenetworks_tpu_torch.models import LapDeepModel, init_weights
+from surfacenetworks_tpu_torch.models import DirDeepModel, LapDeepModel, init_weights
 from surfacenetworks_tpu_torch.serve import resolve_device
 from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
 
 parser = argparse.ArgumentParser(description="Normal Predictor (PyTorch, one device)")
-parser.add_argument("--model", default="lap", help="lap (the other models are not ported yet)")
+parser.add_argument("--model", default="lap",
+                    help="lap, or dirac (any name starting with dirac); the other models are not ported yet")
 parser.add_argument("--layer", type=int, default=15)
 parser.add_argument("--batch-size", type=int, default=1)
 parser.add_argument("--num-epoch", type=int, default=500)
@@ -90,10 +97,16 @@ parser.add_argument("--config", default=None)
 parser.add_argument("--preset", default=None)
 
 
+def is_dirac(args) -> bool:
+    """The JAX trainer's test for the Dirac model (a name with ``avg`` in it
+    builds its AvgModel first)."""
+    return args.model.startswith("dirac") and "avg" not in args.model
+
+
 def refuse_unported(args) -> None:
     """Raise on any flag whose path this slice does not port."""
     refused = {
-        "--model other than lap": args.model != "lap",
+        "--model other than lap and dirac": args.model != "lap" and not is_dirac(args),
         "--bf16": args.bf16,
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
@@ -114,10 +127,11 @@ def refuse_unported(args) -> None:
 def load_samples(args, rnd: random.Random, log) -> tuple[list[dict], list[dict]]:
     """The train and test samples, split as the JAX trainer splits them
     (``rnd`` seeded with ``--seed`` draws what its global ``random`` draws)."""
+    operator = "dirac" if is_dirac(args) else "lap"
     hack = 0.0 if "hack0" in args.additional_opt else 1.0
     if args.synthetic:
         samples = datasets.synthetic_normal_dataset(args.synthetic, n_points=args.synthetic_points,
-                                                    seed=args.seed, hack=hack)
+                                                    seed=args.seed, operator=operator, hack=hack)
         rnd.shuffle(samples)
         sep = max(1, int(len(samples) * 0.8))
         return samples[:sep], samples[sep:]
@@ -136,7 +150,7 @@ def load_samples(args, rnd: random.Random, log) -> tuple[list[dict], list[dict]]
             if p.endswith(".npz"):
                 s = datasets.load_normal_npz(p)
             else:
-                s = datasets.load_normal_sample(p, hack=hack, uniform_mesh=args.uniform_mesh)
+                s = datasets.load_normal_sample(p, operator=operator, hack=hack, uniform_mesh=args.uniform_mesh)
             if s is not None:
                 out.append(s)
         return out
@@ -181,21 +195,32 @@ class NormalTrainer:
         train, test = load_samples(args, random.Random(args.seed), log)
         log(f"Train size: {len(train)} Test size: {len(test)}")
         fmt = args.operator_format
-        if fmt == "auto":
+        dirac = is_dirac(args)
+        if dirac:
+            # as in the JAX trainer: no 'auto' resolution and no RCM order for
+            # Dirac; 'bsr' still rounds the buckets to 128 rows
+            log(f"operator format for {args.model}: structured Dirac tables "
+                f"(--operator-format {fmt}{': buckets rounded to 128' if fmt == 'bsr' else ''})")
+        elif fmt == "auto":
             nv_all = max((s["V"].shape[0] for s in train + test), default=0)
             fmt = choose_operator_format(args.batch_size, round_up(nv_all, 8), rcm_ok=True)
             log(f"operator format auto -> {fmt}")
-        if fmt == "bsr":
+        if fmt == "bsr" and not dirac:
             train = [rcm_reorder_sample(s) for s in train]
             test = [rcm_reorder_sample(s) for s in test]
-        self.fmt, self.train_samples, self.test_samples = fmt, train, test
+        self.train_samples, self.test_samples = train, test
         all_samples = train + test
         self.buckets = Buckets.for_samples(all_samples, multiple=128 if fmt == "bsr" else 8)
-        if fmt == "bsr":
-            fit_bsr_k(all_samples, self.buckets)
-        self.packed = PackedSamples(lambda s: laplacian_batch([s], self.buckets, fmt=fmt))
-
-        self.model = LapDeepModel(3, 3, layers=args.layer)
+        if dirac:
+            self.fmt = "structured"
+            self.packed = PackedSamples(lambda s: dirac_batch([s], self.buckets))
+            self.model = DirDeepModel(3, 3, layers=args.layer)
+        else:
+            self.fmt = fmt
+            if fmt == "bsr":
+                fit_bsr_k(all_samples, self.buckets)
+            self.packed = PackedSamples(lambda s: laplacian_batch([s], self.buckets, fmt=fmt))
+            self.model = LapDeepModel(3, 3, layers=args.layer)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
         log(f"Num parameters {sum(p.numel() for p in self.model.parameters())}")

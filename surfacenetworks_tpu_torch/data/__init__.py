@@ -8,6 +8,8 @@ from surfacenetworks_tpu_torch.data.batching import (
     bsr_k_needed,
     choose_operator_format,
     correspondence_batch,
+    dense_dirac_pair,
+    dirac_batch,
     fit_bsr_k,
     laplacian_batch,
     pad_rows,
@@ -22,6 +24,8 @@ __all__ = [
     "choose_operator_format",
     "correspondence_batch",
     "datasets",
+    "dense_dirac_pair",
+    "dirac_batch",
     "fit_bsr_k",
     "laplacian_batch",
     "pad_rows",

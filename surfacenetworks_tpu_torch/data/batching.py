@@ -1,9 +1,10 @@
 """Bucketed fixed-shape batching with masks (counterpart of
-``surfacenetworks_tpu/data/batching.py``, Laplacian path only).
+``surfacenetworks_tpu/data/batching.py``: the Laplacian and Dirac paths).
 
-Batches are padded to fixed buckets: vertex count, ELL slot counts and the
-BSR slot count are chosen once per dataset, exactly as in the JAX package, so
-both packages pack identical operators.  Zero padding is inert: padded
+Batches are padded to fixed buckets: vertex and face counts, ELL slot
+counts, the BSR slot count and the Dirac valence packing are chosen once per
+dataset, exactly as in the JAX package, so both packages pack identical
+operators.  Zero padding is inert: padded
 vertices have mask 0 and padded operator slots have value 0.  Host arrays are
 built with NumPy and returned as CPU tensors.
 """
@@ -21,9 +22,11 @@ from surfacenetworks_tpu_torch import geometry as geo
 from surfacenetworks_tpu_torch.sparse import (
     EllOperator,
     bsr_operator_from_scipy,
+    dirac_from_coeffs,
     ell_from_scipy,
     rcm_permutation,
     stack_bsr_operators,
+    stack_dirac,
     stack_operators,
 )
 
@@ -34,28 +37,65 @@ def round_up(x: int, multiple: int = 8) -> int:
 
 @dataclasses.dataclass
 class Buckets:
-    """Static shape buckets for a dataset (the Laplacian fields of the JAX
-    package's ``Buckets``; the Dirac fields come with the Dirac slice)."""
+    """Static shape buckets for a dataset."""
 
     n_vertices: int
     n_faces: int = 0
     ell_k: int = 16  # Laplacian row slots
     ell_k_t: int = 16  # transpose row slots
+    max_valence: int = 16  # Dirac vertex-face incidence slots
     bsr_block: int = 128  # BSR block size
     bsr_k: int = 8  # BSR blocks per block-row
+    # Packed-valence Dirac tables (``sparse.dirac_from_coeffs``): base slot
+    # count about the 95th-percentile valence; the few vertices of higher
+    # valence overflow into a side table of ``dirac_overflow`` rows.  0 =
+    # packing off.
+    dirac_base_valence: int = 0
+    dirac_overflow: int = 0
 
     @classmethod
     def for_samples(cls, samples, multiple: int = 8) -> "Buckets":
         nv = max(s["V"].shape[0] for s in samples)
         nf = max(s["F"].shape[0] for s in samples)
-        return cls(n_vertices=round_up(nv, multiple), n_faces=round_up(nf, multiple))
+        base, ov = _dirac_packing(samples)
+        return cls(n_vertices=round_up(nv, multiple), n_faces=round_up(nf, multiple),
+                   dirac_base_valence=base, dirac_overflow=ov)
+
+    def dirac_kwargs(self) -> dict:
+        """kwargs of ``dirac_from_coeffs`` for this bucket's packing."""
+        if not self.dirac_base_valence or self.dirac_base_valence >= self.max_valence:
+            return {}
+        return {"base_valence": self.dirac_base_valence, "n_overflow": self.dirac_overflow}
+
+
+def _dirac_packing(samples) -> tuple[int, int]:
+    """(base_valence, n_overflow) from the dataset's vertex valences: base
+    is the 95th percentile (at least 4, even), the overflow rows the most
+    vertices above it in one sample, rounded up to 8 (8 when there are
+    none: the tables still shrink whenever base < max valence)."""
+    valences = []
+    for s in samples:
+        F = np.asarray(s["F"])
+        if F.size == 0:
+            continue
+        valences.append(np.bincount(F.reshape(-1), minlength=int(F.max()) + 1))
+    if not valences:
+        return 0, 0
+    allv = np.concatenate(valences)
+    base = int(np.percentile(allv[allv > 0], 95))
+    base = max(4, base + (base % 2))
+    over = max(int((v > base).sum()) for v in valences)
+    if over == 0:
+        return base, 8
+    return base, round_up(over, 8)
 
 
 @dataclasses.dataclass
 class MeshBatch:
     """One padded batch: ``inputs``/``targets`` ``[B, N, C]``, ``mask``
     ``[B, N, 1]`` and the batched operator (``EllOperator``,
-    ``BsrOperator`` or a dense ``[B, N, N]`` tensor).  A correspondence
+    ``BsrOperator``, a dense ``[B, N, N]`` tensor, a ``DiracOperator`` or a
+    dense Dirac pair).  A correspondence
     batch's ``targets`` is the host tuple ``(G, label, label_inv)``."""
 
     inputs: torch.Tensor
@@ -171,15 +211,10 @@ def laplacian_batch(
     (``V [n,3]``, ``F [m,3]``, ``L`` scipy sparse, ``input``, ``target``).
     ``fmt`` is ``'ell'``, ``'bsr'`` (samples RCM-ordered, ``bsr_k`` fitted),
     ``'dense'`` or ``'auto'``."""
-    B = len(samples)
     N = buckets.n_vertices
     if fmt == "auto":
-        fmt = choose_operator_format(B, N)
-    inputs = np.stack([pad_rows(np.asarray(s[input_key], np.float32), N) for s in samples])
-    targets = np.stack([pad_rows(np.asarray(s[target_key], np.float32), N) for s in samples])
-    mask = np.zeros((B, N, 1), dtype=np.float32)
-    for b, s in enumerate(samples):
-        mask[b, : s["V"].shape[0]] = 1.0
+        fmt = choose_operator_format(len(samples), N)
+    inputs, targets, mask = _padded_arrays(samples, N, input_key, target_key)
     if fmt == "ell":
         operator = stack_operators([_fixed_k_operator(s["L"], buckets, N) for s in samples])
     elif fmt == "bsr":
@@ -188,18 +223,90 @@ def laplacian_batch(
         operator = torch.from_numpy(np.stack([_dense_operator(s["L"], N) for s in samples]))
     else:
         raise ValueError(f"unknown operator format {fmt!r}")
-    faces = None
-    if buckets.n_faces > 0:
-        faces = np.zeros((B, buckets.n_faces, 3), dtype=np.int32)
-        for b, s in enumerate(samples):
-            faces[b, : s["F"].shape[0]] = s["F"]
-        faces = torch.from_numpy(faces)
     return MeshBatch(
         inputs=torch.from_numpy(inputs),
         targets=torch.from_numpy(targets),
         mask=torch.from_numpy(mask),
         operator=operator,
-        faces=faces,
+        faces=_pad_faces(samples, buckets),
+        names=[s.get("name") for s in samples],
+    )
+
+
+def _pad_faces(samples: list[dict], buckets: Buckets) -> torch.Tensor | None:
+    if buckets.n_faces <= 0:
+        return None
+    faces = np.zeros((len(samples), buckets.n_faces, 3), dtype=np.int32)
+    for b, s in enumerate(samples):
+        faces[b, : s["F"].shape[0]] = s["F"]
+    return torch.from_numpy(faces)
+
+
+def _padded_arrays(samples: list[dict], N: int, input_key: str, target_key: str):
+    """``inputs``, ``targets`` ``[B, N, C]`` and ``mask`` ``[B, N, 1]``."""
+    inputs = np.stack([pad_rows(np.asarray(s[input_key], np.float32), N) for s in samples])
+    targets = np.stack([pad_rows(np.asarray(s[target_key], np.float32), N) for s in samples])
+    mask = np.zeros((len(samples), N, 1), dtype=np.float32)
+    for b, s in enumerate(samples):
+        mask[b, : s["V"].shape[0]] = 1.0
+    return inputs, targets, mask
+
+
+def _dirac_coeffs_of(s: dict) -> geo.DiracCoeffs:
+    """The sample's Dirac coefficients, or (when it has none) those of its
+    float32 vertices, as the JAX package computes them here."""
+    c = s.get("dirac")
+    if c is not None:
+        return c
+    return geo.dirac_coeffs(np.asarray(s["V"], np.float32), s["F"])
+
+
+def _dirac_sample_operator(s: dict, buckets: Buckets, N: int, M: int):
+    """One sample's packed Dirac tables at the bucket's shape and packing."""
+    return dirac_from_coeffs(_dirac_coeffs_of(s), n_vertices=N, n_faces=M,
+                             max_valence=buckets.max_valence, **buckets.dirac_kwargs())
+
+
+def dense_dirac_pair(samples: list[dict], N: int, M: int, dtype: torch.dtype = torch.float32,
+                     device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Padded dense Dirac pair ``(Di [B, 4M, 4N], DiA [B, 4N, 4M])``, the
+    reference's ``--dense`` Dirac path: the scipy pair of each sample's
+    ``V`` and ``F``, built in ``dtype`` on ``device`` (float64 vertices and
+    ``dtype`` give the exact pair)."""
+    B = len(samples)
+    Di = torch.zeros(B, 4 * M, 4 * N, dtype=dtype, device=device)
+    DiA = torch.zeros(B, 4 * N, 4 * M, dtype=dtype, device=device)
+    for b, s in enumerate(samples):
+        for out, mat in zip((Di, DiA), geo.dirac(s["V"], s["F"])):
+            coo = mat.tocoo()  # from CSR: no duplicate entries
+            rows, cols = (torch.from_numpy(i.astype(np.int64)).to(device) for i in (coo.row, coo.col))
+            out[b, rows, cols] = torch.from_numpy(coo.data).to(device, dtype)
+    return Di, DiA
+
+
+def dirac_batch(
+    samples: list[dict],
+    buckets: Buckets,
+    input_key: str = "input",
+    target_key: str = "target",
+    fmt: str = "structured",
+) -> MeshBatch:
+    """A Dirac batch: ``fmt='structured'`` (quaternion coefficient tables)
+    or ``'dense'`` (the padded dense pair)."""
+    N, M = buckets.n_vertices, buckets.n_faces
+    inputs, targets, mask = _padded_arrays(samples, N, input_key, target_key)
+    if fmt == "dense":
+        operator = dense_dirac_pair(samples, N, M)
+    elif fmt == "structured":
+        operator = stack_dirac([_dirac_sample_operator(s, buckets, N, M) for s in samples])
+    else:
+        raise ValueError(f"unknown Dirac operator format {fmt!r}: expected 'structured' or 'dense'")
+    return MeshBatch(
+        inputs=torch.from_numpy(inputs),
+        targets=torch.from_numpy(targets),
+        mask=torch.from_numpy(mask),
+        operator=operator,
+        faces=_pad_faces(samples, buckets),
         names=[s.get("name") for s in samples],
     )
 

@@ -1,20 +1,22 @@
 """Seeded synthetic meshes and the FAUST loader (counterpart of
 ``surfacenetworks_tpu/data/datasets.py``).
 
-``random_blob_mesh``, the ``operator="lap"`` branch of
-``synthetic_normal_dataset`` and ``synthetic_correspondence_dataset`` are
-copies of the JAX package's generators (same RNG call order), so the same
-seed gives the same meshes, labels, geodesic proxies and Laplacians in both
+``random_blob_mesh``, ``synthetic_normal_dataset`` and
+``synthetic_correspondence_dataset`` are copies of the JAX package's
+generators (same RNG call order), so the same seed gives the same meshes,
+labels, geodesic proxies, Laplacians and Dirac coefficients in both
 packages.  ``load_faust_npz`` reads the reference's FAUST ``.npz`` layout;
 ``load_normal_sample``, ``scan_mesh_tree`` and ``load_normal_npz`` read the
 normal trainer's mesh trees and the JAX package's ``cli.preprocess normal``
-output (Laplacian samples only).
+output, Laplacian and Dirac samples.
 """
 
 from __future__ import annotations
 
 import glob
+import io
 import os
+import pickle
 
 import numpy as np
 import scipy.sparse as sp
@@ -52,25 +54,28 @@ def random_blob_mesh(rng: np.random.Generator, n_points: int = 200) -> tuple[np.
 def synthetic_normal_dataset(
     num: int, n_points: int = 150, seed: int = 0, operator: str = "lap", hack: float = 1.0
 ) -> list[dict]:
-    """normal_predict-style samples: input = V, target = vertex normals, and
-    the igl-convention hacked Laplacian ``L``.  Only ``operator='lap'`` is
-    ported; the Dirac branch comes with the Dirac slice."""
-    if operator != "lap":
-        raise NotImplementedError(f"operator={operator!r}: only 'lap' is ported")
+    """normal_predict-style samples: input = V, target = vertex normals.
+
+    ``operator='lap'`` attaches the igl-convention hacked Laplacian ``L``;
+    any other value (the JAX package's ``'dirac'``) the structured Dirac
+    coefficients ``dirac`` of the float64 vertices.
+    """
     rng = np.random.default_rng(seed)
     out = []
     for i in range(num):
         V, F = random_blob_mesh(rng, n_points)
-        out.append(
-            {
-                "V": V.astype(np.float32),
-                "F": F,
-                "input": V.astype(np.float32),
-                "target": geo.vertex_normals(V, F).astype(np.float32),
-                "name": f"synthetic_{i}",
-                "L": geo.igl_style_laplacian(V, F, hack=hack),
-            }
-        )
+        sample = {
+            "V": V.astype(np.float32),
+            "F": F,
+            "input": V.astype(np.float32),
+            "target": geo.vertex_normals(V, F).astype(np.float32),
+            "name": f"synthetic_{i}",
+        }
+        if operator == "lap":
+            sample["L"] = geo.igl_style_laplacian(V, F, hack=hack)
+        else:
+            sample["dirac"] = geo.dirac_coeffs(V, F)
+        out.append(sample)
     return out
 
 
@@ -130,12 +135,14 @@ def load_faust_npz(path: str) -> dict:
     return out
 
 
-def load_normal_sample(obj_path: str, hack: float = 1.0, uniform_mesh: bool = False) -> dict | None:
+def load_normal_sample(obj_path: str, operator: str = "lap", hack: float = 1.0,
+                       uniform_mesh: bool = False) -> dict | None:
     """One ``.obj``/``.ply`` as a normal-prediction sample with its
-    igl-style Laplacian (the JAX package's ``operator="lap"``): the target
-    is the vertex normals of the mesh as read, the input and the Laplacian
-    those of the mesh after ``uniform_mesh`` scaling.  NaN or empty meshes,
-    and Laplacians with non-finite values, give None."""
+    igl-style Laplacian (``operator="lap"``) or, for any other value (the
+    JAX package's ``"dirac"``), the Dirac coefficients of its float64
+    vertices: the target is the vertex normals of the mesh as read, the
+    input and the operator those of the mesh after ``uniform_mesh`` scaling.
+    NaN or empty meshes, and Laplacians with non-finite values, give None."""
     loader = geo.load_ply if obj_path.lower().endswith(".ply") else geo.load_obj
     V, F = loader(obj_path)
     if V.size == 0 or F.size == 0:
@@ -145,17 +152,21 @@ def load_normal_sample(obj_path: str, hack: float = 1.0, uniform_mesh: bool = Fa
         return None
     if uniform_mesh:
         V = geo.uniform_mesh_scale(V)
-    L = geo.igl_style_laplacian(V, F, hack=hack)
-    if not np.isfinite(L.data).all():
-        return None
-    return {
+    sample = {
         "V": V.astype(np.float32),
         "F": F.astype(np.int32),
         "input": V.astype(np.float32),
         "target": target.astype(np.float32),
         "name": obj_path,
-        "L": L,
     }
+    if operator == "lap":
+        L = geo.igl_style_laplacian(V, F, hack=hack)
+        if not np.isfinite(L.data).all():
+            return None
+        sample["L"] = L
+    else:
+        sample["dirac"] = geo.dirac_coeffs(V, F)
+    return sample
 
 
 def scan_obj_tree(data_path: str) -> list[str]:
@@ -170,18 +181,53 @@ def scan_mesh_tree(data_path: str) -> list[str]:
     return npz if npz else scan_obj_tree(data_path)
 
 
+class _DiracUnpickler(pickle.Unpickler):
+    """Unpickles the ``dirac`` member of a preprocessed sample: the JAX
+    package's ``DiracCoeffs`` becomes the port's (same fields), numpy's
+    array reconstructors are admitted, and every other global is refused,
+    so the file can neither import the JAX package nor run code."""
+
+    _NUMPY = {("numpy._core.multiarray", "_reconstruct"), ("numpy.core.multiarray", "_reconstruct"),
+              ("numpy", "ndarray"), ("numpy", "dtype")}
+
+    def find_class(self, module: str, name: str):
+        if (module, name) == ("surfacenetworks_tpu.geometry.mesh_ops", "DiracCoeffs"):
+            return geo.DiracCoeffs
+        if (module, name) in self._NUMPY:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"refused global {module}.{name} in a Dirac sample")
+
+
+def _read_dirac_member(z, path: str) -> geo.DiracCoeffs:
+    """The 0-d object array ``dirac.npy`` of an open ``.npz``, read through
+    ``_DiracUnpickler`` (``np.load`` would unpickle with no restriction)."""
+    with z.zip.open("dirac.npy") as fh:
+        version = np.lib.format.read_magic(fh)
+        header = np.lib.format.read_array_header_1_0 if version == (1, 0) else np.lib.format.read_array_header_2_0
+        shape, _, dtype = header(fh)
+        if shape != () or dtype != np.dtype(object):
+            raise ValueError(f"{path}: dirac member is {dtype} {shape}, not a pickled DiracCoeffs")
+        coeffs = _DiracUnpickler(io.BytesIO(fh.read())).load().item()
+    if not isinstance(coeffs, geo.DiracCoeffs):
+        raise ValueError(f"{path}: dirac member holds {type(coeffs).__name__}, not DiracCoeffs")
+    return coeffs
+
+
 def load_normal_npz(path: str) -> dict:
     """One normal-prediction sample written by the JAX package's
-    ``cli.preprocess normal`` (Laplacian already assembled)."""
+    ``cli.preprocess normal``: its Laplacian, or its pickled Dirac
+    coefficients (read by ``_DiracUnpickler``)."""
     with np.load(path, allow_pickle=False) as z:
-        if "L_data" not in z:
-            raise NotImplementedError(f"{path}: a Dirac sample; only Laplacian samples are ported")
         V = z["V"].astype(np.float32)
-        return {
+        sample = {
             "V": V,
             "F": z["F"].astype(np.int32),
             "input": V,
             "target": z["target"].astype(np.float32),
             "name": path,
-            "L": sp.csr_matrix((z["L_data"], z["L_indices"], z["L_indptr"]), shape=tuple(z["L_shape"])),
         }
+        if "L_data" in z:
+            sample["L"] = sp.csr_matrix((z["L_data"], z["L_indices"], z["L_indptr"]), shape=tuple(z["L_shape"]))
+        else:
+            sample["dirac"] = _read_dirac_member(z, path)
+    return sample

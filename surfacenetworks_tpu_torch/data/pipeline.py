@@ -66,11 +66,18 @@ def _nbytes(obj: Any) -> int:
     return 0
 
 
+def _to(obj: Any, device) -> Any:
+    if isinstance(obj, tuple):
+        return tuple(_to(o, device) for o in obj)
+    return obj.to(device)
+
+
 def to_device(batch: MeshBatch, device) -> MeshBatch:
-    """A host batch's tensors and operator on ``device`` (the operator's own
-    ``to`` checks its columns on the host first)."""
+    """A host batch's tensors and operator (a tensor, an operator dataclass
+    or a dense Dirac pair) on ``device`` (an operator's own ``to`` checks its
+    indices on the host first)."""
     return MeshBatch(inputs=batch.inputs.to(device), targets=batch.targets.to(device), mask=batch.mask.to(device),
-                     operator=batch.operator.to(device), names=batch.names)
+                     operator=_to(batch.operator, device), names=batch.names)
 
 
 class PackedSamples:

@@ -2,19 +2,26 @@
 
 from surfacenetworks_tpu_torch.geometry.io import load_obj, load_ply, save_obj, save_ply
 from surfacenetworks_tpu_torch.geometry.mesh_ops import (
+    DiracCoeffs,
     cotangent_weights,
+    dirac,
+    dirac_coeffs,
     edge_lengths,
     face_areas,
     hackit,
     igl_style_laplacian,
     invert_permutation,
     laplacian,
+    quaternion_matrix,
     uniform_mesh_scale,
     vertex_normals,
 )
 
 __all__ = [
+    "DiracCoeffs",
     "cotangent_weights",
+    "dirac",
+    "dirac_coeffs",
     "edge_lengths",
     "face_areas",
     "hackit",
@@ -23,6 +30,7 @@ __all__ = [
     "laplacian",
     "load_obj",
     "load_ply",
+    "quaternion_matrix",
     "save_obj",
     "save_ply",
     "uniform_mesh_scale",

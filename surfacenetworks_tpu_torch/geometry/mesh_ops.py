@@ -1,12 +1,14 @@
 """Host-side mesh operators (NumPy/SciPy), copied from the JAX package.
 
 Counterpart of ``surfacenetworks_tpu/geometry/mesh_ops.py``.  The functions
-below are verbatim copies of the ones the normal-prediction serving path
-needs, so the port builds identical operators without importing the JAX
+below are verbatim copies of the ones the port's Laplacian and Dirac paths
+need, so the port builds identical operators without importing the JAX
 package (whose ``__init__`` imports jax and flax).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import scipy.sparse as sp
@@ -146,6 +148,141 @@ def igl_style_laplacian(
     if hack is not None:
         L = hackit(L, hack)
     return L.tocsr()
+
+
+def quaternion_matrix(q: np.ndarray) -> np.ndarray:
+    """Left-multiplication matrix L(q) with L(q) x = q (x) quaternion product.
+
+    Parity: utils/mesh.py:28-33. Supports batched input [..., 4] -> [..., 4, 4].
+    """
+    q = np.asarray(q)
+    a, b, c, d = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        np.stack([a, -b, -c, -d], axis=-1),
+        np.stack([b, a, -d, c], axis=-1),
+        np.stack([c, d, a, -b], axis=-1),
+        np.stack([d, -c, b, a], axis=-1),
+    ]
+    return np.stack(rows, axis=-2)
+
+
+@dataclasses.dataclass
+class DiracCoeffs:
+    """Structured quaternion-coefficient form of the Dirac operator pair.
+
+    The structured applies (``sparse/ops.py``) consume this directly instead
+    of a generic sparse matrix:
+
+    * ``Di v``  (faces <- vertices): ``out[i] = sum_c q_fv[i, c] (x) v[F[i, c]]``
+      where ``q_fv[i, c] = -e_{i,c} / (2 A_f[i])`` is a pure quaternion built
+      from the opposite edge ``e_{i,c} = V[F[i,(c+1)%3]] - V[F[i,(c+2)%3]]``.
+    * ``DiA f`` (vertices <- faces): the adjoint blocks are
+      ``(q_fv block)^T * A_f / A_v = L(e_{i,c}) / (2 A_v[j])`` — represented via
+      a per-vertex incidence table of up to ``max_valence`` (face, corner)
+      pairs with quaternion coefficient ``q_vf[j, s] = e_{i,c} / (2 A_v[j])``.
+
+    (Uses L(e)^T = L(-e) for pure quaternions e.)
+    Parity: utils/mesh.py:35-64 (``dirac``).
+    """
+
+    F: np.ndarray  # [M, 3] int32 — face vertex indices
+    q_fv: np.ndarray  # [M, 3, 4] float32 — Di quaternion coeffs per corner
+    vf_face: np.ndarray  # [N, Kv] int32 — incident face index (0-padded)
+    vf_corner: np.ndarray  # [N, Kv] int32 — corner of this vertex in that face
+    q_vf: np.ndarray  # [N, Kv, 4] float32 — DiA quaternion coeffs (0-padded)
+    # adjoint coefficient tables for the applies' backwards (the counterpart
+    # of the reference's stored-transpose backward, sparse_bmm_func.py:53-72);
+    # uses L(q)^T = L(conj q) and conj(pure e) = -e:
+    q_bwd_v: np.ndarray  # [N, Kv, 4] — VJP of Di  (vertices <- faces): -q_fv at (vf_face, vf_corner)
+    q_bwd_f: np.ndarray  # [M, 3, 4]  — VJP of DiA (faces <- vertices): -q_vf at matching slots
+    n_vertices: int
+    n_faces: int
+
+
+def dirac_coeffs(V: np.ndarray, F: np.ndarray, max_valence: int | None = None) -> DiracCoeffs:
+    """Build the structured Dirac coefficients from (V, F)."""
+    V = np.asarray(V, dtype=np.float64)
+    F = np.asarray(F, dtype=np.int32)
+    n, m = V.shape[0], F.shape[0]
+    Af = face_areas(V, F)
+    Av = np.zeros(n)
+    for c in range(3):
+        np.add.at(Av, F[:, c], Af / 3.0)
+
+    # edge opposite corner c: e = V[F[:, (c+1)%3]] - V[F[:, (c+2)%3]]
+    e = np.stack([V[F[:, (c + 1) % 3]] - V[F[:, (c + 2) % 3]] for c in range(3)], axis=1)
+    q_fv = np.zeros((m, 3, 4))
+    q_fv[:, :, 1:] = -e / (2.0 * Af)[:, None, None]
+
+    # per-vertex incidence (face, corner) lists
+    counts = np.zeros(n, dtype=np.int64)
+    np.add.at(counts, F.reshape(-1), 1)
+    Kv = int(counts.max()) if max_valence is None else max_valence
+    vf_face = np.zeros((n, Kv), dtype=np.int32)
+    vf_corner = np.zeros((n, Kv), dtype=np.int32)
+    q_vf = np.zeros((n, Kv, 4))
+    # sort-based fill to stay vectorizable for large meshes
+    flat_v = F.reshape(-1)
+    order = np.argsort(flat_v, kind="stable")
+    faces_sorted = (np.repeat(np.arange(m), 3))[order]
+    corners_sorted = (np.tile(np.arange(3), m))[order]
+    verts_sorted = flat_v[order]
+    slot = np.arange(len(verts_sorted)) - np.searchsorted(verts_sorted, verts_sorted)
+    keep = slot < Kv
+    vf_face[verts_sorted[keep], slot[keep]] = faces_sorted[keep]
+    vf_corner[verts_sorted[keep], slot[keep]] = corners_sorted[keep]
+    # DiA coeff: +e_{i,c} / (2 A_v[j])
+    ecoef = e[faces_sorted[keep], corners_sorted[keep]] / (2.0 * Av[verts_sorted[keep]])[:, None]
+    q_vf[verts_sorted[keep], slot[keep], 1:] = ecoef
+
+    q_bwd_v = np.zeros((n, Kv, 4))
+    q_bwd_v[verts_sorted[keep], slot[keep]] = -q_fv[faces_sorted[keep], corners_sorted[keep]]
+    q_bwd_f = np.zeros((m, 3, 4))
+    q_bwd_f[faces_sorted[keep], corners_sorted[keep]] = -q_vf[verts_sorted[keep], slot[keep]]
+    return DiracCoeffs(
+        F=F,
+        q_fv=q_fv.astype(np.float32),
+        vf_face=vf_face,
+        vf_corner=vf_corner,
+        q_vf=q_vf.astype(np.float32),
+        q_bwd_v=q_bwd_v.astype(np.float32),
+        q_bwd_f=q_bwd_f.astype(np.float32),
+        n_vertices=n,
+        n_faces=m,
+    )
+
+
+def dirac(V: np.ndarray, F: np.ndarray) -> tuple[sp.csr_matrix, sp.csr_matrix]:
+    """Scipy-CSR Dirac operator pair (D [4M x 4N], DA [4N x 4M]).
+
+    Vectorized parity with utils/mesh.py:35-64: D block (face i, vertex j=F[i,c])
+    is ``-L(e_{i,c}) / (2 A_f[i])``; DA block is its transpose times
+    ``A_f[i]/A_v[j]``.
+    """
+    V = np.asarray(V, dtype=np.float64)
+    F = np.asarray(F, dtype=np.int32)
+    n, m = V.shape[0], F.shape[0]
+    coeffs = dirac_coeffs(V, F)
+    Af = face_areas(V, F)
+    Av = np.zeros(n)
+    for c in range(3):
+        np.add.at(Av, F[:, c], Af / 3.0)
+
+    blocks = quaternion_matrix(coeffs.q_fv.astype(np.float64))  # [M, 3, 4, 4]
+
+    # D: rows 4i..4i+3, cols 4j..4j+3
+    fi = np.repeat(np.arange(m), 3)
+    vj = F.reshape(-1)
+    b = blocks.reshape(-1, 4, 4)  # [3M, 4, 4]
+    rr = (4 * fi[:, None, None] + np.arange(4)[None, :, None]).repeat(4, axis=2)
+    cc = (4 * vj[:, None, None] + np.arange(4)[None, None, :]).repeat(4, axis=1)
+    D = sp.coo_matrix((b.ravel(), (rr.ravel(), cc.ravel())), shape=(4 * m, 4 * n)).tocsr()
+
+    bt = np.swapaxes(b, 1, 2) * (Af[np.repeat(np.arange(m), 3)] / Av[vj])[:, None, None]
+    rr2 = (4 * vj[:, None, None] + np.arange(4)[None, :, None]).repeat(4, axis=2)
+    cc2 = (4 * fi[:, None, None] + np.arange(4)[None, None, :]).repeat(4, axis=1)
+    DA = sp.coo_matrix((bt.ravel(), (rr2.ravel(), cc2.ravel())), shape=(4 * n, 4 * m)).tocsr()
+    return D, DA
 
 
 def vertex_normals(V: np.ndarray, F: np.ndarray) -> np.ndarray:

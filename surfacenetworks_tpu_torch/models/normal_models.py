@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from surfacenetworks_tpu_torch.nn.blocks import WideAvgResNet2, WideLapResNet2
+from surfacenetworks_tpu_torch.nn.blocks import AvgResNet2, DirResNet2, WideAvgResNet2, WideLapResNet2, dirac_num_faces
 from surfacenetworks_tpu_torch.nn.layers import GraphBatchNorm, GraphConv1x1, repeating_expand
 
 WIDTH = 128
@@ -51,6 +51,56 @@ class LapDeepModel(nn.Module):
             x = getattr(self, f"rn{i}")(op, mask, x)
         x = self.conv2(F.elu(x))
         return x + repeating_expand(inputs, x.shape[-1])
+
+
+class _DirTrunk(nn.Module):
+    """Dirac blocks on even layers over coupled vertex and face streams (the
+    face stream starts at zero), Avg blocks on odd ones."""
+
+    def __init__(self, in_features: int, layers: int):
+        super().__init__()
+        self.layers = layers
+        self.conv1 = GraphConv1x1(in_features, WIDTH, None)
+        for i in range(layers):
+            self.add_module(f"rn{i}", DirResNet2(WIDTH) if i % 2 == 0 else AvgResNet2(WIDTH))
+
+    def trunk(self, op, mask, inputs) -> tuple[torch.Tensor, torch.Tensor]:
+        v = self.conv1(inputs)
+        f = v.new_zeros(inputs.shape[0], dirac_num_faces(op), WIDTH)
+        for i in range(self.layers):
+            if i % 2 == 0:
+                v, f = getattr(self, f"rn{i}")(op, v, f)
+            else:
+                v = getattr(self, f"rn{i}")(None, mask, v)
+        return v, f
+
+
+class DirDeepModel(_DirTrunk):
+    """Deep Dirac network: the Dirac trunk, then conv2 ('pre') and an ELU;
+    no input residual.  ``op`` is a ``DiracOperator`` or a dense (Di, DiA)
+    pair."""
+
+    def __init__(self, in_features: int, out_features: int, layers: int = 15):
+        super().__init__(in_features, layers)
+        self.conv2 = GraphConv1x1(WIDTH, out_features, "pre")
+
+    def forward(self, op, mask, inputs):
+        v, _ = self.trunk(op, mask, inputs)
+        # fp32 output whatever the compute dtype, as in the JAX package
+        return F.elu(self.conv2(v).float())
+
+
+class DirModelToFace(_DirTrunk):
+    """Dirac network whose output is the face stream: ELU, then conv2
+    ('pre'), per face ``[B, M, out_features]``."""
+
+    def __init__(self, in_features: int, out_features: int, layers: int = 16):
+        super().__init__(in_features, layers)
+        self.conv2 = GraphConv1x1(WIDTH, out_features, "pre")
+
+    def forward(self, op, mask, inputs):
+        _, f = self.trunk(op, mask, inputs)
+        return self.conv2(F.elu(f)).float()
 
 
 @torch.no_grad()

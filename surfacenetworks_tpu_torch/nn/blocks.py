@@ -1,15 +1,21 @@
-"""Residual Laplacian and average blocks (counterpart of
+"""Residual Laplacian, average and Dirac blocks (counterpart of
 ``surfacenetworks_tpu/nn/blocks.py``).
 
-Every block keeps the signature ``block(op, mask, x)``:
+Every block keeps the signature ``block(op, mask, x)`` (Dirac:
+``block(dirac_op, v, f)``):
 
 * ``LapResNet2``: x -> ELU -> [x || L x] -> conv(2d -> d, 'pre') twice, + input.
 * ``AvgResNet2``: the operator replaced by the masked global average.
 * ``WideLapResNet2`` / ``WideAvgResNet2``: width-changing versions with
   ``inner_layers`` steps and the truncating or doubling residual.
+* ``DirResNet2``: vertex and face streams coupled through the Dirac pair in
+  quaternion layout; the face stream has no residual.
 
 ``op`` is an ``EllOperator``, a ``BsrOperator``, a dense ``[B, N, N]``
-tensor, or any callable ``x -> L x`` (dispatch in ``apply_operator``).
+tensor, or any callable ``x -> L x`` (dispatch in ``apply_operator``).  A
+Dirac operator is a structured ``DiracOperator`` or a dense pair ``(Di [B,
+4M, 4N], DiA [B, 4N, 4M])`` (dispatch in ``apply_dirac_vf`` /
+``apply_dirac_fv``).
 """
 
 from __future__ import annotations
@@ -22,8 +28,8 @@ from torch import nn
 
 from surfacenetworks_tpu_torch.nn.layers import GraphConv1x1, global_average
 from surfacenetworks_tpu_torch.sparse.bsr import BsrOperator
-from surfacenetworks_tpu_torch.sparse.ell import EllOperator
-from surfacenetworks_tpu_torch.sparse.ops import bsr_spmm, dense_bmm, spmm
+from surfacenetworks_tpu_torch.sparse.ell import DiracOperator, EllOperator
+from surfacenetworks_tpu_torch.sparse.ops import bsr_spmm, dense_bmm, dirac_apply_fv, dirac_apply_vf, spmm
 
 
 def apply_operator(op: Any, x: torch.Tensor) -> torch.Tensor:
@@ -37,6 +43,42 @@ def apply_operator(op: Any, x: torch.Tensor) -> torch.Tensor:
     if callable(op):
         return op(x)
     raise TypeError(f"unsupported operator {type(op).__name__}")
+
+
+def _dense_pair(op: Any) -> tuple[torch.Tensor, torch.Tensor]:
+    if isinstance(op, tuple) and len(op) == 2 and all(isinstance(t, torch.Tensor) for t in op):
+        return op
+    raise TypeError(f"unsupported Dirac operator {type(op).__name__}: a DiracOperator or a dense (Di, DiA) pair")
+
+
+def _dense_dirac(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A dense Dirac matrix ``[B, 4R, 4S]`` on ``x [B, S, C]`` in quaternion
+    layout: ``x`` viewed ``[B, 4S, C/4]``; the matrix is widened for fp64
+    ``x``."""
+    *lead, n, c = x.shape
+    out = dense_bmm(d.to(x.dtype), x.reshape(*lead, n * 4, c // 4))
+    return out.reshape(*lead, out.shape[-2] // 4, c)
+
+
+def apply_dirac_vf(op: Any, v: torch.Tensor) -> torch.Tensor:
+    """``Di @ v`` (vertices -> faces) for a structured or a dense operator."""
+    if isinstance(op, DiracOperator):
+        return dirac_apply_vf(op, v)
+    return _dense_dirac(_dense_pair(op)[0], v)
+
+
+def apply_dirac_fv(op: Any, f: torch.Tensor) -> torch.Tensor:
+    """``DiA @ f`` (faces -> vertices)."""
+    if isinstance(op, DiracOperator):
+        return dirac_apply_fv(op, f)
+    return _dense_dirac(_dense_pair(op)[1], f)
+
+
+def dirac_num_faces(op: Any) -> int:
+    """Face count of a structured or a dense Dirac operator."""
+    if isinstance(op, DiracOperator):
+        return op.n_faces
+    return _dense_pair(op)[0].shape[-2] // 4
 
 
 def _cat_op(x: torch.Tensor, ox: torch.Tensor) -> torch.Tensor:
@@ -129,3 +171,21 @@ class WideAvgResNet2(_WideBlock):
 
     def _neighbourhood(self, op, mask, x):
         return _cat_avg(x, mask)
+
+
+class DirResNet2(nn.Module):
+    """Dirac residual block over coupled vertex and face streams:
+    ``forward(op, v, f) -> (v + v', f')`` (channels divisible by 4).  The
+    face stream's batch norm takes every ``B*M`` face row, padded faces
+    included, as the JAX package's does."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.bn_fc0 = GraphConv1x1(2 * features, features, "pre")
+        self.bn_fc1 = GraphConv1x1(2 * features, features, "pre")
+
+    def forward(self, op, v, f):
+        x_in, f_in = F.elu(v), F.elu(f)
+        f_out = self.bn_fc0(_cat_op(f_in, apply_dirac_vf(op, x_in)))
+        v_out = self.bn_fc1(_cat_op(x_in, apply_dirac_fv(op, F.elu(f_out))))
+        return v + v_out, f_out

@@ -1,11 +1,14 @@
-"""Padded ELL operators (counterpart of ``surfacenetworks_tpu/sparse/ell.py``).
+"""Padded ELL operators and the structured Dirac operator (counterpart of
+``surfacenetworks_tpu/sparse/ell.py``).
 
 Mesh operators have bounded row degree, so each row keeps a fixed number
 ``K`` of (column, value) slots; padding slots are (column 0, value 0) and add
 nothing.  The packing is done on the host with NumPy exactly as in the JAX
 package, then held as tensors; ``.to(device)`` copies an operator to the card
 once per request.  A leading batch axis on ``cols``/``vals`` is a
-block-diagonal batch of operators.
+block-diagonal batch of operators.  The Dirac pair (Di, DiA) is held as
+quaternion coefficient tables with their adjoint tables (DiA is not Di^T:
+it is area-rescaled).
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import dataclasses
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from surfacenetworks_tpu_torch.geometry.mesh_ops import DiracCoeffs
 
 
 def _round_up(x: int, m: int) -> int:
@@ -231,3 +236,140 @@ def stack_operators(ops: list[EllOperator]) -> EllOperator:
     if all(o.fwd_t is not None for o in ops):
         fwd_t = _stack_maps([o.fwd_t for o in ops], m.n_rows * m.k)
     return EllOperator(fwd=_stack_ell([o.fwd for o in ops]), bwd=_stack_ell([o.bwd for o in ops]), fwd_t=fwd_t)
+
+
+@dataclasses.dataclass
+class DiracOperator:
+    """Structured quaternionic Dirac operator pair (Di, DiA) of one mesh, or
+    a batch of them along a leading axis of every table.
+
+    A ``[N, C]`` feature tensor (``C % 4 == 0``) is read as ``[N, 4, C//4]``
+    quaternion channels: the quaternion component is the leading split of
+    the channel axis.
+
+    * ``Di v``: faces <- vertices, ``out[i] = sum_c q_fv[i,c] (x) v[faces[i,c]]``;
+    * ``DiA f``: vertices <- faces, ``out[j] = sum_s q_vf[j,s] (x) f[vf_face[j,s]]``;
+    * ``q_bwd_v`` / ``q_bwd_f``: the adjoint tables the backwards apply.
+
+    Packed valence (``dirac_from_coeffs(base_valence=...)``): the vertex
+    tables then hold ``base_valence`` slots, and the few vertices of higher
+    valence keep their surplus in ``P`` overflow rows (``ov_*``), which the
+    vertex-side apply adds back.  ``ov_rows`` is the JAX package's scatter
+    target of each overflow row; the port adds by a gather instead, through
+    ``ov_map``, built here on the host: for each vertex row the overflow row
+    it takes, or ``P`` for none (a zero row appended to the overflow result),
+    so the sum has one fixed order.  The overflow fields are None when
+    packing is off.
+    """
+
+    faces: torch.Tensor  # int32 [..., M, 3]
+    q_fv: torch.Tensor  # f32 [..., M, 3, 4]
+    vf_face: torch.Tensor  # int32 [..., N, Kv]
+    q_vf: torch.Tensor  # f32 [..., N, Kv, 4]
+    q_bwd_v: torch.Tensor  # f32 [..., N, Kv, 4]
+    q_bwd_f: torch.Tensor  # f32 [..., M, 3, 4]
+    ov_rows: torch.Tensor | None = None  # int32 [..., P] (0-padded)
+    ov_face: torch.Tensor | None = None  # int32 [..., P, K_ov]
+    q_ov_vf: torch.Tensor | None = None  # f32 [..., P, K_ov, 4]
+    q_ov_bwd_v: torch.Tensor | None = None  # f32 [..., P, K_ov, 4]
+    ov_map: torch.Tensor | None = None  # int32 [..., N], values in [0, P]
+
+    @property
+    def n_vertices(self) -> int:
+        return self.vf_face.shape[-2]
+
+    @property
+    def n_faces(self) -> int:
+        return self.faces.shape[-2]
+
+    def to(self, device) -> "DiracOperator":
+        check_columns(self.faces, self.n_vertices, "Dirac face vertex")
+        check_columns(self.vf_face, self.n_faces, "Dirac incident face")
+        if self.ov_map is not None:
+            check_columns(self.ov_face, self.n_faces, "Dirac overflow face")
+            check_columns(self.ov_map, self.ov_face.shape[-2] + 1, "Dirac overflow map entry")
+        return DiracOperator(**{f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+                                for f in dataclasses.fields(self)})
+
+
+def dirac_from_coeffs(
+    coeffs: DiracCoeffs,
+    n_vertices: int | None = None,
+    n_faces: int | None = None,
+    max_valence: int | None = None,
+    base_valence: int | None = None,
+    n_overflow: int | None = None,
+) -> DiracOperator:
+    """Pad a host-side ``DiracCoeffs`` into a static-shape ``DiracOperator``
+    (the JAX package's packing, NumPy for NumPy).
+
+    Zero quaternion coefficients make padded faces, vertices and slots inert.
+    ``base_valence`` (< ``max_valence``) packs the vertex tables: each vertex
+    keeps its first ``base_valence`` used slots; vertices of higher valence
+    park the surplus in ``n_overflow`` rows of ``max_valence -
+    base_valence`` slots.
+    """
+    N = n_vertices if n_vertices is not None else coeffs.n_vertices
+    M = n_faces if n_faces is not None else coeffs.n_faces
+    Kv = max_valence if max_valence is not None else coeffs.vf_face.shape[1]
+    if N < coeffs.n_vertices or M < coeffs.n_faces or Kv < coeffs.vf_face.shape[1]:
+        raise ValueError("padded shape smaller than mesh")
+
+    def pad(a, shape):
+        out = np.zeros(shape, dtype=a.dtype)
+        out[tuple(slice(0, s) for s in a.shape)] = a
+        return out
+
+    vf_face = pad(coeffs.vf_face.astype(np.int32), (N, Kv))
+    q_vf = pad(coeffs.q_vf, (N, Kv, 4))
+    q_bwd_v = pad(coeffs.q_bwd_v, (N, Kv, 4))
+    overflow = {}
+    if base_valence is not None and base_valence < Kv:
+        B, K_ov = base_valence, Kv - base_valence
+        # used slots first within each row (stable), then split
+        used = (q_vf != 0).any(-1) | (q_bwd_v != 0).any(-1)
+        order = np.argsort(~used, axis=1, kind="stable")
+        vf_face = np.take_along_axis(vf_face, order, axis=1)
+        q_vf = np.take_along_axis(q_vf, order[..., None], axis=1)
+        q_bwd_v = np.take_along_axis(q_bwd_v, order[..., None], axis=1)
+        used = np.take_along_axis(used, order, axis=1)
+        rows = np.flatnonzero(used[:, B:].any(axis=1))
+        P = n_overflow if n_overflow is not None else _round_up(max(len(rows), 1), 8)
+        if len(rows) > P:
+            raise ValueError(
+                f"n_overflow={P} smaller than {len(rows)} over-valence vertices"
+            )
+        ov_rows = np.zeros(P, np.int32)
+        ov_face = np.zeros((P, K_ov), np.int32)
+        q_ov_vf = np.zeros((P, K_ov, 4), np.float32)
+        q_ov_bwd_v = np.zeros((P, K_ov, 4), np.float32)
+        ov_rows[: len(rows)] = rows
+        ov_face[: len(rows)] = vf_face[rows, B:]
+        q_ov_vf[: len(rows)] = q_vf[rows, B:]
+        q_ov_bwd_v[: len(rows)] = q_bwd_v[rows, B:]
+        vf_face, q_vf, q_bwd_v = vf_face[:, :B], q_vf[:, :B], q_bwd_v[:, :B]
+        # the padded overflow rows (q = 0) add nothing, so no vertex takes them
+        ov_map = np.full(N, P, np.int32)
+        ov_map[rows] = np.arange(len(rows), dtype=np.int32)
+        overflow = dict(ov_rows=ov_rows, ov_face=ov_face, q_ov_vf=q_ov_vf, q_ov_bwd_v=q_ov_bwd_v, ov_map=ov_map)
+
+    tables = dict(
+        faces=pad(coeffs.F.astype(np.int32), (M, 3)),
+        q_fv=pad(coeffs.q_fv, (M, 3, 4)),
+        vf_face=vf_face,
+        q_vf=q_vf,
+        q_bwd_v=q_bwd_v,
+        q_bwd_f=pad(coeffs.q_bwd_f, (M, 3, 4)),
+        **overflow,
+    )
+    return DiracOperator(**{k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in tables.items()})
+
+
+def stack_dirac(ops: list[DiracOperator]) -> DiracOperator:
+    """Batch per-mesh Dirac operators along a new leading axis."""
+    has_ov = [o.ov_map is not None for o in ops]
+    if any(has_ov) and not all(has_ov):
+        raise ValueError("cannot stack packed and unpacked Dirac operators")
+    return DiracOperator(**{f.name: None if getattr(ops[0], f.name) is None
+                            else torch.stack([getattr(o, f.name) for o in ops])
+                            for f in dataclasses.fields(DiracOperator)})

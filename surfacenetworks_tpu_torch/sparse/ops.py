@@ -1,5 +1,6 @@
-"""Operator applies and the SDDMM (counterpart of
-``surfacenetworks_tpu/sparse/ops.py`` and the apply half of ``sparse/bsr.py``).
+"""Operator applies, the SDDMM and the structured Dirac applies (counterpart
+of ``surfacenetworks_tpu/sparse/ops.py`` and the apply half of
+``sparse/bsr.py``).
 
 ``spmm``, ``bsr_spmm`` and ``sddmm`` are ``torch.autograd.Function``s, as the
 JAX package's are ``custom_vjp``s, on the CPU and on the card alike:
@@ -23,15 +24,26 @@ reach an apply as slices of the ``[x || L x]`` concat's gradient, so they
 are made contiguous before a kernel reads them.  A leading batch axis on the
 operator and on the dense operands replaces the JAX package's ``vmap``; the
 kernels take it in one launch.
+
+``dirac_apply_vf`` / ``dirac_apply_fv`` apply the structured Dirac pair in
+plain PyTorch (the JAX package computes them in XLA, with no Pallas kernel):
+one row gather of every slot and one batched product with the slots'
+Hamilton matrices ``L(q)``, expanded on the device from the ``[..., 4]``
+tables.  Their backwards apply the stored adjoint tables the same way, so
+every sum is a gather and a product in a fixed order: no scatter, and the
+same bits on every run.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from surfacenetworks_tpu_torch.sparse import kernels
 from surfacenetworks_tpu_torch.sparse.bsr import BsrOperator
-from surfacenetworks_tpu_torch.sparse.ell import EllOperator
+from surfacenetworks_tpu_torch.sparse.ell import DiracOperator, EllOperator
 
 
 class _EllApply(torch.autograd.Function):
@@ -130,3 +142,109 @@ def sddmm(op: EllOperator, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             f"sddmm: a has {a.shape[-2]} rows and b {b.shape[-2]}, the pattern is {m.n_rows} x {m.n_cols}"
         )
     return _Sddmm.apply(op, a, b)
+
+
+# ---------------------------------------------------------------------------
+# quaternion algebra and the structured Dirac applies
+# ---------------------------------------------------------------------------
+
+
+# L(q)[i, j] is q[k] or -q[k]: its column in cat([q, -q]) per (i, j), from
+# geometry.quaternion_matrix's rows (a,-b,-c,-d), (b,a,-d,c), (c,d,a,-b), (d,-c,b,a).
+_HAMILTON = np.array([[0, 5, 6, 7], [1, 0, 7, 2], [2, 3, 0, 5], [3, 6, 1, 0]])
+
+
+@functools.lru_cache(maxsize=None)
+def _hamilton_index(slots: int, device: torch.device) -> torch.Tensor:
+    """For ``S`` slots, the column of ``cat([q, -q], -1).reshape(R, S*8)``
+    that each entry of the ``[4, S, 4]`` layout ``L(q_s)[i, j]`` reads."""
+    idx = np.arange(slots)[None, :, None] * 8 + _HAMILTON[:, None, :]
+    return torch.from_numpy(idx.reshape(-1)).to(device)
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x [*lead, N, C]`` at rows ``idx [*lead, ...]`` of its own batch
+    member: ``[*lead, ..., C]``, one ``index_select`` (a gather: its
+    forward is deterministic, and no autograd runs through it)."""
+    lead, n, c = idx.shape[: x.dim() - 2], x.shape[-2], x.shape[-1]
+    flat = idx.reshape(-1) if not lead or int(np.prod(lead)) == 1 else (
+        idx.reshape(int(np.prod(lead)), -1) + torch.arange(int(np.prod(lead)), device=idx.device)[:, None] * n
+    ).reshape(-1)
+    return x.reshape(-1, c).index_select(0, flat).reshape(*idx.shape, c)
+
+
+def _gather_apply(idx: torch.Tensor, q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``out[r] = sum_s q[r,s] (x) x[idx[r,s]]``: ``idx [*lead, R, S]``,
+    ``q [*lead, R, S, 4]``, ``x [*lead, N, C]`` -> ``[*lead, R, C]`` in
+    ``x``'s dtype (the tables are widened for fp64 ``x``).  One gather of
+    every slot, viewed ``[R, S*4, C/4]``, and one batched product with
+    ``L(q)`` laid out ``[R, 4, S*4]``: the sum over (slot, component) is a
+    matrix product, so fp32 ``x`` needs TF32 off
+    (``torch.backends.cuda.matmul.allow_tf32``, off by default)."""
+    *lead, r, s = idx.shape
+    c = x.shape[-1]
+    g = _rows(x, idx).reshape(-1, s * 4, c // 4)
+    qq = q.to(x.dtype).reshape(-1, s, 4)
+    lq = torch.cat([qq, -qq], dim=-1).reshape(-1, s * 8).index_select(1, _hamilton_index(s, x.device))
+    return torch.bmm(lq.reshape(-1, 4, s * 4), g).reshape(*lead, r, c)
+
+
+def _vertex_side(op: DiracOperator, q_main: torch.Tensor, q_ov: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
+    """Faces -> vertices through the vertex tables, plus the packed-valence
+    overflow: each vertex row adds the overflow row ``ov_map`` names (a
+    gather from the overflow result with a zero row appended), which is the
+    JAX package's ``out.at[ov_rows].add(o)`` with the sum in one order."""
+    out = _gather_apply(op.vf_face, q_main, x)
+    if op.ov_map is None:
+        return out
+    o = _gather_apply(op.ov_face, q_ov, x)
+    o = torch.cat([o, o.new_zeros(*o.shape[:-2], 1, o.shape[-1])], dim=-2)
+    return out + _rows(o, op.ov_map)
+
+
+class _DiracVF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op: DiracOperator, v: torch.Tensor) -> torch.Tensor:
+        ctx.op = op
+        return _gather_apply(op.faces, op.q_fv, v)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # v_bar[j] = sum over incident (face, corner): conj(q_fv) (x) g[face]
+        op = ctx.op
+        return None, _vertex_side(op, op.q_bwd_v, op.q_ov_bwd_v, g)
+
+
+class _DiracFV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op: DiracOperator, f: torch.Tensor) -> torch.Tensor:
+        ctx.op = op
+        return _vertex_side(op, op.q_vf, op.q_ov_vf, f)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        # f_bar[i] = sum_c conj(q_vf at (faces[i,c], slot)) (x) g[faces[i,c]]
+        op = ctx.op
+        return None, _gather_apply(op.faces, op.q_bwd_f, g)
+
+
+def _check_dirac(op: DiracOperator, x: torch.Tensor, rows: int, what: str) -> None:
+    if x.shape[-1] % 4:
+        raise ValueError(f"{what}: channels {x.shape[-1]} not divisible by 4")
+    if op.faces.dim() != x.dim() or x.shape[-2] != rows:
+        raise ValueError(f"{what}: x {tuple(x.shape)} does not fit the operator's faces {tuple(op.faces.shape)} "
+                         f"and incidence {tuple(op.vf_face.shape)}")
+
+
+def dirac_apply_vf(op: DiracOperator, v: torch.Tensor) -> torch.Tensor:
+    """``Di @ v``: vertex features ``v [..., N, C]`` (C % 4 == 0) -> face
+    features ``[..., M, C]``; the gradient flows to ``v``, not to ``op``."""
+    _check_dirac(op, v, op.n_vertices, "dirac_apply_vf")
+    return _DiracVF.apply(op, v)
+
+
+def dirac_apply_fv(op: DiracOperator, f: torch.Tensor) -> torch.Tensor:
+    """``DiA @ f``: face features ``f [..., M, C]`` -> vertex features
+    ``[..., N, C]``."""
+    _check_dirac(op, f, op.n_faces, "dirac_apply_fv")
+    return _DiracFV.apply(op, f)
