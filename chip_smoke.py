@@ -10,7 +10,7 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives four paths, each with the launch counts set to 0 just before it and
+drives five paths, each with the launch counts set to 0 just before it and
 read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
@@ -36,7 +36,16 @@ read just after:
   without the overflow rows refused) and timed, then 8 updates and the test
   pass, which must launch none of the three kernels; step 0 against fp64
   module by module (the detached mutant refused); the repeat and the resume
-  bit-identical; the applies' device time and share of the step.
+  bit-identical; the applies' device time and share of the step;
+* ARAP training: ``cli/train_arap.py`` (Model-15 at width 128, batch 32,
+  2 frames in, 40 out) on 2,000-vertex synthetic sequences: ``ell_matmul``
+  and its backward on the first batch's 32 stacked operators against the
+  plain version (a mutant applying item 0's operator to every item
+  refused) and timed; 8 updates and the test pass in ELL, 32 launches per
+  step, step 0 against fp64 module by module (the detached mutant refused);
+  the same in ``--dense`` and, for 4 updates, with ``--model dir`` (its
+  batched Dirac applies held against the scipy pairs), neither launching a
+  kernel; every run repeated from its start bit for bit.
 
 It needs a CUDA card; without one (or without the package beside it) it
 exits non-zero and prints no result.  The last two lines are a JSON
@@ -180,6 +189,34 @@ DIRAC_MUTANT_SCALE = 1.03  # a mutant whose applies pass back cotangents 3% too 
 DIRAC_NULL_GRAD_RTOL = 1e-4
 DIRAC_RANGE = "dirac apply"  # the profiler range around each apply in the profiled step
 DIRAC_NULL_GRADS = {f"rn{LAYERS - 1}.bn_fc1.fc.bias", f"rn{LAYERS - 1}.bn_fc1.bn.bias"}
+# ARAP training: the JAX trainer's defaults but for the run length and the
+# data.  Model-15 (8 Lap blocks, 7 Avg blocks) at width 128, batch 32, Adam
+# 1e-3 with coupled weight decay 1e-5 under the halving schedule, random
+# weights from a seeded generator, on synthetic_arap_sequences(5, 50 frames,
+# 2,000 points, seed 0): 4 train and 1 test sequence, 8 valid offsets each,
+# one 2,000-row bucket, 64,000 rows per batch.  8 updates and the test pass
+# in ELL and in --dense; the Dir model (8 Dirac, 7 Avg blocks) 4 updates.
+# Per Lap step 16 applies forward and 16 stored-transpose applies backward,
+# each one launch over the 32 stacked operators: 32 ell_matmul and nothing
+# else; a test pass 16.  Step 0 is held against the same step in fp64 on
+# dense fp64 operators: its loss, then module by module, with bounds of its
+# own.  On the card the loss read 3.4e-5 (the same step in fp32 with dense
+# operators and no kernel the same), the chain at most 1.26e-4 and the
+# parameter gradients 1.22e-3 (conv1's bias), the detached mutant's chain
+# 1.0 and parameters 0.83 (PERF.md, section 6): the bounds below leave a
+# factor of 30-80 on the real side and of 17-100 on the mutant's, where the
+# Lap phases' 0.2 and 0.5 would leave 1.7 on the mutant's parameters.
+ARAP_SEQUENCES = {"num_seq": 5, "n_frames": 50, "n_points": 2000, "seed": SEED}
+ARAP_ARGS = ["--layer", str(LAYERS), "--batch-size", "32", "--num-updates", "8", "--num-epoch", "1",
+             "--seed", str(SEED), "--device", "cuda"]
+ARAP_STEPS = 8
+ARAP_STEP0_LOSS_RTOL = 1e-3
+ARAP_STEP0_CHAIN_RTOL = 1e-2
+ARAP_STEP0_PARAM_RTOL = 5e-2
+ARAP_DIR_STEPS = 4
+ARAP_PER_STEP = {"ell": {"bsr_matmul": 0, "ell_matmul": 32, "sddmm": 0},
+                 "dense": {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0},
+                 "dir": {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0}}
 
 
 def log(msg: str) -> None:
@@ -1186,11 +1223,33 @@ def _normal_snapshot(trainer) -> dict:
             "test_sampler": _sampler_like(trainer.test_sampler, trainer.test_samples), "step": trainer.step}
 
 
-def _normal_run(trainer, steps: int, capture=None, profile_last: bool = False,
-                save_after: int = 0, ckpt: str = "", annotate=None) -> dict:
-    """``steps`` updates, each timed (host wall of a synchronised update,
-    batch gather included, and CUDA events), then the test pass; the launch
-    counts of each step and of the test pass; step 0 under the module-wise
+def _normal_restore(trainer, snap: dict) -> None:
+    trainer.model.load_state_dict(snap["params"])
+    trainer.opt.load_state_dict(snap["opt"])
+    trainer.train_sampler = _sampler_like(snap["train_sampler"], trainer.train_samples)
+    trainer.test_sampler = _sampler_like(snap["test_sampler"], trainer.test_samples)
+    trainer.step = snap["step"]
+
+
+def _draw_samples(trainer) -> tuple[list, list]:
+    """The next train batch's samples, recorded by name."""
+    samples = trainer.train_sampler.next_batch()
+    return samples, [s["name"] for s in samples]
+
+
+def _draw_picks(trainer) -> tuple[list, list]:
+    """The next train batch's (sequence, offset) picks."""
+    picks = trainer.sample_train_picks()
+    return picks, picks
+
+
+def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_last: bool = False,
+               save_after: int = 0, ckpt: str = "", annotate=None) -> dict:
+    """``steps`` updates, each on the batch of ``draw(trainer)`` (what
+    ``trainer.batch`` takes, and what the run records of it) and timed (host
+    wall of a synchronised update, batch gather included, and CUDA events),
+    then the test pass; the launch counts of each step and of the test pass;
+    the peak device memory of the updates; step 0 under the module-wise
     capture ``capture(model)``, the last step under the profiler, a
     checkpoint after ``save_after`` updates.  ``annotate``, a pair
     (context manager, range name), is entered around the profiled step, and
@@ -1200,41 +1259,44 @@ def _normal_run(trainer, steps: int, capture=None, profile_last: bool = False,
 
     from surfacenetworks_tpu_torch.sparse import kernels
 
-    res = {"loss": [], "mad": [], "wall_ms": [], "device_ms": [], "per_step": [], "names": []}
+    res = {"loss": [], "mad": [], "wall_ms": [], "device_ms": [], "per_step": [], "drawn": []}
+    torch.cuda.reset_peak_memory_stats()
     for u in range(steps):
-        samples = trainer.train_sampler.next_batch()
-        res["names"].append([s["name"] for s in samples])
+        drawn, key = draw(trainer)
+        res["drawn"].append(key)
         before = dict(kernels.launches)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        batch = trainer.batch(samples)
+        batch = trainer.batch(drawn)
         if capture is not None and u == 0:
             cap = capture(trainer.model)
-            loss, mad = trainer.update(batch)
+            out = trainer.update(batch)
             cap.remove()
-            res.update(capture=cap, batch0=batch, samples0=samples)
+            res.update(capture=cap, batch0=batch, drawn0=drawn)
         elif profile_last and u == steps - 1:
             ranges = annotate[0]() if annotate else contextlib.nullcontext()
             with ranges, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                loss, mad = trainer.update(batch)
+                out = trainer.update(batch)
                 torch.cuda.synchronize()
         else:
-            loss, mad = trainer.update(batch)
+            out = trainer.update(batch)
         end.record()
         end.synchronize()
         res["wall_ms"].append((time.perf_counter() - t0) * 1e3)
         res["device_ms"].append(start.elapsed_time(end))
+        loss, *mad = out if isinstance(out, tuple) else (out,)  # (loss, mad) from the normal trainer
         res["loss"].append(float(loss))
-        res["mad"].append(float(mad))
+        res["mad"] += [float(m) for m in mad]
         res["per_step"].append({k: kernels.launches[k] - before[k] for k in before})
         if capture is not None and u == 0:
             res["grads0"] = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
         if save_after and u + 1 == save_after:
             trainer.save(ckpt, 0)
             res["sampler_after_save"] = _sampler_like(trainer.train_sampler, trainer.train_samples)
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     res["params"] = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
     before = dict(kernels.launches)
     res["test"] = trainer.test_pass(0)
@@ -1254,35 +1316,37 @@ def _normal_run(trainer, steps: int, capture=None, profile_last: bool = False,
     return res
 
 
+def repeat_run(label: str, trainer, restore, res: dict, draw=_draw_samples) -> None:
+    """The run's updates and test pass again once ``restore()`` has put
+    back the state of its start; sets ``res["reproduced"]``: bit-identical
+    to the run."""
+    import torch
+
+    restore()
+    again = _train_run(trainer, len(res["loss"]), draw)
+    res["reproduced"] = all(again[k] == res[k] for k in ("drawn", "loss", "mad", "test")) and all(
+        torch.equal(v, res["params"][k]) for k, v in again["params"].items())
+    log(f"  {label}: two runs of {len(res['loss'])} steps from the same state: losses run 1 "
+        f"{[repr(v) for v in res['loss']]}, run 2 {[repr(v) for v in again['loss']]}; test run 1 "
+        f"{res['test']!r}, run 2 {again['test']!r}; {'bit-identical' if res['reproduced'] else 'DIFFERENT'}")
+
+
 def repeat_and_resume(label: str, trainer, snap: dict, res: dict, resume_argv: list) -> None:
-    """The run's updates and test pass again from step 0's weights,
-    optimizer and sampler state (``snap``), then a fresh trainer resumed
-    from the checkpoint saved after NORMAL_RESUME_AFTER updates
-    (``resume_argv``) taking the rest; sets ``res["reproduced"]`` and
-    ``res["resumed"]``: each bit-identical to the run."""
+    """``repeat_run`` from step 0's weights, optimizer and sampler state
+    (``snap``), then a fresh trainer resumed from the checkpoint saved after
+    NORMAL_RESUME_AFTER updates (``resume_argv``) taking the rest; sets
+    ``res["resumed"]``: bit-identical to the run."""
     import torch
 
     steps = len(res["loss"])
-    trainer.model.load_state_dict(snap["params"])
-    trainer.opt.load_state_dict(snap["opt"])
-    trainer.train_sampler = _sampler_like(snap["train_sampler"], trainer.train_samples)
-    trainer.test_sampler = _sampler_like(snap["test_sampler"], trainer.test_samples)
-    trainer.step = snap["step"]
-    again = _normal_run(trainer, steps)
-    res["reproduced"] = all(again[k] == res[k] for k in ("names", "loss", "mad", "test")) and all(
-        torch.equal(v, res["params"][k]) for k, v in again["params"].items())
-    log(f"  {label}: two runs of {steps} steps from the same state: losses run 1 "
-        f"{[repr(v) for v in res['loss']]}, run 2 {[repr(v) for v in again['loss']]}; test (loss, mad) "
-        f"run 1 {res['test']}, run 2 {again['test']}; {'bit-identical' if res['reproduced'] else 'DIFFERENT'}")
+    repeat_run(label, trainer, lambda: _normal_restore(trainer, snap), res)
     logged = []
     fresh = _normal_trainer(resume_argv, f"{label} resumed", logged)
     # the sampler is not in a checkpoint, as in the JAX package
     fresh.train_sampler = _sampler_like(res["sampler_after_save"], fresh.train_samples)
-    resumed = _normal_run(fresh, steps - NORMAL_RESUME_AFTER)
+    resumed = _train_run(fresh, steps - NORMAL_RESUME_AFTER)
     res["resumed"] = (fresh.start_epoch == 0 and not any("not loaded" in m for m in logged)
-                      and resumed["names"] == res["names"][NORMAL_RESUME_AFTER:]
-                      and resumed["loss"] == res["loss"][NORMAL_RESUME_AFTER:]
-                      and resumed["mad"] == res["mad"][NORMAL_RESUME_AFTER:]
+                      and all(resumed[k] == res[k][NORMAL_RESUME_AFTER:] for k in ("drawn", "loss", "mad"))
                       and resumed["test"] == res["test"] and fresh.step == steps
                       and all(torch.equal(v, res["params"][k]) for k, v in resumed["params"].items()))
     log(f"  {label}: resumed after step {NORMAL_RESUME_AFTER} in a fresh trainer: steps "
@@ -1301,7 +1365,7 @@ def normal_step0_check(fmt, trainer, state0, res) -> list[str]:
     from surfacenetworks_tpu_torch.train import losses
 
     dev, b = trainer.device, res["batch0"]
-    dense = torch.cat([_dense_fp64(s["L"], trainer.buckets.n_vertices, dev) for s in res["samples0"]])
+    dense = torch.cat([_dense_fp64(s["L"], trainer.buckets.n_vertices, dev) for s in res["drawn0"]])
     mask64, tgt64 = b.mask.double(), b.targets.double()
 
     def dense_step(dtype):
@@ -1375,7 +1439,7 @@ def normal_phase(device, smi: str) -> tuple[dict, dict]:
         for fmt, trainer in trainers.items():
             # the main path of this format: every count is 0 just before it and read just after
             kernels.reset_launch_counts()
-            results[fmt] = _normal_run(trainer, 8, capture=StepCapture, profile_last=True,
+            results[fmt] = _train_run(trainer, 8, capture=StepCapture, profile_last=True,
                                        save_after=NORMAL_RESUME_AFTER, ckpt=os.path.join(tmp, f"{fmt}.pt"))
             path_counts[fmt] = dict(kernels.launches)
             log(f"  normal {fmt}: launches on the path (8 updates + test pass) {path_counts[fmt]}")
@@ -1389,7 +1453,7 @@ def normal_phase(device, smi: str) -> tuple[dict, dict]:
         log(f"  normal dense: format {dense_trainer.fmt}, bucket {dense_trainer.buckets.n_vertices}; "
             f"set-up {time.perf_counter() - t0:.2f} s")
         kernels.reset_launch_counts()
-        results["dense"] = _normal_run(dense_trainer, 8, profile_last=True)
+        results["dense"] = _train_run(dense_trainer, 8, profile_last=True)
         path_counts["dense"] = dict(kernels.launches)
         results["dense"]["fmt"] = dense_trainer.fmt
 
@@ -1424,7 +1488,7 @@ def normal_phase(device, smi: str) -> tuple[dict, dict]:
                 if not (bool(torch.isfinite(g).all()) and bool((g != 0).any())):
                     failures.append(f"normal {fmt}: step-0 gradient of {k} is not finite and non-zero")
             failures += normal_step0_check(fmt, trainers[fmt], snaps[fmt]["params"], res)
-            for key in ("capture", "grads0", "batch0", "samples0", "params", "sampler_after_save"):
+            for key in ("capture", "grads0", "batch0", "drawn0", "params", "sampler_after_save"):
                 del res[key]
         if failures:
             raise AssertionError("; ".join(failures))
@@ -1488,10 +1552,11 @@ def profiled_device_ms(fn) -> tuple[float, list]:
 
 
 def _dirac_apply_work(op, C: int, side: str, m: int) -> tuple[int, int]:
-    """(bytes, flops) of one apply at width ``C``: the features read once,
-    the tables read once, the result written once; 8 C flops per live
-    (row, slot) pair (a 4 x 4 Hamilton block on C/4 channels), and there
-    are 3 m live pairs on either side (one per face corner)."""
+    """(bytes, flops) of one apply at width ``C`` over the operator's whole
+    batch: the features read once, the tables read once, the result written
+    once; 8 C flops per live (row, slot) pair (a 4 x 4 Hamilton block on C/4
+    channels), and there are 3 m live pairs on either side (one per face
+    corner; ``m`` the faces of every item)."""
     face_tables = nbytes(op.faces, op.q_fv)
     vertex_tables = nbytes(*(t for t in (op.vf_face, op.q_vf, op.ov_face, op.q_ov_vf, op.ov_map) if t is not None))
     n_in, n_out = (op.n_vertices, op.n_faces) if side.startswith("vf") else (op.n_faces, op.n_vertices)
@@ -1501,17 +1566,17 @@ def _dirac_apply_work(op, C: int, side: str, m: int) -> tuple[int, int]:
         tables = vertex_tables
     if side.endswith("backward"):
         n_in, n_out = n_out, n_in
-    return (n_in + n_out) * C * 4 + tables, 8 * C * 3 * m
+    return op.faces.shape[0] * (n_in + n_out) * C * 4 + tables, 8 * C * 3 * m
 
 
-def dirac_apply_checks(trainer, device, meshes64: dict) -> dict:
-    """The Dirac applies on the card at the path's shapes (the first
-    synthetic mesh's packed tables, width 128): ``vf`` and ``fv`` and each
-    backward, every element within DIRAC_APPLY_RTOL of its own sum |q| |x|
-    against the fp64 scipy pair (``geometry.dirac`` of the float64
-    vertices) on the host; mutants without one slot (each side) or without
-    the overflow rows must fail.  Then each apply's device time, bytes and
-    bound.  Returns the timings."""
+def dirac_apply_checks(op, device, meshes: list) -> dict:
+    """The Dirac applies on the card on ``op``, packed tables with a leading
+    batch axis, at width 128: item b's ``vf`` and ``fv`` and each backward,
+    every element within DIRAC_APPLY_RTOL of its own sum |q| |x| against
+    the fp64 scipy pair (``geometry.dirac``) of ``meshes[b]``, its float64
+    vertices and faces, on the host; mutants without one slot (each side)
+    or without the overflow rows must fail.  Then each apply's device time
+    over the whole batch, bytes and bound.  Returns the timings."""
     import dataclasses
 
     import torch
@@ -1520,18 +1585,23 @@ def dirac_apply_checks(trainer, device, meshes64: dict) -> dict:
     from surfacenetworks_tpu_torch.sparse import dirac_apply_fv, dirac_apply_vf
     from surfacenetworks_tpu_torch.sparse import ops as sparse_ops
 
-    sample = next(s for s in trainer.train_samples + trainer.test_samples if s["name"] == "synthetic_0")
-    V, F = meshes64["synthetic_0"], sample["F"]
-    D, DA = geo.dirac(V, F)
-    n, m = V.shape[0], F.shape[0]
-    op = trainer.packed.one(sample).operator.to(device)
-    N, M, C = op.n_vertices, op.n_faces, WIDTH
+    pairs = [geo.dirac(V, F) for V, F in meshes]
+    ns, ms = [V.shape[0] for V, _ in meshes], [F.shape[0] for _, F in meshes]
+    B, N, M, C = len(meshes), op.n_vertices, op.n_faces, WIDTH
     gen = torch.Generator(device=device).manual_seed(SEED)
-    x = torch.randn(1, N, C, generator=gen, device=device)
-    f = torch.randn(1, M, C, generator=gen, device=device)
-    gy = torch.randn(1, M, C, generator=gen, device=device)
-    gz = torch.randn(1, N, C, generator=gen, device=device)
-    host = lambda t, rows: t[0, :rows].double().cpu().numpy()
+    x = torch.randn(B, N, C, generator=gen, device=device)
+    f = torch.randn(B, M, C, generator=gen, device=device)
+    gy = torch.randn(B, M, C, generator=gen, device=device)
+    gz = torch.randn(B, N, C, generator=gen, device=device)
+
+    def host(t, rows):
+        """Every item's first ``rows[b]`` rows, on the host in fp64, one after another."""
+        return np.concatenate([t[b, :r].double().cpu().numpy() for b, r in enumerate(rows)])
+
+    def each(fn, t, rows):
+        """``fn(item b's pair, |pair|, item b's rows of t)`` for every item, concatenated."""
+        return np.concatenate([fn(D, DA, t[b, :r].double().cpu().numpy()) for b, ((D, DA), r) in
+                               enumerate(zip(pairs, rows))])
 
     def run(o, side):
         inp = (x if side == "vf" else f).clone().requires_grad_()
@@ -1539,34 +1609,38 @@ def dirac_apply_checks(trainer, device, meshes64: dict) -> dict:
         out.backward(gy if side == "vf" else gz)
         return out.detach(), inp.grad
 
-    x64, f64, gy64, gz64 = host(x, n), host(f, m), host(gy, m), host(gz, n)
     refs = {
-        "vf": (_quaternion_apply(D, x64), _quaternion_apply(abs(D), np.abs(x64)),
-               _quaternion_apply(D.T.tocsr(), gy64), _quaternion_apply(abs(D).T.tocsr(), np.abs(gy64))),
-        "fv": (_quaternion_apply(DA, f64), _quaternion_apply(abs(DA), np.abs(f64)),
-               _quaternion_apply(DA.T.tocsr(), gz64), _quaternion_apply(abs(DA).T.tocsr(), np.abs(gz64))),
+        "vf": (each(lambda D, DA, t: _quaternion_apply(D, t), x, ns),
+               each(lambda D, DA, t: _quaternion_apply(abs(D), np.abs(t)), x, ns),
+               each(lambda D, DA, t: _quaternion_apply(D.T.tocsr(), t), gy, ms),
+               each(lambda D, DA, t: _quaternion_apply(abs(D).T.tocsr(), np.abs(t)), gy, ms)),
+        "fv": (each(lambda D, DA, t: _quaternion_apply(DA, t), f, ms),
+               each(lambda D, DA, t: _quaternion_apply(abs(DA), np.abs(t)), f, ms),
+               each(lambda D, DA, t: _quaternion_apply(DA.T.tocsr(), t), gz, ns),
+               each(lambda D, DA, t: _quaternion_apply(abs(DA).T.tocsr(), np.abs(t)), gz, ns)),
     }
-    rows = {"vf": (m, n), "fv": (n, m)}  # (output rows, input rows)
+    rows = {"vf": (ms, ns), "fv": (ns, ms)}  # (output rows, input rows) of each item
     for side in ("vf", "fv"):
         out, grad = run(op, side)
         ref, scale, gref, gscale = refs[side]
         check(f"dirac_apply_{side} (card) vs the fp64 scipy pair", host(out, rows[side][0]), ref, scale, DIRAC_APPLY_RTOL)
         check(f"dirac_apply_{side} backward (card) vs the pair's transpose", host(grad, rows[side][1]), gref, gscale,
               DIRAC_APPLY_RTOL)
-        if out[0, rows[side][0]:].any() or grad[0, rows[side][1]:].any():
+        if any(out[b, r:].any() for b, r in enumerate(rows[side][0])) or any(
+                grad[b, r:].any() for b, r in enumerate(rows[side][1])):
             raise AssertionError(f"dirac_apply_{side}: padded rows are not zero")
     slot_vf = op.q_fv.clone()
     slot_vf[..., 2, :] = 0
     slot_fv = op.q_vf.clone()
     slot_fv[..., 0, :] = 0
     no_ov = dataclasses.replace(op, ov_rows=None, ov_face=None, q_ov_vf=None, q_ov_bwd_v=None, ov_map=None)
-    refused("dirac_apply_vf without its third slot", host(run(dataclasses.replace(op, q_fv=slot_vf), "vf")[0], m),
+    refused("dirac_apply_vf without its third slot", host(run(dataclasses.replace(op, q_fv=slot_vf), "vf")[0], ms),
             refs["vf"][0], refs["vf"][1], DIRAC_APPLY_RTOL)
-    refused("dirac_apply_fv without its first slot", host(run(dataclasses.replace(op, q_vf=slot_fv), "fv")[0], n),
+    refused("dirac_apply_fv without its first slot", host(run(dataclasses.replace(op, q_vf=slot_fv), "fv")[0], ns),
             refs["fv"][0], refs["fv"][1], DIRAC_APPLY_RTOL)
-    refused("dirac_apply_fv without the overflow rows", host(run(no_ov, "fv")[0], n), refs["fv"][0], refs["fv"][1],
+    refused("dirac_apply_fv without the overflow rows", host(run(no_ov, "fv")[0], ns), refs["fv"][0], refs["fv"][1],
             DIRAC_APPLY_RTOL)
-    refused("dirac_apply_vf backward without the overflow rows", host(run(no_ov, "vf")[1], n), refs["vf"][2],
+    refused("dirac_apply_vf backward without the overflow rows", host(run(no_ov, "vf")[1], ns), refs["vf"][2],
             refs["vf"][3], DIRAC_APPLY_RTOL)
 
     calls = {
@@ -1575,20 +1649,20 @@ def dirac_apply_checks(trainer, device, meshes64: dict) -> dict:
         "fv forward": lambda: sparse_ops._vertex_side(op, op.q_vf, op.q_ov_vf, f),
         "fv backward": lambda: sparse_ops._gather_apply(op.faces, op.q_bwd_f, gz),
     }
-    out = {"applies": {}, "n": n, "m": m, "N": N, "M": M, "base_valence": op.vf_face.shape[-1],
+    out = {"applies": {}, "batch": B, "n": ns[0], "m": ms[0], "N": N, "M": M, "base_valence": op.vf_face.shape[-1],
            "overflow_rows": op.ov_face.shape[-2], "max_q_fv": float(op.q_fv.abs().max()),
            "max_q_vf": float(op.q_vf.abs().max())}
     with torch.no_grad():
         for name, fn in calls.items():
-            ms, rows = profiled_device_ms(fn)
-            b, fl = _dirac_apply_work(op, C, name, m)
+            ms_, rows_ = profiled_device_ms(fn)
+            b, fl = _dirac_apply_work(op, C, name, sum(ms))
             bms, by = bound_ms(b, fl)
-            out["applies"][name] = {"ms": ms, "bytes": b, "flops": fl, "bound_ms": bms, "bound_by": by,
-                                    "device_ops": sum(r[1] for r in rows) / PROFILED_CALLS}
-            log(f"  dirac {name}: device {ms:.5f} ms in {out['applies'][name]['device_ops']:.2f} device ops, "
-                f"{b / 1e6:.2f} MB ({b / ms / 1e6:.0f} GB/s of the bytes it must move), bound {bms:.5f} ms ({by}), "
-                f"{bms / ms:.1%} of it")
-            for dev_us, count, key in rows[:4]:
+            out["applies"][name] = {"ms": ms_, "bytes": b, "flops": fl, "bound_ms": bms, "bound_by": by,
+                                    "device_ops": sum(r[1] for r in rows_) / PROFILED_CALLS}
+            log(f"  dirac {name} (batch {B}): device {ms_:.5f} ms in {out['applies'][name]['device_ops']:.2f} device "
+                f"ops, {b / 1e6:.2f} MB ({b / ms_ / 1e6:.0f} GB/s of the bytes it must move), bound {bms:.5f} ms "
+                f"({by}), {bms / ms_:.1%} of it")
+            for dev_us, count, key in rows_[:4]:
                 log(f"    {dev_us / 1e3 / PROFILED_CALLS:9.5f} ms  x{count / PROFILED_CALLS:<5.2f} {key[:90]}")
     out["per_step_ms"] = DIRAC_BLOCKS * sum(a["ms"] for a in out["applies"].values())
     out["per_step_bytes"] = DIRAC_BLOCKS * sum(a["bytes"] for a in out["applies"].values())
@@ -1748,7 +1822,7 @@ def dirac_step0_check(trainer, state0, res, meshes64: dict) -> list[str]:
 
     dev, b = trainer.device, res["batch0"]
     mask64, tgt64 = b.mask.double(), b.targets.double()
-    pair64 = dense_dirac_pair([{"V": meshes64[s["name"]], "F": s["F"]} for s in res["samples0"]],
+    pair64 = dense_dirac_pair([{"V": meshes64[s["name"]], "F": s["F"]} for s in res["drawn0"]],
                               trainer.buckets.n_vertices, trainer.buckets.n_faces, torch.float64, dev)
     model64 = _dir_model(state0, dev, torch.float64)
     ref_loss_t = losses.normal_cosine_loss(model64(pair64, mask64, b.inputs.double()), mask64, tgt64)
@@ -1817,16 +1891,16 @@ def dirac_phase(device, smi: str) -> dict:
             f"set-up {time.perf_counter() - t0:.2f} s")
         snap = _normal_snapshot(trainer)
         meshes64 = _dirac_meshes64(trainer)
-        applies = dirac_apply_checks(trainer, device, meshes64)
+        sample = next(s for s in trainer.train_samples + trainer.test_samples if s["name"] == "synthetic_0")
+        applies = dirac_apply_checks(trainer.packed.one(sample).operator.to(device), device,
+                                     [(meshes64["synthetic_0"], sample["F"])])
 
         # the main path: every count is 0 just before it and read just after
         kernels.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats(device)
-        res = _normal_run(trainer, DIRAC_STEPS, capture=StepCapture, profile_last=True,
+        res = _train_run(trainer, DIRAC_STEPS, capture=StepCapture, profile_last=True,
                           save_after=NORMAL_RESUME_AFTER, ckpt=os.path.join(tmp, "dirac.pt"),
                           annotate=(annotated_dirac_applies, DIRAC_RANGE))
         path_counts = dict(kernels.launches)
-        res["peak_mib"] = torch.cuda.max_memory_allocated(device) / 2**20
         res["applies"] = applies
         res["apply_share"] = res["range_ms"] / res["busy_ms"]
         log(f"  dirac: launches on the path ({DIRAC_STEPS} updates + test pass) {path_counts} (expected none)")
@@ -1866,13 +1940,282 @@ def dirac_phase(device, smi: str) -> dict:
             failures.append(f"dirac: the applies' device time in the profiled step reads {res['range_ms']} ms of "
                             f"{res['busy_ms']} ms busy")
         failures += dirac_step0_check(trainer, snap["params"], res, meshes64)
-        for key in ("capture", "grads0", "batch0", "samples0", "params", "sampler_after_save"):
+        for key in ("capture", "grads0", "batch0", "drawn0", "params", "sampler_after_save"):
             del res[key]
         if failures:
             raise AssertionError("; ".join(failures))
         return res
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _arap_trainer(sequences, extra: list, label: str):
+    from surfacenetworks_tpu_torch.cli import train_arap
+
+    return train_arap.ArapTrainer(train_arap.parser.parse_args(ARAP_ARGS + extra), sequences,
+                                  log=lambda m: log(f"  [arap {label}] {m}"))
+
+
+def _first_picks(trainer) -> list:
+    """The picks of the trainer's next train batch, its random state left
+    as it was."""
+    saved = copy.deepcopy(trainer.rng)
+    picks = trainer.sample_train_picks()
+    trainer.rng = saved
+    return picks
+
+
+def _arap_snapshot(trainer) -> dict:
+    return {"params": {k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+            "opt": copy.deepcopy(trainer.opt.state_dict()), "rng": copy.deepcopy(trainer.rng),
+            "test_counter": trainer.test_counter, "step": trainer.step}
+
+
+def _arap_restore(trainer, snap: dict) -> None:
+    trainer.model.load_state_dict(snap["params"])
+    trainer.opt.load_state_dict(snap["opt"])
+    trainer.rng = copy.deepcopy(snap["rng"])
+    trainer.test_counter, trainer.step = snap["test_counter"], snap["step"]
+
+
+def arap_kernel_checks(trainer, device) -> dict:
+    """``ell_matmul`` on the first ARAP batch's stacked operator (32 items,
+    K=16, C=128), forward and stored-transpose backward, each element within
+    KERNEL_RTOL of its |A||x| against the plain version in fp32 and fp64;
+    the autograd Function's backward against autograd through the fp64
+    plain forward; a mutant whose every item applies item 0's operator must
+    fail.  Then its warm and cold-L2 time, the plain version's, one
+    ``torch.sparse.mm`` over the batch's block-diagonal CSR, and the bound.
+    Returns the timings."""
+    import scipy.sparse as sp
+    import torch
+
+    from surfacenetworks_tpu_torch.data.batching import IN_FRAMES
+    from surfacenetworks_tpu_torch.sparse import kernels, ops
+
+    picks = _first_picks(trainer)
+    op = trainer.batch(picks).operator
+    fwd, bwd = op.fwd, op.bwd
+    B, R, K = fwd.cols.shape
+    plain = kernels.ell_matmul_plain
+    gen = torch.Generator(device=device).manual_seed(SEED + 300)
+    x = torch.randn(B, R, WIDTH, device=device, generator=gen)
+    g = torch.randn(B, R, WIDTH, device=device, generator=gen)
+    err = 0.0
+    for name, m, t in (("forward", fwd, x), ("stored-transpose backward", bwd, g)):
+        got = kernels.ell_matmul(m.cols, m.vals, t)
+        scale = plain(m.cols, m.vals.double().abs(), t.double().abs())
+        err = max(err, check(f"ell_matmul B={B} R={R} K={K} C={WIDTH} {name} vs fp32 plain", got,
+                             plain(m.cols, m.vals, t), scale, KERNEL_RTOL))
+        check(f"ell_matmul B={B} {name} vs fp64 plain", got, plain(m.cols, m.vals.double(), t.double()), scale,
+              KERNEL_RTOL)
+    xr = x.clone().requires_grad_()
+    ops.spmm(op, xr).backward(g)
+    xp = x.double().requires_grad_()
+    plain(fwd.cols, fwd.vals.double(), xp).backward(g.double())
+    check(f"spmm B={B} backward x_bar vs autograd through the fp64 plain forward (|A^T||g|)", xr.grad, xp.grad,
+          plain(bwd.cols, bwd.vals.double().abs(), g.double().abs()), KERNEL_RTOL)
+    item0 = [t[:1].expand_as(t).contiguous() for t in (fwd.cols, fwd.vals)]
+    refused("ell_matmul with item 0's operator in every batch item", kernels.ell_matmul(*item0, x),
+            plain(fwd.cols, fwd.vals, x), plain(fwd.cols, fwd.vals.double().abs(), x.double().abs()), KERNEL_RTOL)
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
+    out = torch.empty(B, R, WIDTH, device=device)
+    nnz = int((fwd.vals != 0).sum())
+    csrs = []
+    for si, off in picks:
+        L = trainer.sequences[si][off + IN_FRAMES - 1]["L"].tocsr().astype(np.float32)
+        L.resize((R, R))
+        csrs.append(L)
+    bd = sp.block_diag(csrs, format="csr")
+    lib = torch.sparse_csr_tensor(torch.from_numpy(bd.indptr.astype(np.int64)),
+                                  torch.from_numpy(bd.indices.astype(np.int64)), torch.from_numpy(bd.data),
+                                  size=bd.shape).to(device)
+    x2 = x.reshape(B * R, WIDTH)
+    b_ms, b_by = bound_ms(nbytes(fwd.cols, fwd.vals, x, out), 2 * nnz * WIDTH)
+    rep = {"ms": time_ms(lambda: kernels.ell_matmul(fwd.cols, fwd.vals, x)),
+           "cold_ms": cold_ms(lambda: kernels.ell_matmul(fwd.cols, fwd.vals, x), flush),
+           "bwd_ms": time_ms(lambda: kernels.ell_matmul(bwd.cols, bwd.vals, g)),
+           "plain_ms": time_ms(lambda: plain(fwd.cols, fwd.vals, x)),
+           "library_ms": time_ms(lambda: torch.sparse.mm(lib, x2)),
+           "library_call": "torch.sparse.mm(block-diagonal csr, x)",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(fwd.cols, fwd.vals, x, out), "flops": 2 * nnz * WIDTH,
+           "max_abs_err": err, "shape": [B, R, K, WIDTH], "live_slots": nnz}
+    del flush
+    log(f"  ell_matmul at the ARAP batch (B={B}, R={R}, K={K}, C={WIDTH}, {nnz} live slots, "
+        f"{nnz / (B * R):.2f} per row): {rep['ms']:.5f} ms warm, {rep['cold_ms']:.5f} ms cold L2, backward's "
+        f"{rep['bwd_ms']:.5f} ms warm (plain {rep['plain_ms']:.4f}, {rep['library_call']} {rep['library_ms']:.4f}, "
+        f"bound {b_ms:.5f} ms by {b_by}: {rep['bytes'] / 1e6:.1f} MB, {b_ms / rep['ms']:.1%} of it)")
+    return rep
+
+
+def _arap_model(state0, device, dtype):
+    from surfacenetworks_tpu_torch.models.arap_models import Model
+
+    model = Model(LAYERS)
+    model.load_state_dict(state0)
+    return model.to(device, dtype)
+
+
+def arap_step0_check(trainer, state0, res) -> list[str]:
+    """Step 0 against the same step in fp64 on dense fp64 operators (no
+    kernel): the loss, then module by module (``modulewise_errors``); the
+    detached-apply mutant must fail the module-wise check.  Returns the
+    failures."""
+    import dataclasses
+
+    import torch
+
+    from surfacenetworks_tpu_torch.cli.train_arap import masked_loss
+    from surfacenetworks_tpu_torch.data.batching import IN_FRAMES
+    from surfacenetworks_tpu_torch.train import losses
+
+    dev, b = trainer.device, res["batch0"]
+    B, N = b.inputs.shape[:2]
+    dense = torch.cat([_dense_fp64(trainer.sequences[si][off + IN_FRAMES - 1]["L"], N, dev)
+                       for si, off in res["drawn0"]])
+    mask64, tgt64 = b.mask.double(), b.targets.double()
+
+    def dense_step(dtype):
+        model = _arap_model(state0, dev, dtype)
+        loss = masked_loss(model, dataclasses.replace(b, operator=dense.to(dtype), inputs=b.inputs.to(dtype),
+                                                      mask=b.mask.to(dtype), targets=b.targets.to(dtype)))
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.detach() for k, p in model.named_parameters()}
+
+    ref_loss, ref_grads = dense_step(torch.float64)
+    loss_rel = abs(res["loss"][0] - ref_loss) / abs(ref_loss)
+    whole = [_rel_fro(g, ref_grads[k]) for k, g in res["grads0"].items()]
+    p_loss, p_grads = dense_step(torch.float32)
+    plain = [_rel_fro(g, ref_grads[k]) for k, g in p_grads.items()]
+    log(f"  arap ell: step 0 vs the whole fp64 step: loss {res['loss'][0]:.8f} vs {ref_loss:.8f} "
+        f"(rel {loss_rel:.3e}, tol {ARAP_STEP0_LOSS_RTOL:g}); gradient rel_fro median {np.median(whole):.3e}, "
+        f"max {max(whole):.3e}; the same step in fp32 with dense operators and no kernel: loss rel "
+        f"{abs(p_loss - ref_loss) / abs(ref_loss):.3e}, gradient rel_fro median {np.median(plain):.3e}, "
+        f"max {max(plain):.3e}")
+    del ref_grads, p_grads
+    failures = []
+    if not loss_rel <= ARAP_STEP0_LOSS_RTOL:
+        failures.append(f"arap ell: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
+
+    mutant = _arap_model(state0, dev, torch.float32)
+    mcap = StepCapture(mutant)
+    try:
+        with detached_applies():
+            mloss = masked_loss(mutant, b)
+            mloss.backward()
+    finally:
+        mcap.remove()
+    mgrads = {k: p.grad.detach() for k, p in mutant.named_parameters()}
+
+    def head64(out):
+        return losses.smooth_l1_sum(out * mask64, tgt64, B)
+
+    res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(whole)),
+                    "whole_grad_fro_max": max(whole)}
+    runs = {label: modulewise_errors(cap, loss, grads, head64, _arap_model(state0, dev, torch.float64), [mask64],
+                                     [dense], "")
+            for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
+                                              "mutant detached applies": (float(mloss.detach()), mgrads, mcap)}.items()}
+    del dense
+    torch.cuda.empty_cache()
+    return failures + judge_step0("arap ell", runs, {"chain": ARAP_STEP0_CHAIN_RTOL, "parameter": ARAP_STEP0_PARAM_RTOL},
+                                  res)
+
+
+def _arap_frames64(sequences) -> dict:
+    """The float64 vertices of every sequence's first 10 frames (those an
+    operator is taken from), from ``arap_wave_frames`` at the sequences'
+    arguments; each must be the sequence's frame before its float32 cast."""
+    from surfacenetworks_tpu_torch.data import datasets
+
+    out = {}
+    for si, ((frames, F), seq) in enumerate(zip(datasets.arap_wave_frames(**ARAP_SEQUENCES), sequences)):
+        for t in range(10):
+            if not (np.array_equal(frames[t].astype(np.float32), seq[t]["V"]) and np.array_equal(F, seq[t]["F"])):
+                raise AssertionError(f"the float64 frame {t} of sequence {si} differs from the sequence's")
+            out[(si, t)] = frames[t]
+    return out
+
+
+def arap_phase(device, smi: str) -> tuple[dict, dict]:
+    """The ARAP trainer (``cli/train_arap.py``) at batch 32 on 2,000-vertex
+    sequences: ``ell_matmul`` held and timed at the first batch's stacked
+    operator; then per configuration (ELL, dense, Dir), counts at 0, its
+    updates and the test pass; the ELL step 0 against fp64; every run
+    repeated from its start, bit for bit; the Dir model's applies held on
+    its first batch's operator.  Returns the launch counts of the three
+    paths together, and the results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.data import datasets
+    from surfacenetworks_tpu_torch.data.batching import IN_FRAMES
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    t0 = time.perf_counter()
+    seqs = datasets.synthetic_arap_sequences(**ARAP_SEQUENCES)
+    log(f"  arap: {len(seqs)} sequences of {len(seqs[0])} frames, {[s[0]['V'].shape[0] for s in seqs]} vertices, "
+        f"{[s[0]['F'].shape[0] for s in seqs]} faces; made in {time.perf_counter() - t0:.2f} s")
+    results, path_counts, failures = {}, {}, []
+    configs = {"ell": ([], ARAP_STEPS), "dense": (["--dense"], ARAP_STEPS),
+               "dir": (["--model", "dir"], ARAP_DIR_STEPS)}
+    for cfg, (extra, steps) in configs.items():
+        t0 = time.perf_counter()
+        trainer = _arap_trainer(seqs, extra, cfg)
+        b = trainer.buckets
+        log(f"  arap {cfg}: bucket {b.n_vertices} x {b.n_faces}, {len(trainer.all_picks)} picks, "
+            f"{trainer.n_train} train sequences; set-up {time.perf_counter() - t0:.2f} s")
+        if cfg == "ell":
+            kernel_report = arap_kernel_checks(trainer, device)
+        if cfg == "dir":
+            frames64 = _arap_frames64(seqs)
+            picks = _first_picks(trainer)
+            applies = dirac_apply_checks(trainer.batch(picks).operator, device,
+                                         [(frames64[(si, off + IN_FRAMES - 1)], seqs[si][0]["F"]) for si, off in picks])
+        snap = _arap_snapshot(trainer)
+        # the main path of this configuration: every count is 0 just before it and read just after
+        kernels.reset_launch_counts()
+        res = _train_run(trainer, steps, _draw_picks, capture=StepCapture if cfg == "ell" else None,
+                         profile_last=True)
+        path_counts[cfg] = dict(kernels.launches)
+        log(f"  arap {cfg}: launches on the path ({steps} updates + test pass) {path_counts[cfg]}")
+        if cfg == "dir":
+            res["applies"] = applies
+        repeat_run(f"arap {cfg}", trainer, lambda: _arap_restore(trainer, snap), res, _draw_picks)
+        results[cfg] = res
+
+        expected = ARAP_PER_STEP[cfg]
+        test_expected = {k: v // 2 for k, v in expected.items()}  # forward only
+        log(f"  arap {cfg}: losses {['%.4f' % v for v in res['loss']]}; test loss {res['test']:.4f} ({smi})")
+        log(f"  arap {cfg}: device ms per step (CUDA events) {['%.2f' % v for v in res['device_ms']]}, median of "
+            f"steps 1-{steps - 2} {res['device_ms_median']:.3f}; host wall per step "
+            f"{['%.2f' % v for v in res['wall_ms']]}, median {res['wall_ms_median']:.3f}; profiled step device busy "
+            f"{res['busy_ms']:.3f} ms in {res['device_ops']} device ops, idle share {res['idle_share']:.3f}; peak "
+            f"device memory {res['peak_mib']:.1f} MiB ({smi})")
+        for dev_us, count, key in res["top"]:
+            log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+        log(f"  arap {cfg}: launches per step {res['per_step'][0]} (expected {expected}); test pass "
+            f"{res['test_launches']} (expected {test_expected})")
+        if not (np.isfinite(res["loss"]).all() and np.isfinite(res["test"])):
+            failures.append(f"arap {cfg}: a loss is not finite")
+        if any(step != expected for step in res["per_step"]) or res["test_launches"] != test_expected:
+            failures.append(f"arap {cfg}: launches per step {res['per_step']}, test pass {res['test_launches']}")
+        if not res["reproduced"]:
+            failures.append(f"arap {cfg}: a second run of the {steps} steps from the same state differs")
+        if cfg == "ell":
+            for k, grad in res["grads0"].items():
+                if not (bool(torch.isfinite(grad).all()) and bool((grad != 0).any())):
+                    failures.append(f"arap ell: step-0 gradient of {k} is not finite and non-zero")
+            failures += arap_step0_check(trainer, snap["params"], res)
+            res["kernel"] = kernel_report
+        for key in ("capture", "grads0", "batch0", "drawn0", "params", "drawn"):
+            res.pop(key, None)
+        del trainer
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    counts = {k: sum(c[k] for c in path_counts.values()) for k in path_counts["ell"]}
+    return counts, results
 
 
 KERNEL_SYMBOLS = {"bsr_matmul": "bsr_spmm_kernel", "ell_matmul": "ell_spmm_kernel", "sddmm": "sddmm_kernel"}
@@ -1997,6 +2340,10 @@ def main() -> int:
     dirac = dirac_phase(device, smi)
     phase("dirac train", t0)
 
+    t0 = time.perf_counter()
+    arap_counts, arap = arap_phase(device, smi)
+    phase("arap train", t0)
+
     replaces = {
         "bsr_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:163",
         "ell_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:239",
@@ -2004,7 +2351,9 @@ def main() -> int:
     }
     # ``launches`` counts the FAUST train path, which runs all three kernels;
     # ``serve_launches`` the serving path, ``normal_train_launches`` the
-    # normal trainer's ELL and BSR paths.  ``ms`` and ``max_abs_err`` are
+    # normal trainer's ELL and BSR paths, ``arap_train_launches`` the ARAP
+    # trainer's ELL, dense and Dir paths (``arap_batch``: ``ell_matmul`` at
+    # the ARAP batch's shape).  ``ms`` and ``max_abs_err`` are
     # kept under the names ``kernel_ms`` and ``max_err_vs_plain`` too, so
     # readers of either set of names find them.
     entries = []
@@ -2015,7 +2364,7 @@ def main() -> int:
         entries.append({
             "name": kname, "route": "cuda", "source": "surfacenetworks_tpu_torch/sparse/csrc/spmm.cu",
             "replaces": replaces[kname], "launches": train_counts[kname], "serve_launches": counts[kname],
-            "normal_train_launches": normal_counts[kname],
+            "normal_train_launches": normal_counts[kname], "arap_train_launches": arap_counts[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_call": r["library_call"], "max_err_vs_plain": r["max_abs_err"], "kernel_ms": r["ms"],
@@ -2026,6 +2375,8 @@ def main() -> int:
         })
         if kname == "bsr_matmul":
             entries[-1].update(fp32_fma_bound_ms=r["fp32_fma_bound_ms"], fp32_fma_bound_by=r["fp32_fma_bound_by"])
+        if kname == "ell_matmul":
+            entries[-1]["arap_batch"] = arap["ell"]["kernel"]
     log(f"serve median ms per request: ell {latency['ell']['median_ms']:.3f}, "
         f"bsr {latency['bsr']['median_ms']:.3f} ({smi})")
     log("train median per step: " + ", ".join(
@@ -2038,6 +2389,10 @@ def main() -> int:
         f"busy {dirac['busy_ms']:.3f} ms in {dirac['device_ops']} device ops, idle share {dirac['idle_share']:.3f}, "
         f"Dirac applies {dirac['range_ms']:.4f} ms ({dirac['apply_share']:.1%} of busy), peak "
         f"{dirac['peak_mib']:.1f} MiB ({smi})")
+    log("arap train median per step: " + ", ".join(
+        f"{cfg} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms "
+        f"in {r['device_ops']} device ops, idle share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB"
+        for cfg, r in arap.items()) + f" ({smi})")
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,6 +5,7 @@ from surfacenetworks_tpu_torch.data import datasets
 from surfacenetworks_tpu_torch.data.batching import (
     Buckets,
     MeshBatch,
+    arap_batch,
     bsr_k_needed,
     choose_operator_format,
     correspondence_batch,
@@ -20,6 +21,7 @@ from surfacenetworks_tpu_torch.data.batching import (
 __all__ = [
     "Buckets",
     "MeshBatch",
+    "arap_batch",
     "bsr_k_needed",
     "choose_operator_format",
     "correspondence_batch",

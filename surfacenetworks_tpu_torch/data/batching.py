@@ -1,5 +1,6 @@
 """Bucketed fixed-shape batching with masks (counterpart of
-``surfacenetworks_tpu/data/batching.py``: the Laplacian and Dirac paths).
+``surfacenetworks_tpu/data/batching.py``: the Laplacian, Dirac,
+correspondence and ARAP batches).
 
 Batches are padded to fixed buckets: vertex and face counts, ELL slot
 counts, the BSR slot count and the Dirac valence packing are chosen once per
@@ -29,6 +30,10 @@ from surfacenetworks_tpu_torch.sparse import (
     stack_dirac,
     stack_operators,
 )
+
+
+IN_FRAMES = 2  # an ARAP batch item's input frames
+OUT_FRAMES = 40  # and the frames it predicts
 
 
 def round_up(x: int, multiple: int = 8) -> int:
@@ -212,25 +217,29 @@ def laplacian_batch(
     ``fmt`` is ``'ell'``, ``'bsr'`` (samples RCM-ordered, ``bsr_k`` fitted),
     ``'dense'`` or ``'auto'``."""
     N = buckets.n_vertices
-    if fmt == "auto":
-        fmt = choose_operator_format(len(samples), N)
     inputs, targets, mask = _padded_arrays(samples, N, input_key, target_key)
-    if fmt == "ell":
-        operator = stack_operators([_fixed_k_operator(s["L"], buckets, N) for s in samples])
-    elif fmt == "bsr":
-        operator = stack_bsr_operators([_bsr_sample_operator(s["L"], buckets, N) for s in samples])
-    elif fmt == "dense":
-        operator = torch.from_numpy(np.stack([_dense_operator(s["L"], N) for s in samples]))
-    else:
-        raise ValueError(f"unknown operator format {fmt!r}")
     return MeshBatch(
         inputs=torch.from_numpy(inputs),
         targets=torch.from_numpy(targets),
         mask=torch.from_numpy(mask),
-        operator=operator,
+        operator=_lap_operator_batch([s["L"] for s in samples], buckets, N, fmt),
         faces=_pad_faces(samples, buckets),
         names=[s.get("name") for s in samples],
     )
+
+
+def _lap_operator_batch(Ls: list, buckets: Buckets, N: int, fmt: str):
+    """The stacked Laplacian operators of a batch in ``fmt`` (``'auto'``
+    resolved against the batch)."""
+    if fmt == "auto":
+        fmt = choose_operator_format(len(Ls), N)
+    if fmt == "ell":
+        return stack_operators([_fixed_k_operator(L, buckets, N) for L in Ls])
+    if fmt == "bsr":
+        return stack_bsr_operators([_bsr_sample_operator(L, buckets, N) for L in Ls])
+    if fmt == "dense":
+        return torch.from_numpy(np.stack([_dense_operator(L, N) for L in Ls]))
+    raise ValueError(f"unknown operator format {fmt!r}")
 
 
 def _pad_faces(samples: list[dict], buckets: Buckets) -> torch.Tensor | None:
@@ -309,6 +318,37 @@ def dirac_batch(
         faces=_pad_faces(samples, buckets),
         names=[s.get("name") for s in samples],
     )
+
+
+def arap_batch(sequences: list[list[dict]], picks: list[tuple[int, int]], buckets: Buckets, model: str = "lap",
+               fmt: str = "ell") -> MeshBatch:
+    """A temporal batch: ``picks`` holds one (sequence, frame offset) pair
+    per batch item; the inputs are IN_FRAMES frames (3 channels each), the
+    targets the next OUT_FRAMES, and the operator comes
+    from the last input frame: its Laplacian in ``fmt`` for ``model='lap'``,
+    its packed Dirac tables for ``'dirac'``.  The faces are each sequence's
+    first frame's; ``names`` holds the picks."""
+    B, N = len(picks), buckets.n_vertices
+    inputs = np.zeros((B, N, 3 * IN_FRAMES), dtype=np.float32)
+    targets = np.zeros((B, N, 3 * OUT_FRAMES), dtype=np.float32)
+    mask = np.zeros((B, N, 1), dtype=np.float32)
+    op_frames, faces = [], []
+    for b, (ind, off) in enumerate(picks):
+        seq = sequences[ind]
+        n = seq[0]["V"].shape[0]
+        for i in range(IN_FRAMES):
+            inputs[b, :n, 3 * i : 3 * (i + 1)] = seq[off + i]["V"]
+        for i in range(OUT_FRAMES):
+            targets[b, :n, 3 * i : 3 * (i + 1)] = seq[off + IN_FRAMES + i]["V"]
+        mask[b, :n] = 1.0
+        op_frames.append(seq[off + IN_FRAMES - 1])
+        faces.append({"F": seq[0]["F"]})
+    if model == "dirac":
+        operator = stack_dirac([_dirac_sample_operator(s, buckets, N, buckets.n_faces) for s in op_frames])
+    else:
+        operator = _lap_operator_batch([s["L"] for s in op_frames], buckets, N, fmt)
+    return MeshBatch(inputs=torch.from_numpy(inputs), targets=torch.from_numpy(targets), mask=torch.from_numpy(mask),
+                     operator=operator, faces=_pad_faces(faces, buckets), names=list(picks))
 
 
 def correspondence_batch(sample: dict, buckets: Buckets, fmt: str = "ell") -> MeshBatch:

@@ -1,14 +1,15 @@
-"""Seeded synthetic meshes and the FAUST loader (counterpart of
+"""Seeded synthetic meshes and the loaders (counterpart of
 ``surfacenetworks_tpu/data/datasets.py``).
 
-``random_blob_mesh``, ``synthetic_normal_dataset`` and
-``synthetic_correspondence_dataset`` are copies of the JAX package's
-generators (same RNG call order), so the same seed gives the same meshes,
-labels, geodesic proxies, Laplacians and Dirac coefficients in both
-packages.  ``load_faust_npz`` reads the reference's FAUST ``.npz`` layout;
-``load_normal_sample``, ``scan_mesh_tree`` and ``load_normal_npz`` read the
-normal trainer's mesh trees and the JAX package's ``cli.preprocess normal``
-output, Laplacian and Dirac samples.
+``random_blob_mesh``, ``synthetic_normal_dataset``,
+``synthetic_correspondence_dataset`` and ``synthetic_arap_sequences`` are
+copies of the JAX package's generators (same RNG call order), so the same
+seed gives the same meshes, labels, geodesic proxies, Laplacians and Dirac
+coefficients in both packages.  ``load_faust_npz`` reads the reference's
+FAUST ``.npz`` layout; ``load_normal_sample``, ``scan_mesh_tree`` and
+``load_normal_npz`` read the normal trainer's mesh trees and the JAX
+package's ``cli.preprocess normal`` output, Laplacian and Dirac samples;
+``load_arap_sequence`` reads the ARAP trainer's ``.npy`` sequences.
 """
 
 from __future__ import annotations
@@ -114,6 +115,57 @@ def synthetic_correspondence_dataset(num: int, n_points: int = 200, seed: int = 
             }
         )
     return out
+
+
+def arap_wave_frames(num_seq: int, n_frames: int = 50, n_points: int = 120,
+                     seed: int = 0) -> list[tuple[list[np.ndarray], np.ndarray]]:
+    """The float64 vertices of every frame, and the faces, of each sequence
+    ``synthetic_arap_sequences`` makes from the same arguments: a blob mesh
+    deformed by a smooth travelling wave."""
+    rng = np.random.default_rng(seed)
+    sequences = []
+    for _ in range(num_seq):
+        V0, F = random_blob_mesh(rng, n_points)
+        omega = rng.uniform(0.15, 0.4)
+        phase = rng.uniform(0, 2 * np.pi, size=V0.shape[0])
+        dirvec = rng.normal(size=3)
+        dirvec /= np.linalg.norm(dirvec)
+        frames = [V0 * (1.0 + 0.15 * np.sin(omega * t + phase)[:, None]) + 0.05 * np.sin(omega * t) * dirvec
+                  for t in range(n_frames)]
+        sequences.append((frames, F))
+    return sequences
+
+
+def synthetic_arap_sequences(num_seq: int, n_frames: int = 50, n_points: int = 120,
+                             seed: int = 0) -> list[list[dict]]:
+    """ARAP-style sequences (``arap_wave_frames``): each frame's ``V`` and
+    ``F``, and on the first 10 frames (the only ones an operator is taken
+    from) the cotan ``L`` and the Dirac coefficients of the float64
+    vertices."""
+    sequences = []
+    for frames64, F in arap_wave_frames(num_seq, n_frames, n_points, seed):
+        frames = []
+        for t, V in enumerate(frames64):
+            frame = {"V": V.astype(np.float32), "F": F}
+            if t < 10:
+                frame["L"] = geo.mesh_laplacian(V, F).astype(np.float32)
+                frame["dirac"] = geo.dirac_coeffs(V, F)
+            frames.append(frame)
+        sequences.append(frames)
+    return sequences
+
+
+def load_arap_sequence(path: str) -> list[dict]:
+    """One ARAP ``.npy`` sequence in the reference layout: a pickled array
+    of frame dicts with ``V``, ``F`` and, where present, ``L``."""
+    seq = np.load(path, encoding="latin1", allow_pickle=True)
+    frames = []
+    for frame in seq:
+        f = {"V": np.asarray(frame["V"], np.float32), "F": np.asarray(frame["F"], np.int32)}
+        if "L" in frame and frame["L"] is not None:
+            f["L"] = frame["L"].astype(np.float32)
+        frames.append(f)
+    return frames
 
 
 def load_faust_npz(path: str) -> dict:

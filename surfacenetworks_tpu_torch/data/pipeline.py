@@ -9,6 +9,9 @@ once; a batch is then an ``index_select`` of its rows on the device, so a
 step sends only its ``[B]`` indices.  Over the budget (the JAX package's 6
 GiB) ``DeviceDataset.build`` returns None and the trainer assembles each
 batch on the host and uploads it.  Both paths run the step on the device.
+Samples are keyed by the object (sample dicts) or, with ``value_keys``, by
+their value (the ARAP trainer's (sequence, offset) picks: the JAX package's
+``value_keys=True``).
 """
 
 from __future__ import annotations
@@ -82,17 +85,24 @@ def to_device(batch: MeshBatch, device) -> MeshBatch:
 
 class PackedSamples:
     """Each sample's single-sample batch, built by ``build_one(sample)`` on
-    first use and kept (keyed by the sample object, which it holds)."""
+    first use and kept.  A sample is keyed by the object, which is held
+    (sample dicts), or with ``value_keys`` by its value (hashable items such
+    as the ARAP trainer's (sequence, offset) picks)."""
 
-    def __init__(self, build_one: Callable[[dict], MeshBatch]):
+    def __init__(self, build_one: Callable[[Any], MeshBatch], value_keys: bool = False):
         self._build = build_one
-        self._store: dict[int, tuple[dict, MeshBatch]] = {}
+        self.value_keys = value_keys
+        self._store: dict[Any, tuple[Any, MeshBatch]] = {}
 
-    def one(self, sample: dict) -> MeshBatch:
-        hit = self._store.get(id(sample))
-        if hit is None or hit[0] is not sample:
+    def key(self, sample: Any) -> Any:
+        return sample if self.value_keys else id(sample)
+
+    def one(self, sample: Any) -> MeshBatch:
+        k = self.key(sample)
+        hit = self._store.get(k)
+        if hit is None or not (self.value_keys or hit[0] is sample):
             hit = (sample, self._build(sample))
-            self._store[id(sample)] = hit
+            self._store[k] = hit
         return hit[1]
 
     def batch(self, samples: list[dict]) -> MeshBatch:
@@ -116,25 +126,27 @@ class IndexedBatch:
 
 
 class DeviceDataset:
-    """Every sample's packed batch, stacked ``[S, ...]`` and uploaded once."""
+    """Every sample's packed batch, stacked ``[S, ...]`` and uploaded once;
+    samples are keyed as ``PackedSamples`` keys them."""
 
-    def __init__(self, tree: MeshBatch, items: list[dict]):
+    def __init__(self, tree: MeshBatch, items: list, key: Callable[[Any], Any] = id):
         self.tree = tree
-        self.items = items  # held, so the id() keys below stay valid
-        self._index_of = {id(s): i for i, s in enumerate(items)}
+        self.items = items  # held, so id() keys stay valid
+        self._key = key
+        self._index_of = {key(s): i for i, s in enumerate(items)}
 
     @classmethod
-    def build(cls, items: list[dict], packed: PackedSamples, device,
+    def build(cls, items: list, packed: PackedSamples, device,
               budget_bytes: int = DEVICE_BUDGET_BYTES) -> "DeviceDataset | None":
         """None when the stacked dataset exceeds ``budget_bytes``."""
         items = list(items)
         host = packed.batch(items)
         if sum(_nbytes(getattr(host, k)) for k in _FIELDS) > budget_bytes:
             return None
-        return cls(to_device(host, device), items)
+        return cls(to_device(host, device), items, packed.key)
 
-    def batch(self, items: list[dict]) -> IndexedBatch:
-        idx = np.asarray([self._index_of[id(s)] for s in items], np.int64)
+    def batch(self, items: list) -> IndexedBatch:
+        idx = np.asarray([self._index_of[self._key(s)] for s in items], np.int64)
         return IndexedBatch(self.tree, torch.from_numpy(idx).to(self.tree.inputs.device),
                             [self.tree.names[i] for i in idx])
 

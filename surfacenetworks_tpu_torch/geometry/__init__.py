@@ -12,6 +12,7 @@ from surfacenetworks_tpu_torch.geometry.mesh_ops import (
     igl_style_laplacian,
     invert_permutation,
     laplacian,
+    mesh_laplacian,
     quaternion_matrix,
     uniform_mesh_scale,
     vertex_normals,
@@ -30,6 +31,7 @@ __all__ = [
     "laplacian",
     "load_obj",
     "load_ply",
+    "mesh_laplacian",
     "quaternion_matrix",
     "save_obj",
     "save_ply",

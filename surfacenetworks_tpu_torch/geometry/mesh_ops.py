@@ -88,6 +88,13 @@ def laplacian(W: sp.spmatrix, A_inv: sp.spmatrix) -> sp.csr_matrix:
     return L
 
 
+def mesh_laplacian(V: np.ndarray, F: np.ndarray) -> sp.csr_matrix:
+    """Cotan ``L = A^{-1}(D - W)`` straight from ``(V, F)``: the offline
+    operator of the ARAP sequences."""
+    W, A_inv = cotangent_weights(V, F)
+    return laplacian(W, A_inv)
+
+
 def hackit(Op: sp.spmatrix, hack: float) -> sp.spmatrix:
     """Clamp non-finite and huge operator entries to ``hack``.
 

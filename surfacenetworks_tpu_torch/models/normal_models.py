@@ -53,7 +53,7 @@ class LapDeepModel(nn.Module):
         return x + repeating_expand(inputs, x.shape[-1])
 
 
-class _DirTrunk(nn.Module):
+class DirTrunk(nn.Module):
     """Dirac blocks on even layers over coupled vertex and face streams (the
     face stream starts at zero), Avg blocks on odd ones."""
 
@@ -75,7 +75,7 @@ class _DirTrunk(nn.Module):
         return v, f
 
 
-class DirDeepModel(_DirTrunk):
+class DirDeepModel(DirTrunk):
     """Deep Dirac network: the Dirac trunk, then conv2 ('pre') and an ELU;
     no input residual.  ``op`` is a ``DiracOperator`` or a dense (Di, DiA)
     pair."""
@@ -90,7 +90,7 @@ class DirDeepModel(_DirTrunk):
         return F.elu(self.conv2(v).float())
 
 
-class DirModelToFace(_DirTrunk):
+class DirModelToFace(DirTrunk):
     """Dirac network whose output is the face stream: ELU, then conv2
     ('pre'), per face ``[B, M, out_features]``."""
 

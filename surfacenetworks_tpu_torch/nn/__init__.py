@@ -4,6 +4,7 @@ from surfacenetworks_tpu_torch.nn.blocks import (
     AvgResNet2,
     DirResNet2,
     LapResNet2,
+    MlpResNet2,
     WideAvgResNet2,
     WideLapResNet2,
     apply_dirac_fv,
@@ -24,6 +25,7 @@ __all__ = [
     "GraphBatchNorm",
     "GraphConv1x1",
     "LapResNet2",
+    "MlpResNet2",
     "WideAvgResNet2",
     "WideLapResNet2",
     "apply_dirac_fv",

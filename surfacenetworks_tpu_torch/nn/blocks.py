@@ -6,6 +6,7 @@ Every block keeps the signature ``block(op, mask, x)`` (Dirac:
 
 * ``LapResNet2``: x -> ELU -> [x || L x] -> conv(2d -> d, 'pre') twice, + input.
 * ``AvgResNet2``: the operator replaced by the masked global average.
+* ``MlpResNet2``: no operator; batch norm, ELU and conv per vertex, twice.
 * ``WideLapResNet2`` / ``WideAvgResNet2``: width-changing versions with
   ``inner_layers`` steps and the truncating or doubling residual.
 * ``DirResNet2``: vertex and face streams coupled through the Dirac pair in
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from surfacenetworks_tpu_torch.nn.layers import GraphConv1x1, global_average
+from surfacenetworks_tpu_torch.nn.layers import GraphBatchNorm, GraphConv1x1, global_average
 from surfacenetworks_tpu_torch.sparse.bsr import BsrOperator
 from surfacenetworks_tpu_torch.sparse.ell import DiracOperator, EllOperator
 from surfacenetworks_tpu_torch.sparse.ops import bsr_spmm, dense_bmm, dirac_apply_fv, dirac_apply_vf, spmm
@@ -128,6 +129,23 @@ class AvgResNet2(nn.Module):
         x = self.bn_fc0(_cat_avg(x, mask))
         x = F.elu(x)
         x = self.bn_fc1(_cat_avg(x, mask))
+        return x + inputs
+
+
+class MlpResNet2(nn.Module):
+    """Pointwise residual block: two steps of batch norm (over every row,
+    padding included) -> ELU -> conv, + input; no operator."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.bn0 = GraphBatchNorm(features)
+        self.fc0 = GraphConv1x1(features, features, None)
+        self.bn1 = GraphBatchNorm(features)
+        self.fc1 = GraphConv1x1(features, features, None)
+
+    def forward(self, op, mask, inputs):
+        x = self.fc0(F.elu(self.bn0(inputs)))
+        x = self.fc1(F.elu(self.bn1(x)))
         return x + inputs
 
 

@@ -1,10 +1,11 @@
 """Losses and metrics (counterpart of ``surfacenetworks_tpu/train/losses.py``:
 the normal-prediction loss and metric, the dcel family, the SDDMM
-smoothness term and the FAUST metrics).
+smoothness term, the FAUST metrics and the ARAP loss).
 
 * ``normal_cosine_loss`` and ``mean_angle_deviation``: the normal trainer's
   masked ``1 - <n_hat, n>^2`` loss and its angle metric, which is computed
   without a graph (``arccos`` has an infinite derivative at 1).
+* ``smooth_l1_sum``: the ARAP trainer's Huber sum per batch item.
 * ``aggregate_G``: the ground-truth cost ``GA[:, liA[lB]] + GB[liB[lA], :]``.
 * ``corr_feature_smoothness``: ``--smooth-reg``; cosine scores of
   neighbouring vertices' features through ``sparse.sddmm``, at the operator's
@@ -49,6 +50,13 @@ def normal_cosine_loss(outputs: torch.Tensor, mask: torch.Tensor, targets: torch
     L2-normalised prediction (norm clamped at 1e-12)."""
     inner = (_unit(outputs) * targets).sum(-1)
     return _masked_mean(1.0 - inner**2, mask)
+
+
+def smooth_l1_sum(outputs: torch.Tensor, targets: torch.Tensor, batch_size: int) -> torch.Tensor:
+    """The ARAP loss: the Huber sum with delta 1 (``0.5 d^2`` where ``|d| <
+    1``, ``|d| - 0.5`` elsewhere) over every element, divided by the batch
+    size."""
+    return torch.nn.functional.smooth_l1_loss(outputs, targets, reduction="sum", beta=1.0) / batch_size
 
 
 @torch.no_grad()

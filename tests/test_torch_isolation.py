@@ -75,7 +75,7 @@ def test_port_sources_name_no_jax():
 def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
     import torch
 
-    from surfacenetworks_tpu_torch.cli import train_correspondence, train_normal
+    from surfacenetworks_tpu_torch.cli import train_arap, train_correspondence, train_normal
     from surfacenetworks_tpu_torch.models import LapDeepModel
     from surfacenetworks_tpu_torch.serve import NormalServer, resolve_device
 
@@ -88,6 +88,9 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_normal.main(["--data-path", str(REPO / "tests" / "fixtures" / "objs"), "--layer", "2",
                            "--result-dir", str(tmp_path), "--num-epoch", "1", "--num-updates", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_arap.main(["--data-path", str(REPO / "tests" / "fixtures" / "arap"), "--layer", "2",
+                         "--result-dir", str(tmp_path), "--num-epoch", "1", "--num-updates", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
