@@ -10,7 +10,7 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives five paths, each with the launch counts set to 0 just before it and
+drives seven paths, each with the launch counts set to 0 just before it and
 read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
@@ -45,7 +45,18 @@ read just after:
   step, step 0 against fp64 module by module (the detached mutant refused);
   the same in ``--dense`` and, for 4 updates, with ``--model dir`` (its
   batched Dirac applies held against the scipy pairs), neither launching a
-  kernel; every run repeated from its start bit for bit.
+  kernel; every run repeated from its start bit for bit;
+* mesh-MNIST training: ``cli/train_mnist.py`` (Model-5 at width 64) and
+  ``cli/train_vae.py`` (LapVAE-5 at width 128, a 100-d latent), batch 64,
+  on 320 synthetic 210-vertex height fields: ``ell_matmul`` and its
+  backward on the classifier's first ELL batch of 64 stacked operators at
+  C=64 against the plain version (the item-0 mutant refused) and timed; per
+  trainer 8 updates and the test pass with the default format (dense here)
+  and in ELL (20 and 40 launches per step), and 4 with the Dirac model;
+  step 0 of the ELL and Dirac runs against fp64 module by module with the
+  step's own dropout mask or noise (the detached mutants refused); every
+  run repeated from its start bit for bit; the dense and ELL losses
+  compared.
 
 It needs a CUDA card; without one (or without the package beside it) it
 exits non-zero and prints no result.  The last two lines are a JSON
@@ -217,6 +228,42 @@ ARAP_DIR_STEPS = 4
 ARAP_PER_STEP = {"ell": {"bsr_matmul": 0, "ell_matmul": 32, "sddmm": 0},
                  "dense": {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0},
                  "dir": {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0}}
+# Mesh-MNIST, the reference paper's own workloads at its configurations:
+# the classifier (Model-5: 5 Lap blocks at width 64, dropout 0.5, 10
+# classes) and the VAE (LapVAE-5: 5 Lap blocks at width 128 in the encoder
+# and in the decoder, a 100-d latent), batch 64, Adam 1e-3 with coupled
+# weight decay 1e-5, random weights from a seeded generator, on
+# synthetic_mnist_dataset(320, seed 0, 210 points): 256 train and 64 test
+# height fields of 210 vertices (the reference's Poisson-disc sampler gives
+# 204-216), one 216 x 416 bucket, 13,824 rows per batch.  Per family, 8
+# updates (two epochs of 4; the VAE's KLD weight 0, then 0.1) and the test
+# pass with the operator format ``auto`` (dense at this size, as in the JAX
+# trainers) and in ELL (K=16); the Dirac model (DirModel-5, DirVAE-5) 4
+# updates.  Per ELL step 2 applies per Lap block forward and 2
+# stored-transpose applies backward, each one launch over the 64 stacked
+# operators: 20 ell_matmul for the classifier, 40 for the VAE (its encoder
+# on the lifted operators, its decoder on the flat ones); a test batch
+# half.  Dense and Dirac launch none.  Step 0 of the ELL and Dirac runs is
+# held against fp64 on dense fp64 operators (the Dirac runs: the dense fp64
+# pairs) with the step's own dropout mask or noise, module by module, with
+# the ARAP bounds; the whole step's loss (and the VAE's KLD) within 1e-2, not
+# ARAP's 1e-3: on the card the VAE's ELL step read 1.41e-3 (loss) and
+# 1.93e-3 (KLD) from fp64, and the same step in fp32 on dense operators
+# with no kernel the same 1.41e-3 (fp32 rounding where the cotan Laplacians
+# of the Delaunay height fields cancel; PERF.md, section 6).
+MNIST_DATA = {"num": 320, "seed": SEED, "n_points": 210}
+MESH_LAYERS = 5
+MNIST_WIDTH = 64
+MESH_ARGS = {"mnist": ["--layer", str(MESH_LAYERS), "--batch-size", "64", "--seed", str(SEED), "--device", "cuda"],
+             "vae": ["--num-layers", str(MESH_LAYERS), "--batch-size", "64", "--seed", str(SEED), "--device", "cuda"]}
+MESH_STEPS = 8
+MESH_DIRAC_STEPS = 4
+MESH_STEP0_LOSS_RTOL = 1e-2
+MESH_STEP0_CHAIN_RTOL = ARAP_STEP0_CHAIN_RTOL
+MESH_STEP0_PARAM_RTOL = ARAP_STEP0_PARAM_RTOL
+_NONE = {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0}
+MESH_PER_STEP = {family: {"dense": _NONE, "ell": {"bsr_matmul": 0, "ell_matmul": 4 * MESH_LAYERS * n, "sddmm": 0},
+                          "dirac": _NONE} for family, n in (("mnist", 1), ("vae", 2))}
 
 
 def log(msg: str) -> None:
@@ -874,38 +921,71 @@ def _dense_step0(trainer, state0, ia, ib, rots, dense, dtype):
     return float(loss.detach()), {k: p.grad.detach() for k, p in model.named_parameters()}
 
 
-class StepCapture:
-    """Forward hooks on a model's modules (``conv1``, the blocks ``rn{i}``,
-    ``conv2``) and on the model itself (``trunk``) that keep, for each call
-    (FAUST: shape A, then shape B), the module's inputs and outputs and,
-    once backward has run, each output's cotangent (None where nothing
-    reads the output).  A Dirac block's face output is also read inside the
-    block, so the hook hands on a view of each output and takes the
-    cotangent there: the readers outside the module only.  The values are
-    the same; each tensor's gradient gains at most one more term, and a sum
-    of two terms does not depend on their order.  Reading only: the step
-    runs as without them."""
+class ModuleCapture:
+    """Hooks on a model's submodules ``paths`` (label -> path, ``""`` the
+    model itself) that keep, for each call (FAUST: shape A, then shape B),
+    the module's arguments (detached) and outputs and, once backward has
+    run, the cotangent of each output and of each argument that needs a
+    gradient (None where nothing reached it).  Outputs are handed on as
+    views and the cotangent taken there, so it is what the readers outside
+    the module pass back (a Dirac block also reads its face output itself);
+    arguments are handed in as views that only the module reads, so their
+    cotangent is this module's share alone.  The values are the same; a
+    tensor's gradient gains at most one more term per view, and a sum of
+    two terms does not depend on their order.  Reading only: the step runs
+    as without them.  ``names`` lists the labels."""
 
-    def __init__(self, model):
-        self.names = ["conv1"] + [f"rn{i}" for i in range(model.layers)] + ["conv2"]
-        self.calls = {name: [] for name in self.names + ["trunk"]}
-        mods = [(n, getattr(model, n)) for n in self.names] + [("trunk", model)]
-        self.handles = [m.register_forward_hook(self._hook(n)) for n, m in mods]
+    def __init__(self, model, paths: dict):
+        self.names = list(paths)
+        self.calls = {label: [] for label in self.names}
+        self.handles = []
+        for label, path in paths.items():
+            mod = model.get_submodule(path)
+            self.handles += [mod.register_forward_pre_hook(self._pre(label)),
+                             mod.register_forward_hook(self._post(label))]
 
-    def _hook(self, name):
+    def _pre(self, label):
+        import torch
+
+        def hook(module, args):
+            rec = {"needs": [], "gin": [None] * len(args)}
+            new = []
+            for i, a in enumerate(args):
+                need = isinstance(a, torch.Tensor) and a.requires_grad
+                if need:
+                    a = a.view_as(a)
+                    a.register_hook(lambda g, i=i: rec["gin"].__setitem__(i, g.detach()))
+                rec["needs"].append(need)
+                new.append(a)
+            rec["args"] = [a.detach() if isinstance(a, torch.Tensor) else a for a in new]
+            self.calls[label].append(rec)
+            return tuple(new)
+        return hook
+
+    def _post(self, label):
         def hook(module, args, out):
+            rec = self.calls[label][-1]
             outs = tuple(o.view_as(o) for o in (out if isinstance(out, tuple) else (out,)))
-            rec = {"args": [a.detach() if hasattr(a, "detach") else a for a in args],
-                   "out": [o.detach() for o in outs], "g": [None] * len(outs)}
+            rec["out"], rec["g"] = [o.detach() for o in outs], [None] * len(outs)
             for k, o in enumerate(outs):
-                o.register_hook(lambda g, k=k: rec["g"].__setitem__(k, g.detach()))
-            self.calls[name].append(rec)
+                if o.requires_grad:
+                    o.register_hook(lambda g, k=k: rec["g"].__setitem__(k, g.detach()))
             return outs if isinstance(out, tuple) else outs[0]
         return hook
 
     def remove(self) -> None:
         for h in self.handles:
             h.remove()
+
+
+class StepCapture(ModuleCapture):
+    """``ModuleCapture`` of a model's ``conv1``, blocks ``rn{i}`` and
+    ``conv2``, in ``names``, and of the model itself as ``trunk``."""
+
+    def __init__(self, model):
+        names = ["conv1"] + [f"rn{i}" for i in range(model.layers)] + ["conv2"]
+        super().__init__(model, {**{n: n for n in names}, "trunk": ""})
+        self.names = names
 
 
 def _rel_fro(got, ref) -> float:
@@ -1244,7 +1324,7 @@ def _draw_picks(trainer) -> tuple[list, list]:
 
 
 def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_last: bool = False,
-               save_after: int = 0, ckpt: str = "", annotate=None) -> dict:
+               save_after: int = 0, ckpt: str = "", annotate=None, update=None) -> dict:
     """``steps`` updates, each on the batch of ``draw(trainer)`` (what
     ``trainer.batch`` takes, and what the run records of it) and timed (host
     wall of a synchronised update, batch gather included, and CUDA events),
@@ -1253,13 +1333,16 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
     capture ``capture(model)``, the last step under the profiler, a
     checkpoint after ``save_after`` updates.  ``annotate``, a pair
     (context manager, range name), is entered around the profiled step, and
-    the device time of that range's kernels is kept as ``range_ms``."""
+    the device time of that range's kernels is kept as ``range_ms``.
+    ``update(trainer, batch, u)`` takes update ``u`` where
+    ``trainer.update(batch)`` does not fit."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from surfacenetworks_tpu_torch.sparse import kernels
 
     res = {"loss": [], "mad": [], "wall_ms": [], "device_ms": [], "per_step": [], "drawn": []}
+    step = (lambda t, b, u: t.update(b)) if update is None else update
     torch.cuda.reset_peak_memory_stats()
     for u in range(steps):
         drawn, key = draw(trainer)
@@ -1273,16 +1356,16 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
         batch = trainer.batch(drawn)
         if capture is not None and u == 0:
             cap = capture(trainer.model)
-            out = trainer.update(batch)
+            out = step(trainer, batch, u)
             cap.remove()
             res.update(capture=cap, batch0=batch, drawn0=drawn)
         elif profile_last and u == steps - 1:
             ranges = annotate[0]() if annotate else contextlib.nullcontext()
             with ranges, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                out = trainer.update(batch)
+                out = step(trainer, batch, u)
                 torch.cuda.synchronize()
         else:
-            out = trainer.update(batch)
+            out = step(trainer, batch, u)
         end.record()
         end.synchronize()
         res["wall_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -1316,14 +1399,14 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
     return res
 
 
-def repeat_run(label: str, trainer, restore, res: dict, draw=_draw_samples) -> None:
+def repeat_run(label: str, trainer, restore, res: dict, draw=_draw_samples, update=None) -> None:
     """The run's updates and test pass again once ``restore()`` has put
     back the state of its start; sets ``res["reproduced"]``: bit-identical
     to the run."""
     import torch
 
     restore()
-    again = _train_run(trainer, len(res["loss"]), draw)
+    again = _train_run(trainer, len(res["loss"]), draw, update=update)
     res["reproduced"] = all(again[k] == res[k] for k in ("drawn", "loss", "mad", "test")) and all(
         torch.equal(v, res["params"][k]) for k, v in again["params"].items())
     log(f"  {label}: two runs of {len(res['loss'])} steps from the same state: losses run 1 "
@@ -1979,33 +2062,40 @@ def _arap_restore(trainer, snap: dict) -> None:
 
 
 def arap_kernel_checks(trainer, device) -> dict:
-    """``ell_matmul`` on the first ARAP batch's stacked operator (32 items,
-    K=16, C=128), forward and stored-transpose backward, each element within
-    KERNEL_RTOL of its |A||x| against the plain version in fp32 and fp64;
-    the autograd Function's backward against autograd through the fp64
-    plain forward; a mutant whose every item applies item 0's operator must
-    fail.  Then its warm and cold-L2 time, the plain version's, one
-    ``torch.sparse.mm`` over the batch's block-diagonal CSR, and the bound.
-    Returns the timings."""
+    """``batched_ell_checks`` on the first ARAP batch's stacked operator (32
+    items, K=16, C=128) and its Laplacians."""
+    from surfacenetworks_tpu_torch.data.batching import IN_FRAMES
+
+    picks = _first_picks(trainer)
+    csrs = [trainer.sequences[si][off + IN_FRAMES - 1]["L"] for si, off in picks]
+    return batched_ell_checks(trainer.batch(picks).operator, csrs, device, "the ARAP batch", WIDTH, SEED + 300)
+
+
+def batched_ell_checks(op, csrs: list, device, label: str, width: int, seed: int) -> dict:
+    """``ell_matmul`` on a batch's stacked operator ``op`` (B items) at
+    ``width`` channels, forward and stored-transpose backward, each element
+    within KERNEL_RTOL of its |A||x| against the plain version in fp32 and
+    fp64; the autograd Function's backward against autograd through the
+    fp64 plain forward; a mutant whose every item applies item 0's operator
+    must fail.  Then its warm and cold-L2 time, the plain version's, one
+    ``torch.sparse.mm`` over the block-diagonal CSR of the items' scipy
+    operators ``csrs``, and the bound.  Returns the timings."""
     import scipy.sparse as sp
     import torch
 
-    from surfacenetworks_tpu_torch.data.batching import IN_FRAMES
     from surfacenetworks_tpu_torch.sparse import kernels, ops
 
-    picks = _first_picks(trainer)
-    op = trainer.batch(picks).operator
     fwd, bwd = op.fwd, op.bwd
     B, R, K = fwd.cols.shape
     plain = kernels.ell_matmul_plain
-    gen = torch.Generator(device=device).manual_seed(SEED + 300)
-    x = torch.randn(B, R, WIDTH, device=device, generator=gen)
-    g = torch.randn(B, R, WIDTH, device=device, generator=gen)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(B, R, width, device=device, generator=gen)
+    g = torch.randn(B, R, width, device=device, generator=gen)
     err = 0.0
     for name, m, t in (("forward", fwd, x), ("stored-transpose backward", bwd, g)):
         got = kernels.ell_matmul(m.cols, m.vals, t)
         scale = plain(m.cols, m.vals.double().abs(), t.double().abs())
-        err = max(err, check(f"ell_matmul B={B} R={R} K={K} C={WIDTH} {name} vs fp32 plain", got,
+        err = max(err, check(f"ell_matmul B={B} R={R} K={K} C={width} {name} vs fp32 plain", got,
                              plain(m.cols, m.vals, t), scale, KERNEL_RTOL))
         check(f"ell_matmul B={B} {name} vs fp64 plain", got, plain(m.cols, m.vals.double(), t.double()), scale,
               KERNEL_RTOL)
@@ -2020,29 +2110,29 @@ def arap_kernel_checks(trainer, device) -> dict:
             plain(fwd.cols, fwd.vals, x), plain(fwd.cols, fwd.vals.double().abs(), x.double().abs()), KERNEL_RTOL)
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
-    out = torch.empty(B, R, WIDTH, device=device)
+    out = torch.empty(B, R, width, device=device)
     nnz = int((fwd.vals != 0).sum())
-    csrs = []
-    for si, off in picks:
-        L = trainer.sequences[si][off + IN_FRAMES - 1]["L"].tocsr().astype(np.float32)
+    padded = []
+    for L in csrs:
+        L = L.tocsr().astype(np.float32)
         L.resize((R, R))
-        csrs.append(L)
-    bd = sp.block_diag(csrs, format="csr")
+        padded.append(L)
+    bd = sp.block_diag(padded, format="csr")
     lib = torch.sparse_csr_tensor(torch.from_numpy(bd.indptr.astype(np.int64)),
                                   torch.from_numpy(bd.indices.astype(np.int64)), torch.from_numpy(bd.data),
                                   size=bd.shape).to(device)
-    x2 = x.reshape(B * R, WIDTH)
-    b_ms, b_by = bound_ms(nbytes(fwd.cols, fwd.vals, x, out), 2 * nnz * WIDTH)
+    x2 = x.reshape(B * R, width)
+    b_ms, b_by = bound_ms(nbytes(fwd.cols, fwd.vals, x, out), 2 * nnz * width)
     rep = {"ms": time_ms(lambda: kernels.ell_matmul(fwd.cols, fwd.vals, x)),
            "cold_ms": cold_ms(lambda: kernels.ell_matmul(fwd.cols, fwd.vals, x), flush),
            "bwd_ms": time_ms(lambda: kernels.ell_matmul(bwd.cols, bwd.vals, g)),
            "plain_ms": time_ms(lambda: plain(fwd.cols, fwd.vals, x)),
            "library_ms": time_ms(lambda: torch.sparse.mm(lib, x2)),
            "library_call": "torch.sparse.mm(block-diagonal csr, x)",
-           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(fwd.cols, fwd.vals, x, out), "flops": 2 * nnz * WIDTH,
-           "max_abs_err": err, "shape": [B, R, K, WIDTH], "live_slots": nnz}
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(fwd.cols, fwd.vals, x, out), "flops": 2 * nnz * width,
+           "max_abs_err": err, "shape": [B, R, K, width], "live_slots": nnz}
     del flush
-    log(f"  ell_matmul at the ARAP batch (B={B}, R={R}, K={K}, C={WIDTH}, {nnz} live slots, "
+    log(f"  ell_matmul at {label} (B={B}, R={R}, K={K}, C={width}, {nnz} live slots, "
         f"{nnz / (B * R):.2f} per row): {rep['ms']:.5f} ms warm, {rep['cold_ms']:.5f} ms cold L2, backward's "
         f"{rep['bwd_ms']:.5f} ms warm (plain {rep['plain_ms']:.4f}, {rep['library_call']} {rep['library_ms']:.4f}, "
         f"bound {b_ms:.5f} ms by {b_by}: {rep['bytes'] / 1e6:.1f} MB, {b_ms / rep['ms']:.1%} of it)")
@@ -2218,6 +2308,344 @@ def arap_phase(device, smi: str) -> tuple[dict, dict]:
     return counts, results
 
 
+def _is_operator(a) -> bool:
+    from surfacenetworks_tpu_torch.sparse import BsrOperator, DiracOperator, EllOperator
+
+    return isinstance(a, (EllOperator, BsrOperator, DiracOperator))
+
+
+def mesh_objective(family: str, model, b, noise, kw: float = 0.0):
+    """The trainer's loss on batch ``b`` with the step's noise (the keep
+    mask, or ``eps``): the classifier's NLL, or the VAE's ELBO at KLD
+    weight ``kw``.  Returns (loss, the VAE's KLD or None)."""
+    from surfacenetworks_tpu_torch.train import losses
+
+    if family == "mnist":
+        logp = model(b.operator, b.mask, b.inputs, deterministic=False, keep=noise)
+        return losses.nll_loss(logp, b.targets), None
+    out = model(b.inputs, b.aux["flat_inputs"], b.operator, b.aux["flat_operator"], b.mask, eps=noise)
+    bce, kld = losses.vae_elbo_terms(out[0], out[1], b.mask, b.inputs, *out[2:])
+    return bce + kld * kw, kld
+
+
+def mesh_modulewise_errors(family: str, cap: ModuleCapture, loss: float, grads: dict, model64, op64_for, b64,
+                           noise64, kw: float) -> dict:
+    """A mesh-MNIST step against fp64 module by module at the card's own
+    activations.  The head: the loss in fp64 from the card's last outputs
+    (the classifier's log-probabilities; the VAE's decoder mean, encoder
+    mean and log-variance, with the card's cotangent at the decoder's
+    latent input standing in for the decoder) and its cotangents of those
+    outputs against the card's; the decoder's bare ``fc_logvar`` gradient
+    from it.  Then each captured module in fp64 (``model64``'s, operators
+    replaced by ``op64_for(name)``: dense fp64 Laplacians or the dense fp64
+    Dirac pair) from the card's inputs and output cotangents: each input's
+    cotangent against the card's share of it, and the parameter gradients
+    against the card's.  Returns each comparison's relative (Frobenius)
+    error."""
+    import torch
+
+    from surfacenetworks_tpu_torch.train import losses
+
+    errs = {}
+    if family == "mnist":
+        rec = cap.calls["head"][0]
+        logp = rec["out"][0].double().requires_grad_()
+        loss64 = losses.nll_loss(logp, b64.targets)
+        loss64.backward()
+        errs["loss on the card's log-probabilities"] = abs(loss - float(loss64)) / abs(float(loss64))
+        errs["head cotangent of the log-probabilities"] = _rel_fro(rec["g"][0], logp.grad)
+    else:
+        recs = {k: cap.calls[k][0] for k in ("decoder.fc_mu", "encoder.fc_mu", "encoder.fc_logvar")}
+        dec, mu, lv = (recs[k]["out"][0].double().requires_grad_() for k in recs)
+        fcl = model64.decoder.fc_logvar
+        z = noise64 * torch.exp(0.5 * lv) + mu
+        recon_mu = dec + b64.aux["flat_inputs"]
+        bce, kld = losses.vae_elbo_terms(recon_mu, fcl.expand_as(recon_mu), b64.mask, b64.inputs, z, mu, lv)
+        loss64 = bce + kld * kw
+        z_bar = cap.calls["decoder.conv_noise"][0]["gin"][0]  # the decoder's cotangent at its tiled latent
+        (loss64 + (z * z_bar.double().sum(1)).sum()).backward()
+        errs["loss on the card's outputs"] = abs(loss - float(loss64)) / abs(float(loss64))
+        for (k, rec), t in zip(recs.items(), (dec, mu, lv)):
+            errs[f"head cotangent of {k}"] = _rel_fro(rec["g"][0], t.grad)
+        errs["decoder.fc_logvar gradient"] = _rel_fro(grads["decoder.fc_logvar"], fcl.grad)
+    for name in cap.names:
+        mod = model64.get_submodule(name)
+        for rec in cap.calls[name]:
+            args = []
+            for a, need in zip(rec["args"], rec["needs"]):
+                if _is_operator(a):
+                    a = op64_for(name)
+                elif isinstance(a, torch.Tensor) and a.is_floating_point():
+                    a = a.double().requires_grad_(need)
+                args.append(a)
+            outs = mod(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g.double()) for o, g in zip(outs, rec["g"]) if g is not None]
+            torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+            for i, (a, need, g) in enumerate(zip(args, rec["needs"], rec["gin"])):
+                if need:  # None where no gradient reached it on the card (the mutants')
+                    ref = torch.zeros_like(a) if a.grad is None else a.grad
+                    errs[f"{name} input cotangent {i}"] = _rel_fro(torch.zeros_like(ref) if g is None else g, ref)
+        for pname, p in mod.named_parameters():
+            errs[f"{name}.{pname} gradient"] = _rel_fro(grads[f"{name}.{pname}"], p.grad)
+    return errs
+
+
+def _mesh_model(family: str, model: str, state0, device, dtype):
+    from surfacenetworks_tpu_torch.models import mnist_models, vae
+
+    net = (mnist_models.MODELS[model](layers=MESH_LAYERS) if family == "mnist"
+           else vae.MODELS[model](num_layers=MESH_LAYERS))
+    net.load_state_dict(state0)
+    return net.to(device, dtype)
+
+
+def _mesh_ops64(family: str, cfg: str, samples: list, trainer) -> dict:
+    """Step 0's operators in fp64 on the card, lifted (and for the VAE
+    flat): the dense fp64 Laplacians of the samples' ``L`` (``flat_L``), or
+    the dense fp64 Dirac pairs of their float32 vertices ``V`` (``flat_V``)
+    widened to float64, of which the tables were made."""
+    import torch
+
+    from surfacenetworks_tpu_torch.data.batching import dense_dirac_pair
+
+    dev, N, M = trainer.device, trainer.buckets.n_vertices, trainer.buckets.n_faces
+    keys = {"lifted": ("V", "L"), "flat": ("flat_V", "flat_L")}
+    if family == "mnist":
+        keys.pop("flat")
+    if cfg == "dirac":
+        return {key: dense_dirac_pair([{"V": np.asarray(s[vk], np.float64), "F": s["F"]} for s in samples], N, M,
+                                      torch.float64, dev) for key, (vk, _) in keys.items()}
+    return {key: torch.cat([_dense_fp64(s[lk], N, dev) for s in samples]) for key, (_, lk) in keys.items()}
+
+
+def mesh_step0_check(family: str, cfg: str, trainer, state0, res, noise0) -> list[str]:
+    """Step 0 against the same step in fp64 on dense fp64 operators (the
+    Dirac runs: the dense fp64 pairs) with the step's own noise: the loss
+    (and the VAE's KLD), then module by module (``mesh_modulewise_errors``);
+    the mutant whose operator applies are detached must fail the
+    module-wise check.  Returns the failures."""
+    import dataclasses
+
+    import torch
+
+    from surfacenetworks_tpu_torch.cli.train_vae import kld_weight
+
+    what, dev, b, model = f"{family} {cfg}", trainer.device, res["batch0"], trainer.args.model
+    kw = kld_weight(0)
+    ops64 = _mesh_ops64(family, cfg, res["drawn0"], trainer)
+
+    def batch_in(dtype, ops):
+        aux = None if b.aux is None else {"flat_inputs": b.aux["flat_inputs"].to(dtype),
+                                          "flat_operator": _cast_op(ops["flat"], dtype)}
+        return dataclasses.replace(b, inputs=b.inputs.to(dtype), mask=b.mask.to(dtype),
+                                   targets=b.targets if family == "mnist" else b.targets.to(dtype),
+                                   operator=_cast_op(ops["lifted"], dtype), aux=aux)
+
+    def dense_step(dtype):
+        net = _mesh_model(family, model, state0, dev, dtype)
+        loss, kld = mesh_objective(family, net, batch_in(dtype, ops64), noise0.to(dtype), kw)
+        loss.backward()
+        return float(loss.detach()), None if kld is None else float(kld.detach()), {
+            k: p.grad.detach() for k, p in net.named_parameters()}
+
+    ref_loss, ref_kld, ref_grads = dense_step(torch.float64)
+    loss_rel = abs(res["loss"][0] - ref_loss) / abs(ref_loss)
+    whole = [_rel_fro(g, ref_grads[k]) for k, g in res["grads0"].items()]
+    p_loss, _, p_grads = dense_step(torch.float32)
+    plain = [_rel_fro(g, ref_grads[k]) for k, g in p_grads.items()]
+    kld_note = ""
+    failures = []
+    if ref_kld is not None:
+        kld_rel = abs(res["kld0"] - ref_kld) / abs(ref_kld)
+        kld_note = f"; KLD {res['kld0']:.8f} vs {ref_kld:.8f} (rel {kld_rel:.3e}, tol {MESH_STEP0_LOSS_RTOL:g})"
+        if not kld_rel <= MESH_STEP0_LOSS_RTOL:
+            failures.append(f"{what}: step-0 KLD {res['kld0']} vs fp64 {ref_kld}")
+    log(f"  {what}: step 0 vs the whole fp64 step: loss {res['loss'][0]:.8f} vs {ref_loss:.8f} (rel {loss_rel:.3e}, "
+        f"tol {MESH_STEP0_LOSS_RTOL:g}){kld_note}; gradient rel_fro median {np.median(whole):.3e}, max "
+        f"{max(whole):.3e}; the same step in fp32 on the dense operators: loss rel "
+        f"{abs(p_loss - ref_loss) / abs(ref_loss):.3e}, gradient rel_fro median {np.median(plain):.3e}, max "
+        f"{max(plain):.3e}")
+    del ref_grads, p_grads
+    if not loss_rel <= MESH_STEP0_LOSS_RTOL:
+        failures.append(f"{what}: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
+
+    mutant = _mesh_model(family, model, state0, dev, torch.float32)
+    mcap = ModuleCapture(mutant, _mesh_capture_paths(family))
+    try:
+        with (detached_dirac_applies if cfg == "dirac" else detached_applies)():
+            mloss, _ = mesh_objective(family, mutant, b, noise0, kw)
+            mloss.backward()
+    finally:
+        mcap.remove()
+    # with the Dirac applies detached the face stream reaches no loss: its parameters get no gradient
+    mgrads = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach() for k, p in mutant.named_parameters()}
+    b64 = batch_in(torch.float64, ops64)
+    res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(whole)),
+                    "whole_grad_fro_max": max(whole)}
+    runs = {label: mesh_modulewise_errors(
+                family, cap, loss, grads, _mesh_model(family, model, state0, dev, torch.float64),
+                lambda name: ops64["flat" if name.startswith("decoder.") else "lifted"], b64, noise0.double(), kw)
+            for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
+                                              "mutant detached applies": (float(mloss.detach()), mgrads, mcap)}.items()}
+    del ops64, b64
+    torch.cuda.empty_cache()
+    return failures + judge_step0(what, runs, {"chain": MESH_STEP0_CHAIN_RTOL, "parameter": MESH_STEP0_PARAM_RTOL},
+                                  res)
+
+
+def _cast_op(op, dtype):
+    """A dense operator or a dense Dirac pair in ``dtype``."""
+    return tuple(t.to(dtype) for t in op) if isinstance(op, tuple) else op.to(dtype)
+
+
+def _mesh_trainer(family: str, samples: list, model: str, fmt: str, label: str):
+    from surfacenetworks_tpu_torch.cli import train_mnist, train_vae
+
+    mod = train_mnist if family == "mnist" else train_vae
+    args = mod.parser.parse_args(MESH_ARGS[family] + ["--model", model])
+    cls = train_mnist.MnistTrainer if family == "mnist" else train_vae.VaeTrainer
+    return cls(args, samples, fmt=fmt, log=lambda m: log(f"  [{family} {label}] {m}"))
+
+
+def _mesh_snapshot(trainer) -> dict:
+    """Weights, optimizer state, both samplers, the noise generator and the
+    update count: what a repeat of the run starts from."""
+    return {"params": {k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+            "opt": copy.deepcopy(trainer.opt.state_dict()), "gen": trainer.gen.get_state(),
+            "train_sampler": _sampler_like(trainer.train_sampler, trainer.train_samples),
+            "test_sampler": _sampler_like(trainer.test_sampler, trainer.test_samples), "step": trainer.step}
+
+
+def _mesh_restore(trainer, snap: dict) -> None:
+    trainer.model.load_state_dict(snap["params"])
+    trainer.opt.load_state_dict(snap["opt"])
+    trainer.gen.set_state(snap["gen"])
+    trainer.train_sampler = _sampler_like(snap["train_sampler"], trainer.train_samples)
+    trainer.test_sampler = _sampler_like(snap["test_sampler"], trainer.test_samples)
+    trainer.step = snap["step"]
+
+
+def _mesh_capture_paths(family: str) -> dict:
+    """The modules a mesh-MNIST step 0 is held by (``ModuleCapture``
+    paths): the classifier's conv1, blocks and head; every module of the
+    VAE's encoder and decoder."""
+    blocks = [f"rn{i}" for i in range(MESH_LAYERS)]
+    if family == "mnist":
+        names = ["conv1"] + blocks + ["head"]
+    else:
+        names = ([f"encoder.{n}" for n in ["conv1"] + blocks + ["bn_conv2", "fc_mu", "fc_logvar"]]
+                 + [f"decoder.{n}" for n in ["conv_inputs", "conv_noise"] + blocks + ["bn_conv2", "fc_mu"]])
+    return {n: n for n in names}
+
+
+def mesh_phase(family: str, device, smi: str, samples: list) -> tuple[dict, dict]:
+    """The mesh-MNIST classifier (``family='mnist'``) or VAE (``'vae'``)
+    trainer at batch 64 on 216-vertex meshes: per configuration (``auto``,
+    which resolves to dense; ELL; the Dirac model), counts at 0, its updates
+    (two epochs of 4; Dirac 4 updates) and the test pass; the ELL and Dirac
+    step 0 against fp64 module by module with the step's own noise; every
+    run repeated from its start, bit for bit; the classifier's ELL batch's
+    ``ell_matmul`` held and timed at C=64.  Returns the launch counts of
+    the three runs together, and the results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli.train_vae import kld_weight
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    results, path_counts, failures = {}, {}, []
+    configs = {"dense": ("lap", "auto", MESH_STEPS), "ell": ("lap", "ell", MESH_STEPS),
+               "dirac": ("dirac", "auto", MESH_DIRAC_STEPS)}
+    for cfg, (model, fmt, steps) in configs.items():
+        t0 = time.perf_counter()
+        trainer = _mesh_trainer(family, samples, model, fmt, cfg)
+        b = trainer.buckets
+        first_samples = _sampler_like(trainer.train_sampler, trainer.train_samples).next_batch()
+        first = trainer.batch(first_samples)
+        op = first.operator
+        log(f"  {family} {cfg}: bucket {b.n_vertices} x {b.n_faces}, {len(trainer.train_samples)} train and "
+            f"{len(trainer.test_samples)} test meshes, {trainer.steps_per_epoch} updates per epoch, operator "
+            f"{type(op).__name__} {tuple(op.shape) if torch.is_tensor(op) else ''}; "
+            f"{trainer.store.stats() if trainer.store else 'batches stacked on the host'}; "
+            f"set-up {time.perf_counter() - t0:.2f} s")
+        if family == "mnist" and cfg == "ell":
+            kernel_report = batched_ell_checks(first.operator, [s["L"] for s in first_samples], device,
+                                               "the mesh-MNIST batch", MNIST_WIDTH, SEED + 400)
+        del first, first_samples
+        snap = _mesh_snapshot(trainer)
+        noise0 = {}
+
+        def update(t, batch, u):
+            if family == "mnist":
+                out = t.update(batch)
+                noise = t.last_keep
+            else:
+                out = t.update(batch, kld_weight(u // t.steps_per_epoch))
+                noise = t.last_eps
+            if u == 0 and "noise" not in noise0:
+                noise0.update(noise=noise, kld=float(out[2]) if family == "vae" else None)
+            return out
+
+        capture = (lambda m: ModuleCapture(m, _mesh_capture_paths(family))) if cfg != "dense" else None
+        annotate = (annotated_dirac_applies, DIRAC_RANGE) if cfg == "dirac" else None
+        # the main path of this configuration: every count is 0 just before it and read just after
+        kernels.reset_launch_counts()
+        res = _train_run(trainer, steps, capture=capture, profile_last=True, annotate=annotate, update=update)
+        path_counts[cfg] = dict(kernels.launches)
+        log(f"  {family} {cfg}: launches on the path ({steps} updates + test pass) {path_counts[cfg]}")
+        res["kld0"] = noise0["kld"]
+        repeat_run(f"{family} {cfg}", trainer, lambda: _mesh_restore(trainer, snap), res, update=update)
+        results[cfg] = res
+
+        expected = MESH_PER_STEP[family][cfg]
+        test_expected = {k: v // 2 * trainer.test_steps for k, v in expected.items()}  # forward only
+        extra = "acc" if family == "mnist" else "(bce, kld)"
+        log(f"  {family} {cfg}: losses {[repr(v) for v in res['loss']]}; {extra} {res['mad']}; test {res['test']} "
+            f"({smi})")
+        log(f"  {family} {cfg}: device ms per step (CUDA events) {['%.2f' % v for v in res['device_ms']]}, median of "
+            f"steps 1-{steps - 2} {res['device_ms_median']:.3f}; host wall per step "
+            f"{['%.2f' % v for v in res['wall_ms']]}, median {res['wall_ms_median']:.3f}; profiled step device busy "
+            f"{res['busy_ms']:.3f} ms in {res['device_ops']} device ops, idle share {res['idle_share']:.3f}; peak "
+            f"device memory {res['peak_mib']:.1f} MiB ({smi})")
+        for dev_us, count, key in res["top"]:
+            log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+        if cfg == "dirac":
+            res["apply_share"] = res["range_ms"] / res["busy_ms"]
+            log(f"  {family} dirac: the Dirac applies in the profiled step: {res['range_ms']:.4f} ms in "
+                f"{res['range_ops']} device ops, {res['apply_share']:.1%} of its busy time ({smi})")
+            if not 0 < res["range_ms"] <= res["busy_ms"]:
+                failures.append(f"{family} dirac: the applies' device time reads {res['range_ms']} ms")
+        log(f"  {family} {cfg}: launches per step {res['per_step'][0]} (expected {expected}); test pass "
+            f"{res['test_launches']} (expected {test_expected})")
+        if not (np.isfinite(res["loss"]).all() and np.isfinite(res["mad"]).all() and np.isfinite(res["test"]).all()):
+            failures.append(f"{family} {cfg}: a loss or metric is not finite")
+        if any(step != expected for step in res["per_step"]) or res["test_launches"] != test_expected:
+            failures.append(f"{family} {cfg}: launches per step {res['per_step']}, test pass {res['test_launches']}")
+        if not res["reproduced"]:
+            failures.append(f"{family} {cfg}: a second run of the {steps} steps from the same state differs")
+        if capture is not None:
+            for k, grad in res["grads0"].items():
+                if not (bool(torch.isfinite(grad).all()) and bool((grad != 0).any())):
+                    failures.append(f"{family} {cfg}: step-0 gradient of {k} is not finite and non-zero")
+            failures += mesh_step0_check(family, cfg, trainer, snap["params"], res, noise0["noise"])
+        if family == "mnist" and cfg == "ell":
+            res["kernel"] = kernel_report
+        for key in ("capture", "grads0", "batch0", "drawn0", "params", "drawn"):
+            res.pop(key, None)
+        del trainer
+        torch.cuda.empty_cache()
+    same = results["dense"]["loss"] == results["ell"]["loss"]
+    diff = [a - b for a, b in zip(results["dense"]["loss"], results["ell"]["loss"])]
+    verdict = "bit-identical" if same else f"differ: {diff}"
+    log(f"  {family}: dense and ELL losses over the {MESH_STEPS} steps {verdict}; "
+        f"test {results['dense']['test']} and {results['ell']['test']}")
+    results["dense_equals_ell"] = same
+    if failures:
+        raise AssertionError("; ".join(failures))
+    counts = {k: sum(c[k] for c in path_counts.values()) for k in path_counts["ell"]}
+    return counts, results
+
+
 KERNEL_SYMBOLS = {"bsr_matmul": "bsr_spmm_kernel", "ell_matmul": "ell_spmm_kernel", "sddmm": "sddmm_kernel"}
 
 
@@ -2344,6 +2772,21 @@ def main() -> int:
     arap_counts, arap = arap_phase(device, smi)
     phase("arap train", t0)
 
+    t0 = time.perf_counter()
+    from surfacenetworks_tpu_torch.data import datasets
+
+    mesh_samples = datasets.synthetic_mnist_dataset(**MNIST_DATA)
+    log(f"  mesh-MNIST data: {len(mesh_samples)} height fields of "
+        f"{sorted({s['V'].shape[0] for s in mesh_samples})} vertices and "
+        f"{min(s['F'].shape[0] for s in mesh_samples)}-{max(s['F'].shape[0] for s in mesh_samples)} faces; made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    mnist_counts, mnist = mesh_phase("mnist", device, smi, mesh_samples)
+    phase("mnist train", t0)
+
+    t0 = time.perf_counter()
+    vae_counts, vae = mesh_phase("vae", device, smi, mesh_samples)
+    phase("vae train", t0)
+
     replaces = {
         "bsr_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:163",
         "ell_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:239",
@@ -2353,7 +2796,9 @@ def main() -> int:
     # ``serve_launches`` the serving path, ``normal_train_launches`` the
     # normal trainer's ELL and BSR paths, ``arap_train_launches`` the ARAP
     # trainer's ELL, dense and Dir paths (``arap_batch``: ``ell_matmul`` at
-    # the ARAP batch's shape).  ``ms`` and ``max_abs_err`` are
+    # the ARAP batch's shape), ``mnist_train_launches`` and
+    # ``vae_train_launches`` the mesh-MNIST trainers' dense, ELL and Dirac
+    # paths (``mnist_batch``: ``ell_matmul`` at the classifier's batch).  ``ms`` and ``max_abs_err`` are
     # kept under the names ``kernel_ms`` and ``max_err_vs_plain`` too, so
     # readers of either set of names find them.
     entries = []
@@ -2365,6 +2810,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": "surfacenetworks_tpu_torch/sparse/csrc/spmm.cu",
             "replaces": replaces[kname], "launches": train_counts[kname], "serve_launches": counts[kname],
             "normal_train_launches": normal_counts[kname], "arap_train_launches": arap_counts[kname],
+            "mnist_train_launches": mnist_counts[kname], "vae_train_launches": vae_counts[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_call": r["library_call"], "max_err_vs_plain": r["max_abs_err"], "kernel_ms": r["ms"],
@@ -2377,6 +2823,7 @@ def main() -> int:
             entries[-1].update(fp32_fma_bound_ms=r["fp32_fma_bound_ms"], fp32_fma_bound_by=r["fp32_fma_bound_by"])
         if kname == "ell_matmul":
             entries[-1]["arap_batch"] = arap["ell"]["kernel"]
+            entries[-1]["mnist_batch"] = mnist["ell"]["kernel"]
     log(f"serve median ms per request: ell {latency['ell']['median_ms']:.3f}, "
         f"bsr {latency['bsr']['median_ms']:.3f} ({smi})")
     log("train median per step: " + ", ".join(
@@ -2393,6 +2840,13 @@ def main() -> int:
         f"{cfg} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms "
         f"in {r['device_ops']} device ops, idle share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB"
         for cfg, r in arap.items()) + f" ({smi})")
+    for family, runs in (("mnist", mnist), ("vae", vae)):
+        log(f"{family} train median per step: " + ", ".join(
+            f"{cfg} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} "
+            f"ms in {r['device_ops']} device ops, idle share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB"
+            + (f", Dirac applies {r['apply_share']:.1%} of busy" if cfg == "dirac" else "")
+            for cfg, r in runs.items() if cfg != "dense_equals_ell")
+            + f"; dense and ELL losses {'bit-identical' if runs['dense_equals_ell'] else 'differ'} ({smi})")
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

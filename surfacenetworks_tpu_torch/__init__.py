@@ -20,14 +20,19 @@ Module map (port -> JAX package):
                                   ``synthetic_arap_sequences``,
                                   ``load_faust_npz``, ``load_normal_sample``,
                                   ``scan_mesh_tree``, ``load_normal_npz``
-                                  with Dirac samples, ``load_arap_sequence``)
+                                  with Dirac samples, ``load_arap_sequence``,
+                                  ``height_field_mesh``,
+                                  ``synthetic_mnist_dataset``,
+                                  ``load_mnist_mesh_pickle``)
 ``data/batching.py``              ``data/batching.py`` (buckets, RCM, BSR slot
                                   fit, Dirac packing, ``laplacian_batch``,
                                   ``dirac_batch``, ``correspondence_batch``,
-                                  ``arap_batch``)
+                                  ``arap_batch``, ``mnist_batch``,
+                                  ``vae_batch``)
 ``data/pipeline.py``              ``data/pipeline.py`` (pack-once samples,
                                   ``DeviceDataset`` keyed by object or
-                                  value, ``IndexedBatch``)
+                                  value, ``IndexedBatch``; a batch's
+                                  ``aux`` carried through)
 ``sparse/ell.py``                 ``sparse/ell.py`` (``EllMatrix``, packing,
                                   ``DiracOperator``, ``dirac_from_coeffs``)
 ``sparse/bsr.py``                 ``sparse/bsr.py`` (``BsrMatrix``, RCM, packing)
@@ -47,10 +52,16 @@ Module map (port -> JAX package):
 ``models/arap_models.py``         ``models/arap_models.py`` (``Model``,
                                   ``AvgModel``, ``MlpModel``, ``DirModel``,
                                   ``GCNModel``)
+``models/mnist_models.py``        ``models/mnist_models.py`` (``Model``,
+                                  ``AvgModel``, ``MlpModel``, ``DirModel``)
+``models/vae.py``                 ``models/vae.py`` (``LapVAE``, ``DirVAE``
+                                  and their encoders and decoders)
 ``train/losses.py``               ``train/losses.py`` (normal cosine loss and
                                   angle metric, dcel, streaming dcel,
                                   smoothness, FAUST metrics, ARAP
-                                  ``smooth_l1_sum``)
+                                  ``smooth_l1_sum``, mesh-MNIST
+                                  ``nll_loss``, ``accuracy``, VAE
+                                  ``log_normal_diag``, ``vae_elbo_terms``)
 ``train/optim.py``                ``train/optim.py`` (``adam``, optax's
                                   AMSGrad, ``sgd``, ``epoch_halving_schedule``)
 ``train/checkpoint.py``           ``train/checkpoint.py`` + ``train/loop.py::
@@ -65,6 +76,10 @@ Module map (port -> JAX package):
                                   Lap/dcel path)
 ``cli/train_arap.py``             ``cli/train_arap.py`` (single-device path,
                                   five models, ELL and ``--dense``)
+``cli/train_mnist.py``            ``cli/train_mnist.py`` (single-device path,
+                                  ``lap avg mlp dirac``)
+``cli/train_vae.py``              ``cli/train_vae.py`` (single-device path,
+                                  ``lap dirac``, ``--dump-ply``)
 ``convert.py``                    (new) flax params -> ``state_dict``, optax
                                   state -> optimizer ``state_dict``
 ``serve.py``                      ``serve.py`` + ``cli/export_model.py``

@@ -55,6 +55,7 @@ from surfacenetworks_tpu_torch.sparse import stack_operators
 from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
 
 parser = argparse.ArgumentParser(description="Dense correspondence (PyTorch, one device)")
+parser.add_argument("--batch-size", type=int, default=1, help="accepted and not read, as in the JAX trainer")
 parser.add_argument("--datapath", default="train_FAUST_npz/")
 parser.add_argument("--synthetic", type=int, default=0)
 parser.add_argument("--synthetic-points", type=int, default=200)
@@ -84,6 +85,9 @@ parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 parser.add_argument("--deser-option", default="auto", choices=["auto", "no", "force"],
                     help="resume from --deser-path or the run's checkpoint where it exists (auto, force), or not (no)")
 parser.add_argument("--deser-path", default=None)
+parser.add_argument("--num-vertices", type=int, default=7000, help="accepted and not read, as in the JAX trainer")
+parser.add_argument("--no-epoch-scan", action="store_true",
+                    help="one dispatch per update in the epoch plan's order: what the port always does")
 # flags of the JAX trainer that later slices bring: refused when given
 parser.add_argument("--bf16", action="store_true")
 parser.add_argument("--remat", action="store_true")
@@ -94,6 +98,8 @@ parser.add_argument("--multihost", action="store_true")
 parser.add_argument("--coordinator-address", default=None)
 parser.add_argument("--num-processes", type=int, default=None)
 parser.add_argument("--process-id", type=int, default=None)
+parser.add_argument("--config", default=None)
+parser.add_argument("--preset", default=None)
 
 # the JAX trainer keeps every sample's [N, N] geodesic matrix on the device
 # below this estimate and takes its light path above it
@@ -112,6 +118,7 @@ def refuse_unported(args) -> None:
         "--graph-parallel": args.graph_parallel != 0,
         "--multihost and its coordinator flags": args.multihost or any(
             v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)),
+        "--config and --preset": args.config is not None or args.preset is not None,
     }
     given = [k for k, v in refused.items() if v]
     if given:

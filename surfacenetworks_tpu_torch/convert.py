@@ -4,7 +4,8 @@ The JAX package stores parameters as nested dicts (what
 ``flax.serialization.msgpack_restore`` returns for a checkpoint's
 ``["params"]``).  A Dense ``kernel [in, out]`` becomes a Linear
 ``weight [out, in]``; Dense and BatchNorm ``bias`` stay ``bias``; BatchNorm
-``scale`` becomes ``weight``.  ``optimizer_state_from_optax`` maps a
+``scale`` becomes ``weight``; a bare parameter (the VAE decoder's
+``fc_logvar``) becomes the module parameter of the same name.  ``optimizer_state_from_optax`` maps a
 checkpoint's ``["opt_state"]`` onto the port's optimizer ``state_dict``.
 The port never imports flax: ``train.checkpoint`` decodes the file.
 """
@@ -22,9 +23,12 @@ def params_from_flax(tree: Mapping, like: nn.Module | None = None) -> dict[str, 
     """Convert a flax params tree into a ``state_dict``.
 
     With ``like``, the keys and shapes must match ``like.state_dict()``
-    exactly: a missing or surplus key, or a shape that differs, raises.
+    exactly: a missing or surplus key, or a shape that differs, raises.  A
+    leaf other than ``kernel``, ``scale`` and ``bias`` is a bare parameter:
+    it needs ``like`` to hold a parameter under its own key, or it raises.
     """
     out: dict[str, torch.Tensor] = {}
+    bare = set() if like is None else {n for n, _ in like.named_parameters()}
 
     def walk(node: Mapping, prefix: str) -> None:
         for name, val in node.items():
@@ -40,6 +44,8 @@ def params_from_flax(tree: Mapping, like: nn.Module | None = None) -> dict[str, 
                 key = "weight"
             elif name == "bias":
                 key = "bias"
+            elif prefix + name in bare:
+                key = name
             else:
                 raise KeyError(f"unknown flax leaf {prefix}{name}")
             out[prefix + key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))

@@ -13,9 +13,11 @@ from surfacenetworks_tpu_torch.data.batching import (
     dirac_batch,
     fit_bsr_k,
     laplacian_batch,
+    mnist_batch,
     pad_rows,
     rcm_reorder_sample,
     round_up,
+    vae_batch,
 )
 
 __all__ = [
@@ -30,7 +32,9 @@ __all__ = [
     "dirac_batch",
     "fit_bsr_k",
     "laplacian_batch",
+    "mnist_batch",
     "pad_rows",
     "rcm_reorder_sample",
     "round_up",
+    "vae_batch",
 ]

@@ -1,6 +1,6 @@
 """Bucketed fixed-shape batching with masks (counterpart of
 ``surfacenetworks_tpu/data/batching.py``: the Laplacian, Dirac,
-correspondence and ARAP batches).
+correspondence, ARAP, mesh-MNIST and VAE batches).
 
 Batches are padded to fixed buckets: vertex and face counts, ELL slot
 counts, the BSR slot count and the Dirac valence packing are chosen once per
@@ -101,7 +101,9 @@ class MeshBatch:
     ``[B, N, 1]`` and the batched operator (``EllOperator``,
     ``BsrOperator``, a dense ``[B, N, N]`` tensor, a ``DiracOperator`` or a
     dense Dirac pair).  A correspondence
-    batch's ``targets`` is the host tuple ``(G, label, label_inv)``."""
+    batch's ``targets`` is the host tuple ``(G, label, label_inv)``, a
+    mesh-MNIST batch's the int32 labels ``[B]``.  ``aux`` holds what a
+    family needs besides: the VAE's ``flat_inputs`` and ``flat_operator``."""
 
     inputs: torch.Tensor
     targets: Any
@@ -109,6 +111,7 @@ class MeshBatch:
     operator: Any
     faces: torch.Tensor | None = None  # [B, M, 3] (padded with 0)
     names: list | None = None
+    aux: dict | None = None
 
 
 def pad_rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -261,18 +264,24 @@ def _padded_arrays(samples: list[dict], N: int, input_key: str, target_key: str)
     return inputs, targets, mask
 
 
-def _dirac_coeffs_of(s: dict) -> geo.DiracCoeffs:
-    """The sample's Dirac coefficients, or (when it has none) those of its
-    float32 vertices, as the JAX package computes them here."""
-    c = s.get("dirac")
+def _dirac_coeffs_of(s: dict, key: str = "dirac") -> geo.DiracCoeffs:
+    """The sample's Dirac coefficients under ``key`` or, when it has none,
+    those of its float32 vertices (with z set to 0 for ``flat_dirac``), as
+    the JAX package computes them here."""
+    c = s.get(key)
     if c is not None:
         return c
-    return geo.dirac_coeffs(np.asarray(s["V"], np.float32), s["F"])
+    V = np.asarray(s["V"], np.float32)
+    if key == "flat_dirac":
+        V = V.copy()
+        V[:, 2] = 0.0
+    return geo.dirac_coeffs(V, s["F"])
 
 
-def _dirac_sample_operator(s: dict, buckets: Buckets, N: int, M: int):
-    """One sample's packed Dirac tables at the bucket's shape and packing."""
-    return dirac_from_coeffs(_dirac_coeffs_of(s), n_vertices=N, n_faces=M,
+def _dirac_sample_operator(s: dict, buckets: Buckets, N: int, M: int, key: str = "dirac"):
+    """One sample's packed Dirac tables (of its ``key`` coefficients) at the
+    bucket's shape and packing."""
+    return dirac_from_coeffs(_dirac_coeffs_of(s, key), n_vertices=N, n_faces=M,
                              max_valence=buckets.max_valence, **buckets.dirac_kwargs())
 
 
@@ -317,6 +326,62 @@ def dirac_batch(
         operator=operator,
         faces=_pad_faces(samples, buckets),
         names=[s.get("name") for s in samples],
+    )
+
+
+def _mesh_operator_batch(samples: list[dict], buckets: Buckets, model: str, fmt: str, flat: bool = False):
+    """The stacked lifted (or ``flat``) operators of a mesh-MNIST batch:
+    packed Dirac tables for ``model='dirac'``, else the Laplacian in
+    ``fmt``."""
+    N = buckets.n_vertices
+    if model == "dirac":
+        key = "flat_dirac" if flat else "dirac"
+        return stack_dirac([_dirac_sample_operator(s, buckets, N, buckets.n_faces, key=key) for s in samples])
+    return _lap_operator_batch([s["flat_L" if flat else "L"] for s in samples], buckets, N, fmt)
+
+
+def _lifted_inputs(samples: list[dict], N: int) -> tuple[np.ndarray, np.ndarray]:
+    """The lifted vertices ``[B, N, 3]`` and the mask ``[B, N, 1]``."""
+    inputs = np.stack([pad_rows(np.asarray(s["V"], np.float32), N) for s in samples])
+    mask = np.zeros((len(samples), N, 1), dtype=np.float32)
+    for b, s in enumerate(samples):
+        mask[b, : s["V"].shape[0]] = 1.0
+    return inputs, mask
+
+
+def mnist_batch(samples: list[dict], buckets: Buckets, model: str = "lap", fmt: str = "auto") -> MeshBatch:
+    """A classification batch: the lifted vertices as inputs, the int32
+    labels ``[B]`` as targets, and the lifted operator (packed Dirac tables
+    for ``model='dirac'``, else the Laplacian in ``fmt``)."""
+    inputs, mask = _lifted_inputs(samples, buckets.n_vertices)
+    return MeshBatch(
+        inputs=torch.from_numpy(inputs),
+        targets=torch.from_numpy(np.asarray([s["label"] for s in samples], dtype=np.int32)),
+        mask=torch.from_numpy(mask),
+        operator=_mesh_operator_batch(samples, buckets, model, fmt),
+        faces=_pad_faces(samples, buckets),
+        names=[s.get("name") for s in samples],
+    )
+
+
+def vae_batch(samples: list[dict], buckets: Buckets, model: str = "lap", fmt: str = "auto") -> MeshBatch:
+    """A VAE batch: the lifted vertices as inputs and as targets, the lifted
+    operator, and in ``aux`` the flat inputs (z set to 0) as
+    ``flat_inputs`` and the flat operator (``flat_L`` or ``flat_dirac``)
+    as ``flat_operator``."""
+    inputs, mask = _lifted_inputs(samples, buckets.n_vertices)
+    flat_inputs = inputs.copy()
+    flat_inputs[:, :, 2] = 0.0
+    x = torch.from_numpy(inputs)
+    return MeshBatch(
+        inputs=x,
+        targets=x,
+        mask=torch.from_numpy(mask),
+        operator=_mesh_operator_batch(samples, buckets, model, fmt),
+        faces=_pad_faces(samples, buckets),
+        names=[s.get("name") for s in samples],
+        aux={"flat_inputs": torch.from_numpy(flat_inputs),
+             "flat_operator": _mesh_operator_batch(samples, buckets, model, fmt, flat=True)},
     )
 
 

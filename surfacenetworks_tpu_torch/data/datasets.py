@@ -9,7 +9,12 @@ coefficients in both packages.  ``load_faust_npz`` reads the reference's
 FAUST ``.npz`` layout; ``load_normal_sample``, ``scan_mesh_tree`` and
 ``load_normal_npz`` read the normal trainer's mesh trees and the JAX
 package's ``cli.preprocess normal`` output, Laplacian and Dirac samples;
-``load_arap_sequence`` reads the ARAP trainer's ``.npy`` sequences.
+``load_arap_sequence`` reads the ARAP trainer's ``.npy`` sequences;
+``height_field_mesh``, ``synthetic_mnist_dataset`` and
+``load_mnist_mesh_pickle`` make and read the mesh-MNIST samples of the
+classifier and the VAE.  The mesh-MNIST pickle and a normal sample's
+pickled Dirac member are read through ``_SampleUnpickler``, which admits
+only the globals a sample holds.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import pickle
 
 import numpy as np
 import scipy.sparse as sp
-from scipy.spatial import ConvexHull
+from scipy.spatial import ConvexHull, Delaunay
 
 from surfacenetworks_tpu_torch import geometry as geo
 
@@ -50,6 +55,58 @@ def random_blob_mesh(rng: np.random.Generator, n_points: int = 200) -> tuple[np.
     ] * np.sin(3 * x * y) + a[4] * np.cos(3 * y * z) + a[5] * np.sin(3 * z * x)
     V = pts * r[:, None]
     return V, F
+
+
+def height_field_mesh(rng: np.random.Generator, n_points: int = 150,
+                      n_blobs: int = 3) -> tuple[np.ndarray, np.ndarray, int]:
+    """Random triangulated height field (a mesh-MNIST-like lifted mesh):
+    ``n_points`` uniform points of the unit square, their Delaunay
+    triangles, and a height of ``n_blobs`` Gaussian peaks at least 0.28
+    apart, normalised to a maximum of 1.  Returns (V, F, label) with the
+    blob count as the label."""
+    pts = rng.uniform(0, 1, size=(n_points, 2))
+    tri = Delaunay(pts)
+    z = np.zeros(n_points)
+    centers: list = []
+    for _ in range(n_blobs):
+        for _try in range(50):
+            c = rng.uniform(0.15, 0.85, size=2)
+            if all(np.linalg.norm(c - o) > 0.28 for o in centers):
+                break
+        centers.append(c)
+        s = rng.uniform(0.08, 0.13)
+        z += rng.uniform(0.5, 1.0) * np.exp(-((pts[:, 0] - c[0]) ** 2 + (pts[:, 1] - c[1]) ** 2) / (2 * s**2))
+    V = np.concatenate([pts, z[:, None] / max(z.max(), 1e-6)], axis=1)
+    return V, np.asarray(tri.simplices, dtype=np.int32), n_blobs
+
+
+def synthetic_mnist_dataset(num: int, seed: int = 0, n_points: int = 120, n_classes: int = 10) -> list[dict]:
+    """mesh-MNIST-style samples: a height field per sample with its lifted
+    and flat (z = 0) cotan Laplacians ``L``/``flat_L`` and Dirac
+    coefficients ``dirac``/``flat_dirac`` (of the float32 vertices), and
+    ``flat_V``.  The label draws the blob count: label k has k+1 blobs
+    below 10 classes, max(k, 1) at 10."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(num):
+        label = int(rng.integers(0, n_classes))
+        n_blobs = label + 1 if n_classes < 10 else max(label, 1)
+        V, F, _ = height_field_mesh(rng, n_points, n_blobs=n_blobs)
+        V = V.astype(np.float32)
+        flat_V = V.copy()
+        flat_V[:, 2] = 0
+        out.append({
+            "V": V,
+            "F": F,
+            "label": label,
+            "L": geo.mesh_laplacian(V, F).astype(np.float32),
+            "flat_L": geo.mesh_laplacian(flat_V, F).astype(np.float32),
+            "dirac": geo.dirac_coeffs(V, F),
+            "flat_dirac": geo.dirac_coeffs(flat_V, F),
+            "flat_V": flat_V,
+            "name": f"mnistlike_{i}",
+        })
+    return out
 
 
 def synthetic_normal_dataset(
@@ -233,33 +290,49 @@ def scan_mesh_tree(data_path: str) -> list[str]:
     return npz if npz else scan_obj_tree(data_path)
 
 
-class _DiracUnpickler(pickle.Unpickler):
-    """Unpickles the ``dirac`` member of a preprocessed sample: the JAX
-    package's ``DiracCoeffs`` becomes the port's (same fields), numpy's
-    array reconstructors are admitted, and every other global is refused,
-    so the file can neither import the JAX package nor run code."""
+class _SampleUnpickler(pickle.Unpickler):
+    """Unpickles a sample file's objects with every global refused but
+    numpy's array and scalar reconstructors, scipy's sparse matrix and
+    array classes (under any of their module paths), the copy protocol's
+    ``_reconstructor`` over ``object`` (Python 2 pickles), and the JAX
+    package's ``DiracCoeffs``, which becomes the port's (same fields).  So
+    a file can neither import the JAX package nor run code."""
 
     _NUMPY = {("numpy._core.multiarray", "_reconstruct"), ("numpy.core.multiarray", "_reconstruct"),
-              ("numpy", "ndarray"), ("numpy", "dtype")}
+              ("numpy._core.multiarray", "scalar"), ("numpy.core.multiarray", "scalar"),
+              ("numpy", "ndarray"), ("numpy", "dtype"), ("copyreg", "_reconstructor"),
+              ("copy_reg", "_reconstructor"), ("builtins", "object"), ("__builtin__", "object")}
+    _SPARSE = {f"{fmt}_{kind}" for fmt in ("coo", "csr", "csc") for kind in ("matrix", "array")}
 
     def find_class(self, module: str, name: str):
         if (module, name) == ("surfacenetworks_tpu.geometry.mesh_ops", "DiracCoeffs"):
             return geo.DiracCoeffs
         if (module, name) in self._NUMPY:
             return super().find_class(module, name)
-        raise pickle.UnpicklingError(f"refused global {module}.{name} in a Dirac sample")
+        if (module == "scipy.sparse" or module.startswith("scipy.sparse.")) and name in self._SPARSE:
+            return getattr(sp, name)
+        raise pickle.UnpicklingError(f"refused global {module}.{name} in a sample file")
+
+
+def _read_pickled_npy(fh, path: str, what: str) -> np.ndarray:
+    """The object array of an open ``.npy`` stream, unpickled by
+    ``_SampleUnpickler`` (``np.load`` would unpickle with no restriction)."""
+    version = np.lib.format.read_magic(fh)
+    header = np.lib.format.read_array_header_1_0 if version == (1, 0) else np.lib.format.read_array_header_2_0
+    shape, _, dtype = header(fh)
+    if dtype != np.dtype(object):
+        raise ValueError(f"{path}: {what} is {dtype} {shape}, not a pickled object array")
+    return _SampleUnpickler(io.BytesIO(fh.read()), encoding="latin1").load()
 
 
 def _read_dirac_member(z, path: str) -> geo.DiracCoeffs:
     """The 0-d object array ``dirac.npy`` of an open ``.npz``, read through
-    ``_DiracUnpickler`` (``np.load`` would unpickle with no restriction)."""
+    ``_SampleUnpickler``."""
     with z.zip.open("dirac.npy") as fh:
-        version = np.lib.format.read_magic(fh)
-        header = np.lib.format.read_array_header_1_0 if version == (1, 0) else np.lib.format.read_array_header_2_0
-        shape, _, dtype = header(fh)
-        if shape != () or dtype != np.dtype(object):
-            raise ValueError(f"{path}: dirac member is {dtype} {shape}, not a pickled DiracCoeffs")
-        coeffs = _DiracUnpickler(io.BytesIO(fh.read())).load().item()
+        arr = _read_pickled_npy(fh, path, "dirac member")
+    if arr.shape != ():
+        raise ValueError(f"{path}: dirac member has shape {arr.shape}, not a pickled DiracCoeffs")
+    coeffs = arr.item()
     if not isinstance(coeffs, geo.DiracCoeffs):
         raise ValueError(f"{path}: dirac member holds {type(coeffs).__name__}, not DiracCoeffs")
     return coeffs
@@ -268,7 +341,7 @@ def _read_dirac_member(z, path: str) -> geo.DiracCoeffs:
 def load_normal_npz(path: str) -> dict:
     """One normal-prediction sample written by the JAX package's
     ``cli.preprocess normal``: its Laplacian, or its pickled Dirac
-    coefficients (read by ``_DiracUnpickler``)."""
+    coefficients (read by ``_SampleUnpickler``)."""
     with np.load(path, allow_pickle=False) as z:
         V = z["V"].astype(np.float32)
         sample = {
@@ -283,3 +356,34 @@ def load_normal_npz(path: str) -> dict:
         else:
             sample["dirac"] = _read_dirac_member(z, path)
     return sample
+
+
+def load_mnist_mesh_pickle(path: str) -> list[dict]:
+    """A ``train_plus.np``-style pickle (the reference's
+    ``mesh_mnist/add_laplacian.py`` output or the JAX package's ``cli.preprocess
+    mnist``, an ``.npy`` object array or a bare pickle) of sample dicts with
+    V, F, label and the lifted and flat operators, read through
+    ``_SampleUnpickler``: V float32, F int32, the label an int, ``L`` and
+    ``flat_L`` as CSR, and ``flat_V`` made where the file has none."""
+    with open(path, "rb") as fh:
+        if fh.read(6) == b"\x93NUMPY":
+            fh.seek(0)
+            raw = _read_pickled_npy(fh, path, "the sample array")
+        else:
+            fh.seek(0)
+            raw = _SampleUnpickler(fh, encoding="latin1").load()
+    out = []
+    for s in raw:
+        d = dict(s)
+        d["V"] = np.asarray(d["V"], np.float32)
+        d["F"] = np.asarray(d["F"], np.int32)
+        d["label"] = int(d["label"])
+        for key in ("L", "flat_L"):
+            if key in d and d[key] is not None:
+                d[key] = d[key].tocsr()
+        if "flat_V" not in d:
+            flat = d["V"].copy()
+            flat[:, 2] = 0
+            d["flat_V"] = flat
+        out.append(d)
+    return out

@@ -25,13 +25,13 @@ import torch
 from surfacenetworks_tpu_torch.data.batching import MeshBatch
 
 DEVICE_BUDGET_BYTES = 6 << 30
-_FIELDS = ("inputs", "targets", "mask", "operator")  # what a step reads
+_FIELDS = ("inputs", "targets", "mask", "operator", "aux")  # what a step reads
 
 
 def _concat(objs: list) -> Any:
     """Concatenate along the leading axis, field by field through operator
-    dataclasses and tuples.  An int field (a column count, a banded-window
-    bound) takes the members' largest."""
+    dataclasses, tuples and dicts (a batch's ``aux``).  An int field (a
+    column count, a banded-window bound) takes the members' largest."""
     first = objs[0]
     if isinstance(first, torch.Tensor):
         return torch.cat(objs, dim=0)
@@ -40,6 +40,8 @@ def _concat(objs: list) -> Any:
                                             for f in dataclasses.fields(first)})
     if isinstance(first, tuple):
         return tuple(_concat(list(parts)) for parts in zip(*objs))
+    if isinstance(first, dict):
+        return {k: _concat([o[k] for o in objs]) for k in first}
     if isinstance(first, int):
         return max(objs)
     if first is None:
@@ -49,13 +51,15 @@ def _concat(objs: list) -> Any:
 
 def _take(obj: Any, idx: torch.Tensor) -> Any:
     """Rows ``idx`` of every tensor's leading axis, through operator
-    dataclasses and tuples."""
+    dataclasses, tuples and dicts."""
     if isinstance(obj, torch.Tensor):
         return obj.index_select(0, idx)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{f.name: _take(getattr(obj, f.name), idx) for f in dataclasses.fields(obj)})
     if isinstance(obj, tuple):
         return tuple(_take(o, idx) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _take(v, idx) for k, v in obj.items()}
     return obj
 
 
@@ -66,21 +70,27 @@ def _nbytes(obj: Any) -> int:
         return sum(_nbytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
     if isinstance(obj, tuple):
         return sum(_nbytes(o) for o in obj)
+    if isinstance(obj, dict):
+        return sum(_nbytes(o) for o in obj.values())
     return 0
 
 
 def _to(obj: Any, device) -> Any:
     if isinstance(obj, tuple):
         return tuple(_to(o, device) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    if obj is None:
+        return None
     return obj.to(device)
 
 
 def to_device(batch: MeshBatch, device) -> MeshBatch:
-    """A host batch's tensors and operator (a tensor, an operator dataclass
-    or a dense Dirac pair) on ``device`` (an operator's own ``to`` checks its
-    indices on the host first)."""
+    """A host batch's tensors, operator (a tensor, an operator dataclass or
+    a dense Dirac pair) and ``aux`` on ``device`` (an operator's own ``to``
+    checks its indices on the host first)."""
     return MeshBatch(inputs=batch.inputs.to(device), targets=batch.targets.to(device), mask=batch.mask.to(device),
-                     operator=_to(batch.operator, device), names=batch.names)
+                     operator=_to(batch.operator, device), names=batch.names, aux=_to(batch.aux, device))
 
 
 class PackedSamples:

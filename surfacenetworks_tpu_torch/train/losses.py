@@ -1,11 +1,16 @@
 """Losses and metrics (counterpart of ``surfacenetworks_tpu/train/losses.py``:
 the normal-prediction loss and metric, the dcel family, the SDDMM
-smoothness term, the FAUST metrics and the ARAP loss).
+smoothness term, the FAUST metrics, the ARAP loss and the mesh-MNIST
+classifier's and VAE's losses).
 
 * ``normal_cosine_loss`` and ``mean_angle_deviation``: the normal trainer's
   masked ``1 - <n_hat, n>^2`` loss and its angle metric, which is computed
   without a graph (``arccos`` has an infinite derivative at 1).
 * ``smooth_l1_sum``: the ARAP trainer's Huber sum per batch item.
+* ``nll_loss`` and ``accuracy``: the mesh-MNIST classifier's NLL over
+  log-softmax outputs and its share of correct argmaxes.
+* ``log_normal_diag`` and ``vae_elbo_terms``: the VAE's diagonal-Gaussian
+  log density and its two ELBO terms (masked reconstruction NLL, KLD).
 * ``aggregate_G``: the ground-truth cost ``GA[:, liA[lB]] + GB[liB[lA], :]``.
 * ``corr_feature_smoothness``: ``--smooth-reg``; cosine scores of
   neighbouring vertices' features through ``sparse.sddmm``, at the operator's
@@ -24,6 +29,8 @@ smoothness term, the FAUST metrics and the ARAP loss).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -57,6 +64,36 @@ def smooth_l1_sum(outputs: torch.Tensor, targets: torch.Tensor, batch_size: int)
     1``, ``|d| - 0.5`` elsewhere) over every element, divided by the batch
     size."""
     return torch.nn.functional.smooth_l1_loss(outputs, targets, reduction="sum", beta=1.0) / batch_size
+
+
+def nll_loss(log_probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean over the batch of ``-log_probs[b, targets[b]]``."""
+    return -log_probs.gather(1, targets.long()[:, None]).mean()
+
+
+@torch.no_grad()
+def accuracy(log_probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Share of the batch whose argmax class is its target (fp32)."""
+    return (torch.argmax(log_probs, dim=1) == targets.long()).float().mean()
+
+
+def log_normal_diag(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """Elementwise diagonal-Gaussian log density of ``z``."""
+    return -0.5 * (math.log(2 * math.pi) + logvar + (z - mu) ** 2 / torch.exp(logvar))
+
+
+def vae_elbo_terms(recon_mu, recon_logvar, mask, x, z, mu, logvar) -> tuple[torch.Tensor, torch.Tensor]:
+    """(BCE, KLD) of the VAE: BCE the reconstruction's diagonal-Gaussian NLL
+    over the valid vertices (``mask [B, N, 1]``), summed per sample and
+    averaged over the batch; KLD ``log q(z) - log p(z)`` against a standard
+    normal, summed over the latent and averaged over the batch."""
+    b = x.shape[0]
+    mk = mask.expand(*mask.shape[:-1], x.shape[-1]).reshape(b, -1)
+    rec = log_normal_diag(x.reshape(b, -1), recon_mu.reshape(b, -1), recon_logvar.reshape(b, -1))
+    bce = -(rec * mk).sum(dim=1).mean()
+    zero = torch.zeros_like(z)
+    kld = (log_normal_diag(z, mu, logvar) - log_normal_diag(z, zero, zero)).sum(dim=1).mean()
+    return bce, kld
 
 
 @torch.no_grad()

@@ -40,7 +40,7 @@ from surfacenetworks_tpu_torch.train import checkpoint as tckpt
 from surfacenetworks_tpu_torch.train import losses as tlosses
 from surfacenetworks_tpu_torch.train import optim as toptim
 
-from torch_parity import assert_close, perturbed_params, to_jax
+from torch_parity import assert_close, hold_grads, perturbed_params, rel_fro, state64, to_jax
 
 ARAP = pathlib.Path(__file__).parent / "fixtures" / "arap"
 LOSS_RTOL = 1e-6
@@ -48,7 +48,6 @@ FP64_RTOL = 1e-6
 STEP_FP32_RTOL = 1e-4
 CKPT_RTOL = 1e-4
 ADAM_ATOL = 3e-7  # two fp32 ulps at |p| < 2: the update's arithmetic in another order
-NULL_ATOL = 1e-12  # of the largest gradient: a gradient that is zero in exact arithmetic
 # fp32 results are held against the fp64 step, each no farther from it than
 # FP32_RATIO x the JAX package's own fp32 distance, plus 1e-6 (relative
 # Frobenius).  Both packages' distances are rounding noise amplified where
@@ -166,17 +165,6 @@ def test_smooth_l1_sum_matches_jax():
     assert_close(x.grad.numpy(), jg, LOSS_RTOL, "gradient")
 
 
-def _state64(tree) -> dict:
-    """A flax tree as ``state_dict`` keys, its values kept in fp64."""
-    out = {}
-    for key, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        names = [k.key for k in key]
-        arr = np.asarray(leaf, np.float64)
-        name = {"kernel": "weight", "scale": "weight", "bias": "bias"}[names[-1]]
-        out[".".join(names[:-1] + [name])] = arr.T if names[-1] == "kernel" else arr
-    return out
-
-
 def _null_grads(model: str, layers: int) -> set:
     """Zero in exact arithmetic: in MlpModel the biases of conv1 and of each
     block's two convs add per-channel constants that a batch norm removes
@@ -185,24 +173,6 @@ def _null_grads(model: str, layers: int) -> set:
     if model != "mlp":
         return set()
     return {"conv1.fc.bias"} | {f"rn{i}.fc{k}.fc.bias" for i in range(layers) for k in (0, 1)}
-
-
-def _hold(got: dict, ref: dict, rtol: float, null: set, what: str) -> None:
-    """Each gradient within ``rtol`` of its ``max|ref|``; those in ``null``
-    within NULL_ATOL of the largest gradient, in both."""
-    assert sorted(got) == sorted(ref)
-    top = max(float(np.abs(r).max()) for r in ref.values())
-    for k, r in ref.items():
-        if k in null:
-            assert max(np.abs(r).max(), np.abs(got[k]).max()) <= NULL_ATOL * top, f"{what} {k}: not zero"
-        else:
-            assert np.isfinite(got[k]).all() and (got[k] != 0).any(), f"{what} {k}: no gradient"
-            assert_close(got[k], r, rtol, f"{what} {k}")
-
-
-def _fro(a, b) -> float:
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
 
 
 @pytest.mark.parametrize("name", ["lap", "avg", "mlp", "dir", "gcn"])
@@ -243,21 +213,21 @@ def test_arap_models_match_jax(name, seqs):
 
         (_, out), (gp, gx) = jax.jit(jax.value_and_grad(objective, argnums=(0, 1), has_aux=True))(
             p, jnp.asarray(x, dtype))
-        return np.asarray(out), _state64(gp), np.asarray(gx)
+        return np.asarray(out), state64(gp), np.asarray(gx)
 
     out64, g64, gx64 = port(torch.float64)
     with jax.enable_x64(True):
         jout64, jg64, jgx64 = jax_run(jnp.float64)
     assert_close(out64, jout64, FP64_RTOL, f"{name} output")
-    _hold(g64, jg64, FP64_RTOL, _null_grads(name, 3), f"{name} fp64 gradient")
+    hold_grads(g64, jg64, FP64_RTOL, _null_grads(name, 3), f"{name} fp64 gradient")
     assert_close(gx64, jgx64, FP64_RTOL, f"{name} input gradient")
     out32, g32, _ = port(torch.float32)
     jout32, jg32, _ = jax_run(jnp.float32)
-    assert _fro(out32, out64) <= FP32_RATIO * _fro(jout32, out64) + 1e-6
+    assert rel_fro(out32, out64) <= FP32_RATIO * rel_fro(jout32, out64) + 1e-6
     for k, ref in g64.items():
         if k not in _null_grads(name, 3):
-            bound = FP32_RATIO * _fro(jg32[k], ref) + 1e-6
-            assert _fro(g32[k], ref) <= bound, f"{name} fp32 grad {k}: {_fro(g32[k], ref):.3e} > {bound:.3e}"
+            bound = FP32_RATIO * rel_fro(jg32[k], ref) + 1e-6
+            assert rel_fro(g32[k], ref) <= bound, f"{name} fp32 grad {k}: {rel_fro(g32[k], ref):.3e} > {bound:.3e}"
 
 
 def _argv(tmp_path, *extra):
@@ -354,7 +324,7 @@ def test_arap_step_matches_jax(case, seqs, jax_runs, tmp_path):
         jloss64, jg = jrun(jp64, jnp.float64)
         tx = joptim.adam(joptim.epoch_halving_schedule(*sched), weight_decay=1e-5)
         upd, _ = tx.update(jg, tx.init(jp64), jp64)
-        jnew64, jg64 = _state64(optax.apply_updates(jp64, upd)), _state64(jg)
+        jnew64, jg64 = state64(optax.apply_updates(jp64, upd)), state64(jg)
     model64 = copy.deepcopy(trainer.model).double()
     b64 = copy.copy(batch)
     b64.inputs, b64.targets, b64.mask = batch.inputs.double(), batch.targets.double(), batch.mask.double()
@@ -364,12 +334,12 @@ def test_arap_step_matches_jax(case, seqs, jax_runs, tmp_path):
     loss64 = ttrain.train_step(model64, toptim.adam(model64.parameters(), schedule, weight_decay=1e-5), b64, schedule)
     assert_close(loss64.numpy(), jloss64, FP64_RTOL, "fp64 loss")
     g64 = {k: p.grad.numpy() for k, p in model64.named_parameters()}
-    _hold(g64, jg64, FP64_RTOL, set(), "fp64 gradient")
+    hold_grads(g64, jg64, FP64_RTOL, set(), "fp64 gradient")
     for k, p in model64.named_parameters():
         assert_close(p.detach().numpy(), jnew64[k], FP64_RTOL, f"fp64 after Adam {k}")
 
     jloss, jg32 = jrun(to_jax(params), jnp.float32)
-    jg32 = _state64(jg32)
+    jg32 = state64(jg32)
     loss = trainer.update(batch)
     assert trainer.step == 1
     assert_close(loss.numpy(), jloss, STEP_FP32_RTOL, "fp32 loss")
@@ -380,8 +350,8 @@ def test_arap_step_matches_jax(case, seqs, jax_runs, tmp_path):
     for k, p in trainer.model.named_parameters():
         g, ref = tg[k], g64[k]
         assert np.isfinite(g).all() and (g != 0).any(), f"{k}: no gradient"
-        bound = FP32_RATIO * _fro(jg32[k], ref) + 1e-6
-        assert _fro(g, ref) <= bound, f"fp32 grad {k}: {_fro(g, ref):.3e} from fp64 > {bound:.3e}"
+        bound = FP32_RATIO * rel_fro(jg32[k], ref) + 1e-6
+        assert rel_fro(g, ref) <= bound, f"fp32 grad {k}: {rel_fro(g, ref):.3e} from fp64 > {bound:.3e}"
         err = float(np.abs(p.detach().numpy() - np.asarray(new[k])).max())
         assert err <= ADAM_ATOL, f"{k}: after one Adam update max|err|={err:.3e}"
 
