@@ -23,7 +23,9 @@ read just after:
   kernel, and a trunk whose operator applies return detached outputs must
   fail that check.  Then each format runs the 8 updates and the test pass
   again from step 0's weights, optimizer state and random state, and the
-  two runs' losses and test metrics must be bit-identical;
+  two runs' losses, test metrics and weights must be bit-identical (the
+  same run and repeat as every other trainer: ``_train_run`` over
+  ``FaustRun``);
 * normal training: ``cli/train_normal.py`` (LapDeepModel-15 at width 128,
   batch 1) taking 8 updates on ~7,000-vertex synthetic meshes in ELL and
   in BSR, then its test pass; step 0 is checked against fp64 as above (the
@@ -58,9 +60,35 @@ read just after:
   run repeated from its start bit for bit; the dense and ELL losses
   compared.
 
+Mixed precision (``--bf16``) adds a kernel phase and a training phase:
+
+* the three kernels' bf16 variants (``bsr_matmul`` on bf16 blocks with fp32
+  or bf16 x, ``ell_matmul`` on bf16 x, ``sddmm`` on bf16 a and b) against
+  their plain versions at the paths' shapes and at ragged, narrow, wide and
+  batched ones (``ell_matmul`` also at the ARAP and mesh-MNIST batches),
+  forward and backward, fp32 results within 1e-5 of ``|A||x|`` and bf16
+  results within one bf16 ulp more; two launches bit for bit; a BSR mutant
+  that truncates x to bf16 instead of rounding it, a dropped slot and the
+  item-0 batch refused; the bf16 BSR kernel's SASS must hold
+  ``HMMA.16816.F32.BF16``; each variant timed warm and cold against its
+  bound at bf16 bytes;
+* the five trainers with ``--bf16`` at the fp32 runs' widths, depths,
+  batches and data: FAUST Lap-15 in ELL and BSR (bf16 blocks) with
+  ``--smooth-reg 0.1``, where all three variants launch; normal Lap-15 in
+  BSR, whose final loss after 8 steps must stay below 3x its fp32 run's +
+  1e-3 (the JAX package's convergence check); ARAP Model-15 ELL at batch 32;
+  the mesh-MNIST classifier and LapVAE-5 in ELL, the classifier in its
+  default format (dense here, no kernel) and DirModel-5 at batch 64.
+  Each run: launches per step, finite losses, step 0's gradients finite,
+  non-zero and fp32, step 0 of each kernel run module by module against
+  the same modules in bf16 with the kernels' plain versions (a
+  detached-apply reference refused), the run again from its start bit for bit, and its wall, device
+  busy, idle share and peak memory beside the fp32 run of the same path.
+
 It needs a CUDA card; without one (or without the package beside it) it
 exits non-zero and prints no result.  The last two lines are a JSON
-``kernels`` report and ``{"ok": true, "device": {...}}``.
+``kernels`` report (the fp32 and the bf16 variants) and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,7 +103,11 @@ import sys
 import tempfile
 import time
 
-import numpy as np
+T_START = time.perf_counter()  # the device phase and the total count the imports below
+
+import numpy as np  # noqa: E402
+
+from surfacenetworks_tpu_torch.sparse import kernels as port_kernels  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FMA
 # outside the tensor cores and dense TF32 on the tensor cores, flop/s.
@@ -83,6 +115,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 TF32_PASSES = 3  # bsr_matmul's 3xTF32: three tensor-core products per multiply-add
+BF16_TENSOR_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores: bsr_matmul's bf16 variant, one pass
 L2_FLUSH_BYTES = 128 << 20  # written between cold-L2 launches: over twice the 50 MB L2
 
 BUCKET = 7040  # one 128-multiple bucket for every ~7,000-vertex request
@@ -121,12 +154,23 @@ SERVE_FRO_RTOL = 0.75
 # launch 64 + 4 + 1 = 69 ell_matmul, BSR steps 64 bsr_matmul and 5
 # ell_matmul.
 FEATURES = 120
+FAUST_DATA = {"num": 4, "n_points": 7000, "seed": SEED}  # the scans TRAIN_ARGS name, made once
 TRAIN_ARGS = ["--synthetic", "4", "--synthetic-points", "7000", "--seed", "0", "--layer", str(LAYERS),
               "--smooth-reg", "0.1", "--xz-rotate", "--num-updates", "8", "--num-epoch", "1", "--device", "cuda",
               "--deser-option", "no"]
+TRAIN_STEPS = 8
+
+
+def launches_of(**counts) -> dict:
+    """Launch counts of every kernel variant the port counts (the keys of
+    ``kernels.launches``; the bf16 variants apart): those given, the rest 0."""
+    assert set(counts) <= set(port_kernels.launches), counts
+    return {k: counts.get(k, 0) for k in port_kernels.launches}
+
+
 EXPECTED_PER_STEP = {
-    "ell": {"bsr_matmul": 0, "ell_matmul": 69, "sddmm": 2},
-    "bsr": {"bsr_matmul": 64, "ell_matmul": 5, "sddmm": 2},
+    "ell": launches_of(ell_matmul=69, sddmm=2),
+    "bsr": launches_of(bsr_matmul=64, ell_matmul=5, sddmm=2),
 }
 # Step 0 on the card (fp32, kernels) against the same step in fp64 with
 # dense operators and no kernel.  The whole step's loss, as a relative error,
@@ -156,9 +200,9 @@ NORMAL_ARGS = ["--synthetic", "5", "--synthetic-points", "7000", "--seed", "0", 
 NORMAL_DENSE_ARGS = ["--synthetic", "5", "--synthetic-points", "2000", "--seed", "0", "--layer", str(LAYERS),
                      "--batch-size", "1", "--num-updates", "8", "--num-epoch", "1", "--device", "cuda"]
 NORMAL_PER_STEP = {
-    "ell": {"bsr_matmul": 0, "ell_matmul": 32, "sddmm": 0},
-    "bsr": {"bsr_matmul": 32, "ell_matmul": 0, "sddmm": 0},
-    "dense": {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0},
+    "ell": launches_of(ell_matmul=32),
+    "bsr": launches_of(bsr_matmul=32),
+    "dense": launches_of(),
 }
 NORMAL_RESUME_AFTER = 4  # the checkpoint is saved after this many updates
 # Normal step 0 against the same step in fp64 with dense operators and no
@@ -225,9 +269,7 @@ ARAP_STEP0_LOSS_RTOL = 1e-3
 ARAP_STEP0_CHAIN_RTOL = 1e-2
 ARAP_STEP0_PARAM_RTOL = 5e-2
 ARAP_DIR_STEPS = 4
-ARAP_PER_STEP = {"ell": {"bsr_matmul": 0, "ell_matmul": 32, "sddmm": 0},
-                 "dense": {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0},
-                 "dir": {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0}}
+ARAP_PER_STEP = {"ell": launches_of(ell_matmul=32), "dense": launches_of(), "dir": launches_of()}
 # Mesh-MNIST, the reference paper's own workloads at its configurations:
 # the classifier (Model-5: 5 Lap blocks at width 64, dropout 0.5, 10
 # classes) and the VAE (LapVAE-5: 5 Lap blocks at width 128 in the encoder
@@ -261,9 +303,56 @@ MESH_DIRAC_STEPS = 4
 MESH_STEP0_LOSS_RTOL = 1e-2
 MESH_STEP0_CHAIN_RTOL = ARAP_STEP0_CHAIN_RTOL
 MESH_STEP0_PARAM_RTOL = ARAP_STEP0_PARAM_RTOL
-_NONE = {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0}
-MESH_PER_STEP = {family: {"dense": _NONE, "ell": {"bsr_matmul": 0, "ell_matmul": 4 * MESH_LAYERS * n, "sddmm": 0},
-                          "dirac": _NONE} for family, n in (("mnist", 1), ("vae", 2))}
+MESH_PER_STEP = {family: {"dense": launches_of(), "ell": launches_of(ell_matmul=4 * MESH_LAYERS * n),
+                          "dirac": launches_of()} for family, n in (("mnist", 1), ("vae", 2))}
+# Mixed precision (``--bf16``): the five trainers at the fp32 runs' widths,
+# depths, batches and data, fewer steps: FAUST Lap-15 in ELL and in BSR (bf16
+# blocks), both with --smooth-reg 0.1, so all three bf16 variants launch;
+# normal Lap-15 in BSR (8 steps, as its fp32 run: the convergence check);
+# ARAP Model-15 ELL at batch 32; the mesh-MNIST classifier Model-5 and
+# LapVAE-5 in ELL at batch 64, the classifier in its default format at these
+# sizes, dense (no kernel: the promoting ``dense_bmm``), and DirModel-5 (no
+# kernel).  Per step the
+# forward's applies take bf16 x (the bf16 variants) and the backward's take
+# the fp32 cotangent (the fp32 kernels, or BSR's bf16 variant, which rounds
+# it as it stages it); the SDDMM's backward sums take bf16 features; the
+# dcel head's mirror takes the fp32 features.
+BF16_STEPS = 4
+BF16_NORMAL_STEPS = 8
+BF16_PER_STEP = {
+    "faust ell": launches_of(ell_matmul=33, ell_matmul_bf16=36, sddmm_bf16=2),
+    "faust bsr": launches_of(ell_matmul=1, bsr_matmul_bf16=64, ell_matmul_bf16=4, sddmm_bf16=2),
+    "normal bsr": launches_of(bsr_matmul_bf16=32),
+    "arap ell": launches_of(ell_matmul=16, ell_matmul_bf16=16),
+    "mnist ell": launches_of(ell_matmul=4 * MESH_LAYERS // 2, ell_matmul_bf16=4 * MESH_LAYERS // 2),
+    "mnist dense": launches_of(),
+    "vae ell": launches_of(ell_matmul=4 * MESH_LAYERS, ell_matmul_bf16=4 * MESH_LAYERS),
+    "mnist dirac": launches_of(),
+}
+# a test batch (FAUST: a test pair) runs the forward only: bf16 x into every apply
+BF16_PER_TEST_BATCH = {
+    "faust ell": launches_of(ell_matmul_bf16=32), "faust bsr": launches_of(bsr_matmul_bf16=32),
+    "normal bsr": launches_of(bsr_matmul_bf16=16), "arap ell": launches_of(ell_matmul_bf16=16),
+    "mnist ell": launches_of(ell_matmul_bf16=2 * MESH_LAYERS), "vae ell": launches_of(ell_matmul_bf16=4 * MESH_LAYERS),
+    "mnist dense": launches_of(), "mnist dirac": launches_of(),
+}
+# Step 0 of each kernel run, module by module against the same modules in
+# bf16 on the card with the kernels' plain versions (autograd through them)
+# on the card's own inputs and output cotangents.  Both sides round to bf16
+# at the same places; they differ only in the applies' fp32 summation order
+# (about 1e-7 of a sum) and, in BSR's backward, the kernel's rounding of the
+# fp32 cotangent to bf16 (at most 2^-8 of each value).  Where that moves a
+# value across a bf16 rounding boundary it lands one ulp (at most 2^-7 of it)
+# away: an output or cotangent within 4 x 2^-8 (relative Frobenius) leaves
+# room for a few percent of such elements; a parameter's gradient, summed
+# over thousands of rows that cancel, within 16 x 2^-8.  The reference with
+# detached applies (the L^T path cut) must read above the chain's bound.
+BF16_STEP0_CHAIN_RTOL = 4 * 2.0**-8
+BF16_STEP0_PARAM_RTOL = 16 * 2.0**-8
+# The JAX package's decisive bf16 check (tests/test_bf16.py): over the same
+# steps from the same weights and data, the bf16 loss ends below 3x the fp32
+# loss + 1e-3 (normal Lap-15 BSR, 8 steps, against the fp32 run's).
+BF16_CONVERGENCE_FACTOR = 3.0
 
 
 def log(msg: str) -> None:
@@ -349,34 +438,56 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _np(a):
-    return a.detach().double().cpu().numpy() if hasattr(a, "cpu") else np.asarray(a, dtype=np.float64)
+def _f64(a, like=None):
+    """``a`` (a tensor or an array) as an fp64 tensor, on ``like``'s device
+    where given: the checks run where the results lie."""
+    import torch
+
+    t = a.detach().double() if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a, dtype=np.float64))
+    return t if like is None else t.to(like.device)
 
 
-def worst(got, ref, scale, rtol: float) -> tuple[float, float]:
+def worst(got, ref, scale, rtol: float, ulps: int = 0) -> tuple[float, float]:
     """(max |got - ref|, max over elements of |got - ref| / (rtol * scale +
-    TINY)); ``scale`` is |A| |x| at each element.  Non-finite reads inf."""
-    got, ref, scale = _np(got), _np(ref), _np(scale)
-    err = np.abs(got - ref)
-    ratio = float((err / (rtol * scale + TINY)).max()) if np.isfinite(got).all() else float("inf")
+    ulps * bf16_ulp(ref) + TINY)); ``scale`` is |A| |x| at each element;
+    ``ulps`` bf16 units of the reference where the result is bf16.
+    Non-finite reads inf.  Computed in fp64 on ``got``'s device."""
+    import torch
+
+    got = _f64(got)
+    ref, scale = _f64(ref, got), _f64(scale, got)
+    err = (got - ref).abs()
+    limit = rtol * scale + ulps * bf16_ulp(ref) + TINY
+    ratio = float((err / limit).max()) if bool(torch.isfinite(got).all()) else float("inf")
     return float(err.max()), ratio
 
 
-def check(name: str, got, ref, scale, rtol: float) -> float:
+def bf16_ulp(ref):
+    """One unit in the last place of each value of the fp64 tensor ``ref``
+    as a bf16 number (8 significant bits: 2^(e - 7) for |v| in
+    [2^e, 2^(e+1))), 0 at 0."""
+    import torch
+
+    a = ref.abs()
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(torch.where(a > 0, a, 1.0))) - 7), 0.0)
+
+
+def check(name: str, got, ref, scale, rtol: float, ulps: int = 0) -> float:
     """Max-abs error of ``got`` vs ``ref``; raises unless every element is
     within its limit (see ``worst``)."""
-    err, ratio = worst(got, ref, scale, rtol)
-    log(f"  {name}: max_abs_err={err:.3e} max|ref|={np.abs(_np(ref)).max():.3e} "
-        f"worst element {ratio:.3e} of its limit (tol {rtol:g} of |A||x|) {'ok' if ratio <= 1 else 'FAIL'}")
+    err, ratio = worst(got, ref, scale, rtol, ulps)
+    tol = f"tol {rtol:g} of |A||x|" + (f" + {ulps} bf16 ulp" if ulps else "")
+    log(f"  {name}: max_abs_err={err:.3e} max|ref|={float(_f64(ref).abs().max()):.3e} "
+        f"worst element {ratio:.3e} of its limit ({tol}) {'ok' if ratio <= 1 else 'FAIL'}")
     if not ratio <= 1:
         raise AssertionError(f"{name}: result disagrees with its reference")
     return err
 
 
-def refused(name: str, got, ref, scale, rtol: float) -> None:
+def refused(name: str, got, ref, scale, rtol: float, ulps: int = 0) -> None:
     """The check's own test: a deliberately wrong result must read above its
     limit, or the run fails."""
-    err, ratio = worst(got, ref, scale, rtol)
+    err, ratio = worst(got, ref, scale, rtol, ulps)
     log(f"  mutant {name}: max_abs_err={err:.3e}, worst element {ratio:.3e} of its limit "
         f"{'refused' if ratio > 1 else 'NOT refused'}")
     if not ratio > 1:
@@ -650,6 +761,203 @@ def kernel_phase(device) -> dict:
             f"{r['library_call']} {lib}, bound {r['bound_ms']:.5f} by {r['bound_by']}); "
             f"host {r['host_us']:.1f} us per call")
     log(f"  ell_matmul at C={FEATURES}: {report['ell_matmul']['ms_c120']:.5f} ms warm")
+    return report
+
+
+def bf16_kernel_phase(device) -> dict:
+    """Hold the three kernels' bf16 variants against their plain versions
+    on the card, forward and backward, at the paths' shapes (N=7,040, ELL
+    K=16 and BSR KB=5 at C=128; the SDDMM at K=16, C=120) and at ragged,
+    narrow, wide and batched ones; two launches bit for bit; a BSR mutant
+    that truncates x to bf16 instead of rounding it to nearest even, and a
+    dropped slot, refused; then each variant's warm and cold-L2 time, its
+    plain version's and the bound at bf16 bytes (or bf16 tensor-core
+    operations where that is larger).  fp32 results are held to KERNEL_RTOL
+    of |A||x| over the bf16-rounded inputs; a bf16 result (the SDDMM's, its
+    gradients) to one bf16 ulp of the plain result more."""
+    import torch
+
+    from surfacenetworks_tpu_torch.data import Buckets, fit_bsr_k, laplacian_batch, rcm_reorder_sample
+    from surfacenetworks_tpu_torch.data.datasets import random_blob_mesh
+    from surfacenetworks_tpu_torch.geometry import igl_style_laplacian
+    from surfacenetworks_tpu_torch.sparse import kernels, operator_from_scipy, ops
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(SEED + 100)
+    V, F = random_blob_mesh(rng, 7000)
+    sample = rcm_reorder_sample({"V": V, "F": F, "input": V.astype(np.float32),
+                                 "L": igl_style_laplacian(V, F, hack=1.0)})
+    buckets = Buckets(n_vertices=BUCKET)
+    fit_bsr_k([sample], buckets)
+    ell_op = laplacian_batch([sample], buckets, target_key="input", fmt="ell").operator.to(device)
+    bsr_op = laplacian_batch([sample], buckets, target_key="input", fmt="bsr", op_dtype=bf).operator.to(device)
+    cols, vals = ell_op.fwd.cols[0], ell_op.fwd.vals[0]
+    bcols, bvals = bsr_op.fwd.block_cols[0], bsr_op.fwd.block_vals[0]
+    assert bvals.dtype == bf
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    errs = {"bsr_matmul_bf16": 0.0, "ell_matmul_bf16": 0.0, "sddmm_bf16": 0.0}
+    eplain, bplain, splain = kernels.ell_matmul_plain, kernels.bsr_matmul_plain, kernels.sddmm_plain
+
+    def held(kname, name, got, ref, scale, ulps=0):
+        errs[kname] = max(errs[kname], check(name, got, ref, scale, KERNEL_RTOL, ulps))
+
+    def same_twice(name, fn):
+        same = torch.equal(fn(), fn())
+        log(f"  {name}: two launches on the same inputs {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+
+    # BSR: bf16 blocks on fp32 x (the backward's cotangents) and on bf16 x (the forward's activations)
+    for c in (WIDTH, FEATURES, 3, 136):
+        for xd in (torch.float32, bf):
+            x = torch.randn(BUCKET, c, device=device, generator=gen).to(xd)
+            scale = bplain(bcols, bvals.double().abs(), x.to(bf).double().abs())
+            held("bsr_matmul_bf16", f"bsr_matmul bf16 blocks, {str(xd)[6:]} x, C={c}", kernels.bsr_matmul(bcols, bvals, x),
+                 bplain(bcols, bvals, x), scale)
+    xb = torch.randn(2, BUCKET, WIDTH, device=device, generator=gen)
+    bc2, bv2 = torch.stack([bcols, bcols]), torch.stack([bvals, bvals * 0.5])
+    held("bsr_matmul_bf16", "bsr_matmul bf16 batched B=2", kernels.bsr_matmul(bc2, bv2, xb), bplain(bc2, bv2, xb),
+         bplain(bc2, bv2.double().abs(), xb.to(bf).double().abs()))
+    x = torch.randn(BUCKET, WIDTH, device=device, generator=gen)
+    scale = bplain(bcols, bvals.double().abs(), x.to(bf).double().abs())
+    truncated = (x.view(torch.int32) & -65536).view(torch.float32)
+    refused("bsr_matmul bf16 with x truncated to bf16 (not rounded to nearest even)",
+            bplain(bcols, bvals, truncated), bplain(bcols, bvals, x), scale, KERNEL_RTOL)
+    same_twice("bsr_matmul bf16", lambda: kernels.bsr_matmul(bcols, bvals, x))
+    # the autograd Function: bf16 x, an fp32 cotangent through the stored transpose's bf16 blocks, cast to bf16
+    xr = torch.randn(1, BUCKET, WIDTH, device=device, generator=gen).to(bf).requires_grad_()
+    g = torch.randn(1, BUCKET, WIDTH, device=device, generator=gen)
+    out = ops.bsr_spmm(bsr_op, xr)
+    out.backward(g)
+    bwd = bsr_op.bwd
+    held("bsr_matmul_bf16", "bsr_spmm bf16 forward (fp32 out)", out, bplain(bsr_op.fwd.block_cols, bsr_op.fwd.block_vals,
+                                                                             xr.detach()),
+         bplain(bsr_op.fwd.block_cols, bsr_op.fwd.block_vals.double().abs(), xr.detach().double().abs()))
+    held("bsr_matmul_bf16", "bsr_spmm bf16 backward x_bar (bf16)", xr.grad,
+         bplain(bwd.block_cols, bwd.block_vals, g).to(bf), bplain(bwd.block_cols, bwd.block_vals.double().abs(),
+                                                                  g.to(bf).double().abs()), ulps=1)
+
+    # ELL: fp32 values on bf16 x
+    for c in (WIDTH, FEATURES, MNIST_WIDTH, 3, 130):
+        x = torch.randn(BUCKET, c, device=device, generator=gen).to(bf)
+        held("ell_matmul_bf16", f"ell_matmul bf16 x, C={c}", kernels.ell_matmul(cols, vals, x), eplain(cols, vals, x),
+             eplain(cols, vals.double().abs(), x.double().abs()))
+    rag = operator_from_scipy(sample["L"]).fwd.to(device)
+    x = torch.randn(rag.n_cols, WIDTH, device=device, generator=gen).to(bf)
+    held("ell_matmul_bf16", f"ell_matmul bf16 x ragged R={rag.n_rows} K={rag.k}", kernels.ell_matmul(rag.cols, rag.vals, x),
+         eplain(rag.cols, rag.vals, x), eplain(rag.cols, rag.vals.double().abs(), x.double().abs()))
+    x = torch.randn(BUCKET, WIDTH, device=device, generator=gen).to(bf)
+    r = BUCKET // 2
+    s_ = int(torch.nonzero(vals[r])[0])
+    dropped = vals.clone()
+    dropped[r, s_] = 0
+    refused(f"ell_matmul bf16 x without slot {s_} of row {r}", kernels.ell_matmul(cols, dropped, x), eplain(cols, vals, x),
+            eplain(cols, vals.double().abs(), x.double().abs()), KERNEL_RTOL)
+    same_twice("ell_matmul bf16 x", lambda: kernels.ell_matmul(cols, vals, x))
+    xr = torch.randn(1, BUCKET, WIDTH, device=device, generator=gen).to(bf).requires_grad_()
+    g = torch.randn(1, BUCKET, WIDTH, device=device, generator=gen)
+    ops.spmm(ell_op, xr).backward(g)
+    held("ell_matmul_bf16", "spmm bf16 backward x_bar (bf16)", xr.grad, eplain(ell_op.bwd.cols, ell_op.bwd.vals, g).to(bf),
+         eplain(ell_op.bwd.cols, ell_op.bwd.vals.double().abs(), g.double().abs()), ulps=1)
+
+    # SDDMM: bf16 a and b, bf16 out (one ulp)
+    def sdd(name, c_, v_, a, b):
+        held("sddmm_bf16", name, kernels.sddmm(c_, v_, a, b), splain(c_, v_, a, b),
+             splain(c_, v_, a.double().abs(), b.double().abs()), ulps=1)
+
+    fn = torch.nn.functional.normalize(torch.randn(BUCKET, FEATURES, device=device, generator=gen), dim=-1).to(bf)
+    sdd(f"sddmm bf16 a=b (unit rows) K={cols.shape[1]} C={FEATURES}", cols, vals, fn, fn)
+    perm = torch.argsort(torch.rand(cols.shape, device=device, generator=gen), dim=1)
+    pc, pv = cols.gather(1, perm), vals.gather(1, perm)
+    c33 = torch.cat([pc, pc.roll(1, 0), pc[:, :1].roll(2, 0)], 1).contiguous()
+    v33 = torch.cat([pv, pv.roll(1, 0) * 0.5, pv[:, :1].roll(2, 0)], 1).contiguous()
+    for kk, (c_, v_) in {5: (pc[:, :5].contiguous(), pv[:, :5].contiguous()), cols.shape[1]: (pc, pv),
+                         33: (c33, v33)}.items():
+        a = torch.randn(BUCKET, FEATURES, device=device, generator=gen).to(bf)
+        b = torch.randn(BUCKET, FEATURES, device=device, generator=gen).to(bf)
+        sdd(f"sddmm bf16 permuted slots K={kk} C={FEATURES}", c_, v_, a, b)
+    for c in (3, 130, 264):
+        a = torch.randn(BUCKET, c, device=device, generator=gen).to(bf)
+        b = torch.randn(BUCKET, c, device=device, generator=gen).to(bf)
+        sdd(f"sddmm bf16 permuted slots K={cols.shape[1]} C={c}", pc, pv, a, b)
+    a = torch.randn(BUCKET, FEATURES, device=device, generator=gen).to(bf)
+    b = torch.randn(BUCKET, FEATURES, device=device, generator=gen).to(bf)
+    same_twice("sddmm bf16 K=16", lambda: kernels.sddmm(cols, vals, a, b))
+    same_twice("sddmm bf16 permuted K=33", lambda: kernels.sddmm(c33, v33, a, b))
+    r = BUCKET // 2
+    s_ = int(torch.nonzero(vals[r])[0])
+    dropped = vals.clone()
+    dropped[r, s_] = 0
+    refused(f"sddmm bf16 without slot {s_} of row {r}", kernels.sddmm(cols, dropped, a, b), splain(cols, vals, a, b),
+            splain(cols, vals, a.double().abs(), b.double().abs()), KERNEL_RTOL, ulps=1)
+    # the autograd Function: bf16 da and db (the cotangent widened to fp32, exactly, into the ELL sums)
+    ar, br = (t[None].clone().requires_grad_() for t in (a, b))
+    gs = torch.randn(1, BUCKET, cols.shape[1], device=device, generator=gen).to(bf)
+    ops.sddmm(ell_op, ar, br).backward(gs)
+    a64, b64 = (t[None].double().requires_grad_() for t in (a, b))
+    (splain(ell_op.fwd.cols, ell_op.fwd.vals, a64, b64) * gs.double()).sum().backward()
+    a_abs, b_abs = (t[None].double().abs().requires_grad_() for t in (a, b))
+    (splain(ell_op.fwd.cols, ell_op.fwd.vals, a_abs, b_abs) * gs.double().abs()).sum().backward()
+    held("sddmm_bf16", "sddmm bf16 backward da (bf16)", ar.grad, a64.grad.to(bf), a_abs.grad, ulps=1)
+    held("sddmm_bf16", "sddmm bf16 backward db (bf16)", br.grad, b64.grad.to(bf), b_abs.grad, ulps=1)
+
+    # timing at the paths' shapes: BSR and ELL at C=128 on bf16 x, the SDDMM at C=120 on a = b
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
+    report = {}
+    x = torch.randn(BUCKET, WIDTH, device=device, generator=gen).to(bf)
+    xf = x.float()
+    out = torch.empty(BUCKET, WIDTH, device=device)
+    nnzb = int((bvals != 0).flatten(2).any(dim=2).sum())
+    flops = 2 * nnzb * 128 * 128 * WIDTH
+    b_ms, b_by = bound_ms(nbytes(bcols, bvals, x, out), flops, BF16_TENSOR_FLOP_PER_S)
+    report["bsr_matmul_bf16"] = {
+        "ms": time_ms(lambda: kernels.bsr_matmul(bcols, bvals, x)),
+        "cold_ms": cold_ms(lambda: kernels.bsr_matmul(bcols, bvals, x), flush),
+        "ms_x_fp32": time_ms(lambda: kernels.bsr_matmul(bcols, bvals, xf)),
+        "plain_ms": time_ms(lambda: bplain(bcols, bvals, x)),
+        "library_ms": None, "library_call": "none: no PyTorch call rounds x to bf16 and returns the fp32 sums",
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(bcols, bvals, x, out), "flops": flops}
+    nnz = int((vals != 0).sum())
+    b_ms, b_by = bound_ms(nbytes(cols, vals, x, out), 2 * nnz * WIDTH)
+    report["ell_matmul_bf16"] = {
+        "ms": time_ms(lambda: kernels.ell_matmul(cols, vals, x)),
+        "cold_ms": cold_ms(lambda: kernels.ell_matmul(cols, vals, x), flush),
+        "plain_ms": time_ms(lambda: eplain(cols, vals, x)),
+        "library_ms": None, "library_call": "none: torch.sparse.mm takes no fp32 operator on bf16 x",
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(cols, vals, x, out), "flops": 2 * nnz * WIDTH}
+    live = vals != 0
+    sd_out = torch.empty(BUCKET, cols.shape[1], device=device, dtype=bf)
+    # a and b apart, as the fp32 row is timed (the smoothness term's a is b: fewer bytes)
+    b_ms, b_by = bound_ms(nbytes(cols, vals, a, b, sd_out), 2 * nnz * FEATURES)
+    log(f"  sddmm bf16 bound: {b_ms:.5f} ms by {b_by} ({nbytes(cols, vals, a, b, sd_out) / 1e6:.2f} MB); where a is "
+        f"b, {nbytes(cols, vals, a, sd_out) / 1e6:.2f} MB, {nbytes(cols, vals, a, sd_out) / HBM_BYTES_PER_S * 1e3:.5f} ms "
+        f"(information only)")
+    crow = torch.zeros(BUCKET + 1, dtype=torch.int64, device=device)
+    crow[1:] = torch.cumsum(live.sum(1), 0)
+    pattern = torch.sparse_csr_tensor(crow, cols[live].long(), torch.ones(nnz, device=device, dtype=bf),
+                                      size=(BUCKET, BUCKET))
+    bt = b.T.contiguous()
+    lib_ms, lib_call = None, "torch.sparse.sampled_addmm(bf16 csr, a, b.T, beta=0)"
+    try:
+        lib_ms = time_ms(lambda: torch.sparse.sampled_addmm(pattern, a, bt, beta=0.0))
+    except (RuntimeError, NotImplementedError) as e:
+        lib_call = f"none: {lib_call} unavailable ({type(e).__name__})"
+        log(f"  library bf16 SDDMM unavailable ({type(e).__name__}: {str(e)[:120]})")
+    report["sddmm_bf16"] = {
+        "ms": time_ms(lambda: kernels.sddmm(cols, vals, a, b)),
+        "cold_ms": cold_ms(lambda: kernels.sddmm(cols, vals, a, b), flush),
+        "ms_a_is_b": time_ms(lambda: kernels.sddmm(cols, vals, fn, fn)),
+        "plain_ms": time_ms(lambda: splain(cols, vals, a, b)),
+        "library_ms": lib_ms, "library_call": lib_call,
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(cols, vals, a, b, sd_out), "flops": 2 * nnz * FEATURES}
+    del flush
+    for name, r in report.items():
+        r["max_abs_err"] = errs[name]
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"  {name}: {r['ms']:.5f} ms warm, {r['cold_ms']:.5f} ms cold L2 (plain {r['plain_ms']:.4f}, library {lib}, "
+            f"bound {r['bound_ms']:.5f} by {r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, {r['bound_ms'] / r['ms']:.1%} of it)")
+    log(f"  bsr_matmul bf16 on fp32 x (the backward's cotangents): {report['bsr_matmul_bf16']['ms_x_fp32']:.5f} ms warm; "
+        f"sddmm bf16 where a is b (unit rows, the smoothness term): {report['sddmm_bf16']['ms_a_is_b']:.5f} ms warm")
     return report
 
 
@@ -1133,36 +1441,25 @@ def step0_check(fmt, trainer, state0, res, ia, ib, rots) -> list[str]:
     return failures + judge_step0(fmt, runs, {"chain": STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL}, res)
 
 
-def train_phase(device, smi: str) -> tuple[dict, dict]:
-    """The FAUST siamese trainer in both formats: build each trainer and its
-    device caches, then (counts at 0) 8 updates and the test pass each;
-    returns the train path's launch counts and per-format results."""
+def train_phase(device, smi: str, data: list) -> tuple[dict, dict]:
+    """The FAUST siamese trainer in both formats on ``data`` (the synthetic
+    scans TRAIN_ARGS name, made once): build each trainer and its device
+    caches, then (counts at 0) TRAIN_STEPS updates and the test pass each
+    (step 0 captured module by module, the last step profiled), then each
+    run again from its start, bit for bit; returns the train path's launch
+    counts and per-format results."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from surfacenetworks_tpu_torch.cli import train_correspondence as tc
     from surfacenetworks_tpu_torch.sparse import kernels
 
-    trainers, plans, states, opt_states, rng_states = {}, {}, {}, {}, {}
+    runs = {}
     for fmt in ("ell", "bsr"):
         t0 = time.perf_counter()
-        argv = TRAIN_ARGS + ["--operator-format", fmt]
-        trainer = tc.CorrespondenceTrainer(tc.parser.parse_args(argv), log=lambda m: log(f"  [{fmt}] {m}"))
-        rng_states[fmt] = copy.deepcopy(trainer.rng.bit_generator.state)
-        plans[fmt] = trainer.epoch_plan()
-        for ia, ib in plans[fmt][0]:  # operators, geodesics, pair targets and their inverses on the card first
-            trainer.pair_target(int(ia), int(ib))
-            if trainer.use_stream:
-                trainer.pair_inverse(int(ia), int(ib))
-        for i in range(trainer.n_train, len(trainer.data)):
-            trainer.dev_sample(i)
-        torch.cuda.synchronize()
-        states[fmt] = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
-        opt_states[fmt] = copy.deepcopy(trainer.opt.state_dict())
-        trainers[fmt] = trainer
+        runs[fmt] = frun, state0, restore = faust_run(fmt, data, TRAIN_STEPS)
+        trainer = frun.t
         log(f"  {fmt}: bucket {trainer.N}, n_train {trainer.n_train}, streaming head {trainer.use_stream}, "
             f"{'bsr_k ' + str(trainer.buckets.bsr_k) if fmt == 'bsr' else 'ell_k 16'}; "
-            f"set-up {time.perf_counter() - t0:.2f} s; plan pairs {plans[fmt][0].tolist()}")
+            f"set-up {time.perf_counter() - t0:.2f} s; plan pairs {[p[:2] for p in frun.plan]}")
         mult = {f"{a},{b}": int(inv[0].shape[1]) for (a, b), inv in trainer._inverses.items()}
         log(f"  {fmt}: largest multiplicity of each pair's dcel target (the mirror's ELL width) {mult}; "
             f"transpose slot map of the smoothness pattern K_t "
@@ -1170,98 +1467,76 @@ def train_phase(device, smi: str) -> tuple[dict, dict]:
 
     # the main path: every count is 0 just before it and read just after
     kernels.reset_launch_counts()
-    results = {}
-    for fmt, trainer in trainers.items():
-        pair_idx, rots = plans[fmt]
-        res = {"loss": [], "device_ms": [], "wall_ms": [], "per_step": []}
-        for u, ((ia, ib), r) in enumerate(zip(pair_idx, rots)):
-            before = dict(kernels.launches)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            if u == 0:  # step 0 runs with the module-wise capture (reading only)
-                cap = StepCapture(trainer.model.trunk)
-                loss = trainer.update(int(ia), int(ib), r)
-                cap.remove()
-                res["capture"] = cap
-            elif u == len(pair_idx) - 1:  # the last step runs under the profiler
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    loss = trainer.update(int(ia), int(ib), r)
-                    torch.cuda.synchronize()
-            else:
-                loss = trainer.update(int(ia), int(ib), r)
-            end.record()
-            end.synchronize()
-            res["wall_ms"].append((time.perf_counter() - t0) * 1e3)
-            res["device_ms"].append(start.elapsed_time(end))
-            res["loss"].append(float(loss))
-            res["per_step"].append({k: kernels.launches[k] - before[k] for k in before})
-            if u == 0:
-                res["grads0"] = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
-        before = dict(kernels.launches)
-        res["test"] = trainer.test_pass(0)
-        res["test_launches"] = {k: kernels.launches[k] - before[k] for k in before}
-        rows = device_rows(prof)
-        res["busy_ms"] = sum(r[0] for r in rows) / 1e3
-        res["device_ops"] = sum(r[1] for r in rows)
-        res["top"] = rows[:8] + [r for r in rows[8:] if "spmm_kernel" in r[2] or "sddmm_kernel" in r[2]]
-        results[fmt] = res
+    results = {fmt: _train_run(frun, TRAIN_STEPS, _draw_plan, capture=lambda m: StepCapture(m.trunk),
+                               profile_last=True) for fmt, (frun, _, _) in runs.items()}
     counts = dict(kernels.launches)
-    log(f"  launches on the train path (8 updates + test pass per format): {counts}")
+    log(f"  launches on the train path ({TRAIN_STEPS} updates + test pass per format): {counts}")
 
-    # the same 8 updates and test pass again, from step 0's weights, Adam
-    # state and random state, on the same data and device caches
-    for fmt, trainer in trainers.items():
-        trainer.model.load_state_dict(states[fmt])
-        trainer.opt.load_state_dict(opt_states[fmt])
-        trainer.rng.bit_generator.state = rng_states[fmt]
-        pair_idx, rots = trainer.epoch_plan()
-        same_plan = np.array_equal(pair_idx, plans[fmt][0]) and np.array_equal(rots, plans[fmt][1])
-        again = [float(trainer.update(int(ia), int(ib), r)) for (ia, ib), r in zip(pair_idx, rots)]
-        results[fmt]["repeat"] = {"same_plan": same_plan, "loss": again, "test": trainer.test_pass(0)}
-
+    failures = []
     for fmt, res in results.items():
-        steady = slice(1, len(res["loss"]) - 1)  # not the first step, not the profiled one
-        dev_med = float(np.median(res["device_ms"][steady]))
-        wall_med = float(np.median(res["wall_ms"][steady]))
-        res.update(device_ms_median=dev_med, wall_ms_median=wall_med, idle_share=1 - res["busy_ms"] / wall_med)
+        frun, state0, restore = runs[fmt]
+        repeat_run(fmt, frun, restore, res, _draw_plan)
         log(f"  {fmt}: losses {['%.4f' % v for v in res['loss']]} ({smi})")
-        log(f"  {fmt}: device ms per step (CUDA events) {['%.2f' % v for v in res['device_ms']]}, "
-            f"median of steps 1-6 {dev_med:.3f}; host wall per step {['%.2f' % v for v in res['wall_ms']]}, "
-            f"median {wall_med:.3f}; profiled step device busy {res['busy_ms']:.3f} ms in {res['device_ops']} "
-            f"device ops, idle share {res['idle_share']:.3f} ({smi})")
+        log(f"  {fmt}: device ms per step (CUDA events) {['%.2f' % v for v in res['device_ms']]}, median of the "
+            f"steady steps {res['device_ms_median']:.3f}; host wall per step {['%.2f' % v for v in res['wall_ms']]}, "
+            f"median {res['wall_ms_median']:.3f}; profiled step device busy {res['busy_ms']:.3f} ms in "
+            f"{res['device_ops']} device ops, idle share {res['idle_share']:.3f}; peak device memory "
+            f"{res['peak_mib']:.1f} MiB ({smi})")
         for dev_us, count, key in res["top"]:
             log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
         log(f"  {fmt}: launches per step {res['per_step'][0]} (expected {EXPECTED_PER_STEP[fmt]}); "
             f"test pass {res['test_launches']} ({smi})")
         log(f"  {fmt}: test metrics {res['test']} ({smi})")
-        rep = res["repeat"]
-        res["reproduced"] = rep["same_plan"] and rep["loss"] == res["loss"] and rep["test"] == res["test"]
-        log(f"  {fmt}: two runs of 8 steps from the same state: losses run 1 {[repr(v) for v in res['loss']]}, "
-            f"run 2 {[repr(v) for v in rep['loss']]}; test metrics run 1 {res['test']}, run 2 {rep['test']}; "
-            f"{'bit-identical' if res['reproduced'] else 'DIFFERENT'}")
-
-    # the checks: each failure below fails the run
-    failures = []
-    for fmt, res in results.items():
-        trainer = trainers[fmt]
+        # the checks: each failure below fails the run
         if not all(np.isfinite(res["loss"])):
             failures.append(f"{fmt}: a loss is not finite")
         if any(step != EXPECTED_PER_STEP[fmt] for step in res["per_step"]):
             failures.append(f"{fmt}: launches per step {res['per_step']} != {EXPECTED_PER_STEP[fmt]}")
         if not res["reproduced"]:
-            failures.append(f"{fmt}: a second run of the 8 steps from the same state gave other losses or metrics")
+            failures.append(f"{fmt}: a second run from the same state gave other losses, metrics or weights")
         for k, g in res["grads0"].items():
             if not (bool(torch.isfinite(g).all()) and bool((g != 0).any())):
                 failures.append(f"{fmt}: step-0 gradient of {k} is not finite and non-zero")
-        ia, ib = (int(v) for v in plans[fmt][0][0])
-        failures += step0_check(fmt, trainer, states[fmt], res, ia, ib, plans[fmt][1][0])
-        del res["capture"], res["grads0"]
+        ia, ib, rots = frun.plan[0]
+        failures += step0_check(fmt, frun.t, state0, res, ia, ib, np.asarray(rots))
+        for key in ("capture", "grads0", "batch0", "drawn0", "params"):
+            res.pop(key, None)
     if failures:
         raise AssertionError("; ".join(failures))
     return counts, results
+
+
+def faust_run(fmt: str, data: list, steps: int, extra: tuple = ()) -> tuple:
+    """A FAUST trainer in ``fmt`` (``extra`` flags after TRAIN_ARGS) on
+    ``data`` behind ``FaustRun`` (``steps`` updates of its epoch plan), its
+    device caches made first (operators, geodesics, pair targets and their
+    inverses, the test scans); with its weights at the start and a restore
+    of the start (weights, optimizer, random state, plan position)."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_correspondence as tc
+
+    tag = " ".join((fmt,) + tuple(a.strip("-") for a in extra))
+    trainer = tc.CorrespondenceTrainer(tc.parser.parse_args(TRAIN_ARGS + ["--operator-format", fmt, *extra]),
+                                       log=lambda m: log(f"  [{tag}] {m}"), data=data)
+    frun = FaustRun(trainer, steps)
+    for ia, ib, _ in frun.plan:
+        trainer.pair_target(ia, ib)
+        if trainer.use_stream:
+            trainer.pair_inverse(ia, ib)
+    for i in range(trainer.n_train, len(trainer.data)):
+        trainer.dev_sample(i)
+    torch.cuda.synchronize()
+    params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    opt, rng = copy.deepcopy(trainer.opt.state_dict()), copy.deepcopy(trainer.rng.bit_generator.state)
+
+    def restore():
+        trainer.model.load_state_dict(params)
+        trainer.opt.load_state_dict(opt)
+        trainer.rng.bit_generator.state = copy.deepcopy(rng)
+        frun.pos, trainer.step = 0, 0
+
+    return frun, params, restore
 
 
 def _lap_model(state0, device, dtype):
@@ -1388,7 +1663,7 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
         rows = device_rows(prof)
         res["busy_ms"] = sum(r[0] for r in rows) / 1e3
         res["device_ops"] = sum(r[1] for r in rows)
-        res["top"] = rows[:8] + [r for r in rows[8:] if "spmm_kernel" in r[2]]
+        res["top"] = rows[:8] + [r for r in rows[8:] if "spmm_" in r[2] or "sddmm_" in r[2]]
         if annotate:
             res["range_ms"], res["range_ops"] = range_device_ms(prof, annotate[1])
     steady = slice(1, steps - 1)  # not the first step, not the profiled one
@@ -2079,7 +2354,9 @@ def batched_ell_checks(op, csrs: list, device, label: str, width: int, seed: int
     fp64 plain forward; a mutant whose every item applies item 0's operator
     must fail.  Then its warm and cold-L2 time, the plain version's, one
     ``torch.sparse.mm`` over the block-diagonal CSR of the items' scipy
-    operators ``csrs``, and the bound.  Returns the timings."""
+    operators ``csrs``, and the bound.  Then the same for the bf16 variant
+    (bf16 x): held, the item-0 mutant refused, timed (``"bf16"``).  Returns
+    the timings."""
     import scipy.sparse as sp
     import torch
 
@@ -2131,11 +2408,28 @@ def batched_ell_checks(op, csrs: list, device, label: str, width: int, seed: int
            "library_call": "torch.sparse.mm(block-diagonal csr, x)",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(fwd.cols, fwd.vals, x, out), "flops": 2 * nnz * width,
            "max_abs_err": err, "shape": [B, R, K, width], "live_slots": nnz}
-    del flush
     log(f"  ell_matmul at {label} (B={B}, R={R}, K={K}, C={width}, {nnz} live slots, "
         f"{nnz / (B * R):.2f} per row): {rep['ms']:.5f} ms warm, {rep['cold_ms']:.5f} ms cold L2, backward's "
         f"{rep['bwd_ms']:.5f} ms warm (plain {rep['plain_ms']:.4f}, {rep['library_call']} {rep['library_ms']:.4f}, "
         f"bound {b_ms:.5f} ms by {b_by}: {rep['bytes'] / 1e6:.1f} MB, {b_ms / rep['ms']:.1%} of it)")
+
+    # the bf16 variant at the same batch (--bf16: bf16 x, fp32 values and sums)
+    xh = x.to(torch.bfloat16)
+    scale = plain(fwd.cols, fwd.vals.double().abs(), xh.double().abs())
+    err16 = check(f"ell_matmul bf16 x B={B} R={R} K={K} C={width} vs plain", kernels.ell_matmul(fwd.cols, fwd.vals, xh),
+                  plain(fwd.cols, fwd.vals, xh), scale, KERNEL_RTOL)
+    refused("ell_matmul bf16 x with item 0's operator in every batch item", kernels.ell_matmul(*item0, xh),
+            plain(fwd.cols, fwd.vals, xh), scale, KERNEL_RTOL)
+    b16, b16_by = bound_ms(nbytes(fwd.cols, fwd.vals, xh, out), 2 * nnz * width)
+    rep["bf16"] = {"ms": time_ms(lambda: kernels.ell_matmul(fwd.cols, fwd.vals, xh)),
+                   "cold_ms": cold_ms(lambda: kernels.ell_matmul(fwd.cols, fwd.vals, xh), flush),
+                   "plain_ms": time_ms(lambda: plain(fwd.cols, fwd.vals, xh)), "library_ms": None,
+                   "bound_ms": b16, "bound_by": b16_by, "bytes": nbytes(fwd.cols, fwd.vals, xh, out),
+                   "max_abs_err": err16}
+    del flush
+    r16 = rep["bf16"]
+    log(f"  ell_matmul bf16 x at {label}: {r16['ms']:.5f} ms warm, {r16['cold_ms']:.5f} ms cold L2 (plain "
+        f"{r16['plain_ms']:.4f}, bound {b16:.5f} ms by {b16_by}: {r16['bytes'] / 1e6:.1f} MB, {b16 / r16['ms']:.1%} of it)")
     return rep
 
 
@@ -2499,11 +2793,11 @@ def _cast_op(op, dtype):
     return tuple(t.to(dtype) for t in op) if isinstance(op, tuple) else op.to(dtype)
 
 
-def _mesh_trainer(family: str, samples: list, model: str, fmt: str, label: str):
+def _mesh_trainer(family: str, samples: list, model: str, fmt: str, label: str, extra: tuple = ()):
     from surfacenetworks_tpu_torch.cli import train_mnist, train_vae
 
     mod = train_mnist if family == "mnist" else train_vae
-    args = mod.parser.parse_args(MESH_ARGS[family] + ["--model", model])
+    args = mod.parser.parse_args(MESH_ARGS[family] + ["--model", model, *extra])
     cls = train_mnist.MnistTrainer if family == "mnist" else train_vae.VaeTrainer
     return cls(args, samples, fmt=fmt, log=lambda m: log(f"  [{family} {label}] {m}"))
 
@@ -2646,14 +2940,295 @@ def mesh_phase(family: str, device, smi: str, samples: list) -> tuple[dict, dict
     return counts, results
 
 
-KERNEL_SYMBOLS = {"bsr_matmul": "bsr_spmm_kernel", "ell_matmul": "ell_spmm_kernel", "sddmm": "sddmm_kernel"}
+class FaustRun:
+    """A FAUST trainer behind ``_train_run``'s interface: a batch is one
+    update of the epoch plan (pair and rotations), drawn by ``_draw_plan``;
+    the test pass's metrics come as a sorted tuple."""
+
+    def __init__(self, trainer, steps: int):
+        self.t, self.model = trainer, trainer.model
+        pair_idx, rots = trainer.epoch_plan()
+        self.plan = [(int(a), int(b), tuple(float(v) for v in r)) for (a, b), r in zip(pair_idx, rots)][:steps]
+        self.pos = 0
+
+    def batch(self, drawn):
+        return drawn
+
+    def update(self, b):
+        return self.t.update(*b)
+
+    def test_pass(self, epoch: int):
+        return tuple(sorted(self.t.test_pass(epoch).items()))
+
+
+def _draw_plan(run: FaustRun) -> tuple:
+    drawn = run.plan[run.pos]
+    run.pos += 1
+    return drawn, drawn
+
+
+def _plain_of(m):
+    """The plain version of an ELL or BSR matrix's apply."""
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    if hasattr(m, "block_vals"):
+        return lambda x: kernels.bsr_matmul_plain(m.block_cols, m.block_vals, x)
+    return lambda x: kernels.ell_matmul_plain(m.cols, m.vals, x)
+
+
+def _plain_apply(op):
+    """``sparse.ops``'s apply of an ELL or BSR operator with the kernels'
+    plain versions in their place: the forward ``op.fwd @ x``, the backward
+    the stored transpose on the cotangent, cast to x's dtype; the same
+    dtypes and roundings as the autograd Functions, the sums in another
+    order."""
+    import torch
+
+    class PlainApply(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.dtype = x.dtype
+            return _plain_of(op.fwd)(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return _plain_of(op.bwd)(g.contiguous()).to(ctx.dtype)
+
+    return PlainApply.apply
+
+
+def bf16_modulewise_errors(cap, grads: dict, ref_model, prefix: str = "", detach_op: bool = False) -> dict:
+    """A bf16 step 0 module by module against the same modules in bf16 on
+    the card with the kernels' plain versions: each captured call of each
+    module of ``cap`` rerun in ``ref_model`` (the model at step 0's
+    weights) on its captured inputs, every operator argument replaced by
+    ``_plain_apply`` (detached with ``detach_op``: the check's own mutant),
+    and its captured output cotangents passed back; each output, each
+    input's cotangent (the module's share) and each parameter's gradient
+    (summed over the calls; ``grads[prefix + path]``) against the card's, as
+    relative Frobenius errors."""
+    import torch
+
+    errs = {}
+    for name in cap.names:
+        mod = ref_model.get_submodule(name)
+        mod.zero_grad(set_to_none=True)
+        for k, rec in enumerate(cap.calls[name]):
+            args = []
+            for a, need in zip(rec["args"], rec["needs"]):
+                if _is_operator(a):
+                    f = _plain_apply(a)
+                    a = (lambda x, f=f: f(x).detach()) if detach_op else f
+                elif need:
+                    a = a.clone().requires_grad_()
+                args.append(a)
+            outs = mod(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            for i, (o, ref) in enumerate(zip(outs, rec["out"])):
+                errs[f"{name} output {i} call {k}"] = _rel_fro(ref, o.detach().double())
+            pairs = [(o, g) for o, g in zip(outs, rec["g"]) if g is not None and o.requires_grad]
+            if pairs:
+                torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+            for i, (a, need, gin) in enumerate(zip(args, rec["needs"], rec["gin"])):
+                if need and gin is not None and a.grad is not None:
+                    errs[f"{name} input {i} cotangent call {k}"] = _rel_fro(gin, a.grad.double())
+        for pname, p_ in mod.named_parameters():
+            if p_.grad is not None:
+                errs[f"{name}.{pname} gradient"] = _rel_fro(grads[f"{prefix}{name}.{pname}"], p_.grad.double())
+    return errs
+
+
+def bf16_step0_check(label: str, res: dict, ref_model, prefix: str = "") -> list[str]:
+    """``bf16_modulewise_errors`` of the run's step 0 (``res["capture"]``,
+    ``res["grads0"]``) within BF16_STEP0_CHAIN_RTOL (outputs and
+    cotangents) and BF16_STEP0_PARAM_RTOL (parameters); the reference with
+    detached applies must read above the chain's bound.  Returns the
+    failures."""
+    cap, grads = res["capture"], res["grads0"]
+    mutant_model = copy.deepcopy(ref_model)
+    errs = bf16_modulewise_errors(cap, grads, ref_model, prefix)
+    mutant = bf16_modulewise_errors(cap, grads, mutant_model, prefix, detach_op=True)
+    chain = {k: v for k, v in errs.items() if not k.endswith("gradient")}
+    params = {k: v for k, v in errs.items() if k.endswith("gradient")}
+    mchain = {k: v for k, v in mutant.items() if not k.endswith("gradient")}
+    wc, wp, wm = (max(d.items(), key=lambda kv: kv[1]) for d in (chain, params, mchain))
+    res["step0"] = {"chain_worst": wc, "param_worst": wp, "chain_median": float(np.median(list(chain.values()))),
+                    "param_median": float(np.median(list(params.values()))), "mutant_chain_worst": wm}
+    ok = wc[1] <= BF16_STEP0_CHAIN_RTOL and wp[1] <= BF16_STEP0_PARAM_RTOL
+    log(f"  {label}: step 0 module by module vs the plain versions in bf16: chain ({len(chain)}) worst {wc[0]} "
+        f"{wc[1]:.3e} (tol {BF16_STEP0_CHAIN_RTOL:.4g}), median {res['step0']['chain_median']:.3e}; parameters "
+        f"({len(params)}) worst {wp[0]} {wp[1]:.3e} (tol {BF16_STEP0_PARAM_RTOL:.4g}), median "
+        f"{res['step0']['param_median']:.3e}; {'ok' if ok else 'FAIL'}; mutant reference with detached applies: chain "
+        f"worst {wm[0]} {wm[1]:.3e} {'refused' if wm[1] > BF16_STEP0_CHAIN_RTOL else 'NOT refused'}")
+    failures = [] if ok else [f"{label}: step 0 disagrees with the plain versions at {wc}, {wp}"]
+    if not wm[1] > BF16_STEP0_CHAIN_RTOL:
+        failures.append(f"{label}: the detached-apply reference passes the step-0 check")
+    return failures
+
+
+def bf16_run_checks(label: str, res: dict, model, test_batches: int, fp32: dict | None, smi: str) -> list[str]:
+    """A bf16 run's report and checks: finite losses; every step's launches
+    (BF16_PER_STEP) and the test pass's (BF16_PER_TEST_BATCH per batch);
+    the repeat bit for bit; step 0's gradients finite, non-zero and fp32,
+    the parameters fp32; wall, busy, idle share and peak memory beside the
+    fp32 run of the same path (``fp32``).  Returns the failures."""
+    import torch
+
+    expected = BF16_PER_STEP[label]
+    test_expected = {k: v * test_batches for k, v in BF16_PER_TEST_BATCH[label].items()}
+    log(f"  bf16 {label}: losses {[repr(v) for v in res['loss']]}; test {res['test']!r} ({smi})")
+    log(f"  bf16 {label}: host wall per step {['%.2f' % v for v in res['wall_ms']]}, median {res['wall_ms_median']:.3f} "
+        f"ms; device ms per step (CUDA events) median {res['device_ms_median']:.3f}; profiled step device busy "
+        f"{res['busy_ms']:.3f} ms in {res['device_ops']} device ops, idle share {res['idle_share']:.3f}; peak device "
+        f"memory {res['peak_mib']:.1f} MiB ({smi})")
+    if fp32 is not None:
+        peak = f"{fp32['peak_mib']:.1f} MiB" if "peak_mib" in fp32 else "not measured"
+        log(f"  bf16 {label}: the fp32 run of the path: wall {fp32['wall_ms_median']:.3f} ms, busy "
+            f"{fp32['busy_ms']:.3f} ms in {fp32['device_ops']} ops, idle share {fp32['idle_share']:.3f}, peak {peak}; "
+            f"busy bf16 / fp32 {res['busy_ms'] / fp32['busy_ms']:.3f}")
+    for dev_us, count, key in res["top"]:
+        log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+    log(f"  bf16 {label}: launches per step {res['per_step'][0]} (expected {expected}); test pass "
+        f"{res['test_launches']} (expected {test_expected})")
+    failures = []
+    if not np.isfinite(res["loss"]).all():
+        failures.append(f"bf16 {label}: a loss is not finite")
+    if any(step != expected for step in res["per_step"]) or res["test_launches"] != test_expected:
+        failures.append(f"bf16 {label}: launches per step {res['per_step']}, test pass {res['test_launches']}")
+    if not res["reproduced"]:
+        failures.append(f"bf16 {label}: a second run from the same state differs")
+    for k, g in res["grads0"].items():
+        if not (g.dtype == torch.float32 and bool(torch.isfinite(g).all()) and bool((g != 0).any())):
+            failures.append(f"bf16 {label}: step-0 gradient of {k} is not fp32, finite and non-zero ({g.dtype})")
+    if any(p_.dtype != torch.float32 for p_ in model.parameters()):
+        failures.append(f"bf16 {label}: a parameter is not fp32")
+    return failures
+
+
+def bf16_train_phase(device, smi: str, faust_data: list, mesh_samples: list, fp32: dict) -> tuple[dict, dict]:
+    """The five trainers with ``--bf16`` (see BF16_PER_STEP): per run,
+    counts at 0, its updates (step 0 captured, the last profiled) and the
+    test pass; the run again from its start, bit for bit; step 0 module by
+    module against the plain versions in bf16 (the kernel runs); the
+    normal run's convergence against its fp32 run.  ``fp32`` holds the fp32
+    runs of the same paths.  Returns the launch counts per run and the
+    results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli.train_vae import kld_weight
+    from surfacenetworks_tpu_torch.data import datasets
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    results, counts, failures = {}, {}, []
+
+    def run(label, trainer, steps, capture, draw=_draw_samples, update=None):
+        res = _train_run(trainer, steps, draw, capture=capture, profile_last=True, update=update)
+        counts[label] = dict(kernels.launches)
+        log(f"  bf16 {label}: launches on the path ({steps} updates + test pass) {counts[label]}")
+        return res
+
+    def done(label, res):
+        """Keep the run's numbers, free its captures: a later run's peak memory is its own."""
+        for key in ("capture", "grads0", "batch0", "drawn0", "params", "drawn", "sampler_after_save"):
+            res.pop(key, None)
+        results[label] = res
+        torch.cuda.empty_cache()
+
+    # FAUST, both formats: the main path of the three bf16 variants
+    for fmt in ("ell", "bsr"):
+        label = f"faust {fmt}"
+        t0 = time.perf_counter()
+        frun, _, restore = faust_run(fmt, faust_data, BF16_STEPS, ("--bf16",))
+        ref = copy.deepcopy(frun.model.trunk)
+        log(f"  bf16 {label}: set-up {time.perf_counter() - t0:.2f} s; plan {[p[:2] for p in frun.plan]}; blocks "
+            f"{frun.t.dev_sample(0)['op'].fwd.block_vals.dtype if fmt == 'bsr' else 'fp32 ELL values'}")
+        kernels.reset_launch_counts()  # the main path: every count 0 just before it, read just after
+        res = run(label, frun, BF16_STEPS, lambda m: StepCapture(m.trunk), _draw_plan)
+        repeat_run(f"bf16 {label}", frun, restore, res, _draw_plan)
+        failures += bf16_run_checks(label, res, frun.model, 1, fp32.get(label), smi)
+        failures += bf16_step0_check(f"bf16 {label}", res, ref, "trunk.")
+        del frun, ref, restore
+        done(label, res)
+
+    # normal Lap-15 BSR, 8 steps: the convergence check against the fp32 run
+    t0 = time.perf_counter()
+    trainer = _normal_trainer(NORMAL_ARGS + ["--operator-format", "bsr", "--bf16"], "bsr bf16")
+    snap = _normal_snapshot(trainer)
+    ref = copy.deepcopy(trainer.model)
+    log(f"  bf16 normal bsr: set-up {time.perf_counter() - t0:.2f} s; {trainer.data_stats()}")
+    kernels.reset_launch_counts()
+    res = run("normal bsr", trainer, BF16_NORMAL_STEPS, StepCapture)
+    repeat_run("bf16 normal bsr", trainer, lambda: _normal_restore(trainer, snap), res)
+    failures += bf16_run_checks("normal bsr", res, trainer.model, len(trainer.test_samples), fp32.get("normal bsr"), smi)
+    failures += bf16_step0_check("bf16 normal bsr", res, ref)
+    f32 = fp32["normal bsr"]["loss"]
+    res["convergence"] = {"bf16_final": res["loss"][-1], "fp32_final": f32[-1], "bf16_first": res["loss"][0],
+                          "fp32_first": f32[0]}
+    ok = res["loss"][-1] < BF16_CONVERGENCE_FACTOR * f32[-1] + 1e-3
+    log(f"  bf16 normal bsr: convergence over {BF16_NORMAL_STEPS} steps from the same weights and data: bf16 loss "
+        f"{res['loss'][0]:.6f} -> {res['loss'][-1]:.6f}, fp32 {f32[0]:.6f} -> {f32[-1]:.6f}; bf16 final below "
+        f"{BF16_CONVERGENCE_FACTOR:g} x fp32 + 1e-3: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"bf16 normal bsr: final loss {res['loss'][-1]} not below 3 x fp32's {f32[-1]} + 1e-3")
+    del trainer, ref
+    done("normal bsr", res)
+
+    # ARAP Model-15 ELL at batch 32
+    t0 = time.perf_counter()
+    trainer = _arap_trainer(datasets.synthetic_arap_sequences(**ARAP_SEQUENCES), ["--bf16"], "ell bf16")
+    snap = _arap_snapshot(trainer)
+    ref = copy.deepcopy(trainer.model)
+    log(f"  bf16 arap ell: set-up {time.perf_counter() - t0:.2f} s")
+    kernels.reset_launch_counts()
+    res = run("arap ell", trainer, BF16_STEPS, StepCapture, _draw_picks)
+    repeat_run("bf16 arap ell", trainer, lambda: _arap_restore(trainer, snap), res, _draw_picks)
+    failures += bf16_run_checks("arap ell", res, trainer.model, 1, fp32.get("arap ell"), smi)
+    failures += bf16_step0_check("bf16 arap ell", res, ref)
+    del trainer, ref
+    done("arap ell", res)
+
+    # mesh-MNIST at batch 64: the classifier in ELL and dense, the VAE in ELL, the Dirac classifier
+    for label, (family, model, fmt) in {"mnist ell": ("mnist", "lap", "ell"), "mnist dense": ("mnist", "lap", "auto"),
+                                        "vae ell": ("vae", "lap", "ell"),
+                                        "mnist dirac": ("mnist", "dirac", "auto")}.items():
+        t0 = time.perf_counter()
+        trainer = _mesh_trainer(family, mesh_samples, model, fmt, f"{label} bf16", ("--bf16",))
+        snap = _mesh_snapshot(trainer)
+        ref = copy.deepcopy(trainer.model)
+        log(f"  bf16 {label}: set-up {time.perf_counter() - t0:.2f} s")
+
+        def update(t, batch, u, family=family):
+            return t.update(batch) if family == "mnist" else t.update(batch, kld_weight(u // t.steps_per_epoch))
+
+        # the dense and Dirac paths have no kernel: step 0 is captured for its gradients only
+        paths = _mesh_capture_paths(family) if fmt == "ell" else {}
+        kernels.reset_launch_counts()
+        res = run(label, trainer, BF16_STEPS, lambda m, paths=paths: ModuleCapture(m, paths), update=update)
+        repeat_run(f"bf16 {label}", trainer, lambda: _mesh_restore(trainer, snap), res, update=update)
+        failures += bf16_run_checks(label, res, trainer.model, trainer.test_steps, fp32.get(label), smi)
+        if paths:
+            failures += bf16_step0_check(f"bf16 {label}", res, ref)
+        del trainer, ref
+        done(label, res)
+
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return counts, results
+
+
+KERNEL_SYMBOLS = {"bsr_matmul": "bsr_spmm_kernel", "ell_matmul": "ell_spmm_kernel", "sddmm": "sddmm_kernel",
+                  "bsr_matmul_bf16": "bsr_spmm_bf16_kernel", "ell_matmul_bf16": "ell_spmm_bf16x_kernel",
+                  "sddmm_bf16": "sddmm_bf16_kernel"}
 
 
 def _variant(symbol: str) -> str:
-    """A kernel's name and template argument from its mangled symbol."""
+    """A kernel's name and template arguments from its mangled symbol."""
+    import re
+
     for kname, fn in KERNEL_SYMBOLS.items():
-        if fn in symbol:
-            return f"{fn}<{'true' if 'ILb1E' in symbol else 'false'}>"
+        if re.search(rf"\d{fn}I", symbol):  # the length-prefixed name, then its template arguments
+            args = re.findall(r"Lb([01])E", symbol.split(fn, 1)[1])
+            return f"{fn}<{', '.join('true' if a == '1' else 'false' for a in args)}>"
     return symbol[:60]
 
 
@@ -2683,8 +3258,9 @@ def ptxas_report(text: str) -> dict:
 
 def sass_check(lib_path: str) -> None:
     """``cuobjdump -sass`` of the built library, where the toolkit has it:
-    every variant of the BSR kernel must run TF32 tensor-core products
-    (``HMMA`` on ``TF32`` operands), or the run fails."""
+    every variant of the fp32 BSR kernel must run TF32 tensor-core products
+    (``HMMA`` on ``TF32`` operands), and every variant of the bf16 BSR
+    kernel bf16 ones (``HMMA.16816.F32.BF16``), or the run fails."""
     import os
     import re
     import shutil
@@ -2699,17 +3275,21 @@ def sass_check(lib_path: str) -> None:
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = _variant(part.split("\n", 1)[0].strip())
         hmma = [ln.strip() for ln in part.splitlines() if "HMMA" in ln]
-        found[name] = (len(hmma), sum("TF32" in ln for ln in hmma), hmma[0] if hmma else "")
-    for name, (n_hmma, n_tf32, first) in sorted(found.items()):
-        log(f"  SASS: {name}: {n_hmma} HMMA, {n_tf32} on TF32 operands{'; e.g. ' + first[:90] if first else ''}")
+        found[name] = (len(hmma), sum("TF32" in ln for ln in hmma), sum("HMMA.16816.F32.BF16" in ln for ln in hmma),
+                       hmma[0] if hmma else "")
+    for name, (n_hmma, n_tf32, n_bf16, first) in sorted(found.items()):
+        log(f"  SASS: {name}: {n_hmma} HMMA, {n_tf32} on TF32 operands, {n_bf16} HMMA.16816.F32.BF16"
+            f"{'; e.g. ' + first[:90] if first else ''}")
     bsr = [v for k, v in found.items() if k.startswith("bsr_spmm_kernel")]
-    if not bsr or any(n_tf32 == 0 for _, n_tf32, _ in bsr):
+    if not bsr or any(v[1] == 0 for v in bsr):
         raise AssertionError("the BSR kernel's SASS holds no TF32 HMMA instruction")
+    bsr16 = [v for k, v in found.items() if k.startswith("bsr_spmm_bf16_kernel")]
+    if len(bsr16) != 4 or any(v[2] == 0 for v in bsr16):
+        raise AssertionError("a variant of the bf16 BSR kernel's SASS holds no HMMA.16816.F32.BF16 instruction")
 
 
 def main() -> int:
-    t_all = time.perf_counter()
-    t0 = time.perf_counter()
+    t_all = t0 = T_START
     import torch
 
     if not torch.cuda.is_available():
@@ -2745,6 +3325,10 @@ def main() -> int:
     phase("kernels", t0)
 
     t0 = time.perf_counter()
+    report.update(bf16_kernel_phase(device))
+    phase("bf16 kernels", t0)
+
+    t0 = time.perf_counter()
     counts, latency, served = serve_phase(device)
     phase("serve", t0)
 
@@ -2757,7 +3341,12 @@ def main() -> int:
     phase("backward", t0)
 
     t0 = time.perf_counter()
-    train_counts, trained = train_phase(device, smi)
+    from surfacenetworks_tpu_torch.data import datasets
+
+    faust_data = datasets.synthetic_correspondence_dataset(**FAUST_DATA)
+    log(f"  FAUST data: {len(faust_data)} synthetic scans of {[s['V'].shape[0] for s in faust_data]} vertices; made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    train_counts, trained = train_phase(device, smi, faust_data)
     phase("train", t0)
 
     t0 = time.perf_counter()
@@ -2773,8 +3362,6 @@ def main() -> int:
     phase("arap train", t0)
 
     t0 = time.perf_counter()
-    from surfacenetworks_tpu_torch.data import datasets
-
     mesh_samples = datasets.synthetic_mnist_dataset(**MNIST_DATA)
     log(f"  mesh-MNIST data: {len(mesh_samples)} height fields of "
         f"{sorted({s['V'].shape[0] for s in mesh_samples})} vertices and "
@@ -2786,6 +3373,13 @@ def main() -> int:
     t0 = time.perf_counter()
     vae_counts, vae = mesh_phase("vae", device, smi, mesh_samples)
     phase("vae train", t0)
+
+    t0 = time.perf_counter()
+    fp32_runs = {"faust ell": trained["ell"], "faust bsr": trained["bsr"], "normal bsr": normal["bsr"],
+                 "arap ell": arap["ell"], "mnist ell": mnist["ell"], "mnist dense": mnist["dense"], "vae ell": vae["ell"],
+                 "mnist dirac": mnist["dirac"]}
+    bf16_counts, bf16 = bf16_train_phase(device, smi, faust_data, mesh_samples, fp32_runs)
+    phase("bf16 train", t0)
 
     replaces = {
         "bsr_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:163",
@@ -2822,8 +3416,31 @@ def main() -> int:
         if kname == "bsr_matmul":
             entries[-1].update(fp32_fma_bound_ms=r["fp32_fma_bound_ms"], fp32_fma_bound_by=r["fp32_fma_bound_by"])
         if kname == "ell_matmul":
-            entries[-1]["arap_batch"] = arap["ell"]["kernel"]
-            entries[-1]["mnist_batch"] = mnist["ell"]["kernel"]
+            entries[-1]["arap_batch"] = {k: v for k, v in arap["ell"]["kernel"].items() if k != "bf16"}
+            entries[-1]["mnist_batch"] = {k: v for k, v in mnist["ell"]["kernel"].items() if k != "bf16"}
+    # the bf16 variants (--bf16): ``launches`` counts the bf16 FAUST runs (both
+    # formats), which launch all three; the other bf16 runs' counts beside it
+    faust16 = {k: bf16_counts["faust ell"][k] + bf16_counts["faust bsr"][k] for k in port_kernels.launches}
+    for kname in ("bsr_matmul_bf16", "ell_matmul_bf16", "sddmm_bf16"):
+        r = report[kname]
+        if faust16[kname] == 0:
+            raise AssertionError(f"{kname} was not launched on the bf16 train path")
+        entries.append({
+            "name": kname, "route": "cuda", "source": "surfacenetworks_tpu_torch/sparse/csrc/spmm.cu",
+            "replaces": replaces[kname[:-5]], "launches": faust16[kname],
+            "bf16_run_launches": {run: c[kname] for run, c in bf16_counts.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library_call": r["library_call"],
+            "bytes": r["bytes"], "flops": r["flops"], "card": smi, "cold_ms": r["cold_ms"],
+            "registers": {k: v.get("registers") for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS[kname])},
+            "spill_bytes": {k: v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                            for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS[kname])},
+        })
+        if kname == "bsr_matmul_bf16":
+            entries[-1]["ms_x_fp32"] = r["ms_x_fp32"]
+        if kname == "ell_matmul_bf16":
+            entries[-1]["arap_batch"] = arap["ell"]["kernel"]["bf16"]
+            entries[-1]["mnist_batch"] = mnist["ell"]["kernel"]["bf16"]
     log(f"serve median ms per request: ell {latency['ell']['median_ms']:.3f}, "
         f"bsr {latency['bsr']['median_ms']:.3f} ({smi})")
     log("train median per step: " + ", ".join(
@@ -2847,6 +3464,9 @@ def main() -> int:
             + (f", Dirac applies {r['apply_share']:.1%} of busy" if cfg == "dirac" else "")
             for cfg, r in runs.items() if cfg != "dense_equals_ell")
             + f"; dense and ELL losses {'bit-identical' if runs['dense_equals_ell'] else 'differ'} ({smi})")
+    log("bf16 train median per step: " + ", ".join(
+        f"{label} wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['device_ops']} device ops, idle "
+        f"share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB" for label, r in bf16.items()) + f" ({smi})")
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

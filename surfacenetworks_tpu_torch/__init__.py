@@ -5,6 +5,10 @@ stays beside it as the reference.  This package imports torch, numpy and
 scipy, and nothing of jax, flax, optax or ``surfacenetworks_tpu``; what it
 needs from the host side of the JAX package it keeps as its own copy.  Its
 entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Mixed precision (the trainers' ``--bf16``) follows the JAX package's
+``dtype`` convention: every model and block takes a computation ``dtype``
+(``torch.bfloat16``), parameters stay fp32, and each CUDA kernel has a bf16
+variant (``sparse/kernels.py``).
 
 Module map (port -> JAX package):
 
@@ -40,7 +44,8 @@ Module map (port -> JAX package):
                                   (autograd Functions: ``spmm``, ``bsr_spmm``,
                                   ``sddmm``, ``dirac_apply_vf``/``fv``)
 ``sparse/kernels.py``             ``sparse/pallas_kernels.py`` (``bsr_matmul``,
-                                  ``ell_matmul``, ``sddmm``)
+                                  ``ell_matmul``, ``sddmm``; fp32 and bf16
+                                  variants)
 ``sparse/csrc/spmm.cu``           the Pallas kernels' bodies, as CUDA for sm_90a
 ``sparse/_build.py``              (new) nvcc build + ctypes binding
 ``nn/layers.py``                  ``nn/layers.py``

@@ -24,8 +24,10 @@ format.  Every valid pick is packed once and, unless ``--dense`` or
 ``--no-device-store`` is given or the 6 GiB budget is exceeded, the picks
 are uploaded once and a batch is an index gather on the device; otherwise
 each batch is stacked on the host and uploaded.  ``ArapTrainer`` also takes
-sequences handed in from code.  Flags of the JAX trainer that later slices
-bring are refused when given.
+sequences handed in from code.  ``--bf16`` trains in mixed precision as the
+JAX trainer does (``dtype=torch.bfloat16``; ELL applies take bf16 x and
+return fp32, dense ones promote to fp32).  Flags of the JAX trainer that
+later slices bring are refused when given.
 """
 
 from __future__ import annotations
@@ -65,8 +67,10 @@ parser.add_argument("--seed", type=int, default=17)
 parser.add_argument("--no-device-store", action="store_true",
                     help="assemble every batch on the host (the path taken over the device budget)")
 parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+parser.add_argument("--bf16", action="store_true",
+                    help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
+                         "optimizer state and losses")
 # flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--bf16", action="store_true")
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
 parser.add_argument("--dump-rollout", default=None)
@@ -77,7 +81,6 @@ parser.add_argument("--preset", default=None)
 def refuse_unported(args) -> None:
     """Raise on any flag whose path this slice does not port."""
     refused = {
-        "--bf16": args.bf16,
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
         "--dump-rollout (it draws with matplotlib)": args.dump_rollout is not None,
@@ -137,9 +140,11 @@ class ArapTrainer:
         self.device = resolve_device(args.device)
         log(f"devices {self.device}" + (f" ({torch.cuda.get_device_name(self.device)})"
                                         if self.device.type == "cuda" else ""))
-        # the model is fp32 throughout: no TF32 in matmuls or convolutions
+        # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
+        # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.sequences = load_sequences(args) if sequences is None else sequences
         self.n_train = max(len(self.sequences) * 8 // 10, 1)
         self.buckets = Buckets.for_samples([{"V": s[0]["V"], "F": s[0]["F"]} for s in self.sequences])
@@ -150,7 +155,7 @@ class ArapTrainer:
             value_keys=True)
         self.rng = np.random.default_rng(args.seed)
         self.test_counter = 0
-        self.model = MODELS[args.model](layers=args.layer)
+        self.model = MODELS[args.model](layers=args.layer, dtype=torch.bfloat16 if args.bf16 else None)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
         # the JAX trainer initialises from one batch of train picks: its draws are used up here too

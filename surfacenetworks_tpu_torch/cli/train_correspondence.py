@@ -18,15 +18,18 @@ label tables go to the device once; each (shape A, shape B) pair's dcel
 target is computed once on the device and cached, with its inverse (built on
 the host) for the streaming head's backward.  Updates run one per step
 in the order of the epoch plan (the JAX trainer's ``--no-epoch-scan``
-order).  The run writes the JAX trainer's files: ``log/<prefix>.log``,
+order).  ``--bf16`` trains in mixed precision as the JAX trainer does: the
+trunk computes in bf16 from fp32 parameters (``dtype=torch.bfloat16``), the
+BSR blocks are stored in bf16, the features are cast to bf16 and widened to
+fp32 for the dcel head, and the smoothness term's SDDMM runs on the bf16
+features.  The run writes the JAX trainer's files: ``log/<prefix>.log``,
 ``log/<prefix>.metrics.jsonl``, ``cfg/<prefix>.json``, and checkpoints at
 ``pts/<prefix>_state.pt`` every 10th epoch and at the end; with
 ``--deser-option auto`` (the default) or ``force`` it resumes from
 ``--deser-path`` or that checkpoint where the file exists (the port's ``.pt``
 or the JAX package's ``.msgpack``).  Flags of the JAX trainer that later
 slices bring (other trunks and losses, multihost, graph-parallel, the light
-path, bf16, remat, the intrinsic Laplacian, eval-only) are refused when
-given.
+path, remat, the intrinsic Laplacian, eval-only) are refused when given.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from surfacenetworks_tpu_torch.data.batching import (
     rcm_reorder_sample,
 )
 from surfacenetworks_tpu_torch.models import SiameseModel, init_weights
+from surfacenetworks_tpu_torch.nn.layers import at_least_fp32
 from surfacenetworks_tpu_torch.serve import resolve_device
 from surfacenetworks_tpu_torch.sparse import stack_operators
 from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
@@ -88,8 +92,10 @@ parser.add_argument("--deser-path", default=None)
 parser.add_argument("--num-vertices", type=int, default=7000, help="accepted and not read, as in the JAX trainer")
 parser.add_argument("--no-epoch-scan", action="store_true",
                     help="one dispatch per update in the epoch plan's order: what the port always does")
+parser.add_argument("--bf16", action="store_true",
+                    help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
+                         "optimizer state and losses")
 # flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--bf16", action="store_true")
 parser.add_argument("--remat", action="store_true")
 parser.add_argument("--intrinsic", action="store_true")
 parser.add_argument("--eval-only", action="store_true")
@@ -111,7 +117,6 @@ def refuse_unported(args) -> None:
     refused = {
         "--model other than lap": args.model != "lap",
         "--loss other than dcel": args.loss != "dcel",
-        "--bf16": args.bf16,
         "--remat": args.remat,
         "--intrinsic": args.intrinsic,
         "--eval-only": args.eval_only,
@@ -146,10 +151,12 @@ def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stre
     inx = da["inputs"] @ rot_matrix(rots[0], rots[1], target.device, dt)
     iny = db["inputs"] @ rot_matrix(rots[2], rots[3], target.device, dt)
     fa, fb = model.features((da["op"], da["mask"]), (db["op"], db["mask"]), inx, iny)
+    # the dcel head in fp32 whatever the features' dtype (bf16 under --bf16)
+    fa32, fb32 = at_least_fp32(fa), at_least_fp32(fb)
     if use_stream:
-        loss = losses.corr_dcel_streaming(fa[0], fb[0], target, target_inv=target_inv)
+        loss = losses.corr_dcel_streaming(fa32[0], fb32[0], target, target_inv=target_inv)
     else:
-        loss = losses.corr_delta_cross_entropy_from_target(torch.einsum("bnc,bmc->bnm", fa, fb)[0], target)
+        loss = losses.corr_delta_cross_entropy_from_target(torch.einsum("bnc,bmc->bnm", fa32, fb32)[0], target)
     if smooth_w > 0:
         loss = loss + smooth_w * (
             losses.corr_feature_smoothness(da["reg_op"], fa) + losses.corr_feature_smoothness(db["reg_op"], fb)
@@ -169,17 +176,23 @@ def train_step(model, opt, da: dict, db: dict, rots, target, smooth_w: float, us
 
 
 class CorrespondenceTrainer:
-    """Data, model, optimizer and the device caches of one training run."""
+    """Data, model, optimizer and the device caches of one training run;
+    ``data`` (FAUST-like sample dicts) replaces the scans the flags name."""
 
-    def __init__(self, args, log=print):
+    def __init__(self, args, log=print, data: list | None = None):
         refuse_unported(args)
         self.args, self.log = args, log
         self.device = resolve_device(args.device)
-        # the model is fp32 throughout: no TF32 in matmuls or convolutions
+        # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
+        # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        self.dtype = torch.bfloat16 if args.bf16 else None
         self.rng = np.random.default_rng(args.seed)
-        if args.synthetic:
+        if data is not None:
+            data = list(data)
+        elif args.synthetic:
             data = datasets.synthetic_correspondence_dataset(
                 args.synthetic, n_points=args.synthetic_points, seed=args.seed)
         else:
@@ -210,7 +223,7 @@ class CorrespondenceTrainer:
         # once per rotation axis before the first epoch
         self.angles()
 
-        self.model = SiameseModel("lap", args.layer)
+        self.model = SiameseModel("lap", args.layer, self.dtype)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
         self.opt = optim.adam(self.model.parameters(), float(args.lr), weight_decay=1e-5)
@@ -238,7 +251,7 @@ class CorrespondenceTrainer:
         if hit is not None:
             return hit
         sample, N, dev = self.data[i], self.N, self.device
-        pack = correspondence_batch(sample, self.buckets, fmt=self.fmt)
+        pack = correspondence_batch(sample, self.buckets, fmt=self.fmt, op_dtype=self.dtype)
         G, lab, li = pack.targets
         G_pad = np.zeros((N, N), np.float32)
         G_pad[: G.shape[0], : G.shape[1]] = G
@@ -336,6 +349,7 @@ class CorrespondenceTrainer:
         iny = db["inputs"] @ rot_matrix(rots[2], rots[3], self.device)
         GAB = self.aggregate_padded(da, db)
         fa, fb = self.model.features((da["op"], da["mask"]), (db["op"], db["mask"]), inx, iny)
+        fa, fb = at_least_fp32(fa), at_least_fp32(fb)
         if self.use_stream:
             pred = losses.streaming_corr_argmax(fa[0], fb[0], db["mask"][0, :, 0])
             metrics = losses.corr_metrics_from_pred(pred, da["l"], db["l"], db["li"], db["G"], da["mask"][0, :, 0])

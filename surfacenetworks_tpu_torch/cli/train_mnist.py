@@ -26,7 +26,10 @@ packed alone with ``fmt='auto'`` (dense at mesh-MNIST sizes) and the
 dataset uploaded once; a batch is an index gather on the device.  The
 dropout masks come from a ``torch.Generator`` seeded with ``--seed`` on the
 device, so they differ from flax's draws.  ``MnistTrainer`` also takes
-samples and an operator format from code.  Flags of the JAX trainer that
+samples and an operator format from code.  ``--bf16`` trains in mixed
+precision as the JAX trainer does (``dtype=torch.bfloat16``: bf16
+activations and matmuls; the pooled features, ``fc1``, the loss, the
+parameters and the optimizer state fp32).  Flags of the JAX trainer that
 later slices bring are refused when given.
 """
 
@@ -61,8 +64,10 @@ parser.add_argument("--result-prefix", default="mnist")
 parser.add_argument("--result-dir", default="results/mesh_mnist_torch")
 parser.add_argument("--seed", type=int, default=17)
 parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+parser.add_argument("--bf16", action="store_true",
+                    help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
+                         "optimizer state and losses")
 # flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--bf16", action="store_true")
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
 parser.add_argument("--config", default=None)
@@ -73,7 +78,6 @@ def refuse_unported(args, trainer: str) -> None:
     """Raise on any flag whose path this slice does not port (the flags the
     classifier and the VAE share)."""
     refused = {
-        "--bf16": args.bf16,
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
         "--config and --preset": args.config is not None or args.preset is not None,
@@ -81,6 +85,11 @@ def refuse_unported(args, trainer: str) -> None:
     given = [k for k, v in refused.items() if v]
     if given:
         raise SystemExit(f"{trainer} (PyTorch port): not ported yet: {', '.join(given)}")
+
+
+def dtype(args) -> torch.dtype | None:
+    """The models' computation dtype: bf16 under ``--bf16``, else fp32."""
+    return torch.bfloat16 if args.bf16 else None
 
 
 def model_key(name: str, known) -> str:
@@ -114,9 +123,11 @@ class MeshMnistRun:
         self.device = resolve_device(args.device)
         log(f"devices {self.device}" + (f" ({torch.cuda.get_device_name(self.device)})"
                                         if self.device.type == "cuda" else ""))
-        # the models are fp32 throughout: no TF32 in matmuls or convolutions
+        # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
+        # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         sep = max(1, int(len(samples) * 0.8))
         self.train_samples, self.test_samples = samples[:sep], samples[sep:]
         self.kind, self.fmt = kind, fmt
@@ -181,7 +192,8 @@ class MnistTrainer(MeshMnistRun):
         refuse_unported(args, "train_mnist")
         key = model_key(args.model, MODELS)
         super().__init__(args, load_data(args) if samples is None else samples, mnist_batch,
-                         "dirac" if key == "dirac" else "lap", fmt, True, MODELS[key](layers=args.layer), log)
+                         "dirac" if key == "dirac" else "lap", fmt, True, MODELS[key](layers=args.layer, dtype=dtype(args)),
+                         log)
         self.last_keep = None
 
     def update(self, batch, keep=None) -> tuple[torch.Tensor, torch.Tensor]:

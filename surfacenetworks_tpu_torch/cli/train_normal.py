@@ -25,8 +25,11 @@ every 10th epoch and at the end, and ``--deser`` resumes from the port's
 checkpoints or the JAX package's ``.msgpack`` files.  Every sample is packed
 once and the dataset uploaded once (a batch is an index gather on the
 device); over a 6 GiB budget, or with ``--no-device-store``, each batch is
-stacked on the host and uploaded.  Flags of the JAX trainer that later
-slices bring are refused when given.
+stacked on the host and uploaded.  ``--bf16`` trains in mixed precision as
+the JAX trainer does: the model computes in bf16 from fp32 parameters
+(``dtype=torch.bfloat16``; its output, the loss, the gradients and the
+optimizer state stay fp32) and BSR blocks are stored in bf16.  Flags of the
+JAX trainer that later slices bring are refused when given.
 """
 
 from __future__ import annotations
@@ -80,8 +83,10 @@ parser.add_argument("--no-device-store", action="store_true",
                     help="assemble every batch on the host (the path taken over the device budget)")
 parser.add_argument("--seed", type=int, default=17)
 parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+parser.add_argument("--bf16", action="store_true",
+                    help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
+                         "optimizer state and losses")
 # flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--bf16", action="store_true")
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
 parser.add_argument("--buckets", type=int, default=1)
@@ -107,7 +112,6 @@ def refuse_unported(args) -> None:
     """Raise on any flag whose path this slice does not port."""
     refused = {
         "--model other than lap and dirac": args.model != "lap" and not is_dirac(args),
-        "--bf16": args.bf16,
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
         "--buckets > 1": args.buckets > 1,
@@ -189,9 +193,12 @@ class NormalTrainer:
         self.device = resolve_device(args.device)
         log(f"devices {self.device}" + (f" ({torch.cuda.get_device_name(self.device)})"
                                         if self.device.type == "cuda" else ""))
-        # the model is fp32 throughout: no TF32 in matmuls or convolutions
+        # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
+        # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        dtype = torch.bfloat16 if args.bf16 else None
         train, test = load_samples(args, random.Random(args.seed), log)
         log(f"Train size: {len(train)} Test size: {len(test)}")
         fmt = args.operator_format
@@ -214,13 +221,14 @@ class NormalTrainer:
         if dirac:
             self.fmt = "structured"
             self.packed = PackedSamples(lambda s: dirac_batch([s], self.buckets))
-            self.model = DirDeepModel(3, 3, layers=args.layer)
+            self.model = DirDeepModel(3, 3, layers=args.layer, dtype=dtype)
         else:
             self.fmt = fmt
             if fmt == "bsr":
                 fit_bsr_k(all_samples, self.buckets)
-            self.packed = PackedSamples(lambda s: laplacian_batch([s], self.buckets, fmt=fmt))
-            self.model = LapDeepModel(3, 3, layers=args.layer)
+            op_dtype = dtype if fmt == "bsr" else None  # bf16 blocks under --bf16, as in the JAX trainer
+            self.packed = PackedSamples(lambda s: laplacian_batch([s], self.buckets, fmt=fmt, op_dtype=op_dtype))
+            self.model = LapDeepModel(3, 3, layers=args.layer, dtype=dtype)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
         log(f"Num parameters {sum(p.numel() for p in self.model.parameters())}")

@@ -26,8 +26,10 @@ comes from ``torch.Generator().manual_seed(999)`` and the reparametrisation
 noise from a ``torch.Generator`` seeded with ``--seed`` on the device, so
 both differ from the JAX package's draws.  Every sample is packed once and
 the dataset uploaded once unless ``--no-device-store``.  ``VaeTrainer`` also
-takes samples and an operator format from code.  Flags of the JAX trainer
-that later slices bring are refused when given.
+takes samples and an operator format from code.  ``--bf16`` trains in mixed
+precision as the JAX trainer does (bf16 blocks and convolutions; the latent
+heads, the noise, the reconstruction mean and the ELBO fp32).  Flags of the
+JAX trainer that later slices bring are refused when given.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import torch
 
 from surfacenetworks_tpu_torch import geometry as geo
 from surfacenetworks_tpu_torch.cli.common import MetricsLogger, make_logger
-from surfacenetworks_tpu_torch.cli.train_mnist import MeshMnistRun, refuse_unported
+from surfacenetworks_tpu_torch.cli.train_mnist import MeshMnistRun, dtype, refuse_unported
 from surfacenetworks_tpu_torch.data import datasets, vae_batch
 from surfacenetworks_tpu_torch.data.pipeline import to_device
 from surfacenetworks_tpu_torch.models.vae import LATENT, MODELS
@@ -63,8 +65,10 @@ parser.add_argument("--seed", type=int, default=17)
 parser.add_argument("--no-device-store", action="store_true",
                     help="assemble every batch on the host and upload it")
 parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+parser.add_argument("--bf16", action="store_true",
+                    help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
+                         "optimizer state and losses")
 # flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--bf16", action="store_true")
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
 parser.add_argument("--config", default=None)
@@ -119,7 +123,7 @@ class VaeTrainer(MeshMnistRun):
         refuse_unported(args, "train_vae")
         key = "dirac" if args.model.startswith("dir") else "lap"  # any other name is lap, as in JAX
         super().__init__(args, load_data(args) if samples is None else samples, vae_batch, key, fmt,
-                         not args.no_device_store, MODELS[key](num_layers=args.num_layers), log)
+                         not args.no_device_store, MODELS[key](num_layers=args.num_layers, dtype=dtype(args)), log)
         gen = torch.Generator().manual_seed(FIXED_NOISE_SEED)
         self.fixed_noise = torch.randn(args.batch_size, 1, LATENT, generator=gen).to(self.device)
         self.last_eps = None

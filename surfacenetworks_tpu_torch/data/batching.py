@@ -196,9 +196,12 @@ def _fixed_k_operator(L: sp.spmatrix, buckets: Buckets, N: int) -> EllOperator:
     return EllOperator(fwd=fwd, bwd=bwd)
 
 
-def _bsr_sample_operator(L: sp.spmatrix, buckets: Buckets, N: int):
-    """BSR operator with the dataset's fitted block slot count."""
-    return bsr_operator_from_scipy(L, block_size=buckets.bsr_block, k=buckets.bsr_k, n_rows=N, n_cols=N)
+def _bsr_sample_operator(L: sp.spmatrix, buckets: Buckets, N: int, op_dtype: torch.dtype | None = None):
+    """BSR operator with the dataset's fitted block slot count, its blocks
+    assembled in fp32 and stored at ``op_dtype`` (bf16 under mixed
+    precision, as the JAX trainers store them; default fp32)."""
+    return bsr_operator_from_scipy(L, block_size=buckets.bsr_block, k=buckets.bsr_k, n_rows=N, n_cols=N,
+                                   dtype=op_dtype or torch.float32)
 
 
 def _dense_operator(L: sp.spmatrix, N: int) -> np.ndarray:
@@ -214,32 +217,35 @@ def laplacian_batch(
     input_key: str = "input",
     target_key: str = "target",
     fmt: str = "ell",
+    op_dtype: torch.dtype | None = None,
 ) -> MeshBatch:
     """Assemble a Laplacian-operator batch from per-mesh sample dicts
     (``V [n,3]``, ``F [m,3]``, ``L`` scipy sparse, ``input``, ``target``).
     ``fmt`` is ``'ell'``, ``'bsr'`` (samples RCM-ordered, ``bsr_k`` fitted),
-    ``'dense'`` or ``'auto'``."""
+    ``'dense'`` or ``'auto'``.  ``op_dtype`` (BSR only, as in the JAX
+    package) stores the packed blocks at a narrower dtype: bf16 under
+    mixed precision."""
     N = buckets.n_vertices
     inputs, targets, mask = _padded_arrays(samples, N, input_key, target_key)
     return MeshBatch(
         inputs=torch.from_numpy(inputs),
         targets=torch.from_numpy(targets),
         mask=torch.from_numpy(mask),
-        operator=_lap_operator_batch([s["L"] for s in samples], buckets, N, fmt),
+        operator=_lap_operator_batch([s["L"] for s in samples], buckets, N, fmt, op_dtype),
         faces=_pad_faces(samples, buckets),
         names=[s.get("name") for s in samples],
     )
 
 
-def _lap_operator_batch(Ls: list, buckets: Buckets, N: int, fmt: str):
+def _lap_operator_batch(Ls: list, buckets: Buckets, N: int, fmt: str, op_dtype: torch.dtype | None = None):
     """The stacked Laplacian operators of a batch in ``fmt`` (``'auto'``
-    resolved against the batch)."""
+    resolved against the batch); BSR blocks stored at ``op_dtype``."""
     if fmt == "auto":
         fmt = choose_operator_format(len(Ls), N)
     if fmt == "ell":
         return stack_operators([_fixed_k_operator(L, buckets, N) for L in Ls])
     if fmt == "bsr":
-        return stack_bsr_operators([_bsr_sample_operator(L, buckets, N) for L in Ls])
+        return stack_bsr_operators([_bsr_sample_operator(L, buckets, N, op_dtype) for L in Ls])
     if fmt == "dense":
         return torch.from_numpy(np.stack([_dense_operator(L, N) for L in Ls]))
     raise ValueError(f"unknown operator format {fmt!r}")
@@ -416,20 +422,21 @@ def arap_batch(sequences: list[list[dict]], picks: list[tuple[int, int]], bucket
                      operator=operator, faces=_pad_faces(faces, buckets), names=list(picks))
 
 
-def correspondence_batch(sample: dict, buckets: Buckets, fmt: str = "ell") -> MeshBatch:
+def correspondence_batch(sample: dict, buckets: Buckets, fmt: str = "ell",
+                         op_dtype: torch.dtype | None = None) -> MeshBatch:
     """Single-shape batch (B=1) for the siamese trainer; ``targets`` is
     ``(G, label, label_inv)`` as the sample holds them.
 
     ``fmt='bsr'`` packs the block-sparse operator: the sample must be
     RCM-ordered (``rcm_reorder_sample``), the bucket a multiple of 128 and
-    ``buckets.bsr_k`` fitted."""
+    ``buckets.bsr_k`` fitted; its blocks are stored at ``op_dtype``."""
     N = buckets.n_vertices
     n = sample["V"].shape[0]
     inputs = pad_rows(np.asarray(sample["input"], np.float32), N)[None]
     mask = np.zeros((1, N, 1), dtype=np.float32)
     mask[0, :n] = 1.0
     if fmt == "bsr":
-        operator = stack_bsr_operators([_bsr_sample_operator(sample["L"], buckets, N)])
+        operator = stack_bsr_operators([_bsr_sample_operator(sample["L"], buckets, N, op_dtype)])
     elif fmt == "ell":
         operator = stack_operators([_fixed_k_operator(sample["L"], buckets, N)])
     else:

@@ -16,6 +16,9 @@ tree onto ``state_dict``.
 * ``GCNModel``: ``GCNResNet2`` on even layers, Avg blocks on odd ones.  The
   JAX trainer feeds it the same cotan Laplacian as every other model, and
   so does the port's.
+
+Every model takes ``dtype``, the computation dtype (bf16: mixed precision);
+the output is fp32 whatever it is, through the fp32 residual head.
 """
 
 from __future__ import annotations
@@ -44,14 +47,14 @@ class _BlockStack(nn.Module):
     ELU -> conv2 -> the residual head."""
 
     def __init__(self, layers: int, block: Callable[[int], nn.Module], conv2_bn: str | None = "pre",
-                 final_bn: bool = False):
+                 final_bn: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
         self.layers = layers
-        self.conv1 = GraphConv1x1(3 * IN_FRAMES, WIDTH, None)
+        self.conv1 = GraphConv1x1(3 * IN_FRAMES, WIDTH, None, dtype=dtype)
         for i in range(layers):
             self.add_module(f"rn{i}", block(i))
         self.bn = GraphBatchNorm(WIDTH) if final_bn else None
-        self.conv2 = GraphConv1x1(WIDTH, 3 * OUT_FRAMES, conv2_bn)
+        self.conv2 = GraphConv1x1(WIDTH, 3 * OUT_FRAMES, conv2_bn, dtype=dtype)
 
     def forward(self, op, mask, inputs):
         x = self.conv1(inputs)
@@ -70,35 +73,37 @@ GCNResNet2 = LapResNet2
 class Model(_BlockStack):
     """The Lap model."""
 
-    def __init__(self, layers: int = 15):
-        super().__init__(layers, lambda i: LapResNet2(WIDTH) if i % 2 == 0 else AvgResNet2(WIDTH))
+    def __init__(self, layers: int = 15, dtype: torch.dtype | None = None):
+        super().__init__(layers, lambda i: (LapResNet2 if i % 2 == 0 else AvgResNet2)(WIDTH, dtype=dtype),
+                         dtype=dtype)
 
 
 class AvgModel(_BlockStack):
-    def __init__(self, layers: int = 15):
-        super().__init__(layers, lambda i: AvgResNet2(WIDTH))
+    def __init__(self, layers: int = 15, dtype: torch.dtype | None = None):
+        super().__init__(layers, lambda i: AvgResNet2(WIDTH, dtype=dtype), dtype=dtype)
 
 
 class MlpModel(_BlockStack):
     """Pointwise blocks, a batch norm over every row, ELU, conv2 without a
     norm."""
 
-    def __init__(self, layers: int = 15):
-        super().__init__(layers, lambda i: MlpResNet2(WIDTH), conv2_bn=None, final_bn=True)
+    def __init__(self, layers: int = 15, dtype: torch.dtype | None = None):
+        super().__init__(layers, lambda i: MlpResNet2(WIDTH, dtype=dtype), conv2_bn=None, final_bn=True, dtype=dtype)
 
 
 class GCNModel(_BlockStack):
-    def __init__(self, layers: int = 15):
-        super().__init__(layers, lambda i: GCNResNet2(WIDTH) if i % 2 == 0 else AvgResNet2(WIDTH))
+    def __init__(self, layers: int = 15, dtype: torch.dtype | None = None):
+        super().__init__(layers, lambda i: (GCNResNet2 if i % 2 == 0 else AvgResNet2)(WIDTH, dtype=dtype),
+                         dtype=dtype)
 
 
 class DirModel(DirTrunk):
     """The Dirac model: ``op`` is a ``DiracOperator`` or a dense (Di, DiA)
     pair."""
 
-    def __init__(self, layers: int = 15):
-        super().__init__(3 * IN_FRAMES, layers)
-        self.conv2 = GraphConv1x1(WIDTH, 3 * OUT_FRAMES, "pre")
+    def __init__(self, layers: int = 15, dtype: torch.dtype | None = None):
+        super().__init__(3 * IN_FRAMES, layers, dtype)
+        self.conv2 = GraphConv1x1(WIDTH, 3 * OUT_FRAMES, "pre", dtype=dtype)
 
     def forward(self, op, mask, inputs):
         v, _ = self.trunk(op, mask, inputs)

@@ -19,6 +19,10 @@ flax tree onto ``state_dict``.
 * ``DirModel``: Dirac blocks in every layer over a vertex stream and a face
   stream that starts at zero (the normal trainer's ``DirTrunk`` alternates
   Dirac and Avg blocks; this one does not); the vertex stream is pooled.
+
+Every model takes ``dtype``, the computation dtype (bf16: mixed precision);
+the pooled features reach ``fc1`` and the log-softmax in fp32 whatever it
+is, as in the JAX models.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from surfacenetworks_tpu_torch.nn.blocks import AvgResNet2, DirResNet2, LapResNet2, MlpResNet2, dirac_num_faces
-from surfacenetworks_tpu_torch.nn.layers import GraphConv1x1, global_average
+from surfacenetworks_tpu_torch.nn.layers import GraphConv1x1, at_least_fp32, global_average
 
 WIDTH = 64
 NUM_CLASSES = 10
@@ -41,15 +45,10 @@ def dropout_keep(shape, generator: torch.Generator | None, device) -> torch.Tens
     return torch.bernoulli(torch.full(shape, KEEP_PROB, device=device), generator=generator)
 
 
-def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in fp32, or in its own dtype where that is wider (fp64 runs)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
-
-
 class _ClassifierHead(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype | None = None):
         super().__init__()
-        self.bn_conv2 = GraphConv1x1(WIDTH, WIDTH, "pre")
+        self.bn_conv2 = GraphConv1x1(WIDTH, WIDTH, "pre", dtype=dtype)
         self.fc1 = nn.Linear(WIDTH, NUM_CLASSES)
 
     def forward(self, x, mask, deterministic: bool, keep=None, generator=None):
@@ -63,16 +62,16 @@ class _ClassifierHead(nn.Module):
 
 
 class _Classifier(nn.Module):
-    """conv1 -> blocks ``rn{i} = block()`` (each ``block(op, mask, x)``) ->
-    the head."""
+    """conv1 -> blocks ``rn{i} = block(dtype)`` (each ``block(op, mask,
+    x)``) -> the head; ``dtype`` is the computation dtype."""
 
-    def __init__(self, layers: int, block):
+    def __init__(self, layers: int, block, dtype: torch.dtype | None = None):
         super().__init__()
         self.layers = layers
-        self.conv1 = GraphConv1x1(3, WIDTH, None)
+        self.conv1 = GraphConv1x1(3, WIDTH, None, dtype=dtype)
         for i in range(layers):
-            self.add_module(f"rn{i}", block())
-        self.head = _ClassifierHead()
+            self.add_module(f"rn{i}", block(dtype))
+        self.head = _ClassifierHead(dtype)
 
     def trunk(self, op, mask, inputs) -> torch.Tensor:
         x = self.conv1(inputs)
@@ -87,26 +86,26 @@ class _Classifier(nn.Module):
 class Model(_Classifier):
     """The Laplacian classifier."""
 
-    def __init__(self, layers: int = 5):
-        super().__init__(layers, lambda: LapResNet2(WIDTH))
+    def __init__(self, layers: int = 5, dtype: torch.dtype | None = None):
+        super().__init__(layers, lambda dt: LapResNet2(WIDTH, dtype=dt), dtype)
 
 
 class AvgModel(_Classifier):
-    def __init__(self, layers: int = 5):
-        super().__init__(layers, lambda: AvgResNet2(WIDTH))
+    def __init__(self, layers: int = 5, dtype: torch.dtype | None = None):
+        super().__init__(layers, lambda dt: AvgResNet2(WIDTH, dtype=dt), dtype)
 
 
 class MlpModel(_Classifier):
-    def __init__(self, layers: int = 5):
-        super().__init__(layers, lambda: MlpResNet2(WIDTH))
+    def __init__(self, layers: int = 5, dtype: torch.dtype | None = None):
+        super().__init__(layers, lambda dt: MlpResNet2(WIDTH, dtype=dt), dtype)
 
 
 class DirModel(_Classifier):
     """The Dirac classifier: ``op`` is a ``DiracOperator`` or a dense (Di,
     DiA) pair."""
 
-    def __init__(self, layers: int = 5):
-        super().__init__(layers, lambda: DirResNet2(WIDTH))
+    def __init__(self, layers: int = 5, dtype: torch.dtype | None = None):
+        super().__init__(layers, lambda dt: DirResNet2(WIDTH, dtype=dt), dtype)
 
     def trunk(self, op, mask, inputs) -> torch.Tensor:
         v = self.conv1(inputs)

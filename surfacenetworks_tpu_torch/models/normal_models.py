@@ -26,11 +26,13 @@ class LapDeepModel(nn.Module):
     """Deep Laplacian network: width-changing Lap blocks on even layers (all
     layers with ``only_lap``), Avg blocks on odd ones, an optional bottleneck
     width schedule, an ELU + 1x1 head and the repeating-expand input
-    residual.  ``remat`` and ``dtype`` of the JAX model come with the
-    training and bf16 slices."""
+    residual.  ``dtype`` is the computation dtype (bf16: mixed precision);
+    the output is fp32 whatever it is, through the fp32 input residual.
+    ``remat`` of the JAX model is not ported."""
 
     def __init__(self, in_features: int, out_features: int, layers: int = 15,
-                 bnmode: str | None = "", only_lap: bool = False, bottleneck: bool = False):
+                 bnmode: str | None = "", only_lap: bool = False, bottleneck: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         if bottleneck:
             if layers != 16:
@@ -39,11 +41,11 @@ class LapDeepModel(nn.Module):
         else:
             widths = [WIDTH] * (layers + 1)
         self.layers = layers
-        self.conv1 = GraphConv1x1(in_features, WIDTH, "")
+        self.conv1 = GraphConv1x1(in_features, WIDTH, "", dtype=dtype)
         for i in range(layers):
             cls = WideLapResNet2 if i % 2 == 0 or only_lap else WideAvgResNet2
-            self.add_module(f"rn{i}", cls(widths[i], widths[i + 1], bnmode))
-        self.conv2 = GraphConv1x1(WIDTH, out_features, _conv2_bn(bnmode))
+            self.add_module(f"rn{i}", cls(widths[i], widths[i + 1], bnmode, dtype=dtype))
+        self.conv2 = GraphConv1x1(WIDTH, out_features, _conv2_bn(bnmode), dtype=dtype)
 
     def forward(self, op, mask, inputs):
         x = self.conv1(inputs)
@@ -55,14 +57,15 @@ class LapDeepModel(nn.Module):
 
 class DirTrunk(nn.Module):
     """Dirac blocks on even layers over coupled vertex and face streams (the
-    face stream starts at zero), Avg blocks on odd ones."""
+    face stream starts at zero, in the vertex stream's dtype), Avg blocks on
+    odd ones; ``dtype`` is the computation dtype."""
 
-    def __init__(self, in_features: int, layers: int):
+    def __init__(self, in_features: int, layers: int, dtype: torch.dtype | None = None):
         super().__init__()
         self.layers = layers
-        self.conv1 = GraphConv1x1(in_features, WIDTH, None)
+        self.conv1 = GraphConv1x1(in_features, WIDTH, None, dtype=dtype)
         for i in range(layers):
-            self.add_module(f"rn{i}", DirResNet2(WIDTH) if i % 2 == 0 else AvgResNet2(WIDTH))
+            self.add_module(f"rn{i}", DirResNet2(WIDTH, dtype=dtype) if i % 2 == 0 else AvgResNet2(WIDTH, dtype=dtype))
 
     def trunk(self, op, mask, inputs) -> tuple[torch.Tensor, torch.Tensor]:
         v = self.conv1(inputs)
@@ -80,9 +83,9 @@ class DirDeepModel(DirTrunk):
     no input residual.  ``op`` is a ``DiracOperator`` or a dense (Di, DiA)
     pair."""
 
-    def __init__(self, in_features: int, out_features: int, layers: int = 15):
-        super().__init__(in_features, layers)
-        self.conv2 = GraphConv1x1(WIDTH, out_features, "pre")
+    def __init__(self, in_features: int, out_features: int, layers: int = 15, dtype: torch.dtype | None = None):
+        super().__init__(in_features, layers, dtype)
+        self.conv2 = GraphConv1x1(WIDTH, out_features, "pre", dtype=dtype)
 
     def forward(self, op, mask, inputs):
         v, _ = self.trunk(op, mask, inputs)
@@ -94,9 +97,9 @@ class DirModelToFace(DirTrunk):
     """Dirac network whose output is the face stream: ELU, then conv2
     ('pre'), per face ``[B, M, out_features]``."""
 
-    def __init__(self, in_features: int, out_features: int, layers: int = 16):
-        super().__init__(in_features, layers)
-        self.conv2 = GraphConv1x1(WIDTH, out_features, "pre")
+    def __init__(self, in_features: int, out_features: int, layers: int = 16, dtype: torch.dtype | None = None):
+        super().__init__(in_features, layers, dtype)
+        self.conv2 = GraphConv1x1(WIDTH, out_features, "pre", dtype=dtype)
 
     def forward(self, op, mask, inputs):
         _, f = self.trunk(op, mask, inputs)

@@ -16,7 +16,10 @@ device.  Module names follow the JAX package's flax names (``encoder``,
 ``decoder``, ``conv1``, ``conv_inputs``, ``conv_noise``, ``rn{i}``,
 ``bn_conv2``, ``fc_mu``, ``fc_logvar``), so ``convert.params_from_flax``
 maps a flax tree onto ``state_dict``; the decoder's ``fc_logvar`` is a bare
-parameter, the encoder's a Linear.
+parameter, the encoder's a Linear.  ``dtype`` is the computation dtype of
+every ``GraphConv1x1`` and block (bf16: mixed precision); the latent heads,
+the noise and the reconstruction mean are fp32 whatever it is, as in the
+JAX models.
 """
 
 from __future__ import annotations
@@ -25,9 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from surfacenetworks_tpu_torch.models.mnist_models import at_least_fp32
 from surfacenetworks_tpu_torch.nn.blocks import DirResNet2, LapResNet2, dirac_num_faces
-from surfacenetworks_tpu_torch.nn.layers import GraphConv1x1, global_average
+from surfacenetworks_tpu_torch.nn.layers import GraphConv1x1, at_least_fp32, global_average
 
 WIDTH = 128
 LATENT = 100
@@ -38,11 +40,11 @@ class _Blocks(nn.Module):
     Laplacian blocks, or with ``dirac`` Dirac blocks whose face stream
     starts at zero."""
 
-    def __init__(self, num_layers: int, dirac: bool):
+    def __init__(self, num_layers: int, dirac: bool, dtype: torch.dtype | None = None):
         super().__init__()
         self.num_layers, self.dirac = num_layers, dirac
         for i in range(num_layers):
-            self.add_module(f"rn{i}", DirResNet2(WIDTH) if dirac else LapResNet2(WIDTH))
+            self.add_module(f"rn{i}", DirResNet2(WIDTH, dtype=dtype) if dirac else LapResNet2(WIDTH, dtype=dtype))
 
     def blocks(self, op, mask, x: torch.Tensor) -> torch.Tensor:
         f = x.new_zeros(x.shape[0], dirac_num_faces(op), WIDTH) if self.dirac else None
@@ -58,10 +60,10 @@ class _Blocks(nn.Module):
 class _Encoder(_Blocks):
     DIRAC = False
 
-    def __init__(self, num_layers: int = 5):
-        super().__init__(num_layers, self.DIRAC)
-        self.conv1 = GraphConv1x1(3, WIDTH, None)
-        self.bn_conv2 = GraphConv1x1(WIDTH, WIDTH, "pre")
+    def __init__(self, num_layers: int = 5, dtype: torch.dtype | None = None):
+        super().__init__(num_layers, self.DIRAC, dtype)
+        self.conv1 = GraphConv1x1(3, WIDTH, None, dtype=dtype)
+        self.bn_conv2 = GraphConv1x1(WIDTH, WIDTH, "pre", dtype=dtype)
         self.fc_mu = nn.Linear(WIDTH, LATENT)
         self.fc_logvar = nn.Linear(WIDTH, LATENT)
 
@@ -75,12 +77,12 @@ class _Encoder(_Blocks):
 class _Decoder(_Blocks):
     DIRAC = False
 
-    def __init__(self, num_layers: int = 5):
-        super().__init__(num_layers, self.DIRAC)
-        self.conv_inputs = GraphConv1x1(3, WIDTH, None)
-        self.conv_noise = GraphConv1x1(LATENT, WIDTH, None)
-        self.bn_conv2 = GraphConv1x1(WIDTH, WIDTH, "pre")
-        self.fc_mu = GraphConv1x1(WIDTH, 3, None)
+    def __init__(self, num_layers: int = 5, dtype: torch.dtype | None = None):
+        super().__init__(num_layers, self.DIRAC, dtype)
+        self.conv_inputs = GraphConv1x1(3, WIDTH, None, dtype=dtype)
+        self.conv_noise = GraphConv1x1(LATENT, WIDTH, None, dtype=dtype)
+        self.bn_conv2 = GraphConv1x1(WIDTH, WIDTH, "pre", dtype=dtype)
+        self.fc_mu = GraphConv1x1(WIDTH, 3, None, dtype=dtype)
         self.fc_logvar = nn.Parameter(torch.zeros(1, 1, 1))
 
     def forward(self, inputs, noise, op, mask) -> tuple[torch.Tensor, torch.Tensor]:
@@ -109,10 +111,10 @@ class DirDecoder(_Decoder):
 class _VAE(nn.Module):
     ENCODER, DECODER = LapEncoder, LapDecoder
 
-    def __init__(self, num_layers: int = 5):
+    def __init__(self, num_layers: int = 5, dtype: torch.dtype | None = None):
         super().__init__()
-        self.encoder = self.ENCODER(num_layers)
-        self.decoder = self.DECODER(num_layers)
+        self.encoder = self.ENCODER(num_layers, dtype)
+        self.decoder = self.DECODER(num_layers, dtype)
 
     def forward(self, x, flat_x, op, flat_op, mask, eps=None, generator=None):
         """(recon_mu, recon_logvar, z, mu, logvar); ``z = eps * exp(logvar

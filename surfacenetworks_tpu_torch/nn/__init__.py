@@ -15,6 +15,7 @@ from surfacenetworks_tpu_torch.nn.blocks import (
 from surfacenetworks_tpu_torch.nn.layers import (
     GraphBatchNorm,
     GraphConv1x1,
+    at_least_fp32,
     global_average,
     repeating_expand,
 )
@@ -31,6 +32,7 @@ __all__ = [
     "apply_dirac_fv",
     "apply_dirac_vf",
     "apply_operator",
+    "at_least_fp32",
     "dirac_num_faces",
     "global_average",
     "repeating_expand",

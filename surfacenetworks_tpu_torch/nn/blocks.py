@@ -12,6 +12,12 @@ Every block keeps the signature ``block(op, mask, x)`` (Dirac:
 * ``DirResNet2``: vertex and face streams coupled through the Dirac pair in
   quaternion layout; the face stream has no residual.
 
+Every block takes ``dtype``, the computation dtype of its ``GraphConv1x1``s
+(None: fp32; ``torch.bfloat16``: mixed precision, as the JAX blocks'
+``dtype``).  Operator results may arrive wider than ``x`` (fp32 on bf16
+``x``), and ``[x || L x]`` is concatenated in the wider dtype, so the 'pre'
+batch norm reads the operator result unrounded.
+
 ``op`` is an ``EllOperator``, a ``BsrOperator``, a dense ``[B, N, N]``
 tensor, or any callable ``x -> L x`` (dispatch in ``apply_operator``).  A
 Dirac operator is a structured ``DiracOperator`` or a dense pair ``(Di [B,
@@ -54,10 +60,11 @@ def _dense_pair(op: Any) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _dense_dirac(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """A dense Dirac matrix ``[B, 4R, 4S]`` on ``x [B, S, C]`` in quaternion
-    layout: ``x`` viewed ``[B, 4S, C/4]``; the matrix is widened for fp64
-    ``x``."""
+    layout: ``x`` viewed ``[B, 4S, C/4]``; the product is in the wider of
+    the two dtypes (fp32 on bf16 ``x``, fp64 on fp64 ``x``), as in the JAX
+    package."""
     *lead, n, c = x.shape
-    out = dense_bmm(d.to(x.dtype), x.reshape(*lead, n * 4, c // 4))
+    out = dense_bmm(d, x.reshape(*lead, n * 4, c // 4))
     return out.reshape(*lead, out.shape[-2] // 4, c)
 
 
@@ -103,10 +110,10 @@ def _cat_avg(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 class LapResNet2(nn.Module):
     """Two-step Laplacian residual block."""
 
-    def __init__(self, features: int, bnmode: str | None = ""):
+    def __init__(self, features: int, bnmode: str | None = "", dtype: torch.dtype | None = None):
         super().__init__()
-        self.bn_fc0 = GraphConv1x1(2 * features, features, _bn_mode(bnmode))
-        self.bn_fc1 = GraphConv1x1(2 * features, features, _bn_mode(bnmode))
+        self.bn_fc0 = GraphConv1x1(2 * features, features, _bn_mode(bnmode), dtype=dtype)
+        self.bn_fc1 = GraphConv1x1(2 * features, features, _bn_mode(bnmode), dtype=dtype)
 
     def forward(self, op, mask, inputs):
         x = F.elu(inputs)
@@ -119,10 +126,10 @@ class LapResNet2(nn.Module):
 class AvgResNet2(nn.Module):
     """Global-average residual block."""
 
-    def __init__(self, features: int, bnmode: str | None = ""):
+    def __init__(self, features: int, bnmode: str | None = "", dtype: torch.dtype | None = None):
         super().__init__()
-        self.bn_fc0 = GraphConv1x1(2 * features, features, _bn_mode(bnmode))
-        self.bn_fc1 = GraphConv1x1(2 * features, features, _bn_mode(bnmode))
+        self.bn_fc0 = GraphConv1x1(2 * features, features, _bn_mode(bnmode), dtype=dtype)
+        self.bn_fc1 = GraphConv1x1(2 * features, features, _bn_mode(bnmode), dtype=dtype)
 
     def forward(self, op, mask, inputs):
         x = F.elu(inputs)
@@ -136,12 +143,12 @@ class MlpResNet2(nn.Module):
     """Pointwise residual block: two steps of batch norm (over every row,
     padding included) -> ELU -> conv, + input; no operator."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype | None = None):
         super().__init__()
         self.bn0 = GraphBatchNorm(features)
-        self.fc0 = GraphConv1x1(features, features, None)
+        self.fc0 = GraphConv1x1(features, features, None, dtype=dtype)
         self.bn1 = GraphBatchNorm(features)
-        self.fc1 = GraphConv1x1(features, features, None)
+        self.fc1 = GraphConv1x1(features, features, None, dtype=dtype)
 
     def forward(self, op, mask, inputs):
         x = self.fc0(F.elu(self.bn0(inputs)))
@@ -155,14 +162,14 @@ class _WideBlock(nn.Module):
     equal output) or doubling (wider output) input residual."""
 
     def __init__(self, num_inputs: int, num_outputs: int | None = None, bnmode: str | None = "",
-                 inner_layers: int = 2):
+                 inner_layers: int = 2, dtype: torch.dtype | None = None):
         super().__init__()
         num_outputs = num_inputs if num_outputs is None else num_outputs
         self.num_outputs = num_outputs
         self.inner_layers = inner_layers
         widths_in = [num_inputs] + [num_outputs] * (inner_layers - 1)
         for i in range(inner_layers):
-            self.add_module(f"bn_fc{i}", GraphConv1x1(2 * widths_in[i], num_outputs, _bn_mode(bnmode)))
+            self.add_module(f"bn_fc{i}", GraphConv1x1(2 * widths_in[i], num_outputs, _bn_mode(bnmode), dtype=dtype))
 
     def _neighbourhood(self, op, mask, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -197,10 +204,10 @@ class DirResNet2(nn.Module):
     face stream's batch norm takes every ``B*M`` face row, padded faces
     included, as the JAX package's does."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.bn_fc0 = GraphConv1x1(2 * features, features, "pre")
-        self.bn_fc1 = GraphConv1x1(2 * features, features, "pre")
+        self.bn_fc0 = GraphConv1x1(2 * features, features, "pre", dtype=dtype)
+        self.bn_fc1 = GraphConv1x1(2 * features, features, "pre", dtype=dtype)
 
     def forward(self, op, v, f):
         x_in, f_in = F.elu(v), F.elu(f)

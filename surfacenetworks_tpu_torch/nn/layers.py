@@ -10,6 +10,13 @@
 
 Parameter names follow the JAX package's flax names (``fc``, ``bn``) so that
 ``convert.params_from_flax`` maps a flax tree onto ``state_dict`` keys.
+
+Mixed precision follows flax's ``dtype`` convention, threaded explicitly
+(not ``torch.autocast``, whose per-op rules differ): ``GraphConv1x1(dtype=
+torch.bfloat16)`` computes its Linear in bf16 from fp32 parameters, as
+``nn.Dense(dtype=bf16)`` does; batch-norm statistics and global averages run
+in fp32 and cast back to the input's dtype; a 'pre' batch norm reads its
+input at the precision it arrives in.  ``dtype=None`` is the fp32 model.
 """
 
 from __future__ import annotations
@@ -21,6 +28,12 @@ from torch import nn
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:
     """Statistics in fp32, or in fp64 for an fp64 reference run."""
     return torch.promote_types(x.dtype, torch.float32)
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or in its own dtype where that is wider (fp64 runs):
+    where the mixed-precision models and the losses leave bf16."""
+    return x.to(_stat_dtype(x))
 
 
 def global_average(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -64,23 +77,34 @@ class GraphConv1x1(nn.Module):
 
     ``batch_norm`` accepts None/''/'pre'/'post'; any other string (such as
     the reference's 'grouppre') applies no normalization, as in the
-    reference.
+    reference.  ``dtype`` is the computation dtype (the parameters stay
+    fp32): with ``torch.bfloat16`` the input and the weight are cast to
+    bf16, multiplied with fp32 accumulation into a bf16 product, and the
+    bias is added in bf16, two roundings as in flax's ``nn.Dense`` (a fused
+    ``F.linear`` bias would round once).
     """
 
     def __init__(self, num_inputs: int, num_outputs: int, batch_norm: str | None = None,
-                 masked_bn: bool = False):
+                 masked_bn: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
         self.batch_norm = batch_norm
+        self.dtype = dtype
         self.fc = nn.Linear(num_inputs, num_outputs)
         if batch_norm == "pre":
             self.bn = GraphBatchNorm(num_inputs, masked=masked_bn)
         elif batch_norm == "post":
             self.bn = GraphBatchNorm(num_outputs, masked=masked_bn)
 
+    def _linear(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return self.fc(x)
+        dt = self.dtype
+        return torch.matmul(x.to(dt), self.fc.weight.to(dt).t()) + self.fc.bias.to(dt)
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         if self.batch_norm == "pre":
             x = self.bn(x, mask)
-        x = self.fc(x)
+        x = self._linear(x)
         if self.batch_norm == "post":
             x = self.bn(x, mask)
         return x

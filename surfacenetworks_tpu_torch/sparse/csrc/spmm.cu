@@ -6,7 +6,18 @@
 // point launches on the stream it is given, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 // All tensors are contiguous; the wrappers in sparse/kernels.py check that.
+//
+// Each kernel has an fp32 variant and a bf16 variant (mixed-precision
+// training, the trainers' --bf16).  The bf16 variants compute what the JAX
+// package's XLA paths compute under bf16, which is what its trainers run:
+// bf16 BSR blocks with x rounded to bf16 and an fp32 result
+// (_bsr_matmul_xla), fp32 ELL values on bf16 x with an fp32 result
+// (_ell_matmul_xla), and a bf16 SDDMM of bf16 features with fp32 sums
+// (_sddmm_xla).  A bf16 value widens to fp32 exactly (its 16 bits become the
+// high half of the fp32 word); every rounding to bf16 is to nearest even,
+// as XLA's convert rounds.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -497,6 +508,436 @@ sddmm_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 helpers
+// ---------------------------------------------------------------------------
+
+// bf16 bits -> fp32, exact: the bf16 value is the high half of the fp32 word
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// fp32 -> bf16 bits, rounded to nearest even (NaN stays NaN)
+__device__ __forceinline__ unsigned short bf16_rn(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// 8 bf16 (a 16-byte load) widened into v[0..8)
+__device__ __forceinline__ void widen8(const uint4& q, float (&v)[8]) {
+  v[0] = bf16_lo(q.x); v[1] = bf16_hi(q.x);
+  v[2] = bf16_lo(q.y); v[3] = bf16_hi(q.y);
+  v[4] = bf16_lo(q.z); v[5] = bf16_hi(q.z);
+  v[6] = bf16_lo(q.w); v[7] = bf16_hi(q.w);
+}
+
+// VEC8: the j-th group of 8 bf16 of a row (16 bytes) in q; else the j-th
+// bf16 in the low half of q.x
+template <bool VEC8>
+__device__ __forceinline__ uint4 load_bf(const unsigned short* p, int j) {
+  if (VEC8) return reinterpret_cast<const uint4*>(p)[j];
+  return make_uint4(static_cast<unsigned>(p[j]), 0u, 0u, 0u);
+}
+
+// ---------------------------------------------------------------------------
+// Scalar-ELL SpMM on bf16 x: fp32 vals, bf16 x, fp32 out
+//   out[b, r] = sum_k vals[b, r, k] * x[b, cols[b, r, k]]
+//
+// Replaces _ell_matmul_call's bf16-x use (pallas_kernels.py:186-274) as the
+// JAX trainers run it, _ell_matmul_xla: fp32 vals times bf16 x promote to
+// fp32, the sum is fp32 and so is the result.  Bound: bytes, as in
+// ell_spmm_kernel, with x's bytes halved.  Design: ell_spmm_kernel's, with a
+// 16-byte lane carrying 8 bf16 channels (one gathered row of 128 bf16
+// channels is one 256-byte read by 16 lanes), widened to fp32 in registers;
+// each channel adds the slots in slot order with fmaf, the order the fp32
+// kernel uses, so two launches agree bit for bit.
+//
+// Measured by chip_smoke.py at R=N=7040, K=16, C=128 on an NVIDIA H100 80GB
+// HBM3 at 700.00 W: 0.00830 ms warm (23% of its 0.00188 ms byte bound),
+// 0.01171 ms cold, slower than the fp32 kernel's 0.00712: at C=128 a bf16 row
+// is 16 lanes' loads, so half of each warp idles while the row's gathers are
+// in flight.  Two rows per warp at C <= 128 is the lead for a later speed PR.
+// ---------------------------------------------------------------------------
+template <bool VEC8>
+__global__ void __launch_bounds__(256, 4)
+ell_spmm_bf16x_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
+                      const unsigned short* __restrict__ x, float* __restrict__ out,
+                      int batch, int rows, int k, int n, int c, int pairs4) {
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (row >= static_cast<long long>(batch) * rows) return;  // whole warp leaves together
+  const long long b = row / rows;
+  const int* row_cols = cols + row * k;
+  const float* row_vals = vals + row * k;
+  const unsigned short* xb = x + b * n * static_cast<long long>(c);
+  float* orow = out + row * c;
+  constexpr int kW = VEC8 ? 8 : 1;  // channels per lane and pass
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  const int width = VEC8 ? c / 8 : c;  // channel axis in units of 8 bf16 or one
+  for (int j0 = 0; j0 < width; j0 += 32) {
+    const int j = j0 + lane;
+    const bool live = j < width;
+    float acc[kW];
+#pragma unroll
+    for (int i = 0; i < kW; ++i) acc[i] = 0.f;
+    for (int s0 = 0; s0 < k; s0 += kEllChunk) {
+      int col[kEllChunk];
+      float val[kEllChunk];
+      if (pairs4 && s0 + kEllChunk <= k) {
+#pragma unroll
+        for (int q = 0; q < kEllChunk / 4; ++q) {
+          const int4 cq = __ldg(reinterpret_cast<const int4*>(row_cols + s0) + q);
+          const float4 vq = __ldg(reinterpret_cast<const float4*>(row_vals + s0) + q);
+          col[4 * q + 0] = cq.x; col[4 * q + 1] = cq.y; col[4 * q + 2] = cq.z; col[4 * q + 3] = cq.w;
+          val[4 * q + 0] = vq.x; val[4 * q + 1] = vq.y; val[4 * q + 2] = vq.z; val[4 * q + 3] = vq.w;
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < kEllChunk; ++s) {
+          const bool in = s0 + s < k;
+          col[s] = in ? __ldg(row_cols + s0 + s) : 0;
+          val[s] = in ? __ldg(row_vals + s0 + s) : 0.f;
+        }
+      }
+      // every gather of the chunk in flight before any FMA
+      uint4 xv[kEllChunk];
+#pragma unroll
+      for (int s = 0; s < kEllChunk; ++s) {
+        const bool take = live && val[s] != 0.f && col[s] >= 0 && col[s] < n;
+        val[s] = take ? val[s] : 0.f;
+        xv[s] = take ? load_bf<VEC8>(xb + static_cast<long long>(col[s]) * c, j) : zero;
+      }
+#pragma unroll
+      for (int s = 0; s < kEllChunk; ++s) {
+        if constexpr (VEC8) {
+          float w[8];
+          widen8(xv[s], w);
+#pragma unroll
+          for (int i = 0; i < kW; ++i) acc[i] = fmaf(val[s], w[i], acc[i]);
+        } else {
+          acc[0] = fmaf(val[s], bf16_lo(xv[s].x), acc[0]);
+        }
+      }
+    }
+    if (live) {
+      if constexpr (VEC8) {  // c % 8 == 0 and out 16-byte aligned: two float4 stores
+        float4* o = reinterpret_cast<float4*>(orow) + 2 * j;
+        o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+      } else {
+        orow[j] = acc[0];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Block-ELL SpMM over 128x128 bf16 blocks on the tensor cores:
+//   out[b, i*128 + m, ch] = sum_s sum_j vals[b, i, s, m, j] * bf16(x[b, cols[b, i, s]*128 + j, ch])
+//
+// Replaces _bsr_matmul_call's bf16-block use (pallas_kernels.py:133-178) as
+// the JAX trainers run it, _bsr_matmul_xla (sparse/bsr.py:145-160): x is
+// rounded to bf16 (to nearest even), the bf16 x bf16 products are summed in
+// fp32 and the result is fp32.  x may be fp32 (the backward's cotangent) or
+// bf16 (the forward's activations): it is rounded as it is staged, so the
+// backward needs no separate cast.  One bf16 tensor-core pass is exact per
+// product (8-bit by 8-bit mantissas fit fp32), where fp32 operands need
+// three TF32 passes.  Bound: bytes.  At NB=55, KB=5, C=128 the kernel reads
+// 9 MB of stored blocks and 1.8 MB (bf16 x) or 3.6 MB (fp32 x) and writes
+// 3.6 MB of fp32: about 0.0043 ms at 3.35 TB/s; its 1.15 GFLOP take 0.0012
+// ms at 989 TFLOP/s.
+//
+// Design: bsr_spmm_kernel's CTA tiling (4 warps, a 64-row half block-row by
+// 64 channels, each warp a 32 x 32 fp32 tile in registers), with
+// mma.sync.m16n8k16 bf16 (row.col, fp32 accumulate) and depth chunks of 32
+// in a 2-stage ring in static shared memory: the block chunk (64 rows x 32
+// bf16, rows of 40 bf16) arrives by 16-byte cp.async; the x chunk is loaded
+// into registers while the current chunk multiplies, rounded to bf16 and
+// stored transposed (channel-major, rows of 40 bf16), so that each B
+// fragment register (two consecutive depths of one channel) is one 32-bit
+// shared load, as each A fragment register is; the row pitch of 20 words
+// keeps both free of bank conflicts.  Out-of-range block-columns and the
+// ragged channel edge load zeros; the channel edge is masked on store.
+//
+// Measured by chip_smoke.py at NB=55, KB=5, C=128 on an NVIDIA H100 80GB
+// HBM3 at 700.00 W: 0.02286 ms warm on bf16 x (19% of its 0.00430 ms byte
+// bound), 0.02705 ms on fp32 x, 0.03146 ms cold; 69-72 registers, no spills.
+// The fp32 (3xTF32) kernel takes 0.0298 ms on the same blocks.
+// ---------------------------------------------------------------------------
+constexpr int kBfChunk = 32;                  // depth per stage
+constexpr int kBfPitch = kBfChunk + 8;        // 40 bf16 (20 words) per shared row
+constexpr int kBfAStage = kTileM * kBfPitch;  // block chunk: 64 rows x depth
+constexpr int kBfXStage = kTileN * kBfPitch;  // x chunk, transposed: 64 channels x depth
+
+// d += a (16x16, row) * b (16x8, col) in bf16 with fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes from global to shared, or 16 zero bytes if !full
+__device__ __forceinline__ void cp_async16b(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0));
+}
+
+// 4 channels of x from p (fp32 or bf16 bits), widened to fp32; VEC: one
+// 16-byte (fp32) or 8-byte (bf16) load, all 4 channels live; else the first
+// `live` channels, the rest 0
+template <bool XBF16, bool VEC>
+__device__ __forceinline__ float4 load_x4(const void* p, int live) {
+  if (XBF16) {
+    const unsigned short* q = static_cast<const unsigned short*>(p);
+    if (VEC) {
+      const uint2 w = *reinterpret_cast<const uint2*>(q);
+      return make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
+    }
+    return make_float4(live > 0 ? bf16_lo(q[0]) : 0.f, live > 1 ? bf16_lo(q[1]) : 0.f,
+                       live > 2 ? bf16_lo(q[2]) : 0.f, live > 3 ? bf16_lo(q[3]) : 0.f);
+  }
+  const float* q = static_cast<const float*>(p);
+  if (VEC) return *reinterpret_cast<const float4*>(q);
+  return make_float4(live > 0 ? q[0] : 0.f, live > 1 ? q[1] : 0.f, live > 2 ? q[2] : 0.f, live > 3 ? q[3] : 0.f);
+}
+
+template <bool XBF16, bool VEC>
+__global__ void __launch_bounds__(kBsrThreads)
+bsr_spmm_bf16_kernel(const int* __restrict__ block_cols, const unsigned short* __restrict__ block_vals,
+                     const void* __restrict__ x, float* __restrict__ out, int nb, int kb, int n, int c) {
+  __shared__ __align__(16) unsigned short a_ring[2 * kBfAStage];  // [stage][row m][depth]
+  __shared__ __align__(16) unsigned short x_ring[2 * kBfXStage];  // [stage][channel][depth]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;  // mma groupID
+  const int t = lane & 3;   // mma threadID_in_group
+  const int wm = (warp / kWarpsN) * kWarpM;
+  const int wn = (warp % kWarpsN) * kWarpN;
+  const int c0 = blockIdx.x * kTileN;
+  constexpr int kParts = kBs / kTileM;
+  const int part = blockIdx.y % kParts;
+  const long long i = blockIdx.y / kParts;
+  const long long b = blockIdx.z;
+  constexpr int kXBytes = XBF16 ? 2 : 4;
+
+  const int* cols_i = block_cols + (b * nb + i) * kb;
+  const unsigned short* vals_i = block_vals + (b * nb + i) * kb * static_cast<long long>(kBs * kBs) + part * kTileM * kBs;
+  const char* xb = static_cast<const char*>(x) + b * n * static_cast<long long>(c) * kXBytes;
+  const int n_blocks = n / kBs;
+  constexpr int kChunksPerSlot = kBs / kBfChunk;
+  const int iters = kb * kChunksPerSlot;
+
+  // block chunk copies: 64 rows x 4 pieces of 16 bytes, 2 per thread
+  const int a_m = tid / 4;
+  const int a_q = (tid % 4) * 8;  // bf16 offset of the piece in the row
+  // x chunk: 32 depths x 16 groups of 4 channels, 4 per thread: one group,
+  // depths x_d + 8u (a warp covers 4 groups of 8 consecutive depths)
+  const int x_grp = lane / 8 + 4 * warp;
+  const int x_d = lane % 8;
+  const int x_ch = c0 + 4 * x_grp;
+  const int x_live = min(4, c - x_ch);  // channels of the group inside [0, c)
+
+  auto load_a = [&](int it, int buf) {
+    const int s = it / kChunksPerSlot;
+    const int d0 = (it % kChunksPerSlot) * kBfChunk;
+    const int col = cols_i[s];
+    const bool ok = col >= 0 && col < n_blocks;
+    const unsigned short* a = ok ? vals_i + s * static_cast<long long>(kBs * kBs) + d0 : block_vals;
+    unsigned short* as = a_ring + buf * kBfAStage;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int m = a_m + 32 * u;
+      cp_async16b(as + m * kBfPitch + a_q, a + (ok ? m * kBs + a_q : 0), ok);
+    }
+  };
+  float4 xr[4];
+  auto load_x = [&](int it) {
+    const int s = it / kChunksPerSlot;
+    const int d0 = (it % kChunksPerSlot) * kBfChunk;
+    const int col = cols_i[s];
+    const bool ok = col >= 0 && col < n_blocks && x_live > 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long r = static_cast<long long>(col) * kBs + d0 + x_d + 8 * u;
+      xr[u] = ok ? load_x4<XBF16, VEC>(xb + (r * c + x_ch) * kXBytes, x_live) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store_x = [&](int buf) {
+    unsigned short* xs = x_ring + buf * kBfXStage + (4 * x_grp) * kBfPitch + x_d;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      xs[0 * kBfPitch + 8 * u] = bf16_rn(xr[u].x);
+      xs[1 * kBfPitch + 8 * u] = bf16_rn(xr[u].y);
+      xs[2 * kBfPitch + 8 * u] = bf16_rn(xr[u].z);
+      xs[3 * kBfPitch + 8 * u] = bf16_rn(xr[u].w);
+    }
+  };
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
+
+  if (iters > 0) {
+    load_a(0, 0);
+    load_x(0);
+    store_x(0);
+  }
+  cp_async_commit();
+  for (int it = 0; it < iters; ++it) {
+    const int cur = it & 1;
+    cp_async_wait<0>();  // this thread's block chunk `it` has landed
+    __syncthreads();     // ... and every thread's, with the x chunk; stage cur^1 is free again
+    const bool more = it + 1 < iters;
+    if (more) load_a(it + 1, cur ^ 1);
+    cp_async_commit();
+    if (more) load_x(it + 1);  // in flight while this chunk multiplies
+
+    const unsigned short* as = a_ring + cur * kBfAStage;
+    const unsigned short* xsm = x_ring + cur * kBfXStage;
+#pragma unroll
+    for (int kk = 0; kk < kBfChunk; kk += 16) {
+      unsigned af[kMT][4], bfr[kNT][2];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        // A fragment: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
+        const unsigned* ap = reinterpret_cast<const unsigned*>(as + (wm + mt * 16 + g) * kBfPitch + kk + 2 * t);
+        af[mt][0] = ap[0];
+        af[mt][1] = ap[8 * kBfPitch / 2];
+        af[mt][2] = ap[4];
+        af[mt][3] = ap[8 * kBfPitch / 2 + 4];
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        // B fragment: b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g)
+        const unsigned* bp = reinterpret_cast<const unsigned*>(xsm + (wn + nt * 8 + g) * kBfPitch + kk + 2 * t);
+        bfr[nt][0] = bp[0];
+        bfr[nt][1] = bp[4];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
+    }
+    if (more) store_x(cur ^ 1);
+  }
+  cp_async_wait<0>();
+
+  // C fragment: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+  float* ob = out + (b * nb * kBs + i * kBs + part * kTileM) * static_cast<long long>(c);
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = wm + mt * 16 + g + h * 8;
+        const int ch = c0 + wn + nt * 8 + 2 * t;
+        float* p = ob + static_cast<long long>(m) * c + ch;
+        const float v0 = acc[mt][nt][2 * h];
+        const float v1 = acc[mt][nt][2 * h + 1];
+        if (VEC) {  // c % 4 == 0 and ch even: both channels live together, 8-byte aligned
+          if (ch < c) *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          if (ch < c) p[0] = v0;
+          if (ch + 1 < c) p[1] = v1;
+        }
+      }
+}
+
+// ---------------------------------------------------------------------------
+// SDDMM of bf16 features at an ELL pattern, bf16 out:
+//   out[b, r, k] = bf16(<a[b, r], b[b, cols[b, r, k]]>) where vals[b, r, k] != 0, else 0
+//
+// Replaces _sddmm_call's bf16 use (pallas_kernels.py:277-352) as the JAX
+// trainers run it, _sddmm_xla: bf16 a and b, the dot summed in fp32, one
+// rounding to bf16 (to nearest even) at the store.  Bound: bytes, as in
+// sddmm_kernel, with a, b and the output at half the bytes.  Design:
+// sddmm_kernel's (a ballot over the row's slots, chunks of 4 live slots with
+// their gathers in flight, one transposing reduction per chunk), with a
+// 16-byte lane carrying 8 bf16 channels widened to fp32 in registers: the
+// 120 channels of a feature row are 15 lanes' loads.  One fixed order of
+// summation: two launches agree bit for bit.
+//
+// Measured by chip_smoke.py at R=N=7040, K=16, C=120 on an NVIDIA H100 80GB
+// HBM3 at 700.00 W: 0.00804 ms warm (17% of its 0.00134 ms byte bound),
+// 0.01184 ms cold; the fp32 kernel 0.00731: as in ell_spmm_bf16x_kernel, a
+// 120-channel bf16 row leaves 17 of 32 lanes idle.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float dot8(const uint4& u, const uint4& v) {
+  float a[8], b[8];
+  widen8(u, a);
+  widen8(v, b);
+  return fmaf(a[0], b[0], fmaf(a[1], b[1], fmaf(a[2], b[2], fmaf(a[3], b[3],
+         fmaf(a[4], b[4], fmaf(a[5], b[5], fmaf(a[6], b[6], a[7] * b[7])))))));
+}
+
+template <bool VEC8>
+__global__ void __launch_bounds__(kSddmmThreads, 8)
+sddmm_bf16_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
+                  const unsigned short* __restrict__ a, const unsigned short* __restrict__ b,
+                  unsigned short* __restrict__ out, int batch, int rows, int k, int n, int c) {
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * (kSddmmThreads / 32) + (threadIdx.x >> 5);
+  if (row >= static_cast<long long>(batch) * rows) return;  // whole warp leaves together
+  const long long bi = row / rows;
+  const int* row_cols = cols + row * k;
+  const float* row_vals = vals + row * k;
+  const unsigned short* arow = a + row * c;
+  const unsigned short* bb = b + bi * n * static_cast<long long>(c);
+  unsigned short* orow = out + row * k;
+
+  const int width = VEC8 ? c / 8 : c;  // channel axis in units of 8 bf16 or one
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int s0 = 0; s0 < k; s0 += 32) {
+    const int ns = min(32, k - s0);
+    int my_col = 0;
+    float my_val = 0.f;
+    if (lane < ns) {
+      my_col = row_cols[s0 + lane];
+      my_val = row_vals[s0 + lane];
+    }
+    const bool my_live = my_val != 0.f && my_col >= 0 && my_col < n;
+    const unsigned live_slots = __ballot_sync(0xffffffffu, my_live);
+    const int n_live = __popc(live_slots);
+    const int my_rank = __popc(live_slots & ((1u << lane) - 1u));  // live slots before mine
+    float my_out = 0.f;
+    for (int j0 = 0; j0 < width; j0 += 32) {
+      const int j = j0 + lane;
+      const bool live = j < width;
+      unsigned todo = live_slots;
+      for (int r0 = 0; r0 < n_live; r0 += kSddmmChunk) {
+        // every gather of the chunk in flight before any product
+        uint4 bv[kSddmmChunk];
+#pragma unroll
+        for (int q = 0; q < kSddmmChunk; ++q) {
+          const int s = todo ? __ffs(todo) - 1 : 0;  // live slot r0 + q, if any
+          todo &= todo - 1;
+          const int col = __shfl_sync(0xffffffffu, my_col, s);
+          bv[q] = live && r0 + q < n_live ? load_bf<VEC8>(bb + static_cast<long long>(col) * c, j) : zero;
+        }
+        const uint4 av = live ? load_bf<VEC8>(arow, j) : zero;
+        float part[kSddmmChunk];
+#pragma unroll
+        for (int q = 0; q < kSddmmChunk; ++q) {
+          part[q] = VEC8 ? dot8(av, bv[q]) : bf16_lo(av.x) * bf16_lo(bv[q].x);
+        }
+        const float dot = transposing_sum(part, lane);  // live slot r0 + q's dot in lane q * 32 / kSddmmChunk
+        const int q = my_rank - r0;
+        const float mine = __shfl_sync(0xffffffffu, dot, (q & (kSddmmChunk - 1)) * (32 / kSddmmChunk));
+        if (my_live && q >= 0 && q < kSddmmChunk) my_out += mine;
+      }
+    }
+    if (lane < ns) orow[s0 + lane] = bf16_rn(my_out);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -574,6 +1015,78 @@ int snx_sddmm(const void* cols, const void* vals, const void* a, const void* b, 
     sddmm_kernel<false><<<blocks, kSddmmThreads, 0, s>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals), static_cast<const float*>(a),
         static_cast<const float*>(b), static_cast<float*>(out), batch, rows, k, n, c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cols int32 [batch, rows, k], vals fp32 [batch, rows, k], x bf16 [batch, n, c]
+// -> out fp32 [batch, rows, c].  vec8 != 0 needs c % 8 == 0 and 16-byte
+// aligned x and out; pairs4 as in snx_ell_spmm.
+int snx_ell_spmm_bf16x(const void* cols, const void* vals, const void* x, void* out,
+                       int batch, int rows, int k, int n, int c, int vec8, int pairs4, void* stream) {
+  const long long total = static_cast<long long>(batch) * rows;
+  if (total == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const int threads = 256;  // 8 warps, one row each
+  const unsigned blocks = static_cast<unsigned>((total + threads / 32 - 1) / (threads / 32));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec8) {
+    ell_spmm_bf16x_kernel<true><<<blocks, threads, 0, s>>>(
+        static_cast<const int*>(cols), static_cast<const float*>(vals),
+        static_cast<const unsigned short*>(x), static_cast<float*>(out), batch, rows, k, n, c, pairs4);
+  } else {
+    ell_spmm_bf16x_kernel<false><<<blocks, threads, 0, s>>>(
+        static_cast<const int*>(cols), static_cast<const float*>(vals),
+        static_cast<const unsigned short*>(x), static_cast<float*>(out), batch, rows, k, n, c, pairs4);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// block_cols int32 [batch, nb, kb], block_vals bf16 [batch, nb, kb, 128, 128]
+// (16-byte aligned), x fp32 (x_bf16 == 0) or bf16 [batch, n, c] with n a
+// multiple of 128 -> out fp32 [batch, nb*128, c].  vec != 0 needs c % 4 == 0,
+// x aligned to 16 (fp32) or 8 (bf16) bytes and out to 16.
+int snx_bsr_spmm_bf16(const void* block_cols, const void* block_vals, const void* x, void* out,
+                      int batch, int nb, int kb, int n, int c, int x_bf16, int vec, void* stream) {
+  if (batch == 0 || nb == 0 || c == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((c + kTileN - 1) / kTileN, nb * (kBs / kTileM), batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* bc = static_cast<const int*>(block_cols);
+  const unsigned short* bv = static_cast<const unsigned short*>(block_vals);
+  float* o = static_cast<float*>(out);
+  if (x_bf16) {
+    if (vec) {
+      bsr_spmm_bf16_kernel<true, true><<<grid, kBsrThreads, 0, s>>>(bc, bv, x, o, nb, kb, n, c);
+    } else {
+      bsr_spmm_bf16_kernel<true, false><<<grid, kBsrThreads, 0, s>>>(bc, bv, x, o, nb, kb, n, c);
+    }
+  } else {
+    if (vec) {
+      bsr_spmm_bf16_kernel<false, true><<<grid, kBsrThreads, 0, s>>>(bc, bv, x, o, nb, kb, n, c);
+    } else {
+      bsr_spmm_bf16_kernel<false, false><<<grid, kBsrThreads, 0, s>>>(bc, bv, x, o, nb, kb, n, c);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cols int32 [batch, rows, k], vals fp32 [batch, rows, k], a bf16
+// [batch, rows, c], b bf16 [batch, n, c] -> out bf16 [batch, rows, k].
+// vec8 != 0 needs c % 8 == 0 and 16-byte aligned a and b.
+int snx_sddmm_bf16(const void* cols, const void* vals, const void* a, const void* b, void* out,
+                   int batch, int rows, int k, int n, int c, int vec8, void* stream) {
+  const long long total = static_cast<long long>(batch) * rows;
+  if (total == 0 || k == 0) return static_cast<int>(cudaGetLastError());
+  const unsigned blocks = static_cast<unsigned>((total + kSddmmThreads / 32 - 1) / (kSddmmThreads / 32));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* cc = static_cast<const int*>(cols);
+  const float* vv = static_cast<const float*>(vals);
+  const unsigned short* aa = static_cast<const unsigned short*>(a);
+  const unsigned short* bb = static_cast<const unsigned short*>(b);
+  unsigned short* o = static_cast<unsigned short*>(out);
+  if (vec8) {
+    sddmm_bf16_kernel<true><<<blocks, kSddmmThreads, 0, s>>>(cc, vv, aa, bb, o, batch, rows, k, n, c);
+  } else {
+    sddmm_bf16_kernel<false><<<blocks, kSddmmThreads, 0, s>>>(cc, vv, aa, bb, o, batch, rows, k, n, c);
   }
   return static_cast<int>(cudaGetLastError());
 }

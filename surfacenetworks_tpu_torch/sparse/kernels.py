@@ -62,6 +62,29 @@ are not differentiable: ``sparse/ops.py`` wraps them in autograd Functions.
   cache.  The TPU kernel's one MXU product per 128-row tile against a densified
   ``window`` band, with the K slots picked out by compare-selects, was
   matrix-unit machinery; ``window`` is ignored here.
+
+Each kernel also has a bf16 variant, for mixed-precision training
+(``--bf16``).  It computes what the JAX package's XLA path computes under
+bf16, which is the path its trainers run (they never select Pallas):
+
+* ``bsr_matmul`` with bf16 blocks (``_bsr_matmul_xla``): x (fp32 or bf16)
+  rounded to bf16 to nearest even, bf16 products summed in fp32, fp32 out.
+  ``mma.sync`` m16n8k16 bf16, one pass where fp32 takes three; x rounded as
+  it is staged in shared memory.
+* ``ell_matmul`` on bf16 x (``_ell_matmul_xla``): fp32 values times bf16 x
+  promote to fp32, fp32 sums and out.  A 16-byte lane carries 8 bf16
+  channels; slots are added in the fp32 kernel's fixed order.
+* ``sddmm`` of bf16 a and b (``_sddmm_xla``): fp32 sums, one rounding to
+  bf16 at the store, bf16 out; the ballot-compacted design of the fp32
+  kernel.
+
+Their plain versions widen the bf16 inputs to fp32 (exact), compute in
+fp32 and round to bf16 only where the XLA path's output is bf16.  Plain
+``torch.matmul`` on bf16 tensors rounds its output to bf16, which is not
+that contract.  The Pallas bodies differ from the XLA paths under bf16
+(``bsr_matmul`` keeps x in fp32, ``ell_matmul`` writes ``x.dtype``); the
+port follows the XLA paths.  Launches are counted per variant
+(``launches["bsr_matmul_bf16"]`` and so on).
 """
 
 from __future__ import annotations
@@ -72,9 +95,10 @@ import torch
 
 from surfacenetworks_tpu_torch.sparse import _build
 
-# Launches of each CUDA kernel since the last reset (plain-version calls on
-# CPU tensors do not count).
-launches = {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0}
+# Launches of each CUDA kernel variant since the last reset (plain-version
+# calls on CPU tensors do not count).
+KERNELS = ("bsr_matmul", "ell_matmul", "sddmm")
+launches = {name + suffix: 0 for suffix in ("", "_bf16") for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -115,20 +139,25 @@ def bsr_matmul_plain(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torc
 
     ``block_cols [..., NB, KB]``, ``block_vals [..., NB, KB, bs, bs]``,
     ``x [..., N, C]`` -> ``[..., NB*bs, C]`` accumulated in fp32
-    (``_bsr_matmul_xla``), or in fp64 for an fp64 reference run.
+    (``_bsr_matmul_xla``), or in fp64 for an fp64 reference run.  With bf16
+    blocks, x is first rounded to bf16 (to nearest even); both are then
+    widened to fp32, exactly, so each product is exact and the result fp32.
     """
     batched, (cols, vals, xb) = _batched(block_cols, block_vals, x)
     bs = vals.shape[-1]
     B, n, c = xb.shape
     blocks = xb.reshape(B, n // bs, bs, c)
     gathered = blocks[torch.arange(B, device=xb.device)[:, None, None], cols.long()]
-    acc = torch.promote_types(torch.promote_types(vals.dtype, xb.dtype), torch.float32)
+    if vals.dtype == torch.bfloat16:  # x rounded to the blocks' bf16, as _bsr_matmul_xla does
+        gathered = gathered.to(torch.bfloat16)
+    acc = torch.promote_types(torch.promote_types(vals.dtype, gathered.dtype), torch.float32)
     out = torch.einsum("bnkij,bnkjc->bnic", vals.to(acc), gathered.to(acc)).reshape(B, -1, c)
     return out if batched else out[0]
 
 
 def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Block-ELL SpMM over 128x128 blocks; fp32 in and out on the card.
+    """Block-ELL SpMM over 128x128 blocks, fp32 out on the card: fp32 blocks
+    and x, or bf16 blocks and fp32 or bf16 x (the bf16 variant).
 
     Block-columns must lie in ``[0, N/128)``.  ``BsrMatrix.to`` checks that
     on the host and ``bsr_spmm`` checks N, so the port's path never hands
@@ -140,9 +169,11 @@ def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tens
     _check_cuda("bsr_matmul", block_cols=block_cols, block_vals=block_vals, x=x)
     if block_cols.dtype != torch.int32:
         raise TypeError(f"bsr_matmul: block_cols must be int32, got {block_cols.dtype}")
-    if block_vals.dtype != torch.float32 or x.dtype != torch.float32:
+    bf16 = block_vals.dtype == torch.bfloat16 and x.dtype in (torch.float32, torch.bfloat16)
+    if not (bf16 or block_vals.dtype == x.dtype == torch.float32):
         raise TypeError(
-            f"bsr_matmul: the kernel takes fp32 blocks and x, got {block_vals.dtype} and {x.dtype}"
+            f"bsr_matmul: the kernels take fp32 blocks and x, or bf16 blocks and fp32 or bf16 x; got "
+            f"{block_vals.dtype} and {x.dtype}"
         )
     batched, (cols, vals, xb) = _batched(block_cols, block_vals, x)
     B, nb, kb = cols.shape
@@ -154,15 +185,18 @@ def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tens
         raise ValueError("bsr_matmul: block_vals must be 16-byte aligned")
     n, c = xb.shape[1:]
     out = torch.empty((B, nb * 128, c), device=x.device, dtype=torch.float32)
-    vec4 = c % 4 == 0 and xb.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    vec4 = c % 4 == 0 and xb.data_ptr() % (8 if xb.dtype == torch.bfloat16 else 16) == 0 and out.data_ptr() % 16 == 0
     lib = _build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.snx_bsr_spmm(
-        cols.data_ptr(), vals.data_ptr(), xb.data_ptr(), out.data_ptr(),
-        B, nb, kb, n, c, int(vec4), ctypes.c_void_p(stream),
-    )
-    _raise_on(code, "bsr_matmul")
-    launches["bsr_matmul"] += 1
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (cols.data_ptr(), vals.data_ptr(), xb.data_ptr(), out.data_ptr())
+    if bf16:
+        name = "bsr_matmul_bf16"
+        code = lib.snx_bsr_spmm_bf16(*ptrs, B, nb, kb, n, c, int(xb.dtype == torch.bfloat16), int(vec4), stream)
+    else:
+        name = "bsr_matmul"
+        code = lib.snx_bsr_spmm(*ptrs, B, nb, kb, n, c, int(vec4), stream)
+    _raise_on(code, name)
+    launches[name] += 1
     return out if batched else out[0]
 
 
@@ -173,7 +207,8 @@ def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tens
 
 def ell_matmul_plain(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``out[r] = sum_k vals[r,k] * x[cols[r,k]]``; ``cols [..., R, K]``,
-    ``x [..., N, C]`` -> ``[..., R, C]`` (``_ell_matmul_xla``)."""
+    ``x [..., N, C]`` -> ``[..., R, C]`` (``_ell_matmul_xla``).  fp32 values
+    on bf16 x promote to fp32 (the widening is exact): fp32 sums and out."""
     batched, (c_, v_, xb) = _batched(cols, vals, x)
     B = xb.shape[0]
     gathered = xb[torch.arange(B, device=xb.device)[:, None, None], c_.long()]  # [B, R, K, C]
@@ -182,7 +217,8 @@ def ell_matmul_plain(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) ->
 
 
 def ell_matmul(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """Scalar-ELL SpMM.  ``window`` (the TPU kernel's banded bound) is
+    """Scalar-ELL SpMM, fp32 out on the card: fp32 values on fp32 x, or on
+    bf16 x (the bf16 variant).  ``window`` (the TPU kernel's banded bound) is
     accepted and ignored: the CUDA kernel gathers rows directly.  Columns
     must lie in ``[0, N)``; ``EllMatrix.to`` and ``spmm`` see to that on the
     port's path.  Called directly with another, the plain version raises and
@@ -193,8 +229,8 @@ def ell_matmul(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, window: 
     _check_cuda("ell_matmul", cols=cols, vals=vals, x=x)
     if cols.dtype != torch.int32:
         raise TypeError(f"ell_matmul: cols must be int32, got {cols.dtype}")
-    if vals.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError(f"ell_matmul: the kernel takes fp32 vals and x, got {vals.dtype} and {x.dtype}")
+    if vals.dtype != torch.float32 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ell_matmul: the kernels take fp32 vals on fp32 or bf16 x, got {vals.dtype} and {x.dtype}")
     batched, (c_, v_, xb) = _batched(cols, vals, x)
     B, R, K = c_.shape
     if v_.shape != c_.shape:
@@ -203,16 +239,17 @@ def ell_matmul(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, window: 
         raise ValueError(f"ell_matmul: x {tuple(xb.shape)} is not [{B}, N, C]")
     n, c = xb.shape[1:]
     out = torch.empty((B, R, c), device=x.device, dtype=torch.float32)
-    vec4 = c % 4 == 0 and xb.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    bf16 = xb.dtype == torch.bfloat16
+    vec = c % (8 if bf16 else 4) == 0 and xb.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     pairs4 = K % 4 == 0 and c_.data_ptr() % 16 == 0 and v_.data_ptr() % 16 == 0
     lib = _build.load()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.snx_ell_spmm(
-        c_.data_ptr(), v_.data_ptr(), xb.data_ptr(), out.data_ptr(),
-        B, R, K, n, c, int(vec4), int(pairs4), ctypes.c_void_p(stream),
-    )
-    _raise_on(code, "ell_matmul")
-    launches["ell_matmul"] += 1
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    name = "ell_matmul_bf16" if bf16 else "ell_matmul"
+    launch = lib.snx_ell_spmm_bf16x if bf16 else lib.snx_ell_spmm
+    code = launch(c_.data_ptr(), v_.data_ptr(), xb.data_ptr(), out.data_ptr(), B, R, K, n, c, int(vec), int(pairs4),
+                  stream)
+    _raise_on(code, name)
+    launches[name] += 1
     return out if batched else out[0]
 
 
@@ -224,18 +261,21 @@ def ell_matmul(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, window: 
 def sddmm_plain(cols: torch.Tensor, vals: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``out[r,k] = <a[r], b[cols[r,k]]>`` where ``vals[r,k] != 0``, else 0;
     ``cols [..., R, K]``, ``a [..., R, C]``, ``b [..., N, C]`` ->
-    ``[..., R, K]`` (``_sddmm_xla``)."""
+    ``[..., R, K]`` in ``a``'s dtype (``_sddmm_xla``).  bf16 a and b are
+    widened to fp32, the dots summed in fp32 and rounded to bf16 once."""
     batched, (c_, v_, ab, bb) = _batched(cols, vals, a, b)
     B = bb.shape[0]
     gathered = bb[torch.arange(B, device=bb.device)[:, None, None], c_.long()]  # [B, R, K, C]
-    out = torch.einsum("brc,brkc->brk", ab, gathered)
-    out = torch.where(v_ != 0, out, torch.zeros_like(out))
+    acc = torch.promote_types(torch.promote_types(ab.dtype, bb.dtype), torch.float32)
+    out = torch.einsum("brc,brkc->brk", ab.to(acc), gathered.to(acc))
+    out = torch.where(v_ != 0, out, torch.zeros_like(out)).to(ab.dtype)
     return out if batched else out[0]
 
 
 def sddmm(cols: torch.Tensor, vals: torch.Tensor, a: torch.Tensor, b: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """Sampled dense-dense product at an ELL pattern; fp32 in and out on the
-    card.  ``window`` is accepted and ignored, as in ``ell_matmul``.  Columns
+    """Sampled dense-dense product at an ELL pattern: fp32 a and b to fp32
+    on the card, or bf16 a and b to bf16 (the bf16 variant), at fp32 pattern
+    values.  ``window`` is accepted and ignored, as in ``ell_matmul``.  Columns
     must lie in ``[0, N)`` (``EllMatrix.to`` checks); called directly with
     another, the plain version raises and the kernel writes 0 there."""
     del window
@@ -244,8 +284,9 @@ def sddmm(cols: torch.Tensor, vals: torch.Tensor, a: torch.Tensor, b: torch.Tens
     _check_cuda("sddmm", cols=cols, vals=vals, a=a, b=b)
     if cols.dtype != torch.int32:
         raise TypeError(f"sddmm: cols must be int32, got {cols.dtype}")
-    if vals.dtype != torch.float32 or a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"sddmm: the kernel takes fp32 vals, a and b, got {vals.dtype}, {a.dtype}, {b.dtype}")
+    if vals.dtype != torch.float32 or a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"sddmm: the kernels take fp32 vals and fp32 or bf16 a and b of one dtype, got "
+                        f"{vals.dtype}, {a.dtype}, {b.dtype}")
     batched, (c_, v_, ab, bb) = _batched(cols, vals, a, b)
     B, R, K = c_.shape
     if v_.shape != c_.shape:
@@ -253,14 +294,15 @@ def sddmm(cols: torch.Tensor, vals: torch.Tensor, a: torch.Tensor, b: torch.Tens
     if bb.dim() != 3 or bb.shape[0] != B or ab.shape[:2] != (B, R) or ab.shape[2] != bb.shape[2]:
         raise ValueError(f"sddmm: a {tuple(ab.shape)} and b {tuple(bb.shape)} do not fit cols [{B}, {R}, {K}]")
     n, c = bb.shape[1:]
-    out = torch.empty((B, R, K), device=b.device, dtype=torch.float32)
-    vec4 = c % 4 == 0 and ab.data_ptr() % 16 == 0 and bb.data_ptr() % 16 == 0
+    out = torch.empty((B, R, K), device=b.device, dtype=ab.dtype)
+    bf16 = ab.dtype == torch.bfloat16
+    vec = c % (8 if bf16 else 4) == 0 and ab.data_ptr() % 16 == 0 and bb.data_ptr() % 16 == 0
     lib = _build.load()
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    code = lib.snx_sddmm(
-        c_.data_ptr(), v_.data_ptr(), ab.data_ptr(), bb.data_ptr(), out.data_ptr(),
-        B, R, K, n, c, int(vec4), ctypes.c_void_p(stream),
-    )
-    _raise_on(code, "sddmm")
-    launches["sddmm"] += 1
+    stream = ctypes.c_void_p(torch.cuda.current_stream(b.device).cuda_stream)
+    name = "sddmm_bf16" if bf16 else "sddmm"
+    launch = lib.snx_sddmm_bf16 if bf16 else lib.snx_sddmm
+    code = launch(c_.data_ptr(), v_.data_ptr(), ab.data_ptr(), bb.data_ptr(), out.data_ptr(), B, R, K, n, c, int(vec),
+                  stream)
+    _raise_on(code, name)
+    launches[name] += 1
     return out if batched else out[0]

@@ -3,7 +3,12 @@ of ``surfacenetworks_tpu/sparse/ops.py`` and the apply half of
 ``sparse/bsr.py``).
 
 ``spmm``, ``bsr_spmm`` and ``sddmm`` are ``torch.autograd.Function``s, as the
-JAX package's are ``custom_vjp``s, on the CPU and on the card alike:
+JAX package's are ``custom_vjp``s, on the CPU and on the card alike.  Under
+mixed precision (bf16 activations) they keep the JAX package's dtypes: the
+operator applies return fp32 (fp32 ELL values, or bf16 BSR blocks with fp32
+sums) and cast their backward to x's dtype; the SDDMM of bf16 features is
+bf16 and so are its gradients; the dense and the Dirac applies promote
+(fp32 tables on bf16 x give fp32) and cast their backward back.
 
 * ``spmm`` / ``bsr_spmm``: forward ``op.fwd @ x``, backward
   ``x_bar = op.bwd @ g`` through the same kernel (the stored transpose); the
@@ -97,8 +102,11 @@ def bsr_spmm(op: BsrOperator, x: torch.Tensor) -> torch.Tensor:
 
 
 def dense_bmm(L: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Dense operator apply ``[..., N, N] @ [..., N, C]``."""
-    return torch.matmul(L, x)
+    """Dense operator apply ``[..., N, N] @ [..., N, C]`` in the wider of the
+    two dtypes, as ``jnp.einsum`` promotes: an fp32 operator on bf16 x gives
+    fp32 (``torch.matmul`` of mixed dtypes would raise)."""
+    dt = torch.promote_types(L.dtype, x.dtype)
+    return torch.matmul(L.to(dt), x.to(dt))
 
 
 class _Sddmm(torch.autograd.Function):
@@ -113,7 +121,10 @@ class _Sddmm(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         a, b = ctx.saved_tensors
         m = ctx.op.fwd
-        gm = torch.where(m.vals != 0, g, torch.zeros_like(g)).contiguous()
+        gm = torch.where(m.vals != 0, g, torch.zeros_like(g))
+        # the cotangent is the sums' ELL values, which the kernels take in fp32:
+        # a bf16 cotangent is widened (exactly); its products are then exact
+        gm = gm.to(torch.promote_types(gm.dtype, torch.float32)).contiguous()
         da = db = None
         if ctx.needs_input_grad[1]:
             da = kernels.ell_matmul(m.cols, gm, b.contiguous()).to(a.dtype)
@@ -175,16 +186,18 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _gather_apply(idx: torch.Tensor, q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``out[r] = sum_s q[r,s] (x) x[idx[r,s]]``: ``idx [*lead, R, S]``,
-    ``q [*lead, R, S, 4]``, ``x [*lead, N, C]`` -> ``[*lead, R, C]`` in
-    ``x``'s dtype (the tables are widened for fp64 ``x``).  One gather of
-    every slot, viewed ``[R, S*4, C/4]``, and one batched product with
-    ``L(q)`` laid out ``[R, 4, S*4]``: the sum over (slot, component) is a
-    matrix product, so fp32 ``x`` needs TF32 off
-    (``torch.backends.cuda.matmul.allow_tf32``, off by default)."""
+    ``q [*lead, R, S, 4]``, ``x [*lead, N, C]`` -> ``[*lead, R, C]`` in the
+    wider of the tables' and ``x``'s dtypes, as the JAX package's products
+    promote: fp32 on bf16 ``x``, fp64 on fp64 ``x``.  One gather of every
+    slot, viewed ``[R, S*4, C/4]``, and one batched product with ``L(q)``
+    laid out ``[R, 4, S*4]``: the sum over (slot, component) is a matrix
+    product, so fp32 needs TF32 off (``torch.backends.cuda.matmul.
+    allow_tf32``, off by default)."""
     *lead, r, s = idx.shape
     c = x.shape[-1]
-    g = _rows(x, idx).reshape(-1, s * 4, c // 4)
-    qq = q.to(x.dtype).reshape(-1, s, 4)
+    dt = torch.promote_types(q.dtype, x.dtype)
+    g = _rows(x, idx).to(dt).reshape(-1, s * 4, c // 4)
+    qq = q.to(dt).reshape(-1, s, 4)
     lq = torch.cat([qq, -qq], dim=-1).reshape(-1, s * 8).index_select(1, _hamilton_index(s, x.device))
     return torch.bmm(lq.reshape(-1, 4, s * 4), g).reshape(*lead, r, c)
 
@@ -205,27 +218,27 @@ def _vertex_side(op: DiracOperator, q_main: torch.Tensor, q_ov: torch.Tensor | N
 class _DiracVF(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op: DiracOperator, v: torch.Tensor) -> torch.Tensor:
-        ctx.op = op
+        ctx.op, ctx.dtype = op, v.dtype
         return _gather_apply(op.faces, op.q_fv, v)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         # v_bar[j] = sum over incident (face, corner): conj(q_fv) (x) g[face]
         op = ctx.op
-        return None, _vertex_side(op, op.q_bwd_v, op.q_ov_bwd_v, g)
+        return None, _vertex_side(op, op.q_bwd_v, op.q_ov_bwd_v, g).to(ctx.dtype)
 
 
 class _DiracFV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op: DiracOperator, f: torch.Tensor) -> torch.Tensor:
-        ctx.op = op
+        ctx.op, ctx.dtype = op, f.dtype
         return _vertex_side(op, op.q_vf, op.q_ov_vf, f)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         # f_bar[i] = sum_c conj(q_vf at (faces[i,c], slot)) (x) g[faces[i,c]]
         op = ctx.op
-        return None, _gather_apply(op.faces, op.q_bwd_f, g)
+        return None, _gather_apply(op.faces, op.q_bwd_f, g).to(ctx.dtype)
 
 
 def _check_dirac(op: DiracOperator, x: torch.Tensor, rows: int, what: str) -> None:

@@ -26,6 +26,11 @@ classifier's and VAE's losses).
   target's inverse (``target_inverse``), so it sums in a fixed order.
 * ``streaming_corr_argmax``, ``corr_metrics_from_pred`` and
   ``corr_accuracy_metrics``: the FAUST accuracy metrics.
+
+Under mixed precision the losses take their inputs at fp32 or wider
+(``at_least_fp32`` at entry); the one exception is
+``corr_feature_smoothness``, which runs its SDDMM on the bf16 features, as
+the JAX package's does.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import math
 import numpy as np
 import torch
 
+from surfacenetworks_tpu_torch.nn.layers import at_least_fp32
 from surfacenetworks_tpu_torch.sparse import kernels
 from surfacenetworks_tpu_torch.sparse.ell import transpose_slot_map
 from surfacenetworks_tpu_torch.sparse.ops import sddmm
@@ -55,7 +61,7 @@ def _unit(outputs: torch.Tensor) -> torch.Tensor:
 def normal_cosine_loss(outputs: torch.Tensor, mask: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean over valid vertices of ``1 - <n_hat, n>^2``, ``n_hat`` the
     L2-normalised prediction (norm clamped at 1e-12)."""
-    inner = (_unit(outputs) * targets).sum(-1)
+    inner = (_unit(at_least_fp32(outputs)) * targets).sum(-1)
     return _masked_mean(1.0 - inner**2, mask)
 
 
@@ -63,12 +69,12 @@ def smooth_l1_sum(outputs: torch.Tensor, targets: torch.Tensor, batch_size: int)
     """The ARAP loss: the Huber sum with delta 1 (``0.5 d^2`` where ``|d| <
     1``, ``|d| - 0.5`` elsewhere) over every element, divided by the batch
     size."""
-    return torch.nn.functional.smooth_l1_loss(outputs, targets, reduction="sum", beta=1.0) / batch_size
+    return torch.nn.functional.smooth_l1_loss(at_least_fp32(outputs), targets, reduction="sum", beta=1.0) / batch_size
 
 
 def nll_loss(log_probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean over the batch of ``-log_probs[b, targets[b]]``."""
-    return -log_probs.gather(1, targets.long()[:, None]).mean()
+    return -at_least_fp32(log_probs).gather(1, targets.long()[:, None]).mean()
 
 
 @torch.no_grad()
@@ -88,6 +94,7 @@ def vae_elbo_terms(recon_mu, recon_logvar, mask, x, z, mu, logvar) -> tuple[torc
     averaged over the batch; KLD ``log q(z) - log p(z)`` against a standard
     normal, summed over the latent and averaged over the batch."""
     b = x.shape[0]
+    recon_mu, recon_logvar, z, mu, logvar = map(at_least_fp32, (recon_mu, recon_logvar, z, mu, logvar))
     mk = mask.expand(*mask.shape[:-1], x.shape[-1]).reshape(b, -1)
     rec = log_normal_diag(x.reshape(b, -1), recon_mu.reshape(b, -1), recon_logvar.reshape(b, -1))
     bce = -(rec * mk).sum(dim=1).mean()
@@ -99,7 +106,7 @@ def vae_elbo_terms(recon_mu, recon_logvar, mask, x, z, mu, logvar) -> tuple[torc
 @torch.no_grad()
 def mean_angle_deviation(outputs: torch.Tensor, mask: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean over valid vertices of ``arccos |<n_hat, n>|`` (radians)."""
-    inner = (_unit(outputs) * targets).sum(-1).abs().clamp(0.0, 1.0)
+    inner = (_unit(at_least_fp32(outputs)) * targets).sum(-1).abs().clamp(0.0, 1.0)
     return _masked_mean(torch.arccos(inner), mask)
 
 
@@ -115,7 +122,8 @@ def corr_feature_smoothness(op, f: torch.Tensor) -> torch.Tensor:
     ``op`` is the batched ELL operator whose values (cotan weights) are the
     edge weights; padding slots have value 0 and drop out, and the diagonal
     self-entries are excluded (their cosine is the constant 1).  ``f
-    [B, N, C]``."""
+    [B, N, C]``, in its own dtype: bf16 features give bf16 scores, which the
+    fp32 weights promote."""
     fn = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True).clamp_min(1e-9)
     scores = sddmm(op, fn, fn)  # [B, N, K] at the pattern slots
     cols = op.fwd.cols

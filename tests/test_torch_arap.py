@@ -421,7 +421,7 @@ def test_port_reads_a_jax_arap_checkpoint(case, jax_runs, tmp_path):
     assert abs(loss - jloss) <= CKPT_RTOL * abs(jloss), (loss, jloss)
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--data-parallel", "2"], ["--graph-parallel", "2"],
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"],
                                   ["--dump-rollout", "x"], ["--config", "c.json"], ["--preset", "arap-lap"]])
 def test_train_arap_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):

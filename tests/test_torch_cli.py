@@ -3,7 +3,8 @@ flag of a JAX trainer's parser is accepted by the port's, which runs it or
 refuses it by name ("not ported yet"); and the JAX FAUST command lines of
 ``tests/test_streaming_head.py`` parse with the port's parser, where
 ``--batch-size`` and ``--num-vertices`` are read by neither trainer and
-``--no-epoch-scan`` is the order the port always runs."""
+``--no-epoch-scan`` is the order the port always runs.  ``--bf16`` is run,
+not refused, by all five."""
 
 import importlib
 
@@ -64,3 +65,17 @@ def test_train_correspondence_refuses_config_flags(flag):
 
     with pytest.raises(SystemExit, match="not ported yet: --config and --preset"):
         ttrain.refuse_unported(ttrain.parser.parse_args(flag))
+
+
+@pytest.mark.parametrize("name", TRAINERS)
+def test_bf16_is_not_refused(name):
+    """``--bf16`` (mixed precision) is on no trainer's refused list, while a
+    flag that is still refused is, by name, in the same call."""
+    mod = importlib.import_module(f"surfacenetworks_tpu_torch.cli.{name}")
+    refuse = mod.refuse_unported if name not in ("train_mnist", "train_vae") else (
+        lambda args: mod.refuse_unported(args, name))
+    args = mod.parser.parse_args(["--bf16"])
+    assert args.bf16
+    refuse(args)
+    with pytest.raises(SystemExit, match="not ported yet: --config and --preset"):
+        refuse(mod.parser.parse_args(["--bf16", "--config", "c.json"]))

@@ -88,7 +88,8 @@ def test_wrapper_batched_cpu_is_plain_and_not_counted(name):
     t = [torch.from_numpy(a) for a in _kernel_inputs(name, batch=3)]
     kernels.reset_launch_counts()
     out = getattr(kernels, name)(*t)
-    assert kernels.launches == {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0}
+    assert kernels.launches == {"bsr_matmul": 0, "ell_matmul": 0, "sddmm": 0, "bsr_matmul_bf16": 0,
+                                "ell_matmul_bf16": 0, "sddmm_bf16": 0}
     for b in range(3):
         ref = getattr(kernels, f"{name}_plain")(*(x[b] for x in t))
         assert_close(out[b].numpy(), ref.numpy(), RTOL, f"batch item {b}")

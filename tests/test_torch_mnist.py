@@ -431,7 +431,7 @@ def test_train_mnist_main_cpu(model, tmp_path):
     assert ckpt["epoch"] == 0 and ckpt["step"] == 1 and "opt_state" in ckpt
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--data-parallel", "2"], ["--graph-parallel", "2"],
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"],
                                   ["--config", "c.json"], ["--preset", "mnist"]])
 def test_train_mnist_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):

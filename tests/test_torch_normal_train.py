@@ -435,7 +435,7 @@ def test_train_normal_resumes_from_a_jax_checkpoint(tmp_path):
     assert torch.load(tmp_path / "pts" / "debug_normal_state.pt", weights_only=True)["step"] == 4
 
 
-@pytest.mark.parametrize("flag", [["--model", "gat"], ["--bf16"], ["--data-parallel", "2"], ["--graph-parallel", "2"],
+@pytest.mark.parametrize("flag", [["--model", "gat"], ["--data-parallel", "2"], ["--graph-parallel", "2"],
                                   ["--buckets", "2"], ["--rotate-augment"], ["--flip-variants", "1"],
                                   ["--additional-opt", "intrinsic"], ["--jax-profile", "x"], ["--preset", "p"],
                                   ["--multihost"]])

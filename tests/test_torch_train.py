@@ -276,7 +276,33 @@ def test_train_correspondence_main_cpu(fmt, tmp_path):
         "train", "test"]
 
 
-@pytest.mark.parametrize("flag", [["--loss", "sl1"], ["--model", "dir"], ["--loss", "cel"], ["--bf16"],
+@pytest.mark.parametrize("fmt", ["ell", "bsr"])
+def test_trainer_takes_its_scans_from_code(fmt):
+    """``CorrespondenceTrainer(args, data=...)`` on the scans that
+    ``--synthetic`` would make builds the same run: the same bucket, inputs,
+    operator and pair target, and the same first loss."""
+    import dataclasses
+
+    from surfacenetworks_tpu_torch.data import datasets as tdatasets
+
+    argv = ["--synthetic", "3", "--synthetic-points", "120", "--device", "cpu", "--layer", "2", "--operator-format",
+            fmt, "--num-updates", "1", "--num-epoch", "1"]
+    flags = ttrain.CorrespondenceTrainer(ttrain.parser.parse_args(argv), log=lambda _: None)
+    code = ttrain.CorrespondenceTrainer(ttrain.parser.parse_args(argv), log=lambda _: None,
+                                        data=tdatasets.synthetic_correspondence_dataset(3, n_points=120, seed=17))
+    assert code.N == flags.N and len(code.data) == len(flags.data) == 3
+    a, b = code.dev_sample(0), flags.dev_sample(0)
+    assert torch.equal(a["inputs"], b["inputs"]) and torch.equal(a["G"], b["G"])
+    fa, fb = a["op"].fwd, b["op"].fwd
+    assert all(torch.equal(getattr(fa, f.name), getattr(fb, f.name))
+               for f in dataclasses.fields(fa) if isinstance(getattr(fa, f.name), torch.Tensor))
+    assert torch.equal(code.pair_target(0, 1), flags.pair_target(0, 1))
+    code.model.load_state_dict(flags.model.state_dict())
+    rots = (0.3, 0.0, 1.1, 0.0)
+    assert torch.equal(code.update(0, 1, rots), flags.update(0, 1, rots))
+
+
+@pytest.mark.parametrize("flag", [["--loss", "sl1"], ["--model", "dir"], ["--loss", "cel"],
                                   ["--remat"], ["--intrinsic"], ["--eval-only"], ["--graph-parallel", "2"],
                                   ["--multihost"]])
 def test_train_correspondence_refuses_unported_flags(flag, tmp_path):

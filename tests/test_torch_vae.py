@@ -331,7 +331,7 @@ def test_train_vae_main_cpu(model, tmp_path):
         np.testing.assert_array_equal(F[: test["F"].shape[0]], test["F"])
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--data-parallel", "2"], ["--graph-parallel", "2"],
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"],
                                   ["--config", "c.json"], ["--preset", "vae"]])
 def test_train_vae_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):
