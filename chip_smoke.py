@@ -65,13 +65,17 @@ Mixed precision (``--bf16``) adds a kernel phase and a training phase:
 * the three kernels' bf16 variants (``bsr_matmul`` on bf16 blocks with fp32
   or bf16 x, ``ell_matmul`` on bf16 x, ``sddmm`` on bf16 a and b) against
   their plain versions at the paths' shapes and at ragged, narrow, wide and
-  batched ones (``ell_matmul`` also at the ARAP and mesh-MNIST batches),
+  batched ones (``ell_matmul`` at every rows-per-warp case, C from 3 to
+  264, and at the ARAP and mesh-MNIST batches; ``bsr_matmul`` with and
+  without the operator's live-chunk mask, which must give the same bits),
   forward and backward, fp32 results within 1e-5 of ``|A||x|`` and bf16
   results within one bf16 ulp more; two launches bit for bit; a BSR mutant
-  that truncates x to bf16 instead of rounding it, a dropped slot and the
-  item-0 batch refused; the bf16 BSR kernel's SASS must hold
-  ``HMMA.16816.F32.BF16``; each variant timed warm and cold against its
-  bound at bf16 bytes;
+  that truncates x to bf16 instead of rounding it, a live mask with one
+  live chunk cleared, a dropped slot and the item-0 batch refused; the bf16
+  BSR kernel's SASS must hold ``HMMA.16816.F32.BF16``, the bf16 BSR kernel
+  must not spill and the bf16 ELL kernel must fit in 64 registers without
+  spilling; each variant timed warm and cold against its bound at bf16
+  bytes (BSR also without the mask, ELL beside the fp32 kernel);
 * the five trainers with ``--bf16`` at the fp32 runs' widths, depths,
   batches and data: FAUST Lap-15 in ELL and BSR (bf16 blocks) with
   ``--smooth-reg 0.1``, where all three variants launch; normal Lap-15 in
@@ -438,6 +442,25 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def bsr_live_work(bcols, bvals, live, x, out) -> tuple[int, int]:
+    """Bytes and operations of the bf16 ``bsr_matmul`` handed the live-chunk
+    mask ``live`` (uint8 [NB, KB]): the live 64x32 chunks of the blocks, the
+    32-row slices of x that some live chunk multiplies (each read once), the
+    block-columns, the mask and out; 2 * 64 * 32 * C operations per live
+    chunk."""
+    import torch
+
+    c = x.shape[-1]
+    bits = live.to(torch.int32)
+    n_live = int(sum(((bits >> b) & 1).sum() for b in range(8)))
+    # x slice 4 col + d is read where depth chunk d of either half is live
+    used = torch.stack([((bits >> d) | (bits >> (d + 4))) & 1 for d in range(4)], dim=-1).bool()
+    slices = (bcols.long()[..., None] * 4 + torch.arange(4, device=bcols.device))[used].unique().numel()
+    n_bytes = (n_live * 64 * 32 * bvals.element_size() + slices * 32 * c * x.element_size()
+               + nbytes(bcols, live, out))
+    return n_bytes, 2 * n_live * 64 * 32 * c
+
+
 def _f64(a, like=None):
     """``a`` (a tensor or an array) as an fp64 tensor, on ``like``'s device
     where given: the checks run where the results lie."""
@@ -764,25 +787,17 @@ def kernel_phase(device) -> dict:
     return report
 
 
-def bf16_kernel_phase(device) -> dict:
-    """Hold the three kernels' bf16 variants against their plain versions
-    on the card, forward and backward, at the paths' shapes (N=7,040, ELL
-    K=16 and BSR KB=5 at C=128; the SDDMM at K=16, C=120) and at ragged,
-    narrow, wide and batched ones; two launches bit for bit; a BSR mutant
-    that truncates x to bf16 instead of rounding it to nearest even, and a
-    dropped slot, refused; then each variant's warm and cold-L2 time, its
-    plain version's and the bound at bf16 bytes (or bf16 tensor-core
-    operations where that is larger).  fp32 results are held to KERNEL_RTOL
-    of |A||x| over the bf16-rounded inputs; a bf16 result (the SDDMM's, its
-    gradients) to one bf16 ulp of the plain result more."""
+def bf16_operands(device) -> tuple:
+    """The bf16 kernel phase's mesh and operators on ``device``: the sample
+    (a ~7,000-vertex blob mesh and its Laplacian ``L`` in RCM order), and
+    ``L`` padded to ``BUCKET`` as an ELL operator (fp32 values) and as a BSR
+    operator of bf16 128x128 blocks with its live-chunk masks."""
     import torch
 
     from surfacenetworks_tpu_torch.data import Buckets, fit_bsr_k, laplacian_batch, rcm_reorder_sample
     from surfacenetworks_tpu_torch.data.datasets import random_blob_mesh
     from surfacenetworks_tpu_torch.geometry import igl_style_laplacian
-    from surfacenetworks_tpu_torch.sparse import kernels, operator_from_scipy, ops
 
-    bf = torch.bfloat16
     rng = np.random.default_rng(SEED + 100)
     V, F = random_blob_mesh(rng, 7000)
     sample = rcm_reorder_sample({"V": V, "F": F, "input": V.astype(np.float32),
@@ -790,7 +805,30 @@ def bf16_kernel_phase(device) -> dict:
     buckets = Buckets(n_vertices=BUCKET)
     fit_bsr_k([sample], buckets)
     ell_op = laplacian_batch([sample], buckets, target_key="input", fmt="ell").operator.to(device)
-    bsr_op = laplacian_batch([sample], buckets, target_key="input", fmt="bsr", op_dtype=bf).operator.to(device)
+    bsr_op = laplacian_batch([sample], buckets, target_key="input", fmt="bsr",
+                             op_dtype=torch.bfloat16).operator.to(device)
+    return sample, ell_op, bsr_op
+
+
+def bf16_kernel_phase(device) -> dict:
+    """Hold the three kernels' bf16 variants against their plain versions
+    on the card, forward and backward, at the paths' shapes (N=7,040, ELL
+    K=16 and BSR KB=5 at C=128; the SDDMM at K=16, C=120) and at ragged,
+    narrow, wide and batched ones (ELL at every rows-per-warp case; BSR
+    with and without the live-chunk mask, bit-identical); two launches bit
+    for bit; a BSR mutant that truncates x to bf16 instead of rounding it to
+    nearest even, a live mask with one live chunk cleared, and a dropped
+    slot, refused; then each variant's warm and cold-L2 time, its plain
+    version's and the bound at bf16 bytes (or bf16 tensor-core operations
+    where that is larger).  fp32 results are held to KERNEL_RTOL
+    of |A||x| over the bf16-rounded inputs; a bf16 result (the SDDMM's, its
+    gradients) to one bf16 ulp of the plain result more."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import kernels, operator_from_scipy, ops
+
+    bf = torch.bfloat16
+    sample, ell_op, bsr_op = bf16_operands(device)
     cols, vals = ell_op.fwd.cols[0], ell_op.fwd.vals[0]
     bcols, bvals = bsr_op.fwd.block_cols[0], bsr_op.fwd.block_vals[0]
     assert bvals.dtype == bf
@@ -801,23 +839,47 @@ def bf16_kernel_phase(device) -> dict:
     def held(kname, name, got, ref, scale, ulps=0):
         errs[kname] = max(errs[kname], check(name, got, ref, scale, KERNEL_RTOL, ulps))
 
-    def same_twice(name, fn):
-        same = torch.equal(fn(), fn())
-        log(f"  {name}: two launches on the same inputs {'bit-identical' if same else 'DIFFER'}")
+    def bits_equal(name, a, b):
+        same = torch.equal(a, b)
+        log(f"  {name}: {'bit-identical' if same else 'DIFFER'}")
         if not same:
-            raise AssertionError(f"{name}: two launches on the same inputs differ")
+            raise AssertionError(f"{name}: differ")
 
-    # BSR: bf16 blocks on fp32 x (the backward's cotangents) and on bf16 x (the forward's activations)
+    def same_twice(name, fn):
+        bits_equal(f"{name}: two launches on the same inputs", fn(), fn())
+
+    # BSR: bf16 blocks on fp32 x (the backward's cotangents) and on bf16 x (the forward's activations),
+    # reading every chunk and skipping the dead ones (the operator's live-chunk mask): the same bits
+    blive = bsr_op.fwd_live[0]
+    n_live = sum(bin(v).count("1") for v in blive.flatten().tolist())
+    log(f"  bsr_matmul bf16: the live-chunk mask keeps {n_live} of {8 * blive.numel()} stored 64x32 chunks")
     for c in (WIDTH, FEATURES, 3, 136):
         for xd in (torch.float32, bf):
             x = torch.randn(BUCKET, c, device=device, generator=gen).to(xd)
             scale = bplain(bcols, bvals.double().abs(), x.to(bf).double().abs())
-            held("bsr_matmul_bf16", f"bsr_matmul bf16 blocks, {str(xd)[6:]} x, C={c}", kernels.bsr_matmul(bcols, bvals, x),
-                 bplain(bcols, bvals, x), scale)
+            ref = bplain(bcols, bvals, x)
+            name = f"bsr_matmul bf16 blocks, {str(xd)[6:]} x, C={c}"
+            every = kernels.bsr_matmul(bcols, bvals, x)
+            skipping = kernels.bsr_matmul(bcols, bvals, x, blive)
+            held("bsr_matmul_bf16", name, every, ref, scale)
+            held("bsr_matmul_bf16", f"{name}, live mask", skipping, ref, scale)
+            bits_equal(f"{name}: with and without the live mask", every, skipping)
     xb = torch.randn(2, BUCKET, WIDTH, device=device, generator=gen)
-    bc2, bv2 = torch.stack([bcols, bcols]), torch.stack([bvals, bvals * 0.5])
+    bc2, bv2, bl2 = torch.stack([bcols, bcols]), torch.stack([bvals, bvals * 0.5]), torch.stack([blive, blive])
     held("bsr_matmul_bf16", "bsr_matmul bf16 batched B=2", kernels.bsr_matmul(bc2, bv2, xb), bplain(bc2, bv2, xb),
          bplain(bc2, bv2.double().abs(), xb.to(bf).double().abs()))
+    held("bsr_matmul_bf16", "bsr_matmul bf16 batched B=2, live mask", kernels.bsr_matmul(bc2, bv2, xb, bl2),
+         bplain(bc2, bv2, xb), bplain(bc2, bv2.double().abs(), xb.to(bf).double().abs()))
+    # the checks' power over the mask: one live chunk's bit cleared must be refused
+    i = bcols.shape[0] // 2
+    s_ = int(torch.nonzero(blive[i])[0])
+    mutant = blive.clone()
+    bit = int(mutant[i, s_]) & -int(mutant[i, s_])
+    mutant[i, s_] = int(mutant[i, s_]) & ~bit
+    x = torch.randn(BUCKET, WIDTH, device=device, generator=gen).to(bf)
+    refused(f"bsr_matmul bf16 with live-mask bit {bit.bit_length() - 1} of slot {s_} of block-row {i} cleared",
+            kernels.bsr_matmul(bcols, bvals, x, mutant), bplain(bcols, bvals, x),
+            bplain(bcols, bvals.double().abs(), x.double().abs()), KERNEL_RTOL)
     x = torch.randn(BUCKET, WIDTH, device=device, generator=gen)
     scale = bplain(bcols, bvals.double().abs(), x.to(bf).double().abs())
     truncated = (x.view(torch.int32) & -65536).view(torch.float32)
@@ -837,15 +899,25 @@ def bf16_kernel_phase(device) -> dict:
          bplain(bwd.block_cols, bwd.block_vals, g).to(bf), bplain(bwd.block_cols, bwd.block_vals.double().abs(),
                                                                   g.to(bf).double().abs()), ulps=1)
 
-    # ELL: fp32 values on bf16 x
-    for c in (WIDTH, FEATURES, MNIST_WIDTH, 3, 130):
+    # ELL: fp32 values on bf16 x, at every rows-per-warp case of the kernel (C=128 and 120: 2 rows a
+    # warp; 64: 4; 32: 8; 8: 32; 264: one row in two channel passes; 3 and 130: the scalar path, 8 and 1)
+    def ell16(name, c_, v_, x):
+        held("ell_matmul_bf16", name, kernels.ell_matmul(c_, v_, x), eplain(c_, v_, x),
+             eplain(c_, v_.double().abs(), x.double().abs()))
+
+    for c in (WIDTH, FEATURES, MNIST_WIDTH, 32, 8, 3, 130, 264):
         x = torch.randn(BUCKET, c, device=device, generator=gen).to(bf)
-        held("ell_matmul_bf16", f"ell_matmul bf16 x, C={c}", kernels.ell_matmul(cols, vals, x), eplain(cols, vals, x),
-             eplain(cols, vals.double().abs(), x.double().abs()))
+        ell16(f"ell_matmul bf16 x, C={c}", cols, vals, x)
     rag = operator_from_scipy(sample["L"]).fwd.to(device)
-    x = torch.randn(rag.n_cols, WIDTH, device=device, generator=gen).to(bf)
-    held("ell_matmul_bf16", f"ell_matmul bf16 x ragged R={rag.n_rows} K={rag.k}", kernels.ell_matmul(rag.cols, rag.vals, x),
-         eplain(rag.cols, rag.vals, x), eplain(rag.cols, rag.vals.double().abs(), x.double().abs()))
+    for c in (WIDTH, MNIST_WIDTH, 8):  # R = n_rows is no multiple of the rows a warp holds: the last group idles
+        x = torch.randn(rag.n_cols, c, device=device, generator=gen).to(bf)
+        ell16(f"ell_matmul bf16 x ragged R={rag.n_rows} K={rag.k} C={c}", rag.cols, rag.vals, x)
+    for c in (WIDTH, MNIST_WIDTH):
+        x = torch.randn(2, BUCKET, c, device=device, generator=gen).to(bf)
+        ell16(f"ell_matmul bf16 x batched B=2 C={c}", torch.stack([cols, cols]), torch.stack([vals, vals.flip(0)]), x)
+    for c in (MNIST_WIDTH, 8, 3):
+        x = torch.randn(BUCKET, c, device=device, generator=gen).to(bf)
+        same_twice(f"ell_matmul bf16 x C={c}", lambda: kernels.ell_matmul(cols, vals, x))
     x = torch.randn(BUCKET, WIDTH, device=device, generator=gen).to(bf)
     r = BUCKET // 2
     s_ = int(torch.nonzero(vals[r])[0])
@@ -907,21 +979,34 @@ def bf16_kernel_phase(device) -> dict:
     x = torch.randn(BUCKET, WIDTH, device=device, generator=gen).to(bf)
     xf = x.float()
     out = torch.empty(BUCKET, WIDTH, device=device)
+    # the path's call is handed the operator's mask and skips the dead chunks: its bound counts the live
+    # chunks and the x slices they read; every stored byte bounds the call without the mask
     nnzb = int((bvals != 0).flatten(2).any(dim=2).sum())
-    flops = 2 * nnzb * 128 * 128 * WIDTH
-    b_ms, b_by = bound_ms(nbytes(bcols, bvals, x, out), flops, BF16_TENSOR_FLOP_PER_S)
+    flops_all = 2 * nnzb * 128 * 128 * WIDTH
+    all_ms, all_by = bound_ms(nbytes(bcols, bvals, x, out), flops_all, BF16_TENSOR_FLOP_PER_S)
+    live_bytes, flops = bsr_live_work(bcols, bvals, blive, x, out)
+    b_ms, b_by = bound_ms(live_bytes, flops, BF16_TENSOR_FLOP_PER_S)
     report["bsr_matmul_bf16"] = {
-        "ms": time_ms(lambda: kernels.bsr_matmul(bcols, bvals, x)),
-        "cold_ms": cold_ms(lambda: kernels.bsr_matmul(bcols, bvals, x), flush),
-        "ms_x_fp32": time_ms(lambda: kernels.bsr_matmul(bcols, bvals, xf)),
+        "ms": time_ms(lambda: kernels.bsr_matmul(bcols, bvals, x, blive)),
+        "cold_ms": cold_ms(lambda: kernels.bsr_matmul(bcols, bvals, x, blive), flush),
+        "ms_x_fp32": time_ms(lambda: kernels.bsr_matmul(bcols, bvals, xf, blive)),
+        "ms_no_live": time_ms(lambda: kernels.bsr_matmul(bcols, bvals, x)),
+        "ms_x_fp32_no_live": time_ms(lambda: kernels.bsr_matmul(bcols, bvals, xf)),
+        "cold_ms_no_live": cold_ms(lambda: kernels.bsr_matmul(bcols, bvals, x), flush),
         "plain_ms": time_ms(lambda: bplain(bcols, bvals, x)),
         "library_ms": None, "library_call": "none: no PyTorch call rounds x to bf16 and returns the fp32 sums",
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(bcols, bvals, x, out), "flops": flops}
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": live_bytes, "flops": flops,
+        "bound_ms_no_live": all_ms, "bound_by_no_live": all_by, "bytes_no_live": nbytes(bcols, bvals, x, out),
+        "flops_no_live": flops_all, "live_chunks": n_live, "chunks": 8 * blive.numel()}
+    log(f"  bsr_matmul bf16 bound: {b_ms:.5f} ms by {b_by} (the live chunks, the x slices they read, cols, mask and "
+        f"out: {live_bytes / 1e6:.2f} MB); without the mask every stored byte: {all_ms:.5f} ms by {all_by} "
+        f"({nbytes(bcols, bvals, x, out) / 1e6:.2f} MB)")
     nnz = int((vals != 0).sum())
     b_ms, b_by = bound_ms(nbytes(cols, vals, x, out), 2 * nnz * WIDTH)
     report["ell_matmul_bf16"] = {
         "ms": time_ms(lambda: kernels.ell_matmul(cols, vals, x)),
         "cold_ms": cold_ms(lambda: kernels.ell_matmul(cols, vals, x), flush),
+        "fp32_kernel_ms": time_ms(lambda: kernels.ell_matmul(cols, vals, xf)),
         "plain_ms": time_ms(lambda: eplain(cols, vals, x)),
         "library_ms": None, "library_call": "none: torch.sparse.mm takes no fp32 operator on bf16 x",
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(cols, vals, x, out), "flops": 2 * nnz * WIDTH}
@@ -956,7 +1041,12 @@ def bf16_kernel_phase(device) -> dict:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"  {name}: {r['ms']:.5f} ms warm, {r['cold_ms']:.5f} ms cold L2 (plain {r['plain_ms']:.4f}, library {lib}, "
             f"bound {r['bound_ms']:.5f} by {r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, {r['bound_ms'] / r['ms']:.1%} of it)")
-    log(f"  bsr_matmul bf16 on fp32 x (the backward's cotangents): {report['bsr_matmul_bf16']['ms_x_fp32']:.5f} ms warm; "
+    r = report["bsr_matmul_bf16"]
+    log(f"  bsr_matmul bf16 on fp32 x (the backward's cotangents): {r['ms_x_fp32']:.5f} ms warm; every chunk read "
+        f"(no live mask): {r['ms_no_live']:.5f} ms on bf16 x, {r['ms_x_fp32_no_live']:.5f} ms on fp32 x, "
+        f"{r['cold_ms_no_live']:.5f} ms cold ({r['bound_ms_no_live'] / r['ms_no_live']:.1%} of its bound "
+        f"{r['bound_ms_no_live']:.5f}); ell_matmul's fp32 kernel on the same values at fp32 x: "
+        f"{report['ell_matmul_bf16']['fp32_kernel_ms']:.5f} ms warm; "
         f"sddmm bf16 where a is b (unit rows, the smoothness term): {report['sddmm_bf16']['ms_a_is_b']:.5f} ms warm")
     return report
 
@@ -3317,6 +3407,14 @@ def main() -> int:
     if not sddmm_regs or any(v.get("registers", 99) > 64 or v.get("spill_stores") or v.get("spill_loads")
                              for v in sddmm_regs.values()):
         raise AssertionError(f"the SDDMM kernel must fit in 64 registers without spills: {sddmm_regs}")
+    ell16_regs = {k: v for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS["ell_matmul_bf16"])}
+    if len(ell16_regs) != 2 or any(v.get("registers", 99) > 64 or v.get("spill_stores") or v.get("spill_loads")
+                                   for v in ell16_regs.values()):
+        raise AssertionError(f"the bf16 ELL kernel must fit in 64 registers without spills: {ell16_regs}")
+    bsr16_regs = {k: v for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS["bsr_matmul_bf16"])}
+    if len(bsr16_regs) != 4 or any("registers" not in v or v.get("spill_stores") or v.get("spill_loads")
+                                   for v in bsr16_regs.values()):
+        raise AssertionError(f"the bf16 BSR kernel must not spill: {bsr16_regs}")
     sass_check(info["path"])
     phase("build", t0)
 
@@ -3437,8 +3535,11 @@ def main() -> int:
                             for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS[kname])},
         })
         if kname == "bsr_matmul_bf16":
-            entries[-1]["ms_x_fp32"] = r["ms_x_fp32"]
+            entries[-1].update({k: r[k] for k in ("ms_x_fp32", "ms_no_live", "ms_x_fp32_no_live", "cold_ms_no_live",
+                                                  "bound_ms_no_live", "bound_by_no_live", "bytes_no_live",
+                                                  "flops_no_live", "live_chunks", "chunks")})
         if kname == "ell_matmul_bf16":
+            entries[-1]["fp32_kernel_ms"] = r["fp32_kernel_ms"]
             entries[-1]["arap_batch"] = arap["ell"]["kernel"]["bf16"]
             entries[-1]["mnist_batch"] = mnist["ell"]["kernel"]["bf16"]
     log(f"serve median ms per request: ell {latency['ell']['median_ms']:.3f}, "

@@ -79,7 +79,7 @@ def load() -> ctypes.CDLL:
         lib.snx_sddmm.restype = i32
         lib.snx_ell_spmm_bf16x.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
         lib.snx_ell_spmm_bf16x.restype = i32
-        lib.snx_bsr_spmm_bf16.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+        lib.snx_bsr_spmm_bf16.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
         lib.snx_bsr_spmm_bf16.restype = i32
         lib.snx_sddmm_bf16.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         lib.snx_sddmm_bf16.restype = i32

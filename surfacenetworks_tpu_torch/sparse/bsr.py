@@ -4,6 +4,12 @@ Mesh Laplacians become banded under a reverse-Cuthill-McKee vertex order, so
 a few 128x128 blocks per block-row cover the operator.  Packing is done on the
 host with NumPy exactly as in the JAX package (same fitted slot count, same
 block layout); the apply is ``sparse.ops.bsr_spmm``.
+
+``BsrOperator`` also carries, per side, the live-chunk mask of its stored
+blocks (``live_chunks``), built once on the host: the bf16 kernel skips the
+64-row x 32-deep chunks of a block that hold only zeros.  It has no
+counterpart in the JAX package and sits beside ``BsrMatrix``, whose fields
+are the JAX package's.
 """
 
 from __future__ import annotations
@@ -46,13 +52,40 @@ class BsrMatrix:
         )
 
 
+def live_chunks(m: BsrMatrix) -> torch.Tensor:
+    """uint8 ``[..., NB, KB]`` of a matrix of 128x128 blocks (the kernels'
+    block): bit ``4 h + d`` of slot ``[i, k]`` is set where rows ``64 h ..
+    64 h + 63`` and columns ``32 d .. 32 d + 31`` of the stored block hold a
+    nonzero, the chunk one CTA of the bf16 kernel loads at a time.  A
+    padding slot (all zero) and a block-column outside ``[0, n_cols/128)``
+    have no bit set."""
+    if m.block_size != 128:
+        raise ValueError(f"live_chunks: the kernels' blocks are 128x128, got {m.block_size}")
+    lead = m.block_vals.shape[:-2]
+    nz = (m.block_vals != 0).reshape(*lead, 2, 64, 4, 32).any(dim=-1).any(dim=-2)  # [..., 2, 4]
+    bits = (nz.to(torch.int32) << torch.arange(8, dtype=torch.int32).reshape(2, 4)).sum(dim=(-2, -1))
+    in_range = (m.block_cols >= 0) & (m.block_cols < m.n_cols // 128)
+    return torch.where(in_range, bits, 0).to(torch.uint8)
+
+
 @dataclasses.dataclass
 class BsrOperator:
+    """The operator (``fwd``) and its stored transpose (``bwd``), each with
+    its optional live-chunk mask (``live_chunks``; None: every chunk is
+    read)."""
+
     fwd: BsrMatrix
     bwd: BsrMatrix
+    fwd_live: torch.Tensor | None = None  # uint8 [..., NB, KB]
+    bwd_live: torch.Tensor | None = None
 
     def to(self, device) -> "BsrOperator":
-        return BsrOperator(fwd=self.fwd.to(device), bwd=self.bwd.to(device))
+        return BsrOperator(
+            fwd=self.fwd.to(device),
+            bwd=self.bwd.to(device),
+            fwd_live=None if self.fwd_live is None else self.fwd_live.to(device),
+            bwd_live=None if self.bwd_live is None else self.bwd_live.to(device),
+        )
 
 
 def rcm_permutation(M: sp.spmatrix) -> np.ndarray:
@@ -112,7 +145,9 @@ def bsr_operator_from_scipy(
     bwd = bsr_from_scipy(
         M.T.tocsr(), block_size, k_bwd if k_bwd is not None else k, n_cols, n_rows, dtype
     )
-    return BsrOperator(fwd=fwd, bwd=bwd)
+    if block_size != 128:  # no kernel takes other blocks, so no mask
+        return BsrOperator(fwd=fwd, bwd=bwd)
+    return BsrOperator(fwd=fwd, bwd=bwd, fwd_live=live_chunks(fwd), bwd_live=live_chunks(bwd))
 
 
 def _stack_bsr(ms: list[BsrMatrix]) -> BsrMatrix:
@@ -123,5 +158,16 @@ def _stack_bsr(ms: list[BsrMatrix]) -> BsrMatrix:
     )
 
 
+def _stack_live(masks: list) -> torch.Tensor | None:
+    return None if any(m is None for m in masks) else torch.stack(masks)
+
+
 def stack_bsr_operators(ops: list[BsrOperator]) -> BsrOperator:
-    return BsrOperator(fwd=_stack_bsr([o.fwd for o in ops]), bwd=_stack_bsr([o.bwd for o in ops]))
+    """A leading batch axis over operators of one shape; the live-chunk
+    masks are stacked where every operator has them."""
+    return BsrOperator(
+        fwd=_stack_bsr([o.fwd for o in ops]),
+        bwd=_stack_bsr([o.bwd for o in ops]),
+        fwd_live=_stack_live([o.fwd_live for o in ops]),
+        bwd_live=_stack_live([o.bwd_live for o in ops]),
+    )

@@ -544,26 +544,40 @@ __device__ __forceinline__ uint4 load_bf(const unsigned short* p, int j) {
 // Replaces _ell_matmul_call's bf16-x use (pallas_kernels.py:186-274) as the
 // JAX trainers run it, _ell_matmul_xla: fp32 vals times bf16 x promote to
 // fp32, the sum is fp32 and so is the result.  Bound: bytes, as in
-// ell_spmm_kernel, with x's bytes halved.  Design: ell_spmm_kernel's, with a
-// 16-byte lane carrying 8 bf16 channels (one gathered row of 128 bf16
-// channels is one 256-byte read by 16 lanes), widened to fp32 in registers;
-// each channel adds the slots in slot order with fmaf, the order the fp32
-// kernel uses, so two launches agree bit for bit.
+// ell_spmm_kernel, with x's bytes halved; like it, the kernel is held back by
+// the round trips of its gathers to the L2 cache, so what sets its pace is
+// the bytes each resident warp keeps in flight.
 //
-// Measured by chip_smoke.py at R=N=7040, K=16, C=128 on an NVIDIA H100 80GB
-// HBM3 at 700.00 W: 0.00830 ms warm (23% of its 0.00188 ms byte bound),
-// 0.01171 ms cold, slower than the fp32 kernel's 0.00712: at C=128 a bf16 row
-// is 16 lanes' loads, so half of each warp idles while the row's gathers are
-// in flight.  Two rows per warp at C <= 128 is the lead for a later speed PR.
+// Design: a lane carries 8 bf16 channels (one 16-byte load, widened to fp32
+// in registers; 1 channel on the scalar path, C % 8 != 0), and a warp holds
+// 32 / lanes_per_row output rows, lanes_per_row being the row's lanes
+// rounded up to a power of two (at most 32): 2 rows per warp at C = 120-128,
+// 4 at C = 64, 32 at C = 8; one row per warp with channel passes past 256
+// channels.  So a warp's gathers of one slot fill its 32 lanes (512 bytes at
+// C = 128, as ell_spmm_kernel's are).  Each lane group reads its own row's (col, val) chunk (16-byte pair
+// loads where pairs4 allows), issues the chunk's kEllChunk gathers into
+// registers, each predicated on a live slot and an in-range column, and only
+// then does the FMAs.  No shuffle or ballot crosses lane groups, so a group
+// past the last row just leaves.  Every channel adds its slots in slot order
+// with fmaf, the order ell_spmm_kernel uses, whatever the rows per warp:
+// two launches agree bit for bit.  At
+// most 64 registers (__launch_bounds__(256, 4)): 4 CTAs of 8 warps resident.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W: at
+// R=N=7040, K=16, C=128 0.00620 ms warm (30% of its 0.00188 ms byte bound),
+// 0.00975 ms cold (the fp32 kernel: 0.00695 warm); 0.0354 ms at the ARAP
+// batch (32 x 2,000 rows, C=128) and 0.0062 ms at the mesh-MNIST batch (64 x
+// 216 rows, C=64).  64 registers (52 on the scalar path), no spills.
 // ---------------------------------------------------------------------------
 template <bool VEC8>
 __global__ void __launch_bounds__(256, 4)
 ell_spmm_bf16x_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
                       const unsigned short* __restrict__ x, float* __restrict__ out,
-                      int batch, int rows, int k, int n, int c, int pairs4) {
+                      int batch, int rows, int k, int n, int c, int pairs4, int lanes_log2) {
   const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= static_cast<long long>(batch) * rows) return;  // whole warp leaves together
+  const long long warp = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const long long row = (warp << (5 - lanes_log2)) + (lane >> lanes_log2);
+  if (row >= static_cast<long long>(batch) * rows) return;  // the lane group past the last row leaves
   const long long b = row / rows;
   const int* row_cols = cols + row * k;
   const float* row_vals = vals + row * k;
@@ -572,10 +586,10 @@ ell_spmm_bf16x_kernel(const int* __restrict__ cols, const float* __restrict__ va
   constexpr int kW = VEC8 ? 8 : 1;  // channels per lane and pass
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
-  const int width = VEC8 ? c / 8 : c;  // channel axis in units of 8 bf16 or one
-  for (int j0 = 0; j0 < width; j0 += 32) {
-    const int j = j0 + lane;
-    const bool live = j < width;
+  // the lane's units of the channel axis (8 bf16, or one): a lane past the
+  // row's width has none, and nothing it skips is shared with another lane
+  const int width = VEC8 ? c / 8 : c;
+  for (int j = lane & ((1 << lanes_log2) - 1); j < width; j += 1 << lanes_log2) {
     float acc[kW];
 #pragma unroll
     for (int i = 0; i < kW; ++i) acc[i] = 0.f;
@@ -602,7 +616,7 @@ ell_spmm_bf16x_kernel(const int* __restrict__ cols, const float* __restrict__ va
       uint4 xv[kEllChunk];
 #pragma unroll
       for (int s = 0; s < kEllChunk; ++s) {
-        const bool take = live && val[s] != 0.f && col[s] >= 0 && col[s] < n;
+        const bool take = val[s] != 0.f && col[s] >= 0 && col[s] < n;
         val[s] = take ? val[s] : 0.f;
         xv[s] = take ? load_bf<VEC8>(xb + static_cast<long long>(col[s]) * c, j) : zero;
       }
@@ -618,14 +632,12 @@ ell_spmm_bf16x_kernel(const int* __restrict__ cols, const float* __restrict__ va
         }
       }
     }
-    if (live) {
-      if constexpr (VEC8) {  // c % 8 == 0 and out 16-byte aligned: two float4 stores
-        float4* o = reinterpret_cast<float4*>(orow) + 2 * j;
-        o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-        o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-      } else {
-        orow[j] = acc[0];
-      }
+    if constexpr (VEC8) {  // c % 8 == 0 and out 16-byte aligned: two float4 stores
+      float4* o = reinterpret_cast<float4*>(orow) + 2 * j;
+      o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    } else {
+      orow[j] = acc[0];
     }
   }
 }
@@ -638,35 +650,85 @@ ell_spmm_bf16x_kernel(const int* __restrict__ cols, const float* __restrict__ va
 // the JAX trainers run it, _bsr_matmul_xla (sparse/bsr.py:145-160): x is
 // rounded to bf16 (to nearest even), the bf16 x bf16 products are summed in
 // fp32 and the result is fp32.  x may be fp32 (the backward's cotangent) or
-// bf16 (the forward's activations): it is rounded as it is staged, so the
-// backward needs no separate cast.  One bf16 tensor-core pass is exact per
+// bf16 (the forward's activations).  One bf16 tensor-core pass is exact per
 // product (8-bit by 8-bit mantissas fit fp32), where fp32 operands need
-// three TF32 passes.  Bound: bytes.  At NB=55, KB=5, C=128 the kernel reads
-// 9 MB of stored blocks and 1.8 MB (bf16 x) or 3.6 MB (fp32 x) and writes
-// 3.6 MB of fp32: about 0.0043 ms at 3.35 TB/s; its 1.15 GFLOP take 0.0012
-// ms at 989 TFLOP/s.
+// three TF32 passes.  Bound: bytes.  At NB=55, KB=5, C=128 the stored blocks
+// are 9 MB, bf16 x 1.8 MB (fp32 3.6 MB), the fp32 out 3.6 MB: 14.4 MB, 0.0043
+// ms at 3.35 TB/s; its 1.15 GFLOP take 0.0012 ms at 989 TFLOP/s.
 //
-// Design: bsr_spmm_kernel's CTA tiling (4 warps, a 64-row half block-row by
-// 64 channels, each warp a 32 x 32 fp32 tile in registers), with
-// mma.sync.m16n8k16 bf16 (row.col, fp32 accumulate) and depth chunks of 32
-// in a 2-stage ring in static shared memory: the block chunk (64 rows x 32
-// bf16, rows of 40 bf16) arrives by 16-byte cp.async; the x chunk is loaded
-// into registers while the current chunk multiplies, rounded to bf16 and
-// stored transposed (channel-major, rows of 40 bf16), so that each B
-// fragment register (two consecutive depths of one channel) is one 32-bit
-// shared load, as each A fragment register is; the row pitch of 20 words
-// keeps both free of bank conflicts.  Out-of-range block-columns and the
-// ragged channel edge load zeros; the channel edge is masked on store.
+// A CTA that waits on each depth chunk before it loads the next is paced by
+// a global round trip per chunk (20 per CTA at KB=5), not by bytes or
+// operations.  So:
 //
-// Measured by chip_smoke.py at NB=55, KB=5, C=128 on an NVIDIA H100 80GB
-// HBM3 at 700.00 W: 0.02286 ms warm on bf16 x (19% of its 0.00430 ms byte
-// bound), 0.02705 ms on fp32 x, 0.03146 ms cold; 69-72 registers, no spills.
-// The fp32 (3xTF32) kernel takes 0.0298 ms on the same blocks.
+// * Tiling: one CTA of 4 warps per (64-row half of a block-row, 64-channel
+//   tile, batch item), each warp a 32 x 32 fp32 tile in registers (mma.sync
+//   m16n8k16 bf16, row.col, fp32 accumulate).  At NB=55, C=128 that is 220
+//   CTAs of 128 threads on the 132 SMs, up to two on an SM.  Each stored
+//   block is read once per channel tile: about 11.2 MB of live block chunks
+//   and 11.2 MB of bf16 x slices (22.3 MB fp32) cross L2, about 100 KB per
+//   CTA.  128-channel tiles (110 CTAs of 8 warps) read each block once, 5.6
+//   MB, but took 1.12x the time on bf16 x and 1.10x on fp32 x
+//   (bsr_bf16_sweep.py): a CTA's time is the chain of its live chunks, and
+//   a wider tile makes each link longer.
+// * A ring of kBfStages = 6 depth chunks of 32 in dynamic shared memory,
+//   filled by 16-byte cp.async from both operands: five chunks in flight
+//   while one multiplies.  The block chunk is 64 rows x 32 bf16 (rows of 40
+//   bf16, 80 bytes); x keeps its own row-major layout, 32 depths x 64
+//   channels (rows of 72 bf16, 144 bytes), and its B fragments come from
+//   ldmatrix.x4.trans, the A fragments from ldmatrix.x4; both pitches put
+//   the 8 rows of each 8x8 matrix in distinct bank groups.  Shared memory:
+//   6 x (5,120 + 4,608) = 58,368 bytes on bf16 x.
+// * fp32 x (the backward's cotangent) is staged as fp32 (rows of 68
+//   floats, 6 x (5,120 + 8,704) = 82,944 bytes) and rounded to bf16 to
+//   nearest even (cvt.rn.bf16x2.f32) as each B fragment is built from two
+//   conflict-free 4-byte reads per register: no separate rounding pass.
+// * Dead chunks are skipped: ``live`` (uint8 [batch, nb, kb], or null for
+//   "all live") has bit 4 h + d set where rows 64 h .. 64 h + 63, depths
+//   32 d .. 32 d + 31 of the slot's stored block hold a nonzero (built once
+//   per operator on the host, sparse/bsr.py::live_chunks).  About 38% of a
+//   mesh Laplacian's stored chunks are zero; they, padding slots and block
+//   columns outside [0, n/128) are neither loaded nor multiplied.  A chunk
+//   of zero A adds exact zeros, so finite results are those of reading it.
+// * The chunks are taken in slot order, each chunk's two k16 steps in depth
+//   order: every output element sees its mma.sync steps in that order,
+//   whatever the tiling across warps and CTAs, so the bits depend neither
+//   on the tiling nor on the mask, and two launches agree bit for bit.
+// * C % 8 != 0 (bf16 x) or C % 4 != 0 (fp32 x), or x not 16-byte aligned:
+//   the VEC = false variant stages x element by element (fp32: 4-byte
+//   cp.async; bf16: plain loads), zero-filling past the channel edge.
+//
+// Measured by bsr_bf16_sweep.py at NB=55, KB=5, C=128 (1,364 of the 2,200
+// stored chunks live; a CTA takes 2-16, median 13) on an NVIDIA H100 80GB
+// HBM3 at 700.00 W: 0.0102 ms warm on bf16 x, 32% of the 0.00328 ms its
+// live chunks, the x slices they read and out take at 3.35 TB/s; 0.0126-
+// 0.0128 ms on fp32 x (bound 0.00382); 0.0144-0.0146 ms cold; every chunk
+// read (no mask): 0.0127 ms, 34% of the 0.0043 ms of every stored byte.
+// 3 to 8 stages time within 3% of each other, 2 stages 1.07x: the busiest
+// CTAs' 16 live chunks, about 0.64 us each with a barrier each, set the
+// pace, not the latency of a load.
 // ---------------------------------------------------------------------------
-constexpr int kBfChunk = 32;                  // depth per stage
-constexpr int kBfPitch = kBfChunk + 8;        // 40 bf16 (20 words) per shared row
-constexpr int kBfAStage = kTileM * kBfPitch;  // block chunk: 64 rows x depth
-constexpr int kBfXStage = kTileN * kBfPitch;  // x chunk, transposed: 64 channels x depth
+// The channel tile and the ring's depth can be set at build time
+// (-DSNX_BF_TILE_N=128, -DSNX_BF_STAGES=4) only to measure the design's
+// parts one by one (bsr_bf16_sweep.py); the port builds the defaults.
+#ifndef SNX_BF_TILE_N
+#define SNX_BF_TILE_N 64
+#endif
+#ifndef SNX_BF_STAGES
+#define SNX_BF_STAGES 6
+#endif
+constexpr int kBfTileN = SNX_BF_TILE_N;               // channels per CTA
+constexpr int kBfWarpsN = kBfTileN / kWarpN;          // 2 warps along the channels, kWarpsM = 2 along the rows
+constexpr int kBfThreads = 32 * kWarpsM * kBfWarpsN;  // 128
+constexpr int kBfChunk = 32;                          // depth per stage, and per bit of the live mask
+constexpr int kBfStages = SNX_BF_STAGES;              // ring of stages in shared memory
+static_assert((kBfTileN == 64 || kBfTileN == 128) && kBfStages >= 2, "bf16 BSR tiling");
+constexpr int kBfAPitch = kBfChunk + 8;               // 40 bf16 per shared row of a block chunk
+constexpr int kBfXPitch = kBfTileN + 8;               // 72 bf16 per shared row of a bf16 x chunk
+constexpr int kBfXPitchF = kBfTileN + 4;              // 68 floats per shared row of an fp32 x chunk
+constexpr int kBfAStageBytes = kTileM * kBfAPitch * 2;                // 5,120
+constexpr int kBfXStageBytes16 = kBfChunk * kBfXPitch * 2;            // 4,608
+constexpr int kBfXStageBytes32 = kBfChunk * kBfXPitchF * 4;           // 8,704
+static_assert(kBs / kTileM == 2 && kBs / kBfChunk == 4, "live-mask bits: 2 halves x 4 depth chunks");
 
 // d += a (16x16, row) * b (16x8, col) in bf16 with fp32 accumulation
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
@@ -683,96 +745,138 @@ __device__ __forceinline__ void cp_async16b(void* dst, const void* src, bool ful
                "r"(full ? 16 : 0));
 }
 
-// 4 channels of x from p (fp32 or bf16 bits), widened to fp32; VEC: one
-// 16-byte (fp32) or 8-byte (bf16) load, all 4 channels live; else the first
-// `live` channels, the rest 0
-template <bool XBF16, bool VEC>
-__device__ __forceinline__ float4 load_x4(const void* p, int live) {
-  if (XBF16) {
-    const unsigned short* q = static_cast<const unsigned short*>(p);
-    if (VEC) {
-      const uint2 w = *reinterpret_cast<const uint2*>(q);
-      return make_float4(bf16_lo(w.x), bf16_hi(w.x), bf16_lo(w.y), bf16_hi(w.y));
-    }
-    return make_float4(live > 0 ? bf16_lo(q[0]) : 0.f, live > 1 ? bf16_lo(q[1]) : 0.f,
-                       live > 2 ? bf16_lo(q[2]) : 0.f, live > 3 ? bf16_lo(q[3]) : 0.f);
-  }
-  const float* q = static_cast<const float*>(p);
-  if (VEC) return *reinterpret_cast<const float4*>(q);
-  return make_float4(live > 0 ? q[0] : 0.f, live > 1 ? q[1] : 0.f, live > 2 ? q[2] : 0.f, live > 3 ? q[3] : 0.f);
+// four 8x8 bf16 matrices from shared memory, lanes 8q..8q+7 giving the row
+// addresses of matrix q; .trans hands each thread the transposed matrices'
+// elements
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// two fp32 rounded to bf16 to nearest even and packed, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16_rn(float lo, float hi) {
+  unsigned r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 template <bool XBF16, bool VEC>
-__global__ void __launch_bounds__(kBsrThreads)
+__global__ void __launch_bounds__(kBfThreads, 1)
 bsr_spmm_bf16_kernel(const int* __restrict__ block_cols, const unsigned short* __restrict__ block_vals,
-                     const void* __restrict__ x, float* __restrict__ out, int nb, int kb, int n, int c) {
-  __shared__ __align__(16) unsigned short a_ring[2 * kBfAStage];  // [stage][row m][depth]
-  __shared__ __align__(16) unsigned short x_ring[2 * kBfXStage];  // [stage][channel][depth]
+                     const unsigned char* __restrict__ live, const void* __restrict__ x, float* __restrict__ out,
+                     int nb, int kb, int n, int c) {
+  constexpr int kXStageBytes = XBF16 ? kBfXStageBytes16 : kBfXStageBytes32;
+  extern __shared__ __align__(16) unsigned char bf_smem[];
+  unsigned char* a_ring = bf_smem;                                // [stage][row m][depth] bf16
+  unsigned char* x_ring = bf_smem + kBfStages * kBfAStageBytes;   // [stage][depth][channel] bf16 or fp32
+  int* slot_info = reinterpret_cast<int*>(x_ring + kBfStages * kXStageBytes);  // [kb]: column | live bits << 24
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g = lane >> 2;  // mma groupID
   const int t = lane & 3;   // mma threadID_in_group
-  const int wm = (warp / kWarpsN) * kWarpM;
-  const int wn = (warp % kWarpsN) * kWarpN;
-  const int c0 = blockIdx.x * kTileN;
-  constexpr int kParts = kBs / kTileM;
-  const int part = blockIdx.y % kParts;
-  const long long i = blockIdx.y / kParts;
-  const long long b = blockIdx.z;
+  const int wm = (warp / kBfWarpsN) * kWarpM;  // the warp's rows in the CTA tile
+  const int wn = (warp % kBfWarpsN) * kWarpN;  // the warp's channels in the CTA tile
+  const int c0 = blockIdx.x * kBfTileN;
+  const int part = blockIdx.y & 1;  // which 64-row half of the block-row
+  const long long bi = static_cast<long long>(blockIdx.z) * nb + (blockIdx.y >> 1);  // batch item and block-row
   constexpr int kXBytes = XBF16 ? 2 : 4;
 
-  const int* cols_i = block_cols + (b * nb + i) * kb;
-  const unsigned short* vals_i = block_vals + (b * nb + i) * kb * static_cast<long long>(kBs * kBs) + part * kTileM * kBs;
-  const char* xb = static_cast<const char*>(x) + b * n * static_cast<long long>(c) * kXBytes;
+  const int* cols_i = block_cols + bi * kb;
+  const unsigned short* vals_i = block_vals + bi * kb * static_cast<long long>(kBs * kBs) + part * kTileM * kBs;
+  const char* xb = static_cast<const char*>(x) + static_cast<long long>(blockIdx.z) * n * static_cast<long long>(c) * kXBytes;
   const int n_blocks = n / kBs;
-  constexpr int kChunksPerSlot = kBs / kBfChunk;
-  const int iters = kb * kChunksPerSlot;
 
-  // block chunk copies: 64 rows x 4 pieces of 16 bytes, 2 per thread
-  const int a_m = tid / 4;
-  const int a_q = (tid % 4) * 8;  // bf16 offset of the piece in the row
-  // x chunk: 32 depths x 16 groups of 4 channels, 4 per thread: one group,
-  // depths x_d + 8u (a warp covers 4 groups of 8 consecutive depths)
-  const int x_grp = lane / 8 + 4 * warp;
-  const int x_d = lane % 8;
-  const int x_ch = c0 + 4 * x_grp;
-  const int x_live = min(4, c - x_ch);  // channels of the group inside [0, c)
-
-  auto load_a = [&](int it, int buf) {
-    const int s = it / kChunksPerSlot;
-    const int d0 = (it % kChunksPerSlot) * kBfChunk;
+  // the block-row's slots: column and this half's four live bits (none for
+  // a column out of range)
+  for (int s = tid; s < kb; s += kBfThreads) {
     const int col = cols_i[s];
     const bool ok = col >= 0 && col < n_blocks;
-    const unsigned short* a = ok ? vals_i + s * static_cast<long long>(kBs * kBs) + d0 : block_vals;
-    unsigned short* as = a_ring + buf * kBfAStage;
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int m = a_m + 32 * u;
-      cp_async16b(as + m * kBfPitch + a_q, a + (ok ? m * kBs + a_q : 0), ok);
-    }
+    const int bits = !ok ? 0 : live ? (live[bi * kb + s] >> (4 * part)) & 15 : 15;
+    slot_info[s] = (ok ? col : 0) | (bits << 24);
+  }
+  __syncthreads();
+  int n_live = 0;
+  for (int s = 0; s < kb; ++s) n_live += __popc(slot_info[s] >> 24);
+
+  // items p = 4 s + d (slot s, depth chunk d) in order; the producer's
+  // cursor skips the dead ones
+  const int items = 4 * kb;
+  int p = 0;
+  auto next_live = [&]() {
+    while (p < items && !((slot_info[p >> 2] >> (24 + (p & 3))) & 1)) ++p;
   };
-  float4 xr[4];
-  auto load_x = [&](int it) {
-    const int s = it / kChunksPerSlot;
-    const int d0 = (it % kChunksPerSlot) * kBfChunk;
-    const int col = cols_i[s];
-    const bool ok = col >= 0 && col < n_blocks && x_live > 0;
+  // item p into ring stage st
+  auto load = [&](int st) {
+    const int s = p >> 2;
+    const int d0 = (p & 3) * kBfChunk;
+    const long long xrow = static_cast<long long>(slot_info[s] & 0xffffff) * kBs + d0;  // x's first row in the chunk
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const long long r = static_cast<long long>(col) * kBs + d0 + x_d + 8 * u;
-      xr[u] = ok ? load_x4<XBF16, VEC>(xb + (r * c + x_ch) * kXBytes, x_live) : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int u = 0; u < kTileM * 4 / kBfThreads; ++u) {  // block chunk: 64 rows x 4 pieces of 16 bytes
+      const unsigned id = tid + u * kBfThreads;  // unsigned: / and % by powers of two are shifts
+      const int m = id >> 2;
+      const int q = (id & 3) * 8;
+      cp_async16b(a_ring + st * kBfAStageBytes + (m * kBfAPitch + q) * 2,
+                  vals_i + s * static_cast<long long>(kBs * kBs) + m * kBs + d0 + q, true);
     }
-  };
-  auto store_x = [&](int buf) {
-    unsigned short* xs = x_ring + buf * kBfXStage + (4 * x_grp) * kBfPitch + x_d;
+    unsigned char* xs = x_ring + st * kXStageBytes;
+    if constexpr (XBF16 && VEC) {  // 32 depths x kBfTileN / 8 pieces of 8 channels
+      const unsigned short* xp = reinterpret_cast<const unsigned short*>(xb);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      xs[0 * kBfPitch + 8 * u] = bf16_rn(xr[u].x);
-      xs[1 * kBfPitch + 8 * u] = bf16_rn(xr[u].y);
-      xs[2 * kBfPitch + 8 * u] = bf16_rn(xr[u].z);
-      xs[3 * kBfPitch + 8 * u] = bf16_rn(xr[u].w);
+      for (int u = 0; u < kBfChunk * kBfTileN / 8 / kBfThreads; ++u) {
+        const unsigned id = tid + u * kBfThreads;
+        const int d = id / (kBfTileN / 8);
+        const int cl = id % (kBfTileN / 8) * 8;
+        const bool full = c0 + cl < c;
+        cp_async16b(xs + (d * kBfXPitch + cl) * 2, full ? xp + (xrow + d) * c + c0 + cl : xp, full);
+      }
+    } else if constexpr (XBF16) {  // element by element, plain loads
+      const unsigned short* xp = reinterpret_cast<const unsigned short*>(xb);
+      constexpr int kU = kBfChunk * kBfTileN / kBfThreads;  // 16
+      unsigned short v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const unsigned id = tid + u * kBfThreads;
+        const int ch = c0 + id % kBfTileN;
+        v[u] = ch < c ? xp[(xrow + id / kBfTileN) * c + ch] : static_cast<unsigned short>(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const unsigned id = tid + u * kBfThreads;
+        reinterpret_cast<unsigned short*>(xs)[id / kBfTileN * kBfXPitch + id % kBfTileN] = v[u];
+      }
+    } else if constexpr (VEC) {  // fp32: 32 depths x kBfTileN / 4 pieces of 4 channels
+      const float* xp = reinterpret_cast<const float*>(xb);
+      float* xf = reinterpret_cast<float*>(xs);
+#pragma unroll
+      for (int u = 0; u < kBfChunk * kBfTileN / 4 / kBfThreads; ++u) {
+        const unsigned id = tid + u * kBfThreads;
+        const int d = id / (kBfTileN / 4);
+        const int cl = id % (kBfTileN / 4) * 4;
+        const bool full = c0 + cl < c;
+        cp_async16(xf + d * kBfXPitchF + cl, full ? xp + (xrow + d) * c + c0 + cl : xp, full);
+      }
+    } else {  // fp32, element by element
+      const float* xp = reinterpret_cast<const float*>(xb);
+      float* xf = reinterpret_cast<float*>(xs);
+#pragma unroll
+      for (int u = 0; u < kBfChunk * kBfTileN / kBfThreads; ++u) {
+        const unsigned id = tid + u * kBfThreads;
+        const int d = id / kBfTileN;
+        const int cl = id % kBfTileN;
+        const bool full = c0 + cl < c;
+        cp_async4(xf + d * kBfXPitchF + cl, full ? xp + (xrow + d) * c + c0 + cl : xp, full);
+      }
     }
   };
 
@@ -784,53 +888,76 @@ bsr_spmm_bf16_kernel(const int* __restrict__ block_cols, const unsigned short* _
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
 
-  if (iters > 0) {
-    load_a(0, 0);
-    load_x(0);
-    store_x(0);
-  }
-  cp_async_commit();
-  for (int it = 0; it < iters; ++it) {
-    const int cur = it & 1;
-    cp_async_wait<0>();  // this thread's block chunk `it` has landed
-    __syncthreads();     // ... and every thread's, with the x chunk; stage cur^1 is free again
-    const bool more = it + 1 < iters;
-    if (more) load_a(it + 1, cur ^ 1);
+  // one commit group per stage, empty once the live items run out: live
+  // item q sits in stage q % kBfStages
+  int st_load = 0;
+#pragma unroll 1
+  for (int st = 0; st < kBfStages - 1; ++st) {
+    next_live();
+    if (p < items) {
+      load(st_load);
+      ++p;
+    }
     cp_async_commit();
-    if (more) load_x(it + 1);  // in flight while this chunk multiplies
+    ++st_load;
+  }
+  int st_use = 0;
+#pragma unroll 1
+  for (int q = 0; q < n_live; ++q) {
+    cp_async_wait<kBfStages - 2>();  // live item q has landed (this thread's copies)
+    __syncthreads();                 // ... and every thread's; stage q-1 is free again
+    next_live();
+    if (p < items) {
+      load(st_load);
+      ++p;
+    }
+    cp_async_commit();
+    st_load = st_load + 1 == kBfStages ? 0 : st_load + 1;
 
-    const unsigned short* as = a_ring + cur * kBfAStage;
-    const unsigned short* xsm = x_ring + cur * kBfXStage;
+    const unsigned short* as = reinterpret_cast<const unsigned short*>(a_ring + st_use * kBfAStageBytes);
+    const unsigned char* xs = x_ring + st_use * kXStageBytes;
 #pragma unroll
     for (int kk = 0; kk < kBfChunk; kk += 16) {
       unsigned af[kMT][4], bfr[kNT][2];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt) {
-        // A fragment: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
-        const unsigned* ap = reinterpret_cast<const unsigned*>(as + (wm + mt * 16 + g) * kBfPitch + kk + 2 * t);
-        af[mt][0] = ap[0];
-        af[mt][1] = ap[8 * kBfPitch / 2];
-        af[mt][2] = ap[4];
-        af[mt][3] = ap[8 * kBfPitch / 2 + 4];
+        // a0 (rows 0-7, depths 0-7), a1 (rows 8-15), a2 (depths 8-15), a3
+        ldmatrix_x4(af[mt], as + (wm + mt * 16 + (lane & 15)) * kBfAPitch + kk + (lane >> 4) * 8);
       }
+      if constexpr (XBF16) {
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        // B fragment: b0 (k = 2t..2t+1, n = g), b1 (k = 2t+8..2t+9, n = g)
-        const unsigned* bp = reinterpret_cast<const unsigned*>(xsm + (wn + nt * 8 + g) * kBfPitch + kk + 2 * t);
-        bfr[nt][0] = bp[0];
-        bfr[nt][1] = bp[4];
+        for (int np = 0; np < kNT / 2; ++np) {
+          // b0, b1 of channel tile 2 np, then of 2 np + 1: depths kk..kk+7 and
+          // kk+8..kk+15 of 8 channels each, transposed
+          unsigned r[4];
+          ldmatrix_x4_trans(r, reinterpret_cast<const unsigned short*>(xs) +
+                                   (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kBfXPitch + wn + np * 16 +
+                                   (lane >> 4) * 8);
+          bfr[2 * np][0] = r[0];
+          bfr[2 * np][1] = r[1];
+          bfr[2 * np + 1][0] = r[2];
+          bfr[2 * np + 1][1] = r[3];
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          // b0 (depths 2t, 2t+1 of channel g), b1 (depths 2t+8, 2t+9), rounded here
+          const float* bp = reinterpret_cast<const float*>(xs) + (kk + 2 * t) * kBfXPitchF + wn + nt * 8 + g;
+          bfr[nt][0] = pack_bf16_rn(bp[0], bp[kBfXPitchF]);
+          bfr[nt][1] = pack_bf16_rn(bp[8 * kBfXPitchF], bp[9 * kBfXPitchF]);
+        }
       }
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt]);
     }
-    if (more) store_x(cur ^ 1);
+    st_use = st_use + 1 == kBfStages ? 0 : st_use + 1;
   }
   cp_async_wait<0>();
 
   // C fragment: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
-  float* ob = out + (b * nb * kBs + i * kBs + part * kTileM) * static_cast<long long>(c);
+  float* ob = out + (bi * kBs + part * kTileM) * static_cast<long long>(c);
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -839,16 +966,28 @@ bsr_spmm_bf16_kernel(const int* __restrict__ block_cols, const unsigned short* _
       for (int h = 0; h < 2; ++h) {
         const int m = wm + mt * 16 + g + h * 8;
         const int ch = c0 + wn + nt * 8 + 2 * t;
-        float* p = ob + static_cast<long long>(m) * c + ch;
+        float* o = ob + static_cast<long long>(m) * c + ch;
         const float v0 = acc[mt][nt][2 * h];
         const float v1 = acc[mt][nt][2 * h + 1];
-        if (VEC) {  // c % 4 == 0 and ch even: both channels live together, 8-byte aligned
-          if (ch < c) *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        if (VEC) {  // c even and ch even: both channels live together, 8-byte aligned
+          if (ch < c) *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
         } else {
-          if (ch < c) p[0] = v0;
-          if (ch + 1 < c) p[1] = v1;
+          if (ch < c) o[0] = v0;
+          if (ch + 1 < c) o[1] = v1;
         }
       }
+}
+
+// one variant of bsr_spmm_bf16_kernel, its dynamic shared memory allowed
+// before each launch (as for bsr_spmm_kernel)
+template <bool XBF16, bool VEC>
+cudaError_t launch_bsr_bf16(dim3 grid, int smem, cudaStream_t s, const int* bc, const unsigned short* bv,
+                            const unsigned char* live, const void* x, float* o, int nb, int kb, int n, int c) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(bsr_spmm_bf16_kernel<XBF16, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  bsr_spmm_bf16_kernel<XBF16, VEC><<<grid, kBfThreads, smem, s>>>(bc, bv, live, x, o, nb, kb, n, c);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -867,8 +1006,9 @@ bsr_spmm_bf16_kernel(const int* __restrict__ block_cols, const unsigned short* _
 //
 // Measured by chip_smoke.py at R=N=7040, K=16, C=120 on an NVIDIA H100 80GB
 // HBM3 at 700.00 W: 0.00804 ms warm (17% of its 0.00134 ms byte bound),
-// 0.01184 ms cold; the fp32 kernel 0.00731: as in ell_spmm_bf16x_kernel, a
-// 120-channel bf16 row leaves 17 of 32 lanes idle.
+// 0.01184 ms cold; the fp32 kernel 0.00731: a 120-channel bf16 row leaves 17
+// of 32 lanes idle (ell_spmm_bf16x_kernel's rows-per-warp packing is the
+// lead).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float dot8(const uint4& u, const uint4& v) {
   float a[8], b[8];
@@ -1026,47 +1166,51 @@ int snx_ell_spmm_bf16x(const void* cols, const void* vals, const void* x, void* 
                        int batch, int rows, int k, int n, int c, int vec8, int pairs4, void* stream) {
   const long long total = static_cast<long long>(batch) * rows;
   if (total == 0 || c == 0) return static_cast<int>(cudaGetLastError());
-  const int threads = 256;  // 8 warps, one row each
-  const unsigned blocks = static_cast<unsigned>((total + threads / 32 - 1) / (threads / 32));
+  // a row's lanes (16 bytes of x each), rounded up to a power of two, at most 32
+  const int width = vec8 ? c / 8 : c;
+  int lanes_log2 = 0;
+  while (lanes_log2 < 5 && (1 << lanes_log2) < width) ++lanes_log2;
+  const int threads = 256;  // 8 warps of 32 >> lanes_log2 rows each
+  const long long rows_per_block = static_cast<long long>(threads / 32) << (5 - lanes_log2);
+  const unsigned blocks = static_cast<unsigned>((total + rows_per_block - 1) / rows_per_block);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec8) {
     ell_spmm_bf16x_kernel<true><<<blocks, threads, 0, s>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const unsigned short*>(x), static_cast<float*>(out), batch, rows, k, n, c, pairs4);
+        static_cast<const unsigned short*>(x), static_cast<float*>(out), batch, rows, k, n, c, pairs4, lanes_log2);
   } else {
     ell_spmm_bf16x_kernel<false><<<blocks, threads, 0, s>>>(
         static_cast<const int*>(cols), static_cast<const float*>(vals),
-        static_cast<const unsigned short*>(x), static_cast<float*>(out), batch, rows, k, n, c, pairs4);
+        static_cast<const unsigned short*>(x), static_cast<float*>(out), batch, rows, k, n, c, pairs4, lanes_log2);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // block_cols int32 [batch, nb, kb], block_vals bf16 [batch, nb, kb, 128, 128]
-// (16-byte aligned), x fp32 (x_bf16 == 0) or bf16 [batch, n, c] with n a
-// multiple of 128 -> out fp32 [batch, nb*128, c].  vec != 0 needs c % 4 == 0,
-// x aligned to 16 (fp32) or 8 (bf16) bytes and out to 16.
-int snx_bsr_spmm_bf16(const void* block_cols, const void* block_vals, const void* x, void* out,
+// (16-byte aligned), live uint8 [batch, nb, kb] or null (every chunk read),
+// x fp32 (x_bf16 == 0) or bf16 [batch, n, c] with n a multiple of 128 -> out
+// fp32 [batch, nb*128, c].  vec != 0 needs c % 8 == 0 (bf16 x) or c % 4 == 0
+// (fp32 x), and 16-byte aligned x and out.
+int snx_bsr_spmm_bf16(const void* block_cols, const void* block_vals, const void* live, const void* x, void* out,
                       int batch, int nb, int kb, int n, int c, int x_bf16, int vec, void* stream) {
   if (batch == 0 || nb == 0 || c == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((c + kTileN - 1) / kTileN, nb * (kBs / kTileM), batch);
+  const dim3 grid((c + kBfTileN - 1) / kBfTileN, nb * (kBs / kTileM), batch);
+  const int smem = kBfStages * (kBfAStageBytes + (x_bf16 ? kBfXStageBytes16 : kBfXStageBytes32)) +
+                   kb * static_cast<int>(sizeof(int));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bc = static_cast<const int*>(block_cols);
   const unsigned short* bv = static_cast<const unsigned short*>(block_vals);
+  const unsigned char* lv = static_cast<const unsigned char*>(live);
   float* o = static_cast<float*>(out);
+  cudaError_t e;
   if (x_bf16) {
-    if (vec) {
-      bsr_spmm_bf16_kernel<true, true><<<grid, kBsrThreads, 0, s>>>(bc, bv, x, o, nb, kb, n, c);
-    } else {
-      bsr_spmm_bf16_kernel<true, false><<<grid, kBsrThreads, 0, s>>>(bc, bv, x, o, nb, kb, n, c);
-    }
+    e = vec ? launch_bsr_bf16<true, true>(grid, smem, s, bc, bv, lv, x, o, nb, kb, n, c)
+            : launch_bsr_bf16<true, false>(grid, smem, s, bc, bv, lv, x, o, nb, kb, n, c);
   } else {
-    if (vec) {
-      bsr_spmm_bf16_kernel<false, true><<<grid, kBsrThreads, 0, s>>>(bc, bv, x, o, nb, kb, n, c);
-    } else {
-      bsr_spmm_bf16_kernel<false, false><<<grid, kBsrThreads, 0, s>>>(bc, bv, x, o, nb, kb, n, c);
-    }
+    e = vec ? launch_bsr_bf16<false, true>(grid, smem, s, bc, bv, lv, x, o, nb, kb, n, c)
+            : launch_bsr_bf16<false, false>(grid, smem, s, bc, bv, lv, x, o, nb, kb, n, c);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
 // cols int32 [batch, rows, k], vals fp32 [batch, rows, k], a bf16

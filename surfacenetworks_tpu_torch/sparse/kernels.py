@@ -69,11 +69,29 @@ bf16, which is the path its trainers run (they never select Pallas):
 
 * ``bsr_matmul`` with bf16 blocks (``_bsr_matmul_xla``): x (fp32 or bf16)
   rounded to bf16 to nearest even, bf16 products summed in fp32, fp32 out.
-  ``mma.sync`` m16n8k16 bf16, one pass where fp32 takes three; x rounded as
-  it is staged in shared memory.
+  ``mma.sync`` m16n8k16 bf16, one pass where fp32 takes three.  Bound:
+  bytes; with the live-chunk mask, the live chunks, the x slices they read
+  and out, 11.0 MB at NB=55, KB=5, C=128 on bf16 x (0.00328 ms); without
+  it every stored byte, 14.4 MB (0.0043 ms).  Design: one CTA of 4 warps
+  per 64-row half block-row and 64 channels (220 CTAs), a 6-stage
+  ``cp.async`` ring of 32-deep chunks of both operands, x in its own
+  row-major layout in shared memory read by ``ldmatrix.trans`` (fp32 x
+  staged as fp32 and rounded as the fragments are built), and the chunks
+  that hold only zeros skipped through the operator's live-chunk mask
+  (``live=``, ``bsr.live_chunks``: 38% of a mesh Laplacian's stored
+  chunks).  Chunks are taken in slot order, so the bits are those of
+  reading every chunk.  Measured by ``bsr_bf16_sweep.py`` on an NVIDIA
+  H100 80GB HBM3 at 700.00 W: 0.0102 ms on bf16 x (32% of its bound),
+  0.0126-0.0128 ms on fp32 x (the backward's cotangents), 0.0144-0.0146
+  ms cold.
 * ``ell_matmul`` on bf16 x (``_ell_matmul_xla``): fp32 values times bf16 x
   promote to fp32, fp32 sums and out.  A 16-byte lane carries 8 bf16
-  channels; slots are added in the fp32 kernel's fixed order.
+  channels and a warp holds 32 / lanes_per_row rows (a row's lanes rounded
+  up to a power of two: 2 rows at C=128, 4 at C=64), so a warp's gathers
+  fill it as the fp32 kernel's do; slots are added in the fp32 kernel's
+  fixed order.  Measured as above: 0.0062 ms at 7,040 x 16 x 128 (the fp32
+  kernel 0.0070), 0.0356 ms at the ARAP batch, 0.0062 ms at the mesh-MNIST
+  batch.
 * ``sddmm`` of bf16 a and b (``_sddmm_xla``): fp32 sums, one rounding to
   bf16 at the store, bf16 out; the ballot-compacted design of the fp32
   kernel.
@@ -155,9 +173,17 @@ def bsr_matmul_plain(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torc
     return out if batched else out[0]
 
 
-def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tensor,
+               live: torch.Tensor | None = None) -> torch.Tensor:
     """Block-ELL SpMM over 128x128 blocks, fp32 out on the card: fp32 blocks
     and x, or bf16 blocks and fp32 or bf16 x (the bf16 variant).
+
+    ``live`` (uint8 ``[..., NB, KB]``, ``bsr.live_chunks`` of the same
+    blocks) lets the bf16 kernel skip the 64-row x 32-deep chunks of the
+    stored blocks that hold only zeros; without it every chunk is read.  A
+    skipped chunk would add exact zeros, so a true mask changes no finite
+    result; a mask that clears a chunk holding a nonzero drops that chunk's
+    terms.  The fp32 kernel and the plain version read every chunk.
 
     Block-columns must lie in ``[0, N/128)``.  ``BsrMatrix.to`` checks that
     on the host and ``bsr_spmm`` checks N, so the port's path never hands
@@ -183,18 +209,25 @@ def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tens
         raise ValueError(f"bsr_matmul: x {tuple(xb.shape)} is not [{B}, 128*m, C]")
     if vals.data_ptr() % 16:
         raise ValueError("bsr_matmul: block_vals must be 16-byte aligned")
+    if live is not None:
+        _check_cuda("bsr_matmul", block_cols=block_cols, live=live)
+        if live.dtype != torch.uint8 or live.shape != block_cols.shape:
+            raise ValueError(f"bsr_matmul: live must be uint8 {tuple(block_cols.shape)}, got {live.dtype} "
+                             f"{tuple(live.shape)}")
     n, c = xb.shape[1:]
     out = torch.empty((B, nb * 128, c), device=x.device, dtype=torch.float32)
-    vec4 = c % 4 == 0 and xb.data_ptr() % (8 if xb.dtype == torch.bfloat16 else 16) == 0 and out.data_ptr() % 16 == 0
+    x_bf16 = xb.dtype == torch.bfloat16
+    vec = c % (8 if x_bf16 and bf16 else 4) == 0 and xb.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     lib = _build.load()
     stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    ptrs = (cols.data_ptr(), vals.data_ptr(), xb.data_ptr(), out.data_ptr())
     if bf16:
         name = "bsr_matmul_bf16"
-        code = lib.snx_bsr_spmm_bf16(*ptrs, B, nb, kb, n, c, int(xb.dtype == torch.bfloat16), int(vec4), stream)
+        code = lib.snx_bsr_spmm_bf16(cols.data_ptr(), vals.data_ptr(), None if live is None else live.data_ptr(),
+                                     xb.data_ptr(), out.data_ptr(), B, nb, kb, n, c, int(x_bf16), int(vec), stream)
     else:
         name = "bsr_matmul"
-        code = lib.snx_bsr_spmm(*ptrs, B, nb, kb, n, c, int(vec4), stream)
+        code = lib.snx_bsr_spmm(cols.data_ptr(), vals.data_ptr(), xb.data_ptr(), out.data_ptr(), B, nb, kb, n, c,
+                                int(vec), stream)
     _raise_on(code, name)
     launches[name] += 1
     return out if batched else out[0]

@@ -69,12 +69,12 @@ class _BsrApply(torch.autograd.Function):
     def forward(ctx, op: BsrOperator, x: torch.Tensor) -> torch.Tensor:
         ctx.op, ctx.dtype = op, x.dtype
         m = op.fwd
-        return kernels.bsr_matmul(m.block_cols, m.block_vals, x.contiguous())
+        return kernels.bsr_matmul(m.block_cols, m.block_vals, x.contiguous(), op.fwd_live)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         m = ctx.op.bwd
-        return None, kernels.bsr_matmul(m.block_cols, m.block_vals, g.contiguous()).to(ctx.dtype)
+        return None, kernels.bsr_matmul(m.block_cols, m.block_vals, g.contiguous(), ctx.op.bwd_live).to(ctx.dtype)
 
 
 def spmm(op: EllOperator, x: torch.Tensor) -> torch.Tensor:
