@@ -10,7 +10,7 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives seven paths, each with the launch counts set to 0 just before it and
+drives eight paths, each with the launch counts set to 0 just before it and
 read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
@@ -32,6 +32,13 @@ read just after:
   detached mutant refused); the run is repeated from step 0's state, and
   resumed in a fresh trainer from a checkpoint saved after step 4, and both
   must be bit-identical.  The dense format, at 2,000 vertices, is measured;
+* the rest of the normal zoo: the same trainer with ``--model gat``
+  (GatDeepModel-15: masked 4-head attention over the ELL pattern in RCM
+  order, here with ``--flip-variants 1``), ``avg``, ``mlp``, ``id`` and
+  ``gat --bf16``, 4 updates and the test pass each, none launching a
+  kernel; step 0 against fp64 module by module (a GAT whose attends are
+  detached refused); every run repeated bit for bit; the attends' device
+  time in the profiled step and alone;
 * Dirac training: the same trainer with ``--model dirac`` (DirDeepModel-15,
   the structured Dirac tables packed to a base valence): each Dirac apply
   and backward against the fp64 scipy pair (mutants without a slot or
@@ -217,6 +224,39 @@ NORMAL_RESUME_AFTER = 4  # the checkpoint is saved after this many updates
 # (BSR); module by module the chain read at most 0.084 and the parameter
 # gradients 0.20, the detached mutant's chain 1.0 (PERF.md, section 6).
 NORMAL_STEP0_LOSS_RTOL = 0.1
+# The rest of the normal zoo: the normal trainer at the normal phase's data
+# and widths (LapDeepModel's WIDTH 128, depth 15, batch 1, ~7,000-vertex
+# meshes) with --model gat (8 GatResNet2 blocks of 4 heads and 7 Avg
+# blocks; ELL over RCM order, whatever the format flag says; here with
+# --flip-variants 1, so 4 more train meshes), avg, mlp and id, 4 updates
+# and the test pass each, and gat with --bf16.  None of them launches a
+# kernel: GAT's attention is plain PyTorch (one gather of [R*K, H*ch + H]
+# payload rows, a masked softmax over the K slots) and the other three read
+# no operator.  Step 0 of each run against fp64 module by module with the
+# normal phase's bounds (GAT's fp64 reference attends over the same ELL
+# pattern; the bf16 run's modules too, from its bf16 inputs), the parameters
+# that are zero in exact arithmetic by size (ZOO_NULL_GRADS); a GAT whose
+# attends return detached outputs must fail that check.  On the card the
+# fp32 runs' chain read at most 6.2e-6 and their parameter gradients 9.0e-5,
+# the bf16 GAT run's 5.4e-3 and 0.28 (bf16 rounding in batch-norm bias
+# gradients whose rows cancel), the detached attends' chain 0.75 (PERF.md,
+# section 6).
+ZOO_STEPS = 4
+ZOO_ARGS = ["--synthetic", "5", "--synthetic-points", "7000", "--seed", "0", "--layer", str(LAYERS),
+            "--batch-size", "1", "--num-updates", str(ZOO_STEPS), "--num-epoch", "1", "--device", "cuda"]
+ZOO_RUNS = {"gat": ["--model", "gat", "--flip-variants", "1"], "avg": ["--model", "avg"], "mlp": ["--model", "mlp"],
+            "id": ["--model", "id"], "gat bf16": ["--model", "gat", "--bf16"]}
+# Zero in exact arithmetic: MlpModel passes a per-channel constant through
+# every block unchanged (batch norms remove it, residuals carry it) to its
+# final batch norm, which removes it, so conv1's bias and every block's
+# fc biases are; IdDeepModel's last block output reaches only conv2's 'pre'
+# batch norm, so its last conv's biases are.
+ZOO_NULL_GRADS = {
+    "mlp": {"conv1.fc.bias"} | {f"rn{i}.fc{j}.fc.bias" for i in range(LAYERS) for j in (0, 1)},
+    "id": {f"rn{LAYERS - 1}.bn_fc1.fc.bias", f"rn{LAYERS - 1}.bn_fc1.bn.bias"},
+}
+GAT_RANGE = "gat attend"  # the profiler range around each attend's forward in the profiled step
+GAT_ATTENDS = 2 * ((LAYERS + 1) // 2)  # two a GAT block, GAT blocks on even layers
 # Dirac training: the normal trainer with ``--model dirac`` at its defaults,
 # DirDeepModel-15 (8 Dirac blocks, 7 Avg blocks) at width 128, batch 1, on
 # the same five synthetic ~7,000-vertex meshes with Dirac coefficients
@@ -235,7 +275,7 @@ NORMAL_STEP0_LOSS_RTOL = 0.1
 # (PERF.md, section 6).
 # Two parameters have a zero gradient in exact arithmetic (DIRAC_NULL_GRADS:
 # the last block's output biases, whose per-channel constant conv2's 'pre'
-# batch norm removes): each card gradient is held to DIRAC_NULL_GRAD_RTOL of
+# batch norm removes): each card gradient is held to NULL_GRAD_RTOL of
 # the largest fp64 gradient instead, as a Frobenius ratio.
 DIRAC_POINTS = 7000
 DIRAC_ARGS = ["--synthetic", "5", "--synthetic-points", str(DIRAC_POINTS), "--seed", str(SEED), "--model", "dirac",
@@ -245,7 +285,10 @@ DIRAC_BLOCKS = (LAYERS + 1) // 2  # Dirac blocks on even layers: one vf and one 
 DIRAC_APPLY_RTOL = 1e-5
 DIRAC_STEP0_CHAIN_RTOL = 1e-2
 DIRAC_MUTANT_SCALE = 1.03  # a mutant whose applies pass back cotangents 3% too large must fail it
-DIRAC_NULL_GRAD_RTOL = 1e-4
+NULL_GRAD_RTOL = 1e-4
+# the normal phase's module-wise bounds (also the zoo's, whose Mlp and Id
+# models have null gradients of their own)
+NORMAL_STEP0_BOUNDS = {"chain": STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL, "null": NULL_GRAD_RTOL}
 DIRAC_RANGE = "dirac apply"  # the profiler range around each apply in the profiled step
 DIRAC_NULL_GRADS = {f"rn{LAYERS - 1}.bn_fc1.fc.bias", f"rn{LAYERS - 1}.bn_fc1.bn.bias"}
 # ARAP training: the JAX trainer's defaults but for the run length and the
@@ -948,10 +991,20 @@ def bf16_kernel_phase(device) -> dict:
         a = torch.randn(BUCKET, FEATURES, device=device, generator=gen).to(bf)
         b = torch.randn(BUCKET, FEATURES, device=device, generator=gen).to(bf)
         sdd(f"sddmm bf16 permuted slots K={kk} C={FEATURES}", c_, v_, a, b)
-    for c in (3, 130, 264):
+    # every lane-group size: 4 lanes a row (C=3, 8, 16), 8 (64), 16 (120), 32 (130, 264: channel passes)
+    for c in (3, 8, 16, 64, 130, 264):
         a = torch.randn(BUCKET, c, device=device, generator=gen).to(bf)
         b = torch.randn(BUCKET, c, device=device, generator=gen).to(bf)
         sdd(f"sddmm bf16 permuted slots K={cols.shape[1]} C={c}", pc, pv, a, b)
+    for c in (FEATURES, MNIST_WIDTH, 8):  # R = n_rows is no multiple of the rows a warp holds
+        a = torch.randn(rag.n_rows, c, device=device, generator=gen).to(bf)
+        b = torch.randn(rag.n_cols, c, device=device, generator=gen).to(bf)
+        sdd(f"sddmm bf16 ragged R={rag.n_rows} K={rag.k} C={c}", rag.cols, rag.vals, a, b)
+    for c in (FEATURES, MNIST_WIDTH):
+        a = torch.randn(2, BUCKET, c, device=device, generator=gen).to(bf)
+        b = torch.randn(2, BUCKET, c, device=device, generator=gen).to(bf)
+        sdd(f"sddmm bf16 batched B=2 K={cols.shape[1]} C={c}", torch.stack([cols, cols]),
+            torch.stack([vals, vals.flip(0)]), a, b)
     a = torch.randn(BUCKET, FEATURES, device=device, generator=gen).to(bf)
     b = torch.randn(BUCKET, FEATURES, device=device, generator=gen).to(bf)
     same_twice("sddmm bf16 K=16", lambda: kernels.sddmm(cols, vals, a, b))
@@ -1377,11 +1430,13 @@ class ModuleCapture:
 
 
 class StepCapture(ModuleCapture):
-    """``ModuleCapture`` of a model's ``conv1``, blocks ``rn{i}`` and
-    ``conv2``, in ``names``, and of the model itself as ``trunk``."""
+    """``ModuleCapture`` of a model's ``conv1``, blocks ``rn{i}``, final
+    batch norm ``bn`` where it has one, and ``conv2``, in ``names``, and of
+    the model itself as ``trunk``."""
 
     def __init__(self, model):
-        names = ["conv1"] + [f"rn{i}" for i in range(model.layers)] + ["conv2"]
+        bn = ["bn"] if "bn" in dict(model.named_children()) else []  # MlpModel's final batch norm
+        names = ["conv1"] + [f"rn{i}" for i in range(model.layers)] + bn + ["conv2"]
         super().__init__(model, {**{n: n for n in names}, "trunk": ""})
         self.names = names
 
@@ -1390,43 +1445,74 @@ def _rel_fro(got, ref) -> float:
     return float((got.double() - ref).norm() / ref.norm().clamp_min(1e-300))
 
 
-def modulewise_errors(cap: StepCapture, loss: float, grads: dict, head64, trunk64, masks, dense,
-                      prefix: str) -> dict:
-    """A step against fp64, module by module at the card's own activations:
-    the loss and the trunk outputs' cotangents from ``head64`` (the loss in
-    fp64, no kernel) on the card's trunk outputs; then for each trunk
-    module, each of its calls in fp64 on ``trunk64`` (dense operators, no
-    kernel) from the card's inputs and output cotangents, and their input
-    cotangents and parameter gradients (``grads[prefix + name]``) held
-    against the card's.  Returns each comparison's relative (Frobenius)
-    error."""
-    import torch
-
-    errs = {}
-    feats = [rec["out"][0].double().requires_grad_() for rec in cap.calls["trunk"]]
-    loss64 = head64(*feats)
+def output_head(cap: ModuleCapture, loss: float, head64, label: str = "trunk") -> dict:
+    """The head of a step against fp64 at the card's own outputs: the loss
+    by ``head64`` (in fp64, no kernel) on the outputs of each call of the
+    captured module ``label`` (the model, or the FAUST trunk: shape A, then
+    B), and each output's cotangent, against the card's; relative errors by
+    key."""
+    outs = [rec["out"][0].double().requires_grad_() for rec in cap.calls[label]]
+    loss64 = head64(*outs)
     loss64.backward()
-    errs["loss on the card's features"] = abs(loss - float(loss64.detach())) / abs(float(loss64.detach()))
-    for k, (f, rec) in enumerate(zip(feats, cap.calls["trunk"])):
-        errs[f"head cotangent of features {'AB'[k]}"] = _rel_fro(rec["g"][0], f.grad)
-    for j, name in enumerate(cap.names):
-        mod = getattr(trunk64, name)
-        for k in range(len(feats)):
-            rec = cap.calls[name][k]
-            if name == "conv2":  # from the last block's output, through the trunk's ELU
-                x = cap.calls[cap.names[j - 1]][k]["out"][0].double().requires_grad_()
-                out = mod(torch.nn.functional.elu(x))
-            else:
-                x = rec["args"][-1].double().requires_grad_()
-                out = mod(x) if name == "conv1" else mod(dense[k], masks[k], x)
-            out.backward(rec["g"][0].double())
-            if j > 0:  # the card's cotangent at this input is the one at the previous module's output
-                errs[f"{name} input cotangent {'AB'[k]}"] = _rel_fro(cap.calls[cap.names[j - 1]][k]["g"][0], x.grad)
-        for pname, p in mod.named_parameters():
-            errs[f"{name}.{pname} gradient"] = _rel_fro(grads[f"{prefix}{name}.{pname}"], p.grad)
+    errs = {"loss on the card's outputs": abs(loss - float(loss64.detach())) / abs(float(loss64.detach()))}
+    for k, (o, rec) in enumerate(zip(outs, cap.calls[label])):
+        errs[f"head cotangent of output call {k}"] = _rel_fro(rec["g"][0], o.grad)
     return errs
 
 
+def replay_modules(cap: ModuleCapture, grads: dict, ref_model, apply, dtype=None, prefix: str = "",
+                   null=frozenset(), outputs: bool = False) -> dict:
+    """The one step-0 comparator: a captured step replayed module by module.
+    Each call of each module of ``cap`` is rerun by the same module of
+    ``ref_model`` (the model at the step's weights: in fp64, or in the
+    card's dtype) on its captured inputs (floating ones cast to ``dtype``,
+    kept where None), every operator argument replaced by ``apply(name, k,
+    op)`` (a dense fp64 operator or pair, the kernels' plain versions, the
+    pattern itself), and the captured output cotangents are passed back.
+    One row per call for each output (with ``outputs``) and each input that
+    needed a gradient (its cotangent against the card's share of it; zero
+    where none reached it), and one per parameter leaf: its gradient, summed
+    over the calls, against the card's ``grads[prefix + path]``, or for a
+    leaf in ``null`` (zero in exact arithmetic) the card gradient's norm
+    over the largest reference gradient's.  Returns each row's relative
+    (Frobenius) error by key; parameter rows end in ``gradient`` (``null
+    gradient``), the chain's (outputs and cotangents) do not."""
+    import torch
+
+    errs, pgrads = {}, {}
+    for name in cap.names:
+        mod = ref_model.get_submodule(name)
+        mod.zero_grad(set_to_none=True)
+        for k, rec in enumerate(cap.calls[name]):
+            args = []
+            for a, need in zip(rec["args"], rec["needs"]):
+                if _is_operator(a):
+                    a = apply(name, k, a)
+                elif isinstance(a, torch.Tensor) and a.is_floating_point():
+                    a = a if dtype is None else a.to(dtype)
+                    a = a.clone().requires_grad_() if need else a
+                args.append(a)
+            outs = mod(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            if outputs:
+                for i, (o, card) in enumerate(zip(outs, rec["out"])):
+                    errs[f"{name} output {i} call {k}"] = _rel_fro(card, o.detach().double())
+            pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, rec["g"]) if g is not None and o.requires_grad]
+            if pairs:
+                torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
+            for i, (a, need, gin) in enumerate(zip(args, rec["needs"], rec["gin"])):
+                if need:
+                    ref = torch.zeros_like(a) if a.grad is None else a.grad
+                    errs[f"{name} input {i} cotangent call {k}"] = _rel_fro(
+                        torch.zeros_like(ref) if gin is None else gin, ref.double())
+        pgrads.update({f"{name}.{pname}": p.grad for pname, p in mod.named_parameters() if p.grad is not None})
+    top = max((float(g.double().norm()) for key, g in pgrads.items() if key not in null), default=1.0)
+    for key, g in pgrads.items():
+        if key in null:
+            errs[f"{key} null gradient"] = float(grads[prefix + key].double().norm()) / top
+        else:
+            errs[f"{key} gradient"] = _rel_fro(grads[prefix + key], g.double())
+    return errs
 def judge_step0(what: str, runs: dict, bounds: dict, res: dict) -> list[str]:
     """The module-wise verdict on step 0.  ``runs`` maps "real" and each
     mutant's label to their errors against fp64; each run's errors fall in
@@ -1521,10 +1607,10 @@ def step0_check(fmt, trainer, state0, res, ia, ib, rots) -> list[str]:
         f"max {max(plain):.3e}")
     if not loss_rel <= STEP0_LOSS_RTOL:
         failures.append(f"{fmt}: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
-    masks = [trainer.dev_sample(i)["mask"].double() for i in (ia, ib)]
     res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(list(whole.values())))}
-    runs = {label: modulewise_errors(cap, loss, grads, lambda fa, fb: _plain_head(trainer, fa, fb, ia, ib),
-                                     _model(state0, trainer.device, torch.float64).trunk, masks, dense, "trunk.")
+    runs = {label: {**output_head(cap, loss, lambda fa, fb: _plain_head(trainer, fa, fb, ia, ib)),
+                    **replay_modules(cap, grads, _model(state0, trainer.device, torch.float64).trunk,
+                                     lambda name, k, op: dense[k], torch.float64, "trunk.")}
             for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
                                               "mutant detached applies": _detached_step0(trainer, state0, ia, ib,
                                                                                          rots)}.items()}
@@ -1629,12 +1715,29 @@ def faust_run(fmt: str, data: list, steps: int, extra: tuple = ()) -> tuple:
     return frun, params, restore
 
 
-def _lap_model(state0, device, dtype):
-    from surfacenetworks_tpu_torch.models import LapDeepModel
+def _model_at(build, state0, device):
+    """``dtype ->`` the model ``build()`` at the weights ``state0`` on
+    ``device`` in ``dtype``."""
+    def make(dtype):
+        model = build()
+        model.load_state_dict(state0)
+        return model.to(device, dtype)
+    return make
 
-    model = LapDeepModel(3, 3, layers=LAYERS)
-    model.load_state_dict(state0)
-    return model.to(device, dtype)
+
+def _normal_model_at(trainer, state0):
+    """``_model_at`` of a normal run's model (``train_normal.build_model``
+    of its arguments, fp32 structure)."""
+    from surfacenetworks_tpu_torch.cli import train_normal as tn
+
+    return _model_at(lambda: tn.build_model(trainer.args), state0, trainer.device)
+
+
+def _cosine_head(out, batch):
+    """The normal trainers' loss on a model's output."""
+    from surfacenetworks_tpu_torch.train import losses
+
+    return losses.normal_cosine_loss(out, batch.mask, batch.targets)
 
 
 def _normal_trainer(argv, label: str, logged: list | None = None):
@@ -1700,7 +1803,9 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
     (context manager, range name), is entered around the profiled step, and
     the device time of that range's kernels is kept as ``range_ms``.
     ``update(trainer, batch, u)`` takes update ``u`` where
-    ``trainer.update(batch)`` does not fit."""
+    ``trainer.update(batch)`` does not fit.  With a third element in
+    ``annotate``, the kernels of autograd's backward of the ranges'
+    operations (``backward_device_ms``) are kept as ``range_bwd_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1756,6 +1861,8 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
         res["top"] = rows[:8] + [r for r in rows[8:] if "spmm_" in r[2] or "sddmm_" in r[2]]
         if annotate:
             res["range_ms"], res["range_ops"] = range_device_ms(prof, annotate[1])
+            if len(annotate) > 2:  # autograd's backward of the ranges' operations, which runs outside them
+                res["range_bwd_ms"], res["range_bwd_ops"] = backward_device_ms(prof, annotate[1])
     steady = slice(1, steps - 1)  # not the first step, not the profiled one
     res["device_ms_median"] = float(np.median(res["device_ms"][steady]))
     res["wall_ms_median"] = float(np.median(res["wall_ms"][steady]))
@@ -1803,61 +1910,73 @@ def repeat_and_resume(label: str, trainer, snap: dict, res: dict, resume_argv: l
         f"{fresh.step}; {'bit-identical' if res['resumed'] else 'DIFFERENT'}")
 
 
-def normal_step0_check(fmt, trainer, state0, res) -> list[str]:
-    """Step 0 against the same step in fp64 with dense operators and no
-    kernel: the loss, then module by module (``modulewise_errors``); the
-    detached-apply mutant must fail the module-wise check.  Returns the
-    failures."""
+def fp64_step0_check(label: str, res: dict, model_at, head, op64, bounds: dict, loss_rtol: float,
+                     mutants: dict | None = None, null=frozenset(), plain32: bool = True) -> list[str]:
+    """Step 0 of a run (``res``: its loss, gradients, capture and batch)
+    against the same step in fp64: the model ``model_at(dtype)`` at step
+    0's weights on the batch with the operator ``op64`` (dense fp64
+    Laplacians or Dirac pair, no kernel; GAT's ELL pattern, which its
+    attention reads as a mask; the Avg, Mlp and Id models read none) and
+    the loss ``head(out, batch)``.  The whole step's loss within
+    ``loss_rtol``, its gradients reported (with ``plain32`` beside the same
+    step in fp32 on ``op64``: fp32 rounding without any kernel); then module
+    by module (``output_head``, ``replay_modules``; the parameters in
+    ``null`` by size) within ``bounds``; the step under each of ``mutants``
+    (label -> context manager; default the detached operator applies) must
+    fail the module-wise check.  Returns the failures."""
+    import dataclasses
+
     import torch
 
-    from surfacenetworks_tpu_torch.train import losses
+    b = res["batch0"]
+    mutants = {"mutant detached applies": detached_applies} if mutants is None else mutants
 
-    dev, b = trainer.device, res["batch0"]
-    dense = torch.cat([_dense_fp64(s["L"], trainer.buckets.n_vertices, dev) for s in res["drawn0"]])
-    mask64, tgt64 = b.mask.double(), b.targets.double()
+    def batch_in(dtype):
+        op = op64.to(dtype) if isinstance(op64, torch.Tensor) else op64
+        return dataclasses.replace(b, operator=op, inputs=b.inputs.to(dtype), mask=b.mask.to(dtype),
+                                   targets=b.targets.to(dtype))
 
-    def dense_step(dtype):
-        model = _lap_model(state0, dev, dtype)
-        out = model(dense.to(dtype), b.mask.to(dtype), b.inputs.to(dtype))
-        loss = losses.normal_cosine_loss(out, b.mask.to(dtype), b.targets.to(dtype))
-        loss.backward()
-        return float(loss.detach()), {k: p.grad.detach() for k, p in model.named_parameters()}
+    def step(dtype, batch, ctx=contextlib.nullcontext, capture=False):
+        model = model_at(dtype)
+        cap = StepCapture(model) if capture else None
+        try:
+            with ctx():
+                loss = head(model(batch.operator, batch.mask, batch.inputs), batch)
+                loss.backward()
+        finally:
+            if cap is not None:
+                cap.remove()
+        # a mutant's detached applies leave some parameters without a gradient
+        return float(loss.detach()), {k: torch.zeros_like(p) if p.grad is None else p.grad.detach()
+                                      for k, p in model.named_parameters()}, cap
 
-    ref_loss, ref_grads = dense_step(torch.float64)
+    ref_loss, ref_grads, _ = step(torch.float64, batch_in(torch.float64))
     loss_rel = abs(res["loss"][0] - ref_loss) / abs(ref_loss)
-    whole = [_rel_fro(g, ref_grads[k]) for k, g in res["grads0"].items()]
-    p_loss, p_grads = dense_step(torch.float32)
-    plain = [_rel_fro(g, ref_grads[k]) for k, g in p_grads.items()]
-    log(f"  normal {fmt}: step 0 vs the whole fp64 step: loss {res['loss'][0]:.8f} vs {ref_loss:.8f} "
-        f"(rel {loss_rel:.3e}, tol {NORMAL_STEP0_LOSS_RTOL:g}); gradient rel_fro median {np.median(whole):.3e}, "
-        f"max {max(whole):.3e}; the same step in fp32 with dense operators and no kernel: loss rel "
-        f"{abs(p_loss - ref_loss) / abs(ref_loss):.3e}, gradient rel_fro median {np.median(plain):.3e}, "
-        f"max {max(plain):.3e}")
-    failures = []
-    if not loss_rel <= NORMAL_STEP0_LOSS_RTOL:
-        failures.append(f"normal {fmt}: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
-
-    mutant = _lap_model(state0, dev, torch.float32)
-    mcap = StepCapture(mutant)
-    try:
-        with detached_applies():
-            mloss = losses.normal_cosine_loss(mutant(b.operator, b.mask, b.inputs), b.mask, b.targets)
-            mloss.backward()
-    finally:
-        mcap.remove()
-    mgrads = {k: p.grad.detach() for k, p in mutant.named_parameters()}
-
-    def head64(out):
-        return losses.normal_cosine_loss(out, mask64, tgt64)
-
+    whole = [_rel_fro(g, ref_grads[k]) for k, g in res["grads0"].items() if k not in null]
+    note = ""
+    if plain32:
+        p_loss, p_grads, _ = step(torch.float32, batch_in(torch.float32))
+        plain = [_rel_fro(g, ref_grads[k]) for k, g in p_grads.items() if k not in null]
+        note = (f"; the same step in fp32 on the same operator and no kernel: loss rel "
+                f"{abs(p_loss - ref_loss) / abs(ref_loss):.3e}, gradient rel_fro median {np.median(plain):.3e}, "
+                f"max {max(plain):.3e}")
+        del p_grads
+    log(f"  {label}: step 0 vs the whole fp64 step: loss {res['loss'][0]:.8f} vs {ref_loss:.8f} (rel {loss_rel:.3e}, "
+        f"tol {loss_rtol:g}); gradient rel_fro median {np.median(whole):.3e}, max {max(whole):.3e}{note}")
+    del ref_grads
+    failures = [] if loss_rel <= loss_rtol else [f"{label}: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}"]
     res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(whole)),
                     "whole_grad_fro_max": max(whole)}
-    runs = {label: modulewise_errors(cap, loss, grads, head64, _lap_model(state0, dev, torch.float64), [mask64],
-                                     [dense], "")
-            for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
-                                              "mutant detached applies": (float(mloss.detach()), mgrads, mcap)}.items()}
-    return failures + judge_step0(f"normal {fmt}", runs, {"chain": STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL},
-                                  res)
+    steps = {"real": (res["loss"][0], res["grads0"], res["capture"]),
+             **{lab: step(torch.float32, b, ctx, capture=True) for lab, ctx in mutants.items()}}
+    b64 = batch_in(torch.float64)
+    runs = {lab: {**output_head(cap, loss, lambda out: head(out, b64)),
+                  **replay_modules(cap, grads, model_at(torch.float64), lambda name, k, op: b64.operator,
+                                   torch.float64, null=null)}
+            for lab, (loss, grads, cap) in steps.items()}
+    del b64
+    torch.cuda.empty_cache()
+    return failures + judge_step0(label, runs, bounds, res)
 
 
 def normal_phase(device, smi: str) -> tuple[dict, dict]:
@@ -1935,7 +2054,10 @@ def normal_phase(device, smi: str) -> tuple[dict, dict]:
             for k, g in res["grads0"].items():
                 if not (bool(torch.isfinite(g).all()) and bool((g != 0).any())):
                     failures.append(f"normal {fmt}: step-0 gradient of {k} is not finite and non-zero")
-            failures += normal_step0_check(fmt, trainers[fmt], snaps[fmt]["params"], res)
+            dense = torch.cat([_dense_fp64(s["L"], trainers[fmt].buckets.n_vertices, device) for s in res["drawn0"]])
+            failures += fp64_step0_check(f"normal {fmt}", res, _normal_model_at(trainers[fmt], snaps[fmt]["params"]),
+                                         _cosine_head, dense, NORMAL_STEP0_BOUNDS, NORMAL_STEP0_LOSS_RTOL)
+            del dense
             for key in ("capture", "grads0", "batch0", "drawn0", "params", "sampler_after_save"):
                 del res[key]
         if failures:
@@ -1944,14 +2066,6 @@ def normal_phase(device, smi: str) -> tuple[dict, dict]:
         return counts, results
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-
-
-def _dir_model(state0, device, dtype):
-    from surfacenetworks_tpu_torch.models import DirDeepModel
-
-    model = DirDeepModel(3, 3, layers=LAYERS)
-    model.load_state_dict(state0)
-    return model.to(device, dtype)
 
 
 def _dirac_meshes64(trainer) -> dict:
@@ -2117,69 +2231,6 @@ def dirac_apply_checks(op, device, meshes: list) -> dict:
     return out
 
 
-def dirac_modulewise_errors(cap: StepCapture, loss: float, grads: dict, model64, pair64, mask64, tgt64) -> dict:
-    """A Dirac step against fp64 module by module at the card's own
-    activations: the loss and conv2's output cotangent from the head (ELU
-    and the cosine loss) in fp64 on the card's conv2 output; then each
-    module in fp64 (the Dirac blocks on ``pair64``, the dense fp64 pair,
-    not the structured applies) from the card's inputs and output
-    cotangents: its input cotangents (the vertex
-    stream from the previous module, the face stream from the previous Dirac
-    block) and parameter gradients against the card's.  A parameter in
-    DIRAC_NULL_GRADS (zero gradient in exact arithmetic) is held by its card
-    gradient's size against the largest fp64 gradient instead (key suffix
-    ``null gradient``).  Returns each comparison's relative (Frobenius)
-    error."""
-    import torch
-    import torch.nn.functional as F
-
-    from surfacenetworks_tpu_torch.train import losses
-
-    errs = {}
-    conv2 = cap.calls["conv2"][0]
-    x = conv2["out"][0].double().requires_grad_()
-    loss64 = losses.normal_cosine_loss(F.elu(x), mask64, tgt64)
-    loss64.backward()
-    errs["loss on the card's conv2 output"] = abs(loss - float(loss64.detach())) / abs(float(loss64.detach()))
-    errs["head cotangent"] = _rel_fro(conv2["g"][0], x.grad)
-    pgrads, prev, last_dirac = {}, None, None
-    for name in cap.names:
-        rec, mod = cap.calls[name][0], getattr(model64, name)
-        ins, src = [], []  # inputs needing a cotangent, and the card's (module, output) that produced each
-        if name == "conv1":
-            outs = [mod(rec["args"][0].double())]
-        elif name == "conv2":
-            ins = [rec["args"][0].double().requires_grad_()]
-            src = [(prev, 0)]
-            outs = [mod(ins[0])]
-        elif int(name[2:]) % 2 == 0:
-            v = rec["args"][1].double().requires_grad_()
-            f = rec["args"][2].double().requires_grad_(last_dirac is not None)
-            ins, src = ([v, f], [(prev, 0), (last_dirac, 1)]) if last_dirac is not None else ([v], [(prev, 0)])
-            outs = list(mod(pair64, v, f))
-            last_dirac = name
-        else:
-            ins = [rec["args"][2].double().requires_grad_()]
-            src = [(prev, 0)]
-            outs = [mod(None, rec["args"][1].double(), ins[0])]
-        pairs = [(o, g.double()) for o, g in zip(outs, rec["g"]) if g is not None]
-        torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
-        for t, (pname, k) in zip(ins, src):
-            g = cap.calls[pname][0]["g"][k]  # None where no gradient reached the card's output (the mutant's)
-            ref = torch.zeros_like(t) if t.grad is None else t.grad
-            errs[f"{name} input cotangent {'vf'[k]}"] = _rel_fro(torch.zeros_like(ref) if g is None else g, ref)
-        for pname, p in mod.named_parameters():
-            pgrads[f"{name}.{pname}"] = p.grad
-        prev = name
-    top = max(float(g.norm()) for k, g in pgrads.items() if k not in DIRAC_NULL_GRADS)
-    for k, g in pgrads.items():
-        if k in DIRAC_NULL_GRADS:
-            errs[f"{k} null gradient"] = float(grads[k].double().norm()) / top
-        else:
-            errs[f"{k} gradient"] = _rel_fro(grads[k], g)
-    return errs
-
-
 @contextlib.contextmanager
 def detached_dirac_applies():
     """The mutant's Dirac applies: their outputs detached, so no gradient
@@ -2236,6 +2287,92 @@ def range_device_ms(prof, name: str) -> tuple[float, int]:
     return sum(k.duration for k in found) / 1e3, len(found)
 
 
+def backward_device_ms(prof, name: str) -> tuple[float, int]:
+    """Device time (ms) and count of the kernels that autograd's backward
+    of the operations inside the profiler ranges called ``name`` launched:
+    the autograd engine's ``evaluate_function`` events whose sequence
+    number is one of those operations' (the profiler numbers a backward
+    node as its forward operation)."""
+    def walk(e):
+        yield e
+        for c in e.cpu_children:
+            yield from walk(c)
+
+    def kernels(e):
+        return list(e.kernels) + [k for c in e.cpu_children for k in kernels(c)]
+
+    seqs = {c.sequence_nr for e in prof.events() if e.name == name for c in walk(e) if c.sequence_nr >= 0}
+    found = []
+    for e in prof.events():
+        if e.name.startswith("autograd::engine::evaluate_function") and e.cpu_parent is None:
+            seq = e.sequence_nr if e.sequence_nr >= 0 else next(
+                (c.sequence_nr for c in e.cpu_children if c.sequence_nr >= 0), -1)
+            if seq in seqs:
+                found += kernels(e)
+    return sum(k.duration for k in found) / 1e3, len(found)
+
+
+@contextlib.contextmanager
+def annotated_attends():
+    """Each attend's forward (``blocks.gat_attend``) inside a profiler range
+    named GAT_RANGE.  Reading only."""
+    import torch
+
+    from surfacenetworks_tpu_torch.nn import blocks
+
+    saved = blocks.gat_attend
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(GAT_RANGE):
+            return saved(*args, **kwargs)
+
+    blocks.gat_attend = ranged
+    try:
+        yield
+    finally:
+        blocks.gat_attend = saved
+
+
+@contextlib.contextmanager
+def detached_attends():
+    """The mutant's attends: their outputs detached, so no gradient flows
+    through the attention."""
+    from surfacenetworks_tpu_torch.nn import blocks
+
+    saved = blocks.gat_attend
+    blocks.gat_attend = lambda *args, **kwargs: saved(*args, **kwargs).detach()
+    try:
+        yield
+    finally:
+        blocks.gat_attend = saved
+
+
+def attend_device_ms(op, dtype) -> dict:
+    """One attend forward and backward alone at a GAT run's shapes (the
+    batch's ELL pattern, WIDTH channels in GAT_HEADS heads, fp32 scores on
+    ``dtype`` features), its kernels' device time under the profiler
+    (``profiled_device_ms``), forward and forward + backward."""
+    import torch
+
+    from surfacenetworks_tpu_torch.nn import blocks
+
+    B, N = op.fwd.cols.shape[:2]
+    gen = torch.Generator(device=op.fwd.cols.device).manual_seed(SEED + 23)
+    xh = torch.randn(B, N, blocks.GAT_HEADS, WIDTH // blocks.GAT_HEADS, device=op.fwd.cols.device,
+                     generator=gen).to(dtype).requires_grad_()
+    ss, sd = (torch.randn(B, N, blocks.GAT_HEADS, device=op.fwd.cols.device, generator=gen).requires_grad_()
+              for _ in range(2))
+    cot = torch.randn(B, N, blocks.GAT_HEADS, WIDTH // blocks.GAT_HEADS, device=op.fwd.cols.device, generator=gen)
+
+    def both():
+        blocks.gat_attend(op, xh, ss, sd).backward(cot)
+
+    with torch.no_grad():
+        fwd_ms, _ = profiled_device_ms(lambda: blocks.gat_attend(op, xh, ss, sd))
+    ms, rows = profiled_device_ms(both)
+    return {"fwd_ms": fwd_ms, "ms": ms, "top": rows[:6]}
+
+
 @contextlib.contextmanager
 def scaled_dirac_backward(scale: float = DIRAC_MUTANT_SCALE):
     """The mutant's Dirac applies: the values as they are, the cotangent
@@ -2259,60 +2396,24 @@ def scaled_dirac_backward(scale: float = DIRAC_MUTANT_SCALE):
 
 def dirac_step0_check(trainer, state0, res, meshes64: dict) -> list[str]:
     """Step 0 against the same step in fp64 on the dense fp64 Dirac pair
-    of the float64 vertices (``dense_dirac_pair``; no structured apply):
-    the loss, then module by module; two mutants must fail the module-wise
-    check: the applies detached, and their cotangents DIRAC_MUTANT_SCALE
-    times too large.  Returns the failures."""
+    of the float64 vertices (``dense_dirac_pair``; no structured apply)
+    (``fp64_step0_check``); two mutants must fail the module-wise check:
+    the applies detached, and their cotangents DIRAC_MUTANT_SCALE times too
+    large.  Returns the failures."""
     import torch
 
     from surfacenetworks_tpu_torch.data.batching import dense_dirac_pair
-    from surfacenetworks_tpu_torch.train import losses
 
-    dev, b = trainer.device, res["batch0"]
-    mask64, tgt64 = b.mask.double(), b.targets.double()
     pair64 = dense_dirac_pair([{"V": meshes64[s["name"]], "F": s["F"]} for s in res["drawn0"]],
-                              trainer.buckets.n_vertices, trainer.buckets.n_faces, torch.float64, dev)
-    model64 = _dir_model(state0, dev, torch.float64)
-    ref_loss_t = losses.normal_cosine_loss(model64(pair64, mask64, b.inputs.double()), mask64, tgt64)
-    ref_loss_t.backward()
-    ref_loss = float(ref_loss_t.detach())
-    loss_rel = abs(res["loss"][0] - ref_loss) / abs(ref_loss)
-    ref_grads = {k: p.grad for k, p in model64.named_parameters()}
-    whole = [_rel_fro(g, ref_grads[k]) for k, g in res["grads0"].items() if k not in DIRAC_NULL_GRADS]
-    log(f"  dirac: step 0 vs the whole fp64 step on the dense fp64 pair: loss {res['loss'][0]:.8f} vs "
-        f"{ref_loss:.8f} (rel {loss_rel:.3e}, tol {NORMAL_STEP0_LOSS_RTOL:g}); gradient rel_fro median "
-        f"{np.median(whole):.3e}, max {max(whole):.3e}")
-    failures = []
-    if not loss_rel <= NORMAL_STEP0_LOSS_RTOL:
-        failures.append(f"dirac: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
-    del model64, ref_grads
-
-    def mutant_step(applies):
-        model = _dir_model(state0, dev, torch.float32)
-        cap = StepCapture(model)
-        try:
-            with applies():
-                loss = losses.normal_cosine_loss(model(b.operator, b.mask, b.inputs), b.mask, b.targets)
-                loss.backward()
-        finally:
-            cap.remove()
-        # with the applies detached the face stream reaches no loss: its parameters get no gradient
-        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach() for k, p in model.named_parameters()}
-        return float(loss.detach()), grads, cap
-
-    res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(whole)),
-                    "whole_grad_fro_max": max(whole)}
-    steps = {"real": (res["loss"][0], res["grads0"], res["capture"]),
-             "mutant detached applies": mutant_step(detached_dirac_applies),
-             f"mutant cotangents x{DIRAC_MUTANT_SCALE:g}": mutant_step(scaled_dirac_backward)}
-    runs = {label: dirac_modulewise_errors(cap, loss, grads, _dir_model(state0, dev, torch.float64), pair64,
-                                           mask64, tgt64)
-            for label, (loss, grads, cap) in steps.items()}
+                              trainer.buckets.n_vertices, trainer.buckets.n_faces, torch.float64, trainer.device)
+    failures = fp64_step0_check(
+        "dirac", res, _normal_model_at(trainer, state0), _cosine_head, pair64,
+        {"chain": DIRAC_STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL, "null": NULL_GRAD_RTOL}, NORMAL_STEP0_LOSS_RTOL,
+        {"mutant detached applies": detached_dirac_applies,
+         f"mutant cotangents x{DIRAC_MUTANT_SCALE:g}": scaled_dirac_backward}, DIRAC_NULL_GRADS, plain32=False)
     del pair64
     torch.cuda.empty_cache()
-    return failures + judge_step0(
-        "dirac", runs, {"chain": DIRAC_STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL, "null": DIRAC_NULL_GRAD_RTOL},
-        res)
+    return failures
 
 
 def dirac_phase(device, smi: str) -> dict:
@@ -2395,6 +2496,87 @@ def dirac_phase(device, smi: str) -> dict:
         return res
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def zoo_phase(device, smi: str) -> dict:
+    """The rest of the normal zoo (ZOO_RUNS) through the normal trainer at
+    ~7,000 vertices: per run, counts at 0, ZOO_STEPS updates (step 0
+    captured, the last profiled: the attends inside profiler ranges) and
+    the test pass, none launching a kernel; the run again from its start,
+    bit for bit; step 0 against fp64 module by module (a GAT with detached
+    attends refused); one attend alone timed at the run's shapes.  Returns
+    the results by run."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    results, failures = {}, []
+    for label, extra in ZOO_RUNS.items():
+        t0 = time.perf_counter()
+        logged = []
+        trainer = _normal_trainer(ZOO_ARGS + extra, label, logged)
+        snap = _normal_snapshot(trainer)
+        gat = trainer.args.model == "gat"
+        log(f"  zoo {label}: {type(trainer.model).__name__}-{LAYERS}, format {trainer.fmt}, bucket "
+            f"{trainer.buckets.n_vertices}, {len(trainer.train_samples)} train meshes, "
+            f"{len(trainer.test_samples)} test; {trainer.data_stats()}; set-up {time.perf_counter() - t0:.2f} s")
+        # the main path of this run: every count is 0 just before it and read just after
+        kernels.reset_launch_counts()
+        res = _train_run(trainer, ZOO_STEPS, capture=StepCapture, profile_last=True,
+                         annotate=(annotated_attends, GAT_RANGE, "backward") if gat else None)
+        counts = dict(kernels.launches)
+        repeat_run(f"zoo {label}", trainer, lambda: _normal_restore(trainer, snap), res)
+        log(f"  zoo {label}: losses {[repr(v) for v in res['loss']]}, mad {['%.4f' % v for v in res['mad']]}; test "
+            f"(loss, mad) {res['test']!r} ({smi})")
+        log(f"  zoo {label}: host wall per step {['%.2f' % v for v in res['wall_ms']]}, median "
+            f"{res['wall_ms_median']:.3f} ms; device ms per step (CUDA events) median {res['device_ms_median']:.3f}; "
+            f"profiled step device busy {res['busy_ms']:.3f} ms in {res['device_ops']} device ops, idle share "
+            f"{res['idle_share']:.3f}; peak device memory {res['peak_mib']:.1f} MiB ({smi})")
+        for dev_us, count, key in res["top"]:
+            log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+        if gat:
+            op = res["batch0"].operator
+            res["attend"] = attend_device_ms(op, torch.bfloat16 if trainer.args.bf16 else torch.float32)
+            res["attend_ms"] = res["range_ms"] + res["range_bwd_ms"]
+            res["attend_share"] = res["attend_ms"] / res["busy_ms"]
+            a = res["attend"]
+            log(f"  zoo {label}: the attends in the profiled step ({GAT_ATTENDS} a forward): forward "
+                f"{res['range_ms']:.4f} ms in {res['range_ops']} device ops, their backward {res['range_bwd_ms']:.4f} ms "
+                f"in {res['range_bwd_ops']}, together {res['attend_share']:.1%} of busy; one attend alone at "
+                f"R={op.fwd.cols.shape[1]} K={op.fwd.cols.shape[2]} C={WIDTH}: forward {a['fwd_ms']:.4f} ms, forward "
+                f"+ backward {a['ms']:.4f} ms, times {GAT_ATTENDS}: {GAT_ATTENDS * a['ms']:.4f} ms ({smi})")
+            for dev_us, count, key in a["top"]:
+                log(f"    {dev_us / 1e3 / PROFILED_CALLS:9.5f} ms  x{count / PROFILED_CALLS:<5.2f} {key[:90]}")
+            if not 0 < res["attend_ms"] <= res["busy_ms"]:
+                failures.append(f"zoo {label}: the attends' device time reads {res['attend_ms']} of {res['busy_ms']} ms")
+            if not (trainer.fmt == "ell" and any("operator format -> ell" in m for m in logged)
+                    and "rcm_perm" in trainer.train_samples[0]):
+                failures.append(f"zoo {label}: not ELL over RCM order")
+        if "--flip-variants" in extra and not any("flip augmentation: +4 variants" in m for m in logged):
+            failures.append(f"zoo {label}: the flip variants are missing")
+        if any(counts.values()) or any(any(step.values()) for step in res["per_step"]) or any(
+                res["test_launches"].values()):
+            failures.append(f"zoo {label}: the path launched a kernel: {counts}")
+        if not (np.isfinite(res["loss"]).all() and np.isfinite(res["mad"]).all() and np.isfinite(res["test"]).all()):
+            failures.append(f"zoo {label}: a loss or metric is not finite")
+        if not res["reproduced"]:
+            failures.append(f"zoo {label}: a second run from the same state differs")
+        null = ZOO_NULL_GRADS.get(trainer.args.model, set())
+        for k, g in res["grads0"].items():
+            if not (g.dtype == torch.float32 and bool(torch.isfinite(g).all()) and (k in null or bool((g != 0).any()))):
+                failures.append(f"zoo {label}: step-0 gradient of {k} is not fp32, finite and non-zero")
+        failures += fp64_step0_check(f"zoo {label}", res, _normal_model_at(trainer, snap["params"]), _cosine_head,
+                                     res["batch0"].operator, NORMAL_STEP0_BOUNDS, NORMAL_STEP0_LOSS_RTOL,
+                                     {"mutant detached attends": detached_attends} if gat else {}, null)
+        for key in ("capture", "grads0", "batch0", "drawn0", "params", "drawn"):
+            res.pop(key, None)
+        res["counts"] = counts
+        results[label] = res
+        del trainer, snap
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return results
 
 
 def _arap_trainer(sequences, extra: list, label: str):
@@ -2523,78 +2705,29 @@ def batched_ell_checks(op, csrs: list, device, label: str, width: int, seed: int
     return rep
 
 
-def _arap_model(state0, device, dtype):
-    from surfacenetworks_tpu_torch.models.arap_models import Model
-
-    model = Model(LAYERS)
-    model.load_state_dict(state0)
-    return model.to(device, dtype)
-
-
 def arap_step0_check(trainer, state0, res) -> list[str]:
     """Step 0 against the same step in fp64 on dense fp64 operators (no
-    kernel): the loss, then module by module (``modulewise_errors``); the
-    detached-apply mutant must fail the module-wise check.  Returns the
+    kernel), ``fp64_step0_check`` with the ARAP bounds.  Returns the
     failures."""
-    import dataclasses
-
     import torch
 
-    from surfacenetworks_tpu_torch.cli.train_arap import masked_loss
     from surfacenetworks_tpu_torch.data.batching import IN_FRAMES
+    from surfacenetworks_tpu_torch.models.arap_models import Model
     from surfacenetworks_tpu_torch.train import losses
 
-    dev, b = trainer.device, res["batch0"]
-    B, N = b.inputs.shape[:2]
-    dense = torch.cat([_dense_fp64(trainer.sequences[si][off + IN_FRAMES - 1]["L"], N, dev)
+    N = res["batch0"].inputs.shape[1]
+    dense = torch.cat([_dense_fp64(trainer.sequences[si][off + IN_FRAMES - 1]["L"], N, trainer.device)
                        for si, off in res["drawn0"]])
-    mask64, tgt64 = b.mask.double(), b.targets.double()
 
-    def dense_step(dtype):
-        model = _arap_model(state0, dev, dtype)
-        loss = masked_loss(model, dataclasses.replace(b, operator=dense.to(dtype), inputs=b.inputs.to(dtype),
-                                                      mask=b.mask.to(dtype), targets=b.targets.to(dtype)))
-        loss.backward()
-        return float(loss.detach()), {k: p.grad.detach() for k, p in model.named_parameters()}
+    def head(out, batch):
+        return losses.smooth_l1_sum(out * batch.mask, batch.targets, batch.inputs.shape[0])
 
-    ref_loss, ref_grads = dense_step(torch.float64)
-    loss_rel = abs(res["loss"][0] - ref_loss) / abs(ref_loss)
-    whole = [_rel_fro(g, ref_grads[k]) for k, g in res["grads0"].items()]
-    p_loss, p_grads = dense_step(torch.float32)
-    plain = [_rel_fro(g, ref_grads[k]) for k, g in p_grads.items()]
-    log(f"  arap ell: step 0 vs the whole fp64 step: loss {res['loss'][0]:.8f} vs {ref_loss:.8f} "
-        f"(rel {loss_rel:.3e}, tol {ARAP_STEP0_LOSS_RTOL:g}); gradient rel_fro median {np.median(whole):.3e}, "
-        f"max {max(whole):.3e}; the same step in fp32 with dense operators and no kernel: loss rel "
-        f"{abs(p_loss - ref_loss) / abs(ref_loss):.3e}, gradient rel_fro median {np.median(plain):.3e}, "
-        f"max {max(plain):.3e}")
-    del ref_grads, p_grads
-    failures = []
-    if not loss_rel <= ARAP_STEP0_LOSS_RTOL:
-        failures.append(f"arap ell: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
-
-    mutant = _arap_model(state0, dev, torch.float32)
-    mcap = StepCapture(mutant)
-    try:
-        with detached_applies():
-            mloss = masked_loss(mutant, b)
-            mloss.backward()
-    finally:
-        mcap.remove()
-    mgrads = {k: p.grad.detach() for k, p in mutant.named_parameters()}
-
-    def head64(out):
-        return losses.smooth_l1_sum(out * mask64, tgt64, B)
-
-    res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(whole)),
-                    "whole_grad_fro_max": max(whole)}
-    runs = {label: modulewise_errors(cap, loss, grads, head64, _arap_model(state0, dev, torch.float64), [mask64],
-                                     [dense], "")
-            for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
-                                              "mutant detached applies": (float(mloss.detach()), mgrads, mcap)}.items()}
+    failures = fp64_step0_check("arap ell", res, _model_at(lambda: Model(LAYERS), state0, trainer.device), head, dense,
+                                {"chain": ARAP_STEP0_CHAIN_RTOL, "parameter": ARAP_STEP0_PARAM_RTOL},
+                                ARAP_STEP0_LOSS_RTOL)
     del dense
     torch.cuda.empty_cache()
-    return failures + judge_step0("arap ell", runs, {"chain": ARAP_STEP0_CHAIN_RTOL, "parameter": ARAP_STEP0_PARAM_RTOL},
-                                  res)
+    return failures
 
 
 def _arap_frames64(sequences) -> dict:
@@ -2712,20 +2845,13 @@ def mesh_objective(family: str, model, b, noise, kw: float = 0.0):
     return bce + kld * kw, kld
 
 
-def mesh_modulewise_errors(family: str, cap: ModuleCapture, loss: float, grads: dict, model64, op64_for, b64,
-                           noise64, kw: float) -> dict:
-    """A mesh-MNIST step against fp64 module by module at the card's own
-    activations.  The head: the loss in fp64 from the card's last outputs
-    (the classifier's log-probabilities; the VAE's decoder mean, encoder
-    mean and log-variance, with the card's cotangent at the decoder's
-    latent input standing in for the decoder) and its cotangents of those
-    outputs against the card's; the decoder's bare ``fc_logvar`` gradient
-    from it.  Then each captured module in fp64 (``model64``'s, operators
-    replaced by ``op64_for(name)``: dense fp64 Laplacians or the dense fp64
-    Dirac pair) from the card's inputs and output cotangents: each input's
-    cotangent against the card's share of it, and the parameter gradients
-    against the card's.  Returns each comparison's relative (Frobenius)
-    error."""
+def mesh_head(family: str, cap: ModuleCapture, loss: float, grads: dict, model64, b64, noise64, kw: float) -> dict:
+    """The head of a mesh-MNIST step against fp64 at the card's own last
+    outputs (the classifier's log-probabilities; the VAE's decoder mean,
+    encoder mean and log-variance, with the card's cotangent at the
+    decoder's latent input standing in for the decoder): the loss and its
+    cotangents of those outputs against the card's, and the decoder's bare
+    ``fc_logvar`` gradient; relative errors by key."""
     import torch
 
     from surfacenetworks_tpu_torch.train import losses
@@ -2738,40 +2864,20 @@ def mesh_modulewise_errors(family: str, cap: ModuleCapture, loss: float, grads: 
         loss64.backward()
         errs["loss on the card's log-probabilities"] = abs(loss - float(loss64)) / abs(float(loss64))
         errs["head cotangent of the log-probabilities"] = _rel_fro(rec["g"][0], logp.grad)
-    else:
-        recs = {k: cap.calls[k][0] for k in ("decoder.fc_mu", "encoder.fc_mu", "encoder.fc_logvar")}
-        dec, mu, lv = (recs[k]["out"][0].double().requires_grad_() for k in recs)
-        fcl = model64.decoder.fc_logvar
-        z = noise64 * torch.exp(0.5 * lv) + mu
-        recon_mu = dec + b64.aux["flat_inputs"]
-        bce, kld = losses.vae_elbo_terms(recon_mu, fcl.expand_as(recon_mu), b64.mask, b64.inputs, z, mu, lv)
-        loss64 = bce + kld * kw
-        z_bar = cap.calls["decoder.conv_noise"][0]["gin"][0]  # the decoder's cotangent at its tiled latent
-        (loss64 + (z * z_bar.double().sum(1)).sum()).backward()
-        errs["loss on the card's outputs"] = abs(loss - float(loss64)) / abs(float(loss64))
-        for (k, rec), t in zip(recs.items(), (dec, mu, lv)):
-            errs[f"head cotangent of {k}"] = _rel_fro(rec["g"][0], t.grad)
-        errs["decoder.fc_logvar gradient"] = _rel_fro(grads["decoder.fc_logvar"], fcl.grad)
-    for name in cap.names:
-        mod = model64.get_submodule(name)
-        for rec in cap.calls[name]:
-            args = []
-            for a, need in zip(rec["args"], rec["needs"]):
-                if _is_operator(a):
-                    a = op64_for(name)
-                elif isinstance(a, torch.Tensor) and a.is_floating_point():
-                    a = a.double().requires_grad_(need)
-                args.append(a)
-            outs = mod(*args)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            pairs = [(o, g.double()) for o, g in zip(outs, rec["g"]) if g is not None]
-            torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
-            for i, (a, need, g) in enumerate(zip(args, rec["needs"], rec["gin"])):
-                if need:  # None where no gradient reached it on the card (the mutants')
-                    ref = torch.zeros_like(a) if a.grad is None else a.grad
-                    errs[f"{name} input cotangent {i}"] = _rel_fro(torch.zeros_like(ref) if g is None else g, ref)
-        for pname, p in mod.named_parameters():
-            errs[f"{name}.{pname} gradient"] = _rel_fro(grads[f"{name}.{pname}"], p.grad)
+        return errs
+    recs = {k: cap.calls[k][0] for k in ("decoder.fc_mu", "encoder.fc_mu", "encoder.fc_logvar")}
+    dec, mu, lv = (recs[k]["out"][0].double().requires_grad_() for k in recs)
+    fcl = model64.decoder.fc_logvar
+    z = noise64 * torch.exp(0.5 * lv) + mu
+    recon_mu = dec + b64.aux["flat_inputs"]
+    bce, kld = losses.vae_elbo_terms(recon_mu, fcl.expand_as(recon_mu), b64.mask, b64.inputs, z, mu, lv)
+    loss64 = bce + kld * kw
+    z_bar = cap.calls["decoder.conv_noise"][0]["gin"][0]  # the decoder's cotangent at its tiled latent
+    (loss64 + (z * z_bar.double().sum(1)).sum()).backward()
+    errs["loss on the card's outputs"] = abs(loss - float(loss64)) / abs(float(loss64))
+    for (k, rec), t in zip(recs.items(), (dec, mu, lv)):
+        errs[f"head cotangent of {k}"] = _rel_fro(rec["g"][0], t.grad)
+    errs["decoder.fc_logvar gradient"] = _rel_fro(grads["decoder.fc_logvar"], fcl.grad)
     return errs
 
 
@@ -2806,7 +2912,8 @@ def _mesh_ops64(family: str, cfg: str, samples: list, trainer) -> dict:
 def mesh_step0_check(family: str, cfg: str, trainer, state0, res, noise0) -> list[str]:
     """Step 0 against the same step in fp64 on dense fp64 operators (the
     Dirac runs: the dense fp64 pairs) with the step's own noise: the loss
-    (and the VAE's KLD), then module by module (``mesh_modulewise_errors``);
+    (and the VAE's KLD), then module by module (``mesh_head``,
+    ``replay_modules``);
     the mutant whose operator applies are detached must fail the
     module-wise check.  Returns the failures."""
     import dataclasses
@@ -2867,11 +2974,13 @@ def mesh_step0_check(family: str, cfg: str, trainer, state0, res, noise0) -> lis
     b64 = batch_in(torch.float64, ops64)
     res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(whole)),
                     "whole_grad_fro_max": max(whole)}
-    runs = {label: mesh_modulewise_errors(
-                family, cap, loss, grads, _mesh_model(family, model, state0, dev, torch.float64),
-                lambda name: ops64["flat" if name.startswith("decoder.") else "lifted"], b64, noise0.double(), kw)
-            for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
-                                              "mutant detached applies": (float(mloss.detach()), mgrads, mcap)}.items()}
+    runs = {}
+    for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
+                                      "mutant detached applies": (float(mloss.detach()), mgrads, mcap)}.items():
+        model64 = _mesh_model(family, model, state0, dev, torch.float64)
+        runs[label] = {**mesh_head(family, cap, loss, grads, model64, b64, noise0.double(), kw),
+                       **replay_modules(cap, grads, model64, lambda name, k, op: ops64[
+                           "flat" if name.startswith("decoder.") else "lifted"], torch.float64)}
     del ops64, b64
     torch.cuda.empty_cache()
     return failures + judge_step0(what, runs, {"chain": MESH_STEP0_CHAIN_RTOL, "parameter": MESH_STEP0_PARAM_RTOL},
@@ -3087,57 +3196,22 @@ def _plain_apply(op):
     return PlainApply.apply
 
 
-def bf16_modulewise_errors(cap, grads: dict, ref_model, prefix: str = "", detach_op: bool = False) -> dict:
-    """A bf16 step 0 module by module against the same modules in bf16 on
-    the card with the kernels' plain versions: each captured call of each
-    module of ``cap`` rerun in ``ref_model`` (the model at step 0's
-    weights) on its captured inputs, every operator argument replaced by
-    ``_plain_apply`` (detached with ``detach_op``: the check's own mutant),
-    and its captured output cotangents passed back; each output, each
-    input's cotangent (the module's share) and each parameter's gradient
-    (summed over the calls; ``grads[prefix + path]``) against the card's, as
-    relative Frobenius errors."""
-    import torch
-
-    errs = {}
-    for name in cap.names:
-        mod = ref_model.get_submodule(name)
-        mod.zero_grad(set_to_none=True)
-        for k, rec in enumerate(cap.calls[name]):
-            args = []
-            for a, need in zip(rec["args"], rec["needs"]):
-                if _is_operator(a):
-                    f = _plain_apply(a)
-                    a = (lambda x, f=f: f(x).detach()) if detach_op else f
-                elif need:
-                    a = a.clone().requires_grad_()
-                args.append(a)
-            outs = mod(*args)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            for i, (o, ref) in enumerate(zip(outs, rec["out"])):
-                errs[f"{name} output {i} call {k}"] = _rel_fro(ref, o.detach().double())
-            pairs = [(o, g) for o, g in zip(outs, rec["g"]) if g is not None and o.requires_grad]
-            if pairs:
-                torch.autograd.backward([o for o, _ in pairs], [g for _, g in pairs])
-            for i, (a, need, gin) in enumerate(zip(args, rec["needs"], rec["gin"])):
-                if need and gin is not None and a.grad is not None:
-                    errs[f"{name} input {i} cotangent call {k}"] = _rel_fro(gin, a.grad.double())
-        for pname, p_ in mod.named_parameters():
-            if p_.grad is not None:
-                errs[f"{name}.{pname} gradient"] = _rel_fro(grads[f"{prefix}{name}.{pname}"], p_.grad.double())
-    return errs
-
-
 def bf16_step0_check(label: str, res: dict, ref_model, prefix: str = "") -> list[str]:
-    """``bf16_modulewise_errors`` of the run's step 0 (``res["capture"]``,
-    ``res["grads0"]``) within BF16_STEP0_CHAIN_RTOL (outputs and
-    cotangents) and BF16_STEP0_PARAM_RTOL (parameters); the reference with
-    detached applies must read above the chain's bound.  Returns the
-    failures."""
+    """The run's step 0 (``res["capture"]``, ``res["grads0"]``) replayed
+    module by module (``replay_modules``) against the same modules in bf16
+    on the card (``ref_model``, the model at step 0's weights) with the
+    kernels' plain versions (``_plain_apply``), on the card's own inputs and
+    output cotangents: outputs and cotangents within BF16_STEP0_CHAIN_RTOL,
+    parameters within BF16_STEP0_PARAM_RTOL; the reference with detached
+    applies must read above the chain's bound.  Both sides round to bf16 at
+    the same places; they differ in the applies' fp32 summation order (and
+    in BSR's backward, the kernel's rounding of the fp32 cotangent).
+    Returns the failures."""
     cap, grads = res["capture"], res["grads0"]
     mutant_model = copy.deepcopy(ref_model)
-    errs = bf16_modulewise_errors(cap, grads, ref_model, prefix)
-    mutant = bf16_modulewise_errors(cap, grads, mutant_model, prefix, detach_op=True)
+    errs = replay_modules(cap, grads, ref_model, lambda name, k, op: _plain_apply(op), prefix=prefix, outputs=True)
+    mutant = replay_modules(cap, grads, mutant_model, lambda name, k, op: lambda x, f=_plain_apply(op): f(x).detach(),
+                            prefix=prefix, outputs=True)
     chain = {k: v for k, v in errs.items() if not k.endswith("gradient")}
     params = {k: v for k, v in errs.items() if k.endswith("gradient")}
     mchain = {k: v for k, v in mutant.items() if not k.endswith("gradient")}
@@ -3317,8 +3391,8 @@ def _variant(symbol: str) -> str:
 
     for kname, fn in KERNEL_SYMBOLS.items():
         if re.search(rf"\d{fn}I", symbol):  # the length-prefixed name, then its template arguments
-            args = re.findall(r"Lb([01])E", symbol.split(fn, 1)[1])
-            return f"{fn}<{', '.join('true' if a == '1' else 'false' for a in args)}>"
+            args = re.findall(r"L([bi])(\d+)E", symbol.split(fn, 1)[1])
+            return f"{fn}<{', '.join(({'1': 'true', '0': 'false'}[v] if t == 'b' else v) for t, v in args)}>"
     return symbol[:60]
 
 
@@ -3407,6 +3481,11 @@ def main() -> int:
     if not sddmm_regs or any(v.get("registers", 99) > 64 or v.get("spill_stores") or v.get("spill_loads")
                              for v in sddmm_regs.values()):
         raise AssertionError(f"the SDDMM kernel must fit in 64 registers without spills: {sddmm_regs}")
+    sddmm16_regs = {k: v for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS["sddmm_bf16"])}
+    if len(sddmm16_regs) != 8 or any(v.get("registers", 99) > 64 or v.get("spill_stores") or v.get("spill_loads")
+                                     for v in sddmm16_regs.values()):
+        raise AssertionError(f"the bf16 SDDMM kernel's 8 variants must fit in 64 registers without spills: "
+                             f"{sddmm16_regs}")
     ell16_regs = {k: v for k, v in registers.items() if k.startswith(KERNEL_SYMBOLS["ell_matmul_bf16"])}
     if len(ell16_regs) != 2 or any(v.get("registers", 99) > 64 or v.get("spill_stores") or v.get("spill_loads")
                                    for v in ell16_regs.values()):
@@ -3456,6 +3535,10 @@ def main() -> int:
     phase("dirac train", t0)
 
     t0 = time.perf_counter()
+    zoo = zoo_phase(device, smi)
+    phase("zoo train", t0)
+
+    t0 = time.perf_counter()
     arap_counts, arap = arap_phase(device, smi)
     phase("arap train", t0)
 
@@ -3503,6 +3586,7 @@ def main() -> int:
             "replaces": replaces[kname], "launches": train_counts[kname], "serve_launches": counts[kname],
             "normal_train_launches": normal_counts[kname], "arap_train_launches": arap_counts[kname],
             "mnist_train_launches": mnist_counts[kname], "vae_train_launches": vae_counts[kname],
+            "zoo_train_launches": sum(r["counts"][kname] for r in zoo.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_call": r["library_call"], "max_err_vs_plain": r["max_abs_err"], "kernel_ms": r["ms"],
@@ -3527,6 +3611,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": "surfacenetworks_tpu_torch/sparse/csrc/spmm.cu",
             "replaces": replaces[kname[:-5]], "launches": faust16[kname],
             "bf16_run_launches": {run: c[kname] for run, c in bf16_counts.items()},
+            "zoo_train_launches": sum(r["counts"][kname] for r in zoo.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library_call": r["library_call"],
             "bytes": r["bytes"], "flops": r["flops"], "card": smi, "cold_ms": r["cold_ms"],
@@ -3554,6 +3639,11 @@ def main() -> int:
         f"busy {dirac['busy_ms']:.3f} ms in {dirac['device_ops']} device ops, idle share {dirac['idle_share']:.3f}, "
         f"Dirac applies {dirac['range_ms']:.4f} ms ({dirac['apply_share']:.1%} of busy), peak "
         f"{dirac['peak_mib']:.1f} MiB ({smi})")
+    log("zoo train median per step: " + ", ".join(
+        f"{label} wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['device_ops']} device ops, idle "
+        f"share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB"
+        + (f", attends {r['attend_share']:.1%} of busy" if "attend_share" in r else "") for label, r in zoo.items())
+        + f" ({smi})")
     log("arap train median per step: " + ", ".join(
         f"{cfg} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms "
         f"in {r['device_ops']} device ops, idle share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB"

@@ -1,21 +1,31 @@
 """Normal-prediction trainer on one device (counterpart of
-``surfacenetworks_tpu/cli/train_normal.py``: its single-device path for
-``--model lap`` and ``--model dirac``).
+``surfacenetworks_tpu/cli/train_normal.py``: its single-device path).
 
-LapDeepModel or DirDeepModel regresses per-vertex normals with the masked
-cosine loss; the mean angle deviation is its metric.  Laplacian operators
-are ELL, BSR (over RCM-ordered vertices) or dense; ``auto`` resolves against
-the dataset as the JAX trainer does.  Dirac models (``--model`` starting
-with ``dirac``) take the structured Dirac tables whatever the format flag
-says, and keep the vertex order; ``--operator-format bsr`` only rounds their
-buckets to 128, as in the JAX trainer.  Runs on ``cuda`` unless given
-``--device cpu``::
+A model of the normal zoo regresses per-vertex normals with the masked
+cosine loss; the mean angle deviation is its metric.  ``--model`` picks it
+as the JAX trainer's ``build_model`` does: a name with ``avg`` in it
+AvgModel, ``mlp`` MlpModel, ``id`` IdDeepModel, ``gat`` GatDeepModel, a
+name starting with ``dirac`` DirDeepModel, any other LapDeepModel.
+Laplacian operators are ELL, BSR (over RCM-ordered vertices) or dense;
+``auto`` resolves against the dataset for ``--model lap`` as the JAX trainer
+does, and for the other Laplacian-data models as its per-sample packing does
+(dense up to 2,048 vertices, else ELL).  ``gat`` attends over the ELL
+pattern: its format is ELL whatever the flag says, over RCM-ordered
+vertices.  Dirac data (``--model`` starting with ``dirac``) is the
+structured Dirac tables whatever the format flag says, in the vertex order;
+``--operator-format bsr`` only rounds their buckets to 128, as in the JAX
+trainer.  ``--flip-variants K`` adds K constrained-edge-flip variants of
+each train mesh (``np.random.default_rng(seed + 101)``, the JAX trainer's
+draws) with their normals and operators recomputed.  Runs on ``cuda``
+unless given ``--device cpu``::
 
     python -m surfacenetworks_tpu_torch.cli.train_normal --synthetic 8 \\
         --layer 3 --num-epoch 2 --num-updates 10 --batch-size 2
     python -m surfacenetworks_tpu_torch.cli.train_normal --device cpu \\
         --data-path tests/fixtures/objs --layer 2 --num-epoch 1 --num-updates 3 --batch-size 2
     python -m surfacenetworks_tpu_torch.cli.train_normal --device cpu --model dirac \\
+        --data-path tests/fixtures/objs --layer 2 --num-epoch 1 --num-updates 3 --batch-size 2
+    python -m surfacenetworks_tpu_torch.cli.train_normal --device cpu --model gat --flip-variants 1 \\
         --data-path tests/fixtures/objs --layer 2 --num-epoch 1 --num-updates 3 --batch-size 2
 
 The train/test split, the batch order, the log lines and the files
@@ -49,13 +59,21 @@ from surfacenetworks_tpu_torch.cli.common import EpochSampler, MetricsLogger, Th
 from surfacenetworks_tpu_torch.data import Buckets, datasets, dirac_batch, laplacian_batch, round_up
 from surfacenetworks_tpu_torch.data.batching import choose_operator_format, fit_bsr_k, rcm_reorder_sample
 from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, to_device
-from surfacenetworks_tpu_torch.models import DirDeepModel, LapDeepModel, init_weights
+from surfacenetworks_tpu_torch.geometry import dirac_coeffs, igl_style_laplacian, repair, vertex_normals
+from surfacenetworks_tpu_torch.models import (
+    AvgModel,
+    DirDeepModel,
+    GatDeepModel,
+    IdDeepModel,
+    LapDeepModel,
+    MlpModel,
+    init_weights,
+)
 from surfacenetworks_tpu_torch.serve import resolve_device
 from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
 
 parser = argparse.ArgumentParser(description="Normal Predictor (PyTorch, one device)")
-parser.add_argument("--model", default="lap",
-                    help="lap, or dirac (any name starting with dirac); the other models are not ported yet")
+parser.add_argument("--model", default="lap", help="lap | dirac | avg | mlp | id | gat (cas is not ported yet)")
 parser.add_argument("--layer", type=int, default=15)
 parser.add_argument("--batch-size", type=int, default=1)
 parser.add_argument("--num-epoch", type=int, default=500)
@@ -86,13 +104,15 @@ parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 parser.add_argument("--bf16", action="store_true",
                     help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
                          "optimizer state and losses")
+parser.add_argument("--flip-variants", type=int, default=0, metavar="K",
+                    help="append K constrained-edge-flip variants of every train mesh, with their normals and "
+                         "operators recomputed")
 # flags of the JAX trainer that later slices bring: refused when given
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
 parser.add_argument("--buckets", type=int, default=1)
 parser.add_argument("--cascade-levels", type=int, default=4)
 parser.add_argument("--rotate-augment", action="store_true")
-parser.add_argument("--flip-variants", type=int, default=0)
 parser.add_argument("--jax-profile", default=None)
 parser.add_argument("--multihost", action="store_true")
 parser.add_argument("--coordinator-address", default=None)
@@ -102,21 +122,37 @@ parser.add_argument("--config", default=None)
 parser.add_argument("--preset", default=None)
 
 
-def is_dirac(args) -> bool:
-    """The JAX trainer's test for the Dirac model (a name with ``avg`` in it
-    builds its AvgModel first)."""
-    return args.model.startswith("dirac") and "avg" not in args.model
+def dirac_data(args) -> bool:
+    """The JAX trainer's test for Dirac data (structured Dirac tables, not a
+    Laplacian): a model name starting with ``dirac``."""
+    return args.model.startswith("dirac")
+
+
+def build_model(args, dtype: torch.dtype | None = None):
+    """The model ``--model`` names, chosen in the JAX trainer's order (a
+    name with ``avg`` in it builds AvgModel first, so ``diracavg`` is
+    AvgModel on Dirac data)."""
+    if "avg" in args.model:
+        return AvgModel(3, 3, args.layer, dtype=dtype)
+    if args.model == "mlp":
+        return MlpModel(3, 3, args.layer, dtype=dtype)
+    if args.model == "id":
+        return IdDeepModel(3, 3, args.layer, dtype=dtype)
+    if args.model == "gat":
+        return GatDeepModel(3, 3, args.layer, dtype=dtype)
+    if dirac_data(args):
+        return DirDeepModel(3, 3, layers=args.layer, dtype=dtype)
+    return LapDeepModel(3, 3, layers=args.layer, dtype=dtype)
 
 
 def refuse_unported(args) -> None:
     """Raise on any flag whose path this slice does not port."""
     refused = {
-        "--model other than lap and dirac": args.model != "lap" and not is_dirac(args),
+        "--model cas": args.model == "cas",
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
         "--buckets > 1": args.buckets > 1,
         "--rotate-augment": args.rotate_augment,
-        "--flip-variants": args.flip_variants > 0,
         "--additional-opt intrinsic": "intrinsic" in args.additional_opt,
         "--jax-profile": args.jax_profile is not None,
         "--config and --preset": args.config is not None or args.preset is not None,
@@ -131,7 +167,7 @@ def refuse_unported(args) -> None:
 def load_samples(args, rnd: random.Random, log) -> tuple[list[dict], list[dict]]:
     """The train and test samples, split as the JAX trainer splits them
     (``rnd`` seeded with ``--seed`` draws what its global ``random`` draws)."""
-    operator = "dirac" if is_dirac(args) else "lap"
+    operator = "dirac" if dirac_data(args) else "lap"
     hack = 0.0 if "hack0" in args.additional_opt else 1.0
     if args.synthetic:
         samples = datasets.synthetic_normal_dataset(args.synthetic, n_points=args.synthetic_points,
@@ -160,6 +196,28 @@ def load_samples(args, rnd: random.Random, log) -> tuple[list[dict], list[dict]]
         return out
 
     return load_all(train_names), load_all(test_names)
+
+
+def flip_variants(train: list[dict], k: int, seed: int, dirac: bool, hack: float) -> list[dict]:
+    """``k`` constrained-edge-flip variants of each train sample, drawn as
+    the JAX trainer draws them (``np.random.default_rng(seed + 101)``, mesh
+    by mesh, a tenth of the faces' edges tried, at least 4): the same
+    vertices and inputs, the flipped faces, their vertex normals as targets
+    and their Laplacian (or Dirac coefficients) rebuilt."""
+    rng = np.random.default_rng(seed + 101)
+    extra = []
+    for s in train:
+        for i in range(k):
+            _, F2 = repair.constrained_edge_flip(s["V"], s["F"], num_flipped_edges=max(s["F"].shape[0] // 10, 4),
+                                                 rng=rng)
+            v = {"V": s["V"], "F": np.asarray(F2, dtype=np.asarray(s["F"]).dtype), "input": s["input"],
+                 "target": vertex_normals(s["V"], F2).astype(np.float32), "name": f"{s.get('name', 'mesh')}_flip{i}"}
+            if dirac:
+                v["dirac"] = dirac_coeffs(v["V"], v["F"])
+            else:
+                v["L"] = igl_style_laplacian(v["V"], v["F"], hack=hack)
+            extra.append(v)
+    return extra
 
 
 def train_step(model, opt, batch, schedule=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -200,35 +258,46 @@ class NormalTrainer:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         dtype = torch.bfloat16 if args.bf16 else None
         train, test = load_samples(args, random.Random(args.seed), log)
+        dirac = dirac_data(args)
+        if args.flip_variants > 0:
+            extra = flip_variants(train, args.flip_variants, args.seed, dirac,
+                                  0.0 if "hack0" in args.additional_opt else 1.0)
+            train = train + extra
+            log(f"flip augmentation: +{len(extra)} variants ({args.flip_variants} per train mesh)")
         log(f"Train size: {len(train)} Test size: {len(test)}")
         fmt = args.operator_format
-        dirac = is_dirac(args)
         if dirac:
             # as in the JAX trainer: no 'auto' resolution and no RCM order for
             # Dirac; 'bsr' still rounds the buckets to 128 rows
             log(f"operator format for {args.model}: structured Dirac tables "
                 f"(--operator-format {fmt}{': buckets rounded to 128' if fmt == 'bsr' else ''})")
-        elif fmt == "auto":
+        elif fmt == "auto" and args.model == "lap":
             nv_all = max((s["V"].shape[0] for s in train + test), default=0)
             fmt = choose_operator_format(args.batch_size, round_up(nv_all, 8), rcm_ok=True)
             log(f"operator format auto -> {fmt}")
-        if fmt == "bsr" and not dirac:
+        if args.model == "gat" and fmt != "ell":
+            fmt = "ell"
+            log("operator format -> ell (gat attends over the operator pattern)")
+        if (fmt == "bsr" and not dirac) or args.model == "gat":
             train = [rcm_reorder_sample(s) for s in train]
             test = [rcm_reorder_sample(s) for s in test]
         self.train_samples, self.test_samples = train, test
         all_samples = train + test
         self.buckets = Buckets.for_samples(all_samples, multiple=128 if fmt == "bsr" else 8)
+        if fmt == "auto" and not dirac:
+            # each sample's operator packed alone, as the JAX trainer's device store packs it
+            fmt = choose_operator_format(1, self.buckets.n_vertices)
+            log(f"operator format auto -> {fmt} (per sample)")
+        self.model = build_model(args, dtype)
         if dirac:
             self.fmt = "structured"
             self.packed = PackedSamples(lambda s: dirac_batch([s], self.buckets))
-            self.model = DirDeepModel(3, 3, layers=args.layer, dtype=dtype)
         else:
             self.fmt = fmt
             if fmt == "bsr":
                 fit_bsr_k(all_samples, self.buckets)
             op_dtype = dtype if fmt == "bsr" else None  # bf16 blocks under --bf16, as in the JAX trainer
             self.packed = PackedSamples(lambda s: laplacian_batch([s], self.buckets, fmt=fmt, op_dtype=op_dtype))
-            self.model = LapDeepModel(3, 3, layers=args.layer, dtype=dtype)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
         log(f"Num parameters {sum(p.numel() for p in self.model.parameters())}")

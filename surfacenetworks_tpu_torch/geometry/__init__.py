@@ -1,5 +1,6 @@
 """Host-side geometry (counterpart of ``surfacenetworks_tpu/geometry``)."""
 
+from surfacenetworks_tpu_torch.geometry import graph_ops, repair
 from surfacenetworks_tpu_torch.geometry.io import load_obj, load_ply, save_obj, save_ply
 from surfacenetworks_tpu_torch.geometry.mesh_ops import (
     DiracCoeffs,
@@ -25,6 +26,7 @@ __all__ = [
     "dirac_coeffs",
     "edge_lengths",
     "face_areas",
+    "graph_ops",
     "hackit",
     "igl_style_laplacian",
     "invert_permutation",
@@ -33,6 +35,7 @@ __all__ = [
     "load_ply",
     "mesh_laplacian",
     "quaternion_matrix",
+    "repair",
     "save_obj",
     "save_ply",
     "uniform_mesh_scale",

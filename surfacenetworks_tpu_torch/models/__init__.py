@@ -2,8 +2,17 @@
 
 from surfacenetworks_tpu_torch.models import mnist_models, vae
 from surfacenetworks_tpu_torch.models.correspondence import SiameseModel
-from surfacenetworks_tpu_torch.models.normal_models import DirDeepModel, DirModelToFace, LapDeepModel, init_weights
+from surfacenetworks_tpu_torch.models.normal_models import (
+    AvgModel,
+    DirDeepModel,
+    DirModelToFace,
+    GatDeepModel,
+    IdDeepModel,
+    LapDeepModel,
+    MlpModel,
+    init_weights,
+)
 from surfacenetworks_tpu_torch.models.vae import DirVAE, LapVAE
 
-__all__ = ["DirDeepModel", "DirModelToFace", "DirVAE", "LapDeepModel", "LapVAE", "SiameseModel", "init_weights",
-           "mnist_models", "vae"]
+__all__ = ["AvgModel", "DirDeepModel", "DirModelToFace", "DirVAE", "GatDeepModel", "IdDeepModel", "LapDeepModel", "LapVAE",
+           "MlpModel", "SiameseModel", "init_weights", "mnist_models", "vae"]

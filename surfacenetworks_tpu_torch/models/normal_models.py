@@ -12,7 +12,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from surfacenetworks_tpu_torch.nn.blocks import AvgResNet2, DirResNet2, WideAvgResNet2, WideLapResNet2, dirac_num_faces
+from surfacenetworks_tpu_torch.nn.blocks import (
+    AvgResNet2,
+    DirResNet2,
+    GatResNet2,
+    IdResNet2,
+    MlpResNet2,
+    WideAvgResNet2,
+    WideLapResNet2,
+    dirac_num_faces,
+)
 from surfacenetworks_tpu_torch.nn.layers import GraphBatchNorm, GraphConv1x1, repeating_expand
 
 WIDTH = 128
@@ -106,13 +115,99 @@ class DirModelToFace(DirTrunk):
         return self.conv2(F.elu(f)).float()
 
 
+class GatDeepModel(nn.Module):
+    """Deep graph-attention network: ``GatResNet2`` blocks (masked attention
+    over the operator's ELL pattern, ``heads`` heads) on even layers, Avg
+    blocks on odd ones, an ELU + 'pre' conv head and the repeating-expand
+    input residual; the output is fp32 whatever ``dtype`` is."""
+
+    def __init__(self, in_features: int, out_features: int, layers: int = 15, heads: int = 4,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.layers = layers
+        self.conv1 = GraphConv1x1(in_features, WIDTH, "", dtype=dtype)
+        for i in range(layers):
+            self.add_module(f"rn{i}", GatResNet2(WIDTH, heads=heads, dtype=dtype) if i % 2 == 0
+                            else AvgResNet2(WIDTH, dtype=dtype))
+        self.conv2 = GraphConv1x1(WIDTH, out_features, "pre", dtype=dtype)
+
+    def forward(self, op, mask, inputs):
+        x = self.conv1(inputs)
+        for i in range(self.layers):
+            x = getattr(self, f"rn{i}")(op, mask, x)
+        x = self.conv2(F.elu(x))
+        return x + repeating_expand(inputs, x.shape[-1])
+
+
+class _PlainTrunk(nn.Module):
+    """``conv1`` (no batch norm), then ``layers`` blocks of one class, none
+    of which reads the operator."""
+
+    def __init__(self, block, in_features: int, layers: int, dtype: torch.dtype | None):
+        super().__init__()
+        self.layers = layers
+        self.conv1 = GraphConv1x1(in_features, WIDTH, None, dtype=dtype)
+        for i in range(layers):
+            self.add_module(f"rn{i}", block(WIDTH, dtype=dtype))
+
+    def trunk(self, op, mask, inputs) -> torch.Tensor:
+        x = self.conv1(inputs)
+        for i in range(self.layers):
+            x = getattr(self, f"rn{i}")(op, mask, x)
+        return x
+
+
+class AvgModel(_PlainTrunk):
+    """Graph-agnostic ablation: Avg blocks only, an ELU + 'pre' conv head,
+    plus the input (fp32 out)."""
+
+    def __init__(self, in_features: int, out_features: int, layers: int = 15, dtype: torch.dtype | None = None):
+        super().__init__(AvgResNet2, in_features, layers, dtype)
+        self.conv2 = GraphConv1x1(WIDTH, out_features, "pre", dtype=dtype)
+
+    def forward(self, op, mask, inputs):
+        return self.conv2(F.elu(self.trunk(op, mask, inputs))) + inputs
+
+
+class MlpModel(_PlainTrunk):
+    """Pointwise-only ablation: Mlp blocks, a batch norm ``bn`` (over every
+    row), ELU and a conv head without batch norm, plus the input (fp32
+    out)."""
+
+    def __init__(self, in_features: int, out_features: int, layers: int = 15, dtype: torch.dtype | None = None):
+        super().__init__(MlpResNet2, in_features, layers, dtype)
+        self.bn = GraphBatchNorm(WIDTH)
+        self.conv2 = GraphConv1x1(WIDTH, out_features, None, dtype=dtype)
+
+    def forward(self, op, mask, inputs):
+        return self.conv2(F.elu(self.bn(self.trunk(op, mask, inputs)))) + inputs
+
+
+class IdDeepModel(_PlainTrunk):
+    """Identity-op ablation: Id blocks, a 'pre' conv head, then an ELU in
+    fp32; no input residual."""
+
+    def __init__(self, in_features: int, out_features: int, layers: int = 15, dtype: torch.dtype | None = None):
+        super().__init__(IdResNet2, in_features, layers, dtype)
+        self.conv2 = GraphConv1x1(WIDTH, out_features, "pre", dtype=dtype)
+
+    def forward(self, op, mask, inputs):
+        return F.elu(self.conv2(self.trunk(op, mask, inputs)).float())
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation in the JAX package's convention: Linear weights
     from a normal with variance 1/fan_in (lecun), zero biases, unit BN
-    scales.  The numbers differ from flax's for the same seed."""
+    scales, attention vectors from flax's glorot uniform (limit
+    ``sqrt(6 / (H + ch))``).  The numbers differ from flax's for the same
+    seed."""
     for m in model.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, GatResNet2):
+            for name, p in m.named_parameters(recurse=False):
+                limit = (6.0 / sum(p.shape)) ** 0.5
+                p.copy_((torch.rand(p.shape, generator=generator, dtype=torch.float32) * 2 - 1) * limit)
+        elif isinstance(m, nn.Linear):
             fan_in = m.weight.shape[1]
             w = torch.randn(m.weight.shape, generator=generator, dtype=torch.float32)
             m.weight.copy_(w / fan_in**0.5)

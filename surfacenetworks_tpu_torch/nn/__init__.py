@@ -3,6 +3,8 @@
 from surfacenetworks_tpu_torch.nn.blocks import (
     AvgResNet2,
     DirResNet2,
+    GatResNet2,
+    IdResNet2,
     LapResNet2,
     MlpResNet2,
     WideAvgResNet2,
@@ -11,6 +13,7 @@ from surfacenetworks_tpu_torch.nn.blocks import (
     apply_dirac_vf,
     apply_operator,
     dirac_num_faces,
+    gat_attend,
 )
 from surfacenetworks_tpu_torch.nn.layers import (
     GraphBatchNorm,
@@ -23,8 +26,10 @@ from surfacenetworks_tpu_torch.nn.layers import (
 __all__ = [
     "AvgResNet2",
     "DirResNet2",
+    "GatResNet2",
     "GraphBatchNorm",
     "GraphConv1x1",
+    "IdResNet2",
     "LapResNet2",
     "MlpResNet2",
     "WideAvgResNet2",
@@ -34,6 +39,7 @@ __all__ = [
     "apply_operator",
     "at_least_fp32",
     "dirac_num_faces",
+    "gat_attend",
     "global_average",
     "repeating_expand",
 ]

@@ -11,6 +11,9 @@ Every block keeps the signature ``block(op, mask, x)`` (Dirac:
   ``inner_layers`` steps and the truncating or doubling residual.
 * ``DirResNet2``: vertex and face streams coupled through the Dirac pair in
   quaternion layout; the face stream has no residual.
+* ``IdResNet2``: the operator replaced by the identity ([x || x]).
+* ``GatResNet2``: the LapResNet2 scheme with ``L x`` replaced by masked
+  multi-head attention over the operator's ELL pattern (``gat_attend``).
 
 Every block takes ``dtype``, the computation dtype of its ``GraphConv1x1``s
 (None: fp32; ``torch.bfloat16``: mixed precision, as the JAX blocks'
@@ -27,6 +30,7 @@ Dirac operator is a structured ``DiracOperator`` or a dense pair ``(Di [B,
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
@@ -37,6 +41,8 @@ from surfacenetworks_tpu_torch.nn.layers import GraphBatchNorm, GraphConv1x1, gl
 from surfacenetworks_tpu_torch.sparse.bsr import BsrOperator
 from surfacenetworks_tpu_torch.sparse.ell import DiracOperator, EllOperator
 from surfacenetworks_tpu_torch.sparse.ops import bsr_spmm, dense_bmm, dirac_apply_fv, dirac_apply_vf, spmm
+
+GAT_HEADS = 4
 
 
 def apply_operator(op: Any, x: torch.Tensor) -> torch.Tensor:
@@ -214,3 +220,133 @@ class DirResNet2(nn.Module):
         f_out = self.bn_fc0(_cat_op(f_in, apply_dirac_vf(op, x_in)))
         v_out = self.bn_fc1(_cat_op(x_in, apply_dirac_fv(op, F.elu(f_out))))
         return v + v_out, f_out
+
+
+class IdResNet2(nn.Module):
+    """Identity-op ablation block: the operator replaced by the identity,
+    ``[x || x]``, with 'pre' batch norms."""
+
+    def __init__(self, features: int, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.bn_fc0 = GraphConv1x1(2 * features, features, "pre", dtype=dtype)
+        self.bn_fc1 = GraphConv1x1(2 * features, features, "pre", dtype=dtype)
+
+    def forward(self, op, mask, inputs):
+        x = F.elu(inputs)
+        x = self.bn_fc0(torch.cat([x, x], dim=-1))
+        x = F.elu(x)
+        x = self.bn_fc1(torch.cat([x, x], dim=-1))
+        return x + inputs
+
+
+def _pattern_slots_t(op: EllOperator) -> torch.Tensor:
+    """For each row ``n`` of ``op.fwd``'s transpose, the flat slots ``r * K
+    + k`` of ``op.fwd`` whose live column is ``n``, in the order of the
+    stored transpose ``op.bwd`` (``[B, N, K_bwd]``, int64; ``R * K`` where
+    a transpose slot is padding).  Found on the device: each transpose
+    entry ``(n, r)`` takes the slot of row ``r`` that holds column ``n``."""
+    fc, fv, bc, bv = op.fwd.cols, op.fwd.vals, op.bwd.cols.long(), op.bwd.vals
+    B, R, K = fc.shape
+    N, Kb = bc.shape[1:]
+    flat = bc.reshape(B, N * Kb, 1).expand(B, N * Kb, K)
+    cols_r = torch.gather(fc, 1, flat).view(B, N, Kb, K)
+    live_r = torch.gather(fv, 1, flat).view(B, N, Kb, K) != 0
+    n_idx = torch.arange(N, device=fc.device).view(1, N, 1, 1)
+    match = (cols_r == n_idx) & live_r & (bv != 0)[..., None]
+    k = (match * torch.arange(K, device=fc.device)).sum(dim=-1)  # a transpose entry matches one slot at most
+    return torch.where(match.any(dim=-1), bc * K + k, torch.full_like(bc, R * K))
+
+
+class _SlotGather(torch.autograd.Function):
+    """The payload rows each slot of ``op.fwd`` reads: ``[B, N, P]`` ->
+    ``[B, R, K, P]`` (one gather).  The backward sums each row's slot
+    cotangents through the stored transpose (``_pattern_slots_t``): a
+    gather and a sum in a fixed order, no scatter, so every run gives the
+    same bits.  Only live slots are summed back: the attention gives the
+    dead ones an exactly zero cotangent (weight ``exp(-1e9 - max) = 0``)."""
+
+    @staticmethod
+    def forward(ctx, op: EllOperator, payload: torch.Tensor) -> torch.Tensor:
+        ctx.op = op
+        B, N, P = payload.shape
+        R, K = op.fwd.cols.shape[1:]
+        idx = op.fwd.cols.reshape(B, R * K, 1).long().expand(B, R * K, P)
+        return torch.gather(payload, 1, idx).view(B, R, K, P)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        B, R, K, P = g.shape
+        slots = _pattern_slots_t(ctx.op)
+        N, Kb = slots.shape[1:]
+        flat = torch.cat([g.reshape(B, R * K, P), g.new_zeros(B, 1, P)], dim=1)
+        per = torch.gather(flat, 1, slots.reshape(B, N * Kb, 1).expand(B, N * Kb, P)).view(B, N, Kb, P)
+        return None, per.sum(dim=2)
+
+
+def gat_attend(op: EllOperator, xh: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
+               negative_slope: float = 0.2) -> torch.Tensor:
+    """Masked multi-head graph attention over ``op.fwd``'s ELL pattern:
+    per-slot additive scores ``e[r, k] = leaky_relu(s_src[r] + s_dst[cols[r,
+    k]])``, a softmax over the row's K slots with -1e9 at dead slots (value
+    0), and the attention-weighted sum of the slots' features; rows with no
+    live slot return zero.  ``xh [(B,) N, H, ch]``, ``s_src``/``s_dst``
+    ``[(B,) N, H]`` -> ``[(B,) N, H, ch]``, in the wider of ``xh``'s and the
+    scores' dtypes (fp32 on bf16 ``xh``).
+
+    One gather of ``[R * K, H * ch + H]`` payload rows (features and
+    destination scores together), as the JAX package's gather formulation
+    (``nn/blocks.py::_gat_slots_attend``); its banded formulation computes
+    the same function (the same finite support).  Plain PyTorch: the
+    backward is autograd's, but for the gather's (``_SlotGather``)."""
+    if not isinstance(op, EllOperator):
+        raise TypeError(f"gat_attend needs an EllOperator (the pattern), got {type(op).__name__}")
+    batched = op.fwd.cols.dim() == 3
+    if not batched:
+        op = EllOperator(fwd=dataclasses.replace(op.fwd, cols=op.fwd.cols[None], vals=op.fwd.vals[None]),
+                         bwd=dataclasses.replace(op.bwd, cols=op.bwd.cols[None], vals=op.bwd.vals[None]))
+        xh, s_src, s_dst = xh[None], s_src[None], s_dst[None]
+    B, N, H, ch = xh.shape
+    dt = torch.promote_types(xh.dtype, s_dst.dtype)
+    payload = torch.cat([xh.reshape(B, N, H * ch).to(dt), s_dst.to(dt)], dim=-1)
+    g = _SlotGather.apply(op, payload)  # [B, R, K, H * ch + H]
+    live = (op.fwd.vals != 0)[..., None]  # [B, R, K, 1]
+    e = F.leaky_relu(s_src.to(dt)[:, :, None, :] + g[..., H * ch:], negative_slope)
+    a = torch.softmax(torch.where(live, e, torch.full_like(e, -1e9)), dim=2)  # [B, R, K, H]
+    out = (a[..., None] * g[..., : H * ch].unflatten(-1, (H, ch))).sum(dim=2)  # [B, R, H, ch]
+    out = out * live.any(dim=2)[..., None].to(dt)
+    return out if batched else out[0]
+
+
+class GatResNet2(nn.Module):
+    """Graph-attention residual block: the LapResNet2 scheme with ``L x``
+    replaced by ``gat_attend`` over ``H`` heads of ``features / H``
+    channels.  Its attention vectors ``att{0,1}_a_src`` / ``_a_dst`` ``[H,
+    ch]`` are bare parameters (the JAX block's names and shapes)."""
+
+    def __init__(self, features: int, heads: int = GAT_HEADS, bnmode: str | None = "",
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        if features % heads:
+            raise ValueError(f"features {features} not divisible by heads {heads}")
+        self.heads = heads
+        ch = features // heads
+        for name in ("att0", "att1"):
+            for side in ("a_src", "a_dst"):
+                self.register_parameter(f"{name}_{side}", nn.Parameter(torch.zeros(heads, ch)))
+        self.bn_fc0 = GraphConv1x1(2 * features, features, _bn_mode(bnmode), dtype=dtype)
+        self.bn_fc1 = GraphConv1x1(2 * features, features, _bn_mode(bnmode), dtype=dtype)
+
+    def _attend(self, op, x: torch.Tensor, name: str) -> torch.Tensor:
+        a_src, a_dst = getattr(self, f"{name}_a_src"), getattr(self, f"{name}_a_dst")
+        xh = x.unflatten(-1, (self.heads, x.shape[-1] // self.heads))
+        dt = torch.promote_types(xh.dtype, a_src.dtype)  # jnp.einsum promotes bf16 x fp32 to fp32
+        s_src = torch.einsum("...hc,hc->...h", xh.to(dt), a_src.to(dt))
+        s_dst = torch.einsum("...hc,hc->...h", xh.to(dt), a_dst.to(dt))
+        return gat_attend(op, xh, s_src, s_dst).flatten(-2)
+
+    def forward(self, op, mask, inputs):
+        x = F.elu(inputs)
+        x = self.bn_fc0(_cat_op(x, self._attend(op, x, "att0")))
+        x = F.elu(x)
+        x = self.bn_fc1(_cat_op(x, self._attend(op, x, "att1")))
+        return x + inputs

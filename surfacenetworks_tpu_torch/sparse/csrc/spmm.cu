@@ -430,13 +430,16 @@ __device__ __forceinline__ float dot4(float4 u, float4 v) {
   return fmaf(u.x, v.x, fmaf(u.y, v.y, fmaf(u.z, v.z, u.w * v.w)));
 }
 
-// Sums each of v[0..N) over the warp's 32 lanes (N a power of 2 up to 32);
-// on return lane l holds the sum of v[l / (32 / N)].  Each of the first
-// log2 N steps keeps half of a lane's values, adds the partner's matching
-// half and hands its other half on; the rest is a butterfly on one value.
-template <int N>
+// Sums each of v[0..N) over a group of G lanes (G and N powers of 2, N <= G
+// <= 32; a group is G aligned lanes of the warp, and every lane of the warp
+// takes part); on return lane l holds the sum of v[(l % G) / (G / N)] over
+// its group.  Each of the first log2 N steps keeps half of a lane's values,
+// adds the partner's matching half and hands its other half on; the rest is
+// a butterfly on one value.  Every partner is in the lane's own group.
+template <int N, int G = 32>
 __device__ __forceinline__ float transposing_sum(float (&v)[N], int lane) {
-  int off = 16;
+  static_assert(N <= G && G <= 32, "N values over G lanes");
+  int off = G / 2;
 #pragma unroll
   for (int h = N / 2; h >= 1; h /= 2, off /= 2) {
     const bool upper = lane & off;  // this lane keeps v[h, 2h), its partner v[0, h)
@@ -1000,15 +1003,28 @@ cudaError_t launch_bsr_bf16(dim3 grid, int smem, cudaStream_t s, const int* bc, 
 // sddmm_kernel, with a, b and the output at half the bytes.  Design:
 // sddmm_kernel's (a ballot over the row's slots, chunks of 4 live slots with
 // their gathers in flight, one transposing reduction per chunk), with a
-// 16-byte lane carrying 8 bf16 channels widened to fp32 in registers: the
-// 120 channels of a feature row are 15 lanes' loads.  One fixed order of
-// summation: two launches agree bit for bit.
+// 16-byte lane carrying 8 bf16 channels widened to fp32 in registers, and a
+// row on G lanes, not on the whole warp: G is the row's 16-byte lanes (c / 8,
+// or c on the scalar path) rounded up to a power of two, at least
+// kSddmmChunk (the reduction's first steps stay inside the group) and at
+// most 32, so a warp holds 32 / G rows: 2 at C=120 (15 lanes of loads, where
+// one row a warp left 17 of 32 lanes idle), 4 at C=64.  A group takes its
+// row's slots G at a time; its ballot bits, ranks and shuffles stay in the
+// group (shuffles of width G), and the warp runs as many chunks as its
+// fullest group needs (a group past its own live slots, or past the last
+// row, loads nothing and adds zeros), so every shuffle has the whole warp.
 //
-// Measured by chip_smoke.py at R=N=7040, K=16, C=120 on an NVIDIA H100 80GB
-// HBM3 at 700.00 W: 0.00804 ms warm (17% of its 0.00134 ms byte bound),
-// 0.01184 ms cold; the fp32 kernel 0.00731: a 120-channel bf16 row leaves 17
-// of 32 lanes idle (ell_spmm_bf16x_kernel's rows-per-warp packing is the
-// lead).
+// Bits: the 32-lane tree restricted to a row's G lanes is the G-lane tree
+// (the levels above G only added exact zeros, and a -0 sum cannot show:
+// the output starts at +0), so the output equals the one-row-a-warp
+// design's bit for bit at every shape.  One fixed order of summation: two
+// launches agree bit for bit.
+//
+// Measured by chip_smoke.py and sddmm_bf16_check.py at R=N=7040, K=16,
+// C=120 on an NVIDIA H100 80GB HBM3 at 700.00 W: 0.0059 ms warm (23% of its
+// 0.00134 ms byte bound; the one-row-a-warp design 0.0081 in the same
+// calls, the fp32 kernel 0.0073), 0.0100 ms cold; 55 registers (39 on the
+// scalar path), no spills.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float dot8(const uint4& u, const uint4& v) {
   float a[8], b[8];
@@ -1018,14 +1034,20 @@ __device__ __forceinline__ float dot8(const uint4& u, const uint4& v) {
          fmaf(a[4], b[4], fmaf(a[5], b[5], fmaf(a[6], b[6], a[7] * b[7])))))));
 }
 
-template <bool VEC8>
+template <bool VEC8, int G>
 __global__ void __launch_bounds__(kSddmmThreads, 8)
 sddmm_bf16_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
                   const unsigned short* __restrict__ a, const unsigned short* __restrict__ b,
                   unsigned short* __restrict__ out, int batch, int rows, int k, int n, int c) {
+  static_assert(G >= kSddmmChunk && G <= 32 && (G & (G - 1)) == 0, "lanes per row");
   const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * (kSddmmThreads / 32) + (threadIdx.x >> 5);
-  if (row >= static_cast<long long>(batch) * rows) return;  // whole warp leaves together
+  const int sub = lane & (G - 1);  // the lane's place in its row's group
+  const long long total = static_cast<long long>(batch) * rows;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * (kSddmmThreads / 32) + (threadIdx.x >> 5)) * (32 / G);
+  if (first >= total) return;  // whole warp leaves together
+  const bool row_in = first + lane / G < total;  // a group past the last row loads and stores nothing
+  const long long row = row_in ? first + lane / G : first;
   const long long bi = row / rows;
   const int* row_cols = cols + row * k;
   const float* row_vals = vals + row * k;
@@ -1035,31 +1057,34 @@ sddmm_bf16_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
 
   const int width = VEC8 ? c / 8 : c;  // channel axis in units of 8 bf16 or one
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int s0 = 0; s0 < k; s0 += 32) {
-    const int ns = min(32, k - s0);
+  for (int s0 = 0; s0 < k; s0 += G) {
+    const int ns = min(G, k - s0);
     int my_col = 0;
     float my_val = 0.f;
-    if (lane < ns) {
-      my_col = row_cols[s0 + lane];
-      my_val = row_vals[s0 + lane];
+    if (row_in && sub < ns) {
+      my_col = row_cols[s0 + sub];
+      my_val = row_vals[s0 + sub];
     }
     const bool my_live = my_val != 0.f && my_col >= 0 && my_col < n;
-    const unsigned live_slots = __ballot_sync(0xffffffffu, my_live);
+    unsigned live_slots = __ballot_sync(0xffffffffu, my_live);
+    if constexpr (G < 32) live_slots = (live_slots >> (lane & ~(G - 1))) & ((1u << G) - 1u);  // the group's bits
     const int n_live = __popc(live_slots);
-    const int my_rank = __popc(live_slots & ((1u << lane) - 1u));  // live slots before mine
+    const int my_rank = __popc(live_slots & ((1u << sub) - 1u));  // live slots before mine
+    int warp_live = n_live;  // the chunks the warp runs: its fullest group's
+    if constexpr (G < 32) warp_live = static_cast<int>(__reduce_max_sync(0xffffffffu, static_cast<unsigned>(n_live)));
     float my_out = 0.f;
-    for (int j0 = 0; j0 < width; j0 += 32) {
-      const int j = j0 + lane;
-      const bool live = j < width;
+    for (int j0 = 0; j0 < width; j0 += G) {
+      const int j = j0 + sub;
+      const bool live = row_in && j < width;
       unsigned todo = live_slots;
-      for (int r0 = 0; r0 < n_live; r0 += kSddmmChunk) {
+      for (int r0 = 0; r0 < warp_live; r0 += kSddmmChunk) {
         // every gather of the chunk in flight before any product
         uint4 bv[kSddmmChunk];
 #pragma unroll
         for (int q = 0; q < kSddmmChunk; ++q) {
-          const int s = todo ? __ffs(todo) - 1 : 0;  // live slot r0 + q, if any
+          const int s = todo ? __ffs(todo) - 1 : 0;  // live slot r0 + q of the group, if any
           todo &= todo - 1;
-          const int col = __shfl_sync(0xffffffffu, my_col, s);
+          const int col = __shfl_sync(0xffffffffu, my_col, s, G);
           bv[q] = live && r0 + q < n_live ? load_bf<VEC8>(bb + static_cast<long long>(col) * c, j) : zero;
         }
         const uint4 av = live ? load_bf<VEC8>(arow, j) : zero;
@@ -1068,13 +1093,36 @@ sddmm_bf16_kernel(const int* __restrict__ cols, const float* __restrict__ vals,
         for (int q = 0; q < kSddmmChunk; ++q) {
           part[q] = VEC8 ? dot8(av, bv[q]) : bf16_lo(av.x) * bf16_lo(bv[q].x);
         }
-        const float dot = transposing_sum(part, lane);  // live slot r0 + q's dot in lane q * 32 / kSddmmChunk
+        // live slot r0 + q's dot in the group's lane q * G / kSddmmChunk
+        const float dot = transposing_sum<kSddmmChunk, G>(part, lane);
         const int q = my_rank - r0;
-        const float mine = __shfl_sync(0xffffffffu, dot, (q & (kSddmmChunk - 1)) * (32 / kSddmmChunk));
+        const float mine = __shfl_sync(0xffffffffu, dot, (q & (kSddmmChunk - 1)) * (G / kSddmmChunk), G);
         if (my_live && q >= 0 && q < kSddmmChunk) my_out += mine;
       }
     }
-    if (lane < ns) orow[s0 + lane] = bf16_rn(my_out);
+    if (row_in && sub < ns) orow[s0 + sub] = bf16_rn(my_out);
+  }
+}
+
+// the lanes a row of c channels takes in sddmm_bf16_kernel: its 16-byte
+// lanes (or its channels on the scalar path) rounded up to a power of two,
+// at least kSddmmChunk, at most 32
+int sddmm_bf16_lanes(int c, bool vec8) {
+  const int width = vec8 ? c / 8 : c;
+  int g = kSddmmChunk;
+  while (g < 32 && g < width) g *= 2;
+  return g;
+}
+
+template <bool VEC8>
+void launch_sddmm_bf16(int g, unsigned blocks, cudaStream_t s, const int* cc, const float* vv,
+                       const unsigned short* aa, const unsigned short* bb, unsigned short* o,
+                       int batch, int rows, int k, int n, int c) {
+  switch (g) {
+    case 4: sddmm_bf16_kernel<VEC8, 4><<<blocks, kSddmmThreads, 0, s>>>(cc, vv, aa, bb, o, batch, rows, k, n, c); break;
+    case 8: sddmm_bf16_kernel<VEC8, 8><<<blocks, kSddmmThreads, 0, s>>>(cc, vv, aa, bb, o, batch, rows, k, n, c); break;
+    case 16: sddmm_bf16_kernel<VEC8, 16><<<blocks, kSddmmThreads, 0, s>>>(cc, vv, aa, bb, o, batch, rows, k, n, c); break;
+    default: sddmm_bf16_kernel<VEC8, 32><<<blocks, kSddmmThreads, 0, s>>>(cc, vv, aa, bb, o, batch, rows, k, n, c); break;
   }
 }
 
@@ -1220,7 +1268,9 @@ int snx_sddmm_bf16(const void* cols, const void* vals, const void* a, const void
                    int batch, int rows, int k, int n, int c, int vec8, void* stream) {
   const long long total = static_cast<long long>(batch) * rows;
   if (total == 0 || k == 0) return static_cast<int>(cudaGetLastError());
-  const unsigned blocks = static_cast<unsigned>((total + kSddmmThreads / 32 - 1) / (kSddmmThreads / 32));
+  const int g = sddmm_bf16_lanes(c, vec8 != 0);
+  const long long rows_per_block = (kSddmmThreads / 32) * (32 / g);  // 4 warps of 32 / g rows each
+  const unsigned blocks = static_cast<unsigned>((total + rows_per_block - 1) / rows_per_block);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* cc = static_cast<const int*>(cols);
   const float* vv = static_cast<const float*>(vals);
@@ -1228,9 +1278,9 @@ int snx_sddmm_bf16(const void* cols, const void* vals, const void* a, const void
   const unsigned short* bb = static_cast<const unsigned short*>(b);
   unsigned short* o = static_cast<unsigned short*>(out);
   if (vec8) {
-    sddmm_bf16_kernel<true><<<blocks, kSddmmThreads, 0, s>>>(cc, vv, aa, bb, o, batch, rows, k, n, c);
+    launch_sddmm_bf16<true>(g, blocks, s, cc, vv, aa, bb, o, batch, rows, k, n, c);
   } else {
-    sddmm_bf16_kernel<false><<<blocks, kSddmmThreads, 0, s>>>(cc, vv, aa, bb, o, batch, rows, k, n, c);
+    launch_sddmm_bf16<false>(g, blocks, s, cc, vv, aa, bb, o, batch, rows, k, n, c);
   }
   return static_cast<int>(cudaGetLastError());
 }

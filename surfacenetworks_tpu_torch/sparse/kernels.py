@@ -94,7 +94,12 @@ bf16, which is the path its trainers run (they never select Pallas):
   batch.
 * ``sddmm`` of bf16 a and b (``_sddmm_xla``): fp32 sums, one rounding to
   bf16 at the store, bf16 out; the ballot-compacted design of the fp32
-  kernel.
+  kernel with a row on G lanes and 32 / G rows a warp (G the row's 16-byte
+  lanes rounded up to a power of two, 4 to 32: 2 rows at C=120, 4 at C=64;
+  chosen in ``spmm.cu``), the bits of one row a warp.  Measured by
+  ``chip_smoke.py`` and ``sddmm_bf16_check.py`` on an NVIDIA H100 80GB
+  HBM3 at 700.00 W: 0.0059 ms warm at 7,040 x 16 x 120 (the one-row-a-warp
+  design 0.0081, the fp32 kernel 0.0073), 0.0100 ms cold.
 
 Their plain versions widen the bf16 inputs to fp32 (exact), compute in
 fp32 and round to bf16 only where the XLA path's output is bf16.  Plain

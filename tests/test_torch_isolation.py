@@ -57,7 +57,9 @@ def test_port_and_chip_smoke_import_without_jax():
 
 
 def test_port_sources_name_no_jax():
-    sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # the port, and the scripts that run it on the card
+    sources = sorted(PACKAGE.rglob("*.py")) + [REPO / n for n in ("chip_smoke.py", "bsr_bf16_sweep.py",
+                                                                 "sddmm_bf16_check.py")]
     assert len(sources) >= 15
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
