@@ -10,7 +10,7 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives eight paths, each with the launch counts set to 0 just before it and
+drives nine paths, each with the launch counts set to 0 just before it and
 read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
@@ -26,6 +26,22 @@ read just after:
   two runs' losses, test metrics and weights must be bit-identical (the
   same run and repeat as every other trainer: ``_train_run`` over
   ``FaustRun``);
+* the rest of FAUST correspondence: the same trainer, data and widths
+  with the amp trunk (ELL on the squared-Laplacian pyramid, K=125:
+  ``ell_matmul`` and its backward at that K against the plain version in
+  fp32 and fp64, each level timed warm and cold with its bounds and
+  ``torch.sparse.mm``, ``sddmm`` at the same K), the dir, avg and mlp
+  trunks, the sl1 and cel losses, the lap trunk with and without
+  ``--remat`` in ELL and BSR, ``--intrinsic`` and the light path (forced),
+  4 updates and the test pass each, every run repeated bit for bit; step 0
+  of dir against fp64 module by module (the dense fp64 Dirac pair), of amp
+  against the same modules in fp32 with the kernels' plain versions (its
+  replay against dense fp64 pyramid levels reported: level 2's |L x| of
+  1e24 overflows fp32 in the batch norms' variances), the detached mutants
+  refused; ``--remat`` and
+  the light path bit-identical to their plain runs, peaks beside them;
+  ``--eval-only`` on a checkpoint of the amp run against the device's
+  metrics of the same predictions;
 * normal training: ``cli/train_normal.py`` (LapDeepModel-15 at width 128,
   batch 1) taking 8 updates on ~7,000-vertex synthetic meshes in ELL and
   in BSR, then its test pass; step 0 is checked against fp64 as above (the
@@ -183,6 +199,60 @@ EXPECTED_PER_STEP = {
     "ell": launches_of(ell_matmul=69, sddmm=2),
     "bsr": launches_of(bsr_matmul=64, ell_matmul=5, sddmm=2),
 }
+# The rest of FAUST correspondence (the "faust zoo"): the same trainer,
+# data, widths and depth as the train phase (TRAIN_ARGS on FAUST_DATA:
+# width 128, 120-d features, 15 layers, --smooth-reg 0.1, --xz-rotate),
+# FAUST_ZOO_STEPS updates and the test pass per run, each run repeated from
+# its start bit for bit.  Per run (operator format, flags): the amp trunk on
+# the squared-Laplacian pyramid (every level packed at the pyramid's widest
+# row, K=125 on these scans); the dir, avg and mlp trunks (``auto``: the
+# Dirac tables for dir, BSR over RCM order for avg, which reads no
+# operator; mlp in ELL); the sl1 and cel losses (lap, full logits); the lap trunk in
+# ELL and BSR with and without --remat; --intrinsic; and the light path
+# forced through ``_FORCE_LIGHT``.  Launches per step: the trunk's applies
+# (16 per trunk forward, 32 with --remat's recompute, two trunks, forward
+# and backward) plus the smoothness terms' 2 SDDMMs and their backward's 4
+# ELL sums, plus the streaming dcel head's mirror (1; sl1 and cel have the
+# full-logits head and no mirror).  A test pair runs the forward: 32
+# applies where the trunk reads an operator; the light path skips the test
+# pass.  --remat and the light path must give their plain runs' losses and
+# weights bit for bit; step 0 of amp and dir is held against fp64 module by
+# module with the train phase's bounds.
+FAUST_ZOO_STEPS = 4
+FAUST_ZOO_RUNS = {
+    "amp": ("ell", ("--model", "amp")), "dir": ("auto", ("--model", "dir")),
+    "avg": ("auto", ("--model", "avg")), "mlp": ("ell", ("--model", "mlp")),
+    "sl1": ("ell", ("--loss", "sl1")), "cel": ("ell", ("--loss", "cel")),
+    "lap ell": ("ell", ()), "remat ell": ("ell", ("--remat",)),
+    "lap bsr": ("bsr", ()), "remat bsr": ("bsr", ("--remat",)),
+    "intrinsic": ("ell", ("--intrinsic",)), "light": ("ell", ()),
+}
+FAUST_ZOO_PER_STEP = {
+    **{k: launches_of(ell_matmul=64 + 4 + 1, sddmm=2) for k in ("amp", "lap ell", "intrinsic", "light")},
+    **{k: launches_of(ell_matmul=4 + 1, sddmm=2) for k in ("dir", "avg", "mlp")},
+    **{k: launches_of(ell_matmul=64 + 4, sddmm=2) for k in ("sl1", "cel")},
+    "remat ell": launches_of(ell_matmul=96 + 4 + 1, sddmm=2),
+    "lap bsr": launches_of(bsr_matmul=64, ell_matmul=5, sddmm=2),
+    "remat bsr": launches_of(bsr_matmul=96, ell_matmul=5, sddmm=2),
+}
+FAUST_ZOO_PER_TEST = {k: launches_of(**({"bsr_matmul": 32} if k.endswith("bsr") else {"ell_matmul": 32}))
+                      for k in FAUST_ZOO_RUNS}
+FAUST_ZOO_PER_TEST.update({k: launches_of() for k in ("dir", "avg", "mlp", "light")})
+FAUST_ZOO_SAME = {"remat ell": "lap ell", "remat bsr": "lap bsr", "light": "lap ell"}  # bit for bit
+# The amp trunk's step 0 against fp64 is reported, not held: on these scans
+# |L| reaches 6.6e6 (sliver triangles), so the pyramid's level 2 reaches
+# |L x| of about 8e22, whose square overflows fp32 (3.4e38) in the 'pre'
+# batch norm's variance: in fp32, with or without a kernel, those channels
+# normalise to 0, where fp64 normalises them (the run counts them).  It is
+# held module by module against the same modules in fp32 with the kernels'
+# plain versions instead (``plain_step0_check``), which round and overflow
+# at the same places and differ only in the applies' summation order.  On
+# the card the chain read 2.4e-6 and the parameters 2.1e-6, the detached
+# mutant's chain 8.5e2; the fp64 replay read about 1.0 for the real step
+# and the mutant alike, and all 128 channels of the six level-2 blocks
+# overflow (PERF.md, section 6).
+FAUST_AMP_PLAIN_CHAIN_RTOL = 1e-4
+FAUST_AMP_PLAIN_PARAM_RTOL = 1e-4
 # Step 0 on the card (fp32, kernels) against the same step in fp64 with
 # dense operators and no kernel.  The whole step's loss, as a relative error,
 # is loose for the reason SERVE_FRO_RTOL is, and more: the dcel head's
@@ -1328,11 +1398,6 @@ def _dense_fp64(L, N: int, device):
     return dense[None]
 
 
-def _dense64(trainer, i):
-    """Sample ``i``'s operator as a dense fp64 ``[1, N, N]`` on the card."""
-    return _dense_fp64(trainer.data[i]["L"], trainer.N, trainer.device)
-
-
 def _plain_head(trainer, fa, fb, ia, ib):
     """The step's loss from features ``fa, fb [1, N, 120]`` with no kernel:
     dcel over the full logits plus the smoothness terms through the plain
@@ -1347,12 +1412,38 @@ def _plain_head(trainer, fa, fb, ia, ib):
                                       + _plain_smoothness(trainer.dev_sample(ib)["reg_op"], fb))
 
 
-def _model(state0, device, dtype):
+def _model(state0, device, dtype, model: str = "lap"):
     from surfacenetworks_tpu_torch.models import SiameseModel
 
-    model = SiameseModel("lap", LAYERS)
+    model = SiameseModel(model, LAYERS)
     model.load_state_dict(state0)
     return model.to(device, dtype)
+
+
+def _trunk_op64(trainer, i):
+    """Sample ``i``'s trunk operator in fp64 on the card, no kernel: the
+    dense Laplacian (lap key), the dense level of each pyramid level (amp),
+    or the dense fp64 Dirac pair of its vertices (dirac)."""
+    import torch
+
+    from surfacenetworks_tpu_torch.data.batching import dense_dirac_pair
+
+    s, N = trainer.data[i], trainer.N
+    if trainer.model_key == "amp":
+        return [_dense_fp64(Lk, N, trainer.device) for Lk in s["L_pyr"]]
+    if trainer.model_key == "dirac":
+        return dense_dirac_pair([{"V": np.asarray(s["V"], np.float64), "F": s["F"]}], N, trainer.buckets.n_faces,
+                                torch.float64, trainer.device)
+    return _dense_fp64(s["L"], N, trainer.device)
+
+
+def _block_op(op64, name: str):
+    """What block ``name`` of a trunk reads of the fp64 operator ``op64``:
+    the pyramid level ``min(i // 2, levels - 1)`` of block ``rn{i}`` (amp),
+    else ``op64`` itself."""
+    if isinstance(op64, list):
+        return op64[min(int(name[2:]) // 2, len(op64) - 1)] if name.startswith("rn") else op64[0]
+    return op64
 
 
 def _dense_step0(trainer, state0, ia, ib, rots, dense, dtype):
@@ -1360,12 +1451,12 @@ def _dense_step0(trainer, state0, ia, ib, rots, dense, dtype):
     plain SDDMM (no kernel), in ``dtype``.  Returns (loss, gradients)."""
     from surfacenetworks_tpu_torch.cli.train_correspondence import rot_matrix
 
-    model = _model(state0, trainer.device, dtype)
+    model = _model(state0, trainer.device, dtype, trainer.args.model)
     args = []
     for k, i in enumerate((ia, ib)):
         d = trainer.dev_sample(i)
         x = d["inputs"].to(dtype) @ rot_matrix(float(rots[2 * k]), float(rots[2 * k + 1]), trainer.device, dtype)
-        args.append(((dense[k].to(dtype), d["mask"].to(dtype)), x))
+        args.append(((_cast_op(dense[k], dtype), d["mask"].to(dtype)), x))
     fa, fb = model.features(args[0][0], args[1][0], args[0][1], args[1][1])
     loss = _plain_head(trainer, fa, fb, ia, ib)
     loss.backward()
@@ -1566,32 +1657,37 @@ def detached_applies():
         blocks.spmm, blocks.bsr_spmm = saved
 
 
-def _detached_step0(trainer, state0, ia, ib, rots):
-    """The mutant: step 0 with detached operator applies, captured like the
+def _detached_step0(trainer, state0, ia, ib, rots, mutant=None):
+    """The mutant: step 0 with detached operator applies (``mutant``, a
+    context manager; default the ELL and BSR applies), captured like the
     real step.  Returns (loss, gradients, capture)."""
     import torch
 
     from surfacenetworks_tpu_torch.cli.train_correspondence import objective
 
-    model = _model(state0, trainer.device, torch.float32)
+    model = _model(state0, trainer.device, torch.float32, trainer.args.model)
     cap = StepCapture(model.trunk)
     try:
-        with detached_applies():
+        with (mutant or detached_applies)():
             loss = objective(model, trainer.dev_sample(ia), trainer.dev_sample(ib), [float(r) for r in rots],
                              trainer.pair_target(ia, ib), trainer.smooth_w, trainer.use_stream)
             loss.backward()
     finally:
         cap.remove()
-    return float(loss.detach()), {k: p.grad.detach() for k, p in model.named_parameters()}, cap
+    # detached Dirac applies leave some parameters without a gradient
+    return float(loss.detach()), {k: torch.zeros_like(p) if p.grad is None else p.grad.detach()
+                                  for k, p in model.named_parameters()}, cap
 
 
-def step0_check(fmt, trainer, state0, res, ia, ib, rots) -> list[str]:
-    """Step 0 against fp64 with dense operators and no kernel, and the
-    detached-apply mutant against the same; returns the failures."""
+def step0_check(fmt, trainer, state0, res, ia, ib, rots, mutant=None, plain32: bool = True) -> list[str]:
+    """Step 0 against fp64 with dense operators (``_trunk_op64``) and no
+    kernel, and the detached-apply mutant (``mutant``) against the same;
+    with ``plain32`` the same step in fp32 on the dense operators is
+    reported beside it.  Returns the failures."""
     failures = []
     import torch
 
-    dense = [_dense64(trainer, i) for i in (ia, ib)]
+    dense = [_trunk_op64(trainer, i) for i in (ia, ib)]
     ref_loss, ref_grads = _dense_step0(trainer, state0, ia, ib, rots, dense, torch.float64)
     whole = {k: _rel_fro(g, ref_grads[k]) for k, g in res["grads0"].items()}
     loss_rel = abs(res["loss"][0] - ref_loss) / abs(ref_loss)
@@ -1599,21 +1695,24 @@ def step0_check(fmt, trainer, state0, res, ia, ib, rots) -> list[str]:
         f"tol {STEP0_LOSS_RTOL:g}); gradient rel_fro median {np.median(list(whole.values())):.3e}, "
         f"max {max(whole.values()):.3e} (reported, not bounded: the near-one-hot softmax of the dcel head "
         f"turns fp32 rounding of the features into other argmax rows)")
-    # the same fp32 rounding without any kernel: dense operators in fp32
-    p_loss, p_grads = _dense_step0(trainer, state0, ia, ib, rots, dense, torch.float32)
-    plain = [_rel_fro(g, ref_grads[k]) for k, g in p_grads.items()]
-    log(f"  {fmt}: the same step in fp32 with dense operators and no kernel vs fp64: loss rel "
-        f"{abs(p_loss - ref_loss) / abs(ref_loss):.3e}; gradient rel_fro median {np.median(plain):.3e}, "
-        f"max {max(plain):.3e}")
+    if plain32:  # the same fp32 rounding without any kernel: dense operators in fp32
+        p_loss, p_grads = _dense_step0(trainer, state0, ia, ib, rots, dense, torch.float32)
+        plain = [_rel_fro(g, ref_grads[k]) for k, g in p_grads.items()]
+        log(f"  {fmt}: the same step in fp32 with dense operators and no kernel vs fp64: loss rel "
+            f"{abs(p_loss - ref_loss) / abs(ref_loss):.3e}; gradient rel_fro median {np.median(plain):.3e}, "
+            f"max {max(plain):.3e}")
+        del p_grads
     if not loss_rel <= STEP0_LOSS_RTOL:
         failures.append(f"{fmt}: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
     res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(list(whole.values())))}
     runs = {label: {**output_head(cap, loss, lambda fa, fb: _plain_head(trainer, fa, fb, ia, ib)),
-                    **replay_modules(cap, grads, _model(state0, trainer.device, torch.float64).trunk,
-                                     lambda name, k, op: dense[k], torch.float64, "trunk.")}
+                    **replay_modules(cap, grads, _model(state0, trainer.device, torch.float64, trainer.args.model).trunk,
+                                     lambda name, k, op: _block_op(dense[k], name), torch.float64, "trunk.")}
             for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
                                               "mutant detached applies": _detached_step0(trainer, state0, ia, ib,
-                                                                                         rots)}.items()}
+                                                                                         rots, mutant)}.items()}
+    del dense
+    torch.cuda.empty_cache()
     return failures + judge_step0(fmt, runs, {"chain": STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL}, res)
 
 
@@ -1713,6 +1812,245 @@ def faust_run(fmt: str, data: list, steps: int, extra: tuple = ()) -> tuple:
         frun.pos, trainer.step = 0, 0
 
     return frun, params, restore
+
+
+def amp_kernel_checks(trainer, device) -> dict:
+    """``ell_matmul`` at the amp trunk's shape: the three pyramid levels of
+    scan 0 (fixed K, the pyramid's widest row) stacked as one batch through
+    ``batched_ell_checks`` (forward and backward against the plain version
+    in fp32 and fp64, level 0's operator in every item refused, the bf16
+    variant); then each level alone, as the trunk launches it, timed warm
+    and cold against its plain version, ``torch.sparse.mm`` on a CSR copy
+    and two bounds: every stored slot's column and value read (what the
+    kernel reads), and the live slots' only (what the product needs); and
+    ``sddmm`` at the smoothness pattern of the same K against its plain
+    version, timed.  Returns the report."""
+    import torch
+
+    from surfacenetworks_tpu_torch.data.batching import _fixed_k_operator
+    from surfacenetworks_tpu_torch.sparse import kernels, stack_operators
+
+    levels = trainer.data[0]["L_pyr"]
+    N, b = trainer.N, trainer.buckets
+    stacked = stack_operators([_fixed_k_operator(Lk, b, N) for Lk in levels]).to(device)
+    rep = {"levels_batched": batched_ell_checks(stacked, levels, device, "the amp pyramid's 3 levels", WIDTH, SEED + 500)}
+    gen = torch.Generator(device=device).manual_seed(SEED + 501)
+    x = torch.randn(N, WIDTH, device=device, generator=gen)
+    out = torch.empty(N, WIDTH, device=device)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
+    rep["levels"] = []
+    for lvl, Lk in enumerate(levels):
+        cols, vals = stacked.fwd.cols[lvl], stacked.fwd.vals[lvl]
+        live = vals != 0
+        nnz = int(live.sum())
+        csr = Lk.tocsr().astype(np.float32)
+        csr.resize((N, N))
+        lib = torch.sparse_csr_tensor(torch.from_numpy(csr.indptr.astype(np.int64)),
+                                      torch.from_numpy(csr.indices.astype(np.int64)), torch.from_numpy(csr.data),
+                                      size=csr.shape).to(device)
+        b_ms, b_by = bound_ms(nbytes(cols, vals, x, out), 2 * nnz * WIDTH)
+        live_bytes = nnz * (cols.element_size() + vals.element_size()) + nbytes(x, out)
+        lb_ms, lb_by = bound_ms(live_bytes, 2 * nnz * WIDTH)
+        r = {"level": lvl, "shape": [N, cols.shape[1], WIDTH], "live_slots": nnz,
+             "max_live_per_row": int(live.sum(1).max()),
+             "ms": time_ms(lambda: kernels.ell_matmul(cols, vals, x)),
+             "cold_ms": cold_ms(lambda: kernels.ell_matmul(cols, vals, x), flush),
+             "plain_ms": time_ms(lambda: kernels.ell_matmul_plain(cols, vals, x)),
+             "library_ms": time_ms(lambda: torch.sparse.mm(lib, x)), "library_call": "torch.sparse.mm(csr, x)",
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(cols, vals, x, out), "flops": 2 * nnz * WIDTH,
+             "live_bound_ms": lb_ms, "live_bound_by": lb_by, "live_bytes": live_bytes}
+        rep["levels"].append(r)
+        log(f"  ell_matmul amp level {lvl} (R={N}, K={cols.shape[1]}, C={WIDTH}; {nnz} live slots, at most "
+            f"{r['max_live_per_row']} a row): {r['ms']:.5f} ms warm, {r['cold_ms']:.5f} ms cold L2 (plain "
+            f"{r['plain_ms']:.4f}, {r['library_call']} {r['library_ms']:.4f}); bound {b_ms:.5f} ms by {b_by} "
+            f"({r['bytes'] / 1e6:.1f} MB, every slot; {b_ms / r['ms']:.1%} of it), the live slots' bound "
+            f"{lb_ms:.5f} ms ({live_bytes / 1e6:.1f} MB; {lb_ms / r['ms']:.1%})")
+    reg = trainer.dev_sample(0)["reg_op"].fwd
+    cols, vals = reg.cols[0], reg.vals[0]
+    a = torch.nn.functional.normalize(torch.randn(N, FEATURES, device=device, generator=gen), dim=-1)
+    nnz = int((vals != 0).sum())
+    rep["sddmm"] = {"shape": [N, cols.shape[1], FEATURES], "live_slots": nnz,
+                    "max_abs_err": check(f"sddmm at the amp smoothness pattern K={cols.shape[1]} C={FEATURES} (a = b)",
+                                         kernels.sddmm(cols, vals, a, a), kernels.sddmm_plain(cols, vals, a, a),
+                                         kernels.sddmm_plain(cols, vals, a.abs(), a.abs()), KERNEL_RTOL),
+                    "ms": time_ms(lambda: kernels.sddmm(cols, vals, a, a)),
+                    "plain_ms": time_ms(lambda: kernels.sddmm_plain(cols, vals, a, a))}
+    sd_out = torch.empty(N, cols.shape[1], device=device)
+    rep["sddmm"]["bound_ms"], rep["sddmm"]["bound_by"] = bound_ms(nbytes(cols, vals, a, sd_out), 2 * nnz * FEATURES)
+    r = rep["sddmm"]
+    log(f"  sddmm at the amp smoothness pattern ({nnz} live slots of {cols.numel()}): {r['ms']:.5f} ms warm (plain "
+        f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} ms by {r['bound_by']})")
+    del flush
+    return rep
+
+
+def faust_zoo_phase(device, smi: str, data: list) -> tuple[dict, dict]:
+    """FAUST_ZOO_RUNS through the FAUST trainer on ``data``: per run, its
+    trainer and caches, then (counts at 0) FAUST_ZOO_STEPS updates and the
+    test pass (step 0 captured for amp and dir, the last step profiled),
+    then the run again from its start, bit for bit; amp's kernel shapes
+    checked and timed before its run, and ``--eval-only`` on a checkpoint
+    of its weights against the device's metrics of the same predictions;
+    step 0 of amp and dir against fp64 module by module; --remat and the
+    light path against their plain runs bit for bit.  Each trainer is freed
+    before the next is built, so each run's peak memory is its own.
+    Returns the launch counts of all runs' paths and the results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_correspondence as tc
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    results, counts, failures = {}, launches_of(), []
+    tmp = tempfile.mkdtemp(prefix="faust_zoo_")
+    try:
+        for label, (fmt, extra) in FAUST_ZOO_RUNS.items():
+            t0 = time.perf_counter()
+            tc._FORCE_LIGHT = label == "light"
+            try:
+                frun, state0, restore = faust_run(fmt, data, FAUST_ZOO_STEPS, extra)
+            finally:
+                tc._FORCE_LIGHT = False
+            trainer = frun.t
+            log(f"  faust {label}: trunk {type(trainer.model.trunk).__name__}, operator {trainer.model_key}, format "
+                f"{trainer.fmt}, bucket {trainer.N}, ell_k {trainer.buckets.ell_k}, loss {trainer.args.loss}, "
+                f"streaming head {trainer.use_stream}, light {trainer.light}; set-up {time.perf_counter() - t0:.2f} s")
+            res = {}
+            if label == "amp":
+                res["kernel"] = amp_kernel_checks(trainer, device)
+            step0 = label in ("amp", "dir")
+            torch.cuda.empty_cache()
+            # the main path: every count is 0 just before it and read just after
+            kernels.reset_launch_counts()
+            res.update(_train_run(frun, FAUST_ZOO_STEPS, _draw_plan, profile_last=True,
+                                  capture=(lambda m: StepCapture(m.trunk)) if step0 else None))
+            res["counts"] = dict(kernels.launches)
+            counts = {k: counts[k] + v for k, v in res["counts"].items()}
+            repeat_run(f"faust {label}", frun, restore, res, _draw_plan)
+            test_expected = {k: v * (len(trainer.data) - trainer.n_train) ** 2 for k, v in
+                             FAUST_ZOO_PER_TEST[label].items()}
+            log(f"  faust {label}: losses {[repr(v) for v in res['loss']]}; test {res['test']!r} ({smi})")
+            log(f"  faust {label}: host wall per step {['%.2f' % v for v in res['wall_ms']]}, median "
+                f"{res['wall_ms_median']:.3f} ms; device ms per step (CUDA events) median {res['device_ms_median']:.3f}; "
+                f"profiled step device busy {res['busy_ms']:.3f} ms in {res['device_ops']} device ops, idle share "
+                f"{res['idle_share']:.3f}; peak device memory {res['peak_mib']:.1f} MiB ({smi})")
+            for dev_us, count, key in res["top"]:
+                log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+            log(f"  faust {label}: launches per step {res['per_step'][0]} (expected {FAUST_ZOO_PER_STEP[label]}); "
+                f"test pass {res['test_launches']} (expected {test_expected})")
+            if not np.isfinite(res["loss"]).all():
+                failures.append(f"faust {label}: a loss is not finite")
+            if any(step != FAUST_ZOO_PER_STEP[label] for step in res["per_step"]) or res["test_launches"] != test_expected:
+                failures.append(f"faust {label}: launches per step {res['per_step']}, test pass {res['test_launches']}")
+            if not res["reproduced"]:
+                failures.append(f"faust {label}: a second run from the same state differs")
+            if (res["test"] is None) != (label == "light"):
+                failures.append(f"faust {label}: test pass {res['test']!r}")
+            if step0:
+                for k, g in res["grads0"].items():
+                    if not (bool(torch.isfinite(g).all()) and bool((g != 0).any())):
+                        failures.append(f"faust {label}: step-0 gradient of {k} is not finite and non-zero")
+                ia, ib, rots = frun.plan[0]
+                fp64 = step0_check(f"faust {label}", trainer, state0, res, ia, ib, np.asarray(rots),
+                                   detached_dirac_applies if label == "dir" else detached_applies,
+                                   plain32=label != "dir")
+                if label == "amp":
+                    log(f"  faust amp: against fp64 {'; '.join(fp64) or 'within the bounds'} (reported, not held: "
+                        f"{amp_overflow_report(res['capture'])})")
+                    failures += plain_step0_check("faust amp", res, _model(state0, device, torch.float32, "amp").trunk,
+                                                  "trunk.", FAUST_AMP_PLAIN_CHAIN_RTOL, FAUST_AMP_PLAIN_PARAM_RTOL,
+                                                  "step0_plain")
+                else:
+                    failures += fp64
+            if label == "amp":
+                failures += eval_only_check(trainer, tmp, smi)
+            for key in ("capture", "grads0", "batch0", "drawn0"):
+                res.pop(key, None)
+            res["phase_s"] = time.perf_counter() - t0
+            log(f"  faust {label}: {res['phase_s']:.2f} s with its set-up, checks and repeat")
+            results[label] = res
+            del frun, trainer, restore, state0
+            torch.cuda.empty_cache()
+        for label, plain in FAUST_ZOO_SAME.items():
+            a, b = results[label], results[plain]
+            same = a["loss"] == b["loss"] and all(torch.equal(v, b["params"][k]) for k, v in a["params"].items())
+            same = same and (label == "light" or a["test"] == b["test"])
+            log(f"  faust {label} vs {plain}: losses, weights{'' if label == 'light' else ' and test metrics'} "
+                f"{'bit-identical' if same else 'DIFFER'}; peak device memory {a['peak_mib']:.1f} against "
+                f"{b['peak_mib']:.1f} MiB ({smi})")
+            if not same:
+                failures.append(f"faust {label}: not bit-identical to {plain}")
+        for res in results.values():
+            res.pop("params")
+        if failures:
+            raise AssertionError("; ".join(failures))
+        return counts, results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def amp_overflow_report(cap) -> str:
+    """For each Lap block of the amp trunk's captured step 0 (shape A), the
+    channels of ``L elu(x)`` whose batch-norm variance, computed in fp32 as
+    ``GraphBatchNorm`` computes it, is not finite, and the largest
+    ``|L elu(x)|``: where fp32 overflows and fp64 does not."""
+    import torch
+    import torch.nn.functional as F
+
+    from surfacenetworks_tpu_torch.nn.blocks import apply_operator
+
+    parts = []
+    with torch.no_grad():
+        for name in cap.names:
+            op, _, x = (cap.calls[name][0]["args"] + [None, None, None])[:3]
+            if not (name.startswith("rn") and int(name[2:]) % 2 == 0):
+                continue
+            y = apply_operator(op, F.elu(x))
+            var = ((y - y.mean(dim=(0, 1))) ** 2).mean(dim=(0, 1))
+            parts.append(f"{name} {int((~torch.isfinite(var)).sum())} of {y.shape[-1]} channels, max|L x| "
+                         f"{float(y.abs().max()):.2e}")
+    return "fp32 batch-norm variances that overflow: " + "; ".join(parts)
+
+
+def eval_only_check(trainer, tmp: str, smi: str) -> list[str]:
+    """``--eval-only`` through ``train_correspondence.main`` on a checkpoint
+    of ``trainer``'s weights (the amp run after its updates; the same
+    flags and synthetic scans): its host metrics against
+    ``losses.corr_metrics_from_pred`` on the device for ``trainer``'s
+    predictions of the same pairs: ``exact`` and ``geo_mean`` within 1e-5
+    (fp32 sums on the device, numpy's on the host), the quartiles (linear
+    on the host, ``np.quantile``) against ``torch.quantile`` of the device's
+    distances.  Returns the failures."""
+    import itertools
+
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_correspondence as tc
+    from surfacenetworks_tpu_torch.train import losses
+
+    ckpt = os.path.join(tmp, "amp_state.pt")
+    trainer.save(ckpt, 0)
+    t0 = time.perf_counter()
+    host = tc.main(TRAIN_ARGS + ["--operator-format", "ell", *FAUST_ZOO_RUNS["amp"][1], "--eval-only",
+                                 "--deser-option", "auto", "--deser-path", ckpt, "--result-dir", tmp])["eval"]
+    wall = time.perf_counter() - t0
+    ids = list(range(trainer.n_train, len(trainer.data))) or list(range(len(trainer.data)))
+    pairs = list(itertools.product(ids, repeat=2))
+    dev = {}
+    for i, j in pairs:
+        da, db = trainer.dev_sample(i), trainer.dev_sample(j)
+        pred = trainer.predict(i, j)
+        m = losses.corr_metrics_from_pred(pred, da["l"], db["l"], db["li"], db["G"], da["mask"][0, :, 0])
+        n = da["n"]
+        geo = db["G"][db["li"][da["l"][:n]], pred[:n].long()].double()
+        m.update({f"geo_q{q}": torch.quantile(geo, q / 100) for q in (25, 50, 75)})
+        for k, v in m.items():
+            dev[k] = dev.get(k, 0.0) + float(v) / len(pairs)
+    errs = {k: abs(host[k] - dev[k]) / max(abs(dev[k]), 1e-30) for k in host}
+    ok = sorted(host) == sorted(dev) and max(errs.values()) <= 1e-5
+    log(f"  faust amp --eval-only over {len(pairs)} pairs ({wall:.2f} s with the trainer's set-up): host {host}; the "
+        f"device's metrics of the same predictions {dev}; worst relative difference {max(errs.values()):.3e} "
+        f"{'ok' if ok else 'FAIL'} ({smi})")
+    return [] if ok else [f"faust amp --eval-only: host metrics {host} differ from the device's {dev}"]
 
 
 def _model_at(build, state0, device):
@@ -2988,8 +3326,9 @@ def mesh_step0_check(family: str, cfg: str, trainer, state0, res, noise0) -> lis
 
 
 def _cast_op(op, dtype):
-    """A dense operator or a dense Dirac pair in ``dtype``."""
-    return tuple(t.to(dtype) for t in op) if isinstance(op, tuple) else op.to(dtype)
+    """A dense operator, a dense Dirac pair or a list of dense pyramid
+    levels in ``dtype``."""
+    return type(op)(t.to(dtype) for t in op) if isinstance(op, (tuple, list)) else op.to(dtype)
 
 
 def _mesh_trainer(family: str, samples: list, model: str, fmt: str, label: str, extra: tuple = ()):
@@ -3157,7 +3496,8 @@ class FaustRun:
         return self.t.update(*b)
 
     def test_pass(self, epoch: int):
-        return tuple(sorted(self.t.test_pass(epoch).items()))
+        res = self.t.test_pass(epoch)  # None on the light path, which skips it
+        return None if res is None else tuple(sorted(res.items()))
 
 
 def _draw_plan(run: FaustRun) -> tuple:
@@ -3196,17 +3536,19 @@ def _plain_apply(op):
     return PlainApply.apply
 
 
-def bf16_step0_check(label: str, res: dict, ref_model, prefix: str = "") -> list[str]:
+def plain_step0_check(label: str, res: dict, ref_model, prefix: str = "", chain_rtol: float = BF16_STEP0_CHAIN_RTOL,
+                      param_rtol: float = BF16_STEP0_PARAM_RTOL, key: str = "step0") -> list[str]:
     """The run's step 0 (``res["capture"]``, ``res["grads0"]``) replayed
-    module by module (``replay_modules``) against the same modules in bf16
-    on the card (``ref_model``, the model at step 0's weights) with the
+    module by module (``replay_modules``) against the same modules in the
+    card's dtype (``ref_model``, the model at step 0's weights) with the
     kernels' plain versions (``_plain_apply``), on the card's own inputs and
-    output cotangents: outputs and cotangents within BF16_STEP0_CHAIN_RTOL,
-    parameters within BF16_STEP0_PARAM_RTOL; the reference with detached
-    applies must read above the chain's bound.  Both sides round to bf16 at
-    the same places; they differ in the applies' fp32 summation order (and
-    in BSR's backward, the kernel's rounding of the fp32 cotangent).
-    Returns the failures."""
+    output cotangents: outputs and cotangents within ``chain_rtol``,
+    parameters within ``param_rtol`` (bf16 runs: BF16_STEP0_CHAIN_RTOL and
+    BF16_STEP0_PARAM_RTOL); the reference with detached applies must read
+    above the chain's bound.  Both sides round at the same places; they
+    differ in the applies' fp32 summation order (and in BSR's bf16
+    backward, the kernel's rounding of the fp32 cotangent).  Keeps the
+    worst rows in ``res[key]``; returns the failures."""
     cap, grads = res["capture"], res["grads0"]
     mutant_model = copy.deepcopy(ref_model)
     errs = replay_modules(cap, grads, ref_model, lambda name, k, op: _plain_apply(op), prefix=prefix, outputs=True)
@@ -3216,16 +3558,16 @@ def bf16_step0_check(label: str, res: dict, ref_model, prefix: str = "") -> list
     params = {k: v for k, v in errs.items() if k.endswith("gradient")}
     mchain = {k: v for k, v in mutant.items() if not k.endswith("gradient")}
     wc, wp, wm = (max(d.items(), key=lambda kv: kv[1]) for d in (chain, params, mchain))
-    res["step0"] = {"chain_worst": wc, "param_worst": wp, "chain_median": float(np.median(list(chain.values()))),
-                    "param_median": float(np.median(list(params.values()))), "mutant_chain_worst": wm}
-    ok = wc[1] <= BF16_STEP0_CHAIN_RTOL and wp[1] <= BF16_STEP0_PARAM_RTOL
-    log(f"  {label}: step 0 module by module vs the plain versions in bf16: chain ({len(chain)}) worst {wc[0]} "
-        f"{wc[1]:.3e} (tol {BF16_STEP0_CHAIN_RTOL:.4g}), median {res['step0']['chain_median']:.3e}; parameters "
-        f"({len(params)}) worst {wp[0]} {wp[1]:.3e} (tol {BF16_STEP0_PARAM_RTOL:.4g}), median "
-        f"{res['step0']['param_median']:.3e}; {'ok' if ok else 'FAIL'}; mutant reference with detached applies: chain "
-        f"worst {wm[0]} {wm[1]:.3e} {'refused' if wm[1] > BF16_STEP0_CHAIN_RTOL else 'NOT refused'}")
+    res[key] = {"chain_worst": wc, "param_worst": wp, "chain_median": float(np.median(list(chain.values()))),
+                "param_median": float(np.median(list(params.values()))), "mutant_chain_worst": wm}
+    ok = wc[1] <= chain_rtol and wp[1] <= param_rtol
+    log(f"  {label}: step 0 module by module vs the plain versions in the card's dtype: chain ({len(chain)}) worst "
+        f"{wc[0]} {wc[1]:.3e} (tol {chain_rtol:.4g}), median {res[key]['chain_median']:.3e}; parameters "
+        f"({len(params)}) worst {wp[0]} {wp[1]:.3e} (tol {param_rtol:.4g}), median "
+        f"{res[key]['param_median']:.3e}; {'ok' if ok else 'FAIL'}; mutant reference with detached applies: chain "
+        f"worst {wm[0]} {wm[1]:.3e} {'refused' if wm[1] > chain_rtol else 'NOT refused'}")
     failures = [] if ok else [f"{label}: step 0 disagrees with the plain versions at {wc}, {wp}"]
-    if not wm[1] > BF16_STEP0_CHAIN_RTOL:
+    if not wm[1] > chain_rtol:
         failures.append(f"{label}: the detached-apply reference passes the step-0 check")
     return failures
 
@@ -3310,7 +3652,7 @@ def bf16_train_phase(device, smi: str, faust_data: list, mesh_samples: list, fp3
         res = run(label, frun, BF16_STEPS, lambda m: StepCapture(m.trunk), _draw_plan)
         repeat_run(f"bf16 {label}", frun, restore, res, _draw_plan)
         failures += bf16_run_checks(label, res, frun.model, 1, fp32.get(label), smi)
-        failures += bf16_step0_check(f"bf16 {label}", res, ref, "trunk.")
+        failures += plain_step0_check(f"bf16 {label}", res, ref, "trunk.")
         del frun, ref, restore
         done(label, res)
 
@@ -3324,7 +3666,7 @@ def bf16_train_phase(device, smi: str, faust_data: list, mesh_samples: list, fp3
     res = run("normal bsr", trainer, BF16_NORMAL_STEPS, StepCapture)
     repeat_run("bf16 normal bsr", trainer, lambda: _normal_restore(trainer, snap), res)
     failures += bf16_run_checks("normal bsr", res, trainer.model, len(trainer.test_samples), fp32.get("normal bsr"), smi)
-    failures += bf16_step0_check("bf16 normal bsr", res, ref)
+    failures += plain_step0_check("bf16 normal bsr", res, ref)
     f32 = fp32["normal bsr"]["loss"]
     res["convergence"] = {"bf16_final": res["loss"][-1], "fp32_final": f32[-1], "bf16_first": res["loss"][0],
                           "fp32_first": f32[0]}
@@ -3347,7 +3689,7 @@ def bf16_train_phase(device, smi: str, faust_data: list, mesh_samples: list, fp3
     res = run("arap ell", trainer, BF16_STEPS, StepCapture, _draw_picks)
     repeat_run("bf16 arap ell", trainer, lambda: _arap_restore(trainer, snap), res, _draw_picks)
     failures += bf16_run_checks("arap ell", res, trainer.model, 1, fp32.get("arap ell"), smi)
-    failures += bf16_step0_check("bf16 arap ell", res, ref)
+    failures += plain_step0_check("bf16 arap ell", res, ref)
     del trainer, ref
     done("arap ell", res)
 
@@ -3371,7 +3713,7 @@ def bf16_train_phase(device, smi: str, faust_data: list, mesh_samples: list, fp3
         repeat_run(f"bf16 {label}", trainer, lambda: _mesh_restore(trainer, snap), res, update=update)
         failures += bf16_run_checks(label, res, trainer.model, trainer.test_steps, fp32.get(label), smi)
         if paths:
-            failures += bf16_step0_check(f"bf16 {label}", res, ref)
+            failures += plain_step0_check(f"bf16 {label}", res, ref)
         del trainer, ref
         done(label, res)
 
@@ -3527,6 +3869,13 @@ def main() -> int:
     phase("train", t0)
 
     t0 = time.perf_counter()
+    fzoo_counts, fzoo = faust_zoo_phase(device, smi, faust_data)
+    for kname in ("bsr_matmul", "ell_matmul", "sddmm"):
+        if fzoo_counts[kname] == 0:
+            raise AssertionError(f"{kname} was not launched on the faust zoo's paths")
+    phase("faust zoo train", t0)
+
+    t0 = time.perf_counter()
     normal_counts, normal = normal_phase(device, smi)
     phase("normal train", t0)
 
@@ -3587,6 +3936,7 @@ def main() -> int:
             "normal_train_launches": normal_counts[kname], "arap_train_launches": arap_counts[kname],
             "mnist_train_launches": mnist_counts[kname], "vae_train_launches": vae_counts[kname],
             "zoo_train_launches": sum(r["counts"][kname] for r in zoo.values()),
+            "faust_zoo_train_launches": fzoo_counts[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_call": r["library_call"], "max_err_vs_plain": r["max_abs_err"], "kernel_ms": r["ms"],
@@ -3600,6 +3950,11 @@ def main() -> int:
         if kname == "ell_matmul":
             entries[-1]["arap_batch"] = {k: v for k, v in arap["ell"]["kernel"].items() if k != "bf16"}
             entries[-1]["mnist_batch"] = {k: v for k, v in mnist["ell"]["kernel"].items() if k != "bf16"}
+            amp = fzoo["amp"]["kernel"]
+            entries[-1]["faust_amp_levels"] = amp["levels"]
+            entries[-1]["faust_amp_levels_batched"] = {k: v for k, v in amp["levels_batched"].items() if k != "bf16"}
+        if kname == "sddmm":
+            entries[-1]["faust_amp_pattern"] = fzoo["amp"]["kernel"]["sddmm"]
     # the bf16 variants (--bf16): ``launches`` counts the bf16 FAUST runs (both
     # formats), which launch all three; the other bf16 runs' counts beside it
     faust16 = {k: bf16_counts["faust ell"][k] + bf16_counts["faust bsr"][k] for k in port_kernels.launches}
@@ -3612,6 +3967,7 @@ def main() -> int:
             "replaces": replaces[kname[:-5]], "launches": faust16[kname],
             "bf16_run_launches": {run: c[kname] for run, c in bf16_counts.items()},
             "zoo_train_launches": sum(r["counts"][kname] for r in zoo.values()),
+            "faust_zoo_train_launches": fzoo_counts[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "library_call": r["library_call"],
             "bytes": r["bytes"], "flops": r["flops"], "card": smi, "cold_ms": r["cold_ms"],
@@ -3632,6 +3988,10 @@ def main() -> int:
     log("train median per step: " + ", ".join(
         f"{fmt} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms"
         for fmt, r in trained.items()) + f" ({smi})")
+    log("faust zoo train median per step: " + ", ".join(
+        f"{label} wall {r['wall_ms_median']:.3f} ms, device {r['device_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms in "
+        f"{r['device_ops']} device ops, idle share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB"
+        for label, r in fzoo.items()) + f" ({smi})")
     log("normal train median per step: " + ", ".join(
         f"{fmt} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms, "
         f"idle share {r['idle_share']:.3f}" for fmt, r in normal.items()) + f" ({smi})")

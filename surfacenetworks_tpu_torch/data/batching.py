@@ -423,19 +423,29 @@ def arap_batch(sequences: list[list[dict]], picks: list[tuple[int, int]], bucket
 
 
 def correspondence_batch(sample: dict, buckets: Buckets, fmt: str = "ell",
-                         op_dtype: torch.dtype | None = None) -> MeshBatch:
+                         op_dtype: torch.dtype | None = None, model: str = "lap") -> MeshBatch:
     """Single-shape batch (B=1) for the siamese trainer; ``targets`` is
     ``(G, label, label_inv)`` as the sample holds them.
 
-    ``fmt='bsr'`` packs the block-sparse operator: the sample must be
-    RCM-ordered (``rcm_reorder_sample``), the bucket a multiple of 128 and
+    ``model`` is the trainer's operator key: ``"lap"`` packs ``sample["L"]``
+    in ``fmt``; ``"amp"`` a list of fixed-K ELL operators, one per level of
+    ``sample["L_pyr"]`` (``graph_ops.amp_pyramid``); ``"dirac"`` the packed
+    Dirac tables (``fmt`` is not read for either).  ``fmt='bsr'`` packs the
+    block-sparse operator: the sample must be RCM-ordered
+    (``rcm_reorder_sample``), the bucket a multiple of 128 and
     ``buckets.bsr_k`` fitted; its blocks are stored at ``op_dtype``."""
     N = buckets.n_vertices
     n = sample["V"].shape[0]
     inputs = pad_rows(np.asarray(sample["input"], np.float32), N)[None]
     mask = np.zeros((1, N, 1), dtype=np.float32)
     mask[0, :n] = 1.0
-    if fmt == "bsr":
+    if model == "dirac":
+        operator = stack_dirac([_dirac_sample_operator(sample, buckets, N, buckets.n_faces)])
+    elif model == "amp":
+        operator = [stack_operators([_fixed_k_operator(Lk, buckets, N)]) for Lk in sample["L_pyr"]]
+    elif model != "lap":
+        raise ValueError(f"unknown operator key {model!r}: expected 'lap', 'amp' or 'dirac'")
+    elif fmt == "bsr":
         operator = stack_bsr_operators([_bsr_sample_operator(sample["L"], buckets, N, op_dtype)])
     elif fmt == "ell":
         operator = stack_operators([_fixed_k_operator(sample["L"], buckets, N)])

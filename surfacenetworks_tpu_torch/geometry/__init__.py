@@ -1,6 +1,6 @@
 """Host-side geometry (counterpart of ``surfacenetworks_tpu/geometry``)."""
 
-from surfacenetworks_tpu_torch.geometry import graph_ops, repair
+from surfacenetworks_tpu_torch.geometry import graph_ops, intrinsic, repair
 from surfacenetworks_tpu_torch.geometry.io import load_obj, load_ply, save_obj, save_ply
 from surfacenetworks_tpu_torch.geometry.mesh_ops import (
     DiracCoeffs,
@@ -29,6 +29,7 @@ __all__ = [
     "graph_ops",
     "hackit",
     "igl_style_laplacian",
+    "intrinsic",
     "invert_permutation",
     "laplacian",
     "load_obj",

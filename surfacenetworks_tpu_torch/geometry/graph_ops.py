@@ -1,8 +1,11 @@
-"""Face-derived adjacency (NumPy/SciPy), copied from the JAX package.
+"""Face-derived adjacency and the amp pyramid (NumPy/SciPy), copied from the
+JAX package.
 
 Counterpart of ``surfacenetworks_tpu/geometry/graph_ops.py``: the two
 functions the edge-flip augmentation needs (``repair.constrained_edge_flip``,
-the normal trainer's ``--flip-variants``), verbatim.
+the normal trainer's ``--flip-variants``) and the intrinsic Laplacian
+(``geometry.intrinsic``), and ``amp_pyramid`` (the FAUST trainer's amp
+trunk), verbatim.
 """
 
 from __future__ import annotations
@@ -46,3 +49,25 @@ def triangle_triangle_adjacency(F: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
             else:
                 edges[key] = (f, e)
     return TT, TTi
+
+
+def amp_pyramid(L: sp.spmatrix, levels: int = 3) -> list[sp.csr_matrix]:
+    """Degree-renormalized squared-Laplacian pyramid for the FAUST 'amp'
+    trunk (dense_correspondence/main.py:73-84): Dsq = diag(1/sqrt(deg - 1))
+    with deg the stored-nnz row count, L_0 = Dsq L Dsq, then repeatedly
+    renormalize and square.  All levels share the vertex set (operator powers
+    widen the receptive field; no coarsening)."""
+    L = L.tocsr().astype(np.float32)
+    idp = L.indptr
+    with np.errstate(divide="ignore"):
+        d = 1.0 / np.sqrt(np.maximum(idp[1:] - idp[:-1] - 1, 0))
+    d[~np.isfinite(d)] = 0.0
+    Dsq = sp.diags(d).astype(np.float32)
+    out = []
+    L = (Dsq @ L @ Dsq).astype(np.float32)
+    out.append(L.tocsr())
+    for _ in range(levels - 1):
+        L = (Dsq @ L @ Dsq).astype(np.float32)
+        L = (L @ L).tocsr()
+        out.append(L)
+    return out

@@ -17,6 +17,8 @@ classifier's and VAE's losses).
   pattern only.
 * ``corr_delta_cross_entropy(_from_target)``: the argmin-target cross-entropy
   over full ``[N, M]`` logits.
+* ``corr_smooth_l1`` and ``corr_softmin_cross_entropy``: the FAUST trainer's
+  ``--loss sl1`` and ``cel`` over full logits against the padded cost.
 * ``corr_dcel_streaming``: the same loss without the ``[N, M]`` logits; an
   autograd Function over 512-row tiles whose backward recomputes each tile's
   logits from the saved logsumexp.  The tile products are ``torch.matmul``,
@@ -141,6 +143,24 @@ def corr_delta_cross_entropy_from_target(outputs: torch.Tensor, target: torch.Te
 def corr_delta_cross_entropy(outputs: torch.Tensor, GAB: torch.Tensor) -> torch.Tensor:
     """Argmin-target cross-entropy, the reference's default 'dcel'."""
     return corr_delta_cross_entropy_from_target(outputs, torch.argmin(GAB, dim=-1))
+
+
+def corr_smooth_l1(outputs: torch.Tensor, GAB: torch.Tensor) -> torch.Tensor:
+    """Smooth-L1 between the logits and the aggregated geodesic cost: the
+    element mean, divided by ``outputs.shape[0]`` (the rows of the 2-D
+    logits, as the JAX package divides; padded columns cost 1e9)."""
+    d = (at_least_fp32(outputs) - GAB).abs()
+    per = torch.where(d < 1.0, 0.5 * d**2, d - 0.5)
+    return per.mean() / outputs.shape[0]
+
+
+def corr_softmin_cross_entropy(outputs: torch.Tensor, GAB: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy of the logits against ``softmin(GAB)`` over each row,
+    summed; rows past A's vertices (cost 0 on B's columns) get a uniform
+    target over them and enter the sum, as in the JAX package."""
+    G = torch.softmax(-GAB, dim=1)
+    logp = torch.log_softmax(at_least_fp32(outputs), dim=-1)
+    return -(G * logp).sum()
 
 
 def _stream_lse(fa, fb, target, block):

@@ -41,8 +41,9 @@ JAX_FAUST_LINES = [
 @pytest.mark.parametrize("line", range(len(JAX_FAUST_LINES)))
 def test_jax_faust_command_lines_parse(line):
     """Each line parses to what the JAX parser makes of it, and the port
-    refuses by name exactly what it does not run (graph-parallel, the sl1
-    loss) and nothing else."""
+    refuses by name exactly what it does not run (graph-parallel) and
+    nothing else; the sl1 loss with the streaming head exits as the JAX
+    trainer does (the streaming head is dcel's only)."""
     from surfacenetworks_tpu.cli import train_correspondence as jtrain
     from surfacenetworks_tpu_torch.cli import train_correspondence as ttrain
 
@@ -52,11 +53,14 @@ def test_jax_faust_command_lines_parse(line):
                 "streaming_head", "graph_parallel", "loss", "deser_option"):
         assert got[key] == ref[key], key
     args = ttrain.parser.parse_args(argv)
-    if "--graph-parallel" in argv or "sl1" in argv:
-        with pytest.raises(SystemExit, match="not ported yet: (--graph-parallel|--loss other than dcel)"):
+    if "--graph-parallel" in argv:
+        with pytest.raises(SystemExit, match="not ported yet: --graph-parallel"):
             ttrain.refuse_unported(args)
     else:
         ttrain.refuse_unported(args)
+    if "sl1" in argv:
+        with pytest.raises(SystemExit, match="--streaming-head supports --loss dcel only"):
+            ttrain.CorrespondenceTrainer(ttrain.parser.parse_args(argv + ["--device", "cpu"]), log=lambda _: None)
 
 
 @pytest.mark.parametrize("flag", [["--config", "c.json"], ["--preset", "faust"]])
