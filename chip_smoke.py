@@ -10,7 +10,7 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives nine paths, each with the launch counts set to 0 just before it and
+drives twelve paths, each with the launch counts set to 0 just before it and
 read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
@@ -55,6 +55,26 @@ read just after:
   kernel; step 0 against fp64 module by module (a GAT whose attends are
   detached refused); every run repeated bit for bit; the attends' device
   time in the profiled step and alone;
+* the multiresolution cascade: the same trainer with ``--model cas``
+  (EfficientCascade at width 128 over a 4-level Laplacian pyramid of 875 /
+  1,750 / 3,500 / 7,000 rows, ELL at K=32 per level) on the normal data:
+  ``ell_matmul`` and its backward at each level's shape against the plain
+  version (fp32, fp64, bf16 x; two launches bit for bit; the item-0
+  mutant refused), each level timed warm and cold with both bounds and
+  ``torch.sparse.mm``; 8 updates and the test pass, 28 launches a step;
+  step 0 against fp64 module by module with the glue between the modules
+  (pooling, upsampling, skips) replayed in fp64, the finest level's
+  applies detached and an upsampling that tiles refused; how far a
+  max(dim) pooling moves step 0's gradients reported; the repeat and a
+  resume bit for bit; then 8 ``--bf16`` updates (step 0 against the plain
+  versions in bf16, the repeat bit for bit);
+* ``--rotate-augment`` (JAX's threefry draws, ``train/prng.py``) on the
+  normal Lap-15 ELL run, 4 updates: the card's rotations against the
+  host's in fp64, orthonormal with determinant 1, each update's drawn at
+  its step; the repeat bit for bit; and ``--buckets 3`` on meshes of
+  3,000, 5,000 and 7,000 vertices, 8 updates drawn tier by tier, 32
+  launches a step in every tier, the repeat bit for bit, a timing row per
+  tier;
 * Dirac training: the same trainer with ``--model dirac`` (DirDeepModel-15,
   the structured Dirac tables packed to a base valence): each Dirac apply
   and backward against the fp64 scipy pair (mutants without a slot or
@@ -327,6 +347,40 @@ ZOO_NULL_GRADS = {
 }
 GAT_RANGE = "gat attend"  # the profiler range around each attend's forward in the profiled step
 GAT_ATTENDS = 2 * ((LAYERS + 1) // 2)  # two a GAT block, GAT blocks on even layers
+# The multiresolution cascade (``--model cas``): EfficientCascade(3, 3) at
+# the JAX trainer's defaults (4 pyramid levels, width 128, 2 inner layers),
+# batch 1, on the normal cell's data: the finest bucket of 7,000 rows (the
+# meshes' 7,000 vertices rounded to 8, then to 2**3), levels of 875 /
+# 1,750 / 3,500 / 7,000 rows coarsest first, one ELL operator of 32 slots
+# each.  8 updates and the test pass, then the same with --bf16.  Per step
+# 14 applies forward (3 down blocks, lap0, 3 up blocks, 2 each: 8 / 8 / 8 /
+# 4 by level with the backward) and 14 stored-transpose applies backward:
+# 28 ell_matmul; under --bf16 the forward's 14 take bf16 x.  A test mesh
+# runs the forward's 14.  Step 0 against fp64 module by module with the
+# normal bounds, the glue between the modules (pooling, upsampling, skips,
+# and their backward) replayed in fp64 from the card's module outputs and
+# cotangents as rows of the chain; a step whose finest level's applies are
+# detached, and one that upsamples by tiling, must fail it.  The bf16 run
+# against the plain versions in bf16, as the other bf16 runs.
+CASCADE_LEVELS = 4
+CASCADE_STEPS = 8
+CASCADE_ARGS = ["--synthetic", "5", "--synthetic-points", "7000", "--seed", str(SEED), "--model", "cas",
+                "--cascade-levels", str(CASCADE_LEVELS), "--batch-size", "1", "--num-updates", str(CASCADE_STEPS),
+                "--num-epoch", "1", "--device", "cuda"]
+CASCADE_PER_STEP = launches_of(ell_matmul=28)
+# --rotate-augment: the normal Lap-15 ELL run rotated (JAX's draws), 4
+# updates; 32 ell_matmul a step, as unrotated.  The rotations on the card
+# (fp32 cosines, sines and products of the host's angles) against the same
+# angles' rotations in fp64 on the host, orthonormal with determinant 1.
+ROTATE_STEPS = 4
+ROTATE_ATOL = 1e-6
+# --buckets 3: Lap-15 ELL, batch 1, on blob meshes of 3,000, 5,000 and
+# 7,000 vertices written as .obj files (two of each to train, one of each
+# to test, --test-path), three tiers of those sizes, 8 updates drawn tier
+# by tier and the test pass; 32 ell_matmul a step in every tier; then 3
+# updates in each tier alone, the last profiled, for a row per tier.
+TIER_POINTS = (3000, 5000, 7000)
+TIER_STEPS = 8
 # Dirac training: the normal trainer with ``--model dirac`` at its defaults,
 # DirDeepModel-15 (8 Dirac blocks, 7 Avg blocks) at width 128, batch 1, on
 # the same five synthetic ~7,000-vertex meshes with Dirac coefficients
@@ -445,13 +499,14 @@ BF16_PER_STEP = {
     "mnist dense": launches_of(),
     "vae ell": launches_of(ell_matmul=4 * MESH_LAYERS, ell_matmul_bf16=4 * MESH_LAYERS),
     "mnist dirac": launches_of(),
+    "normal cas": launches_of(ell_matmul=14, ell_matmul_bf16=14),
 }
 # a test batch (FAUST: a test pair) runs the forward only: bf16 x into every apply
 BF16_PER_TEST_BATCH = {
     "faust ell": launches_of(ell_matmul_bf16=32), "faust bsr": launches_of(bsr_matmul_bf16=32),
     "normal bsr": launches_of(bsr_matmul_bf16=16), "arap ell": launches_of(ell_matmul_bf16=16),
     "mnist ell": launches_of(ell_matmul_bf16=2 * MESH_LAYERS), "vae ell": launches_of(ell_matmul_bf16=4 * MESH_LAYERS),
-    "mnist dense": launches_of(), "mnist dirac": launches_of(),
+    "mnist dense": launches_of(), "mnist dirac": launches_of(), "normal cas": launches_of(ell_matmul_bf16=14),
 }
 # Step 0 of each kernel run, module by module against the same modules in
 # bf16 on the card with the kernels' plain versions (autograd through them)
@@ -2092,7 +2147,13 @@ def _normal_trainer(argv, label: str, logged: list | None = None):
 def _sampler_like(saved, samples):
     """A copy of the sampler ``saved`` (order, position, random state) over
     ``samples``, a trainer's own sample dicts, matched by name: the device
-    dataset finds a sample by the object."""
+    dataset finds a sample by the object.  A ``TieredSampler`` is copied
+    tier by tier, with its own draw's state."""
+    if hasattr(saved, "samplers"):
+        out = copy.copy(saved)
+        out.samplers = {k: _sampler_like(v, samples) for k, v in saved.samplers.items()}
+        out.rng = copy.deepcopy(saved.rng)
+        return out
     by_name = {s["name"]: s for s in samples}
     out = copy.copy(saved)
     out.items = [by_name[s["name"]] for s in saved.items]
@@ -2209,14 +2270,17 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
     return res
 
 
-def repeat_run(label: str, trainer, restore, res: dict, draw=_draw_samples, update=None) -> None:
+def repeat_run(label: str, trainer, restore, res: dict, draw=_draw_samples, update=None, capture=None) -> None:
     """The run's updates and test pass again once ``restore()`` has put
-    back the state of its start; sets ``res["reproduced"]``: bit-identical
-    to the run."""
+    back the state of its start, step 0 under ``capture`` where the run
+    captured it so (a captured output handed on as a view groups the sums
+    of its cotangents otherwise where three or more modules read it, as the
+    cascade's skips do); sets ``res["reproduced"]``: bit-identical to the
+    run."""
     import torch
 
     restore()
-    again = _train_run(trainer, len(res["loss"]), draw, update=update)
+    again = _train_run(trainer, len(res["loss"]), draw, update=update, capture=capture)
     res["reproduced"] = all(again[k] == res[k] for k in ("drawn", "loss", "mad", "test")) and all(
         torch.equal(v, res["params"][k]) for k, v in again["params"].items())
     log(f"  {label}: two runs of {len(res['loss'])} steps from the same state: losses run 1 "
@@ -2224,7 +2288,7 @@ def repeat_run(label: str, trainer, restore, res: dict, draw=_draw_samples, upda
         f"{res['test']!r}, run 2 {again['test']!r}; {'bit-identical' if res['reproduced'] else 'DIFFERENT'}")
 
 
-def repeat_and_resume(label: str, trainer, snap: dict, res: dict, resume_argv: list) -> None:
+def repeat_and_resume(label: str, trainer, snap: dict, res: dict, resume_argv: list, capture=None) -> None:
     """``repeat_run`` from step 0's weights, optimizer and sampler state
     (``snap``), then a fresh trainer resumed from the checkpoint saved after
     NORMAL_RESUME_AFTER updates (``resume_argv``) taking the rest; sets
@@ -2232,7 +2296,7 @@ def repeat_and_resume(label: str, trainer, snap: dict, res: dict, resume_argv: l
     import torch
 
     steps = len(res["loss"])
-    repeat_run(label, trainer, lambda: _normal_restore(trainer, snap), res)
+    repeat_run(label, trainer, lambda: _normal_restore(trainer, snap), res, capture=capture)
     logged = []
     fresh = _normal_trainer(resume_argv, f"{label} resumed", logged)
     # the sampler is not in a checkpoint, as in the JAX package
@@ -2249,13 +2313,19 @@ def repeat_and_resume(label: str, trainer, snap: dict, res: dict, resume_argv: l
 
 
 def fp64_step0_check(label: str, res: dict, model_at, head, op64, bounds: dict, loss_rtol: float,
-                     mutants: dict | None = None, null=frozenset(), plain32: bool = True) -> list[str]:
+                     mutants: dict | None = None, null=frozenset(), plain32: bool = True, capture_cls=None,
+                     block_op=None, glue=None) -> list[str]:
     """Step 0 of a run (``res``: its loss, gradients, capture and batch)
     against the same step in fp64: the model ``model_at(dtype)`` at step
     0's weights on the batch with the operator ``op64`` (dense fp64
     Laplacians or Dirac pair, no kernel; GAT's ELL pattern, which its
-    attention reads as a mask; the Avg, Mlp and Id models read none) and
-    the loss ``head(out, batch)``.  The whole step's loss within
+    attention reads as a mask; the Avg, Mlp and Id models read none; or a
+    function of the dtype giving the operator, the cascade's dense levels)
+    and the loss ``head(out, batch)``.  The modules are captured by
+    ``capture_cls`` (default ``StepCapture``); ``block_op(operator, op)``
+    picks the part of the fp64 operator a module's captured ``op`` stands
+    for (default: all of it); ``glue(capture)`` adds rows of the chain
+    computed between the modules.  The whole step's loss within
     ``loss_rtol``, its gradients reported (with ``plain32`` beside the same
     step in fp32 on ``op64``: fp32 rounding without any kernel); then module
     by module (``output_head``, ``replay_modules``; the parameters in
@@ -2270,13 +2340,13 @@ def fp64_step0_check(label: str, res: dict, model_at, head, op64, bounds: dict, 
     mutants = {"mutant detached applies": detached_applies} if mutants is None else mutants
 
     def batch_in(dtype):
-        op = op64.to(dtype) if isinstance(op64, torch.Tensor) else op64
+        op = op64(dtype) if callable(op64) else op64.to(dtype) if isinstance(op64, torch.Tensor) else op64
         return dataclasses.replace(b, operator=op, inputs=b.inputs.to(dtype), mask=b.mask.to(dtype),
                                    targets=b.targets.to(dtype))
 
     def step(dtype, batch, ctx=contextlib.nullcontext, capture=False):
         model = model_at(dtype)
-        cap = StepCapture(model) if capture else None
+        cap = (capture_cls or StepCapture)(model) if capture else None
         try:
             with ctx():
                 loss = head(model(batch.operator, batch.mask, batch.inputs), batch)
@@ -2309,8 +2379,10 @@ def fp64_step0_check(label: str, res: dict, model_at, head, op64, bounds: dict, 
              **{lab: step(torch.float32, b, ctx, capture=True) for lab, ctx in mutants.items()}}
     b64 = batch_in(torch.float64)
     runs = {lab: {**output_head(cap, loss, lambda out: head(out, b64)),
-                  **replay_modules(cap, grads, model_at(torch.float64), lambda name, k, op: b64.operator,
-                                   torch.float64, null=null)}
+                  **replay_modules(cap, grads, model_at(torch.float64),
+                                   lambda name, k, op: b64.operator if block_op is None else block_op(b64.operator, op),
+                                   torch.float64, null=null),
+                  **(glue(cap) if glue else {})}
             for lab, (loss, grads, cap) in steps.items()}
     del b64
     torch.cuda.empty_cache()
@@ -2915,6 +2987,476 @@ def zoo_phase(device, smi: str) -> dict:
     if failures:
         raise AssertionError("; ".join(failures))
     return results
+
+
+class CascadeCapture(ModuleCapture):
+    """``ModuleCapture`` of an EfficientCascade's modules in call order
+    (``conv1``, the down blocks, ``lap0``, the up blocks, ``conv2``) in
+    ``names``, and of the model itself as ``trunk``."""
+
+    def __init__(self, model):
+        k = model.cascade_levels
+        names = (["conv1"] + [f"down_rn{i}" for i in range(k - 1, 0, -1)] + ["lap0"]
+                 + [f"up_rn{i}" for i in range(1, k)] + ["conv2"])
+        super().__init__(model, {**{n: n for n in names}, "trunk": ""})
+        self.names = names
+
+
+def cascade_glue(cap: CascadeCapture) -> dict:
+    """The trainer's cascade's glue (naive pooling, no Avg blocks) between
+    its captured modules, replayed in fp64
+    from the card's own module outputs and input cotangents, against what
+    the card handed on: each block's input and mask (max-pooling down,
+    2x upsampling and the skip add up, the ELU into ``conv2``, the input
+    residual at the output), and each module's output cotangent (the
+    pooling's, the upsampling's and the skips' backward).  Chain rows
+    (relative Frobenius) by key."""
+    import torch
+    import torch.nn.functional as F
+
+    from surfacenetworks_tpu_torch.models.cascade import max_pool2, upsample2
+    from surfacenetworks_tpu_torch.nn.layers import repeating_expand
+
+    c = {n: cap.calls[n][0] for n in cap.names + ["trunk"]}
+    k = sum(n.startswith("up_rn") for n in cap.names) + 1
+    out = {n: c[n]["out"][0].double() for n in cap.names}
+    gout = {n: c[n]["g"][0].double() for n in cap.names}
+    x_in = {n: c[n]["args"][-1] for n in cap.names}  # a block's (op, mask, x), conv2's (x,)
+    gin = {n: c[n]["gin"][-1].double() for n in cap.names if n != "conv1"}
+    errs = {}
+
+    def row(key, card, ref):
+        errs[f"glue {key}"] = _rel_fro(card, ref)
+
+    def pool_vjp(y, g):
+        y = y.clone().requires_grad_()
+        max_pool2(y).backward(g)
+        return y.grad
+
+    def pairs(g):  # upsample2's backward: each coarse row gets its two fine rows' sum
+        b, n, ch = g.shape
+        return g.reshape(b, n // 2, 2, ch).sum(dim=2)
+
+    x, ma = out["conv1"], c["trunk"]["args"][1].double()
+    for i in range(k - 1, 0, -1):
+        n = f"down_rn{i}"
+        row(f"{n} input", x_in[n], x)
+        row(f"{n} mask", c[n]["args"][1], ma)
+        x, ma = max_pool2(out[n]), max_pool2(ma)
+    row("lap0 input", x_in["lap0"], x)
+    x = out["lap0"]
+    for i in range(1, k):
+        n = f"up_rn{i}"
+        x = upsample2(x)
+        x = x + x_in[f"down_rn{i}"].double()[..., : x.shape[-1]]
+        row(f"{n} input", x_in[n], x)
+        row(f"{n} mask", c[n]["args"][1], c[f"down_rn{i}"]["args"][1].double())
+        x = out[n]
+    row("conv2 input", x_in["conv2"], F.elu(x))
+    row("output", c["trunk"]["out"][0], out["conv2"] + repeating_expand(c["trunk"]["args"][2].double(), 3))
+    # backward: a pooled tensor feeds the next block and, but at the coarsest, an up block's skip
+    row("conv1 output cotangent", gout["conv1"], gin[f"down_rn{k - 1}"] + gin[f"up_rn{k - 1}"])
+    for i in range(k - 1, 0, -1):
+        nxt = gin[f"down_rn{i - 1}" if i > 1 else "lap0"] + (gin[f"up_rn{i - 1}"] if i > 1 else 0)
+        row(f"down_rn{i} output cotangent", gout[f"down_rn{i}"], pool_vjp(out[f"down_rn{i}"], nxt))
+    row("lap0 output cotangent", gout["lap0"], pairs(gin["up_rn1"]))
+    for i in range(1, k - 1):
+        row(f"up_rn{i} output cotangent", gout[f"up_rn{i}"], pairs(gin[f"up_rn{i + 1}"]))
+    y = out[f"up_rn{k - 1}"]
+    row(f"up_rn{k - 1} output cotangent", gout[f"up_rn{k - 1}"],
+        gin["conv2"] * torch.where(y > 0, torch.ones_like(y), torch.exp(y)))
+    return errs
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def detached_level_applies(rows: int):
+    """The mutant's ELL applies at the pyramid level of ``rows`` rows
+    return detached outputs (no gradient through that level's L)."""
+    from surfacenetworks_tpu_torch.nn import blocks
+
+    real = blocks.spmm
+    return swapped(blocks, "spmm", lambda op, x: real(op, x).detach() if op.fwd.n_rows == rows else real(op, x))
+
+
+def tiled_upsampling():
+    """The mutant's upsampling tiles the rows (``repeat``) where each row
+    should be repeated in place (``repeat_interleave``)."""
+    from surfacenetworks_tpu_torch.models import cascade
+
+    return swapped(cascade, "upsample2", lambda x: x.repeat(1, 2, 1))
+
+
+def first_slot_pooling():
+    """Max-pooling by ``max(dim)``, which gives a tie's gradient to its
+    first row (``jnp.max`` and ``amax`` split it evenly)."""
+    from surfacenetworks_tpu_torch.models import cascade
+
+    def pool(x):
+        b, n, c = x.shape
+        return x.reshape(b, n // 2, 2, c).max(dim=2).values
+
+    return swapped(cascade, "max_pool2", pool)
+
+
+def _ell_csr(cols, vals):
+    """An ELL matrix's live slots as a scipy CSR on the host."""
+    import scipy.sparse as sp
+
+    cols, vals = cols.cpu().numpy(), vals.cpu().numpy()
+    R, K = cols.shape
+    live = vals != 0
+    rows = np.repeat(np.arange(R), K).reshape(R, K)
+    return sp.csr_matrix((vals[live], (rows[live], cols[live])), shape=(R, R))
+
+
+def _dense_levels64(levels) -> list:
+    """A batch's pyramid levels (ELL, one mesh each) as dense fp64 ``[1, R,
+    R]`` on the card: the fp32 values the kernels read, widened."""
+    import torch
+
+    out = []
+    for op in levels:
+        cols, vals = op.fwd.cols[0], op.fwd.vals[0]
+        R, K = cols.shape
+        d = torch.zeros(R, R, dtype=torch.float64, device=cols.device)
+        rows = torch.arange(R, device=cols.device)[:, None].expand(R, K)
+        d.index_put_((rows.reshape(-1), cols.reshape(-1).long()), vals.reshape(-1).double(), accumulate=True)
+        out.append(d[None])
+    return out
+
+
+def cascade_kernel_checks(trainer, device) -> dict:
+    """``ell_matmul`` at each pyramid level's shape (K=32, C=128): the
+    level's operators of every mesh stacked as one batch through
+    ``batched_ell_checks`` (forward and backward against the plain version
+    in fp32 and fp64, item 0's operator in every item refused, the bf16
+    variant); then one mesh's level, as a step launches it, two launches
+    bit for bit (fp32 and bf16 x), timed warm and cold against its plain
+    version, ``torch.sparse.mm`` on a CSR copy and two bounds: every stored
+    slot's column and value read, and the live slots' only.  Returns the
+    report."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    rep = {"levels": [], "levels_batched": []}
+    gen = torch.Generator(device=device).manual_seed(SEED + 601)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=device)
+    for lvl, op in enumerate(trainer.store[0].tree.operator):
+        S = op.fwd.cols.shape[0]
+        csrs = [_ell_csr(op.fwd.cols[i], op.fwd.vals[i]) for i in range(S)]
+        rep["levels_batched"].append(batched_ell_checks(op, csrs, device, f"the cascade's level {lvl} ({S} meshes)",
+                                                        WIDTH, SEED + 610 + lvl))
+        cols, vals = op.fwd.cols[0], op.fwd.vals[0]
+        R, K = cols.shape
+        x = torch.randn(R, WIDTH, device=device, generator=gen)
+        xh = x.to(torch.bfloat16)
+        for t in (x, xh):
+            if not torch.equal(kernels.ell_matmul(cols, vals, t), kernels.ell_matmul(cols, vals, t)):
+                raise AssertionError(f"ell_matmul at the cascade's level {lvl} ({t.dtype} x): two launches differ")
+        out = torch.empty(R, WIDTH, device=device)
+        live = vals != 0
+        nnz = int(live.sum())
+        csr = _ell_csr(cols, vals)
+        lib = torch.sparse_csr_tensor(torch.from_numpy(csr.indptr.astype(np.int64)),
+                                      torch.from_numpy(csr.indices.astype(np.int64)),
+                                      torch.from_numpy(csr.data.astype(np.float32)), size=csr.shape).to(device)
+        b_ms, b_by = bound_ms(nbytes(cols, vals, x, out), 2 * nnz * WIDTH)
+        live_bytes = nnz * (cols.element_size() + vals.element_size()) + nbytes(x, out)
+        lb_ms, lb_by = bound_ms(live_bytes, 2 * nnz * WIDTH)
+        b16, b16_by = bound_ms(nbytes(cols, vals, xh, out), 2 * nnz * WIDTH)
+        r = {"level": lvl, "shape": [R, K, WIDTH], "live_slots": nnz, "max_live_per_row": int(live.sum(1).max()),
+             "ms": time_ms(lambda: kernels.ell_matmul(cols, vals, x)),
+             "cold_ms": cold_ms(lambda: kernels.ell_matmul(cols, vals, x), flush),
+             "plain_ms": time_ms(lambda: kernels.ell_matmul_plain(cols, vals, x)),
+             "library_ms": time_ms(lambda: torch.sparse.mm(lib, x)), "library_call": "torch.sparse.mm(csr, x)",
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes(cols, vals, x, out), "flops": 2 * nnz * WIDTH,
+             "live_bound_ms": lb_ms, "live_bound_by": lb_by, "live_bytes": live_bytes,
+             "bf16": {"ms": time_ms(lambda: kernels.ell_matmul(cols, vals, xh)),
+                      "cold_ms": cold_ms(lambda: kernels.ell_matmul(cols, vals, xh), flush),
+                      "plain_ms": time_ms(lambda: kernels.ell_matmul_plain(cols, vals, xh)), "library_ms": None,
+                      "bound_ms": b16, "bound_by": b16_by, "bytes": nbytes(cols, vals, xh, out)}}
+        rep["levels"].append(r)
+        log(f"  ell_matmul cascade level {lvl} (R={R}, K={K}, C={WIDTH}; {nnz} live slots, at most "
+            f"{r['max_live_per_row']} a row): {r['ms']:.5f} ms warm, {r['cold_ms']:.5f} ms cold L2 (plain "
+            f"{r['plain_ms']:.4f}, {r['library_call']} {r['library_ms']:.4f}; {r['library_ms'] / r['ms']:.2f}x the "
+            f"kernel); bound {b_ms:.5f} ms by {b_by} ({r['bytes'] / 1e6:.2f} MB, every slot; {b_ms / r['ms']:.1%} of "
+            f"it), the live slots' bound {lb_ms:.5f} ms ({live_bytes / 1e6:.2f} MB; {lb_ms / r['ms']:.1%}); bf16 x "
+            f"{r['bf16']['ms']:.5f} ms warm, {r['bf16']['cold_ms']:.5f} cold (bound {b16:.5f})")
+    del flush
+    return rep
+
+
+def _report_run(label: str, res: dict, smi: str) -> None:
+    log(f"  {label}: losses {[repr(v) for v in res['loss']]}, mad {['%.4f' % v for v in res['mad']]}; test "
+        f"(loss, mad) {res['test']!r} ({smi})")
+    log(f"  {label}: host wall per step {['%.2f' % v for v in res['wall_ms']]}, median {res['wall_ms_median']:.3f} ms; "
+        f"device ms per step (CUDA events) median {res['device_ms_median']:.3f}; profiled step device busy "
+        f"{res['busy_ms']:.3f} ms in {res['device_ops']} device ops, idle share {res['idle_share']:.3f}; peak device "
+        f"memory {res['peak_mib']:.1f} MiB ({smi})")
+    for dev_us, count, key in res["top"]:
+        log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+
+
+def _run_failures(label: str, res: dict, per_step: dict, per_test: dict) -> list[str]:
+    """Finite losses and metrics, the launches of every step and of the test
+    pass, the repeat (and, where run, the resume) bit for bit, step 0's
+    gradients finite and non-zero."""
+    import torch
+
+    failures = []
+    if not (np.isfinite(res["loss"]).all() and np.isfinite(res["mad"]).all() and np.isfinite(res["test"]).all()):
+        failures.append(f"{label}: a loss or metric is not finite")
+    if any(step != per_step for step in res["per_step"]) or res["test_launches"] != per_test:
+        failures.append(f"{label}: launches per step {res['per_step']}, test pass {res['test_launches']}; expected "
+                        f"{per_step}, {per_test}")
+    if not res["reproduced"]:
+        failures.append(f"{label}: a second run from the same state differs")
+    if not res.get("resumed", True):
+        failures.append(f"{label}: the steps resumed from the checkpoint differ from the run")
+    for k, g in res.get("grads0", {}).items():
+        if not (bool(torch.isfinite(g).all()) and bool((g != 0).any())):
+            failures.append(f"{label}: step-0 gradient of {k} is not finite and non-zero")
+    return failures
+
+
+def cascade_phase(device, smi: str) -> tuple[dict, dict]:
+    """The cascade (``--model cas``) through the normal trainer on the
+    normal cell's data: ``ell_matmul`` at the four levels
+    (``cascade_kernel_checks``); counts at 0, 8 updates and the test pass
+    (step 0 captured, the last profiled, a checkpoint after update 4); the
+    run repeated from step 0's state and resumed in a fresh trainer, bit
+    for bit; step 0 against fp64 module by module with the glue, the two
+    mutants refused; how far max(dim) pooling moves step 0's gradients
+    (reported); then the same 8 updates with --bf16 (step 0 against the
+    plain versions in bf16, repeat bit for bit).  Returns the launch counts
+    of both paths and the results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    tmp = tempfile.mkdtemp(prefix="cascade_smoke_")
+    results, counts, failures = {}, {}, []
+    try:
+        t0 = time.perf_counter()
+        logged = []
+        trainer = _normal_trainer(CASCADE_ARGS, "cas", logged)
+        snap = _normal_snapshot(trainer)
+        tree = trainer.store[0].tree
+        rows = [op.fwd.n_rows for op in tree.operator]
+        samples = trainer.train_samples + trainer.test_samples
+        kept = [int(v) for v in tree.mask.sum(dim=(1, 2)).tolist()]
+        verts = [s["V"].shape[0] for s in samples]
+        log(f"  cascade: EfficientCascade-{CASCADE_LEVELS} at width {WIDTH}, levels of {rows} rows (K=32), "
+            f"{len(trainer.train_samples)} train meshes, {len(trainer.test_samples)} test; kept vertices per mesh "
+            f"{kept} of {verts} (the JAX pyramid's drop: {[v - k for v, k in zip(verts, kept)]}); "
+            f"{trainer.data_stats()}; set-up {time.perf_counter() - t0:.2f} s")
+        results["kernel"] = cascade_kernel_checks(trainer, device)
+
+        kernels.reset_launch_counts()  # the main path: every count 0 just before it, read just after
+        res = _train_run(trainer, CASCADE_STEPS, capture=CascadeCapture, profile_last=True,
+                         save_after=NORMAL_RESUME_AFTER, ckpt=os.path.join(tmp, "cas.pt"))
+        counts["fp32"] = dict(kernels.launches)
+        log(f"  cascade: launches on the path ({CASCADE_STEPS} updates + test pass) {counts['fp32']}")
+        repeat_and_resume("cascade", trainer, snap, res, CASCADE_ARGS + ["--deser", os.path.join(tmp, "cas.pt")],
+                          CascadeCapture)
+        _report_run("cascade", res, smi)
+        per_test = {k: v // 2 * len(trainer.test_samples) for k, v in CASCADE_PER_STEP.items()}
+        failures += _run_failures("cascade", res, CASCADE_PER_STEP, per_test)
+        cap = res["capture"]
+        ties = {f"down_rn{i}": int((cap.calls[f"down_rn{i}"][0]["out"][0][:, 0::2]
+                                    == cap.calls[f"down_rn{i}"][0]["out"][0][:, 1::2]).all(-1).sum())
+                for i in range(CASCADE_LEVELS - 1, 0, -1)}
+        dense = _dense_levels64(res["batch0"].operator)
+        level_of = {r: i for i, r in enumerate(rows)}
+        model_at = _normal_model_at(trainer, snap["params"])
+        failures += fp64_step0_check(
+            "cascade", res, model_at, _cosine_head, lambda dt: tuple(d.to(dt) for d in dense), NORMAL_STEP0_BOUNDS,
+            NORMAL_STEP0_LOSS_RTOL, {"mutant detached finest-level applies": lambda: detached_level_applies(rows[-1]),
+                                     "mutant upsampling by tiling": tiled_upsampling},
+            capture_cls=CascadeCapture, block_op=lambda levels, op: levels[level_of[op.fwd.n_rows]], glue=cascade_glue)
+        del dense
+        model = model_at(torch.float32)  # step 0 with max(dim) pooling: reported, not held
+        with first_slot_pooling():
+            b = res["batch0"]
+            _cosine_head(model(b.operator, b.mask, b.inputs), b).backward()
+        moved = {k: _rel_fro(res["grads0"][k], p.grad.double()) for k, p in model.named_parameters()}
+        res["max_dim_pooling"] = {"tied_pairs": ties, "grad_rel_fro_median": float(np.median(list(moved.values()))),
+                                  "grad_rel_fro_max": max(moved.values())}
+        log(f"  cascade: tied row pairs at the poolings of step 0 {ties}; step 0 with max(dim) pooling (a tie's "
+            f"gradient to its first row) moves the parameter gradients by rel_fro median "
+            f"{res['max_dim_pooling']['grad_rel_fro_median']:.3e}, max {max(moved.values()):.3e} "
+            f"({max(moved, key=moved.get)}); reported, not held")
+        del model
+        for key in ("capture", "grads0", "batch0", "drawn0", "params", "drawn", "sampler_after_save"):
+            res.pop(key, None)
+        results["fp32"] = res
+        del trainer, snap
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        trainer = _normal_trainer(CASCADE_ARGS + ["--bf16"], "cas bf16")
+        snap = _normal_snapshot(trainer)
+        ref = copy.deepcopy(trainer.model)
+        log(f"  cascade bf16: set-up {time.perf_counter() - t0:.2f} s")
+        kernels.reset_launch_counts()
+        res = _train_run(trainer, CASCADE_STEPS, capture=CascadeCapture, profile_last=True)
+        counts["bf16"] = dict(kernels.launches)
+        log(f"  cascade bf16: launches on the path ({CASCADE_STEPS} updates + test pass) {counts['bf16']}")
+        repeat_run("cascade bf16", trainer, lambda: _normal_restore(trainer, snap), res, capture=CascadeCapture)
+        failures += bf16_run_checks("normal cas", res, trainer.model, len(trainer.test_samples), results["fp32"], smi)
+        failures += plain_step0_check("bf16 cascade", res, ref)
+        for key in ("capture", "grads0", "batch0", "drawn0", "params", "drawn"):
+            res.pop(key, None)
+        results["bf16"] = res
+        del trainer, ref
+        torch.cuda.empty_cache()
+        if failures:
+            raise AssertionError("; ".join(failures))
+        return counts, results
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rotate_phase(device, smi: str, unrotated_loss0: float) -> tuple[dict, dict]:
+    """``--rotate-augment`` on the normal Lap-15 ELL run: the rotations of
+    the run's steps on the card against the host's (fp64 from the same fp32
+    angles), orthonormal with determinant 1; counts at 0, 4 updates (each
+    update's rotations recorded and held to the host's draw of its step)
+    and the test pass; the repeat bit for bit; the first loss differs from
+    the unrotated run's (``unrotated_loss0``, the same weights and batch).
+    Returns the launch counts and the results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_normal as tn
+    from surfacenetworks_tpu_torch.sparse import kernels
+    from surfacenetworks_tpu_torch.train import prng
+
+    failures = []
+    trainer = _normal_trainer(NORMAL_ARGS + ["--operator-format", "ell", "--rotate-augment",
+                                             "--num-updates", str(ROTATE_STEPS)], "rotate")
+    snap = _normal_snapshot(trainer)
+    seed, worst = trainer.args.seed, {"host": 0.0, "orthonormal": 0.0, "det": 0.0}
+    for step in range(ROTATE_STEPS):
+        card = tn.step_rotations(seed, step, 1, device)
+        angles = prng.uniform(prng.fold_in(prng.key(seed), step), (1, 3), maxval=2 * np.pi)
+        host = tn.rotations(torch.from_numpy(angles).double())
+        r = card.double().cpu()
+        worst["host"] = max(worst["host"], float((r - host).abs().max()))
+        worst["orthonormal"] = max(worst["orthonormal"], float((r @ r.transpose(1, 2) - torch.eye(3)).abs().max()))
+        worst["det"] = max(worst["det"], float((torch.linalg.det(r) - 1).abs().max()))
+    log(f"  rotate: the card's rotations of steps 0-{ROTATE_STEPS - 1} against the host's fp64 rotations of the same "
+        f"angles: max |diff| {worst['host']:.3e}; |R R^T - I| {worst['orthonormal']:.3e}; |det R - 1| "
+        f"{worst['det']:.3e} (tol {ROTATE_ATOL:g})")
+    if max(worst.values()) > ROTATE_ATOL:
+        failures.append(f"rotate: rotations off by {worst}")
+    used = []
+    real = trainer.rotation
+    trainer.rotation = lambda B: used.append((trainer.step, real(B))) or used[-1][1]
+    kernels.reset_launch_counts()
+    res = _train_run(trainer, ROTATE_STEPS, profile_last=True)
+    counts = dict(kernels.launches)
+    if [s for s, _ in used] != list(range(ROTATE_STEPS)) or not all(
+            torch.equal(R, tn.step_rotations(seed, s, 1, device)) for s, R in used):
+        failures.append(f"rotate: the updates took rotations of steps {[s for s, _ in used]}")
+    repeat_run("rotate", trainer, lambda: _normal_restore(trainer, snap), res)
+    _report_run("rotate", res, smi)
+    log(f"  rotate: launches on the path {counts}; first loss {res['loss'][0]!r}, unrotated {unrotated_loss0!r}")
+    if res["loss"][0] == unrotated_loss0:
+        failures.append("rotate: the first loss equals the unrotated run's")
+    failures += _run_failures("rotate", res, NORMAL_PER_STEP["ell"],
+                              {k: v // 2 * len(trainer.test_samples) for k, v in NORMAL_PER_STEP["ell"].items()})
+    res["rotations"] = worst
+    for key in ("grads0", "params", "drawn", "sampler_after_save"):
+        res.pop(key, None)
+    del trainer, snap
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return counts, res
+
+
+def tiers_phase(device, smi: str) -> tuple[dict, dict]:
+    """``--buckets 3`` on meshes of TIER_POINTS vertices (written as .obj
+    files: two of each to train, one of each to test): the three tiers;
+    counts at 0, 8 updates drawn tier by tier and the test pass, 32
+    ``ell_matmul`` a step whatever the tier, launches by tier shape; the
+    repeat bit for bit; then per tier 3 updates on its meshes alone, the
+    last profiled: one row per tier.  Returns the launch counts and the
+    results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.data import datasets
+    from surfacenetworks_tpu_torch.geometry import save_obj
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    tmp = tempfile.mkdtemp(prefix="tiers_smoke_")
+    failures = []
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED)
+        for part, copies in (("train", 2), ("test", 1)):
+            for n in TIER_POINTS:
+                for c in range(copies):
+                    os.makedirs(os.path.join(tmp, part, f"n{n}"), exist_ok=True)
+                    save_obj(os.path.join(tmp, part, f"n{n}", f"mesh_{c}.obj"), *datasets.random_blob_mesh(rng, n))
+        args = ["--data-path", os.path.join(tmp, "train"), "--test-path", os.path.join(tmp, "test"), "--buckets", "3",
+                "--operator-format", "ell", "--seed", str(SEED), "--layer", str(LAYERS), "--batch-size", "1",
+                "--num-updates", str(TIER_STEPS), "--num-epoch", "1", "--device", "cuda"]
+        trainer = _normal_trainer(args, "tiers")
+        snap = _normal_snapshot(trainer)
+        tiers = [b.n_vertices for b in trainer.bucketset.tiers]
+        log(f"  tiers: {[(b.n_vertices, b.n_faces) for b in trainer.bucketset.tiers]} over "
+            f"{len(trainer.train_samples)} train and {len(trainer.test_samples)} test meshes; {trainer.data_stats()}; "
+            f"set-up {time.perf_counter() - t0:.2f} s")
+        if tiers != [(n + 7) // 8 * 8 for n in TIER_POINTS]:
+            failures.append(f"tiers: tiers {tiers}, expected {TIER_POINTS}")
+        kernels.reset_launch_counts()
+        res = _train_run(trainer, TIER_STEPS, profile_last=True)
+        counts = dict(kernels.launches)
+        rows_of = {s["name"]: trainer.bucketset.select([s]).n_vertices for s in trainer.train_samples}
+        step_tiers = [rows_of[names[0]] for names in res["drawn"]]
+        by_tier = {t: sum(st["ell_matmul"] for st, r in zip(res["per_step"], step_tiers) if r == t) for t in tiers}
+        repeat_run("tiers", trainer, lambda: _normal_restore(trainer, snap), res)
+        _report_run("tiers", res, smi)
+        log(f"  tiers: the steps' tiers {step_tiers}; ell_matmul launches by tier shape {by_tier}; launches on the "
+            f"path {counts}")
+        failures += _run_failures("tiers", res, NORMAL_PER_STEP["ell"],
+                                  {k: v // 2 * len(trainer.test_samples) for k, v in NORMAL_PER_STEP["ell"].items()})
+        if len(set(step_tiers)) < 2:
+            failures.append(f"tiers: the {TIER_STEPS} steps drew from one tier only")
+        res["launches_by_tier"] = by_tier
+        res["per_tier"] = {}
+        for t in tiers:
+            own = [s for s in trainer.train_samples if rows_of[s["name"]] == t]
+            cycle = iter(own * 3)
+            row = _train_run(trainer, 3, draw=lambda tr, cycle=cycle: (lambda s: ([s], [s["name"]]))(next(cycle)),
+                             profile_last=True)
+            res["per_tier"][t] = {k: row[k] for k in ("wall_ms_median", "device_ms_median", "busy_ms", "device_ops",
+                                                     "idle_share", "peak_mib")}
+            r = res["per_tier"][t]
+            log(f"  tiers: tier {t} rows: host wall {r['wall_ms_median']:.3f} ms, device (CUDA events) "
+                f"{r['device_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['device_ops']} device ops, idle "
+                f"share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB ({smi})")
+        for key in ("grads0", "params", "drawn", "sampler_after_save"):
+            res.pop(key, None)
+        del trainer, snap
+        torch.cuda.empty_cache()
+        if failures:
+            raise AssertionError("; ".join(failures))
+        return counts, res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _arap_trainer(sequences, extra: list, label: str):
@@ -3888,6 +4430,18 @@ def main() -> int:
     phase("zoo train", t0)
 
     t0 = time.perf_counter()
+    cascade_counts, cascade = cascade_phase(device, smi)
+    phase("cascade train", t0)
+
+    t0 = time.perf_counter()
+    rotate_counts, rotate = rotate_phase(device, smi, normal["ell"]["loss"][0])
+    phase("rotate train", t0)
+
+    t0 = time.perf_counter()
+    tier_counts, tiers = tiers_phase(device, smi)
+    phase("tiers train", t0)
+
+    t0 = time.perf_counter()
     arap_counts, arap = arap_phase(device, smi)
     phase("arap train", t0)
 
@@ -3948,6 +4502,14 @@ def main() -> int:
         if kname == "bsr_matmul":
             entries[-1].update(fp32_fma_bound_ms=r["fp32_fma_bound_ms"], fp32_fma_bound_by=r["fp32_fma_bound_by"])
         if kname == "ell_matmul":
+            entries[-1].update(cascade_train_launches=cascade_counts["fp32"][kname],
+                               rotate_train_launches=rotate_counts[kname], tiers_train_launches=tier_counts[kname],
+                               tiers_launches_by_rows=tiers["launches_by_tier"])
+            entries[-1]["normal_cascade_levels"] = [{**{k: v for k, v in r.items() if k != "bf16"},
+                                                     "registers": entries[-1]["registers"]}
+                                                    for r in cascade["kernel"]["levels"]]
+            entries[-1]["normal_cascade_levels_batched"] = [{k: v for k, v in r.items() if k != "bf16"}
+                                                            for r in cascade["kernel"]["levels_batched"]]
             entries[-1]["arap_batch"] = {k: v for k, v in arap["ell"]["kernel"].items() if k != "bf16"}
             entries[-1]["mnist_batch"] = {k: v for k, v in mnist["ell"]["kernel"].items() if k != "bf16"}
             amp = fzoo["amp"]["kernel"]
@@ -3980,6 +4542,10 @@ def main() -> int:
                                                   "bound_ms_no_live", "bound_by_no_live", "bytes_no_live",
                                                   "flops_no_live", "live_chunks", "chunks")})
         if kname == "ell_matmul_bf16":
+            entries[-1]["cascade_train_launches"] = cascade_counts["bf16"][kname]
+            entries[-1]["normal_cascade_levels"] = [
+                {**r["bf16"], "level": r["level"], "registers": entries[-1]["registers"]}
+                for r in cascade["kernel"]["levels"]]
             entries[-1]["fp32_kernel_ms"] = r["fp32_kernel_ms"]
             entries[-1]["arap_batch"] = arap["ell"]["kernel"]["bf16"]
             entries[-1]["mnist_batch"] = mnist["ell"]["kernel"]["bf16"]
@@ -4003,6 +4569,17 @@ def main() -> int:
         f"{label} wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['device_ops']} device ops, idle "
         f"share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB"
         + (f", attends {r['attend_share']:.1%} of busy" if "attend_share" in r else "") for label, r in zoo.items())
+        + f" ({smi})")
+    log("cascade train median per step: " + ", ".join(
+        f"{label} wall {r['wall_ms_median']:.3f} ms, device {r['device_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms "
+        f"in {r['device_ops']} device ops, idle share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB"
+        for label, r in (("fp32", cascade["fp32"]), ("bf16", cascade["bf16"]))) + f" ({smi})")
+    log(f"rotate train median per step: wall {rotate['wall_ms_median']:.3f} ms, device "
+        f"{rotate['device_ms_median']:.3f} ms, busy {rotate['busy_ms']:.3f} ms in {rotate['device_ops']} device ops, "
+        f"idle share {rotate['idle_share']:.3f}, peak {rotate['peak_mib']:.1f} MiB ({smi})")
+    log("tiers train median per step: " + ", ".join(
+        f"{t} rows wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['device_ops']} device ops, idle "
+        f"share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB" for t, r in tiers["per_tier"].items())
         + f" ({smi})")
     log("arap train median per step: " + ", ".join(
         f"{cfg} device {r['device_ms_median']:.3f} ms, wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms "

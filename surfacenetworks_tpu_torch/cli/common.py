@@ -1,6 +1,7 @@
 """Shared trainer utilities (counterpart of ``surfacenetworks_tpu/cli/common.py``
 and ``config.py::dump_config``): the run's log file, the per-epoch metrics
-file, the run's config file, the epoch sampler and the throughput meter.
+file, the run's config file, the epoch and the size-tiered samplers and the
+throughput meter.
 Each writes the same files and lines as the JAX package's.
 """
 
@@ -83,6 +84,29 @@ class EpochSampler:
             out.append(self.items[self.pos])
             self.pos += 1
         return out
+
+
+class TieredSampler:
+    """Size-tiered batch sampler for ``--buckets N``: the samples are grouped
+    by their ``BucketSet`` tier, so a batch never mixes tiers and pads to its
+    own tier's bucket.  Each draw picks a group with probability
+    proportional to its size (numpy ``default_rng(seed)``), then that
+    group's ``EpochSampler`` (seeded ``seed + tier``) gives the batch: the
+    JAX package's draws."""
+
+    def __init__(self, items, bucketset, batch_size: int, shuffle: bool = True, seed: int = 17):
+        groups: dict = {}
+        for s in items:
+            groups.setdefault(bucketset.tier_index([s]), []).append(s)
+        self.samplers = {k: EpochSampler(v, batch_size, shuffle=shuffle, seed=seed + k) for k, v in groups.items()}
+        self.keys = sorted(groups)
+        sizes = np.asarray([len(groups[k]) for k in self.keys], np.float64)
+        self.weights = sizes / sizes.sum()
+        self.rng = np.random.default_rng(seed)
+
+    def next_batch(self) -> list:
+        k = self.keys[int(self.rng.choice(len(self.keys), p=self.weights))]
+        return self.samplers[k].next_batch()
 
 
 class Throughput:

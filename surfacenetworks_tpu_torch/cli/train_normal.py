@@ -3,9 +3,14 @@
 
 A model of the normal zoo regresses per-vertex normals with the masked
 cosine loss; the mean angle deviation is its metric.  ``--model`` picks it
-as the JAX trainer's ``build_model`` does: a name with ``avg`` in it
-AvgModel, ``mlp`` MlpModel, ``id`` IdDeepModel, ``gat`` GatDeepModel, a
-name starting with ``dirac`` DirDeepModel, any other LapDeepModel.
+as the JAX trainer's ``build_model`` does: ``cas`` the multiresolution
+EfficientCascade, a name with ``avg`` in it AvgModel, ``mlp`` MlpModel,
+``id`` IdDeepModel, ``gat`` GatDeepModel, a name starting with ``dirac``
+DirDeepModel, any other LapDeepModel.  The cascade trains on
+``--cascade-levels`` Laplacian pyramid levels (``data.cascade_batch``: one
+ELL operator of 32 slots per level, the finest over a bucket rounded up to
+``2**(levels-1)`` rows), whatever the format flag says (``bsr`` still
+RCM-orders the meshes first, as in the JAX trainer).
 Laplacian operators are ELL, BSR (over RCM-ordered vertices) or dense;
 ``auto`` resolves against the dataset for ``--model lap`` as the JAX trainer
 does, and for the other Laplacian-data models as its per-sample packing does
@@ -16,8 +21,15 @@ structured Dirac tables whatever the format flag says, in the vertex order;
 ``--operator-format bsr`` only rounds their buckets to 128, as in the JAX
 trainer.  ``--flip-variants K`` adds K constrained-edge-flip variants of
 each train mesh (``np.random.default_rng(seed + 101)``, the JAX trainer's
-draws) with their normals and operators recomputed.  Runs on ``cuda``
-unless given ``--device cpu``::
+draws) with their normals and operators recomputed.  ``--rotate-augment``
+rotates each train batch's inputs and targets by random rotations ``Rz Ry
+Rx``, their angles JAX's ``uniform(fold_in(key(seed), step), (B, 3),
+maxval=2 pi)`` (``train.prng``), ``step`` the updates taken; evaluation is
+not rotated.  ``--buckets N`` pads each batch to the smallest of N size
+tiers that fits it (``BucketSet``; batches drawn tier by tier,
+``TieredSampler``); not with the cascade.  ``--additional-opt intrinsic``
+is accepted and, as in the JAX trainer, changes nothing: the operator is the
+cotangent Laplacian.  Runs on ``cuda`` unless given ``--device cpu``::
 
     python -m surfacenetworks_tpu_torch.cli.train_normal --synthetic 8 \\
         --layer 3 --num-epoch 2 --num-updates 10 --batch-size 2
@@ -27,6 +39,8 @@ unless given ``--device cpu``::
         --data-path tests/fixtures/objs --layer 2 --num-epoch 1 --num-updates 3 --batch-size 2
     python -m surfacenetworks_tpu_torch.cli.train_normal --device cpu --model gat --flip-variants 1 \\
         --data-path tests/fixtures/objs --layer 2 --num-epoch 1 --num-updates 3 --batch-size 2
+    python -m surfacenetworks_tpu_torch.cli.train_normal --device cpu --model cas --cascade-levels 3 \\
+        --synthetic 4 --num-epoch 1 --num-updates 2 --batch-size 2
 
 The train/test split, the batch order, the log lines and the files
 (``log/<prefix>.log``, ``log/<prefix>.metrics.jsonl``, ``cfg/<prefix>.json``)
@@ -34,12 +48,13 @@ are the JAX trainer's; checkpoints go to ``pts/<prefix>_normal_state.pt``
 every 10th epoch and at the end, and ``--deser`` resumes from the port's
 checkpoints or the JAX package's ``.msgpack`` files.  Every sample is packed
 once and the dataset uploaded once (a batch is an index gather on the
-device); over a 6 GiB budget, or with ``--no-device-store``, each batch is
-stacked on the host and uploaded.  ``--bf16`` trains in mixed precision as
-the JAX trainer does: the model computes in bf16 from fp32 parameters
-(``dtype=torch.bfloat16``; its output, the loss, the gradients and the
-optimizer state stay fp32) and BSR blocks are stored in bf16.  Flags of the
-JAX trainer that later slices bring are refused when given.
+device; one dataset per size tier); over a 6 GiB budget, or with
+``--no-device-store``, each batch is stacked on the host and uploaded.
+``--bf16`` trains in mixed precision as the JAX trainer does: the model
+computes in bf16 from fp32 parameters (``dtype=torch.bfloat16``; its output,
+the loss, the gradients and the optimizer state stay fp32) and BSR blocks
+are stored in bf16.  Flags of the JAX trainer that later slices bring are
+refused when given.
 """
 
 from __future__ import annotations
@@ -55,14 +70,22 @@ import tempfile
 import numpy as np
 import torch
 
-from surfacenetworks_tpu_torch.cli.common import EpochSampler, MetricsLogger, Throughput, dump_config, make_logger
-from surfacenetworks_tpu_torch.data import Buckets, datasets, dirac_batch, laplacian_batch, round_up
+from surfacenetworks_tpu_torch.cli.common import (
+    EpochSampler,
+    MetricsLogger,
+    Throughput,
+    TieredSampler,
+    dump_config,
+    make_logger,
+)
+from surfacenetworks_tpu_torch.data import BucketSet, cascade_batch, datasets, dirac_batch, laplacian_batch, round_up
 from surfacenetworks_tpu_torch.data.batching import choose_operator_format, fit_bsr_k, rcm_reorder_sample
 from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, to_device
 from surfacenetworks_tpu_torch.geometry import dirac_coeffs, igl_style_laplacian, repair, vertex_normals
 from surfacenetworks_tpu_torch.models import (
     AvgModel,
     DirDeepModel,
+    EfficientCascade,
     GatDeepModel,
     IdDeepModel,
     LapDeepModel,
@@ -70,10 +93,10 @@ from surfacenetworks_tpu_torch.models import (
     init_weights,
 )
 from surfacenetworks_tpu_torch.serve import resolve_device
-from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
+from surfacenetworks_tpu_torch.train import checkpoint, losses, optim, prng
 
 parser = argparse.ArgumentParser(description="Normal Predictor (PyTorch, one device)")
-parser.add_argument("--model", default="lap", help="lap | dirac | avg | mlp | id | gat (cas is not ported yet)")
+parser.add_argument("--model", default="lap", help="lap | dirac | avg | mlp | id | gat | cas")
 parser.add_argument("--layer", type=int, default=15)
 parser.add_argument("--batch-size", type=int, default=1)
 parser.add_argument("--num-epoch", type=int, default=500)
@@ -107,12 +130,14 @@ parser.add_argument("--bf16", action="store_true",
 parser.add_argument("--flip-variants", type=int, default=0, metavar="K",
                     help="append K constrained-edge-flip variants of every train mesh, with their normals and "
                          "operators recomputed")
+parser.add_argument("--buckets", type=int, default=1,
+                    help="number of size tiers: each batch pads to the smallest tier that fits it")
+parser.add_argument("--cascade-levels", type=int, default=4, help="pyramid depth for --model cas")
+parser.add_argument("--rotate-augment", action="store_true",
+                    help="rotate each train batch's inputs and targets by random rotations (JAX's draws)")
 # flags of the JAX trainer that later slices bring: refused when given
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
-parser.add_argument("--buckets", type=int, default=1)
-parser.add_argument("--cascade-levels", type=int, default=4)
-parser.add_argument("--rotate-augment", action="store_true")
 parser.add_argument("--jax-profile", default=None)
 parser.add_argument("--multihost", action="store_true")
 parser.add_argument("--coordinator-address", default=None)
@@ -132,6 +157,8 @@ def build_model(args, dtype: torch.dtype | None = None):
     """The model ``--model`` names, chosen in the JAX trainer's order (a
     name with ``avg`` in it builds AvgModel first, so ``diracavg`` is
     AvgModel on Dirac data)."""
+    if args.model == "cas":
+        return EfficientCascade(3, 3, cascade_levels=args.cascade_levels, dtype=dtype)
     if "avg" in args.model:
         return AvgModel(3, 3, args.layer, dtype=dtype)
     if args.model == "mlp":
@@ -148,12 +175,8 @@ def build_model(args, dtype: torch.dtype | None = None):
 def refuse_unported(args) -> None:
     """Raise on any flag whose path this slice does not port."""
     refused = {
-        "--model cas": args.model == "cas",
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
-        "--buckets > 1": args.buckets > 1,
-        "--rotate-augment": args.rotate_augment,
-        "--additional-opt intrinsic": "intrinsic" in args.additional_opt,
         "--jax-profile": args.jax_profile is not None,
         "--config and --preset": args.config is not None or args.preset is not None,
         "--multihost and its coordinator flags": args.multihost or any(
@@ -220,15 +243,45 @@ def flip_variants(train: list[dict], k: int, seed: int, dirac: bool, hack: float
     return extra
 
 
-def train_step(model, opt, batch, schedule=None) -> tuple[torch.Tensor, torch.Tensor]:
+def rotations(angles: torch.Tensor) -> torch.Tensor:
+    """``[B, 3, 3]`` rotations ``Rz @ Ry @ Rx`` of the Euler angles ``[B, 3]``
+    (x, y, z), in the angles' dtype and on their device."""
+    c, s = torch.cos(angles), torch.sin(angles)
+    z = torch.zeros_like(c[:, 0])
+    one = torch.ones_like(z)
+
+    def rows(r0, r1, r2):
+        return torch.stack([torch.stack(r0, -1), torch.stack(r1, -1), torch.stack(r2, -1)], -2)
+
+    rx = rows([one, z, z], [z, c[:, 0], -s[:, 0]], [z, s[:, 0], c[:, 0]])
+    ry = rows([c[:, 1], z, s[:, 1]], [z, one, z], [-s[:, 1], z, c[:, 1]])
+    rz = rows([c[:, 2], -s[:, 2], z], [s[:, 2], c[:, 2], z], [z, z, one])
+    return rz @ ry @ rx
+
+
+def step_rotations(seed: int, step: int, batch_size: int, device) -> torch.Tensor:
+    """The rotations of ``--rotate-augment`` at update ``step``: the angles
+    JAX draws, ``uniform(fold_in(key(seed), step), (B, 3), maxval=2 pi)``,
+    from their bits on the host; cosines, sines and products in fp32 on
+    ``device``."""
+    angles = prng.uniform(prng.fold_in(prng.key(seed), step), (batch_size, 3), maxval=2 * np.pi)
+    return rotations(torch.from_numpy(angles).to(device))
+
+
+def train_step(model, opt, batch, schedule=None, rotation: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """One update on a batch on the model's device: the cosine loss, its
-    gradients, the scheduled LR and the optimizer step.  Returns the loss and
-    the mean angle deviation (on the device); the gradients stay in each
-    parameter's ``.grad`` until the next step."""
+    gradients, the scheduled LR and the optimizer step; with ``rotation``
+    (``[B, 3, 3]``) the inputs and targets rotated first, ``x @ R`` row by
+    row.  Returns the loss and the mean angle deviation (on the device); the
+    gradients stay in each parameter's ``.grad`` until the next step."""
     opt.zero_grad(set_to_none=True)
-    out = model(batch.operator, batch.mask, batch.inputs)
-    loss = losses.normal_cosine_loss(out, batch.mask, batch.targets)
-    mad = losses.mean_angle_deviation(out, batch.mask, batch.targets)
+    inputs, targets = batch.inputs, batch.targets
+    if rotation is not None:
+        inputs, targets = torch.bmm(inputs, rotation), torch.bmm(targets, rotation)
+    out = model(batch.operator, batch.mask, inputs)
+    loss = losses.normal_cosine_loss(out, batch.mask, targets)
+    mad = losses.mean_angle_deviation(out, batch.mask, targets)
     loss.backward()
     optim.apply_schedule(opt, schedule)
     opt.step()
@@ -243,7 +296,9 @@ def eval_step(model, batch) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
 
 
 class NormalTrainer:
-    """Data, model, optimizer, samplers and the device dataset of one run."""
+    """Data, model, optimizer, samplers and the device datasets of one run
+    (``store``: one ``DeviceDataset`` per size tier, or None on the host
+    path)."""
 
     def __init__(self, args, log=print):
         refuse_unported(args)
@@ -283,21 +338,40 @@ class NormalTrainer:
             test = [rcm_reorder_sample(s) for s in test]
         self.train_samples, self.test_samples = train, test
         all_samples = train + test
-        self.buckets = Buckets.for_samples(all_samples, multiple=128 if fmt == "bsr" else 8)
-        if fmt == "auto" and not dirac:
-            # each sample's operator packed alone, as the JAX trainer's device store packs it
-            fmt = choose_operator_format(1, self.buckets.n_vertices)
-            log(f"operator format auto -> {fmt} (per sample)")
+        if args.buckets > 1 and args.model == "cas":
+            raise SystemExit("--buckets > 1 does not support the cascade model (one pyramid bucket chain per run)")
+        self.bucketset = BucketSet.for_samples(all_samples, n_tiers=max(args.buckets, 1),
+                                               multiple=128 if fmt == "bsr" else 8)
+        self.buckets = self.bucketset.tiers[-1]  # the dataset's largest
+        tiers = self.bucketset.tiers
+        if len(tiers) > 1:
+            log(f"bucket tiers: {[(b.n_vertices, b.n_faces) for b in tiers]}")
+        # each sample's operator packed alone at its tier, as the JAX trainer's device store packs it:
+        # 'auto' resolves per tier
+        tier_fmt = [fmt if fmt != "auto" or dirac else choose_operator_format(1, b.n_vertices) for b in tiers]
+        if fmt == "auto" and not dirac and args.model != "cas":
+            log(f"operator format auto -> {'/'.join(tier_fmt)} (per sample)")
         self.model = build_model(args, dtype)
         if dirac:
             self.fmt = "structured"
-            self.packed = PackedSamples(lambda s: dirac_batch([s], self.buckets))
+            self.packed = PackedSamples(lambda s: dirac_batch([s], self.bucketset.select([s])))
+        elif args.model == "cas":
+            levels = args.cascade_levels
+            self.fmt = "ell"
+            n_bucket = round_up(self.buckets.n_vertices, 2 ** (levels - 1))
+            log(f"cascade: {levels} pyramid levels of {[n_bucket >> (levels - 1 - i) for i in range(levels)]} rows, "
+                f"ELL at K=32")
+            self.packed = PackedSamples(lambda s: cascade_batch([s], levels, n_bucket))
         else:
-            self.fmt = fmt
-            if fmt == "bsr":
-                fit_bsr_k(all_samples, self.buckets)
+            self.fmt = tier_fmt[-1]
             op_dtype = dtype if fmt == "bsr" else None  # bf16 blocks under --bf16, as in the JAX trainer
-            self.packed = PackedSamples(lambda s: laplacian_batch([s], self.buckets, fmt=fmt, op_dtype=op_dtype))
+
+            def pack(s):
+                ti = self.bucketset.tier_index([s])
+                return laplacian_batch([s], tiers[ti], fmt=tier_fmt[ti], op_dtype=op_dtype)
+            self.packed = PackedSamples(pack)
+        if fmt == "bsr" and not dirac:
+            fit_bsr_k(all_samples, self.bucketset)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
         log(f"Num parameters {sum(p.numel() for p in self.model.parameters())}")
@@ -316,27 +390,46 @@ class NormalTrainer:
             if not loaded:
                 log("Warning: Optimizer is not loaded")
 
-        self.train_sampler = EpochSampler(train, args.batch_size, seed=args.seed)
-        self.test_sampler = EpochSampler(test, args.batch_size, shuffle=False)
-        self.store = None if args.no_device_store else DeviceDataset.build(all_samples, self.packed, self.device)
+        if len(tiers) > 1:
+            self.train_sampler = TieredSampler(train, self.bucketset, args.batch_size, seed=args.seed)
+            self.test_sampler = (TieredSampler(test, self.bucketset, args.batch_size, shuffle=False) if test
+                                 else EpochSampler(test, args.batch_size, shuffle=False))
+        else:
+            self.train_sampler = EpochSampler(train, args.batch_size, seed=args.seed)
+            self.test_sampler = EpochSampler(test, args.batch_size, shuffle=False)
+        self.store = None
+        if not args.no_device_store:
+            by_tier = {}
+            for s in all_samples:
+                by_tier.setdefault(self.bucketset.tier_index([s]), []).append(s)
+            self.store = {ti: DeviceDataset.build(items, self.packed, self.device) for ti, items in by_tier.items()}
+            if any(ds is None for ds in self.store.values()):
+                self.store = None
         if self.store is None:
             why = "--no-device-store" if args.no_device_store else "the dataset exceeds the device budget"
             log(f"batches assembled on the host and uploaded per step ({why})")
 
     def batch(self, samples: list[dict]):
-        """The batch of ``samples`` on the device."""
+        """The batch of ``samples`` (of one tier) on the device."""
         if self.store is None:
             return to_device(self.packed.batch(samples), self.device)
-        return self.store.batch(samples).gather()
+        return self.store[self.bucketset.tier_index(samples)].batch(samples).gather()
+
+    def rotation(self, batch_size: int) -> torch.Tensor | None:
+        """The next update's rotations under ``--rotate-augment``, keyed by
+        the updates taken; None without the flag."""
+        if not self.args.rotate_augment:
+            return None
+        return step_rotations(self.args.seed, self.step, batch_size, self.device)
 
     def update(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        loss, mad = train_step(self.model, self.opt, batch, self.schedule)
+        loss, mad = train_step(self.model, self.opt, batch, self.schedule, self.rotation(batch.inputs.shape[0]))
         self.step += 1
         return loss, mad
 
     def data_stats(self) -> str:
         if self.store is not None:
-            return self.store.stats()
+            return " + ".join(ds.stats() for ds in self.store.values())
         return f"host batch assembly: {len(self.train_samples) + len(self.test_samples)} samples, each packed once"
 
     def train_epoch(self, epoch: int, metrics_log: MetricsLogger | None = None) -> tuple[float, float]:

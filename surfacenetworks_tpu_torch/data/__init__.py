@@ -4,9 +4,11 @@
 from surfacenetworks_tpu_torch.data import datasets
 from surfacenetworks_tpu_torch.data.batching import (
     Buckets,
+    BucketSet,
     MeshBatch,
     arap_batch,
     bsr_k_needed,
+    cascade_batch,
     choose_operator_format,
     correspondence_batch,
     dense_dirac_pair,
@@ -21,10 +23,12 @@ from surfacenetworks_tpu_torch.data.batching import (
 )
 
 __all__ = [
+    "BucketSet",
     "Buckets",
     "MeshBatch",
     "arap_batch",
     "bsr_k_needed",
+    "cascade_batch",
     "choose_operator_format",
     "correspondence_batch",
     "datasets",

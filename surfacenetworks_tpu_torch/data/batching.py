@@ -1,6 +1,7 @@
 """Bucketed fixed-shape batching with masks (counterpart of
-``surfacenetworks_tpu/data/batching.py``: the Laplacian, Dirac,
-correspondence, ARAP, mesh-MNIST and VAE batches).
+``surfacenetworks_tpu/data/batching.py``: the Laplacian, Dirac, cascade,
+correspondence, ARAP, mesh-MNIST and VAE batches, and the size tiers of
+``BucketSet``).
 
 Batches are padded to fixed buckets: vertex and face counts, ELL slot
 counts, the BSR slot count and the Dirac valence packing are chosen once per
@@ -20,6 +21,7 @@ import scipy.sparse as sp
 import torch
 
 from surfacenetworks_tpu_torch import geometry as geo
+from surfacenetworks_tpu_torch.geometry import coarsening
 from surfacenetworks_tpu_torch.sparse import (
     EllOperator,
     bsr_operator_from_scipy,
@@ -71,6 +73,60 @@ class Buckets:
         if not self.dirac_base_valence or self.dirac_base_valence >= self.max_valence:
             return {}
         return {"base_valence": self.dirac_base_valence, "n_overflow": self.dirac_overflow}
+
+
+@dataclasses.dataclass
+class BucketSet:
+    """Size tiers over a heterogeneous dataset (``--buckets N``): each batch
+    pads to the smallest tier that fits it, one set of shapes per tier.
+    All tiers share the dataset's ELL widths and Dirac packing, so operator
+    tables differ only in row count.  Tiers are cut by rank over the
+    samples' vertex counts and sized to each segment's maxima, as in the
+    JAX package."""
+
+    tiers: list[Buckets]  # ascending n_vertices
+
+    @classmethod
+    def for_samples(cls, samples, n_tiers: int = 3, multiple: int = 8) -> "BucketSet":
+        base = Buckets.for_samples(samples, multiple=multiple)
+        if n_tiers <= 1 or len(samples) < 2:
+            return cls(tiers=[base])
+        nv = np.asarray([s["V"].shape[0] for s in samples])
+        nf = np.asarray([s["F"].shape[0] for s in samples])
+        order = np.argsort(nv, kind="stable")
+        tiers = []
+        seen = set()
+        for i in range(n_tiers):
+            # cut by rank and size the tier to its segment's maxima, so no
+            # sample lands just above a percentile-value boundary
+            cut = int(np.ceil(len(samples) * (i + 1) / n_tiers)) - 1
+            idx = order[: cut + 1]
+            t_nv = round_up(int(nv[idx].max()), multiple)
+            t_nf = round_up(int(nf[idx].max()), multiple)
+            key = (t_nv, t_nf)
+            if key in seen:
+                continue
+            seen.add(key)
+            tiers.append(dataclasses.replace(base, n_vertices=t_nv, n_faces=t_nf))
+        tiers.sort(key=lambda b: (b.n_vertices, b.n_faces))
+        # the top tier covers the dataset max (bucket rounding included)
+        tiers[-1] = dataclasses.replace(
+            base, n_vertices=max(tiers[-1].n_vertices, base.n_vertices),
+            n_faces=max(tiers[-1].n_faces, base.n_faces),
+        )
+        return cls(tiers=tiers)
+
+    def select(self, samples) -> Buckets:
+        """Smallest tier that fits every sample in the batch."""
+        nv = max(s["V"].shape[0] for s in samples)
+        nf = max(s["F"].shape[0] for s in samples)
+        for t in self.tiers:
+            if t.n_vertices >= nv and t.n_faces >= nf:
+                return t
+        return self.tiers[-1]
+
+    def tier_index(self, samples) -> int:
+        return self.tiers.index(self.select(samples))
 
 
 def _dirac_packing(samples) -> tuple[int, int]:
@@ -175,17 +231,20 @@ def bsr_k_needed(L, block: int = 128) -> int:
     return int(counts.max())
 
 
-def fit_bsr_k(samples_or_Ls, buckets: Buckets) -> int:
-    """Size ``buckets.bsr_k`` exactly to the dataset's maximum over both
-    directions (mutates ``buckets``, returns the fitted k)."""
+def fit_bsr_k(samples_or_Ls, buckets: Buckets | BucketSet) -> int:
+    """Size ``bsr_k`` exactly to the dataset's maximum over both directions,
+    in every tier of a ``BucketSet`` (mutates the buckets, returns the
+    fitted k)."""
     Ls = [s["L"] if isinstance(s, dict) else s for s in samples_or_Ls]
-    block = buckets.bsr_block
+    tiers = buckets.tiers if isinstance(buckets, BucketSet) else [buckets]
+    block = tiers[0].bsr_block
     k = max(
         (max(bsr_k_needed(L, block), bsr_k_needed(L.T.tocsr(), block)) for L in Ls),
         default=1,
     )
-    buckets.bsr_k = max(k, 1)
-    return buckets.bsr_k
+    for t in tiers:
+        t.bsr_k = max(k, 1)
+    return max(k, 1)
 
 
 def _fixed_k_operator(L: sp.spmatrix, buckets: Buckets, N: int) -> EllOperator:
@@ -268,6 +327,49 @@ def _padded_arrays(samples: list[dict], N: int, input_key: str, target_key: str)
     for b, s in enumerate(samples):
         mask[b, : s["V"].shape[0]] = 1.0
     return inputs, targets, mask
+
+
+def _cascade_sample_pack(s: dict, levels: int, n_bucket: int, ell_k: int, input_key: str, target_key: str):
+    """One sample's cascade pack: its input and target reordered into the
+    pyramid's fine order and padded, the pyramid mask, and one ELL operator
+    (``fwd`` and its stored transpose ``bwd`` at ``ell_k`` slots) per level,
+    coarsest first."""
+    p = coarsening.build_pyramid(s["V"], s["F"], levels, n_bucket=n_bucket)
+    inp = pad_rows(coarsening.reorder_fine_data(p, np.asarray(s[input_key], np.float32)), n_bucket)
+    tgt = pad_rows(coarsening.reorder_fine_data(p, np.asarray(s[target_key], np.float32)), n_bucket)
+    msk = coarsening.pyramid_mask(p).astype(np.float32)
+    ops = []
+    for lvl in range(levels):
+        L = p.levels[lvl].L
+        fwd = ell_from_scipy(L, k=ell_k, n_rows=L.shape[0], n_cols=L.shape[1])
+        bwd = ell_from_scipy(L.T.tocsr(), k=ell_k, n_rows=L.shape[0], n_cols=L.shape[1])
+        ops.append(EllOperator(fwd=fwd, bwd=bwd))
+    return inp, tgt, msk, ops
+
+
+def cascade_batch(
+    samples: list[dict],
+    levels: int,
+    n_bucket: int,
+    ell_k: int = 32,
+    input_key: str = "input",
+    target_key: str = "target",
+) -> MeshBatch:
+    """Multiresolution batch for ``EfficientCascade``: per-sample Laplacian
+    pyramids (``geometry.coarsening``, random-walk graph Laplacians of the
+    greedily coarsened edge graphs), per-vertex data reordered into the
+    pair-adjacent pyramid order.  ``operator`` is a tuple of batched
+    ``EllOperator``s, one per level, coarsest first (the finest last, as
+    the reference's ``Laps``); level ``i`` has ``n_bucket / 2**(levels-1-i)``
+    rows."""
+    packs = [_cascade_sample_pack(s, levels, n_bucket, ell_k, input_key, target_key) for s in samples]
+    return MeshBatch(
+        inputs=torch.from_numpy(np.stack([p[0] for p in packs])),
+        targets=torch.from_numpy(np.stack([p[1] for p in packs])),
+        mask=torch.from_numpy(np.stack([p[2] for p in packs])),
+        operator=tuple(stack_operators([p[3][lvl] for p in packs]) for lvl in range(levels)),
+        names=[s.get("name") for s in samples],
+    )
 
 
 def _dirac_coeffs_of(s: dict, key: str = "dirac") -> geo.DiracCoeffs:

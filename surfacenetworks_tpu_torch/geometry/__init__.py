@@ -1,12 +1,13 @@
 """Host-side geometry (counterpart of ``surfacenetworks_tpu/geometry``)."""
 
-from surfacenetworks_tpu_torch.geometry import graph_ops, intrinsic, repair
+from surfacenetworks_tpu_torch.geometry import coarsening, graph_ops, intrinsic, repair
 from surfacenetworks_tpu_torch.geometry.io import load_obj, load_ply, save_obj, save_ply
 from surfacenetworks_tpu_torch.geometry.mesh_ops import (
     DiracCoeffs,
     cotangent_weights,
     dirac,
     dirac_coeffs,
+    dist_matrix,
     edge_lengths,
     face_areas,
     hackit,
@@ -21,9 +22,11 @@ from surfacenetworks_tpu_torch.geometry.mesh_ops import (
 
 __all__ = [
     "DiracCoeffs",
+    "coarsening",
     "cotangent_weights",
     "dirac",
     "dirac_coeffs",
+    "dist_matrix",
     "edge_lengths",
     "face_areas",
     "graph_ops",

@@ -1,17 +1,54 @@
-"""Face-derived adjacency and the amp pyramid (NumPy/SciPy), copied from the
-JAX package.
+"""Graph Laplacians, face-derived adjacency and the amp pyramid
+(NumPy/SciPy), copied from the JAX package.
 
-Counterpart of ``surfacenetworks_tpu/geometry/graph_ops.py``: the two
-functions the edge-flip augmentation needs (``repair.constrained_edge_flip``,
+Counterpart of ``surfacenetworks_tpu/geometry/graph_ops.py``, verbatim: the
+two functions the edge-flip augmentation needs (``repair.constrained_edge_flip``,
 the normal trainer's ``--flip-variants``) and the intrinsic Laplacian
-(``geometry.intrinsic``), and ``amp_pyramid`` (the FAUST trainer's amp
-trunk), verbatim.
+(``geometry.intrinsic``), ``graph_laplacian`` and ``uniform_weights`` (the
+cascade's pyramid, ``geometry.coarsening``), and ``amp_pyramid`` (the FAUST
+trainer's amp trunk).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+
+
+def graph_laplacian(
+    W: sp.spmatrix, normalized: bool = True, symmetric: bool = True
+) -> sp.csr_matrix:
+    """Graph Laplacian of a weight matrix.
+
+    Parity: utils/graph.py:40-66: unnormalized ``D - W``; normalized symmetric
+    ``I - D^-1/2 W D^-1/2``; normalized non-symmetric (random-walk)
+    ``I - D^-1 W``.
+    """
+    d = np.asarray(W.sum(axis=0)).ravel()
+    if not normalized:
+        L = sp.diags(d, 0) - W
+    else:
+        d = d + np.spacing(np.array(0, W.dtype))
+        if symmetric:
+            dh = 1.0 / np.sqrt(d)
+            D = sp.diags(dh, 0)
+            L = sp.identity(d.size, dtype=W.dtype) - D @ W @ D
+        else:
+            D = sp.diags(1.0 / d, 0)
+            L = sp.identity(d.size, dtype=W.dtype) - D @ W
+    return L.tocsr()
+
+
+def uniform_weights(dist: sp.csr_matrix) -> sp.csr_matrix:
+    """1/d weights with zeroed diagonal (utils/mesh.py:82-90)."""
+    with np.errstate(divide="ignore"):
+        W = sp.csr_matrix((1.0 / dist.data, dist.indices, dist.indptr), shape=dist.shape)
+    W.setdiag(0)
+    W.eliminate_zeros()
+    # zero-distance off-diagonal pairs (degenerate) would be inf; drop them
+    W.data[~np.isfinite(W.data)] = 0.0
+    W.eliminate_zeros()
+    return W
 
 
 def vertex_adjacency(F: np.ndarray, num_vertices: int | None = None) -> sp.csr_matrix:

@@ -40,6 +40,25 @@ def face_areas(V: np.ndarray, F: np.ndarray, degenerate_floor: float = 1e-6) -> 
     return areas
 
 
+def dist_matrix(V: np.ndarray, F: np.ndarray) -> sp.csr_matrix:
+    """Sparse symmetric matrix of pairwise vertex distances within each face
+    (parity: utils/mesh.py:17-26 ``dist``; includes the zero diagonal pattern)."""
+    V = np.asarray(V, dtype=np.float64)
+    M = F.shape[0]
+    # all ordered pairs (i, j) within each face, including i == j
+    idx_a = np.repeat(F, 3, axis=1).reshape(-1)  # i i i j j j k k k per face
+    idx_b = np.tile(F, (1, 3)).reshape(-1)  # i j k i j k i j k per face
+    d = np.linalg.norm(V[idx_a] - V[idx_b], axis=1)
+    n = V.shape[0]
+    # duplicate (i, j) pairs (shared edges) all carry the same distance, so
+    # COO's summing semantics would be wrong — keep one entry per unique pair
+    # (the reference assigns into a dense matrix, last write wins).
+    pairs = np.stack([idx_a, idx_b], axis=1)
+    uniq, first = np.unique(pairs, axis=0, return_index=True)
+    W = sp.coo_matrix((d[first], (uniq[:, 0], uniq[:, 1])), shape=(n, n))
+    return W.tocsr()
+
+
 def cotangent_weights(
     V: np.ndarray, F: np.ndarray, areas: np.ndarray | None = None
 ) -> tuple[sp.csr_matrix, sp.dia_matrix]:

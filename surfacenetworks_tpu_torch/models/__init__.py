@@ -1,6 +1,7 @@
 """Model zoo (counterpart of ``surfacenetworks_tpu/models``)."""
 
 from surfacenetworks_tpu_torch.models import mnist_models, vae
+from surfacenetworks_tpu_torch.models.cascade import EfficientCascade, GlobalLocalModel, LapMATModel
 from surfacenetworks_tpu_torch.models.correspondence import SiameseModel
 from surfacenetworks_tpu_torch.models.normal_models import (
     AvgModel,
@@ -14,5 +15,6 @@ from surfacenetworks_tpu_torch.models.normal_models import (
 )
 from surfacenetworks_tpu_torch.models.vae import DirVAE, LapVAE
 
-__all__ = ["AvgModel", "DirDeepModel", "DirModelToFace", "DirVAE", "GatDeepModel", "IdDeepModel", "LapDeepModel", "LapVAE",
-           "MlpModel", "SiameseModel", "init_weights", "mnist_models", "vae"]
+__all__ = ["AvgModel", "DirDeepModel", "DirModelToFace", "DirVAE", "EfficientCascade", "GatDeepModel",
+           "GlobalLocalModel", "IdDeepModel", "LapDeepModel", "LapMATModel", "LapVAE", "MlpModel", "SiameseModel",
+           "init_weights", "mnist_models", "vae"]

@@ -435,10 +435,8 @@ def test_train_normal_resumes_from_a_jax_checkpoint(tmp_path):
     assert torch.load(tmp_path / "pts" / "debug_normal_state.pt", weights_only=True)["step"] == 4
 
 
-@pytest.mark.parametrize("flag", [["--model", "cas"], ["--data-parallel", "2"], ["--graph-parallel", "2"],
-                                  ["--buckets", "2"], ["--rotate-augment"], ["--config", "c"],
-                                  ["--additional-opt", "intrinsic"], ["--jax-profile", "x"], ["--preset", "p"],
-                                  ["--multihost"]])
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"], ["--config", "c"],
+                                  ["--jax-profile", "x"], ["--preset", "p"], ["--multihost"]])
 def test_train_normal_refuses_unported_flags(flag, tmp_path):
     with pytest.raises(SystemExit, match="not ported yet"):
         ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag])

@@ -451,7 +451,7 @@ def test_train_normal_zoo_main_cpu(tmp_path):
     """``main`` end to end on the fixtures with ``--flip-variants 1`` (gat,
     also with ``--bf16``, and mlp; the step of every model is held above):
     finite losses, the log's flip and format lines, and a checkpoint of the
-    right model; the cascade and ``--rotate-augment`` stay refused by
+    right model; ``--data-parallel`` and ``--jax-profile`` stay refused by
     name."""
     for model, extra in (("mlp", []), ("gat", []), ("gat", ["--bf16"])):
         out = tmp_path / f"{model}{len(extra)}"
@@ -466,7 +466,7 @@ def test_train_normal_zoo_main_cpu(tmp_path):
             assert "operator format -> ell" in log
         keys = torch.load(out / "pts" / "debug_normal_state.pt", weights_only=True)["params"].keys()
         assert sorted(keys) == sorted(TMODELS[model](3, 3, 2).state_dict())
-    for flag in (["--model", "cas"], ["--rotate-augment"]):
+    for flag in (["--data-parallel", "2"], ["--jax-profile", "x"]):
         with pytest.raises(SystemExit, match="not ported yet: " + flag[0]):
             ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag])
 
