@@ -10,8 +10,8 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives twelve paths, each with the launch counts set to 0 just before it and
-read just after:
+drives fifteen paths, each with the launch counts set to 0 just before it
+and read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
   ~7,000-vertex meshes in the ELL and the BSR operator format, checked
@@ -101,7 +101,28 @@ read just after:
   step 0 of the ELL and Dirac runs against fp64 module by module with the
   step's own dropout mask or noise (the detached mutants refused); every
   run repeated from its start bit for bit; the dense and ELL losses
-  compared.
+  compared;
+* serving from exported artifacts (``serve.export_forward``, ``load``):
+  the serve phase's LapDeepModel-15 on its first ELL request with the
+  operator baked in, as a runtime argument (also on the second request)
+  and in bf16, and DirDeepModel-15 on a 7,000-vertex synthetic mesh; each
+  answer bit-identical to the eager module's, the fp32 ones within the
+  serve bound of an fp64 forward, 16 ``ell_matmul`` a Lap forward counted
+  inside the artifact, its device ms beside the eager forward's, its size;
+  and the host time of one eager kernel call, direct and through the
+  ``snx::ell_matmul`` custom op;
+* the host input pipeline: the normal Lap-15 ELL run with
+  ``--no-device-store`` (batches built and pinned on the prefetch thread,
+  uploaded without blocking) against the same run from its device store,
+  losses and weights bit for bit; FAUST Lap-15 ``--loss sl1`` and ``cel``
+  past the device budget (forced) on the FAUST scans, the JAX trainer's host
+  path: 4 updates and the test pass, the bytes uploaded a step, step 0
+  against fp64 module by module (the detached mutant refused), the run
+  repeated bit for bit;
+* the reference's presets: ``train_normal --preset normal-lap`` and
+  ``normal-dirac`` at their batch of 32 on 40 synthetic 7,000-vertex
+  meshes, 4 updates and the test pass each (ELL for Lap: 32 launches a
+  step, each over 32 operators).
 
 Mixed precision (``--bf16``) adds a kernel phase and a training phase:
 
@@ -1229,10 +1250,11 @@ def bf16_kernel_phase(device) -> dict:
     return report
 
 
-def serve_phase(device) -> tuple[dict, dict, dict]:
+def serve_phase(device) -> tuple[dict, dict, dict, list]:
     """Serve LapDeepModel-15 on four ~7,000-vertex requests in both formats;
-    returns the kernels' launch counts from that run, the latencies, and
-    (server, first prepared request) per format."""
+    returns the kernels' launch counts from that run, the latencies,
+    (server, first prepared request) per format, and the prepared ELL
+    requests."""
     import torch
 
     from surfacenetworks_tpu_torch.data import Buckets, laplacian_batch
@@ -1317,7 +1339,7 @@ def serve_phase(device) -> tuple[dict, dict, dict]:
                 f"{'refused' if wrong > SERVE_FRO_RTOL else 'NOT refused'}")
             if not wrong > SERVE_FRO_RTOL:
                 raise AssertionError("a served answer in the wrong vertex order passes the check")
-    return counts, latency, {fmt: (s, prepared[fmt][0]) for fmt, s in servers.items()}
+    return counts, latency, {fmt: (s, prepared[fmt][0]) for fmt, s in servers.items()}, prepared["ell"]
 
 
 def device_rows(prof) -> list[tuple[float, int, str]]:
@@ -4336,6 +4358,484 @@ def sass_check(lib_path: str) -> None:
         raise AssertionError("a variant of the bf16 BSR kernel's SASS holds no HMMA.16816.F32.BF16 instruction")
 
 
+# ---------------------------------------------------------------------------
+# serving from exported artifacts, the host input pipeline, the presets
+# ---------------------------------------------------------------------------
+
+# Exported artifacts (serve.export_forward): the serve phase's LapDeepModel-15
+# (its seeded weights) on its first ELL request (7,040 rows), with the
+# operator baked in, as a runtime argument (answering the second request
+# too) and in bf16, and DirDeepModel-15 (seeded weights) on a 7,000-vertex
+# synthetic mesh of the normal cell (about 14,000 faces).  An artifact runs
+# the eager module's kernels in the same order, so its answers must equal the
+# module's bit for bit; the fp32 ones must lie within SERVE_FRO_RTOL of an
+# fp64 forward on the dense operator (no kernel).  The bf16 one's distance
+# from fp64 is reported, not held: the eager bf16 module itself reads 1.02
+# there on the card (bf16 rounding where L x cancels, through 15 batch
+# norms), so that bound holds fp32 models only; the Lap artifacts launch
+# APPLIES_PER_FORWARD kernels a forward, counted inside them.  HOST_US_CALLS
+# eager ell_matmul calls at the serve shape are timed on the host, direct
+# and through the custom op.
+EXPORT_DIRAC_POINTS = 7000
+HOST_US_CALLS = 200
+# The host input pipeline: the normal Lap-15 ELL run (NORMAL_ARGS) from its
+# device store and with --no-device-store (batches built and pinned on the
+# prefetch thread, uploaded without blocking), PIPE_STEPS updates each, the
+# losses bit-identical; FAUST Lap-15 --loss sl1 and cel past the device
+# budget (train_correspondence.DEVICE_BUDGET_BYTES forced to 1 MiB) on the
+# FAUST cell's scans, without --smooth-reg (the host path refuses it, as the
+# JAX trainer does): PIPE_FAUST_STEPS updates and the test pass, step 0
+# against fp64 module by module, the run repeated bit for bit.  A host-path
+# step launches 64 ell_matmul (16 applies per trunk forward, two trunks,
+# forward and stored-transpose backward), a test pair 32.
+PIPE_STEPS = 8
+PIPE_FAUST_STEPS = 4
+PIPE_FAUST_ARGS = ["--synthetic", "4", "--synthetic-points", "7000", "--seed", "0", "--layer", str(LAYERS),
+                   "--xz-rotate", "--num-updates", str(PIPE_FAUST_STEPS), "--num-epoch", "1", "--device", "cuda",
+                   "--deser-option", "no", "--operator-format", "ell"]
+PIPE_FAUST_PER_STEP = launches_of(ell_matmul=64)
+PIPE_FAUST_PER_TEST_PAIR = launches_of(ell_matmul=32)
+# The reference's presets (config.py): train_normal --preset normal-lap and
+# normal-dirac at their batch 32 and depth 15 on PRESET_MESHES synthetic
+# 7,000-vertex meshes (32 train, 8 test), ELL for Lap (the flag wins over
+# 'auto'), the updates and epochs cut by flags to PRESET_STEPS and 1.
+PRESET_MESHES = 40
+PRESET_STEPS = 4
+PRESET_ARGS = ["--synthetic", str(PRESET_MESHES), "--synthetic-points", "7000", "--seed", str(SEED), "--num-updates",
+               str(PRESET_STEPS), "--num-epoch", "1", "--device", "cuda", "--operator-format", "ell"]
+PRESET_PER_STEP = {"normal-lap": launches_of(ell_matmul=32), "normal-dirac": launches_of()}
+
+
+def _ell_dense64(op, N: int):
+    """An ELL operator's ``fwd`` (one item) as a dense fp64 ``[1, N, N]``
+    on its device."""
+    import torch
+
+    cols, vals = op.fwd.cols[0].long(), op.fwd.vals[0].double()
+    rows = torch.arange(cols.shape[0], device=cols.device)[:, None].expand_as(cols)
+    dense = torch.zeros(N, N, dtype=torch.float64, device=cols.device)
+    dense.index_put_((rows.reshape(-1), cols.reshape(-1)), vals.reshape(-1), accumulate=True)
+    return dense[None]
+
+
+def _event_ms(fn, calls: int = 10) -> tuple[float, float, float]:
+    """Median CUDA-event time and median host wall of ``calls`` synchronised
+    ``fn()`` calls, and the device busy time of one more under the profiler
+    (its kernels and copies), ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(r[0] for r in device_rows(prof)) / 1e3
+    ev, wall = [], []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ev.append(start.elapsed_time(end))
+    return float(np.median(ev)), float(np.median(wall)), busy
+
+
+def export_phase(device, smi: str, served: dict, requests: list) -> tuple[dict, dict]:
+    """Serving from exported artifacts: the host time of one eager kernel
+    call direct and through the custom op; the Lap-15 artifacts (baked,
+    runtime operator, bf16) and the Dir-15 one exported and loaded; then
+    (counts at 0) each artifact answers once, its launches counted; each
+    answer against the eager module bit for bit and against fp64; the
+    artifacts' and the eager forwards' device ms.  Returns the launch counts
+    of the artifacts' run and the results."""
+    import torch
+
+    from surfacenetworks_tpu_torch import serve
+    from surfacenetworks_tpu_torch.data import Buckets, datasets, dirac_batch
+    from surfacenetworks_tpu_torch.data.batching import dense_dirac_pair
+    from surfacenetworks_tpu_torch.models import DirDeepModel, LapDeepModel, init_weights
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    failures, res = [], {}
+    server, req = served["ell"]
+    model = server.model
+    N = req.inputs.shape[1]
+    # host time of one eager ell_matmul call at the serve shape, direct and through snx::ell_matmul
+    cols, vals = req.operator.fwd.cols, req.operator.fwd.vals
+    x = torch.randn((1, N, WIDTH), device=device, generator=torch.Generator(device).manual_seed(SEED))
+    call = lambda: kernels.ell_matmul(cols, vals, x)  # noqa: E731
+    outs, hu = {}, {"direct": [], "op": []}
+    for through in (False, True, False, True):
+        with kernels.through_ops() if through else contextlib.nullcontext():
+            outs[through] = call()
+            hu["op" if through else "direct"].append(host_us(call, HOST_US_CALLS))
+    res["host_us"] = hu
+    log(f"  host us per eager ell_matmul call at [1, {N}, {WIDTH}]: direct {['%.2f' % v for v in hu['direct']]}, "
+        f"through snx::ell_matmul {['%.2f' % v for v in hu['op']]} (the eager path calls the launch directly; "
+        f"{HOST_US_CALLS} calls each, {smi})")
+    if not torch.equal(outs[False], outs[True]):
+        failures.append("ell_matmul through the custom op differs from the direct call")
+
+    # the artifacts
+    t0 = time.perf_counter()
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model16 = LapDeepModel(3, 3, layers=LAYERS, dtype=torch.bfloat16)
+    model16.load_state_dict(state)
+    model16.to(device).eval()
+    dsamples = datasets.synthetic_normal_dataset(1, EXPORT_DIRAC_POINTS, seed=SEED, operator="dirac")
+    db = Buckets.for_samples(dsamples)
+    dbatch = dirac_batch(dsamples, db)
+    dmodel = init_weights(DirDeepModel(3, 3, LAYERS), torch.Generator().manual_seed(SEED)).to(device).eval()
+    dop, dmask, dx = dbatch.operator.to(device), dbatch.mask.to(device), dbatch.inputs.to(device)
+    cases = {
+        "lap": (model, req.operator, req.mask, req.inputs, True),
+        "lap runtime": (model, req.operator, req.mask, req.inputs, False),
+        "lap bf16": (model16, req.operator, req.mask, req.inputs, True),
+        "dir": (dmodel, dop, dmask, dx, True),
+    }
+    blobs, export_s = {}, {}
+    for label, (m, op, mask, inputs, bake) in cases.items():
+        t1 = time.perf_counter()
+        blobs[label] = serve.export_forward(m, None, op, mask, inputs, bake_operator=bake)
+        export_s[label] = time.perf_counter() - t1
+    fns = {label: serve.load(b) for label, b in blobs.items()}
+    infos = {label: serve.export_info(b) for label, b in blobs.items()}
+    log(f"  exported and loaded {len(blobs)} artifacts in {time.perf_counter() - t0:.2f} s (export s "
+        f"{ {k: round(v, 2) for k, v in export_s.items()} }); bytes { {k: len(b) for k, b in blobs.items()} }; "
+        f"info {infos['lap']} / dir {infos['dir']['in_avals']}")
+
+    def args_of(label, r):
+        m, op, mask, inputs, bake = cases[label]
+        if bake:
+            return (inputs,)
+        return (r.inputs, r.mask, *serve.operator_leaves(r.operator)[0])
+
+    # the main path: every count is 0 just before it and read just after
+    kernels.reset_launch_counts()
+    answers, per = {}, {}
+    for label in cases:
+        before = dict(kernels.launches)
+        answers[label] = fns[label](*args_of(label, req))
+        per[label] = {k: kernels.launches[k] - before[k] for k in before if kernels.launches[k] != before[k]}
+    before = dict(kernels.launches)
+    answers["lap runtime, request 1"] = fns["lap runtime"](*args_of("lap runtime", requests[1]))
+    per["lap runtime, request 1"] = {k: kernels.launches[k] - before[k] for k in before
+                                     if kernels.launches[k] != before[k]}
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    log(f"  launches inside the artifacts: {per}")
+    want = {"lap": {"ell_matmul": APPLIES_PER_FORWARD}, "lap runtime": {"ell_matmul": APPLIES_PER_FORWARD},
+            "lap bf16": {"ell_matmul_bf16": APPLIES_PER_FORWARD}, "dir": {},
+            "lap runtime, request 1": {"ell_matmul": APPLIES_PER_FORWARD}}
+    if per != want:
+        failures.append(f"artifact launches {per} != {want}")
+
+    # each answer against the eager module on the same operator, and against fp64
+    eager = {"lap": lambda: model(req.operator, req.mask, req.inputs),
+             "lap runtime": lambda: model(req.operator, req.mask, req.inputs),
+             "lap bf16": lambda: model16(req.operator, req.mask, req.inputs),
+             "dir": lambda: dmodel(dop, dmask, dx),
+             "lap runtime, request 1": lambda: model(requests[1].operator, requests[1].mask, requests[1].inputs)}
+    with torch.no_grad():
+        model64 = copy.deepcopy(model).double()
+        ref64 = {}
+        for label, r in (("lap", req), ("lap runtime, request 1", requests[1])):
+            ref64[label] = model64(_ell_dense64(r.operator, N), r.mask.double(), r.inputs.double())[0, : r.n]
+        ref64["lap runtime"] = ref64["lap bf16"] = ref64["lap"]
+        dpair = dense_dirac_pair([{"V": np.asarray(dsamples[0]["V"], np.float64), "F": dsamples[0]["F"]}],
+                                 db.n_vertices, db.n_faces, torch.float64, device)
+        n_dir = dsamples[0]["V"].shape[0]
+        ref64["dir"] = copy.deepcopy(dmodel).double()(dpair, dmask.double(), dx.double())[0, :n_dir]
+        del model64, dpair
+    res["artifacts"] = {}
+    for label, got in answers.items():
+        with torch.no_grad():
+            mine = eager[label]()
+        n = ref64[label].shape[0]
+        ref = ref64[label]
+        fro = float((got[0, :n].double() - ref).norm() / ref.norm())
+        fro_eager = float((mine[0, :n].double() - ref).norm() / ref.norm())
+        same = torch.equal(got, mine)
+        ms, wall, busy = _event_ms(lambda: fns[label.split(",")[0]](
+            *args_of(label.split(",")[0], requests[1] if "request 1" in label else req)))
+        with torch.no_grad():
+            ems, ewall, ebusy = _event_ms(eager[label])
+        res["artifacts"][label] = {"bytes": len(blobs[label.split(",")[0]]), "bit_equal": same, "rel_fro_fp64": fro,
+                                   "eager_rel_fro_fp64": fro_eager, "device_ms": ms, "wall_ms": wall,
+                                   "busy_ms": busy, "eager_device_ms": ems, "eager_wall_ms": ewall,
+                                   "eager_busy_ms": ebusy, "launches": per[label]}
+        log(f"  artifact {label}: {'bit-identical to' if same else 'DIFFERS from'} the eager module; rel_fro vs fp64 "
+            f"{fro:.3e} (eager {fro_eager:.3e}, tol {'none: bf16' if label == 'lap bf16' else SERVE_FRO_RTOL}); "
+            f"per forward: device busy {busy:.3f} ms (eager {ebusy:.3f}), CUDA-event ms {ms:.3f} (eager {ems:.3f}), "
+            f"host wall {wall:.3f} ms (eager {ewall:.3f}); {len(blobs[label.split(',')[0]])} bytes ({smi})")
+        if not (same and np.isfinite(fro) and (fro <= SERVE_FRO_RTOL or label == "lap bf16")):
+            failures.append(f"artifact {label}: bit-identical {same}, rel_fro vs fp64 {fro}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    del fns, blobs, model16, dmodel
+    torch.cuda.empty_cache()
+    return counts, res
+
+
+def _pipelined(batches, update, steps: int) -> dict:
+    """``update(batch)`` over the first ``steps`` of ``batches`` (an
+    iterator, which may build them on another thread): each step's outputs,
+    host wall from the end of the step before (synchronised) to its own
+    (the wait for its batch included), launch counts; the last step under
+    the profiler, and the peak device memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    res = {"out": [], "wall_ms": [], "per_step": []}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    it = iter(batches)
+    t_prev = time.perf_counter()
+    for u in range(steps):
+        before = dict(kernels.launches)
+        ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if u == steps - 1 else (
+            contextlib.nullcontext())
+        with ctx as prof:
+            out = update(next(it))
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        res["wall_ms"].append((now - t_prev) * 1e3)
+        t_prev = now
+        res["out"].append(tuple(float(v) for v in (out if isinstance(out, tuple) else (out,))))
+        res["per_step"].append({k: kernels.launches[k] - before[k] for k in before})
+    rows = device_rows(prof)
+    res["busy_ms"] = sum(r[0] for r in rows) / 1e3
+    res["device_ops"] = sum(r[1] for r in rows)
+    res["wall_ms_median"] = float(np.median(res["wall_ms"][1:-1]))
+    res["idle_share"] = 1 - res["busy_ms"] / res["wall_ms_median"]
+    res["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return res
+
+
+def _faust_host_step0(label: str, trainer, state0, res: dict) -> list[str]:
+    """Step 0 of a host-path run against fp64 module by module: the loss
+    (``--loss`` over the full logits against the step's own uploaded cost)
+    and the cotangents at the card's trunk outputs, and each trunk module
+    replayed in fp64 on the dense fp64 operators (``replay_modules``); the
+    same step with detached operator applies must be refused."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_correspondence as tc
+
+    item = res["item0"]
+    ia, ib = item["ia"], item["ib"]
+    dense = [_trunk_op64(trainer, i) for i in (ia, ib)]
+    dev = {k: (v.to(trainer.device) if isinstance(v, torch.Tensor) else v) for k, v in item.items()}
+    gab64 = dev["GAB"].double()
+
+    def head64(fa, fb):
+        return trainer.loss_fn(torch.einsum("bnc,bmc->bnm", fa, fb)[0], gab64)
+
+    model64 = _model(state0, trainer.device, torch.float64).trunk
+    mutant = _model(state0, trainer.device, torch.float32)
+    cap = StepCapture(mutant.trunk)
+    try:
+        with detached_applies():
+            da = dict(trainer.dev_sample(ia), inputs=dev["xa"])
+            db = dict(trainer.dev_sample(ib), inputs=dev["xb"])
+            mloss = tc.objective(mutant, da, db, None, None, 0.0, False, None, trainer.loss_fn, dev["GAB"])
+            mloss.backward()
+    finally:
+        cap.remove()
+    mgrads = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach() for k, p in mutant.named_parameters()}
+    runs = {}
+    for run, (loss, grads, capture) in {"real": (res["out"][0][0], res["grads0"], res["capture"]),
+                                        "mutant detached applies": (float(mloss.detach()), mgrads, cap)}.items():
+        runs[run] = {**output_head(capture, loss, head64),
+                     **replay_modules(capture, grads, model64, lambda name, k, op: _block_op(dense[k], name),
+                                      torch.float64, "trunk.")}
+    res["step0"] = {}
+    del dense, model64, mutant
+    torch.cuda.empty_cache()
+    return judge_step0(label, runs, {"chain": STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL}, res)
+
+
+def host_pipeline_phase(device, smi: str, faust_data: list) -> tuple[dict, dict]:
+    """The host input pipeline: the normal Lap-15 ELL run from its device
+    store and through the prefetch thread (counts at 0 before the latter),
+    losses bit for bit; FAUST sl1 and cel past the device budget (counts at
+    0 before each), 4 updates and the test pass, step 0 against fp64, the
+    repeat bit for bit.  Returns the launch counts of the host routes and
+    the results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_correspondence as tc
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    failures, results, counts = [], {}, launches_of()
+    t0 = time.perf_counter()
+    trainers = {label: _normal_trainer(NORMAL_ARGS + ["--operator-format", "ell", *extra], f"pipeline {label}")
+                for label, extra in (("store", []), ("host", ["--no-device-store"]))}
+    log(f"  normal pipeline: store {trainers['store'].data_stats()}; host {trainers['host'].data_stats()}; set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    for label, trainer in trainers.items():
+        if label == "host":  # the main path: every count is 0 just before it and read just after
+            kernels.reset_launch_counts()
+        r = _pipelined(trainer.train_batches(PIPE_STEPS), trainer.update, PIPE_STEPS)
+        if label == "host":
+            counts = {k: counts[k] + v for k, v in kernels.launches.items()}
+        r["params"] = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+        results[f"normal {label}"] = r
+        log(f"  normal {label}: losses {[repr(o[0]) for o in r['out']]}; host wall per step "
+            f"{['%.2f' % v for v in r['wall_ms']]}, median {r['wall_ms_median']:.3f} ms; profiled step busy "
+            f"{r['busy_ms']:.3f} ms in {r['device_ops']} device ops, idle share {r['idle_share']:.3f}; peak "
+            f"{r['peak_mib']:.1f} MiB; launches per step {r['per_step'][0]} ({smi})")
+        if any(step != NORMAL_PER_STEP["ell"] for step in r["per_step"]):
+            failures.append(f"normal {label}: launches per step {r['per_step']}")
+    a, b = results["normal store"], results["normal host"]
+    same = a["out"] == b["out"] and all(torch.equal(v, b["params"][k]) for k, v in a["params"].items())
+    log(f"  normal host route vs device store: losses, mads and weights {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        failures.append("normal: the host route's losses or weights differ from the device store's")
+    for r in (a, b):
+        r.pop("params")
+    del trainers, a, b
+    torch.cuda.empty_cache()
+
+    saved = tc.DEVICE_BUDGET_BYTES
+    tc.DEVICE_BUDGET_BYTES = 1 << 20
+    try:
+        for loss in ("sl1", "cel"):
+            t0 = time.perf_counter()
+            trainer = tc.CorrespondenceTrainer(tc.parser.parse_args(PIPE_FAUST_ARGS + ["--loss", loss]),
+                                               log=lambda m: log(f"  [faust host {loss}] {m}"), data=faust_data)
+            if not (trainer.host_path and not trainer.light):
+                raise AssertionError(f"faust {loss}: the host path was not taken")
+            for i in range(len(trainer.data)):
+                trainer.dev_sample(i)
+            torch.cuda.synchronize()
+            state0 = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+            opt0, rng0 = copy.deepcopy(trainer.opt.state_dict()), copy.deepcopy(trainer.rng.bit_generator.state)
+            log(f"  faust host {loss}: bucket {trainer.N}, n_train {trainer.n_train}; set-up "
+                f"{time.perf_counter() - t0:.2f} s")
+            runs = []
+            for rep_ in range(2):
+                if rep_:
+                    trainer.model.load_state_dict(state0)
+                    trainer.opt.load_state_dict(opt0)
+                    trainer.rng.bit_generator.state = copy.deepcopy(rng0)
+                    trainer.step = 0
+                else:  # the main path: every count is 0 just before it and read just after
+                    kernels.reset_launch_counts()
+                items, seen = trainer.host_items(PIPE_FAUST_STEPS), []
+
+                def update(item, seen=seen):
+                    seen.append(item)
+                    if len(seen) == 1 and rep_ == 0:
+                        cap = StepCapture(trainer.model.trunk)
+                        try:
+                            out = trainer.update_host(item)
+                        finally:
+                            cap.remove()
+                        r_cap.update(capture=cap, item0=item, grads0={
+                            k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()})
+                        return out
+                    return trainer.update_host(item)
+
+                r_cap: dict = {}
+                r = _pipelined(items, update, PIPE_FAUST_STEPS)
+                r.update(r_cap)
+                r["bytes_per_step"] = [sum(v.numel() * v.element_size() for v in it.values()
+                                           if isinstance(v, torch.Tensor)) for it in seen]
+                before = dict(kernels.launches)
+                r["test"] = trainer.test_pass(0)
+                r["test_launches"] = {k: kernels.launches[k] - before[k] for k in before}
+                if rep_ == 0:
+                    counts = {k: counts[k] + v for k, v in kernels.launches.items()}
+                r["params"] = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+                runs.append(r)
+            r, again = runs
+            same = (r["out"] == again["out"] and r["test"] == again["test"]
+                    and all(torch.equal(v, again["params"][k]) for k, v in r["params"].items()))
+            test_pairs = (len(trainer.data) - trainer.n_train) ** 2 if trainer.args.complete_test else min(
+                20, (len(trainer.data) - trainer.n_train) ** 2)
+            test_expected = {k: v * test_pairs for k, v in PIPE_FAUST_PER_TEST_PAIR.items()}
+            log(f"  faust host {loss}: losses {[repr(o[0]) for o in r['out']]}, repeat "
+                f"{[repr(o[0]) for o in again['out']]} ({'bit-identical' if same else 'DIFFERENT'}); test {r['test']}; "
+                f"bytes uploaded per step {r['bytes_per_step']}; host wall per step "
+                f"{['%.2f' % v for v in r['wall_ms']]}, median {r['wall_ms_median']:.3f} ms; profiled step busy "
+                f"{again['busy_ms']:.3f} ms in {again['device_ops']} device ops, idle share "
+                f"{1 - again['busy_ms'] / r['wall_ms_median']:.3f}; peak {r['peak_mib']:.1f} MiB; launches per step "
+                f"{r['per_step'][0]}, test pass {r['test_launches']} ({smi})")
+            if not all(np.isfinite([o[0] for o in r["out"]])):
+                failures.append(f"faust host {loss}: a loss is not finite")
+            if any(s != PIPE_FAUST_PER_STEP for s in r["per_step"]) or r["test_launches"] != test_expected:
+                failures.append(f"faust host {loss}: launches per step {r['per_step']}, test {r['test_launches']}")
+            if not same:
+                failures.append(f"faust host {loss}: a second run from the same state differs")
+            failures += _faust_host_step0(f"faust host {loss}", trainer, state0, r)
+            res = {k: r[k] for k in ("out", "wall_ms", "wall_ms_median", "peak_mib", "bytes_per_step", "test",
+                                     "per_step", "test_launches", "step0")}
+            res.update(busy_ms=again["busy_ms"], device_ops=again["device_ops"],
+                       idle_share=1 - again["busy_ms"] / r["wall_ms_median"], reproduced=same)
+            results[f"faust host {loss}"] = res
+            del trainer, runs, r, again, state0, opt0
+            torch.cuda.empty_cache()
+    finally:
+        tc.DEVICE_BUDGET_BYTES = saved
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return counts, results
+
+
+def presets_phase(device, smi: str) -> tuple[dict, dict]:
+    """The normal trainer from the reference's presets at their batch 32:
+    per preset (counts at 0 before it) PRESET_STEPS updates and the test
+    pass; launches per step, finite losses, host wall, busy, idle share and
+    peak memory.  Returns the launch counts and the results."""
+    import torch
+
+    from surfacenetworks_tpu_torch import config
+    from surfacenetworks_tpu_torch.cli import train_normal as tn
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    failures, results, counts = [], {}, launches_of()
+    for preset in ("normal-lap", "normal-dirac"):
+        t0 = time.perf_counter()
+        args = config.parse_with_config(tn.parser, ["--preset", preset] + PRESET_ARGS)
+        if (args.batch_size, args.layer, args.num_updates, args.half_lr) != (32, LAYERS, PRESET_STEPS, 20):
+            raise AssertionError(f"{preset}: resolved to {vars(args)}")
+        trainer = tn.NormalTrainer(args, log=lambda m: log(f"  [{preset}] {m}"))
+        log(f"  {preset}: model {type(trainer.model).__name__}, format {trainer.fmt}, batch {args.batch_size}, bucket "
+            f"{trainer.buckets.n_vertices}, {len(trainer.train_samples)} train / {len(trainer.test_samples)} test "
+            f"meshes; {trainer.data_stats()}; set-up {time.perf_counter() - t0:.2f} s")
+        torch.cuda.empty_cache()
+        # the main path: every count is 0 just before it and read just after
+        kernels.reset_launch_counts()
+        r = _train_run(trainer, PRESET_STEPS, profile_last=True)
+        counts = {k: counts[k] + v for k, v in kernels.launches.items()}
+        log(f"  {preset}: losses {[repr(v) for v in r['loss']]}; test {r['test']}; host wall per step "
+            f"{['%.2f' % v for v in r['wall_ms']]}, median {r['wall_ms_median']:.3f} ms; device ms median "
+            f"{r['device_ms_median']:.3f}; profiled step busy {r['busy_ms']:.3f} ms in {r['device_ops']} device ops, "
+            f"idle share {r['idle_share']:.3f}; peak {r['peak_mib']:.1f} MiB; launches per step {r['per_step'][0]} "
+            f"({smi})")
+        for dev_us, count, key in r["top"]:
+            log(f"    {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+        if not np.isfinite(r["loss"]).all():
+            failures.append(f"{preset}: a loss is not finite")
+        if any(s != PRESET_PER_STEP[preset] for s in r["per_step"]):
+            failures.append(f"{preset}: launches per step {r['per_step']} != {PRESET_PER_STEP[preset]}")
+        results[preset] = {k: r[k] for k in ("loss", "wall_ms", "wall_ms_median", "device_ms_median", "busy_ms",
+                                            "device_ops", "idle_share", "peak_mib", "per_step", "test")}
+        results[preset]["set_up_s"] = time.perf_counter() - t0
+        del trainer, r
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return counts, results
+
+
 def main() -> int:
     t_all = t0 = T_START
     import torch
@@ -4390,7 +4890,7 @@ def main() -> int:
     phase("bf16 kernels", t0)
 
     t0 = time.perf_counter()
-    counts, latency, served = serve_phase(device)
+    counts, latency, served, ell_requests = serve_phase(device)
     phase("serve", t0)
 
     t0 = time.perf_counter()
@@ -4400,6 +4900,13 @@ def main() -> int:
     t0 = time.perf_counter()
     backward_phase(device)
     phase("backward", t0)
+
+    t0 = time.perf_counter()
+    export_counts, exported = export_phase(device, smi, served, ell_requests)
+    for kname in ("ell_matmul", "ell_matmul_bf16"):
+        if export_counts[kname] == 0:
+            raise AssertionError(f"{kname} was not launched inside the exported artifacts")
+    phase("export", t0)
 
     t0 = time.perf_counter()
     from surfacenetworks_tpu_torch.data import datasets
@@ -4416,6 +4923,18 @@ def main() -> int:
         if fzoo_counts[kname] == 0:
             raise AssertionError(f"{kname} was not launched on the faust zoo's paths")
     phase("faust zoo train", t0)
+
+    t0 = time.perf_counter()
+    pipe_counts, pipe = host_pipeline_phase(device, smi, faust_data)
+    if pipe_counts["ell_matmul"] == 0:
+        raise AssertionError("ell_matmul was not launched on the host pipeline's paths")
+    phase("host pipeline", t0)
+
+    t0 = time.perf_counter()
+    preset_counts, presets = presets_phase(device, smi)
+    if preset_counts["ell_matmul"] == 0:
+        raise AssertionError("ell_matmul was not launched on the presets' paths")
+    phase("presets", t0)
 
     t0 = time.perf_counter()
     normal_counts, normal = normal_phase(device, smi)
@@ -4502,6 +5021,9 @@ def main() -> int:
         if kname == "bsr_matmul":
             entries[-1].update(fp32_fma_bound_ms=r["fp32_fma_bound_ms"], fp32_fma_bound_by=r["fp32_fma_bound_by"])
         if kname == "ell_matmul":
+            entries[-1].update(export_launches=export_counts[kname], host_pipeline_launches=pipe_counts[kname],
+                               preset_train_launches=preset_counts[kname], export_host_us=exported["host_us"],
+                               artifacts=exported["artifacts"])
             entries[-1].update(cascade_train_launches=cascade_counts["fp32"][kname],
                                rotate_train_launches=rotate_counts[kname], tiers_train_launches=tier_counts[kname],
                                tiers_launches_by_rows=tiers["launches_by_tier"])
@@ -4542,6 +5064,7 @@ def main() -> int:
                                                   "bound_ms_no_live", "bound_by_no_live", "bytes_no_live",
                                                   "flops_no_live", "live_chunks", "chunks")})
         if kname == "ell_matmul_bf16":
+            entries[-1]["export_launches"] = export_counts[kname]
             entries[-1]["cascade_train_launches"] = cascade_counts["bf16"][kname]
             entries[-1]["normal_cascade_levels"] = [
                 {**r["bf16"], "level": r["level"], "registers": entries[-1]["registers"]}
@@ -4595,6 +5118,21 @@ def main() -> int:
     log("bf16 train median per step: " + ", ".join(
         f"{label} wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['device_ops']} device ops, idle "
         f"share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB" for label, r in bf16.items()) + f" ({smi})")
+    log("export: " + ", ".join(
+        f"{label} busy {r['busy_ms']:.3f} ms (eager {r['eager_busy_ms']:.3f}), CUDA-event {r['device_ms']:.3f} ms "
+        f"(eager {r['eager_device_ms']:.3f}), {r['bytes']} bytes, "
+        f"{'bit-identical' if r['bit_equal'] else 'DIFFERS'}" for label, r in exported["artifacts"].items())
+        + f"; host us per eager ell_matmul direct {exported['host_us']['direct']}, through the op "
+        f"{exported['host_us']['op']} ({smi})")
+    log("host pipeline median per step: " + ", ".join(
+        f"{label} wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
+        f"peak {r['peak_mib']:.1f} MiB" + (f", {r['bytes_per_step'][0]} bytes uploaded a step" if "bytes_per_step" in r
+                                          else "")
+        for label, r in pipe.items()) + f" ({smi})")
+    log("presets median per step: " + ", ".join(
+        f"{label} wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['device_ops']} device ops, "
+        f"idle share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB" for label, r in presets.items())
+        + f" ({smi})")
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -33,10 +33,13 @@ Module map (port -> JAX package):
                                   ``dirac_batch``, ``correspondence_batch``,
                                   ``arap_batch``, ``mnist_batch``,
                                   ``vae_batch``)
-``data/pipeline.py``              ``data/pipeline.py`` (pack-once samples,
-                                  ``DeviceDataset`` keyed by object or
-                                  value, ``IndexedBatch``; a batch's
-                                  ``aux`` carried through)
+``data/pipeline.py``              ``data/pipeline.py`` (``OperatorCache``
+                                  with its host budget, pack-once samples
+                                  through it, ``DeviceDataset`` keyed by
+                                  object or value, ``IndexedBatch``,
+                                  ``MetricAccumulator``, ``prefetch`` and
+                                  ``prefetch_over`` with pinned,
+                                  non-blocking uploads)
 ``sparse/ell.py``                 ``sparse/ell.py`` (``EllMatrix``, packing,
                                   ``DiracOperator``, ``dirac_from_coeffs``)
 ``sparse/bsr.py``                 ``sparse/bsr.py`` (``BsrMatrix``, RCM, packing)
@@ -45,7 +48,8 @@ Module map (port -> JAX package):
                                   ``sddmm``, ``dirac_apply_vf``/``fv``)
 ``sparse/kernels.py``             ``sparse/pallas_kernels.py`` (``bsr_matmul``,
                                   ``ell_matmul``, ``sddmm``; fp32 and bf16
-                                  variants)
+                                  variants; each a ``torch.library``
+                                  custom op ``snx::...`` too)
 ``sparse/csrc/spmm.cu``           the Pallas kernels' bodies, as CUDA for sm_90a
 ``sparse/_build.py``              (new) nvcc build + ctypes binding
 ``nn/layers.py``                  ``nn/layers.py``
@@ -73,12 +77,19 @@ Module map (port -> JAX package):
                                   check_finite`` (the port's ``torch.save``
                                   files and the JAX package's flax-msgpack
                                   files)
-``cli/common.py``                 ``cli/common.py`` (log, metrics and config
-                                  files, ``EpochSampler``, ``Throughput``)
+``config.py``                    ``config.py`` (``PRESETS``,
+                                  ``--config``/``--preset``,
+                                  ``dump_config``)
+``cli/common.py``                 ``cli/common.py`` (log and metrics files,
+                                  ``MetricFetcher``, ``EpochSampler``,
+                                  ``TieredSampler``, ``Throughput``)
+``cli/launch.py``                 ``cli/launch.py`` (the meta-launcher)
+``cli/export_model.py``           ``cli/export_model.py`` (Lap and Dirac
+                                  artifacts)
 ``cli/train_normal.py``           ``cli/train_normal.py`` (single-device
                                   ``--model lap`` and ``dirac`` paths)
 ``cli/train_correspondence.py``   ``cli/train_correspondence.py`` (single-device
-                                  Lap/dcel path)
+                                  paths, the host path past the budget)
 ``cli/train_arap.py``             ``cli/train_arap.py`` (single-device path,
                                   five models, ELL and ``--dense``)
 ``cli/train_mnist.py``            ``cli/train_mnist.py`` (single-device path,
@@ -87,7 +98,8 @@ Module map (port -> JAX package):
                                   ``lap dirac``, ``--dump-ply``)
 ``convert.py``                    (new) flax params -> ``state_dict``, optax
                                   state -> optimizer ``state_dict``
-``serve.py``                      ``serve.py`` + ``cli/export_model.py``
-                                  (``NormalServer``)
+``serve.py``                      ``serve.py`` (``export_forward``,
+                                  ``load``, ``export_info`` over
+                                  ``torch.export``; ``NormalServer``)
 ================================  =================================================
 """

@@ -1,7 +1,7 @@
-"""Shared trainer utilities (counterpart of ``surfacenetworks_tpu/cli/common.py``
-and ``config.py::dump_config``): the run's log file, the per-epoch metrics
-file, the run's config file, the epoch and the size-tiered samplers and the
-throughput meter.
+"""Shared trainer utilities (counterpart of ``surfacenetworks_tpu/cli/common.py``):
+the run's log file, the per-epoch metrics file, the run's config file
+(``config.dump_config``), the one-step-delayed metric fetch, the epoch and
+the size-tiered samplers and the throughput meter.
 Each writes the same files and lines as the JAX package's.
 """
 
@@ -13,6 +13,8 @@ import sys
 import time
 
 import numpy as np
+
+from surfacenetworks_tpu_torch.config import dump_config  # noqa: F401  (the trainers' one config writer)
 
 
 def make_logger(result_prefix: str, log_dir: str | None, debug: bool = False):
@@ -33,13 +35,6 @@ def make_logger(result_prefix: str, log_dir: str | None, debug: bool = False):
     return log
 
 
-def dump_config(args, path: str) -> None:
-    """The run's parsed flags as JSON at ``path``."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "w") as fp:
-        json.dump({k: v for k, v in vars(args).items() if not k.startswith("_")}, fp, indent=2, default=str)
-
-
 class MetricsLogger:
     """``write(epoch, split, **metrics)`` appends one JSON line to
     ``<log_dir>/<prefix>.metrics.jsonl`` (nothing with ``debug``).  NaNs are
@@ -58,6 +53,25 @@ class MetricsLogger:
         record.update({k: float(v) for k, v in metrics.items()})
         with open(self.path, "a") as fp:
             fp.write(json.dumps(record) + "\n")
+
+
+class MetricFetcher:
+    """One-step-delayed fetch of device scalars: ``push`` returns the
+    previous step's floats (None on the first call), so the host converts
+    step t's metrics while the device runs step t+1; ``flush`` drains the
+    last step."""
+
+    def __init__(self):
+        self._pending = None
+
+    def push(self, *device_scalars):
+        prev = self._pending
+        self._pending = device_scalars
+        return tuple(float(x) for x in prev) if prev is not None else None
+
+    def flush(self):
+        prev, self._pending = self._pending, None
+        return tuple(float(x) for x in prev) if prev is not None else None
 
 
 class EpochSampler:

@@ -23,7 +23,10 @@ checkpoint each epoch, here ``pts/<id>_<layer>_<model>.pt`` in the port's
 format.  Every valid pick is packed once and, unless ``--dense`` or
 ``--no-device-store`` is given or the 6 GiB budget is exceeded, the picks
 are uploaded once and a batch is an index gather on the device; otherwise
-each batch is stacked on the host and uploaded.  ``ArapTrainer`` also takes
+each train batch is stacked and pinned on a prefetch thread, where the picks
+are drawn, and uploaded without blocking (``data.pipeline.host_route``).
+``--config``/``--preset`` layer a JSON file or a named preset under the
+flags (``config.py``).  ``ArapTrainer`` also takes
 sequences handed in from code.  ``--bf16`` trains in mixed precision as the
 JAX trainer does (``dtype=torch.bfloat16``; ELL applies take bf16 x and
 return fp32, dense ones promote to fp32).  Flags of the JAX trainer that
@@ -41,10 +44,11 @@ import sys
 import numpy as np
 import torch
 
+from surfacenetworks_tpu_torch import config
 from surfacenetworks_tpu_torch.cli.common import MetricsLogger, Throughput, make_logger
 from surfacenetworks_tpu_torch.data import Buckets, arap_batch, datasets
 from surfacenetworks_tpu_torch.data.batching import IN_FRAMES, OUT_FRAMES
-from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, to_device
+from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, host_route, to_device
 from surfacenetworks_tpu_torch.models import init_weights
 from surfacenetworks_tpu_torch.models.arap_models import MODELS
 from surfacenetworks_tpu_torch.serve import resolve_device
@@ -70,12 +74,11 @@ parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 parser.add_argument("--bf16", action="store_true",
                     help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
                          "optimizer state and losses")
+config.add_config_flags(parser)
 # flags of the JAX trainer that later slices bring: refused when given
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
 parser.add_argument("--dump-rollout", default=None)
-parser.add_argument("--config", default=None)
-parser.add_argument("--preset", default=None)
 
 
 def refuse_unported(args) -> None:
@@ -84,7 +87,6 @@ def refuse_unported(args) -> None:
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
         "--dump-rollout (it draws with matplotlib)": args.dump_rollout is not None,
-        "--config and --preset": args.config is not None or args.preset is not None,
     }
     given = [k for k, v in refused.items() if v]
     if given:
@@ -201,6 +203,15 @@ class ArapTrainer:
             return to_device(self.packed.batch(picks), self.device)
         return self.store.batch(picks).gather()
 
+    def train_batches(self, n: int):
+        """The next ``n`` train batches on the device: gathered from the
+        device store, or on the host route built and pinned on a worker
+        thread (the picks drawn there, in the same order) and uploaded
+        without blocking."""
+        if self.store is None:
+            return host_route(self.sample_train_picks, self.packed, n, self.device)
+        return (self.batch(self.sample_train_picks()) for _ in range(n))
+
     def update(self, batch) -> torch.Tensor:
         loss = train_step(self.model, self.opt, batch, self.schedule)
         self.step += 1
@@ -211,8 +222,7 @@ class ArapTrainer:
         n = self.args.num_updates
         meter = Throughput()
         loss_sum = torch.zeros((), device=self.device)
-        for _ in range(n):
-            batch = self.batch(self.sample_train_picks())
+        for batch in self.train_batches(n):
             loss_sum += self.update(batch)
             meter.tick(batch.inputs.shape[0] * batch.inputs.shape[1])
         loss = float(loss_sum) / n
@@ -239,7 +249,7 @@ class ArapTrainer:
 
 def main(argv=None) -> dict:
     """Train; returns each epoch's train and test loss."""
-    args = parser.parse_args(argv)
+    args = config.parse_with_config(parser, argv)
     log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"))
     log(args)
     log(f"hostname {platform.node()}")

@@ -29,8 +29,14 @@ host) for the streaming head's backward.  Past ``DEVICE_BUDGET_BYTES`` of
 geodesic matrices (or with ``_FORCE_LIGHT``) dcel takes the light path: no
 geodesic matrix goes to the device, each pair's target is a chunked argmin
 on the host (``host_pair_target``), and the per-epoch test pass is
-skipped; sl1 and cel, which read the whole cost every step, are refused
-there.  ``--eval-only`` restores the checkpoint and reports the FAUST
+skipped.  sl1 and cel, which read the whole cost every step, take the JAX
+trainer's host path there: a prefetch thread draws each update's pair and
+rotations, rotates both shapes' inputs on the host (``rotate_host``) and
+builds the pair's padded ``[N, N]`` cost (``losses.aggregate_G``,
+``pad_cost``) in pinned memory, which the step uploads without blocking;
+the test pass assembles each pair the same way, with B's padded geodesic
+matrix.  ``--smooth-reg`` and ``--eval-only`` exit there, as in the JAX
+trainer.  ``--eval-only`` restores the checkpoint and reports the FAUST
 metrics over the test pairs (every pair when there are none) from a
 streaming argmax on the device, computed on the host (``host_corr_metrics``).
 Updates run one per step in the order of the epoch plan (the JAX trainer's
@@ -44,9 +50,10 @@ trainer's files: ``log/<prefix>.log``, ``log/<prefix>.metrics.jsonl``,
 ``cfg/<prefix>.json``, and checkpoints at ``pts/<prefix>_state.pt`` every
 10th epoch and at the end; with ``--deser-option auto`` (the default) or
 ``force`` it resumes from ``--deser-path`` or that checkpoint where the
-file exists (the port's ``.pt`` or the JAX package's ``.msgpack``).  The
-multi-device flags (``--graph-parallel``, ``--multihost`` and its
-coordinator flags) and ``--config``/``--preset`` are refused.
+file exists (the port's ``.pt`` or the JAX package's ``.msgpack``).
+``--config``/``--preset`` layer a JSON file or a named preset under the
+flags (``config.py``).  The multi-device flags (``--graph-parallel``,
+``--multihost`` and its coordinator flags) are refused.
 """
 
 from __future__ import annotations
@@ -61,7 +68,8 @@ import sys
 import numpy as np
 import torch
 
-from surfacenetworks_tpu_torch.cli.common import MetricsLogger, Throughput, dump_config, make_logger
+from surfacenetworks_tpu_torch import config
+from surfacenetworks_tpu_torch.cli.common import MetricFetcher, MetricsLogger, Throughput, dump_config, make_logger
 from surfacenetworks_tpu_torch.data import Buckets, correspondence_batch, datasets, round_up
 from surfacenetworks_tpu_torch.data.batching import (
     _fixed_k_operator,
@@ -69,6 +77,7 @@ from surfacenetworks_tpu_torch.data.batching import (
     fit_bsr_k,
     rcm_reorder_sample,
 )
+from surfacenetworks_tpu_torch.data.pipeline import Uploads, prefetch
 from surfacenetworks_tpu_torch.geometry import graph_ops, intrinsic
 from surfacenetworks_tpu_torch.models import SiameseModel, init_weights
 from surfacenetworks_tpu_torch.nn.layers import at_least_fp32
@@ -120,14 +129,13 @@ parser.add_argument("--intrinsic", action="store_true",
 parser.add_argument("--eval-only", action="store_true",
                     help="no training: restore the checkpoint and report FAUST metrics over the test pairs, "
                          "computed on the host")
-# flags of the JAX trainer's multi-device paths and its config presets: refused when given
+config.add_config_flags(parser)
+# flags of the JAX trainer's multi-device paths: refused when given
 parser.add_argument("--graph-parallel", type=int, default=0)
 parser.add_argument("--multihost", action="store_true")
 parser.add_argument("--coordinator-address", default=None)
 parser.add_argument("--num-processes", type=int, default=None)
 parser.add_argument("--process-id", type=int, default=None)
-parser.add_argument("--config", default=None)
-parser.add_argument("--preset", default=None)
 
 # the JAX trainer keeps every sample's [N, N] geodesic matrix on the device
 # below this estimate and takes its light path above it
@@ -145,13 +153,11 @@ _FORCE_LIGHT = False
 
 def refuse_unported(args) -> None:
     """Raise on any flag whose path the port does not have: the multi-device
-    paths and the config presets.  (sl1 and cel past the device budget, the
-    JAX trainer's host path, are refused once the budget is known.)"""
+    paths."""
     refused = {
         "--graph-parallel": args.graph_parallel != 0,
         "--multihost and its coordinator flags": args.multihost or any(
             v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)),
-        "--config and --preset": args.config is not None or args.preset is not None,
     }
     given = [k for k, v in refused.items() if v]
     if given:
@@ -204,6 +210,37 @@ def host_corr_metrics(pred: np.ndarray, sa: dict, sb: dict) -> dict:
     }
 
 
+def rotate_host(V: np.ndarray, rng: np.random.Generator, xz: bool, xy: bool) -> np.ndarray:
+    """The host path's rotation of one shape's fp32 inputs (the JAX
+    trainer's ``_rotate``): an XZ rotation, then an XY one, each by an
+    angle drawn from ``rng`` when its flag is set, in fp32."""
+    if xz:
+        t = rng.uniform(0, 2 * np.pi)
+        R = np.array([[np.cos(t), 0, np.sin(t)], [0, 1, 0], [-np.sin(t), 0, np.cos(t)]], np.float32)
+        V = V @ R
+    if xy:
+        t = rng.uniform(0, 2 * np.pi)
+        R = np.array([[np.cos(t), np.sin(t), 0], [-np.sin(t), np.cos(t), 0], [0, 0, 1]], np.float32)
+        V = V @ R
+    return V
+
+
+def pad_cost(agg: torch.Tensor, N: int, pin: bool = False) -> torch.Tensor:
+    """The pair's ``[N, N]`` cost as the JAX trainer's host path pads it
+    (``assemble_pair``): ``agg`` on its block, 0 below it, 1e9 on every
+    column past B's vertices (so the losses ignore them); in pinned memory
+    with ``pin``."""
+    na, nb = agg.shape
+    out = torch.zeros((N, N), dtype=torch.float32, pin_memory=pin)
+    out[:na, :nb] = agg
+    out[:, nb:] = 1e9
+    return out
+
+
+def _upload_tree(item: dict, device, non_blocking: bool) -> dict:
+    return {k: v.to(device, non_blocking=non_blocking) if isinstance(v, torch.Tensor) else v for k, v in item.items()}
+
+
 def rot_matrix(txz: float, txy: float, device, dtype=torch.float32) -> torch.Tensor:
     """``Rxz @ Rxy``: inputs are rotated by ``V @ Rxz @ Rxy``."""
     t = torch.tensor([txz, txy], dtype=dtype, device=device)
@@ -222,10 +259,14 @@ def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stre
     ``loss_fn(logits, GAB)`` over the full logits (sl1, cel); plus
     ``smooth_w`` times both shapes' smoothness terms.  ``target_inv`` is the
     target's cached inverse for the streaming head's backward
-    (``losses.target_inverse``)."""
+    (``losses.target_inverse``).  With ``rots`` None the inputs are taken as
+    they are (the host path rotates them on the host)."""
     dt, dev = da["inputs"].dtype, da["inputs"].device
-    inx = da["inputs"] @ rot_matrix(rots[0], rots[1], dev, dt)
-    iny = db["inputs"] @ rot_matrix(rots[2], rots[3], dev, dt)
+    if rots is None:
+        inx, iny = da["inputs"], db["inputs"]
+    else:
+        inx = da["inputs"] @ rot_matrix(rots[0], rots[1], dev, dt)
+        iny = db["inputs"] @ rot_matrix(rots[2], rots[3], dev, dt)
     fa, fb = model.features((da["op"], da["mask"]), (db["op"], db["mask"]), inx, iny)
     # the dcel head in fp32 whatever the features' dtype (bf16 under --bf16)
     fa32, fb32 = at_least_fp32(fa), at_least_fp32(fb)
@@ -307,12 +348,15 @@ class CorrespondenceTrainer:
         self.N = self.buckets.n_vertices
         est_bytes = len(data) * (self.N * self.N * 4 + 40 * self.N * 4)
         fits = est_bytes < DEVICE_BUDGET_BYTES
-        if not fits and args.loss != "dcel":
+        # sl1 and cel past the budget: the JAX trainer's host path
+        self.host_path = not fits and args.loss != "dcel"
+        if self.host_path:
+            if args.smooth_reg > 0:
+                raise SystemExit("--smooth-reg requires the single-device fast path (no --graph-parallel / --multihost)")
             if args.eval_only:
                 raise SystemExit("--eval-only needs the single-device fast path")
-            raise SystemExit(f"train_correspondence (PyTorch port): not ported yet: --loss {args.loss} with "
-                             f"geodesic matrices of {est_bytes / 1e9:.1f} GB past the device budget (the JAX "
-                             "trainer's host path)")
+            log(f"host path: geodesic matrices stay on host (est {est_bytes / 1e9:.1f} GB > HBM budget); each "
+                f"pair's [N, N] cost is built on a prefetch thread and uploaded every step")
         self.light = args.loss == "dcel" and (not fits or _FORCE_LIGHT)
         if self.light:
             log(f"light fast path: geodesic matrices stay on host (est {est_bytes / 1e9:.1f} GB > HBM budget); "
@@ -336,6 +380,7 @@ class CorrespondenceTrainer:
             log("streaming head ON by default (bucket >= 4096 vertices; --no-streaming-head opts out)")
         self.smooth_w = float(args.smooth_reg)
         self._dev: dict[int, dict] = {}
+        self.uploads = Uploads(self.device)
         self._targets: dict[tuple[int, int], torch.Tensor] = {}
         self._inverses: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -348,8 +393,8 @@ class CorrespondenceTrainer:
 
     def dev_sample(self, i: int) -> dict:
         """Sample ``i``'s operator, mask, inputs, padded geodesic matrix and
-        label tables (none of those three on the light path) and the
-        smoothness pattern on the device, built once."""
+        label tables (none of those three on the light path and the host
+        path) and the smoothness pattern on the device, built once."""
         hit = self._dev.get(i)
         if hit is not None:
             return hit
@@ -358,7 +403,7 @@ class CorrespondenceTrainer:
         entry = {"op": pack.operator.to(dev) if not isinstance(pack.operator, list)
                  else [o.to(dev) for o in pack.operator],
                  "mask": pack.mask.to(dev), "inputs": pack.inputs.to(dev), "n": sample["V"].shape[0]}
-        if not self.light:
+        if not (self.light or self.host_path):
             G, lab, li = pack.targets
             G_pad = np.zeros((N, N), np.float32)
             G_pad[: G.shape[0], : G.shape[1]] = G
@@ -437,36 +482,112 @@ class CorrespondenceTrainer:
         self.step += 1
         return loss
 
+    def assemble_pair(self, ia: int, ib: int, test: bool = False) -> dict:
+        """The host path's pair (the JAX trainer's ``assemble_pair``): A's
+        inputs, then B's, rotated by fresh draws (``rotate_host``) and
+        padded to ``[1, N, 3]``, and the pair's padded cost (``pad_cost`` of
+        ``losses.aggregate_G``); for a test pair also B's padded geodesic
+        matrix and the padded label tables.  Run on the card, every tensor
+        is in pinned memory: pinning is the only CUDA call of the prefetch
+        worker that runs this."""
+        pin, N = self.device.type == "cuda", self.N
+        sa, sb = self.data[ia], self.data[ib]
+        a = self.args
+        xs = [rotate_host(np.asarray(s["input"], np.float32), self.rng, a.xz_rotate, a.xy_rotate) for s in (sa, sb)]
+
+        def t(v, dt, n):  # zero-padded to n rows
+            out = np.zeros((n,) + np.shape(v)[1:], dt)
+            out[: len(v)] = v
+            out = torch.from_numpy(out)
+            return out.pin_memory() if pin else out
+
+        tables = [(torch.from_numpy(np.asarray(s["G"], np.float32)), torch.from_numpy(np.asarray(s["label"], np.int64)),
+                   torch.from_numpy(np.asarray(s["label_inv"], np.int64))) for s in (sa, sb)]
+        item = {"ia": ia, "ib": ib, "xa": t(xs[0], np.float32, N)[None], "xb": t(xs[1], np.float32, N)[None],
+                "GAB": pad_cost(losses.aggregate_G(*tables[0], *tables[1]), N, pin)}
+        if test:
+            GB = tables[1][0]
+            item["GB"] = torch.zeros((N, N), dtype=torch.float32, pin_memory=pin)
+            item["GB"][: GB.shape[0], : GB.shape[1]] = GB
+            item.update(lA=t(sa["label"], np.int64, N), lB=t(sb["label"], np.int64, N),
+                        liB=t(sb["label_inv"], np.int64, N))
+        return item
+
+    def update_host(self, item: dict) -> torch.Tensor:
+        """One host-path update on an assembled pair (``assemble_pair``):
+        its inputs and cost uploaded without blocking, then sl1 or cel over
+        the full logits."""
+        d = self.uploads(item, _upload_tree)
+        da = dict(self.dev_sample(d["ia"]), inputs=d["xa"])
+        db = dict(self.dev_sample(d["ib"]), inputs=d["xb"])
+        loss = train_step(self.model, self.opt, da, db, None, None, 0.0, False, None, self.loss_fn, d["GAB"])
+        self.step += 1
+        return loss
+
+    def host_items(self, n: int):
+        """The host path's next ``n`` train pairs, assembled on the prefetch
+        thread: each update's pair indices drawn, then its rotations
+        (``assemble_pair``), in the JAX trainer's order."""
+        def make_train_item(_i):
+            ia, ib = self.rng.integers(0, self.n_train, size=2)
+            return self.assemble_pair(int(ia), int(ib))
+
+        return prefetch(make_train_item, n)
+
+    def host_epoch(self) -> float:
+        """The host path's updates (the JAX trainer's host loop) over
+        ``host_items``; the losses fetched one step late (``MetricFetcher``)
+        and summed on the host."""
+        n, total = self.args.num_updates, 0.0
+        fetch = MetricFetcher()
+        for item in self.host_items(n):
+            vals = fetch.push(self.update_host(item))
+            total += vals[0] if vals is not None else 0.0
+        vals = fetch.flush()
+        return total + (vals[0] if vals is not None else 0.0)
+
     def train_epoch(self, epoch: int, metrics_log: MetricsLogger | None = None) -> float:
-        pair_idx, rots = self.epoch_plan()
         meter = Throughput()
-        total = torch.zeros((), device=self.device)
-        for (ia, ib), r in zip(pair_idx, rots):
-            total += self.update(int(ia), int(ib), r)
-            meter.tick()
-        mean = float(total) / len(pair_idx)
+        if self.host_path:
+            n = self.args.num_updates
+            mean = self.host_epoch() / n
+            meter.steps += n
+        else:
+            pair_idx, rots = self.epoch_plan()
+            total = torch.zeros((), device=self.device)
+            for (ia, ib), r in zip(pair_idx, rots):
+                total += self.update(int(ia), int(ib), r)
+                meter.tick()
+            mean = float(total) / len(pair_idx)
         self.log(f"Train epoch {epoch}, loss {mean}, {meter.report()}")
         if metrics_log is not None:
             metrics_log.write(epoch, "train", loss=mean, steps_per_s=meter.steps_per_s)
         return mean
 
     @torch.no_grad()
-    def eval_pair(self, ia: int, ib: int, rots) -> tuple[torch.Tensor, dict]:
+    def eval_pair(self, ia: int, ib: int, rots, item: dict | None = None) -> tuple[torch.Tensor, dict]:
         """Loss (dcel on the streaming head, else ``--loss``) and FAUST
-        metrics of one pair (B's columns masked)."""
+        metrics of one pair (B's columns masked); on the host path from the
+        pair ``assemble_pair(ia, ib, test=True)`` built (``item``: rotated
+        inputs, cost, B's geodesic matrix and the label tables, uploaded
+        here), as the JAX trainer's ``run_pair(train=False)``."""
         da, db = self.dev_sample(ia), self.dev_sample(ib)
-        inx = da["inputs"] @ rot_matrix(rots[0], rots[1], self.device)
-        iny = db["inputs"] @ rot_matrix(rots[2], rots[3], self.device)
-        GAB = self.aggregate_padded(da, db)
+        if item is None:
+            inx = da["inputs"] @ rot_matrix(rots[0], rots[1], self.device)
+            iny = db["inputs"] @ rot_matrix(rots[2], rots[3], self.device)
+            GAB = self.aggregate_padded(da, db)
+            lA, lB, liB, GB = da["l"], db["l"], db["li"], db["G"]
+        else:
+            d = self.uploads(item, _upload_tree)
+            inx, iny, GAB, lA, lB, liB, GB = (d[k] for k in ("xa", "xb", "GAB", "lA", "lB", "liB", "GB"))
         fa, fb = self.model.features((da["op"], da["mask"]), (db["op"], db["mask"]), inx, iny)
         fa, fb = at_least_fp32(fa), at_least_fp32(fb)
         if self.use_stream:
             pred = losses.streaming_corr_argmax(fa[0], fb[0], db["mask"][0, :, 0])
-            metrics = losses.corr_metrics_from_pred(pred, da["l"], db["l"], db["li"], db["G"], da["mask"][0, :, 0])
+            metrics = losses.corr_metrics_from_pred(pred, lA, lB, liB, GB, da["mask"][0, :, 0])
             return losses.corr_dcel_streaming(fa[0], fb[0], torch.argmin(GAB, dim=-1)), metrics
         logits = torch.einsum("bnc,bmc->bnm", fa, fb)[0]
-        metrics = losses.corr_accuracy_metrics(logits, da["l"], db["l"], db["li"], db["G"],
-                                               da["mask"][0, :, 0], db["mask"][0, :, 0])
+        metrics = losses.corr_accuracy_metrics(logits, lA, lB, liB, GB, da["mask"][0, :, 0], db["mask"][0, :, 0])
         return self.loss_fn(logits, GAB), metrics
 
     def test_pass(self, epoch: int, metrics_log: MetricsLogger | None = None) -> dict | None:
@@ -487,7 +608,10 @@ class CorrespondenceTrainer:
             pairs = random.Random(epoch).choices(pairs, k=min(20, len(pairs)))
         sums: dict[str, float] = {}
         for i, j in pairs:
-            loss, metrics = self.eval_pair(i, j, self.angles() + self.angles())
+            if self.host_path:
+                loss, metrics = self.eval_pair(i, j, None, self.assemble_pair(i, j, test=True))
+            else:
+                loss, metrics = self.eval_pair(i, j, self.angles() + self.angles())
             for k, v in {"loss": loss, **metrics}.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
         mean = {k: v / len(pairs) for k, v in sums.items()}
@@ -528,7 +652,7 @@ class CorrespondenceTrainer:
 def main(argv=None) -> dict:
     """Train; returns each epoch's mean train loss and test results (with
     ``--eval-only``, ``{"eval": metrics}`` and no training)."""
-    args = parser.parse_args(argv)
+    args = config.parse_with_config(parser, argv)
     log_dir = os.path.join(args.result_dir, "log")
     log = make_logger(args.result_prefix, log_dir)
     log(args)

@@ -23,7 +23,11 @@ epoch ...`` in ``log/<prefix>.log``, ``log/<prefix>.metrics.jsonl`` (the
 plot is not drawn: the card's machine has no matplotlib) and a checkpoint
 each epoch, here ``pts/<prefix>.pt`` in the port's format.  Every sample is
 packed alone with ``fmt='auto'`` (dense at mesh-MNIST sizes) and the
-dataset uploaded once; a batch is an index gather on the device.  The
+dataset uploaded once; a batch is an index gather on the device (past the
+6 GiB budget each train batch is built and pinned on a prefetch thread and
+uploaded without blocking, ``data.pipeline.host_route``).
+``--config``/``--preset`` layer a JSON file or a named preset under the
+flags (``config.py``).  The
 dropout masks come from a ``torch.Generator`` seeded with ``--seed`` on the
 device, so they differ from flax's draws.  ``MnistTrainer`` also takes
 samples and an operator format from code.  ``--bf16`` trains in mixed
@@ -42,9 +46,10 @@ import sys
 
 import torch
 
+from surfacenetworks_tpu_torch import config
 from surfacenetworks_tpu_torch.cli.common import EpochSampler, MetricsLogger, make_logger
 from surfacenetworks_tpu_torch.data import Buckets, datasets, mnist_batch
-from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, to_device
+from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, host_route, to_device
 from surfacenetworks_tpu_torch.models import init_weights
 from surfacenetworks_tpu_torch.models.mnist_models import MODELS, WIDTH, dropout_keep
 from surfacenetworks_tpu_torch.serve import resolve_device
@@ -67,11 +72,10 @@ parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 parser.add_argument("--bf16", action="store_true",
                     help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
                          "optimizer state and losses")
+config.add_config_flags(parser)
 # flags of the JAX trainer that later slices bring: refused when given
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
-parser.add_argument("--config", default=None)
-parser.add_argument("--preset", default=None)
 
 
 def refuse_unported(args, trainer: str) -> None:
@@ -80,7 +84,6 @@ def refuse_unported(args, trainer: str) -> None:
     refused = {
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
-        "--config and --preset": args.config is not None or args.preset is not None,
     }
     given = [k for k, v in refused.items() if v]
     if given:
@@ -157,6 +160,15 @@ class MeshMnistRun:
             return to_device(self.packed.batch(samples), self.device)
         return self.store.batch(samples).gather()
 
+    def train_batches(self, n: int):
+        """The next ``n`` train batches on the device: gathered from the
+        device store, or on the host route built and pinned on a worker
+        thread (the sampler's draws too, in the same order) and uploaded
+        without blocking."""
+        if self.store is None:
+            return host_route(self.train_sampler.next_batch, self.packed, n, self.device)
+        return (self.batch(self.train_sampler.next_batch()) for _ in range(n))
+
     def save(self, path: str, epoch: int) -> None:
         checkpoint.save_checkpoint(path, self.model, self.opt, epoch, self.step)
 
@@ -210,8 +222,8 @@ class MnistTrainer(MeshMnistRun):
         """An epoch of updates; logs and returns the mean loss and accuracy."""
         n = self.steps_per_epoch
         sums = torch.zeros(2, device=self.device)
-        for _ in range(n):
-            sums += torch.stack(self.update(self.batch(self.train_sampler.next_batch())))
+        for batch in self.train_batches(n):
+            sums += torch.stack(self.update(batch))
         loss, acc = (v / n for v in sums.tolist())
         self.log(f"Train epoch {epoch}, loss {loss}, acc {acc}")
         if metrics_log is not None:
@@ -235,7 +247,7 @@ class MnistTrainer(MeshMnistRun):
 
 def main(argv=None) -> dict:
     """Train; returns each epoch's train and test (loss, accuracy)."""
-    args = parser.parse_args(argv)
+    args = config.parse_with_config(parser, argv)
     log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"))
     log(args)
     log(f"hostname {platform.node()}")

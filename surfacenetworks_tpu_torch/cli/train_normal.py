@@ -49,7 +49,11 @@ every 10th epoch and at the end, and ``--deser`` resumes from the port's
 checkpoints or the JAX package's ``.msgpack`` files.  Every sample is packed
 once and the dataset uploaded once (a batch is an index gather on the
 device; one dataset per size tier); over a 6 GiB budget, or with
-``--no-device-store``, each batch is stacked on the host and uploaded.
+``--no-device-store``, each train batch is stacked and pinned on a prefetch
+thread, where the sampler draws, and uploaded without blocking
+(``data.pipeline.host_route``): the same batches and losses.  The epoch's
+sums stay on the device (``MetricAccumulator``).  ``--config``/``--preset``
+layer a JSON file or a named preset under the flags (``config.py``).
 ``--bf16`` trains in mixed precision as the JAX trainer does: the model
 computes in bf16 from fp32 parameters (``dtype=torch.bfloat16``; its output,
 the loss, the gradients and the optimizer state stay fp32) and BSR blocks
@@ -70,6 +74,7 @@ import tempfile
 import numpy as np
 import torch
 
+from surfacenetworks_tpu_torch import config
 from surfacenetworks_tpu_torch.cli.common import (
     EpochSampler,
     MetricsLogger,
@@ -80,7 +85,14 @@ from surfacenetworks_tpu_torch.cli.common import (
 )
 from surfacenetworks_tpu_torch.data import BucketSet, cascade_batch, datasets, dirac_batch, laplacian_batch, round_up
 from surfacenetworks_tpu_torch.data.batching import choose_operator_format, fit_bsr_k, rcm_reorder_sample
-from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, to_device
+from surfacenetworks_tpu_torch.data.pipeline import (
+    DeviceDataset,
+    MetricAccumulator,
+    PackedSamples,
+    host_route,
+    padded_vertex_count,
+    to_device,
+)
 from surfacenetworks_tpu_torch.geometry import dirac_coeffs, igl_style_laplacian, repair, vertex_normals
 from surfacenetworks_tpu_torch.models import (
     AvgModel,
@@ -135,6 +147,7 @@ parser.add_argument("--buckets", type=int, default=1,
 parser.add_argument("--cascade-levels", type=int, default=4, help="pyramid depth for --model cas")
 parser.add_argument("--rotate-augment", action="store_true",
                     help="rotate each train batch's inputs and targets by random rotations (JAX's draws)")
+config.add_config_flags(parser)
 # flags of the JAX trainer that later slices bring: refused when given
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
@@ -143,8 +156,6 @@ parser.add_argument("--multihost", action="store_true")
 parser.add_argument("--coordinator-address", default=None)
 parser.add_argument("--num-processes", type=int, default=None)
 parser.add_argument("--process-id", type=int, default=None)
-parser.add_argument("--config", default=None)
-parser.add_argument("--preset", default=None)
 
 
 def dirac_data(args) -> bool:
@@ -178,7 +189,6 @@ def refuse_unported(args) -> None:
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
         "--jax-profile": args.jax_profile is not None,
-        "--config and --preset": args.config is not None or args.preset is not None,
         "--multihost and its coordinator flags": args.multihost or any(
             v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)),
     }
@@ -415,6 +425,15 @@ class NormalTrainer:
             return to_device(self.packed.batch(samples), self.device)
         return self.store[self.bucketset.tier_index(samples)].batch(samples).gather()
 
+    def train_batches(self, n: int):
+        """The next ``n`` train batches on the device: gathered from the
+        device store, or on the host route built and pinned on a worker
+        thread (the sampler's draws too, in the same order) and uploaded
+        without blocking."""
+        if self.store is None:
+            return host_route(self.train_sampler.next_batch, self.packed, n, self.device)
+        return (self.batch(self.train_sampler.next_batch()) for _ in range(n))
+
     def rotation(self, batch_size: int) -> torch.Tensor | None:
         """The next update's rotations under ``--rotate-augment``, keyed by
         the updates taken; None without the flag."""
@@ -430,20 +449,18 @@ class NormalTrainer:
     def data_stats(self) -> str:
         if self.store is not None:
             return " + ".join(ds.stats() for ds in self.store.values())
-        return f"host batch assembly: {len(self.train_samples) + len(self.test_samples)} samples, each packed once"
+        return self.packed.cache.stats()
 
     def train_epoch(self, epoch: int, metrics_log: MetricsLogger | None = None) -> tuple[float, float]:
         """``--num-updates`` updates; logs and returns the mean loss and mad.
         A non-finite mean loss raises ``FloatingPointError``."""
         n = self.args.num_updates
         meter = Throughput()
-        sums = torch.zeros(2, device=self.device)
-        for _ in range(n):
-            batch = self.batch(self.train_sampler.next_batch())
-            loss, mad = self.update(batch)
-            sums += torch.stack([loss, mad])
-            meter.tick(batch.inputs.shape[0] * batch.inputs.shape[1])
-        loss_mean, mad_mean = (v / n for v in sums.tolist())
+        acc = MetricAccumulator()  # the sums stay on the device: one fetch an epoch
+        for batch in self.train_batches(n):
+            acc.add(*self.update(batch))
+            meter.tick(padded_vertex_count(batch))
+        loss_mean, mad_mean = (v / n for v in acc.sums())
         checkpoint.check_finite({"loss": loss_mean}, f"at epoch {epoch}")
         self.log("Train {}, loss {}, mad {}, {}".format(epoch, loss_mean, mad_mean, meter.report()))
         if metrics_log is not None:
@@ -481,7 +498,7 @@ class NormalTrainer:
 def main(argv=None) -> dict:
     """Train (or, with ``--only-forward-test``, evaluate once); returns each
     epoch's train and test (loss, mad)."""
-    args = parser.parse_args(argv)
+    args = config.parse_with_config(parser, argv)
     log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"), args.debug)
     log(args)
     log(f"hostname {platform.node()}")

@@ -25,7 +25,10 @@ flat meshes of the next test batch and writes the first N as
 comes from ``torch.Generator().manual_seed(999)`` and the reparametrisation
 noise from a ``torch.Generator`` seeded with ``--seed`` on the device, so
 both differ from the JAX package's draws.  Every sample is packed once and
-the dataset uploaded once unless ``--no-device-store``.  ``VaeTrainer`` also
+the dataset uploaded once unless ``--no-device-store`` (then each train
+batch is built and pinned on a prefetch thread and uploaded without
+blocking, ``data.pipeline.host_route``).  ``--config``/``--preset`` layer a
+JSON file or a named preset under the flags.  ``VaeTrainer`` also
 takes samples and an operator format from code.  ``--bf16`` trains in mixed
 precision as the JAX trainer does (bf16 blocks and convolutions; the latent
 heads, the noise, the reconstruction mean and the ELBO fp32).  Flags of the
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from surfacenetworks_tpu_torch import geometry as geo
+from surfacenetworks_tpu_torch import config
 from surfacenetworks_tpu_torch.cli.common import MetricsLogger, make_logger
 from surfacenetworks_tpu_torch.cli.train_mnist import MeshMnistRun, dtype, refuse_unported
 from surfacenetworks_tpu_torch.data import datasets, vae_batch
@@ -68,11 +72,10 @@ parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 parser.add_argument("--bf16", action="store_true",
                     help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
                          "optimizer state and losses")
+config.add_config_flags(parser)
 # flags of the JAX trainer that later slices bring: refused when given
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
-parser.add_argument("--config", default=None)
-parser.add_argument("--preset", default=None)
 
 FIXED_NOISE_SEED = 999
 
@@ -144,8 +147,8 @@ class VaeTrainer(MeshMnistRun):
         mean loss, bce and kld."""
         n, kw = self.steps_per_epoch, kld_weight(epoch)
         sums = torch.zeros(3, device=self.device)
-        for _ in range(n):
-            sums += torch.stack(self.update(self.batch(self.train_sampler.next_batch()), kw))
+        for batch in self.train_batches(n):
+            sums += torch.stack(self.update(batch, kw))
         loss, bce, kld = (v / n for v in sums.tolist())
         self.log(f"Train epoch {epoch}, loss {loss}, bce {bce}, kld {kld}")
         if metrics_log is not None:
@@ -189,7 +192,7 @@ class VaeTrainer(MeshMnistRun):
 
 def main(argv=None) -> dict:
     """Train; returns each epoch's train and test (loss, bce, kld)."""
-    args = parser.parse_args(argv)
+    args = config.parse_with_config(parser, argv)
     log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"))
     log(args)
     log(f"hostname {platform.node()}")

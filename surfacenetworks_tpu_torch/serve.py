@@ -1,10 +1,20 @@
-"""Serving normal prediction (counterpart of ``surfacenetworks_tpu/serve.py``
-and ``cli/export_model.py``).
+"""Serving normal prediction (counterpart of ``surfacenetworks_tpu/serve.py``).
 
-The JAX package exports a traced forward to a StableHLO artifact.  The port
-serves the ``nn.Module`` directly: ``NormalServer`` holds LapDeepModel on the
-card and answers requests, each one mesh ``(V [n,3], F [m,3])``, with
-per-vertex outputs ``[n,3]`` in the request's own vertex order::
+Two ways.  ``export_forward`` / ``load`` / ``export_info`` follow the JAX
+package's contract: a model's forward on one bucketed operator is exported
+once (``torch.export``) to bytes and served from them::
+
+    blob = serve.export_forward(model, state, operator, mask, example_inputs)
+    fn = serve.load(blob)
+    out = fn(inputs)          # [B, N, Cin] -> [B, N, Cout]
+
+The operator (and mask) are baked into the artifact by default; with
+``bake_operator=False`` they are runtime arguments, ``fn(inputs, mask,
+*operator leaves)`` (``operator_leaves``).  ``cli/export_model.py`` writes
+such artifacts for the Lap and Dirac models.  ``NormalServer`` serves the
+``nn.Module`` directly: it holds LapDeepModel on the card and answers
+requests, each one mesh ``(V [n,3], F [m,3])``, with per-vertex outputs
+``[n,3]`` in the request's own vertex order::
 
     server = NormalServer(model, state_dict, device="cuda", fmt="bsr")
     normals = server.serve([(V, F), ...])   # list of [n, 3] arrays
@@ -22,7 +32,9 @@ does, so each request is its own batch of one.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable
+import io
+import json
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
@@ -35,6 +47,7 @@ from surfacenetworks_tpu_torch.data.batching import (
     round_up,
 )
 from surfacenetworks_tpu_torch.geometry import igl_style_laplacian
+from surfacenetworks_tpu_torch.sparse import kernels
 
 ROW_MULTIPLE = 128
 
@@ -144,3 +157,149 @@ class NormalServer:
         reqs = [self.prepare(V, F) for V, F in meshes]
         self.device_ms = []
         return [self.answer(r) for r in reqs]
+
+
+# ---------------------------------------------------------------------------
+# exported artifacts (the JAX package's export_forward / load / export_info)
+# ---------------------------------------------------------------------------
+
+_META = "snx_meta.json"  # the artifact's own metadata, beside the program
+
+
+def operator_leaves(operator: Any) -> tuple[list[torch.Tensor], Any]:
+    """An operator's tensors in the order JAX's ``tree_flatten`` gives its
+    ``EllOperator``/``BsrOperator``/``DiracOperator`` (fields in order,
+    nested, None skipped; ints static), the port's own fields last (the
+    BSR live-chunk masks, the Dirac overflow map); and the structure that
+    ``operator_from_leaves`` rebuilds it from."""
+    leaves: list[torch.Tensor] = []
+
+    def spec(o):
+        if isinstance(o, torch.Tensor):
+            leaves.append(o)
+            return ("leaf",)
+        if dataclasses.is_dataclass(o):
+            return ("dataclass", type(o), [(f.name, spec(getattr(o, f.name))) for f in dataclasses.fields(o)])
+        if isinstance(o, (tuple, list)):
+            return ("seq", type(o), [spec(x) for x in o])
+        return ("const", o)  # None, ints
+
+    return leaves, spec(operator)
+
+
+def operator_from_leaves(structure: Any, leaves) -> Any:
+    """Inverse of ``operator_leaves``."""
+    it = iter(leaves)
+
+    def build(sp):
+        kind = sp[0]
+        if kind == "leaf":
+            return next(it)
+        if kind == "dataclass":
+            return sp[1](**{name: build(sub) for name, sub in sp[2]})
+        if kind == "seq":
+            return sp[1](build(sub) for sub in sp[2])
+        return sp[1]
+
+    return build(structure)
+
+
+class _Forward(torch.nn.Module):
+    """``model(operator, mask, inputs)`` with the operator and mask baked in
+    as buffers, or taken as ``forward(inputs, mask, *leaves)``."""
+
+    def __init__(self, model: torch.nn.Module, structure: Any, leaves: list, mask: torch.Tensor | None):
+        super().__init__()
+        self.model, self.structure = model, structure
+        self.n_leaves = len(leaves)
+        self.baked = mask is not None
+        if self.baked:
+            self.register_buffer("mask", mask)
+            for i, t in enumerate(leaves):
+                self.register_buffer(f"op_{i}", t)
+
+    def forward(self, inputs, *runtime):
+        if self.baked:
+            mask, leaves = self.mask, [getattr(self, f"op_{i}") for i in range(self.n_leaves)]
+        else:
+            mask, leaves = runtime[0], runtime[1:]
+        return self.model(operator_from_leaves(self.structure, leaves), mask, inputs)
+
+
+def _aval(t) -> str:
+    return f"{str(t.dtype).replace('torch.', '')}[{','.join(str(int(d)) for d in t.shape)}]"
+
+
+def export_forward(model: torch.nn.Module, state: dict | None, operator: Any, mask, example_inputs,
+                   bake_operator: bool = True, platforms: tuple[str, ...] | None = None) -> bytes:
+    """``model(operator, mask, inputs)`` exported (``torch.export``) and
+    serialised (``torch.export.save``) to bytes.
+
+    ``state`` (a ``state_dict``, e.g. from ``convert.params_from_flax`` or a
+    checkpoint), when given, replaces the model's weights.
+    ``example_inputs`` fixes the served bucket ``[B, N, Cin]``.  With
+    ``bake_operator`` the operator and ``mask`` are part of the artifact,
+    which takes ``inputs`` only; else it takes ``inputs, mask, *leaves``
+    (``operator_leaves``).  Batch norm stays on batch statistics, as in
+    ``NormalServer`` and the JAX package's ``model.apply``.  ``platforms``
+    names one device, ``("cuda",)`` (the default) or ``("cpu",)``: the
+    artifact holds the program for it, and the kernels as ``snx::`` custom
+    ops (``sparse/kernels.py``).
+
+    Known difference from the JAX package: its StableHLO artifact runs
+    without the model code and on several platforms.  A torch program runs
+    on the device it was exported for, and calls the ``snx::`` ops, so
+    ``load`` needs this package's ``sparse`` module imported (it registers
+    them, and builds the CUDA kernels from ``csrc/`` at their first launch).
+    """
+    platforms = tuple(platforms or ("cuda",))
+    if len(platforms) != 1 or platforms[0] not in ("cuda", "cpu"):
+        raise SystemExit(f"platforms {list(platforms)}: a torch artifact runs on one device, 'cuda' or 'cpu' (the JAX "
+                         "package's multi-platform StableHLO artifact has no torch counterpart)")
+    device = resolve_device(platforms[0])
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    model = model.to(device).eval()
+    leaves, structure = operator_leaves(operator)
+    leaves = [t.to(device) for t in leaves]
+    mask = torch.as_tensor(mask).to(device)
+    inputs = torch.as_tensor(example_inputs).to(device)
+    if bake_operator:
+        module, args = _Forward(model, structure, leaves, mask), (inputs,)
+    else:
+        module, args = _Forward(model, structure, leaves, None), (inputs, mask, *leaves)
+    with torch.no_grad(), kernels.through_ops():
+        program = torch.export.export(module, args)
+    out = [n for n in program.graph.nodes if n.op == "output"][0].args[0]
+    meta = {"platforms": list(platforms), "in_avals": [_aval(a) for a in args],
+            "out_avals": [_aval(o.meta["val"]) for o in out], "nr_devices": 1}
+    buf = io.BytesIO()
+    torch.export.save(program, buf, extra_files={_META: json.dumps(meta)})
+    return buf.getvalue()
+
+
+def _load_program(blob: bytes) -> tuple[Any, dict]:
+    extra = {_META: ""}
+    program = torch.export.load(io.BytesIO(blob), extra_files=extra)
+    return program, json.loads(extra[_META])
+
+
+def load(blob: bytes) -> Callable:
+    """The exported forward as a callable that takes what the artifact was
+    exported with (``inputs``, or ``inputs, mask, *operator leaves``) on
+    the artifact's device, and runs it without autograd."""
+    program, _ = _load_program(blob)
+    module = program.module()
+
+    def forward(*args):
+        with torch.no_grad():
+            return module(*args)
+
+    return forward
+
+
+def export_info(blob: bytes) -> dict:
+    """The artifact's platforms, input and output shapes and dtypes
+    (``float32[1,128,3]``) and device count, as the JAX package's
+    ``export_info`` gives them, without running it."""
+    return _load_program(blob)[1]

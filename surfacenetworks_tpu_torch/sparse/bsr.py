@@ -45,10 +45,11 @@ class BsrMatrix:
     def n_rows(self) -> int:
         return self.block_cols.shape[-2] * self.block_size
 
-    def to(self, device) -> "BsrMatrix":
+    def to(self, device, non_blocking: bool = False) -> "BsrMatrix":
         check_columns(self.block_cols, self.n_cols // self.block_size, "BSR block-column")
         return dataclasses.replace(
-            self, block_cols=self.block_cols.to(device), block_vals=self.block_vals.to(device)
+            self, block_cols=self.block_cols.to(device, non_blocking=non_blocking),
+            block_vals=self.block_vals.to(device, non_blocking=non_blocking)
         )
 
 
@@ -79,12 +80,12 @@ class BsrOperator:
     fwd_live: torch.Tensor | None = None  # uint8 [..., NB, KB]
     bwd_live: torch.Tensor | None = None
 
-    def to(self, device) -> "BsrOperator":
+    def to(self, device, non_blocking: bool = False) -> "BsrOperator":
         return BsrOperator(
-            fwd=self.fwd.to(device),
-            bwd=self.bwd.to(device),
-            fwd_live=None if self.fwd_live is None else self.fwd_live.to(device),
-            bwd_live=None if self.bwd_live is None else self.bwd_live.to(device),
+            fwd=self.fwd.to(device, non_blocking),
+            bwd=self.bwd.to(device, non_blocking),
+            fwd_live=None if self.fwd_live is None else self.fwd_live.to(device, non_blocking=non_blocking),
+            bwd_live=None if self.bwd_live is None else self.bwd_live.to(device, non_blocking=non_blocking),
         )
 
 

@@ -62,9 +62,10 @@ class EllMatrix:
     def k(self) -> int:
         return self.cols.shape[-1]
 
-    def to(self, device) -> "EllMatrix":
+    def to(self, device, non_blocking: bool = False) -> "EllMatrix":
         check_columns(self.cols, self.n_cols, "ELL column")
-        return dataclasses.replace(self, cols=self.cols.to(device), vals=self.vals.to(device))
+        return dataclasses.replace(self, cols=self.cols.to(device, non_blocking=non_blocking),
+                                   vals=self.vals.to(device, non_blocking=non_blocking))
 
 
 @dataclasses.dataclass
@@ -80,9 +81,9 @@ class EllOperator:
     bwd: EllMatrix  # ELL of the transpose
     fwd_t: tuple[torch.Tensor, torch.Tensor] | None = None  # int32 [..., n_cols, K_t] each
 
-    def to(self, device) -> "EllOperator":
-        fwd_t = None if self.fwd_t is None else tuple(t.to(device) for t in self.fwd_t)
-        return EllOperator(fwd=self.fwd.to(device), bwd=self.bwd.to(device), fwd_t=fwd_t)
+    def to(self, device, non_blocking: bool = False) -> "EllOperator":
+        fwd_t = None if self.fwd_t is None else tuple(t.to(device, non_blocking=non_blocking) for t in self.fwd_t)
+        return EllOperator(fwd=self.fwd.to(device, non_blocking), bwd=self.bwd.to(device, non_blocking), fwd_t=fwd_t)
 
     def transpose_map(self) -> tuple[torch.Tensor, torch.Tensor]:
         """``fwd``'s ``(t_slots, t_cols)``, built once, on the host."""
@@ -282,13 +283,14 @@ class DiracOperator:
     def n_faces(self) -> int:
         return self.faces.shape[-2]
 
-    def to(self, device) -> "DiracOperator":
+    def to(self, device, non_blocking: bool = False) -> "DiracOperator":
         check_columns(self.faces, self.n_vertices, "Dirac face vertex")
         check_columns(self.vf_face, self.n_faces, "Dirac incident face")
         if self.ov_map is not None:
             check_columns(self.ov_face, self.n_faces, "Dirac overflow face")
             check_columns(self.ov_map, self.ov_face.shape[-2] + 1, "Dirac overflow map entry")
-        return DiracOperator(**{f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+        return DiracOperator(**{f.name: None if getattr(self, f.name) is None
+                                else getattr(self, f.name).to(device, non_blocking=non_blocking)
                                 for f in dataclasses.fields(self)})
 
 

@@ -108,10 +108,23 @@ that contract.  The Pallas bodies differ from the XLA paths under bf16
 (``bsr_matmul`` keeps x in fp32, ``ell_matmul`` writes ``x.dtype``); the
 port follows the XLA paths.  Launches are counted per variant
 (``launches["bsr_matmul_bf16"]`` and so on).
+
+Each variant is also a ``torch.library`` custom op (``snx::ell_matmul``,
+``snx::bsr_matmul``, ``snx::sddmm`` and their ``_bf16`` variants): its CUDA
+implementation is the launch (or raise) that the wrapper makes, its CPU
+implementation the plain version, and its fake implementation gives the
+output's shape and dtype, so ``torch.export`` records a kernel as one opaque
+call of the op (``serve.export_forward``), which an exported program then
+dispatches to the same launch (counted as above).  The wrappers go through
+the ops inside ``through_ops()`` only; outside it they call the launch
+directly: the op's dispatch cost 24 us more host time per call on an
+NVIDIA H100 80GB HBM3 at 700.00 W (``chip_smoke.py``, 32-34 against 56-59
+us at [1, 7040, 128]), and the batch-1 steps are host-bound.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -124,9 +137,24 @@ KERNELS = ("bsr_matmul", "ell_matmul", "sddmm")
 launches = {name + suffix: 0 for suffix in ("", "_bf16") for name in KERNELS}
 
 
+_through_ops = [False]  # whether the wrappers call the snx:: ops (``through_ops``)
+
+
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def through_ops():
+    """Within the block the wrappers call the ``snx::`` custom ops (what an
+    exported program records and replays) instead of launching directly."""
+    prev = _through_ops[0]
+    _through_ops[0] = True
+    try:
+        yield
+    finally:
+        _through_ops[0] = prev
 
 
 def _batched(*ts: torch.Tensor) -> tuple[bool, list[torch.Tensor]]:
@@ -195,8 +223,17 @@ def bsr_matmul(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tens
     the kernel another.  Called directly with one, the two versions differ:
     the plain version raises, the kernel skips the slot rather than read out
     of bounds (checking here would cost a device sync per launch)."""
+    if _through_ops[0]:
+        op = torch.ops.snx.bsr_matmul_bf16 if block_vals.dtype == torch.bfloat16 else torch.ops.snx.bsr_matmul
+        return op(block_cols, block_vals, x, live)
     if x.device.type == "cpu":
         return bsr_matmul_plain(block_cols, block_vals, x)
+    return _bsr_launch(block_cols, block_vals, x, live)
+
+
+def _bsr_launch(block_cols: torch.Tensor, block_vals: torch.Tensor, x: torch.Tensor,
+                live: torch.Tensor | None = None) -> torch.Tensor:
+    """The CUDA launch of either BSR kernel (by the blocks' dtype), or raise."""
     _check_cuda("bsr_matmul", block_cols=block_cols, block_vals=block_vals, x=x)
     if block_cols.dtype != torch.int32:
         raise TypeError(f"bsr_matmul: block_cols must be int32, got {block_cols.dtype}")
@@ -262,8 +299,16 @@ def ell_matmul(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, window: 
     port's path.  Called directly with another, the plain version raises and
     the kernel skips the slot rather than read out of bounds."""
     del window
+    if _through_ops[0]:
+        op = torch.ops.snx.ell_matmul_bf16 if x.dtype == torch.bfloat16 else torch.ops.snx.ell_matmul
+        return op(cols, vals, x)
     if x.device.type == "cpu":
         return ell_matmul_plain(cols, vals, x)
+    return _ell_launch(cols, vals, x)
+
+
+def _ell_launch(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The CUDA launch of either ELL kernel (by x's dtype), or raise."""
     _check_cuda("ell_matmul", cols=cols, vals=vals, x=x)
     if cols.dtype != torch.int32:
         raise TypeError(f"ell_matmul: cols must be int32, got {cols.dtype}")
@@ -317,8 +362,16 @@ def sddmm(cols: torch.Tensor, vals: torch.Tensor, a: torch.Tensor, b: torch.Tens
     must lie in ``[0, N)`` (``EllMatrix.to`` checks); called directly with
     another, the plain version raises and the kernel writes 0 there."""
     del window
+    if _through_ops[0]:
+        op = torch.ops.snx.sddmm_bf16 if a.dtype == torch.bfloat16 else torch.ops.snx.sddmm
+        return op(cols, vals, a, b)
     if b.device.type == "cpu":
         return sddmm_plain(cols, vals, a, b)
+    return _sddmm_launch(cols, vals, a, b)
+
+
+def _sddmm_launch(cols: torch.Tensor, vals: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The CUDA launch of either SDDMM kernel (by a's dtype), or raise."""
     _check_cuda("sddmm", cols=cols, vals=vals, a=a, b=b)
     if cols.dtype != torch.int32:
         raise TypeError(f"sddmm: cols must be int32, got {cols.dtype}")
@@ -344,3 +397,38 @@ def sddmm(cols: torch.Tensor, vals: torch.Tensor, a: torch.Tensor, b: torch.Tens
     _raise_on(code, name)
     launches[name] += 1
     return out if batched else out[0]
+
+
+# ---------------------------------------------------------------------------
+# the custom ops: what torch.export records
+# ---------------------------------------------------------------------------
+
+
+def _ell_fake(cols, vals, x):
+    return x.new_empty(tuple(cols.shape[:-1]) + (x.shape[-1],), dtype=torch.promote_types(vals.dtype, x.dtype))
+
+
+def _bsr_fake(block_cols, block_vals, x, live=None):
+    acc = torch.promote_types(torch.promote_types(block_vals.dtype, x.dtype), torch.float32)
+    rows = block_cols.shape[-2] * block_vals.shape[-1]
+    return x.new_empty(tuple(block_cols.shape[:-2]) + (rows, x.shape[-1]), dtype=acc)
+
+
+def _sddmm_fake(cols, vals, a, b):
+    return a.new_empty(tuple(cols.shape), dtype=a.dtype)
+
+
+def _register(name: str, schema: str, launch, plain, fake) -> None:
+    op = torch.library.custom_op(f"snx::{name}", launch, mutates_args=(), device_types="cuda", schema=schema)
+    op.register_kernel("cpu", plain)
+    op.register_fake(fake)
+
+
+for _suffix in ("", "_bf16"):
+    _register("ell_matmul" + _suffix, "(Tensor cols, Tensor vals, Tensor x) -> Tensor", _ell_launch, ell_matmul_plain,
+              _ell_fake)
+    _register("bsr_matmul" + _suffix, "(Tensor block_cols, Tensor block_vals, Tensor x, Tensor? live) -> Tensor",
+              _bsr_launch, lambda block_cols, block_vals, x, live: bsr_matmul_plain(block_cols, block_vals, x),
+              _bsr_fake)
+    _register("sddmm" + _suffix, "(Tensor cols, Tensor vals, Tensor a, Tensor b) -> Tensor", _sddmm_launch,
+              sddmm_plain, _sddmm_fake)

@@ -45,6 +45,8 @@ import functools
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
+from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
 
 from surfacenetworks_tpu_torch.sparse import kernels
 from surfacenetworks_tpu_torch.sparse.bsr import BsrOperator
@@ -166,11 +168,20 @@ _HAMILTON = np.array([[0, 5, 6, 7], [1, 0, 7, 2], [2, 3, 0, 5], [3, 6, 1, 0]])
 
 
 @functools.lru_cache(maxsize=None)
-def _hamilton_index(slots: int, device: torch.device) -> torch.Tensor:
-    """For ``S`` slots, the column of ``cat([q, -q], -1).reshape(R, S*8)``
-    that each entry of the ``[4, S, 4]`` layout ``L(q_s)[i, j]`` reads."""
+def _hamilton_cached(slots: int, device: torch.device) -> torch.Tensor:
     idx = np.arange(slots)[None, :, None] * 8 + _HAMILTON[:, None, :]
     return torch.from_numpy(idx.reshape(-1)).to(device)
+
+
+def _hamilton_index(slots: int, device: torch.device) -> torch.Tensor:
+    """For ``S`` slots, the column of ``cat([q, -q], -1).reshape(R, S*8)``
+    that each entry of the ``[4, S, 4]`` layout ``L(q_s)[i, j]`` reads;
+    built once per device, always as a real tensor on it: while
+    ``torch.export`` traces, it enters the program as a constant on the
+    device (not a host array copied to it at every call, nor a fake tensor
+    left in the cache)."""
+    with unset_fake_temporarily(), disable_proxy_modes_tracing():
+        return _hamilton_cached(slots, device)
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The port's trainers take every command line the JAX package's take: each
 flag of a JAX trainer's parser is accepted by the port's, which runs it or
-refuses it by name ("not ported yet"); and the JAX FAUST command lines of
+refuses it by name ("not ported yet"), ``--config``/``--preset`` among the
+run ones; and the JAX FAUST command lines of
 ``tests/test_streaming_head.py`` parse with the port's parser, where
 ``--batch-size`` and ``--num-vertices`` are read by neither trainer and
 ``--no-epoch-scan`` is the order the port always runs.  ``--bf16`` is run,
@@ -64,22 +65,28 @@ def test_jax_faust_command_lines_parse(line):
 
 
 @pytest.mark.parametrize("flag", [["--config", "c.json"], ["--preset", "faust"]])
-def test_train_correspondence_refuses_config_flags(flag):
+def test_train_correspondence_refuses_config_flags(flag, tmp_path):
+    """``--config`` and ``--preset``, refused before they were ported, are
+    taken: a config file's values resolve and nothing is refused; a name
+    that is no preset (``faust``: the presets are ``faust-lap`` and
+    ``faust-dirac``) exits in the parser, as in the JAX package."""
     from surfacenetworks_tpu_torch.cli import train_correspondence as ttrain
 
-    with pytest.raises(SystemExit, match="not ported yet: --config and --preset"):
-        ttrain.refuse_unported(ttrain.parser.parse_args(flag))
+    from torch_parity import config_flag_taken
+
+    config_flag_taken(ttrain.parser, flag, tmp_path, ttrain.refuse_unported)
 
 
 @pytest.mark.parametrize("name", TRAINERS)
 def test_bf16_is_not_refused(name):
     """``--bf16`` (mixed precision) is on no trainer's refused list, while a
-    flag that is still refused is, by name, in the same call."""
+    flag that is still refused (``--graph-parallel``) is, by name, in the
+    same call."""
     mod = importlib.import_module(f"surfacenetworks_tpu_torch.cli.{name}")
     refuse = mod.refuse_unported if name not in ("train_mnist", "train_vae") else (
         lambda args: mod.refuse_unported(args, name))
     args = mod.parser.parse_args(["--bf16"])
     assert args.bf16
     refuse(args)
-    with pytest.raises(SystemExit, match="not ported yet: --config and --preset"):
-        refuse(mod.parser.parse_args(["--bf16", "--config", "c.json"]))
+    with pytest.raises(SystemExit, match="not ported yet: --graph-parallel"):
+        refuse(mod.parser.parse_args(["--bf16", "--graph-parallel", "2"]))

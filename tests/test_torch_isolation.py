@@ -1,8 +1,10 @@
 """The port imports nothing of JAX: ``surfacenetworks_tpu_torch`` and
 ``chip_smoke.py`` must import where jax, jaxlib, flax, optax, the JAX
 package, msgpack and matplotlib cannot be imported (as on the machine with
-the card, which has none of them), and no port source names them.  Also: the port's entry points refuse to run on the CPU
-unless asked, and ``chip_smoke.py`` fails without a card or without the
+the card, which has none of them), and no port source names them (the
+config presets, the launcher and the export entry point among them).  Also:
+the port's entry points refuse to run on the CPU unless asked
+(``export_model`` without ``--platforms cpu`` too), and ``chip_smoke.py`` fails without a card or without the
 package beside it."""
 
 import ast
@@ -32,6 +34,8 @@ class Refuse(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Refuse())
 import surfacenetworks_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for want in ("config", "cli.launch", "cli.export_model", "serve"):
+    assert pkg.__name__ + "." + want in names, want
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -77,7 +81,7 @@ def test_port_sources_name_no_jax():
 def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
     import torch
 
-    from surfacenetworks_tpu_torch.cli import train_arap, train_correspondence, train_normal
+    from surfacenetworks_tpu_torch.cli import export_model, train_arap, train_correspondence, train_normal
     from surfacenetworks_tpu_torch.models import LapDeepModel
     from surfacenetworks_tpu_torch.serve import NormalServer, resolve_device
 
@@ -93,6 +97,9 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_arap.main(["--data-path", str(REPO / "tests" / "fixtures" / "arap"), "--layer", "2",
                          "--result-dir", str(tmp_path), "--num-epoch", "1", "--num-updates", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_model.main(["--synthetic", "--layer", "2", "--out", str(tmp_path / "m.snx")])
+    assert not (tmp_path / "m.snx").exists()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

@@ -25,6 +25,7 @@ from surfacenetworks_tpu.models import SiameseModel as JSiameseModel
 from surfacenetworks_tpu.sparse import stack_operators as jstack_operators
 from surfacenetworks_tpu.train import losses as jlosses
 from surfacenetworks_tpu.train import optim as joptim
+from surfacenetworks_tpu_torch import config
 from surfacenetworks_tpu_torch.cli import train_correspondence as ttrain
 from surfacenetworks_tpu_torch.convert import params_from_flax
 from surfacenetworks_tpu_torch.train import losses as tlosses
@@ -305,14 +306,30 @@ def test_trainer_takes_its_scans_from_code(fmt):
 @pytest.mark.parametrize("flag", [["--graph-parallel", "2"], ["--multihost"], ["--config", "any.json"],
                                   ["--loss", "sl1", "past the budget"]])
 def test_train_correspondence_refuses_unported_flags(flag, tmp_path, monkeypatch):
-    """The multi-device flags, the config presets, and sl1 (or cel) with
-    geodesic matrices past the device budget (the JAX trainer's host path:
-    the budget set below the fixtures' 115 KB here) are refused."""
+    """The multi-device flags are refused by name.  ``--config`` and sl1
+    (or cel) with geodesic matrices past the device budget (the budget set
+    below the fixtures' 115 KB here), refused before they were ported, now
+    run: the config file's values are taken, and sl1 trains through the JAX
+    trainer's host path (``tests/test_torch_pipeline.py`` holds it to
+    JAX's)."""
+    argv = ["--datapath", str(FAUST), "--device", "cpu", "--result-dir", str(tmp_path), "--layer", "2",
+            "--num-updates", "2", "--num-epoch", "1"]
     if flag[-1] == "past the budget":
-        flag = flag[:-1]
         monkeypatch.setattr(ttrain, "DEVICE_BUDGET_BYTES", 1 << 10)
+        logged = []
+        trainer = ttrain.CorrespondenceTrainer(ttrain.parser.parse_args(argv + flag[:-1]), log=logged.append)
+        assert trainer.host_path and not trainer.light and any(m.startswith("host path") for m in logged)
+        loss = trainer.train_epoch(0)
+        assert np.isfinite(loss) and trainer.step == 2
+        return
+    if flag[0] == "--config":
+        (tmp_path / flag[1]).write_text(json.dumps({"seed": 23, "loss": "cel"}))
+        args = config.parse_with_config(ttrain.parser, ["--config", str(tmp_path / flag[1])])
+        assert (args.seed, args.loss) == (23, "cel")
+        ttrain.refuse_unported(args)
+        return
     with pytest.raises(SystemExit, match="not ported yet"):
-        ttrain.main(["--datapath", str(FAUST), "--device", "cpu", "--result-dir", str(tmp_path), *flag])
+        ttrain.main(argv + flag)
 
 
 @pytest.mark.parametrize("case", ["ties", "padded_rows"])

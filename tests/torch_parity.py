@@ -11,6 +11,7 @@ import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from surfacenetworks_tpu import geometry as jgeo
@@ -587,3 +588,29 @@ def dirac_operators(n_samples=2, seed=2):
     jb = jdirac_batch(js, JBuckets.for_samples(js))
     tb = tdirac_batch(ts, Buckets.for_samples(ts))
     return jax.tree_util.tree_map(jnp.asarray, jb.operator), tb.operator, np.asarray(tb.mask)
+
+
+def config_flag_taken(parser, flag: list, tmp_path, refuse) -> None:
+    """A trainer's ``--config FILE`` (written here: ``{"seed": 23}``) or
+    ``--preset NAME`` now resolves and passes ``refuse`` (the trainer's
+    ``refuse_unported``); a name that is no preset exits in the parser
+    (code 2), as it does in the JAX package's."""
+    import json
+
+    from surfacenetworks_tpu import config as jconfig
+    from surfacenetworks_tpu_torch import config as tconfig
+
+    if flag[0] == "--config":
+        path = tmp_path / flag[1]
+        path.write_text(json.dumps({"seed": 23}))
+        args = tconfig.parse_with_config(parser, ["--config", str(path)])
+        assert args.seed == 23 and args.config == str(path)
+    elif flag[1] not in jconfig.PRESETS:
+        with pytest.raises(SystemExit) as e:
+            tconfig.parse_with_config(parser, flag)
+        assert e.value.code == 2
+        return
+    else:
+        args = tconfig.parse_with_config(parser, flag)
+        assert args.preset == flag[1] and all(getattr(args, k) == v for k, v in tconfig.PRESETS[flag[1]].items())
+    refuse(args)
