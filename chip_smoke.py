@@ -10,7 +10,7 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives fifteen paths, each with the launch counts set to 0 just before it
+drives eighteen paths, each with the launch counts set to 0 just before it
 and read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
@@ -122,7 +122,35 @@ and read just after:
 * the reference's presets: ``train_normal --preset normal-lap`` and
   ``normal-dirac`` at their batch of 32 on 40 synthetic 7,000-vertex
   meshes, 4 updates and the test pass each (ELL for Lap: 32 launches a
-  step, each over 32 operators).
+  step, each over 32 operators);
+* the offline stage into the trainers: ``cli/preprocess.py mnist``,
+  ``normal`` (lap and ``--operator dirac``) and ``arap``, each as its own
+  process with a worker per core, on 192 seeded digits written as MNIST idx
+  files, 5 synthetic 7,000-vertex meshes written as ``.obj`` and
+  ``synthetic_arap_sequences(5, 50, 2000)``'s frames written as ``.obj``
+  directories; then ``train_mnist`` (Model-5, ELL, batch 64, 4 updates),
+  ``train_normal`` (Lap-15 ELL, 8 updates; Dir-15, 4) and ``train_arap``
+  (Model-15 ELL, batch 32, 4 updates) on the files: launches per step (20,
+  32, none, 32), step 0 against fp64 module by module (the detached mutants
+  refused), every run repeated bit for bit, and the Lap run's losses, test
+  metrics and weights bit-identical to a run on the ``.obj`` trees through
+  the lazy path;
+* the large-mesh trunk (``benchmarks/large_mesh.py``'s configuration):
+  LapDeepModel-15 at width 128 with ``remat=True`` on ``random_blob_mesh``
+  at 25,000 and 100,000 vertices, BSR over RCM order, one forward and
+  backward of the masked magnitude loss, fp32 and at 100,000 also bf16: 48
+  launches (16 forward, 16 backward, 16 replays), the device busy and peak
+  memory; at 25,000 the same step without remat bit-identical (its peak
+  beside), the BSR apply element by element and the output against fp64;
+* ``train_normal --jax-profile DIR`` on Lap-15 ELL for 2 updates (run
+  before the export phase, whose ``torch.export`` costs later traces in the
+  process some kernel records): the Chrome trace must hold 32
+  ``ell_spmm_kernel`` events a step.
+
+Before the kernels, the native host runtime (``native/``, its own ``g++``
+build) is held against the NumPy route bit for bit on a 7,000-vertex mesh
+(``dirac_coeffs``, both ELL packers from (V, F), the one-pass CSR packer,
+``vertex_normals``) and both are timed on the host.
 
 Mixed precision (``--bf16``) adds a kernel phase and a training phase:
 
@@ -241,8 +269,10 @@ EXPECTED_PER_STEP = {
     "bsr": launches_of(bsr_matmul=64, ell_matmul=5, sddmm=2),
 }
 # The rest of FAUST correspondence (the "faust zoo"): the same trainer,
-# data, widths and depth as the train phase (TRAIN_ARGS on FAUST_DATA:
-# width 128, 120-d features, 15 layers, --smooth-reg 0.1, --xz-rotate),
+# data and widths as the train phase (TRAIN_ARGS on FAUST_DATA: width 128,
+# 120-d features, --smooth-reg 0.1, --xz-rotate) at FAUST_ZOO_LAYERS layers
+# (the train phase runs 15; cut to keep the whole smoke near its time, the
+# amp trunk still reaches its pyramid's third level at layer 4),
 # FAUST_ZOO_STEPS updates and the test pass per run, each run repeated from
 # its start bit for bit.  Per run (operator format, flags): the amp trunk on
 # the squared-Laplacian pyramid (every level packed at the pyramid's widest
@@ -251,15 +281,18 @@ EXPECTED_PER_STEP = {
 # operator; mlp in ELL); the sl1 and cel losses (lap, full logits); the lap trunk in
 # ELL and BSR with and without --remat; --intrinsic; and the light path
 # forced through ``_FORCE_LIGHT``.  Launches per step: the trunk's applies
-# (16 per trunk forward, 32 with --remat's recompute, two trunks, forward
-# and backward) plus the smoothness terms' 2 SDDMMs and their backward's 4
-# ELL sums, plus the streaming dcel head's mirror (1; sl1 and cel have the
-# full-logits head and no mirror).  A test pair runs the forward: 32
-# applies where the trunk reads an operator; the light path skips the test
-# pass.  --remat and the light path must give their plain runs' losses and
+# (FAUST_ZOO_APPLIES per trunk forward, half as many again with --remat's
+# recompute, two trunks, forward and backward) plus the smoothness terms' 2
+# SDDMMs and their backward's 4 ELL sums, plus the streaming dcel head's
+# mirror (1; sl1 and cel have the full-logits head and no mirror).  A test
+# pair runs the two trunks' forwards where the trunk reads an operator; the
+# light path skips the test pass.  --remat and the light path must give their plain runs' losses and
 # weights bit for bit; step 0 of amp and dir is held against fp64 module by
 # module with the train phase's bounds.
 FAUST_ZOO_STEPS = 4
+FAUST_ZOO_LAYERS = 7
+FAUST_ZOO_DEPTH = ("--layer", str(FAUST_ZOO_LAYERS))
+FAUST_ZOO_APPLIES = 2 * ((FAUST_ZOO_LAYERS + 1) // 2)  # two a Lap block, Lap blocks on even layers: 8
 FAUST_ZOO_RUNS = {
     "amp": ("ell", ("--model", "amp")), "dir": ("auto", ("--model", "dir")),
     "avg": ("auto", ("--model", "avg")), "mlp": ("ell", ("--model", "mlp")),
@@ -269,15 +302,16 @@ FAUST_ZOO_RUNS = {
     "intrinsic": ("ell", ("--intrinsic",)), "light": ("ell", ()),
 }
 FAUST_ZOO_PER_STEP = {
-    **{k: launches_of(ell_matmul=64 + 4 + 1, sddmm=2) for k in ("amp", "lap ell", "intrinsic", "light")},
+    **{k: launches_of(ell_matmul=4 * FAUST_ZOO_APPLIES + 4 + 1, sddmm=2)
+       for k in ("amp", "lap ell", "intrinsic", "light")},
     **{k: launches_of(ell_matmul=4 + 1, sddmm=2) for k in ("dir", "avg", "mlp")},
-    **{k: launches_of(ell_matmul=64 + 4, sddmm=2) for k in ("sl1", "cel")},
-    "remat ell": launches_of(ell_matmul=96 + 4 + 1, sddmm=2),
-    "lap bsr": launches_of(bsr_matmul=64, ell_matmul=5, sddmm=2),
-    "remat bsr": launches_of(bsr_matmul=96, ell_matmul=5, sddmm=2),
+    **{k: launches_of(ell_matmul=4 * FAUST_ZOO_APPLIES + 4, sddmm=2) for k in ("sl1", "cel")},
+    "remat ell": launches_of(ell_matmul=6 * FAUST_ZOO_APPLIES + 4 + 1, sddmm=2),
+    "lap bsr": launches_of(bsr_matmul=4 * FAUST_ZOO_APPLIES, ell_matmul=5, sddmm=2),
+    "remat bsr": launches_of(bsr_matmul=6 * FAUST_ZOO_APPLIES, ell_matmul=5, sddmm=2),
 }
-FAUST_ZOO_PER_TEST = {k: launches_of(**({"bsr_matmul": 32} if k.endswith("bsr") else {"ell_matmul": 32}))
-                      for k in FAUST_ZOO_RUNS}
+FAUST_ZOO_PER_TEST = {k: launches_of(**{("bsr_matmul" if k.endswith("bsr") else "ell_matmul"):
+                                         2 * FAUST_ZOO_APPLIES}) for k in FAUST_ZOO_RUNS}
 FAUST_ZOO_PER_TEST.update({k: launches_of() for k in ("dir", "avg", "mlp", "light")})
 FAUST_ZOO_SAME = {"remat ell": "lap ell", "remat bsr": "lap bsr", "light": "lap ell"}  # bit for bit
 # The amp trunk's step 0 against fp64 is reported, not held: on these scans
@@ -288,10 +322,10 @@ FAUST_ZOO_SAME = {"remat ell": "lap ell", "remat bsr": "lap bsr", "light": "lap 
 # held module by module against the same modules in fp32 with the kernels'
 # plain versions instead (``plain_step0_check``), which round and overflow
 # at the same places and differ only in the applies' summation order.  On
-# the card the chain read 2.4e-6 and the parameters 2.1e-6, the detached
-# mutant's chain 8.5e2; the fp64 replay read about 1.0 for the real step
-# and the mutant alike, and all 128 channels of the six level-2 blocks
-# overflow (PERF.md, section 6).
+# the card, at 15 layers, the chain read 2.4e-6 and the parameters 2.1e-6,
+# the detached mutant's chain 8.5e2; the fp64 replay read about 1.0 for the
+# real step and the mutant alike, and all 128 channels of the six level-2
+# blocks overflow (PERF.md, section 6).
 FAUST_AMP_PLAIN_CHAIN_RTOL = 1e-4
 FAUST_AMP_PLAIN_PARAM_RTOL = 1e-4
 # Step 0 on the card (fp32, kernels) against the same step in fp64 with
@@ -336,8 +370,9 @@ NORMAL_RESUME_AFTER = 4  # the checkpoint is saved after this many updates
 # gradients 0.20, the detached mutant's chain 1.0 (PERF.md, section 6).
 NORMAL_STEP0_LOSS_RTOL = 0.1
 # The rest of the normal zoo: the normal trainer at the normal phase's data
-# and widths (LapDeepModel's WIDTH 128, depth 15, batch 1, ~7,000-vertex
-# meshes) with --model gat (8 GatResNet2 blocks of 4 heads and 7 Avg
+# and widths (LapDeepModel's WIDTH 128, batch 1, ~7,000-vertex meshes) at
+# ZOO_LAYERS layers (the normal phase runs 15; cut to keep the whole smoke
+# near its time) with --model gat (4 GatResNet2 blocks of 4 heads and 3 Avg
 # blocks; ELL over RCM order, whatever the format flag says; here with
 # --flip-variants 1, so 4 more train meshes), avg, mlp and id, 4 updates
 # and the test pass each, and gat with --bf16.  None of them launches a
@@ -347,13 +382,14 @@ NORMAL_STEP0_LOSS_RTOL = 0.1
 # normal phase's bounds (GAT's fp64 reference attends over the same ELL
 # pattern; the bf16 run's modules too, from its bf16 inputs), the parameters
 # that are zero in exact arithmetic by size (ZOO_NULL_GRADS); a GAT whose
-# attends return detached outputs must fail that check.  On the card the
-# fp32 runs' chain read at most 6.2e-6 and their parameter gradients 9.0e-5,
+# attends return detached outputs must fail that check.  On the card, at 15
+# layers, the fp32 runs' chain read at most 6.2e-6 and their parameter gradients 9.0e-5,
 # the bf16 GAT run's 5.4e-3 and 0.28 (bf16 rounding in batch-norm bias
 # gradients whose rows cancel), the detached attends' chain 0.75 (PERF.md,
 # section 6).
 ZOO_STEPS = 4
-ZOO_ARGS = ["--synthetic", "5", "--synthetic-points", "7000", "--seed", "0", "--layer", str(LAYERS),
+ZOO_LAYERS = 7
+ZOO_ARGS = ["--synthetic", "5", "--synthetic-points", "7000", "--seed", "0", "--layer", str(ZOO_LAYERS),
             "--batch-size", "1", "--num-updates", str(ZOO_STEPS), "--num-epoch", "1", "--device", "cuda"]
 ZOO_RUNS = {"gat": ["--model", "gat", "--flip-variants", "1"], "avg": ["--model", "avg"], "mlp": ["--model", "mlp"],
             "id": ["--model", "id"], "gat bf16": ["--model", "gat", "--bf16"]}
@@ -363,11 +399,11 @@ ZOO_RUNS = {"gat": ["--model", "gat", "--flip-variants", "1"], "avg": ["--model"
 # fc biases are; IdDeepModel's last block output reaches only conv2's 'pre'
 # batch norm, so its last conv's biases are.
 ZOO_NULL_GRADS = {
-    "mlp": {"conv1.fc.bias"} | {f"rn{i}.fc{j}.fc.bias" for i in range(LAYERS) for j in (0, 1)},
-    "id": {f"rn{LAYERS - 1}.bn_fc1.fc.bias", f"rn{LAYERS - 1}.bn_fc1.bn.bias"},
+    "mlp": {"conv1.fc.bias"} | {f"rn{i}.fc{j}.fc.bias" for i in range(ZOO_LAYERS) for j in (0, 1)},
+    "id": {f"rn{ZOO_LAYERS - 1}.bn_fc1.fc.bias", f"rn{ZOO_LAYERS - 1}.bn_fc1.bn.bias"},
 }
 GAT_RANGE = "gat attend"  # the profiler range around each attend's forward in the profiled step
-GAT_ATTENDS = 2 * ((LAYERS + 1) // 2)  # two a GAT block, GAT blocks on even layers
+GAT_ATTENDS = 2 * ((ZOO_LAYERS + 1) // 2)  # two a GAT block, GAT blocks on even layers
 # The multiresolution cascade (``--model cas``): EfficientCascade(3, 3) at
 # the JAX trainer's defaults (4 pyramid levels, width 128, 2 inner layers),
 # batch 1, on the normal cell's data: the finest bucket of 7,000 rows (the
@@ -1364,13 +1400,59 @@ def device_rows(prof) -> list[tuple[float, int, str]]:
     return sorted(rows, reverse=True)
 
 
+# Every profiled region's port kernels in the trace against the launch
+# counters' rise in it (``counted_profile``, ``profile_gap``): the profiler
+# can lose device records (PERF.md, section 7), which would make the busy
+# times read short.  Reported for every region; held where a phase says so.
+PROFILE_GAPS: list = []
+
+
+@contextlib.contextmanager
+def counted_profile():
+    """``torch.profiler`` (CPU and CUDA activities) over the region; the
+    launch counters' rise inside it is kept as ``prof.launched``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        before = dict(port_kernels.launches)
+        yield prof
+    prof.launched = {k: port_kernels.launches[k] - before[k] for k in before}
+
+
+def traced_launches(names) -> dict:
+    """The port's kernels among device event names, by launch counter."""
+    import re
+
+    pats = {k: re.compile(rf"\b{sym}\b") for k, sym in KERNEL_SYMBOLS.items()}
+    counts = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for name, n in names:
+        for k, pat in pats.items():
+            if pat.search(name):
+                counts[k] += n
+    return counts
+
+
+def profile_gap(where: str, prof, rows: list) -> dict:
+    """The port's kernels among ``rows`` (``device_rows`` of ``prof``, a
+    ``counted_profile``) against the launch counters' rise in the region:
+    kept in PROFILE_GAPS, logged where they differ.  Returns {counter:
+    launched - traced} where they differ."""
+    traced = traced_launches((key, count) for _, count, key in rows)
+    gap = {k: prof.launched[k] - traced[k] for k in traced if prof.launched[k] != traced[k]}
+    PROFILE_GAPS.append({"where": where, "launched": sum(prof.launched.values()), "traced": sum(traced.values()),
+                         "gap": gap})
+    if gap:
+        log(f"    profiler vs launch counters ({where}): {sum(prof.launched.values())} launched, "
+            f"{sum(traced.values())} in the trace; launched minus traced {gap}")
+    return gap
+
+
 def profile_phase(served: dict) -> dict:
     """Where one forward's time goes: host wall time of a synchronised
     forward, and the device time of its kernels from ``torch.profiler``
     (events on the device only: the host operators that launch them carry
     the same time again)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     out = {}
     for fmt, (server, req) in served.items():
@@ -1380,9 +1462,10 @@ def profile_phase(served: dict) -> dict:
             t0 = time.perf_counter()
             server.answer(req)
             walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with counted_profile() as prof:
             server.answer(req)
         rows = device_rows(prof)
+        profile_gap(f"serve {fmt}", prof, rows)
         busy_ms = sum(r[0] for r in rows) / 1e3
         wall = sorted(walls)[len(walls) // 2]
         log(f"  {fmt}: host wall per forward {wall:.3f} ms (median of 5); device busy {busy_ms:.3f} ms "
@@ -1489,10 +1572,10 @@ def _plain_head(trainer, fa, fb, ia, ib):
                                       + _plain_smoothness(trainer.dev_sample(ib)["reg_op"], fb))
 
 
-def _model(state0, device, dtype, model: str = "lap"):
+def _model(state0, device, dtype, model: str = "lap", layers: int = LAYERS):
     from surfacenetworks_tpu_torch.models import SiameseModel
 
-    model = SiameseModel(model, LAYERS)
+    model = SiameseModel(model, layers)
     model.load_state_dict(state0)
     return model.to(device, dtype)
 
@@ -1528,7 +1611,7 @@ def _dense_step0(trainer, state0, ia, ib, rots, dense, dtype):
     plain SDDMM (no kernel), in ``dtype``.  Returns (loss, gradients)."""
     from surfacenetworks_tpu_torch.cli.train_correspondence import rot_matrix
 
-    model = _model(state0, trainer.device, dtype, trainer.args.model)
+    model = _model(state0, trainer.device, dtype, trainer.args.model, trainer.args.layer)
     args = []
     for k, i in enumerate((ia, ib)):
         d = trainer.dev_sample(i)
@@ -1742,7 +1825,7 @@ def _detached_step0(trainer, state0, ia, ib, rots, mutant=None):
 
     from surfacenetworks_tpu_torch.cli.train_correspondence import objective
 
-    model = _model(state0, trainer.device, torch.float32, trainer.args.model)
+    model = _model(state0, trainer.device, torch.float32, trainer.args.model, trainer.args.layer)
     cap = StepCapture(model.trunk)
     try:
         with (mutant or detached_applies)():
@@ -1783,7 +1866,8 @@ def step0_check(fmt, trainer, state0, res, ia, ib, rots, mutant=None, plain32: b
         failures.append(f"{fmt}: step-0 loss {res['loss'][0]} vs fp64 {ref_loss}")
     res["step0"] = {"loss_rel": loss_rel, "whole_grad_fro_median": float(np.median(list(whole.values())))}
     runs = {label: {**output_head(cap, loss, lambda fa, fb: _plain_head(trainer, fa, fb, ia, ib)),
-                    **replay_modules(cap, grads, _model(state0, trainer.device, torch.float64, trainer.args.model).trunk,
+                    **replay_modules(cap, grads, _model(state0, trainer.device, torch.float64, trainer.args.model,
+                                                         trainer.args.layer).trunk,
                                      lambda name, k, op: _block_op(dense[k], name), torch.float64, "trunk.")}
             for label, (loss, grads, cap) in {"real": (res["loss"][0], res["grads0"], res["capture"]),
                                               "mutant detached applies": _detached_step0(trainer, state0, ia, ib,
@@ -1984,12 +2068,12 @@ def faust_zoo_phase(device, smi: str, data: list) -> tuple[dict, dict]:
             t0 = time.perf_counter()
             tc._FORCE_LIGHT = label == "light"
             try:
-                frun, state0, restore = faust_run(fmt, data, FAUST_ZOO_STEPS, extra)
+                frun, state0, restore = faust_run(fmt, data, FAUST_ZOO_STEPS, extra + FAUST_ZOO_DEPTH)
             finally:
                 tc._FORCE_LIGHT = False
             trainer = frun.t
-            log(f"  faust {label}: trunk {type(trainer.model.trunk).__name__}, operator {trainer.model_key}, format "
-                f"{trainer.fmt}, bucket {trainer.N}, ell_k {trainer.buckets.ell_k}, loss {trainer.args.loss}, "
+            log(f"  faust {label}: trunk {type(trainer.model.trunk).__name__}-{trainer.args.layer}, operator "
+                f"{trainer.model_key}, format {trainer.fmt}, bucket {trainer.N}, ell_k {trainer.buckets.ell_k}, loss {trainer.args.loss}, "
                 f"streaming head {trainer.use_stream}, light {trainer.light}; set-up {time.perf_counter() - t0:.2f} s")
             res = {}
             if label == "amp":
@@ -2033,7 +2117,8 @@ def faust_zoo_phase(device, smi: str, data: list) -> tuple[dict, dict]:
                 if label == "amp":
                     log(f"  faust amp: against fp64 {'; '.join(fp64) or 'within the bounds'} (reported, not held: "
                         f"{amp_overflow_report(res['capture'])})")
-                    failures += plain_step0_check("faust amp", res, _model(state0, device, torch.float32, "amp").trunk,
+                    failures += plain_step0_check("faust amp", res, _model(state0, device, torch.float32, "amp",
+                                                                           FAUST_ZOO_LAYERS).trunk,
                                                   "trunk.", FAUST_AMP_PLAIN_CHAIN_RTOL, FAUST_AMP_PLAIN_PARAM_RTOL,
                                                   "step0_plain")
                 else:
@@ -2107,8 +2192,9 @@ def eval_only_check(trainer, tmp: str, smi: str) -> list[str]:
     ckpt = os.path.join(tmp, "amp_state.pt")
     trainer.save(ckpt, 0)
     t0 = time.perf_counter()
-    host = tc.main(TRAIN_ARGS + ["--operator-format", "ell", *FAUST_ZOO_RUNS["amp"][1], "--eval-only",
-                                 "--deser-option", "auto", "--deser-path", ckpt, "--result-dir", tmp])["eval"]
+    host = tc.main(TRAIN_ARGS + ["--operator-format", "ell", *FAUST_ZOO_RUNS["amp"][1], *FAUST_ZOO_DEPTH,
+                                 "--eval-only", "--deser-option", "auto", "--deser-path", ckpt,
+                                 "--result-dir", tmp])["eval"]
     wall = time.perf_counter() - t0
     ids = list(range(trainer.n_train, len(trainer.data))) or list(range(len(trainer.data)))
     pairs = list(itertools.product(ids, repeat=2))
@@ -2166,19 +2252,25 @@ def _normal_trainer(argv, label: str, logged: list | None = None):
     return tn.NormalTrainer(tn.parser.parse_args(argv), log=tlog)
 
 
+def _sample_key(s: dict):
+    """A sample's name, or, for a sample without one (a mesh-MNIST pickle's),
+    the object itself: the key of a run's own samples."""
+    return s["name"] if "name" in s else id(s)
+
+
 def _sampler_like(saved, samples):
     """A copy of the sampler ``saved`` (order, position, random state) over
-    ``samples``, a trainer's own sample dicts, matched by name: the device
-    dataset finds a sample by the object.  A ``TieredSampler`` is copied
+    ``samples``, a trainer's own sample dicts, matched by name (``_sample_key``):
+    the device dataset finds a sample by the object.  A ``TieredSampler`` is copied
     tier by tier, with its own draw's state."""
     if hasattr(saved, "samplers"):
         out = copy.copy(saved)
         out.samplers = {k: _sampler_like(v, samples) for k, v in saved.samplers.items()}
         out.rng = copy.deepcopy(saved.rng)
         return out
-    by_name = {s["name"]: s for s in samples}
+    by_name = {_sample_key(s): s for s in samples}
     out = copy.copy(saved)
-    out.items = [by_name[s["name"]] for s in saved.items]
+    out.items = [by_name[_sample_key(s)] for s in saved.items]
     out.rng = copy.deepcopy(saved.rng)
     return out
 
@@ -2203,7 +2295,7 @@ def _normal_restore(trainer, snap: dict) -> None:
 def _draw_samples(trainer) -> tuple[list, list]:
     """The next train batch's samples, recorded by name."""
     samples = trainer.train_sampler.next_batch()
-    return samples, [s["name"] for s in samples]
+    return samples, [_sample_key(s) for s in samples]
 
 
 def _draw_picks(trainer) -> tuple[list, list]:
@@ -2228,7 +2320,6 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
     ``annotate``, the kernels of autograd's backward of the ranges'
     operations (``backward_device_ms``) are kept as ``range_bwd_ms``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from surfacenetworks_tpu_torch.sparse import kernels
 
@@ -2252,7 +2343,7 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
             res.update(capture=cap, batch0=batch, drawn0=drawn)
         elif profile_last and u == steps - 1:
             ranges = annotate[0]() if annotate else contextlib.nullcontext()
-            with ranges, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with ranges, counted_profile() as prof:
                 out = step(trainer, batch, u)
                 torch.cuda.synchronize()
         else:
@@ -2277,6 +2368,7 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
     res["test_launches"] = {k: kernels.launches[k] - before[k] for k in before}
     if profile_last:
         rows = device_rows(prof)
+        profile_gap(f"{sys._getframe(1).f_code.co_name}, step {steps - 1}", prof, rows)
         res["busy_ms"] = sum(r[0] for r in rows) / 1e3
         res["device_ops"] = sum(r[1] for r in rows)
         res["top"] = rows[:8] + [r for r in rows[8:] if "spmm_" in r[2] or "sddmm_" in r[2]]
@@ -2533,15 +2625,15 @@ def profiled_device_ms(fn) -> tuple[float, list]:
     the host launches the next kernel); and the profiler's rows.  The
     window may lose an event or so at its start, so it holds many calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with counted_profile() as prof:
         for _ in range(PROFILED_CALLS):
             fn()
         torch.cuda.synchronize()
     rows = device_rows(prof)
+    profile_gap(f"{sys._getframe(1).f_code.co_name}, {PROFILED_CALLS} calls", prof, rows)
     return sum(r[0] for r in rows) / 1e3 / PROFILED_CALLS, rows
 
 
@@ -2949,7 +3041,7 @@ def zoo_phase(device, smi: str) -> dict:
         trainer = _normal_trainer(ZOO_ARGS + extra, label, logged)
         snap = _normal_snapshot(trainer)
         gat = trainer.args.model == "gat"
-        log(f"  zoo {label}: {type(trainer.model).__name__}-{LAYERS}, format {trainer.fmt}, bucket "
+        log(f"  zoo {label}: {type(trainer.model).__name__}-{ZOO_LAYERS}, format {trainer.fmt}, bucket "
             f"{trainer.buckets.n_vertices}, {len(trainer.train_samples)} train meshes, "
             f"{len(trainer.test_samples)} test; {trainer.data_stats()}; set-up {time.perf_counter() - t0:.2f} s")
         # the main path of this run: every count is 0 just before it and read just after
@@ -4423,13 +4515,14 @@ def _event_ms(fn, calls: int = 10) -> tuple[float, float, float]:
     ``fn()`` calls, and the device busy time of one more under the profiler
     (its kernels and copies), ms."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with counted_profile() as prof:
         fn()
         torch.cuda.synchronize()
-    busy = sum(r[0] for r in device_rows(prof)) / 1e3
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    profile_gap(f"{sys._getframe(1).f_code.co_name}, one call", prof, rows)
     ev, wall = [], []
     for _ in range(calls):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -4588,7 +4681,6 @@ def _pipelined(batches, update, steps: int) -> dict:
     (the wait for its batch included), launch counts; the last step under
     the profiler, and the peak device memory."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from surfacenetworks_tpu_torch.sparse import kernels
 
@@ -4599,8 +4691,7 @@ def _pipelined(batches, update, steps: int) -> dict:
     t_prev = time.perf_counter()
     for u in range(steps):
         before = dict(kernels.launches)
-        ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if u == steps - 1 else (
-            contextlib.nullcontext())
+        ctx = counted_profile() if u == steps - 1 else contextlib.nullcontext()
         with ctx as prof:
             out = update(next(it))
             torch.cuda.synchronize()
@@ -4610,6 +4701,7 @@ def _pipelined(batches, update, steps: int) -> dict:
         res["out"].append(tuple(float(v) for v in (out if isinstance(out, tuple) else (out,))))
         res["per_step"].append({k: kernels.launches[k] - before[k] for k in before})
     rows = device_rows(prof)
+    profile_gap(f"{sys._getframe(1).f_code.co_name}, step {steps - 1}", prof, rows)
     res["busy_ms"] = sum(r[0] for r in rows) / 1e3
     res["device_ops"] = sum(r[1] for r in rows)
     res["wall_ms_median"] = float(np.median(res["wall_ms"][1:-1]))
@@ -4836,6 +4928,608 @@ def presets_phase(device, smi: str) -> tuple[dict, dict]:
     return counts, results
 
 
+# ---------------------------------------------------------------------------
+# The offline stage, the native host runtime, the large-mesh remat trunk and
+# the --jax-profile trace
+# ---------------------------------------------------------------------------
+
+# The native runtime (``surfacenetworks_tpu_torch/native``) against the NumPy
+# route on the normal cell's first 7,000-vertex mesh: the same bits, and the
+# host ms of each (median of NATIVE_REPS calls on the card machine's CPU).
+NATIVE_REPS = 5
+NATIVE_ELL_K = 16  # the normal trainer's ELL slot counts
+# Preprocessing into the trainers: each ``cli.preprocess`` runs as its own
+# process with ``--workers`` every core, on inputs written here from seeds;
+# then the trainers read the files with ``--data-path``.  The normal meshes
+# are 4 in the train tree and 1 in the test tree (``--test-path``; the
+# trainer's own split gives 5 meshes no train mesh): ``preprocess normal``
+# writes one flat ``.npz`` directory of the whole ``.obj`` tree, and the test
+# mesh's file is moved to a test directory.
+PRE_DIGITS = 192
+PRE_NORMAL_MESHES = 5
+PRE_NORMAL_POINTS = 7000
+PRE_ARAP = {"num_seq": 5, "n_frames": 50, "n_points": 2000, "seed": SEED}
+PRE_NORMAL_ARGS = ["--seed", "0", "--layer", str(LAYERS), "--batch-size", "1", "--num-epoch", "1",
+                   "--device", "cuda"]
+PRE_STEPS = {"mnist": 4, "normal lap": 8, "normal dirac": 4, "arap": 4}
+PRE_PER_STEP = {"mnist": launches_of(ell_matmul=4 * MESH_LAYERS), "normal lap": launches_of(ell_matmul=32),
+                "normal dirac": launches_of(), "arap": launches_of(ell_matmul=32)}
+# The large-mesh trunk (``benchmarks/large_mesh.py``'s configuration):
+# LapDeepModel-15 at width 128 on ``random_blob_mesh`` at 25,000 and 100,000
+# vertices, BSR over RCM-ordered rows, ``remat=True``, one forward and
+# backward of the masked magnitude loss; at 100,000 also in bf16 (bf16
+# blocks), at 25,000 also without remat.  bsr_matmul launches: 16 forward,
+# 16 stored-transpose backward, 16 forward replays under remat.
+LARGE_POINTS = (25000, 100000)
+LARGE_PER_STEP = {True: 48, False: 32}
+# jax-profile: ``train_normal --jax-profile DIR`` on Lap-15 ELL, 2 updates; the
+# trace must hold 32 ell_spmm_kernel events a step.
+PROFILE_UPDATES = 2
+PROFILE_ARGS = ["--synthetic", "5", "--synthetic-points", "7000", "--seed", "0", "--layer", str(LAYERS),
+                "--batch-size", "1", "--num-updates", str(PROFILE_UPDATES), "--num-epoch", "1", "--device", "cuda",
+                "--operator-format", "ell"]
+
+
+def _host_ms(fn, reps: int = NATIVE_REPS) -> float:
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _same_arrays(a, b) -> bool:
+    a, b = (x.numpy() if hasattr(x, "numpy") else np.asarray(x) for x in (a, b))
+    return a.dtype == b.dtype and a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def native_phase(smi: str) -> dict:
+    """The native runtime: built (``g++``, seconds reported) and loaded;
+    on the normal cell's first mesh each entry point against its NumPy
+    counterpart, bit for bit, and both timed on the host.  Returns the
+    rows."""
+    from surfacenetworks_tpu_torch import native
+    from surfacenetworks_tpu_torch.data import datasets
+    from surfacenetworks_tpu_torch.geometry import mesh_ops
+    from surfacenetworks_tpu_torch.sparse import ell
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native runtime is off: SNX_NO_NATIVE is set")
+    info = native.build_info
+    log(f"  native build: {info['seconds']:.2f} s of g++ -> {info['path']}" if "seconds" in info
+        else f"  native library already built: {info['path']}; loaded in {time.perf_counter() - t0:.2f} s")
+    V, F = datasets.random_blob_mesh(np.random.default_rng(SEED), PRE_NORMAL_POINTS)
+    n = V.shape[0]
+    L = mesh_ops.igl_style_laplacian(V, F, hack=1.0).tocsr().astype(np.float32)
+    k = NATIVE_ELL_K
+
+    def numpy_pair(M):
+        # ell_from_scipy sorts its argument's rows in place: hand it copies
+        return (ell.ell_from_scipy(M.copy(), k=k, n_rows=n, n_cols=n),
+                ell.ell_from_scipy(M.T.tocsr(), k=k, n_rows=n, n_cols=n))
+
+    def same_ell(arrays, pair) -> bool:
+        fc, fv, bc, bv = arrays
+        return all(_same_arrays(x, y) for x, y in ((fc, pair[0].cols), (fv, pair[0].vals),
+                                                   (bc, pair[1].cols), (bv, pair[1].vals)))
+
+    def dirac_np():
+        return mesh_ops.dirac_coeffs(V, F)
+
+    rows = {}
+    got, ref = native.dirac_coeffs(V, F), dirac_np()
+    rows["dirac_coeffs"] = (all(_same_arrays(getattr(got, f), getattr(ref, f))
+                                for f in ("F", "q_fv", "vf_face", "vf_corner", "q_vf", "q_bwd_v", "q_bwd_f"))
+                            and (got.n_vertices, got.n_faces) == (ref.n_vertices, ref.n_faces),
+                            _host_ms(lambda: native.dirac_coeffs(V, F)), _host_ms(dirac_np))
+    op = native.ell_operator_from_csr(L, n, k, k)
+    rows["ell_operator_from_csr"] = (same_ell((op.fwd.cols, op.fwd.vals, op.bwd.cols, op.bwd.vals), numpy_pair(L)),
+                                     _host_ms(lambda: native.ell_operator_from_csr(L, n, k, k)),
+                                     _host_ms(lambda: numpy_pair(L)))
+    rows["igl_laplacian_ell_arrays"] = (
+        same_ell(native.igl_laplacian_ell_arrays(V, F, n, k, k), numpy_pair(L)),
+        _host_ms(lambda: native.igl_laplacian_ell_arrays(V, F, n, k, k)),
+        _host_ms(lambda: numpy_pair(mesh_ops.igl_style_laplacian(V, F, hack=1.0).tocsr().astype(np.float32))))
+    Lm = mesh_ops.mesh_laplacian(V, F).tocsr().astype(np.float32)
+    rows["mesh_laplacian_ell_arrays"] = (
+        same_ell(native.mesh_laplacian_ell_arrays(V, F, n, k, k), numpy_pair(Lm)),
+        _host_ms(lambda: native.mesh_laplacian_ell_arrays(V, F, n, k, k)),
+        _host_ms(lambda: numpy_pair(mesh_ops.mesh_laplacian(V, F).tocsr().astype(np.float32))))
+    rows["vertex_normals"] = (_same_arrays(native.vertex_normals(V, F), mesh_ops.vertex_normals(V, F).astype(np.float32)),
+                              _host_ms(lambda: native.vertex_normals(V, F)),
+                              _host_ms(lambda: mesh_ops.vertex_normals(V, F).astype(np.float32)))
+    out = {}
+    for name, (same, native_ms, numpy_ms) in rows.items():
+        log(f"  native {name} at {n} vertices: {'bit-identical to' if same else 'DIFFERS from'} NumPy; host "
+            f"{native_ms:.3f} ms native, {numpy_ms:.3f} ms NumPy ({numpy_ms / native_ms:.1f}x), on the card machine's "
+            f"CPU ({smi})")
+        out[name] = {"bit_equal": same, "native_ms": native_ms, "numpy_ms": numpy_ms}
+    bad = [name for name, r in out.items() if not r["bit_equal"]]
+    if bad:
+        raise AssertionError(f"native and NumPy differ: {bad}")
+    out["build_s"] = info.get("seconds")
+    return out
+
+
+def _fake_digits(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """``tests/test_mnist_data.py``'s digits: a 12x12 block of 220 at a
+    random offset in a 28x28 image, random labels."""
+    rng = np.random.default_rng(seed)
+    imgs = np.zeros((n, 28, 28), np.uint8)
+    for i in range(n):
+        r0, c0 = rng.integers(4, 10, 2)
+        imgs[i, r0 : r0 + 12, c0 : c0 + 12] = 220
+    return imgs, rng.integers(0, 10, n).astype(np.uint8)
+
+
+def _write_inputs(root: str) -> dict:
+    """The preprocessing inputs, from seeds: MNIST idx files, the normal
+    ``.obj`` trees (train and test) and the ARAP frame directories.  Returns
+    their paths and the normal meshes' float64 vertices by stem."""
+    import gzip
+    import struct
+
+    from surfacenetworks_tpu_torch import geometry as geo
+    from surfacenetworks_tpu_torch.data import datasets
+
+    imgs, labels = _fake_digits(PRE_DIGITS, SEED)
+    paths = {"images": os.path.join(root, "train-images-idx3-ubyte.gz"),
+             "labels": os.path.join(root, "train-labels-idx1-ubyte.gz")}
+    with gzip.open(paths["images"], "wb") as fh:
+        fh.write(struct.pack(">IIII", 2051, len(imgs), 28, 28) + imgs.tobytes())
+    with gzip.open(paths["labels"], "wb") as fh:
+        fh.write(struct.pack(">II", 2049, len(labels)) + labels.tobytes())
+    rng = np.random.default_rng(SEED)
+    meshes64 = {}
+    for i in range(PRE_NORMAL_MESHES):
+        V, F = datasets.random_blob_mesh(rng, PRE_NORMAL_POINTS)
+        tree = "normal_test" if i == PRE_NORMAL_MESHES - 1 else "normal_train"
+        os.makedirs(os.path.join(root, "objs", tree), exist_ok=True)
+        geo.save_obj(os.path.join(root, "objs", tree, f"mesh_{i:02d}.obj"), V, F)
+    for tree in ("normal_train", "normal_test"):
+        for p in sorted(os.listdir(os.path.join(root, "objs", tree))):
+            meshes64[os.path.splitext(p)[0]] = geo.load_obj(os.path.join(root, "objs", tree, p))
+    for s, (frames, F) in enumerate(datasets.arap_wave_frames(**PRE_ARAP)):
+        d = os.path.join(root, "seqs", f"seq{s:02d}")
+        os.makedirs(d)
+        for t, V in enumerate(frames):
+            geo.save_obj(os.path.join(d, f"frame{t:03d}.obj"), V, F)
+    paths["meshes64"] = meshes64
+    return paths
+
+
+def _preprocess(argv: list) -> tuple[float, str]:
+    """``python -m surfacenetworks_tpu_torch.cli.preprocess argv --workers
+    <cores>`` as its own process (it forks its pool, so never in this one
+    once CUDA is up): its wall seconds and what it printed."""
+    cmd = [sys.executable, "-m", "surfacenetworks_tpu_torch.cli.preprocess", *argv, "--workers", str(os.cpu_count())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[2:])} failed ({res.returncode}):\n{res.stderr[-3000:]}")
+    return wall, res.stdout.strip()
+
+
+def _pre_report(label: str, res: dict, smi: str) -> None:
+    log(f"  preprocessed {label}: losses {[repr(v) for v in res['loss']]}; test {res['test']!r} ({smi})")
+    log(f"  preprocessed {label}: host wall per step {['%.2f' % v for v in res['wall_ms']]}, median "
+        f"{res['wall_ms_median']:.3f} ms; device ms per step (CUDA events) median {res['device_ms_median']:.3f}; "
+        f"profiled step device busy {res['busy_ms']:.3f} ms in {res['device_ops']} device ops, idle share "
+        f"{res['idle_share']:.3f}; peak device memory {res['peak_mib']:.1f} MiB ({smi})")
+
+
+def preprocess_train_phase(device, smi: str) -> tuple[dict, dict]:
+    """``preprocess mnist``, ``normal`` (lap and ``--operator dirac``) and
+    ``arap`` as their own processes on inputs written from seeds, then the
+    trainers on the files (counts at 0 before each run): mesh-MNIST Model-5
+    ELL at batch 64, normal Lap-15 ELL and Dir-15, ARAP Model-15 ELL at
+    batch 32; per run its launches per step, step 0 against fp64 module by
+    module, the repeat bit for bit; the Lap run's losses against a run on
+    the ``.obj`` trees through the lazy path, bit for bit.  Returns the
+    launch counts of the runs together, and the results."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_arap, train_mnist
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    tmp = tempfile.mkdtemp(prefix="preprocess_smoke_")
+    try:
+        t0 = time.perf_counter()
+        inputs = _write_inputs(tmp)
+        log(f"  inputs: {PRE_DIGITS} digits as idx files, {PRE_NORMAL_MESHES} {PRE_NORMAL_POINTS}-vertex meshes as "
+            f".obj, {PRE_ARAP['num_seq']} ARAP sequences of {PRE_ARAP['n_frames']} {PRE_ARAP['n_points']}-vertex "
+            f".obj frames; written in {time.perf_counter() - t0:.2f} s")
+        out = {k: os.path.join(tmp, k) for k in ("mnist.np", "npz_lap", "npz_dirac", "data_plus")}
+        walls = {}
+        for label, argv in (
+                ("mnist", ["mnist", "--images", inputs["images"], "--labels", inputs["labels"], "--out",
+                           out["mnist.np"]]),
+                *((f"normal {op}", ["normal", "--data-path", os.path.join(tmp, "objs"), "--out",
+                                    os.path.join(out[f"npz_{op}"], "normal_train"), "--operator", op])
+                  for op in ("lap", "dirac")),
+                ("arap", ["arap", "--data-path", os.path.join(tmp, "seqs"), "--out", out["data_plus"]])):
+            walls[label], said = _preprocess(argv)
+            log(f"  preprocess {label}: {walls[label]:.2f} s wall with {os.cpu_count()} workers: {said}")
+        for op in ("lap", "dirac"):  # the .obj test tree's mesh goes to the .npz test tree
+            test_dir = os.path.join(out[f"npz_{op}"], "normal_test")
+            os.makedirs(test_dir)
+            for p in os.listdir(os.path.join(tmp, "objs", "normal_test")):
+                stem = os.path.splitext(p)[0] + ".npz"
+                os.replace(os.path.join(out[f"npz_{op}"], "normal_train", stem), os.path.join(test_dir, stem))
+
+        runs, path_counts, failures = {}, {}, []
+        for label in PRE_STEPS:
+            t0 = time.perf_counter()
+            tlog = lambda m, label=label: log(f"  [preprocessed {label}] {m}")  # noqa: E731
+            if label == "mnist":
+                args = train_mnist.parser.parse_args(MESH_ARGS["mnist"] + ["--data-path", out["mnist.np"]])
+                trainer = train_mnist.MnistTrainer(args, fmt="ell", log=tlog)
+            elif label.startswith("normal"):
+                op = label.split()[1]
+                trainer = _normal_trainer(PRE_NORMAL_ARGS + [
+                    "--model", op, "--operator-format", "ell", "--num-updates", str(PRE_STEPS[label]),
+                    "--data-path", os.path.join(out[f"npz_{op}"], "normal_train"),
+                    "--test-path", os.path.join(out[f"npz_{op}"], "normal_test"),
+                    "--result-dir", os.path.join(tmp, "results", op)], f"preprocessed {op}")
+            else:
+                args = train_arap.parser.parse_args(ARAP_ARGS + ["--data-path", out["data_plus"], "--num-updates",
+                                                                 str(PRE_STEPS[label])])
+                trainer = train_arap.ArapTrainer(args, log=tlog)
+            log(f"  preprocessed {label}: set-up (reading the files, packing, upload) {time.perf_counter() - t0:.2f} s")
+            noise0 = {}
+            if label == "mnist":
+                snap, restore, draw = _mesh_snapshot(trainer), _mesh_restore, _draw_samples
+                capture = lambda m: ModuleCapture(m, _mesh_capture_paths("mnist"))  # noqa: E731
+
+                def update(t, batch, u):
+                    out_ = t.update(batch)
+                    noise0.setdefault("noise", t.last_keep)
+                    return out_
+            elif label == "arap":
+                snap, restore, draw, capture, update = _arap_snapshot(trainer), _arap_restore, _draw_picks, StepCapture, None
+            else:
+                snap, restore, draw, capture, update = (_normal_snapshot(trainer), _normal_restore, _draw_samples,
+                                                        StepCapture, None)
+            # the main path of this run: every count is 0 just before it and read just after
+            kernels.reset_launch_counts()
+            res = _train_run(trainer, PRE_STEPS[label], draw, capture=capture, profile_last=True, update=update)
+            path_counts[label] = dict(kernels.launches)
+            log(f"  preprocessed {label}: launches on the path ({PRE_STEPS[label]} updates + test pass) "
+                f"{path_counts[label]}")
+            repeat_run(f"preprocessed {label}", trainer, lambda: restore(trainer, snap), res, draw, update=update)
+            expected = PRE_PER_STEP[label]
+            steps_t = trainer.test_steps if label == "mnist" else 1
+            failures += _run_failures(f"preprocessed {label}", res, expected,
+                                      {k: v // 2 * steps_t for k, v in expected.items()})
+            _pre_report(label, res, smi)
+            if label == "mnist":
+                failures += mesh_step0_check("mnist", "ell", trainer, snap["params"], res, noise0["noise"])
+            elif label == "arap":
+                failures += arap_step0_check(trainer, snap["params"], res)
+            elif label == "normal lap":
+                dense = torch.cat([_dense_fp64(s["L"], trainer.buckets.n_vertices, device) for s in res["drawn0"]])
+                failures += fp64_step0_check("preprocessed normal lap", res, _normal_model_at(trainer, snap["params"]),
+                                             _cosine_head, dense, NORMAL_STEP0_BOUNDS, NORMAL_STEP0_LOSS_RTOL)
+                del dense
+            else:
+                meshes64 = {}
+                for s in trainer.train_samples + trainer.test_samples:
+                    V64, F64 = inputs["meshes64"][os.path.splitext(os.path.basename(s["name"]))[0]]
+                    if not (np.array_equal(V64.astype(np.float32), s["V"]) and np.array_equal(F64, s["F"])):
+                        failures.append(f"preprocessed normal dirac: {s['name']} is not its .obj mesh")
+                    meshes64[s["name"]] = V64
+                failures += dirac_step0_check(trainer, snap["params"], res, meshes64)
+            for key in ("capture", "grads0", "batch0", "drawn0", "drawn"):
+                res.pop(key, None)
+            runs[label] = res
+            del trainer
+            torch.cuda.empty_cache()
+
+        # the Lap run again on the .obj trees through the lazy path, on the same draws
+        lazy = _normal_trainer(PRE_NORMAL_ARGS + [
+            "--model", "lap", "--operator-format", "ell", "--num-updates", str(PRE_STEPS["normal lap"]),
+            "--data-path", os.path.join(tmp, "objs", "normal_train"),
+            "--test-path", os.path.join(tmp, "objs", "normal_test"),
+            "--result-dir", os.path.join(tmp, "results", "lazy")], "lazy .obj lap")
+        lazy_res = _train_run(lazy, PRE_STEPS["normal lap"])
+        pre = runs["normal lap"]
+        same = (lazy_res["loss"] == pre["loss"] and lazy_res["mad"] == pre["mad"] and lazy_res["test"] == pre["test"]
+                and all(torch.equal(v, pre["params"][k]) for k, v in lazy_res["params"].items()))
+        log(f"  normal lap from the .npz tree vs the lazy .obj path: losses {[repr(v) for v in pre['loss']]} vs "
+            f"{[repr(v) for v in lazy_res['loss']]}; test {pre['test']!r} vs {lazy_res['test']!r}; "
+            f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same:
+            failures.append("normal lap: the .npz run differs from the lazy .obj run")
+        del lazy
+        for res in runs.values():
+            res.pop("params", None)
+        torch.cuda.empty_cache()
+        if failures:
+            raise AssertionError("; ".join(failures))
+        counts = {k: sum(c[k] for c in path_counts.values()) for k in path_counts["mnist"]}
+        return counts, {"preprocess_s": walls, "runs": runs, "npz_equals_obj": same}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _large_mesh(n: int) -> dict:
+    """``benchmarks/large_mesh.py``'s host build: ``random_blob_mesh(n)``
+    (seed 0), its igl Laplacian, RCM order, the 128-row bucket; the inputs
+    are the RCM-ordered vertices, the mask the real rows."""
+    from surfacenetworks_tpu_torch import geometry as geo
+    from surfacenetworks_tpu_torch.data import datasets, round_up
+    from surfacenetworks_tpu_torch.sparse import rcm_permutation
+
+    t0 = time.perf_counter()
+    V, F = datasets.random_blob_mesh(np.random.default_rng(0), n)
+    L = geo.igl_style_laplacian(V, F, hack=1.0).tocsr()
+    perm = rcm_permutation(L)
+    L = L[perm][:, perm].tocsr()
+    coo = L.tocoo()
+    n_bucket = round_up(L.shape[0], 128)
+    mask = np.zeros((1, n_bucket, 1), np.float32)
+    mask[0, : L.shape[0]] = 1.0
+    inputs = np.zeros((1, n_bucket, 3), np.float32)
+    inputs[0, : V.shape[0]] = V[perm]
+    return {"L": L, "n_bucket": n_bucket, "mask": mask, "inputs": inputs, "nnz": int(L.nnz),
+            "bandwidth": int(np.abs(coo.row - coo.col).max()), "host_s": time.perf_counter() - t0}
+
+
+def large_bsr_checks(op, label: str, seed: int) -> dict:
+    """The BSR kernel of a large-mesh operator (fp32 or bf16 blocks) at the
+    trunk's width, against its plain version on random x: the forward
+    blocks on x as the trunk's activations (bf16 for bf16 blocks) and the
+    stored transpose on fp32 cotangents, each with the live-chunk mask the
+    path hands it and without; every element within KERNEL_RTOL of |A||x|
+    (over the bf16-rounded x for bf16 blocks), fp32 blocks also against the
+    fp64 plain version; then one slot of one block-row taken out of the
+    kernel's result must be refused.  These launches are not the path's.
+    Returns the largest error of each side."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    bf = torch.bfloat16
+    plain = kernels.bsr_matmul_plain
+    gen = torch.Generator(device=op.fwd.block_cols.device).manual_seed(seed)
+    errs = {}
+    for side, m, live in (("forward", op.fwd, op.fwd_live), ("backward", op.bwd, op.bwd_live)):
+        cols, vals = m.block_cols, m.block_vals
+        B, nb, kb = cols.shape
+        bf16 = vals.dtype == bf
+        x = torch.randn(B, nb * 128, WIDTH, device=cols.device, generator=gen)
+        if bf16 and side == "forward":
+            x = x.to(bf)
+        scale = plain(cols, vals.double().abs(), (x.to(bf) if bf16 else x).double().abs())
+        name = f"large {label} bsr_matmul{'_bf16' if bf16 else ''} {side} NB={nb} KB={kb} C={WIDTH}"
+        got = kernels.bsr_matmul(cols, vals, x, live)
+        errs[side] = check(f"{name} vs {'' if bf16 else 'fp32 '}plain", got, plain(cols, vals, x), scale, KERNEL_RTOL)
+        if not bf16:
+            errs[side] = max(errs[side], check(f"{name} vs fp64 plain", got, plain(cols, vals.double(), x.double()),
+                                               scale, KERNEL_RTOL))
+        if live is not None:
+            same = torch.equal(got, kernels.bsr_matmul(cols, vals, x))
+            log(f"  {name}: with and without the live-chunk mask {'bit-identical' if same else 'DIFFER'}")
+            if not same:
+                raise AssertionError(f"{name}: the live-chunk mask changes the result")
+        # the check's power at this shape: block-row i without its first live slot
+        i = nb // 2
+        s_ = int(torch.nonzero(vals[0, i].flatten(-2).ne(0).any(-1))[0])
+        j = int(cols[0, i, s_])
+        xs = x[0, j * 128 : (j + 1) * 128]
+        drop = vals[0, i, s_].to(torch.float32) @ (xs.to(bf) if bf16 else xs).to(torch.float32)
+        mutant = got.clone()
+        mutant[0, i * 128 : (i + 1) * 128] -= drop
+        refused(f"{name} without slot {s_} of block-row {i}", mutant, plain(cols, vals, x), scale, KERNEL_RTOL)
+    return errs
+
+
+def _magnitude_loss(out, mask):
+    """``benchmarks/large_mesh.py``'s stand-in loss: the masked mean squared
+    output (the trunk's full backward, no N x N head)."""
+    return ((out * mask) ** 2).sum() / mask.sum()
+
+
+def _large_step(model, op, mask, inputs) -> dict:
+    """One forward and backward (counts at 0 just before it), CUDA-event
+    timed and profiled: loss, gradients, launches, device busy, the step's
+    peak device memory."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    kernels.reset_launch_counts()
+    with counted_profile() as prof:
+        t0 = time.perf_counter()
+        start.record()
+        loss = _magnitude_loss(model(op, mask, inputs), mask)
+        loss.backward()
+        end.record()
+        end.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    counts = dict(kernels.launches)
+    rows = device_rows(prof)
+    profile_gap(f"large mesh, {op.fwd.block_cols.shape[-2] * 128} rows", prof, rows)
+    return {"loss": float(loss), "grads": {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+            "launches": counts, "device_ms": start.elapsed_time(end), "wall_ms": wall,
+            "busy_ms": sum(r[0] for r in rows) / 1e3, "device_ops": sum(r[1] for r in rows),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "step_peak_mib": (torch.cuda.max_memory_allocated() - resident) / 2**20}
+
+
+def large_mesh_phase(device, smi: str) -> tuple[dict, dict]:
+    """LapDeepModel-15 (width 128, ``remat=True``) on the large meshes, BSR
+    after RCM: per mesh and dtype the BSR kernel held at the trunk's width
+    (``large_bsr_checks``), a warm-up, then one counted forward and
+    backward; at 25,000 the same step without remat must give the same loss
+    and gradients bit for bit, the BSR apply of the inputs is held element
+    by element against fp64 and the output against an fp64 forward on the
+    dense fp64 operator (no kernel).  Returns the launch counts and the
+    rows."""
+    import torch
+
+    from surfacenetworks_tpu_torch.models import LapDeepModel, init_weights
+    from surfacenetworks_tpu_torch.nn import apply_operator
+    from surfacenetworks_tpu_torch.sparse import bsr_operator_from_scipy, stack_bsr_operators
+
+    totals, rows, failures = {}, {}, []
+    for n in LARGE_POINTS:
+        mesh = _large_mesh(n)
+        nb = mesh["n_bucket"]
+        mask = torch.from_numpy(mesh["mask"]).to(device)
+        inputs = torch.from_numpy(mesh["inputs"]).to(device)
+        for dtype in ((torch.float32,) if n == LARGE_POINTS[0] else (torch.float32, torch.bfloat16)):
+            label = f"{n} {'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+            t0 = time.perf_counter()
+            op = stack_bsr_operators([bsr_operator_from_scipy(mesh["L"], block_size=128, n_rows=nb, n_cols=nb,
+                                                              dtype=dtype)]).to(device)
+            live_blocks = (op.fwd.block_vals != 0).flatten(-2).any(-1).sum(-1).float()
+            build_s = time.perf_counter() - t0
+            model = init_weights(LapDeepModel(3, 3, layers=LAYERS, remat=True,
+                                              dtype=torch.bfloat16 if dtype == torch.bfloat16 else None),
+                                 torch.Generator().manual_seed(SEED)).to(device)
+            row_checks = large_bsr_checks(op, label, SEED + n)
+            _magnitude_loss(model(op, mask, inputs), mask).backward()  # warm-up: first-call library set-up
+            step = _large_step(model, op, mask, inputs)
+            kname = "bsr_matmul_bf16" if dtype == torch.bfloat16 else "bsr_matmul"
+            row = {k: v for k, v in step.items() if k != "grads"}
+            row.update(rows=n, bucket=nb, nnz=mesh["nnz"], bandwidth=mesh["bandwidth"], host_s=mesh["host_s"],
+                       pack_s=build_s, block_rows=int(op.fwd.block_cols.shape[-2]),
+                       blocks_per_block_row=int(op.fwd.block_cols.shape[-1]),
+                       live_blocks_per_block_row_mean=float(live_blocks.mean()), kernel_max_abs_err=row_checks)
+            if step["launches"][kname] != LARGE_PER_STEP[True] or sum(step["launches"].values()) != LARGE_PER_STEP[True]:
+                failures.append(f"large {label}: launches {step['launches']}, expected {LARGE_PER_STEP[True]} {kname}")
+            if not (np.isfinite(step["loss"]) and all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+                                                      for g in step["grads"].values())):
+                failures.append(f"large {label}: the loss or a gradient is not finite and non-zero")
+            for k, v in step["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+            if n == LARGE_POINTS[0]:
+                model.remat = False
+                plain = _large_step(model, op, mask, inputs)
+                model.remat = True
+                row["plain"] = {k: v for k, v in plain.items() if k != "grads"}
+                same = plain["loss"] == step["loss"] and all(torch.equal(plain["grads"][k], g)
+                                                             for k, g in step["grads"].items())
+                row["remat_equals_plain"] = same
+                if not same or plain["launches"][kname] != LARGE_PER_STEP[False]:
+                    failures.append(f"large {label}: without remat loss {plain['loss']!r} vs {step['loss']!r}, "
+                                    f"launches {plain['launches']}")
+                for k, v in plain["launches"].items():
+                    totals[k] = totals.get(k, 0) + v
+                # the kernel at this shape, element by element, and the whole output, against fp64
+                L64 = mesh["L"].astype(np.float32).astype(np.float64)
+                x64 = mesh["inputs"][0, : n].astype(np.float64)
+                with torch.no_grad():
+                    lx = apply_operator(op, inputs)[0, :n].double().cpu().numpy()
+                row["apply_rel_err"] = check(f"large {label} BSR apply of the inputs", lx, L64 @ x64,
+                                             abs(L64) @ abs(x64), PIPELINE_RTOL)
+                model64 = copy.deepcopy(model).double()
+                model64.remat = False
+                dense = _dense_fp64(mesh["L"], nb, device)
+                with torch.no_grad():
+                    ref = model64(dense, mask.double(), inputs.double())[0, :n].cpu().numpy()
+                    got = model(op, mask, inputs)[0, :n].double().cpu().numpy()
+                fro = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+                row["output_rel_fro_vs_fp64"] = fro
+                log(f"  large {label}: output vs an fp64 forward on the dense fp64 operator: rel_fro {fro:.3e} "
+                    f"(tol {SERVE_FRO_RTOL})")
+                if not (np.isfinite(got).all() and fro <= SERVE_FRO_RTOL):
+                    failures.append(f"large {label}: output rel_fro {fro} vs fp64")
+                del model64, dense
+            log(f"  large {label}: {n} rows in a {nb}-row bucket, nnz {mesh['nnz']}, RCM bandwidth "
+                f"{mesh['bandwidth']}, {row['block_rows']} block-rows of {row['blocks_per_block_row']} blocks "
+                f"({row['live_blocks_per_block_row_mean']:.2f} live on average); host build {mesh['host_s']:.2f} s + "
+                f"pack and upload {build_s:.2f} s")
+            log(f"  large {label} remat: loss {step['loss']!r}; launches {step['launches']}; device {step['device_ms']:.3f} "
+                f"ms (CUDA events), busy {step['busy_ms']:.3f} ms in {step['device_ops']} device ops, wall "
+                f"{step['wall_ms']:.3f} ms; peak {step['peak_mib']:.1f} MiB ({step['step_peak_mib']:.1f} MiB above the "
+                f"resident operator and inputs) ({smi})")
+            if "plain" in row:
+                p = row["plain"]
+                log(f"  large {label} without remat: device {p['device_ms']:.3f} ms, busy {p['busy_ms']:.3f} ms; peak "
+                    f"{p['peak_mib']:.1f} MiB ({p['step_peak_mib']:.1f} above resident); loss and gradients "
+                    f"{'bit-identical to' if row['remat_equals_plain'] else 'DIFFERENT from'} the remat step ({smi})")
+            rows[label] = row
+            del model, op, step
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return totals, rows
+
+
+def jax_profile_phase(device, smi: str) -> tuple[dict, dict]:
+    """``train_normal --jax-profile DIR`` through its ``main`` on Lap-15
+    ELL, 2 updates (counts at 0 before it): the trace file must exist, hold
+    32 ``ell_spmm_kernel`` events a step, and hold each of the port's
+    kernels as often as its launch counter rose inside the traced epoch
+    (``timing.trace`` wrapped to read the counters at its edges).  Returns
+    the launch counts and what the trace held."""
+    from surfacenetworks_tpu_torch.cli import train_normal as tn
+    from surfacenetworks_tpu_torch.sparse import kernels
+    from surfacenetworks_tpu_torch.train import timing
+
+    tmp = tempfile.mkdtemp(prefix="profile_smoke_")
+    real_trace, in_trace = timing.trace, {}
+
+    @contextlib.contextmanager
+    def counting_trace(log_dir):
+        before = dict(kernels.launches)
+        with real_trace(log_dir) as box:
+            yield box
+        in_trace.update({k: kernels.launches[k] - before[k] for k in before})
+
+    try:
+        prof_dir = os.path.join(tmp, "trace")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        timing.trace = counting_trace
+        try:
+            tn.main(PROFILE_ARGS + ["--result-dir", os.path.join(tmp, "run"), "--jax-profile", prof_dir])
+        finally:
+            timing.trace = real_trace
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.launches)
+        traces = sorted(p for p in os.listdir(prof_dir) if p.endswith(".json")) if os.path.isdir(prof_dir) else []
+        if len(traces) != 1:
+            raise AssertionError(f"--jax-profile wrote {traces} into {prof_dir}")
+        path = os.path.join(prof_dir, traces[0])
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernel_events = [e for e in events if e.get("cat") == "kernel"]
+        traced = traced_launches((e.get("name", ""), 1) for e in kernel_events)
+        ell = [e for e in kernel_events if "ell_spmm_kernel" in e.get("name", "")]
+        logged = open(os.path.join(tmp, "run", "log", "debug.log")).read()
+        out = {"trace_bytes": os.path.getsize(path), "ell_spmm_kernel_events": len(ell),
+               "kernel_events": len(kernel_events), "ell_ms": sum(e.get("dur", 0) for e in ell) / 1e3,
+               "wall_s": wall, "launches": counts, "launches_in_trace": dict(in_trace), "traced": traced}
+        log(f"  --jax-profile: {traces[0]} ({out['trace_bytes']} bytes): {len(kernel_events)} kernel events, "
+            f"{len(ell)} ell_spmm_kernel ({out['ell_ms']:.3f} ms) over {PROFILE_UPDATES} updates; the port's kernels "
+            f"in the trace {traced}, their launch counters' rise inside the traced epoch {in_trace}; launches on the "
+            f"path (updates + test pass) {counts}; main's wall {wall:.2f} s ({smi})")
+        if len(ell) != 32 * PROFILE_UPDATES:
+            first = sorted(kernel_events, key=lambda e: e.get("ts", 0))[:24]
+            raise AssertionError(f"the trace holds {len(ell)} ell_spmm_kernel events, not {32 * PROFILE_UPDATES}; its "
+                                 f"first kernels: {[e.get('name', '')[:40] for e in first]}")
+        if traced != in_trace:
+            raise AssertionError(f"the trace holds the port's kernels {traced}, the traced epoch launched {in_trace}")
+        if f"profiler trace written to {prof_dir}" not in logged:
+            raise AssertionError("train_normal did not log where the trace went")
+        if counts["ell_matmul"] != 32 * PROFILE_UPDATES + 16:
+            raise AssertionError(f"--jax-profile run launches {counts}")
+        return counts, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     t_all = t0 = T_START
     import torch
@@ -4882,6 +5576,10 @@ def main() -> int:
     phase("build", t0)
 
     t0 = time.perf_counter()
+    native = native_phase(smi)
+    phase("native", t0)
+
+    t0 = time.perf_counter()
     report = kernel_phase(device)
     phase("kernels", t0)
 
@@ -4900,6 +5598,12 @@ def main() -> int:
     t0 = time.perf_counter()
     backward_phase(device)
     phase("backward", t0)
+
+    # before the export phase: once torch.export has run in the process, the
+    # profiler loses some of a trace's kernel records (16-22 of 3,412 on an H100)
+    t0 = time.perf_counter()
+    jprof_counts, jprof = jax_profile_phase(device, smi)
+    phase("jax-profile train", t0)
 
     t0 = time.perf_counter()
     export_counts, exported = export_phase(device, smi, served, ell_requests)
@@ -4984,6 +5688,20 @@ def main() -> int:
     bf16_counts, bf16 = bf16_train_phase(device, smi, faust_data, mesh_samples, fp32_runs)
     phase("bf16 train", t0)
 
+    t0 = time.perf_counter()
+    pre_counts, pre = preprocess_train_phase(device, smi)
+    if pre_counts["ell_matmul"] == 0:
+        raise AssertionError("ell_matmul was not launched on the preprocessed data's paths")
+    phase("preprocess train", t0)
+
+    t0 = time.perf_counter()
+    large_counts, large = large_mesh_phase(device, smi)
+    for kname in ("bsr_matmul", "bsr_matmul_bf16"):
+        if large_counts[kname] == 0:
+            raise AssertionError(f"{kname} was not launched on the large-mesh paths")
+    phase("large mesh", t0)
+
+
     replaces = {
         "bsr_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:163",
         "ell_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:239",
@@ -5039,6 +5757,12 @@ def main() -> int:
             entries[-1]["faust_amp_levels_batched"] = {k: v for k, v in amp["levels_batched"].items() if k != "bf16"}
         if kname == "sddmm":
             entries[-1]["faust_amp_pattern"] = fzoo["amp"]["kernel"]["sddmm"]
+        if kname == "ell_matmul":
+            entries[-1].update(preprocess_train_launches=pre_counts[kname], jax_profile_train_launches=jprof_counts[kname])
+        if kname == "bsr_matmul":
+            entries[-1]["large_mesh_launches"] = large_counts[kname]
+            entries[-1]["large_mesh_max_abs_err"] = {label: r["kernel_max_abs_err"] for label, r in large.items()
+                                                     if "fp32" in label}
     # the bf16 variants (--bf16): ``launches`` counts the bf16 FAUST runs (both
     # formats), which launch all three; the other bf16 runs' counts beside it
     faust16 = {k: bf16_counts["faust ell"][k] + bf16_counts["faust bsr"][k] for k in port_kernels.launches}
@@ -5063,6 +5787,10 @@ def main() -> int:
             entries[-1].update({k: r[k] for k in ("ms_x_fp32", "ms_no_live", "ms_x_fp32_no_live", "cold_ms_no_live",
                                                   "bound_ms_no_live", "bound_by_no_live", "bytes_no_live",
                                                   "flops_no_live", "live_chunks", "chunks")})
+        if kname == "bsr_matmul_bf16":
+            entries[-1]["large_mesh_launches"] = large_counts[kname]
+            entries[-1]["large_mesh_max_abs_err"] = {label: r["kernel_max_abs_err"] for label, r in large.items()
+                                                     if "bf16" in label}
         if kname == "ell_matmul_bf16":
             entries[-1]["export_launches"] = export_counts[kname]
             entries[-1]["cascade_train_launches"] = cascade_counts["bf16"][kname]
@@ -5133,6 +5861,24 @@ def main() -> int:
         f"{label} wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms in {r['device_ops']} device ops, "
         f"idle share {r['idle_share']:.3f}, peak {r['peak_mib']:.1f} MiB" for label, r in presets.items())
         + f" ({smi})")
+    log("native host ms (native / NumPy): " + ", ".join(
+        f"{k} {r['native_ms']:.3f} / {r['numpy_ms']:.3f}" for k, r in native.items() if isinstance(r, dict))
+        + f" ({smi})")
+    log("preprocess wall s: " + ", ".join(f"{k} {v:.2f}" for k, v in pre["preprocess_s"].items())
+        + f"; preprocessed runs median per step: " + ", ".join(
+        f"{label} wall {r['wall_ms_median']:.3f} ms, busy {r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, "
+        f"peak {r['peak_mib']:.1f} MiB" for label, r in pre["runs"].items()) + f" ({smi})")
+    log("large mesh forward+backward: " + ", ".join(
+        f"{label} busy {r['busy_ms']:.3f} ms, device {r['device_ms']:.3f} ms, peak {r['peak_mib']:.1f} MiB"
+        + (f" (no remat: busy {r['plain']['busy_ms']:.3f} ms, peak {r['plain']['peak_mib']:.1f} MiB)" if "plain" in r
+           else "") for label, r in large.items()) + f" ({smi})")
+    log(f"--jax-profile: {jprof['ell_spmm_kernel_events']} ell_spmm_kernel events in {jprof['trace_bytes']} bytes, "
+        f"the port's kernels in the trace equal to the traced epoch's launch counters ({smi})")
+    gaps = [g for g in PROFILE_GAPS if g["gap"]]
+    log(f"profiler vs launch counters: {len(PROFILE_GAPS)} profiled regions, "
+        f"{sum(g['launched'] for g in PROFILE_GAPS)} port-kernel launches counted in them, "
+        f"{sum(g['traced'] for g in PROFILE_GAPS)} in their traces; {len(gaps)} regions with a gap"
+        + "".join(f"; {g['where']}: {g['gap']}" for g in gaps))
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,9 +15,18 @@ Module map (port -> JAX package):
 ================================  =================================================
 ``geometry/mesh_ops.py``          ``geometry/mesh_ops.py`` (igl-style and cotan
                                   Laplacians, Dirac coefficients and the
-                                  scipy pair, vertex normals, permutations,
-                                  ``uniform_mesh_scale``)
+                                  scipy pair, normals, curvatures,
+                                  rescalings, permutations)
+``geometry/graph_ops.py``,        ``geometry/graph_ops.py``, ``repair.py``
+``geometry/repair.py``            (all of them)
+``geometry/sampling.py``          ``geometry/sampling.py`` (Poisson disc,
+                                  mesh-MNIST meshes from images)
+``geometry/spectral.py``          ``geometry/spectral.py`` (eigenpairs, WKS,
+                                  HKS)
 ``geometry/io.py``                ``geometry/io.py`` (OBJ and ascii PLY)
+``native/``                       ``native/`` (ctypes bindings of its own
+                                  copy of ``csrc/snx_native.cc``, built
+                                  with ``g++`` into ``_build/``)
 ``data/datasets.py``              ``data/datasets.py`` (``random_blob_mesh``,
                                   ``synthetic_normal_dataset``,
                                   ``synthetic_correspondence_dataset``,
@@ -27,7 +36,9 @@ Module map (port -> JAX package):
                                   with Dirac samples, ``load_arap_sequence``,
                                   ``height_field_mesh``,
                                   ``synthetic_mnist_dataset``,
-                                  ``load_mnist_mesh_pickle``)
+                                  ``load_mnist_mesh_pickle``,
+                                  ``load_mnist_idx``,
+                                  ``build_mnist_mesh_dataset``)
 ``data/batching.py``              ``data/batching.py`` (buckets, RCM, BSR slot
                                   fit, Dirac packing, ``laplacian_batch``,
                                   ``dirac_batch``, ``correspondence_batch``,
@@ -54,8 +65,9 @@ Module map (port -> JAX package):
 ``sparse/_build.py``              (new) nvcc build + ctypes binding
 ``nn/layers.py``                  ``nn/layers.py``
 ``nn/blocks.py``                  ``nn/blocks.py`` (Lap/Avg/Mlp/Dirac blocks)
-``models/normal_models.py``       ``models/normal_models.py`` (``LapDeepModel``,
-                                  ``DirDeepModel``, ``DirModelToFace``)
+``models/normal_models.py``       ``models/normal_models.py`` (``LapDeepModel``
+                                  with ``remat``, ``DirDeepModel``,
+                                  ``DirModelToFace``, the normal zoo)
 ``models/correspondence.py``      ``models/correspondence.py`` (Lap ``Model``,
                                   ``SiameseModel``)
 ``models/arap_models.py``         ``models/arap_models.py`` (``Model``,
@@ -77,17 +89,24 @@ Module map (port -> JAX package):
                                   check_finite`` (the port's ``torch.save``
                                   files and the JAX package's flax-msgpack
                                   files)
+``train/timing.py``               ``train/timing.py`` (``device_timer``,
+                                  ``trace`` over ``torch.profiler``,
+                                  ``ThroughputMeter``)
 ``config.py``                    ``config.py`` (``PRESETS``,
                                   ``--config``/``--preset``,
                                   ``dump_config``)
 ``cli/common.py``                 ``cli/common.py`` (log and metrics files,
+                                  ``log_environment``, ``count_params``,
                                   ``MetricFetcher``, ``EpochSampler``,
                                   ``TieredSampler``, ``Throughput``)
+``cli/preprocess.py``             ``cli/preprocess.py`` (``mnist``,
+                                  ``normal``, ``arap``: the JAX package's
+                                  files)
 ``cli/launch.py``                 ``cli/launch.py`` (the meta-launcher)
 ``cli/export_model.py``           ``cli/export_model.py`` (Lap and Dirac
                                   artifacts)
-``cli/train_normal.py``           ``cli/train_normal.py`` (single-device
-                                  ``--model lap`` and ``dirac`` paths)
+``cli/train_normal.py``           ``cli/train_normal.py`` (every
+                                  single-device path, ``--jax-profile``)
 ``cli/train_correspondence.py``   ``cli/train_correspondence.py`` (single-device
                                   paths, the host path past the budget)
 ``cli/train_arap.py``             ``cli/train_arap.py`` (single-device path,

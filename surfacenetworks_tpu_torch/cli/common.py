@@ -1,7 +1,8 @@
 """Shared trainer utilities (counterpart of ``surfacenetworks_tpu/cli/common.py``):
 the run's log file, the per-epoch metrics file, the run's config file
-(``config.dump_config``), the one-step-delayed metric fetch, the epoch and
-the size-tiered samplers and the throughput meter.
+(``config.dump_config``), the environment line and the parameter count
+every trainer logs at its start, the one-step-delayed metric fetch, the
+epoch and the size-tiered samplers and the throughput meter.
 Each writes the same files and lines as the JAX package's.
 """
 
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+import platform
 import sys
 import time
 
@@ -33,6 +35,24 @@ def make_logger(result_prefix: str, log_dir: str | None, debug: bool = False):
                 print(stuff, file=fp)
 
     return log
+
+
+def log_environment(log, device) -> None:
+    """The host and device report every trainer logs at its start (the
+    JAX package's hostname and ``jax.devices()`` lines): the hostname, then
+    torch, CUDA, the run's device and the count of CUDA devices."""
+    import torch
+
+    log(f"hostname {platform.node()}")
+    name = f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    log(f"devices torch {torch.__version__}, CUDA {torch.version.cuda}, device {device}{name}, "
+        f"{count} CUDA device{'' if count == 1 else 's'}")
+
+
+def count_params(model) -> int:
+    """The number of parameter values of ``model``."""
+    return sum(p.numel() for p in model.parameters())
 
 
 class MetricsLogger:

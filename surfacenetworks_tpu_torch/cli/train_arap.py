@@ -38,14 +38,13 @@ from __future__ import annotations
 import argparse
 import glob
 import os
-import platform
 import sys
 
 import numpy as np
 import torch
 
 from surfacenetworks_tpu_torch import config
-from surfacenetworks_tpu_torch.cli.common import MetricsLogger, Throughput, make_logger
+from surfacenetworks_tpu_torch.cli.common import MetricsLogger, Throughput, count_params, log_environment, make_logger
 from surfacenetworks_tpu_torch.data import Buckets, arap_batch, datasets
 from surfacenetworks_tpu_torch.data.batching import IN_FRAMES, OUT_FRAMES
 from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, host_route, to_device
@@ -140,8 +139,7 @@ class ArapTrainer:
         refuse_unported(args)
         self.args, self.log = args, log
         self.device = resolve_device(args.device)
-        log(f"devices {self.device}" + (f" ({torch.cuda.get_device_name(self.device)})"
-                                        if self.device.type == "cuda" else ""))
+        log_environment(log, self.device)
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
         # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,7 +160,7 @@ class ArapTrainer:
         self.model.to(self.device)
         # the JAX trainer initialises from one batch of train picks: its draws are used up here too
         self.sample_train_picks()
-        log(f"Num parameters {sum(p.numel() for p in self.model.parameters())}")
+        log(f"Num parameters {count_params(self.model)}")
         self.schedule = optim.epoch_halving_schedule(args.lr, args.num_updates, 50, 10)
         self.opt = optim.adam(self.model.parameters(), self.schedule, weight_decay=1e-5)
         self.step = 0  # updates taken (the JAX trainer's TrainState.step)
@@ -252,7 +250,6 @@ def main(argv=None) -> dict:
     args = config.parse_with_config(parser, argv)
     log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"))
     log(args)
-    log(f"hostname {platform.node()}")
     trainer = ArapTrainer(args, log=log)
     metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log"))
     ckpt = os.path.join(args.result_dir, "pts", f"{args.result_prefix}_{args.layer}_{args.model}.pt")

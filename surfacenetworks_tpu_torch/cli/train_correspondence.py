@@ -69,7 +69,15 @@ import numpy as np
 import torch
 
 from surfacenetworks_tpu_torch import config
-from surfacenetworks_tpu_torch.cli.common import MetricFetcher, MetricsLogger, Throughput, dump_config, make_logger
+from surfacenetworks_tpu_torch.cli.common import (
+    MetricFetcher,
+    MetricsLogger,
+    Throughput,
+    count_params,
+    dump_config,
+    log_environment,
+    make_logger,
+)
 from surfacenetworks_tpu_torch.data import Buckets, correspondence_batch, datasets, round_up
 from surfacenetworks_tpu_torch.data.batching import (
     _fixed_k_operator,
@@ -304,6 +312,7 @@ class CorrespondenceTrainer:
         refuse_unported(args)
         self.args, self.log = args, log
         self.device = resolve_device(args.device)
+        log_environment(log, self.device)
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
         # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -369,7 +378,7 @@ class CorrespondenceTrainer:
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
         self.opt = optim.adam(self.model.parameters(), float(args.lr), weight_decay=1e-5)
-        log(f"Num parameters {sum(p.numel() for p in self.model.parameters())}")
+        log(f"Num parameters {count_params(self.model)}")
         self.step = 0  # updates taken (the JAX trainer's TrainState.step)
         self.loss_fn = LOSSES[args.loss]
         if args.streaming_head and args.loss != "dcel":

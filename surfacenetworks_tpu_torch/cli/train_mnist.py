@@ -41,13 +41,12 @@ from __future__ import annotations
 
 import argparse
 import os
-import platform
 import sys
 
 import torch
 
 from surfacenetworks_tpu_torch import config
-from surfacenetworks_tpu_torch.cli.common import EpochSampler, MetricsLogger, make_logger
+from surfacenetworks_tpu_torch.cli.common import EpochSampler, MetricsLogger, count_params, log_environment, make_logger
 from surfacenetworks_tpu_torch.data import Buckets, datasets, mnist_batch
 from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, host_route, to_device
 from surfacenetworks_tpu_torch.models import init_weights
@@ -124,8 +123,7 @@ class MeshMnistRun:
                  model: torch.nn.Module, log):
         self.args, self.log = args, log
         self.device = resolve_device(args.device)
-        log(f"devices {self.device}" + (f" ({torch.cuda.get_device_name(self.device)})"
-                                        if self.device.type == "cuda" else ""))
+        log_environment(log, self.device)
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
         # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -151,7 +149,7 @@ class MeshMnistRun:
             log(self.store.stats())
         init_weights(model, torch.Generator().manual_seed(0))
         self.model = model.to(self.device)
-        log(f"Num parameters {sum(p.numel() for p in self.model.parameters())}")
+        log(f"Num parameters {count_params(self.model)}")
         self.opt = optim.adam(self.model.parameters(), args.lr, weight_decay=1e-5)
 
     def batch(self, samples: list[dict]):
@@ -250,7 +248,6 @@ def main(argv=None) -> dict:
     args = config.parse_with_config(parser, argv)
     log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"))
     log(args)
-    log(f"hostname {platform.node()}")
     trainer = MnistTrainer(args, log=log)
     metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log"))
     ckpt = os.path.join(args.result_dir, "pts", f"{args.result_prefix}.pt")

@@ -57,16 +57,20 @@ layer a JSON file or a named preset under the flags (``config.py``).
 ``--bf16`` trains in mixed precision as the JAX trainer does: the model
 computes in bf16 from fp32 parameters (``dtype=torch.bfloat16``; its output,
 the loss, the gradients and the optimizer state stay fp32) and BSR blocks
-are stored in bf16.  Flags of the JAX trainer that later slices bring are
-refused when given.
+are stored in bf16.  ``--jax-profile DIR`` (the JAX flag's name) records
+a ``torch.profiler`` trace of the first trained epoch, CPU and CUDA
+activities, as a Chrome-trace JSON file in ``DIR`` (``train/timing.py``);
+not with ``--only-forward-test``, as in the JAX trainer.  The JAX trainer's
+multi-device flags (``--data-parallel``, ``--graph-parallel``,
+``--multihost`` and its coordinator flags) are refused when given.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
-import platform
 import random
 import sys
 import tempfile
@@ -74,14 +78,16 @@ import tempfile
 import numpy as np
 import torch
 
-from surfacenetworks_tpu_torch import config
+from surfacenetworks_tpu_torch import config, native
 from surfacenetworks_tpu_torch.cli.common import (
+    count_params,
+    dump_config,
     EpochSampler,
+    log_environment,
+    make_logger,
     MetricsLogger,
     Throughput,
     TieredSampler,
-    dump_config,
-    make_logger,
 )
 from surfacenetworks_tpu_torch.data import BucketSet, cascade_batch, datasets, dirac_batch, laplacian_batch, round_up
 from surfacenetworks_tpu_torch.data.batching import choose_operator_format, fit_bsr_k, rcm_reorder_sample
@@ -93,7 +99,7 @@ from surfacenetworks_tpu_torch.data.pipeline import (
     padded_vertex_count,
     to_device,
 )
-from surfacenetworks_tpu_torch.geometry import dirac_coeffs, igl_style_laplacian, repair, vertex_normals
+from surfacenetworks_tpu_torch.geometry import igl_style_laplacian, repair, vertex_normals
 from surfacenetworks_tpu_torch.models import (
     AvgModel,
     DirDeepModel,
@@ -105,7 +111,7 @@ from surfacenetworks_tpu_torch.models import (
     init_weights,
 )
 from surfacenetworks_tpu_torch.serve import resolve_device
-from surfacenetworks_tpu_torch.train import checkpoint, losses, optim, prng
+from surfacenetworks_tpu_torch.train import checkpoint, losses, optim, prng, timing
 
 parser = argparse.ArgumentParser(description="Normal Predictor (PyTorch, one device)")
 parser.add_argument("--model", default="lap", help="lap | dirac | avg | mlp | id | gat | cas")
@@ -148,10 +154,11 @@ parser.add_argument("--cascade-levels", type=int, default=4, help="pyramid depth
 parser.add_argument("--rotate-augment", action="store_true",
                     help="rotate each train batch's inputs and targets by random rotations (JAX's draws)")
 config.add_config_flags(parser)
+parser.add_argument("--jax-profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the first training epoch into DIR (the JAX flag's name)")
 # flags of the JAX trainer that later slices bring: refused when given
 parser.add_argument("--data-parallel", type=int, default=0)
 parser.add_argument("--graph-parallel", type=int, default=0)
-parser.add_argument("--jax-profile", default=None)
 parser.add_argument("--multihost", action="store_true")
 parser.add_argument("--coordinator-address", default=None)
 parser.add_argument("--num-processes", type=int, default=None)
@@ -188,7 +195,6 @@ def refuse_unported(args) -> None:
     refused = {
         "--data-parallel": args.data_parallel != 0,
         "--graph-parallel": args.graph_parallel != 0,
-        "--jax-profile": args.jax_profile is not None,
         "--multihost and its coordinator flags": args.multihost or any(
             v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)),
     }
@@ -246,7 +252,7 @@ def flip_variants(train: list[dict], k: int, seed: int, dirac: bool, hack: float
             v = {"V": s["V"], "F": np.asarray(F2, dtype=np.asarray(s["F"]).dtype), "input": s["input"],
                  "target": vertex_normals(s["V"], F2).astype(np.float32), "name": f"{s.get('name', 'mesh')}_flip{i}"}
             if dirac:
-                v["dirac"] = dirac_coeffs(v["V"], v["F"])
+                v["dirac"] = native.dirac_coeffs(v["V"], v["F"])
             else:
                 v["L"] = igl_style_laplacian(v["V"], v["F"], hack=hack)
             extra.append(v)
@@ -314,8 +320,7 @@ class NormalTrainer:
         refuse_unported(args)
         self.args, self.log = args, log
         self.device = resolve_device(args.device)
-        log(f"devices {self.device}" + (f" ({torch.cuda.get_device_name(self.device)})"
-                                        if self.device.type == "cuda" else ""))
+        log_environment(log, self.device)
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
         # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -384,7 +389,7 @@ class NormalTrainer:
             fit_bsr_k(all_samples, self.bucketset)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
-        log(f"Num parameters {sum(p.numel() for p in self.model.parameters())}")
+        log(f"Num parameters {count_params(self.model)}")
         self.schedule = (optim.epoch_halving_schedule(args.lr, args.num_updates, 100, args.half_lr)
                          if args.half_lr > 0 else None)
         lr = self.schedule or args.lr
@@ -501,7 +506,6 @@ def main(argv=None) -> dict:
     args = config.parse_with_config(parser, argv)
     log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"), args.debug)
     log(args)
-    log(f"hostname {platform.node()}")
     if not args.debug:
         dump_config(args, os.path.join(args.result_dir, "cfg", f"{args.result_prefix}.json"))
     trainer = NormalTrainer(args, log)
@@ -510,7 +514,11 @@ def main(argv=None) -> dict:
     history: dict = {"train": [], "test": []}
     for epoch in range(trainer.start_epoch, args.num_epoch):
         if not args.only_forward_test:
-            history["train"].append(trainer.train_epoch(epoch, metrics_log))
+            profiled = args.jax_profile is not None and epoch == trainer.start_epoch
+            with timing.trace(args.jax_profile) if profiled else contextlib.nullcontext():
+                history["train"].append(trainer.train_epoch(epoch, metrics_log))
+            if profiled:
+                log(f"profiler trace written to {args.jax_profile}")
         if not args.no_test and trainer.test_samples:
             dump = os.path.join(args.dump_dir, args.result_prefix) if args.only_forward_test else None
             history["test"].append(trainer.test_pass(epoch, metrics_log, dump))

@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import platform
 import sys
 
 import numpy as np
@@ -195,7 +194,6 @@ def main(argv=None) -> dict:
     args = config.parse_with_config(parser, argv)
     log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"))
     log(args)
-    log(f"hostname {platform.node()}")
     trainer = VaeTrainer(args, log=log)
     metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log"))
     ckpt = os.path.join(args.result_dir, "pts", f"{args.result_prefix}.pt")

@@ -1,37 +1,22 @@
 """Host-side data: seeded meshes and bucketed batching (counterpart of
-``surfacenetworks_tpu/data``)."""
+``surfacenetworks_tpu/data``).
+
+``datasets`` imports no torch, so the offline stage (``cli.preprocess``,
+whose pool forks) reads and writes files without it; the batching names
+below load ``data/batching.py`` (and torch) on first use.
+"""
 
 from surfacenetworks_tpu_torch.data import datasets
-from surfacenetworks_tpu_torch.data.batching import (
-    Buckets,
-    BucketSet,
-    MeshBatch,
-    arap_batch,
-    bsr_k_needed,
-    cascade_batch,
-    choose_operator_format,
-    correspondence_batch,
-    dense_dirac_pair,
-    dirac_batch,
-    fit_bsr_k,
-    laplacian_batch,
-    mnist_batch,
-    pad_rows,
-    rcm_reorder_sample,
-    round_up,
-    vae_batch,
-)
 
-__all__ = [
-    "BucketSet",
+_BATCHING = (
     "Buckets",
+    "BucketSet",
     "MeshBatch",
     "arap_batch",
     "bsr_k_needed",
     "cascade_batch",
     "choose_operator_format",
     "correspondence_batch",
-    "datasets",
     "dense_dirac_pair",
     "dirac_batch",
     "fit_bsr_k",
@@ -41,4 +26,14 @@ __all__ = [
     "rcm_reorder_sample",
     "round_up",
     "vae_batch",
-]
+)
+
+__all__ = sorted(_BATCHING + ("datasets",), key=str.lower)
+
+
+def __getattr__(name: str):
+    if name in _BATCHING:
+        from surfacenetworks_tpu_torch.data import batching
+
+        return getattr(batching, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

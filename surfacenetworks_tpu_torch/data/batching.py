@@ -21,6 +21,7 @@ import scipy.sparse as sp
 import torch
 
 from surfacenetworks_tpu_torch import geometry as geo
+from surfacenetworks_tpu_torch import native
 from surfacenetworks_tpu_torch.geometry import coarsening
 from surfacenetworks_tpu_torch.sparse import (
     EllOperator,
@@ -248,8 +249,15 @@ def fit_bsr_k(samples_or_Ls, buckets: Buckets | BucketSet) -> int:
 
 
 def _fixed_k_operator(L: sp.spmatrix, buckets: Buckets, N: int) -> EllOperator:
-    """ELL operator with dataset-fixed slot counts for both directions."""
+    """ELL operator with dataset-fixed slot counts for both directions,
+    packed by the native runtime in one pass as the JAX package packs it
+    (its forward keeps the CSR's slot order: an RCM-permuted CSR's rows stay
+    unsorted), or with NumPy under ``SNX_NO_NATIVE`` (rows sorted; the same
+    bits on a CSR with sorted rows)."""
     csr = L.tocsr().astype(np.float32)
+    op = native.ell_operator_from_csr(csr, N, buckets.ell_k, buckets.ell_k_t)
+    if op is not None:
+        return op
     fwd = ell_from_scipy(csr, k=buckets.ell_k, n_rows=N, n_cols=N)
     bwd = ell_from_scipy(csr.T.tocsr(), k=buckets.ell_k_t, n_rows=N, n_cols=N)
     return EllOperator(fwd=fwd, bwd=bwd)
@@ -375,7 +383,7 @@ def cascade_batch(
 def _dirac_coeffs_of(s: dict, key: str = "dirac") -> geo.DiracCoeffs:
     """The sample's Dirac coefficients under ``key`` or, when it has none,
     those of its float32 vertices (with z set to 0 for ``flat_dirac``), as
-    the JAX package computes them here."""
+    the JAX package computes them here (natively)."""
     c = s.get(key)
     if c is not None:
         return c
@@ -383,7 +391,7 @@ def _dirac_coeffs_of(s: dict, key: str = "dirac") -> geo.DiracCoeffs:
     if key == "flat_dirac":
         V = V.copy()
         V[:, 2] = 0.0
-    return geo.dirac_coeffs(V, s["F"])
+    return native.dirac_coeffs(V, s["F"])
 
 
 def _dirac_sample_operator(s: dict, buckets: Buckets, N: int, M: int, key: str = "dirac"):

@@ -12,7 +12,11 @@ package's ``cli.preprocess normal`` output, Laplacian and Dirac samples;
 ``load_arap_sequence`` reads the ARAP trainer's ``.npy`` sequences;
 ``height_field_mesh``, ``synthetic_mnist_dataset`` and
 ``load_mnist_mesh_pickle`` make and read the mesh-MNIST samples of the
-classifier and the VAE.  The mesh-MNIST pickle and a normal sample's
+classifier and the VAE; ``load_mnist_idx`` and ``build_mnist_mesh_dataset``
+read MNIST's idx files and turn the images into those samples (the JAX
+package's offline pass, ``cli.preprocess mnist``).  Dirac coefficients are
+built by the native runtime (``native.dirac_coeffs``), as the JAX package
+builds them.  The mesh-MNIST pickle and a normal sample's
 pickled Dirac member are read through ``_SampleUnpickler``, which admits
 only the globals a sample holds.
 """
@@ -29,6 +33,7 @@ import scipy.sparse as sp
 from scipy.spatial import ConvexHull, Delaunay
 
 from surfacenetworks_tpu_torch import geometry as geo
+from surfacenetworks_tpu_torch import native
 
 
 def random_blob_mesh(rng: np.random.Generator, n_points: int = 200) -> tuple[np.ndarray, np.ndarray]:
@@ -101,8 +106,8 @@ def synthetic_mnist_dataset(num: int, seed: int = 0, n_points: int = 120, n_clas
             "label": label,
             "L": geo.mesh_laplacian(V, F).astype(np.float32),
             "flat_L": geo.mesh_laplacian(flat_V, F).astype(np.float32),
-            "dirac": geo.dirac_coeffs(V, F),
-            "flat_dirac": geo.dirac_coeffs(flat_V, F),
+            "dirac": native.dirac_coeffs(V, F),
+            "flat_dirac": native.dirac_coeffs(flat_V, F),
             "flat_V": flat_V,
             "name": f"mnistlike_{i}",
         })
@@ -132,7 +137,7 @@ def synthetic_normal_dataset(
         if operator == "lap":
             sample["L"] = geo.igl_style_laplacian(V, F, hack=hack)
         else:
-            sample["dirac"] = geo.dirac_coeffs(V, F)
+            sample["dirac"] = native.dirac_coeffs(V, F)
         out.append(sample)
     return out
 
@@ -206,7 +211,7 @@ def synthetic_arap_sequences(num_seq: int, n_frames: int = 50, n_points: int = 1
             frame = {"V": V.astype(np.float32), "F": F}
             if t < 10:
                 frame["L"] = geo.mesh_laplacian(V, F).astype(np.float32)
-                frame["dirac"] = geo.dirac_coeffs(V, F)
+                frame["dirac"] = native.dirac_coeffs(V, F)
             frames.append(frame)
         sequences.append(frames)
     return sequences
@@ -274,7 +279,7 @@ def load_normal_sample(obj_path: str, operator: str = "lap", hack: float = 1.0,
             return None
         sample["L"] = L
     else:
-        sample["dirac"] = geo.dirac_coeffs(V, F)
+        sample["dirac"] = native.dirac_coeffs(V, F)
     return sample
 
 
@@ -386,4 +391,60 @@ def load_mnist_mesh_pickle(path: str) -> list[dict]:
             flat[:, 2] = 0
             d["flat_V"] = flat
         out.append(d)
+    return out
+
+
+def load_mnist_idx(images_path: str, labels_path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Read MNIST in the standard idx format (optionally .gz).
+
+    The reference pulls MNIST through ``torchvision.datasets`` in
+    mesh_mnist/create_data.py; this loader reads the raw idx files directly
+    (no torchvision dependency).  Returns (images [N, 28, 28] uint8,
+    labels [N] int64).
+    """
+    import gzip
+    import struct
+
+    def _open(p):
+        return gzip.open(p, "rb") if p.endswith(".gz") else open(p, "rb")
+
+    with _open(images_path) as fh:
+        magic, n, rows, cols = struct.unpack(">IIII", fh.read(16))
+        if magic != 2051:
+            raise ValueError(f"bad idx image magic {magic} in {images_path}")
+        images = np.frombuffer(fh.read(n * rows * cols), np.uint8).reshape(n, rows, cols)
+    with _open(labels_path) as fh:
+        magic, n2 = struct.unpack(">II", fh.read(8))
+        if magic != 2049:
+            raise ValueError(f"bad idx label magic {magic} in {labels_path}")
+        labels = np.frombuffer(fh.read(n2), np.uint8).astype(np.int64)
+    if n != n2:
+        raise ValueError(f"image/label count mismatch: {n} vs {n2}")
+    return images, labels
+
+
+def build_mnist_mesh_dataset(
+    images: np.ndarray,
+    labels: np.ndarray,
+    limit: int | None = None,
+    with_operators: bool = True,
+    seed: int = 0,
+) -> list[dict]:
+    """Offline mesh-MNIST dataset pass: images -> meshes -> operators.
+
+    The combination of the reference's create_data.py (Poisson-disc sample +
+    Delaunay + rejection) and add_laplacian.py (normalize + cotan L + Dirac
+    for the lifted and flat meshes); rejected images are skipped like the
+    reference's `continue` (create_data.py:92-101).
+    """
+    from surfacenetworks_tpu_torch.geometry import sampling
+
+    rng = np.random.default_rng(seed)
+    out = []
+    n = len(images) if limit is None else min(limit, len(images))
+    for i in range(n):
+        sample = sampling.image_to_mesh(np.asarray(images[i], np.float64), int(labels[i]), rng=rng)
+        if sample is None:
+            continue
+        out.append(sampling.add_operators(sample) if with_operators else sample)
     return out

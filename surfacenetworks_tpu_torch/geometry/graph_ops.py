@@ -1,18 +1,39 @@
-"""Graph Laplacians, face-derived adjacency and the amp pyramid
-(NumPy/SciPy), copied from the JAX package.
+"""Graph Laplacians, kNN and face-derived adjacency, the normalised
+adjacencies, the dual graph and the amp pyramid (NumPy/SciPy).
 
-Counterpart of ``surfacenetworks_tpu/geometry/graph_ops.py``, verbatim: the
-two functions the edge-flip augmentation needs (``repair.constrained_edge_flip``,
-the normal trainer's ``--flip-variants``) and the intrinsic Laplacian
-(``geometry.intrinsic``), ``graph_laplacian`` and ``uniform_weights`` (the
-cascade's pyramid, ``geometry.coarsening``), and ``amp_pyramid`` (the FAUST
-trainer's amp trunk).
+Counterpart of ``surfacenetworks_tpu/geometry/graph_ops.py``, a verbatim
+copy: the reference's ``utils/graph.py`` (itself derived from the public
+cnn_graph library) and the adjacency helpers of
+``utils/geom_utils.py:326-353``.  The port's callers: the edge-flip
+augmentation (``repair``), the intrinsic Laplacian (``geometry.intrinsic``),
+the cascade's pyramid (``geometry.coarsening``), the amp trunk
+(``amp_pyramid``) and ``repair.largest_component`` (``dual_adjacency``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse as sp
+
+
+def knn_adjacency(dist: np.ndarray, idx: np.ndarray) -> sp.csr_matrix:
+    """Gaussian-weighted symmetric adjacency of a kNN graph.
+
+    Parity: utils/graph.py:12-38 (``adjacency``): sigma^2 = mean of k-th NN
+    distance squared, exp(-d^2/sigma^2) weights, zero diagonal, symmetrized by
+    taking the elementwise max of W and W^T.
+    """
+    M, k = dist.shape
+    assert dist.min() >= 0
+    sigma2 = np.mean(dist[:, -1]) ** 2
+    w = np.exp(-(dist**2) / sigma2)
+    I = np.arange(0, M).repeat(k)
+    J = idx.reshape(M * k)
+    W = sp.coo_matrix((w.reshape(M * k), (I, J)), shape=(M, M))
+    W.setdiag(0)
+    bigger = W.T > W
+    W = W - W.multiply(bigger) + W.T.multiply(bigger)
+    return W.tocsr()
 
 
 def graph_laplacian(
@@ -51,9 +72,20 @@ def uniform_weights(dist: sp.csr_matrix) -> sp.csr_matrix:
     return W
 
 
+def exp_weights(dist: sp.csr_matrix, sigma2: float) -> sp.csr_matrix:
+    """exp(-d^2/sigma^2) weights with zeroed diagonal (utils/mesh.py:92-100)."""
+    W = sp.csr_matrix(
+        (np.exp(-(dist.data**2) / sigma2), dist.indices, dist.indptr), shape=dist.shape
+    )
+    W.setdiag(0)
+    W.eliminate_zeros()
+    return W
+
+
 def vertex_adjacency(F: np.ndarray, num_vertices: int | None = None) -> sp.csr_matrix:
-    """0/1 vertex adjacency from triangles (equivalent of igl's
-    ``adjacency_matrix``)."""
+    """0/1 vertex adjacency from triangles (equivalent of igl adjacency_matrix;
+    fixes the broken reference ``adjacency_matrix_from_faces`` at
+    utils/mesh.py:185-200 which references an undefined variable)."""
     if num_vertices is None:
         num_vertices = int(F.max()) + 1
     rows = np.concatenate([F[:, 0], F[:, 1], F[:, 1], F[:, 2], F[:, 2], F[:, 0]])
@@ -65,10 +97,43 @@ def vertex_adjacency(F: np.ndarray, num_vertices: int | None = None) -> sp.csr_m
     return A
 
 
+def normalized_adjacency(F: np.ndarray, num_vertices: int | None = None) -> sp.csr_matrix:
+    """D^-1/2 A D^-1/2 (geom_utils.py:340-347)."""
+    A = vertex_adjacency(F, num_vertices)
+    deg = np.asarray(A.sum(axis=0)).ravel()
+    with np.errstate(divide="ignore"):
+        dh = np.power(deg, -0.5)
+    dh[~np.isfinite(dh)] = 0
+    D = sp.diags(dh.astype(np.float32), 0)
+    return (D @ A @ D).tocsr()
+
+
+def left_normalized_adjacency(F: np.ndarray, num_vertices: int | None = None) -> sp.csr_matrix:
+    """D^-1 A (geom_utils.py:331-338)."""
+    A = vertex_adjacency(F, num_vertices)
+    deg = np.asarray(A.sum(axis=0)).ravel()
+    with np.errstate(divide="ignore"):
+        dinv = np.power(deg, -1.0)
+    dinv[~np.isfinite(dinv)] = 0
+    D = sp.diags(dinv.astype(np.float32), 0)
+    return (D @ A).tocsr()
+
+
+def sym_norm_laplacian(F: np.ndarray, num_vertices: int | None = None) -> sp.csr_matrix:
+    """I - D^-1/2 A D^-1/2 (geom_utils.py:349-353)."""
+    A = normalized_adjacency(F, num_vertices)
+    return (sp.identity(A.shape[0]) - A).tocsr()
+
+
 def triangle_triangle_adjacency(F: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """TT / TTi in the igl convention: edge slot e of face f is the directed
     edge ``F[f, e] -> F[f, (e+1)%3]``; ``TT[f, e]`` is the face across it and
-    ``TTi[f, e]`` that face's slot for the same edge (-1 on boundary)."""
+    ``TTi[f, e]`` that face's slot for the same edge (-1 on boundary).
+
+    The igl convention is what the reference's edge-flip bookkeeping assumes
+    (geom_utils.edge_flip:111-159); used by edge-flip augmentation, mesh
+    repair, and the intrinsic Delaunay flips.
+    """
     m = F.shape[0]
     TT = -np.ones((m, 3), dtype=np.int64)
     TTi = -np.ones((m, 3), dtype=np.int64)
@@ -86,6 +151,23 @@ def triangle_triangle_adjacency(F: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
             else:
                 edges[key] = (f, e)
     return TT, TTi
+
+
+def dual_adjacency(F: np.ndarray, TT: np.ndarray | None = None) -> sp.csr_matrix:
+    """Face-face (dual graph) 0/1 adjacency (geom_utils.py:312-324)."""
+    if TT is None:
+        TT, _ = triangle_triangle_adjacency(F)
+    m = F.shape[0]
+    rows, cols = [], []
+    for e in range(3):
+        valid = TT[:, e] >= 0
+        rows.append(np.nonzero(valid)[0])
+        cols.append(TT[valid, e])
+    rows = np.concatenate(rows)
+    cols = np.concatenate(cols)
+    A = sp.coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(m, m)).tocsr()
+    A.data[:] = 1.0
+    return A
 
 
 def amp_pyramid(L: sp.spmatrix, levels: int = 3) -> list[sp.csr_matrix]:

@@ -1,9 +1,10 @@
 """Host-side mesh operators (NumPy/SciPy), copied from the JAX package.
 
-Counterpart of ``surfacenetworks_tpu/geometry/mesh_ops.py``.  The functions
-below are verbatim copies of the ones the port's Laplacian and Dirac paths
-need, so the port builds identical operators without importing the JAX
-package (whose ``__init__`` imports jax and flax).
+Counterpart of ``surfacenetworks_tpu/geometry/mesh_ops.py``: verbatim copies
+of its functions (the Laplacians, the Dirac pair and its coefficients, the
+normals, curvatures and rescalings), so the port builds identical operators
+without importing the JAX package (whose ``__init__`` imports jax and
+flax).
 """
 
 from __future__ import annotations
@@ -311,6 +312,15 @@ def dirac(V: np.ndarray, F: np.ndarray) -> tuple[sp.csr_matrix, sp.csr_matrix]:
     return D, DA
 
 
+def face_normals(V: np.ndarray, F: np.ndarray, normalize: bool = True) -> np.ndarray:
+    V = np.asarray(V, dtype=np.float64)
+    fn = np.cross(V[F[:, 1]] - V[F[:, 0]], V[F[:, 2]] - V[F[:, 0]])
+    if normalize:
+        norm = np.linalg.norm(fn, axis=1, keepdims=True)
+        fn = fn / np.maximum(norm, 1e-30)
+    return fn
+
+
 def vertex_normals(V: np.ndarray, F: np.ndarray) -> np.ndarray:
     """Area-weighted per-vertex normals (equivalent of geom_utils.compute_normals
     / igl per_vertex_normals with area weighting)."""
@@ -323,11 +333,102 @@ def vertex_normals(V: np.ndarray, F: np.ndarray) -> np.ndarray:
     return N / np.maximum(norm, 1e-30)
 
 
+def centroids(V: np.ndarray, F: np.ndarray) -> np.ndarray:
+    """Face centroids (parity: utils/mesh.py:225-229)."""
+    return (V[F[:, 0]] + V[F[:, 1]] + V[F[:, 2]]) / 3.0
+
+
+def gaussian_curvature(V: np.ndarray, F: np.ndarray, area_avg: bool = False) -> np.ndarray:
+    """Angle-defect Gaussian curvature K[i] = 2*pi - sum of incident angles
+    (equivalent of geom_utils.gaussian_curvature via igl).  ``area_avg`` divides
+    by the barycentric vertex mass."""
+    V = np.asarray(V, dtype=np.float64)
+    n = V.shape[0]
+    K = np.full(n, 2.0 * np.pi)
+    for c in range(3):
+        a, b = (c + 1) % 3, (c + 2) % 3
+        u = V[F[:, a]] - V[F[:, c]]
+        w = V[F[:, b]] - V[F[:, c]]
+        cosang = (u * w).sum(1) / np.maximum(
+            np.linalg.norm(u, axis=1) * np.linalg.norm(w, axis=1), 1e-30
+        )
+        ang = np.arccos(np.clip(cosang, -1.0, 1.0))
+        np.add.at(K, F[:, c], -ang)
+    if area_avg:
+        mass = np.zeros(n)
+        bary = face_areas(V, F) / 3.0
+        for c in range(3):
+            np.add.at(mass, F[:, c], bary)
+        K = K / np.maximum(mass, 1e-30)
+    return K
+
+
+def mean_curvature(V: np.ndarray, F: np.ndarray) -> np.ndarray:
+    """Mean curvature magnitude from the cotan Laplacian applied to positions
+    (|L V| / 2 with igl-convention L), signed by the normal direction."""
+    L = igl_style_laplacian(V, F, hack=0.0)
+    HN = -np.asarray(L @ V) / 2.0
+    N = vertex_normals(V, F)
+    H = np.linalg.norm(HN, axis=1) * np.sign((HN * N).sum(axis=1))
+    return H
+
+
+def curvature_features(V: np.ndarray, F: np.ndarray) -> np.ndarray | None:
+    """4-channel curvature features [k1, k2, H, G], clipped and column-rescaled.
+
+    Equivalent of geom_utils.compute_curv4 (igl principal_curvature) via the
+    H/K decomposition: k1,2 = H +- sqrt(max(H^2 - K, 0)).  Returns None if
+    non-finite values survive (reference parity: returns None on nan).
+    """
+    H = mean_curvature(V, F)
+    K = gaussian_curvature(V, F, area_avg=True)
+    disc = np.sqrt(np.maximum(H**2 - K, 0.0))
+    k1, k2 = H + disc, H - disc
+    stack = np.stack([k1, k2, (k1 + k2) / 2.0, k1 * k2], axis=1)
+    stack = np.clip(stack, -100, 100)
+    if np.isnan(stack).any():
+        return None
+    denom = np.max(np.abs(stack), axis=0)
+    stack = stack / np.where(denom > 0, denom, 1.0)
+    return stack
+
+
+def unit_bounding_box(A: np.ndarray) -> tuple[np.ndarray, float]:
+    """Center and isotropically scale into the unit box; returns (A', scale).
+    Parity: geom_utils.py:298-304."""
+    upper = A.max(axis=0)
+    lower = A.min(axis=0)
+    center = (upper + lower) / 2.0
+    scale = float((upper - lower).max())
+    return (A - center) / np.float32(scale), scale
+
+
+def rescale_V(V: np.ndarray) -> np.ndarray:
+    """Shift to positive orthant and scale by global max (geom_utils.py:450-453)."""
+    V = V - np.min(V, axis=0)
+    return V / np.max(V)
+
+
+def pca_whiten(V: np.ndarray) -> np.ndarray:
+    """Mean-center, rotate to PCA frame, rescale (geom_utils.py:442-447)."""
+    V = V - np.mean(V, axis=0)
+    _, _, PCA = np.linalg.svd(V, full_matrices=False)
+    V = V @ np.linalg.inv(PCA)
+    return rescale_V(V)
+
+
 def uniform_mesh_scale(V: np.ndarray) -> np.ndarray:
     """The normal trainer's ``--uniform-mesh`` scaling: shift to the origin
     corner, divide by the largest coordinate."""
     V = V - np.min(V, axis=0)
     return V / np.max(V)
+
+
+def permute_sparse(M: sp.spmatrix, order: np.ndarray) -> sp.csr_matrix:
+    """Symmetric row+column permutation of a sparse matrix
+    (geom_utils.py:306-310 permute_CSR_matrix)."""
+    M = M.tocoo()
+    return sp.csr_matrix((M.data, (order[M.row], order[M.col])), shape=M.shape)
 
 
 def invert_permutation(p: np.ndarray) -> np.ndarray:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from surfacenetworks_tpu_torch.nn.blocks import (
     AvgResNet2,
@@ -37,12 +38,16 @@ class LapDeepModel(nn.Module):
     width schedule, an ELU + 1x1 head and the repeating-expand input
     residual.  ``dtype`` is the computation dtype (bf16: mixed precision);
     the output is fp32 whatever it is, through the fp32 input residual.
-    ``remat`` of the JAX model is not ported."""
+    ``remat`` runs each block under ``torch.utils.checkpoint`` (the JAX
+    model's ``nn.remat``): its activations are recomputed in the backward
+    instead of stored, for the same outputs and gradients (the blocks'
+    batch norms read batch statistics and draw nothing at random)."""
 
     def __init__(self, in_features: int, out_features: int, layers: int = 15,
                  bnmode: str | None = "", only_lap: bool = False, bottleneck: bool = False,
-                 dtype: torch.dtype | None = None):
+                 remat: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
+        self.remat = remat
         if bottleneck:
             if layers != 16:
                 raise ValueError(f"bottleneck needs layers=16, got {layers}")
@@ -59,7 +64,8 @@ class LapDeepModel(nn.Module):
     def forward(self, op, mask, inputs):
         x = self.conv1(inputs)
         for i in range(self.layers):
-            x = getattr(self, f"rn{i}")(op, mask, x)
+            block = getattr(self, f"rn{i}")
+            x = checkpoint(block, op, mask, x, use_reentrant=False) if self.remat else block(op, mask, x)
         x = self.conv2(F.elu(x))
         return x + repeating_expand(inputs, x.shape[-1])
 

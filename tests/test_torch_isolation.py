@@ -2,7 +2,9 @@
 ``chip_smoke.py`` must import where jax, jaxlib, flax, optax, the JAX
 package, msgpack and matplotlib cannot be imported (as on the machine with
 the card, which has none of them), and no port source names them (the
-config presets, the launcher and the export entry point among them).  Also:
+config presets, the launcher, the export entry point, the native runtime's
+bindings, ``preprocess``, the sampler, the spectral descriptors and the
+timing tools among them).  Also:
 the port's entry points refuse to run on the CPU unless asked
 (``export_model`` without ``--platforms cpu`` too), and ``chip_smoke.py`` fails without a card or without the
 package beside it."""
@@ -34,7 +36,8 @@ class Refuse(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Refuse())
 import surfacenetworks_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for want in ("config", "cli.launch", "cli.export_model", "serve"):
+for want in ("config", "cli.launch", "cli.export_model", "serve", "native", "cli.preprocess", "geometry.sampling",
+             "geometry.spectral", "train.timing"):
     assert pkg.__name__ + "." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -65,6 +68,9 @@ def test_port_sources_name_no_jax():
     sources = sorted(PACKAGE.rglob("*.py")) + [REPO / n for n in ("chip_smoke.py", "bsr_bf16_sweep.py",
                                                                  "sddmm_bf16_check.py")]
     assert len(sources) >= 15
+    for want in ("native/__init__.py", "cli/preprocess.py", "geometry/sampling.py", "geometry/spectral.py",
+                 "train/timing.py"):
+        assert PACKAGE / want in sources, want
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -41,7 +41,7 @@ from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset
 from surfacenetworks_tpu_torch.train import losses as tlosses
 from surfacenetworks_tpu_torch.train import optim as toptim
 
-from torch_parity import assert_close, config_flag_taken, perturbed_params, to_jax
+from torch_parity import assert_close, config_flag_taken, perturbed_params, profile_flag_writes_trace, to_jax
 
 OBJS = pathlib.Path(__file__).parent / "fixtures" / "objs"
 LOSS_RTOL = 1e-6
@@ -438,12 +438,18 @@ def test_train_normal_resumes_from_a_jax_checkpoint(tmp_path):
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"], ["--config", "c"],
                                   ["--jax-profile", "x"], ["--preset", "p"], ["--multihost"]])
 def test_train_normal_refuses_unported_flags(flag, tmp_path):
-    """The multi-device flags (and the paths later slices bring) are refused
-    by name; ``--config`` and ``--preset``, refused before they were ported,
-    are taken (``tests/test_torch_config.py`` holds each preset to the JAX
-    package's resolution)."""
+    """The multi-device flags are refused by name; ``--config`` and
+    ``--preset``, refused before they were ported, are taken
+    (``tests/test_torch_config.py`` holds each preset to the JAX package's
+    resolution), and so is ``--jax-profile``, which writes a trace of the
+    first epoch."""
     if flag[0] in ("--config", "--preset"):
         config_flag_taken(ttrain.parser, flag, tmp_path, ttrain.refuse_unported)
+        return
+    if flag[0] == "--jax-profile":
+        profile_flag_writes_trace(ttrain.main, ["--device", "cpu", "--data-path", str(OBJS), "--layer", "2",
+                                                "--num-epoch", "2", "--num-updates", "1", "--batch-size", "2"],
+                                  tmp_path)
         return
     with pytest.raises(SystemExit, match="not ported yet"):
         ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag])

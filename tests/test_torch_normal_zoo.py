@@ -54,7 +54,7 @@ from surfacenetworks_tpu_torch.train import optim as toptim
 
 from test_torch_normal_train import OBJS, _objs
 from torch_parity import (BF16, assert_close, bf16_mesh, blob_laplacian, hold_bf16_model, hold_grads, operators,
-                          perturbed_params, rcm, to_jax)
+                          perturbed_params, profile_flag_writes_trace, rcm, to_jax)
 
 FP64_RTOL = 1e-6
 STEP_RTOL = 1e-4  # the trainer's fp32 loss against JAX's fp32 loss
@@ -451,8 +451,8 @@ def test_train_normal_zoo_main_cpu(tmp_path):
     """``main`` end to end on the fixtures with ``--flip-variants 1`` (gat,
     also with ``--bf16``, and mlp; the step of every model is held above):
     finite losses, the log's flip and format lines, and a checkpoint of the
-    right model; ``--data-parallel`` and ``--jax-profile`` stay refused by
-    name."""
+    right model; ``--data-parallel`` stays refused by name, and
+    ``--jax-profile`` writes a trace of the first epoch (gat)."""
     for model, extra in (("mlp", []), ("gat", []), ("gat", ["--bf16"])):
         out = tmp_path / f"{model}{len(extra)}"
         hist = ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--model", model, "--layer", "2",
@@ -466,9 +466,12 @@ def test_train_normal_zoo_main_cpu(tmp_path):
             assert "operator format -> ell" in log
         keys = torch.load(out / "pts" / "debug_normal_state.pt", weights_only=True)["params"].keys()
         assert sorted(keys) == sorted(TMODELS[model](3, 3, 2).state_dict())
-    for flag in (["--data-parallel", "2"], ["--jax-profile", "x"]):
-        with pytest.raises(SystemExit, match="not ported yet: " + flag[0]):
-            ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag])
+    with pytest.raises(SystemExit, match="not ported yet: --data-parallel"):
+        ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), "--data-parallel", "2"])
+    trace = profile_flag_writes_trace(ttrain.main, ["--device", "cpu", "--data-path", str(OBJS), "--model", "gat",
+                                                    "--layer", "2", "--num-epoch", "1", "--num-updates", "1",
+                                                    "--batch-size", "2"], tmp_path)
+    assert any("gather" in e.get("name", "") or "index" in e.get("name", "") for e in trace["traceEvents"])
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import scipy.sparse as sp
 import pytest
 import torch
 
@@ -614,3 +615,58 @@ def config_flag_taken(parser, flag: list, tmp_path, refuse) -> None:
         args = tconfig.parse_with_config(parser, flag)
         assert args.preset == flag[1] and all(getattr(args, k) == v for k, v in tconfig.PRESETS[flag[1]].items())
     refuse(args)
+
+
+def profile_flag_writes_trace(main, argv: list, tmp_path) -> dict:
+    """``main([*argv, "--jax-profile", DIR])`` (a ``train_normal`` run on
+    the CPU) writes one ``torch.profiler`` Chrome trace of its first trained
+    epoch into DIR and logs where; returns the trace's JSON."""
+    import json
+
+    prof = tmp_path / "profile"
+    out = tmp_path / "run"
+    main([*argv, "--result-dir", str(out), "--jax-profile", str(prof)])
+    traces = sorted(prof.glob("trace_*.json"))
+    assert len(traces) == 1, traces
+    trace = json.loads(traces[0].read_text())
+    assert any(e.get("ph") == "X" for e in trace["traceEvents"])
+    log = (out / "log" / "debug.log").read_text()
+    assert log.count(f"profiler trace written to {prof}") == 1
+    return trace
+
+
+DIRAC_FIELDS = ("F", "q_fv", "vf_face", "vf_corner", "q_vf", "q_bwd_v", "q_bwd_f", "n_vertices", "n_faces")
+
+
+def assert_same(a, b, where="sample"):
+    """``a`` and ``b`` hold the same values, bit for bit: arrays of one dtype
+    and shape, sparse matrices in one format with the same arrays, either
+    package's ``DiracCoeffs`` field by field, dicts key by key, lists and
+    tuples item by item; tensors as their arrays."""
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), f"{where}: keys {sorted(a)} vs {sorted(b)}"
+        for k in a:
+            assert_same(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), f"{where}: {len(a)} items vs {len(b)}"
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{where}[{i}]")
+    elif sp.issparse(a):
+        assert sp.issparse(b) and a.format == b.format and a.shape == b.shape, where
+        for attr in ("data", "indices", "indptr") if a.format in ("csr", "csc") else ("data", "row", "col"):
+            assert_same(getattr(a, attr), getattr(b, attr), f"{where}.{attr}")
+    elif type(a).__name__ == "DiracCoeffs":
+        assert type(b).__name__ == "DiracCoeffs", where
+        for f in DIRAC_FIELDS:
+            assert_same(getattr(a, f), getattr(b, f), f"{where}.{f}")
+    elif isinstance(a, (np.ndarray, torch.Tensor)):
+        a, b = (x.numpy() if isinstance(x, torch.Tensor) else x for x in (a, b))
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape, (
+            f"{where}: {a.dtype}{a.shape} vs {getattr(b, 'dtype', type(b))}{getattr(b, 'shape', '')}")
+        if a.dtype == object:
+            for i, (x, y) in enumerate(zip(a.reshape(-1), b.reshape(-1))):
+                assert_same(x, y, f"{where}[{i}]")
+        else:
+            assert np.array_equal(a, b, equal_nan=a.dtype.kind == "f"), f"{where}: values differ"
+    else:
+        assert type(a) is type(b) and a == b, f"{where}: {a!r} vs {b!r}"
