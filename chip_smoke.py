@@ -10,7 +10,7 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives eighteen paths, each with the launch counts set to 0 just before it
+drives nineteen paths, each with the launch counts set to 0 just before it
 and read just after:
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
@@ -145,7 +145,24 @@ and read just after:
 * ``train_normal --jax-profile DIR`` on Lap-15 ELL for 2 updates (run
   before the export phase, whose ``torch.export`` costs later traces in the
   process some kernel records): the Chrome trace must hold 32
-  ``ell_spmm_kernel`` events a step.
+  ``ell_spmm_kernel`` events a step;
+* the distributed runtime (``dist/``): with the kernels built here first,
+  two ranks spawned on the one card over gloo (NCCL refuses two ranks on
+  one device): ``partitioned_spmm`` at 7,000 rows (ELL interior, K=16,
+  C=128) and 7,168 rows (BSR interior), forward and stored-transpose
+  backward, each rank's rows against the single-card ``ell_matmul`` /
+  ``bsr_matmul`` on the whole operator within 1e-5 of ``|A||x|``, one
+  interior and one boundary launch an apply, a dropped boundary slot and a
+  zeroed halo refused, the local products timed with their bounds and
+  ``torch.sparse.mm``; ``train_normal --graph-parallel 2`` (Lap-15, ELL
+  and BSR interiors, 4 updates), ``train_normal --data-parallel 2`` at
+  batch 2 and ``train_arap --data-parallel 2`` at batch 32 (2 updates):
+  step 0 against the same step on one rank over the whole batch (loss,
+  gradient, parameters; a rank-local batch norm refused), launches a step,
+  and per rank the wall, device busy, idle share and the halo exchanged;
+  then one rank over NCCL takes a DP step and runs NCCL's ``all_reduce``
+  and ``broadcast`` on the card (collectives across cards and NCCL's
+  peer-to-peer sends are not exercised on one card).
 
 Before the kernels, the native host runtime (``native/``, its own ``g++``
 build) is held against the NumPy route bit for bit on a 7,000-vertex mesh
@@ -665,6 +682,14 @@ def cold_ms(fn, flush, reps: int = 15) -> float:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def ell_live_bytes(cols, vals, x, out) -> int:
+    """Bytes of ``ell_matmul`` at its least: the table (cols and vals, each
+    read once), the distinct rows of x that some live slot reads (each read
+    once) and out."""
+    rows = int(cols[vals != 0].unique().numel())
+    return nbytes(cols, vals, out) + rows * x.shape[-1] * x.element_size()
 
 
 def bsr_live_work(bcols, bvals, live, x, out) -> tuple[int, int]:
@@ -1712,7 +1737,7 @@ def output_head(cap: ModuleCapture, loss: float, head64, label: str = "trunk") -
 
 
 def replay_modules(cap: ModuleCapture, grads: dict, ref_model, apply, dtype=None, prefix: str = "",
-                   null=frozenset(), outputs: bool = False) -> dict:
+                   null=frozenset(), outputs: bool = False, norms: dict | None = None) -> dict:
     """The one step-0 comparator: a captured step replayed module by module.
     Each call of each module of ``cap`` is rerun by the same module of
     ``ref_model`` (the model at the step's weights: in fp64, or in the
@@ -1727,7 +1752,9 @@ def replay_modules(cap: ModuleCapture, grads: dict, ref_model, apply, dtype=None
     leaf in ``null`` (zero in exact arithmetic) the card gradient's norm
     over the largest reference gradient's.  Returns each row's relative
     (Frobenius) error by key; parameter rows end in ``gradient`` (``null
-    gradient``), the chain's (outputs and cotangents) do not."""
+    gradient``), the chain's (outputs and cotangents) do not.  ``norms``,
+    where given, receives each other leaf's reference gradient norm over
+    the largest one's."""
     import torch
 
     errs, pgrads = {}, {}
@@ -1763,13 +1790,16 @@ def replay_modules(cap: ModuleCapture, grads: dict, ref_model, apply, dtype=None
             errs[f"{key} null gradient"] = float(grads[prefix + key].double().norm()) / top
         else:
             errs[f"{key} gradient"] = _rel_fro(grads[prefix + key], g.double())
+            if norms is not None:
+                norms[key] = float(g.double().norm()) / top
     return errs
-def judge_step0(what: str, runs: dict, bounds: dict, res: dict) -> list[str]:
+def judge_step0(what: str, runs: dict, bounds: dict, res: dict, against: str = "fp64") -> list[str]:
     """The module-wise verdict on step 0.  ``runs`` maps "real" and each
     mutant's label to their errors against fp64; each run's errors fall in
     the chain (the loss and the cotangents), the parameter gradients and,
     where there are any, the null gradients (``... null gradient``), and
-    each group's worst is held to its bound in ``bounds``.  Logs each run,
+    each group's worst is held to its bound in ``bounds``.  Logs each run
+    (its reference named by ``against``),
     keeps the worst in ``res["step0"]``; the real step must pass and no
     mutant may.  Returns the failures."""
     failures = []
@@ -1783,7 +1813,7 @@ def judge_step0(what: str, runs: dict, bounds: dict, res: dict) -> list[str]:
         loss_key = next(k for k in errs if k.startswith("loss on"))
         null = (f"; null gradients {sorted(groups['null'])} worst {worst_['null'][1]:.3e} of the largest "
                 f"(tol {bounds['null']:g})" if "null" in worst_ else "")
-        log(f"  {what} {label}: module-wise vs fp64: {loss_key} rel {errs[loss_key]:.3e}; chain ({len(groups['chain'])}) "
+        log(f"  {what} {label}: module-wise vs {against}: {loss_key} rel {errs[loss_key]:.3e}; chain ({len(groups['chain'])}) "
             f"worst {worst_['chain'][0]} {worst_['chain'][1]:.3e} (tol {bounds['chain']:g}), median "
             f"{np.median(list(groups['chain'].values())):.3e}; parameter gradients ({len(groups['parameter'])}) worst "
             f"{worst_['parameter'][0]} {worst_['parameter'][1]:.3e} (tol {bounds['parameter']:g}), median "
@@ -3820,9 +3850,10 @@ def arap_phase(device, smi: str) -> tuple[dict, dict]:
 
 
 def _is_operator(a) -> bool:
+    from surfacenetworks_tpu_torch.dist import PartitionedOperator
     from surfacenetworks_tpu_torch.sparse import BsrOperator, DiracOperator, EllOperator
 
-    return isinstance(a, (EllOperator, BsrOperator, DiracOperator))
+    return isinstance(a, (EllOperator, BsrOperator, DiracOperator, PartitionedOperator))
 
 
 def mesh_objective(family: str, model, b, noise, kw: float = 0.0):
@@ -5530,6 +5561,598 @@ def jax_profile_phase(device, smi: str) -> tuple[dict, dict]:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the distributed runtime: gloo ranks sharing the one card, and one NCCL rank
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2  # ranks sharing the card over gloo (NCCL refuses two ranks on one device)
+DIST_POINTS = 7000
+DIST_BSR_ROWS = 7168  # 2 partitions of 28 128-row blocks
+DIST_NORMAL_ARGS = ["--synthetic", "3", "--synthetic-points", str(DIST_POINTS), "--seed", str(SEED), "--layer",
+                    str(LAYERS), "--num-epoch", "1", "--device", "cuda", "--debug", "--no-test"]
+DIST_GP_STEPS = 4
+DIST_DP_STEPS = 2
+DIST_ARAP_SEQUENCES = {"num_seq": 3, "n_frames": 50, "n_points": 2000, "seed": SEED}
+# Step 0 of a sharded run against the same step on one rank, module by
+# module: each module's captured inputs, gathered over the ranks, rerun on one
+# rank (fp32, the kernels, the whole unpartitioned operator), its output and
+# the cotangents of its inputs against the sharded run's, gathered, and each
+# parameter's gradient against the one the ranks summed (``replay_modules``,
+# ``judge_step0``; relative Frobenius).  Within one module the inputs are the
+# same and only the order of batch norm's sums differs (and, with BSR
+# interiors, the order of the interior's sums); where ``L x`` cancels (the
+# first block, on raw coordinates) batch norm amplifies that.  The worst
+# module is held to DIST_STEP0_BOUNDS, set between the real runs' largest
+# readings (chain 0.158, parameters 0.234) and the rank-local batch-norm
+# mutant's smallest (0.979, 1.206) on an NVIDIA H100 80GB HBM3 at 700.00 W,
+# near their geometric means; the runs are deterministic (every reading
+# repeated to the last digit between two calls), and the worst leaves'
+# reference gradients are not nearly zero (their shares of the largest are
+# logged), so no leaf is put under the null-gradient rule.  The median
+# module is held to DIST_STEP0_MEDIAN_RTOL.  The mutant must fail both.
+# The parameters after the update must equal, bit for bit on every rank, one
+# optimizer step from step 0's weights with the summed gradients.
+# The single-card trainer's own step (``loop.update`` without a grid) on the
+# whole batch from the same weights: its loss and its update (the parameters
+# after it less step 0's) against the sharded step's, relative, held to
+# DIST_SINGLE_CARD_RTOL.  For ARAP (real 1e-6 and 0.009) both bounds refuse
+# the mutant (0.018 and 1.1).  For the normal model at depth 15 fp32
+# rounding alone moves the whole step by far more: the loss by 0.1-1.9% (the
+# same step on the CPU: 0.696 with two ranks, 0.653 on one, 0.676 in fp64,
+# where the two agree to 5e-11) and Adam's first update, a sign per element,
+# by 0.76-1.22 (the mutant 1.32-1.34), so only the loss is held there, at
+# 0.1: it catches a wrong normaliser or a lost sum of the loss shares, and
+# the module-wise check catches a rank-local batch norm (0.8-4.1% off in the
+# loss).
+DIST_STEP0_BOUNDS = {"chain": 0.4, "parameter": 0.5}
+DIST_STEP0_MEDIAN_RTOL = 1e-4
+DIST_SINGLE_CARD_RTOL = {"gp ell": {"loss": 0.1}, "gp bsr": {"loss": 0.1}, "dp normal": {"loss": 0.1},
+                         "dp arap": {"loss": 1e-4, "update": 0.1}}
+# launches a step per rank: LapDeepModel-15 applies 16 operators forward and
+# 16 backward; a partitioned apply is one interior and one boundary launch
+DIST_PER_STEP = {"gp ell": launches_of(ell_matmul=64), "gp bsr": launches_of(bsr_matmul=32, ell_matmul=32),
+                 "dp normal": launches_of(ell_matmul=32), "dp arap": launches_of(ell_matmul=32)}
+
+
+def _dist_log(mesh, msg: str) -> None:
+    log(f"  [rank {mesh.rank}] {msg}")
+
+
+def _dist_operator():
+    """The RCM-ordered Laplacian of a synthetic 7,000-vertex mesh."""
+    from surfacenetworks_tpu_torch.data import datasets
+    from surfacenetworks_tpu_torch.data.batching import rcm_reorder_sample
+
+    return rcm_reorder_sample(datasets.synthetic_normal_dataset(1, n_points=DIST_POINTS, seed=SEED,
+                                                                operator="lap")[0])["L"]
+
+
+def dist_apply_checks(mesh, device) -> dict:
+    """``partitioned_spmm`` on this rank's rows (``make_partitioned_spmm``:
+    the global operator and x in, this rank's rows out), ELL interior (7,000
+    rows, K=16, C=128) and BSR interior (7,168 rows), forward and
+    stored-transpose backward, against the single-card ``ell_matmul`` /
+    ``bsr_matmul`` on the whole operator, element by element within KERNEL_RTOL of |A||x|; the
+    launches of one apply (one interior, one boundary); a dropped boundary
+    slot and a zeroed halo refused; the interior and boundary products timed
+    at their local shapes on rank 0 (the other rank waiting) with their
+    bounds and ``torch.sparse.mm``; the whole apply timed on both ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from surfacenetworks_tpu_torch import parallel_context
+    from surfacenetworks_tpu_torch.dist import edge_partition as ep
+    from surfacenetworks_tpu_torch.sparse import bsr_from_scipy, ell_from_scipy, kernels
+
+    rep = {}
+    L = _dist_operator()
+    n = L.shape[0]
+    g = mesh.graph_index
+    for interior, n_rows in (("ell", n), ("bsr", DIST_BSR_ROWS)):
+        halo = ep.suggest_halo(L)
+        op = ep.partition_operator(L, mesh.n_graph, halo=halo, k=16, n_rows=n_rows, interior_fmt=interior)
+        loc = ep.shard_partitioned(op, g).to(device)
+        gen = torch.Generator().manual_seed(SEED + 900)
+        x = torch.randn(n_rows, WIDTH, generator=gen).to(device)
+        cot = torch.randn(n_rows, WIDTH, generator=gen).to(device)
+        rows = slice(g * n_rows // mesh.n_graph, (g + 1) * n_rows // mesh.n_graph)
+        whole = ell_from_scipy(L, k=16, n_rows=n_rows, n_cols=n_rows).to(device)
+        whole_t = ell_from_scipy(L.T.tocsr(), k=16, n_rows=n_rows, n_cols=n_rows).to(device)
+        if interior == "bsr":
+            ref = kernels.bsr_matmul(*(lambda m: (m.block_cols, m.block_vals))(
+                bsr_from_scipy(L, 128, n_rows=n_rows, n_cols=n_rows).to(device)), x)
+            ref_t = kernels.bsr_matmul(*(lambda m: (m.block_cols, m.block_vals))(
+                bsr_from_scipy(L.T.tocsr(), 128, n_rows=n_rows, n_cols=n_rows).to(device)), cot)
+        else:
+            ref = kernels.ell_matmul(whole.cols, whole.vals, x)
+            ref_t = kernels.ell_matmul(whole_t.cols, whole_t.vals, cot)
+        scale = kernels.ell_matmul_plain(whole.cols, whole.vals.abs(), x.abs())
+        scale_t = kernels.ell_matmul_plain(whole_t.cols, whole_t.vals.abs(), cot.abs())
+        xg = x.clone().requires_grad_(True)
+        kernels.reset_launch_counts()
+        y = ep.make_partitioned_spmm(mesh)(op, xg)  # this rank's rows of L x
+        fwd_launches = {k: v for k, v in kernels.launches.items() if v}
+        kernels.reset_launch_counts()
+        y.backward(cot[rows])
+        bwd_launches = {k: v for k, v in kernels.launches.items() if v}
+        want = {"ell_matmul": 2} if interior == "ell" else {"bsr_matmul": 1, "ell_matmul": 1}
+        if fwd_launches != want or bwd_launches != want:
+            raise AssertionError(f"partitioned {interior} apply launched {fwd_launches} forward and {bwd_launches} "
+                                 f"backward, not {want}")
+        what = f"rank {mesh.rank}: partitioned {interior} interior, rows {rows.start}-{rows.stop} of {n_rows}"
+        r = {"rows": n_rows, "halo": halo, "boundary_rows": int(loc.fwd.bnd_rows.shape[0]),
+             "max_abs_err": check(f"{what}, forward", y, ref[rows], scale[rows], KERNEL_RTOL),
+             "backward_max_abs_err": check(f"{what}, backward", xg.grad[rows], ref_t[rows], scale_t[rows], KERNEL_RTOL),
+             "launches_per_apply": want}
+        # mutants: one boundary slot dropped, the halo zeroed
+        bad = ep.PartitionedOperator(ep.PartitionedEll(**{**vars(loc.fwd), "bnd_vals": loc.fwd.bnd_vals.clone()}),
+                                     loc.bwd)
+        live = bad.fwd.bnd_vals.nonzero()
+        slot = next(tuple(t.tolist()) for t in live if int(bad.fwd.bnd_cols[tuple(t.tolist())]) < halo
+                    or int(bad.fwd.bnd_cols[tuple(t.tolist())]) >= halo + n_rows // mesh.n_graph)
+        bad.fwd.bnd_vals[slot] = 0.0
+        with parallel_context.sharded_axes(vertex_axis=mesh.graph), torch.no_grad():
+            refused(f"{what}, one remote boundary slot dropped", ep.partitioned_spmm(bad, x[rows]), ref[rows],
+                    scale[rows], KERNEL_RTOL)
+            with swapped(ep._Exchange, "wait", lambda self: (torch.zeros_like(self.from_left, device=device),
+                                                             torch.zeros_like(self.from_right, device=device))):
+                zeroed = ep.partitioned_spmm(loc, x[rows])
+            refused(f"{what}, halo zeroed", zeroed, ref[rows], scale[rows], KERNEL_RTOL)
+        # the whole apply, both ranks together (the exchange staged through the host over gloo)
+        ep.reset_exchange_stats()
+        with parallel_context.sharded_axes(vertex_axis=mesh.graph), torch.no_grad():
+            xr = x[rows].contiguous()
+            for _ in range(3):
+                ep.partitioned_spmm(loc, xr)
+            torch.cuda.synchronize()
+            ep.reset_exchange_stats()
+            reps = 20
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                ep.partitioned_spmm(loc, xr)
+            end.record()
+            end.synchronize()
+        st = dict(ep.exchange_stats)
+        r.update(apply_wall_ms=(time.perf_counter() - t0) * 1e3 / reps, apply_device_ms=start.elapsed_time(end) / reps,
+                 halo_rows_per_apply=st["rows"] / reps, halo_bytes_per_apply=st["bytes"] / reps,
+                 exchange_host_ms_per_apply=st["host_s"] * 1e3 / reps)
+        _dist_log(mesh, f"partitioned {interior} apply (rows {n_rows}, halo {halo}, {r['boundary_rows']} boundary rows "
+                        f"a partition): wall {r['apply_wall_ms']:.3f} ms, CUDA-event {r['apply_device_ms']:.3f} ms "
+                        f"per apply; {r['halo_rows_per_apply']:.0f} halo rows ({r['halo_bytes_per_apply']:.0f} bytes) "
+                        f"sent per apply, the exchange's host time {r['exchange_host_ms_per_apply']:.3f} ms per apply "
+                        f"(gloo on one card, staged through pinned host buffers; not NCCL)")
+        # the local products alone, timed on rank 0 while the other rank waits
+        dist.barrier(group=mesh.graph.group)
+        if mesh.rank == 0:
+            r["local"] = _dist_local_timing(loc.fwd, interior, xr, device)
+        dist.barrier(group=mesh.graph.group)
+        rep[interior] = r
+    return rep
+
+
+def _dist_local_timing(m, interior: str, x_loc, device) -> dict:
+    """The interior and the boundary product of one partition at their local
+    shapes: warm ms, plain ms, bound (``ell_live_bytes``: the rows of x that
+    a live slot reads, not the whole frame) and ``torch.sparse.mm`` on a CSR
+    copy of the same table."""
+    import torch
+
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    def csr_of(cols, vals, n_cols):
+        live = vals != 0
+        rows = torch.arange(cols.shape[0], device=device)[:, None].expand_as(cols)[live]
+        return torch.sparse_coo_tensor(torch.stack([rows, cols[live].long()]), vals[live],
+                                       (cols.shape[0], n_cols)).coalesce().to_sparse_csr()
+
+    out = {}
+    x_ext = torch.cat([torch.zeros(m.halo, x_loc.shape[1], device=device), x_loc,
+                       torch.zeros(m.halo, x_loc.shape[1], device=device)])
+    tables = [("boundary", m.bnd_cols, m.bnd_vals, x_ext)]
+    if interior == "ell":
+        tables.insert(0, ("interior", m.cols, m.vals, x_loc))
+    for label, cols, vals, xx in tables:
+        nnz = int((vals != 0).sum())
+        res = torch.empty(cols.shape[0], xx.shape[1], device=device)
+        n_bytes = ell_live_bytes(cols, vals, xx, res)
+        b_ms, b_by = bound_ms(n_bytes, 2 * nnz * xx.shape[1])
+        lib = csr_of(cols, vals, xx.shape[0])
+        out[label] = {"shape": [cols.shape[0], cols.shape[1], xx.shape[1]], "live_slots": nnz,
+                      "ms": time_ms(lambda: kernels.ell_matmul(cols, vals, xx)),
+                      "plain_ms": time_ms(lambda: kernels.ell_matmul_plain(cols, vals, xx)),
+                      "library_ms": time_ms(lambda: torch.sparse.mm(lib, xx)), "library_call": "torch.sparse.mm(csr, x)",
+                      "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                      "x_rows_read": int(cols[vals != 0].unique().numel()), "flops": 2 * nnz * xx.shape[1]}
+        r = out[label]
+        log(f"  ell_matmul, partition {label} table (R={r['shape'][0]}, K={r['shape'][1]}, C={r['shape'][2]}, "
+            f"{nnz} live slots reading {r['x_rows_read']} of {xx.shape[0]} rows of x): {r['ms']:.5f} ms warm (plain {r['plain_ms']:.4f}, {r['library_call']} "
+            f"{r['library_ms']:.4f}); bound {b_ms:.5f} ms by {b_by}")
+    return out
+
+
+def _local_batch_norm():
+    """The mutant: every batch norm takes its statistics over this rank's
+    rows only."""
+    from surfacenetworks_tpu_torch import parallel_context
+    from surfacenetworks_tpu_torch.nn.layers import GraphBatchNorm
+
+    forward = GraphBatchNorm.forward
+
+    def local(self, x, mask=None):
+        with parallel_context.sharded_axes():
+            return forward(self, x, mask)
+
+    return swapped(GraphBatchNorm, "forward", local)
+
+
+def _loss_of(out) -> float:
+    return float(out[0] if isinstance(out, tuple) else out)
+
+
+def _gathered(cap, axis, dim: int):
+    """``cap`` (a ``ModuleCapture`` of this rank's shard) with every
+    captured array gathered over ``axis`` along ``dim`` (every rank calls it,
+    in the same order)."""
+    import torch
+
+    from surfacenetworks_tpu_torch.dist import mesh_setup
+
+    def g(t):
+        return mesh_setup.all_gather(t.contiguous(), axis, dim) if isinstance(t, torch.Tensor) else t
+
+    out = copy.copy(cap)
+    out.calls = {name: [{"needs": r["needs"], "args": [g(a) for a in r["args"]], "out": [g(o) for o in r["out"]],
+                         "g": [g(t) for t in r["g"]], "gin": [g(t) for t in r["gin"]]} for r in recs]
+                 for name, recs in cap.calls.items()}
+    return out
+
+
+def _dist_step0(mesh, label: str, trainer, batch, whole, head, make_opt, vertex: bool) -> dict:
+    """Step 0 on every rank's shard (``trainer.update(batch)``) against the
+    same step on one rank, module by module (see DIST_STEP0_BOUNDS): the
+    captured modules gathered over the graph axis (rows, ``vertex``) or the
+    data axis (batch items), replayed by rank 0 on ``whole`` (the whole
+    batch, unpartitioned) with the loss ``head(out, whole)``; the same for
+    the rank-local batch-norm mutant, which must fail; the parameters after
+    the update bit-identical on every rank and to one step of
+    ``make_opt(model)`` (the trainer's optimizer, made afresh) from step 0's
+    weights with the summed gradients; the loss and the update against the
+    single-card step on ``whole``.  The trainer's weights, optimizer and
+    update count are put back after each."""
+    import torch
+
+    from surfacenetworks_tpu_torch.dist import mesh_setup
+
+    state0 = copy.deepcopy(trainer.model.state_dict())
+    opt0 = copy.deepcopy(trainer.opt.state_dict())
+    axis, dim = (mesh.graph, -2) if vertex else (mesh.data, 0)
+
+    def restart():
+        trainer.model.load_state_dict(state0)
+        trainer.opt.load_state_dict(opt0)
+        trainer.step = 0
+
+    def captured(ctx):
+        restart()
+        cap = StepCapture(trainer.model)
+        try:
+            with ctx():
+                loss = _loss_of(trainer.update(batch))
+        finally:
+            cap.remove()
+        grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+        return loss, grads, _gathered(cap, axis, dim), torch.cat([p.detach().reshape(-1)
+                                                                  for p in trainer.model.parameters()])
+
+    loss, grads, cap, after = captured(contextlib.nullcontext)
+    replicas = mesh_setup.all_gather(after[None], mesh.world, 0)
+    mutant = captured(_local_batch_norm)
+    restart()
+    res = {"loss0": loss}
+    if mesh.rank == 0:
+        if not all(torch.equal(r, after) for r in replicas):
+            raise AssertionError(f"{label}: the ranks' parameters differ after the update")
+        from surfacenetworks_tpu_torch.train import loop, optim
+
+        def flat(m):
+            return torch.cat([p.detach().reshape(-1) for p in m.parameters()])
+
+        # one optimizer step from step 0's weights with the summed gradients, on one rank
+        model = copy.deepcopy(trainer.model)
+        model.load_state_dict(state0)
+        opt = make_opt(model)
+        for k, p in model.named_parameters():
+            p.grad = grads[k].clone()
+        optim.apply_schedule(opt, trainer.schedule)
+        opt.step()
+        if not torch.equal(flat(model), after):
+            raise AssertionError(f"{label}: the update is not one optimizer step with the summed gradients")
+        # the single-card trainer's step on the whole batch from the same weights
+        model.load_state_dict(state0)
+        p0 = flat(model)
+        (one,) = loop.update(model, make_opt(model),
+                             lambda: (head(model(whole.operator, whole.mask, whole.inputs), whole),), trainer.schedule)
+        single = {"loss": float(one), "update": flat(model) - p0}
+        model.load_state_dict(state0)
+        failures, runs, bounds = [], {}, DIST_SINGLE_CARD_RTOL[label]
+        for lab, (lo, gr, c, af) in (("real", (loss, grads, cap, after)), ("mutant rank-local batch norm", mutant)):
+            norms = {}
+            runs[lab] = errs = {**output_head(c, lo, lambda out: head(out, whole)),
+                                **replay_modules(c, gr, model, lambda name, k, op: whole.operator, norms=norms)}
+            if lab == "real":
+                leaves = sorted((k[:-len(" gradient")] for k in errs if k.endswith(" gradient")),
+                                key=lambda k: -errs[k + " gradient"])[:4]
+                res["worst_leaf_shares"] = {k: norms[k] for k in leaves}
+                log(f"  {label} real: the worst leaves' reference gradients as shares of the largest: "
+                    + ", ".join(f"{k} {norms[k]:.3e}" for k in leaves))
+            step = {"loss": abs(lo - single["loss"]) / abs(single["loss"]),
+                    "update": _rel_fro(af - p0, single["update"].double())}
+            res.setdefault("single_card", {})[lab] = step
+            held = all(step[k] <= b for k, b in bounds.items())
+            word = ("ok" if held else "FAIL") if lab == "real" else (
+                ("NOT refused" if held else "refused") if "update" in bounds else "reported")
+            log(f"  {label} {lab}: against the single-card step: loss {lo!r} / {single['loss']!r}, rel "
+                f"{step['loss']:.3e}; update rel {step['update']:.3e}; held to {bounds}: {word}")
+            if word in ("FAIL", "NOT refused"):
+                failures.append(f"{label} {lab}: step 0 against the single-card step: {step}")
+        verdict = {"step0": {}}
+        failures += judge_step0(label, runs, DIST_STEP0_BOUNDS, verdict, against="one rank on the whole batch")
+        res["step0"] = verdict["step0"]
+        for lab, errs in runs.items():
+            med = {g: float(np.median([v for k, v in errs.items() if k.endswith("gradient") == (g == "parameter")]))
+                   for g in ("chain", "parameter")}
+            res["step0"].setdefault("median", {})[lab] = med
+            passes = all(v <= DIST_STEP0_MEDIAN_RTOL for v in med.values())
+            log(f"  {label} {lab}: median module chain {med['chain']:.3e}, parameter {med['parameter']:.3e} (tol "
+                f"{DIST_STEP0_MEDIAN_RTOL:g}) " + (("ok" if passes else "FAIL") if lab == "real" else
+                                                  ("NOT refused" if passes else "refused")))
+            if passes != (lab == "real"):
+                failures.append(f"{label} {lab}: median module errors {med}")
+        if failures:
+            raise AssertionError("; ".join(failures))
+    mesh_setup.all_gather(torch.zeros(1, device=mesh.device), mesh.world, 0)  # rank 0's verdict before going on
+    return res
+
+
+def _dist_run(mesh, label: str, trainer, draw, steps: int) -> dict:
+    """``steps`` updates on this rank's shards, timed (host wall of a
+    synchronised update, CUDA events), launches per step held to
+    DIST_PER_STEP and summed over the steps (``launches``, as counted); the
+    last step under the profiler: device busy and idle share; the halo
+    exchanged per step."""
+    import torch
+
+    from surfacenetworks_tpu_torch.dist import edge_partition as ep
+    from surfacenetworks_tpu_torch.sparse import kernels
+
+    res = {"loss": [], "wall_ms": [], "device_ms": [], "launches": dict.fromkeys(kernels.launches, 0)}
+    for u in range(steps):
+        batch = trainer.batch(draw())
+        kernels.reset_launch_counts()
+        ep.reset_exchange_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        if u == steps - 1:
+            with counted_profile() as prof:
+                out = trainer.update(batch)
+                torch.cuda.synchronize()
+        else:
+            out = trainer.update(batch)
+        end.record()
+        end.synchronize()
+        res["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["device_ms"].append(start.elapsed_time(end))
+        res["loss"].append(_loss_of(out))
+        got = {k: v for k, v in kernels.launches.items() if v}
+        for k, v in got.items():
+            res["launches"][k] += v
+        if got != {k: v for k, v in DIST_PER_STEP[label].items() if v}:
+            raise AssertionError(f"{label}: step {u} launched {got}, not {DIST_PER_STEP[label]}")
+        res["exchange"] = dict(ep.exchange_stats)
+    rows = device_rows(prof)
+    res["busy_ms"] = sum(r[0] for r in rows) / 1e3
+    res["wall_ms_median"] = float(np.median(res["wall_ms"]))
+    res["device_ms_median"] = float(np.median(res["device_ms"]))
+    res["idle_share"] = 1 - res["busy_ms"] / res["wall_ms"][-1]
+    if not all(np.isfinite(res["loss"])):
+        raise AssertionError(f"{label}: non-finite losses {res['loss']}")
+    ex = res["exchange"]
+    _dist_log(mesh, f"{label}: losses {[round(v, 6) for v in res['loss']]}; median per step wall "
+                    f"{res['wall_ms_median']:.3f} ms, CUDA-event {res['device_ms_median']:.3f} ms; profiled step "
+                    f"busy {res['busy_ms']:.3f} ms, idle share {res['idle_share']:.3f}; a step's halo exchanges "
+                    f"{ex['exchanges']} sending {ex['rows']} rows ({ex['bytes']} bytes), host time "
+                    f"{ex['host_s'] * 1e3:.3f} ms (gloo on one card, not NCCL)")
+    return res
+
+
+def dist_rank(mesh, out_dir: str) -> dict:
+    """One of DIST_RANKS ranks on the card: the partitioned applies, then
+    ``train_normal --graph-parallel 2`` (ELL and BSR interiors),
+    ``train_normal --data-parallel 2`` at batch 2 and ``train_arap
+    --data-parallel 2`` at batch 32; writes its report to
+    ``out_dir/rank<r>.json``."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_arap, train_normal
+    from surfacenetworks_tpu_torch.data import datasets, laplacian_batch
+    from surfacenetworks_tpu_torch.data.pipeline import to_device
+    from surfacenetworks_tpu_torch.dist import mesh_setup
+    from surfacenetworks_tpu_torch.train import losses, optim
+
+    device = mesh.device
+
+    def normal_opt(model):
+        return optim.adam(model.parameters(), 1e-3)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rep = {"rank": mesh.rank, "backend": mesh.backend, "apply": dist_apply_checks(mesh, device)}
+    for interior in ("ell", "bsr"):
+        label = f"gp {interior}"
+        argv = DIST_NORMAL_ARGS + ["--batch-size", "1", "--graph-parallel", "2", "--operator-format", interior,
+                                   "--num-updates", str(DIST_GP_STEPS)]
+        trainer = train_normal.NormalTrainer(train_normal.parser.parse_args(argv), lambda m: None, mesh)
+        samples = trainer.train_sampler.next_batch()
+        tier = trainer.bucketset.tiers[trainer.bucketset.tier_index(samples)]
+        whole = to_device(laplacian_batch(samples, tier, fmt="ell"), device)  # the same rows, unpartitioned
+        rep[label] = _dist_step0(mesh, label, trainer, trainer.batch(samples), whole, _cosine_head, normal_opt,
+                                 vertex=True)
+        rep[label].update(_dist_run(mesh, label, trainer, trainer.train_sampler.next_batch, DIST_GP_STEPS))
+        del trainer
+    dp = mesh_setup.make_mesh(DIST_RANKS, 1, ["cuda:0"] * DIST_RANKS)
+    argv = DIST_NORMAL_ARGS + ["--batch-size", "2", "--data-parallel", "2", "--operator-format", "ell",
+                               "--num-updates", str(DIST_DP_STEPS)]
+    trainer = train_normal.NormalTrainer(train_normal.parser.parse_args(argv), lambda m: None, dp)
+    samples = trainer.train_sampler.next_batch()
+    rep["dp normal"] = _dist_step0(dp, "dp normal", trainer, trainer.batch(samples),
+                                   trainer.batch(samples, shard=False), _cosine_head, normal_opt, vertex=False)
+    rep["dp normal"].update(_dist_run(dp, "dp normal", trainer, trainer.train_sampler.next_batch, DIST_DP_STEPS))
+    del trainer
+    seqs = datasets.synthetic_arap_sequences(**DIST_ARAP_SEQUENCES)
+    argv = ["--layer", str(LAYERS), "--batch-size", "32", "--num-updates", str(DIST_DP_STEPS), "--num-epoch", "1",
+            "--seed", str(SEED), "--device", "cuda", "--data-parallel", "2"]
+    trainer = train_arap.ArapTrainer(train_arap.parser.parse_args(argv), seqs, lambda m: None, dp)
+    picks = trainer.sample_train_picks()
+
+    def arap_head(out, b):
+        return losses.smooth_l1_sum(out * b.mask, b.targets, b.inputs.shape[0])
+
+    rep["dp arap"] = _dist_step0(dp, "dp arap", trainer, trainer.batch(picks, shard=True), trainer.batch(picks),
+                                 arap_head, lambda m: optim.adam(m.parameters(), trainer.schedule, weight_decay=1e-5),
+                                 vertex=False)
+    rep["dp arap"].update(_dist_run(dp, "dp arap", _ArapShards(trainer), trainer.sample_train_picks, DIST_DP_STEPS))
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(rep, f)
+    return rep
+
+
+class _ArapShards:
+    """An ARAP trainer whose ``batch(picks)`` is this rank's shard of them
+    (what its ``train_batches`` feeds ``update``)."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+
+    def batch(self, picks):
+        return self.trainer.batch(picks, shard=True)
+
+    def update(self, batch):
+        return self.trainer.update(batch)
+
+
+def nccl_check(device) -> dict:
+    """One rank over NCCL in this process (``initialize_multihost`` on a
+    loopback address, a one-rank grid whose axes are not staged): the normal
+    trainer's own DP step on a 7,000-vertex mesh, ``train_normal.train_step``
+    over the grid after ``data_parallel.replicate`` (NCCL ``broadcast`` of
+    every parameter and buffer) with its gradients summed by
+    ``parallel_context.sum_gradients`` (one NCCL ``all_reduce`` through
+    ``all_reduce_``'s device branch), held bit for bit to the same step
+    without a grid; ``all_reduce_`` of a tensor on the card; ``_Exchange``
+    on the one-rank graph axis (its device path: no host staging, zero halos
+    at both chain ends).  The collectives are counted as they are called and
+    must have taken CUDA tensors.  NCCL's peer-to-peer sends and its
+    collectives across cards are not exercised on a one-card machine."""
+    import torch
+    import torch.distributed as dist
+
+    from surfacenetworks_tpu_torch import parallel_context
+    from surfacenetworks_tpu_torch.cli import train_normal
+    from surfacenetworks_tpu_torch.dist import data_parallel, mesh_setup
+    from surfacenetworks_tpu_torch.dist import edge_partition as ep
+
+    calls = {"all_reduce": [], "broadcast": []}
+
+    def counted(name):
+        fn = getattr(dist, name)
+
+        def call(t, *a, **k):
+            calls[name].append(t.device.type)
+            return fn(t, *a, **k)
+        return call
+
+    mesh_setup.initialize_multihost(f"127.0.0.1:{mesh_setup.free_port()}", num_processes=1, process_id=0,
+                                    backend="nccl", timeout_s=120)
+    try:
+        mesh = mesh_setup.make_mesh(1, 1, devices=[device])
+        if mesh.backend != "nccl" or mesh.world.staged or mesh.graph.staged:
+            raise AssertionError(f"the one-rank grid is {mesh.backend}, staged {mesh.world.staged}")
+        argv = DIST_NORMAL_ARGS + ["--batch-size", "1", "--operator-format", "ell", "--num-updates", "1"]
+        trainer = train_normal.NormalTrainer(train_normal.parser.parse_args(argv), lambda m: None)
+        model, opt = trainer.model, trainer.opt
+        batch = trainer.batch(trainer.train_sampler.next_batch())
+        state0, opt0 = copy.deepcopy(model.state_dict()), copy.deepcopy(opt.state_dict())
+
+        def flat():
+            return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+        loss_one, _ = train_normal.train_step(model, opt, batch, trainer.schedule)
+        one = flat()
+        model.load_state_dict(state0)
+        opt.load_state_dict(opt0)
+        with swapped(dist, "all_reduce", counted("all_reduce")), swapped(dist, "broadcast", counted("broadcast")):
+            data_parallel.replicate(mesh, model)
+            loss_grid, _ = train_normal.train_step(model, opt, batch, trainer.schedule, mesh=mesh)
+            grid = flat()
+            n_params = len(list(model.parameters())) + len(list(model.buffers()))
+            if calls != {"all_reduce": ["cuda"], "broadcast": ["cuda"] * n_params}:
+                raise AssertionError(f"the DP step's collectives over NCCL: {calls}, not one all_reduce and "
+                                     f"{n_params} broadcasts of CUDA tensors")
+            t = torch.randn(1 << 20, device=device, generator=torch.Generator(device).manual_seed(SEED))
+            summed = parallel_context.all_reduce_(t.clone(), mesh.world)
+        torch.cuda.synchronize()
+        if not (torch.equal(loss_one, loss_grid) and torch.equal(one, grid)):
+            raise AssertionError("the DP step over one NCCL rank differs from the step without a grid")
+        if not torch.equal(summed, t):
+            raise AssertionError("all_reduce_ over one NCCL rank changed the tensor")
+        x = torch.randn(3500, WIDTH, device=device)
+        ex = ep._Exchange(x, 248, mesh.graph)
+        left, right = ex.wait()
+        if ex.staged or left.device != x.device or left.abs().sum() or right.abs().sum():
+            raise AssertionError("the exchange on a one-rank NCCL axis: staged, off the card, or not zeros")
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    version = ".".join(str(v) for v in torch.cuda.nccl.version())
+    log(f"  [nccl] backend {backend} (NCCL {version}): train_normal's DP step over a one-rank grid on {device}, "
+        f"{len(calls['broadcast'])} broadcasts and {len(calls['all_reduce'])} all_reduce of CUDA tensors, equal "
+        f"bit for bit to the step without a grid (loss {float(loss_grid)!r}); all_reduce_ of 2^20 floats; the "
+        f"exchange's device path (no staging, zero halos); peer-to-peer and cross-card collectives are not "
+        f"exercised on one card")
+    return {"backend": backend, "nccl": version, "loss": float(loss_grid), "collectives": {k: len(v) for k, v in
+                                                                                      calls.items()}}
+
+
+def dist_phase(device, smi: str) -> tuple[dict, dict]:
+    """The distributed runtime on the one card: DIST_RANKS ranks over gloo
+    (``dist_rank``; the kernels built here first) and one rank over NCCL in
+    this process (``nccl_check``).  Returns the launches the ranks counted
+    on the sharded training paths, summed over the ranks, and the ranks'
+    reports."""
+    from surfacenetworks_tpu_torch.dist import mesh_setup
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mesh_setup.launch(dist_rank, 1, DIST_RANKS, devices=["cuda:0"] * DIST_RANKS, args=(tmp,), timeout_s=300)
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        log(f"  {DIST_RANKS} ranks on one card over {ranks[0]['backend']}: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    nccl = nccl_check(device)
+    log(f"  one NCCL rank: {time.perf_counter() - t0:.2f} s")
+    counts = dict.fromkeys(port_kernels.launches, 0)
+    for rep in ranks:  # the launches each rank counted on its training paths
+        for label in DIST_PER_STEP:
+            for k, v in rep[label]["launches"].items():
+                counts[k] += v
+    return counts, {"ranks": ranks, "nccl": nccl, "card": smi}
+
+
 def main() -> int:
     t_all = t0 = T_START
     import torch
@@ -5701,6 +6324,9 @@ def main() -> int:
             raise AssertionError(f"{kname} was not launched on the large-mesh paths")
     phase("large mesh", t0)
 
+    t0 = time.perf_counter()
+    dist_counts, dist_rep = dist_phase(device, smi)
+    phase("dist", t0)
 
     replaces = {
         "bsr_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:163",
@@ -5759,6 +6385,12 @@ def main() -> int:
             entries[-1]["faust_amp_pattern"] = fzoo["amp"]["kernel"]["sddmm"]
         if kname == "ell_matmul":
             entries[-1].update(preprocess_train_launches=pre_counts[kname], jax_profile_train_launches=jprof_counts[kname])
+        if kname in ("bsr_matmul", "ell_matmul"):
+            # per rank, summed over the ranks: GP ELL and BSR interiors, DP normal and ARAP
+            entries[-1]["dist_train_launches"] = dist_counts[kname]
+        if kname == "ell_matmul":
+            entries[-1]["partition_local"] = dist_rep["ranks"][0]["apply"]["ell"]["local"]
+            entries[-1]["partition_local_bsr_boundary"] = dist_rep["ranks"][0]["apply"]["bsr"]["local"]["boundary"]
         if kname == "bsr_matmul":
             entries[-1]["large_mesh_launches"] = large_counts[kname]
             entries[-1]["large_mesh_max_abs_err"] = {label: r["kernel_max_abs_err"] for label, r in large.items()
@@ -5872,6 +6504,14 @@ def main() -> int:
         f"{label} busy {r['busy_ms']:.3f} ms, device {r['device_ms']:.3f} ms, peak {r['peak_mib']:.1f} MiB"
         + (f" (no remat: busy {r['plain']['busy_ms']:.3f} ms, peak {r['plain']['peak_mib']:.1f} MiB)" if "plain" in r
            else "") for label, r in large.items()) + f" ({smi})")
+    for rank in dist_rep["ranks"]:
+        log(f"dist rank {rank['rank']} ({rank['backend']} on one card, not NCCL): " + ", ".join(
+            f"{label} wall {r['wall_ms_median']:.3f} ms, CUDA-event {r['device_ms_median']:.3f} ms, busy "
+            f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, a step's exchange {r['exchange']['rows']} rows "
+            f"{r['exchange']['bytes']} bytes {r['exchange']['host_s'] * 1e3:.3f} host ms"
+            for label, r in rank.items() if label.startswith(("gp", "dp"))) + f" ({smi})")
+    log(f"dist NCCL: one rank, {dist_rep['nccl']['backend']} {dist_rep['nccl']['nccl']}, a DP step with all_reduce "
+        f"and broadcast on the card; cross-card collectives and peer-to-peer not exercised ({smi})")
     log(f"--jax-profile: {jprof['ell_spmm_kernel_events']} ell_spmm_kernel events in {jprof['trace_bytes']} bytes, "
         f"the port's kernels in the trace equal to the traced epoch's launch counters ({smi})")
     gaps = [g for g in PROFILE_GAPS if g["gap"]]

@@ -89,6 +89,21 @@ Module map (port -> JAX package):
                                   check_finite`` (the port's ``torch.save``
                                   files and the JAX package's flax-msgpack
                                   files)
+``train/loop.py``                 ``train/loop.py`` (``TrainState``,
+                                  ``make_train_step``, ``make_eval_step``;
+                                  ``update``, every trainer's step)
+``parallel_context.py``           ``parallel_context.py`` (the sharded axes
+                                  as process groups; ``psum``, ``total``,
+                                  ``sum_gradients``)
+``dist/mesh_setup.py``            ``dist/mesh_setup.py`` (the rank grid,
+                                  ``launch``, ``initialize_multihost``)
+``dist/data_parallel.py``         ``dist/data_parallel.py`` (``shard_batch``,
+                                  ``replicate``, ``make_dp_train_step``)
+``dist/edge_partition.py``        ``dist/edge_partition.py`` (row partitions,
+                                  halo exchange, ``partitioned_spmm``)
+``dist/graph_parallel.py``        ``dist/graph_parallel.py`` (the Laplacian
+                                  half: ``prepartition_ell``, placement,
+                                  ``GraphStore``)
 ``train/timing.py``               ``train/timing.py`` (``device_timer``,
                                   ``trace`` over ``torch.profiler``,
                                   ``ThroughputMeter``)
@@ -106,15 +121,17 @@ Module map (port -> JAX package):
 ``cli/export_model.py``           ``cli/export_model.py`` (Lap and Dirac
                                   artifacts)
 ``cli/train_normal.py``           ``cli/train_normal.py`` (every
-                                  single-device path, ``--jax-profile``)
+                                  single-device path, ``--jax-profile``,
+                                  ``--data-parallel``, ``--graph-parallel``
+                                  with ``lap``)
 ``cli/train_correspondence.py``   ``cli/train_correspondence.py`` (single-device
                                   paths, the host path past the budget)
-``cli/train_arap.py``             ``cli/train_arap.py`` (single-device path,
-                                  five models, ELL and ``--dense``)
-``cli/train_mnist.py``            ``cli/train_mnist.py`` (single-device path,
-                                  ``lap avg mlp dirac``)
-``cli/train_vae.py``              ``cli/train_vae.py`` (single-device path,
-                                  ``lap dirac``, ``--dump-ply``)
+``cli/train_arap.py``             ``cli/train_arap.py`` (five models, ELL and
+                                  ``--dense``, ``--data-parallel``)
+``cli/train_mnist.py``            ``cli/train_mnist.py`` (``lap avg mlp
+                                  dirac``, ``--data-parallel``)
+``cli/train_vae.py``              ``cli/train_vae.py`` (``lap dirac``,
+                                  ``--dump-ply``, ``--data-parallel``)
 ``convert.py``                    (new) flax params -> ``state_dict``, optax
                                   state -> optimizer ``state_dict``
 ``serve.py``                      ``serve.py`` (``export_forward``,

@@ -29,8 +29,15 @@ are drawn, and uploaded without blocking (``data.pipeline.host_route``).
 flags (``config.py``).  ``ArapTrainer`` also takes
 sequences handed in from code.  ``--bf16`` trains in mixed precision as the
 JAX trainer does (``dtype=torch.bfloat16``; ELL applies take bf16 x and
-return fp32, dense ones promote to fp32).  Flags of the JAX trainer that
-later slices bring are refused when given.
+return fp32, dense ones promote to fp32).  ``--data-parallel N`` (N > 1;
+0 and 1 mean off) starts N ranks (``dist.mesh_setup.launch``; gloo on the
+CPU, nccl on cards of their own): every rank draws the same picks and trains
+on its slice of the batch, the step computing the JAX trainer's global
+function (batch norm over the global batch, the loss over the global batch
+size, gradients summed over the ranks); rank 0 writes the log, the metrics
+and the checkpoints; the test batches run whole on every rank.
+``--graph-parallel`` (the next slice of the port) and ``--dump-rollout``
+(matplotlib) are refused.
 """
 
 from __future__ import annotations
@@ -48,10 +55,11 @@ from surfacenetworks_tpu_torch.cli.common import MetricsLogger, Throughput, coun
 from surfacenetworks_tpu_torch.data import Buckets, arap_batch, datasets
 from surfacenetworks_tpu_torch.data.batching import IN_FRAMES, OUT_FRAMES
 from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, host_route, to_device
+from surfacenetworks_tpu_torch.dist import data_parallel, mesh_setup
 from surfacenetworks_tpu_torch.models import init_weights
 from surfacenetworks_tpu_torch.models.arap_models import MODELS
 from surfacenetworks_tpu_torch.serve import resolve_device
-from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
+from surfacenetworks_tpu_torch.train import checkpoint, loop, losses, optim
 
 parser = argparse.ArgumentParser(description="As Rigid As Possible (PyTorch, one device)")
 parser.add_argument("--batch-size", type=int, default=32)
@@ -74,22 +82,26 @@ parser.add_argument("--bf16", action="store_true",
                     help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
                          "optimizer state and losses")
 config.add_config_flags(parser)
-# flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--data-parallel", type=int, default=0)
+parser.add_argument("--data-parallel", type=int, default=0,
+                    help="shard each batch over this many ranks (0 or 1: off); the batch size must be divisible by it")
+# refused when given: --graph-parallel comes with the next slice of the port, --dump-rollout draws with matplotlib
 parser.add_argument("--graph-parallel", type=int, default=0)
 parser.add_argument("--dump-rollout", default=None)
 
 
 def refuse_unported(args) -> None:
-    """Raise on any flag whose path this slice does not port."""
+    """Raise on any flag whose path the port does not run, and on a batch
+    the data-parallel ranks cannot split (the JAX trainer's message)."""
     refused = {
-        "--data-parallel": args.data_parallel != 0,
-        "--graph-parallel": args.graph_parallel != 0,
+        "--graph-parallel (the next slice of the port brings it)": args.graph_parallel > 1,
         "--dump-rollout (it draws with matplotlib)": args.dump_rollout is not None,
     }
     given = [k for k, v in refused.items() if v]
     if given:
         raise SystemExit(f"train_arap (PyTorch port): not ported yet: {', '.join(given)}")
+    n_dp = mesh_setup.axis_ranks(args.data_parallel)
+    if n_dp > 1 and args.batch_size % n_dp:
+        raise SystemExit(f"batch size {args.batch_size} not divisible by --data-parallel {n_dp}")
 
 
 def load_sequences(args) -> list[list[dict]]:
@@ -108,21 +120,23 @@ def max_offsets(seq: list[dict]) -> int:
     return max(min(len(seq) - IN_FRAMES - OUT_FRAMES, 10 - IN_FRAMES), 1)
 
 
-def masked_loss(model, batch) -> torch.Tensor:
+def masked_loss(model, batch, batch_size: int | None = None) -> torch.Tensor:
+    """The smooth-L1 sum of the masked outputs over ``batch_size`` (default:
+    the batch's own; a rank's shard divides by the global batch)."""
     out = model(batch.operator, batch.mask, batch.inputs) * batch.mask
-    return losses.smooth_l1_sum(out, batch.targets, batch.inputs.shape[0])
+    return losses.smooth_l1_sum(out, batch.targets, batch_size or batch.inputs.shape[0])
 
 
-def train_step(model, opt, batch, schedule=None) -> torch.Tensor:
+def train_step(model, opt, batch, schedule=None, mesh: mesh_setup.Mesh | None = None) -> torch.Tensor:
     """One update on a batch on the model's device: the loss, its
     gradients, the scheduled LR and the optimizer step.  Returns the loss
-    (on the device); the gradients stay in ``.grad`` until the next step."""
-    opt.zero_grad(set_to_none=True)
-    loss = masked_loss(model, batch)
-    loss.backward()
-    optim.apply_schedule(opt, schedule)
-    opt.step()
-    return loss.detach()
+    (on the device); the gradients stay in ``.grad`` until the next step.
+    With ``mesh`` the batch is this rank's slice of the global batch: the
+    body runs batch-sharded, the gradients are summed over the ranks and the
+    global loss is returned."""
+    n = mesh.n_data * batch.inputs.shape[0] if mesh is not None else None
+    (loss,) = loop.update(model, opt, lambda: (masked_loss(model, batch, n),), schedule, mesh)
+    return loss
 
 
 @torch.no_grad()
@@ -135,10 +149,15 @@ class ArapTrainer:
     run; ``sequences`` (lists of frame dicts) replace the ones the flags
     name."""
 
-    def __init__(self, args, sequences: list[list[dict]] | None = None, log=print):
+    def __init__(self, args, sequences: list[list[dict]] | None = None, log=print,
+                 mesh: mesh_setup.Mesh | None = None):
         refuse_unported(args)
         self.args, self.log = args, log
-        self.device = resolve_device(args.device)
+        n_dp = mesh_setup.axis_ranks(args.data_parallel)
+        if n_dp > 1 and (mesh is None or mesh.n_data != n_dp):
+            raise ValueError(f"--data-parallel {n_dp} needs a grid of {n_dp} ranks (train_arap.main makes it)")
+        self.mesh = mesh if n_dp > 1 else None
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(args.device)
         log_environment(log, self.device)
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
         # (--bf16) summed in fp32 throughout, as XLA sums them
@@ -158,6 +177,8 @@ class ArapTrainer:
         self.model = MODELS[args.model](layers=args.layer, dtype=torch.bfloat16 if args.bf16 else None)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
+        if self.mesh is not None:
+            data_parallel.replicate(self.mesh, self.model)
         # the JAX trainer initialises from one batch of train picks: its draws are used up here too
         self.sample_train_picks()
         log(f"Num parameters {count_params(self.model)}")
@@ -195,8 +216,15 @@ class ArapTrainer:
             self.test_counter += 1
         return picks
 
-    def batch(self, picks: list[tuple[int, int]]):
-        """The batch of ``picks`` on the device."""
+    def _shard(self, picks: list) -> list:
+        """This rank's slice of a global batch's picks."""
+        return data_parallel.shard_batch(self.mesh, picks) if self.mesh is not None else picks
+
+    def batch(self, picks: list[tuple[int, int]], shard: bool = False):
+        """The batch of ``picks`` on the device (this rank's slice of them
+        with ``shard``)."""
+        if shard:
+            picks = self._shard(picks)
         if self.store is None:
             return to_device(self.packed.batch(picks), self.device)
         return self.store.batch(picks).gather()
@@ -207,11 +235,11 @@ class ArapTrainer:
         thread (the picks drawn there, in the same order) and uploaded
         without blocking."""
         if self.store is None:
-            return host_route(self.sample_train_picks, self.packed, n, self.device)
-        return (self.batch(self.sample_train_picks()) for _ in range(n))
+            return host_route(lambda: self._shard(self.sample_train_picks()), self.packed, n, self.device)
+        return (self.batch(self.sample_train_picks(), shard=True) for _ in range(n))
 
     def update(self, batch) -> torch.Tensor:
-        loss = train_step(self.model, self.opt, batch, self.schedule)
+        loss = train_step(self.model, self.opt, batch, self.schedule, self.mesh)
         self.step += 1
         return loss
 
@@ -245,20 +273,31 @@ class ArapTrainer:
         checkpoint.save_checkpoint(path, self.model, self.opt, epoch, self.step)
 
 
-def main(argv=None) -> dict:
-    """Train; returns each epoch's train and test loss."""
-    args = config.parse_with_config(parser, argv)
-    log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"))
+def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
+    """Train on one rank (or alone, ``mesh`` None); rank 0 writes the log,
+    the metrics and the checkpoints.  Returns each epoch's train and test
+    loss."""
+    rank0 = mesh is None or mesh.rank == 0
+    log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log")) if rank0 else (lambda _: None)
     log(args)
-    trainer = ArapTrainer(args, log=log)
-    metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log"))
+    trainer = ArapTrainer(args, log=log, mesh=mesh)
+    metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log")) if rank0 else None
     ckpt = os.path.join(args.result_dir, "pts", f"{args.result_prefix}_{args.layer}_{args.model}.pt")
     history: dict = {"train": [], "test": []}
     for epoch in range(args.num_epoch):
         history["train"].append(trainer.train_epoch(epoch, metrics_log))
         history["test"].append(trainer.test_pass(epoch, metrics_log))
-        trainer.save(ckpt, epoch)
+        if rank0:
+            trainer.save(ckpt, epoch)
     return history
+
+
+def main(argv=None) -> dict:
+    """Train; returns each epoch's train and test loss (rank 0's under
+    ``--data-parallel``, whose ranks ``main`` starts)."""
+    args = config.parse_with_config(parser, argv)
+    refuse_unported(args)
+    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel), 1, args.device, args)
 
 
 if __name__ == "__main__":

@@ -160,16 +160,18 @@ _FORCE_LIGHT = False
 
 
 def refuse_unported(args) -> None:
-    """Raise on any flag whose path the port does not have: the multi-device
-    paths."""
+    """Raise on any flag whose path the port does not have yet: the
+    multi-device paths, which the next slice of the port brings
+    (``--graph-parallel`` 0 and 1 mean off, as in the JAX trainer)."""
     refused = {
-        "--graph-parallel": args.graph_parallel != 0,
+        "--graph-parallel": args.graph_parallel > 1,
         "--multihost and its coordinator flags": args.multihost or any(
             v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)),
     }
     given = [k for k, v in refused.items() if v]
     if given:
-        raise SystemExit(f"train_correspondence (PyTorch port): not ported yet: {', '.join(given)}")
+        raise SystemExit(f"train_correspondence (PyTorch port): not ported yet: {', '.join(given)} (the next "
+                         "slice of the port brings them)")
 
 
 def model_key_of(model: str) -> str:

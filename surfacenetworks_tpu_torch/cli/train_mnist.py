@@ -33,8 +33,14 @@ device, so they differ from flax's draws.  ``MnistTrainer`` also takes
 samples and an operator format from code.  ``--bf16`` trains in mixed
 precision as the JAX trainer does (``dtype=torch.bfloat16``: bf16
 activations and matmuls; the pooled features, ``fc1``, the loss, the
-parameters and the optimizer state fp32).  Flags of the JAX trainer that
-later slices bring are refused when given.
+parameters and the optimizer state fp32).  ``--data-parallel N`` (N > 1; 0
+and 1 mean off) starts N ranks (``dist.mesh_setup.launch``): every rank
+draws the same batches and the dropout masks for the whole batch, and
+trains on its slice; batch norm, the loss and the accuracy are the global
+batch's and the gradients are summed over the ranks, as the JAX trainer's
+data-parallel step computes them; rank 0 writes the log, the metrics and the
+checkpoints; the test batches run whole on every rank.  ``--graph-parallel``
+is refused: it comes with the next slice of the port.
 """
 
 from __future__ import annotations
@@ -49,10 +55,11 @@ from surfacenetworks_tpu_torch import config
 from surfacenetworks_tpu_torch.cli.common import EpochSampler, MetricsLogger, count_params, log_environment, make_logger
 from surfacenetworks_tpu_torch.data import Buckets, datasets, mnist_batch
 from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, host_route, to_device
+from surfacenetworks_tpu_torch.dist import data_parallel, mesh_setup
 from surfacenetworks_tpu_torch.models import init_weights
 from surfacenetworks_tpu_torch.models.mnist_models import MODELS, WIDTH, dropout_keep
 from surfacenetworks_tpu_torch.serve import resolve_device
-from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
+from surfacenetworks_tpu_torch.train import checkpoint, loop, losses, optim
 
 parser = argparse.ArgumentParser(description="Mesh-MNIST classifier (PyTorch, one device)")
 parser.add_argument("--batch-size", type=int, default=64)
@@ -72,21 +79,22 @@ parser.add_argument("--bf16", action="store_true",
                     help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
                          "optimizer state and losses")
 config.add_config_flags(parser)
-# flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--data-parallel", type=int, default=0)
+parser.add_argument("--data-parallel", type=int, default=0,
+                    help="shard each batch over this many ranks (0 or 1: off); the batch size must be divisible by it")
+# refused when given: --graph-parallel comes with the next slice of the port
 parser.add_argument("--graph-parallel", type=int, default=0)
 
 
 def refuse_unported(args, trainer: str) -> None:
-    """Raise on any flag whose path this slice does not port (the flags the
-    classifier and the VAE share)."""
-    refused = {
-        "--data-parallel": args.data_parallel != 0,
-        "--graph-parallel": args.graph_parallel != 0,
-    }
-    given = [k for k, v in refused.items() if v]
-    if given:
-        raise SystemExit(f"{trainer} (PyTorch port): not ported yet: {', '.join(given)}")
+    """Raise on a flag whose path the port does not run yet (the flags the
+    classifier and the VAE share), and on a batch the data-parallel ranks
+    cannot split (the JAX trainer's message)."""
+    if args.graph_parallel > 1:
+        raise SystemExit(f"{trainer} (PyTorch port): not ported yet: --graph-parallel (the next slice of the port "
+                         "brings it)")
+    n_dp = mesh_setup.axis_ranks(args.data_parallel)
+    if n_dp > 1 and args.batch_size % n_dp:
+        raise SystemExit(f"batch size {args.batch_size} not divisible by --data-parallel {n_dp}")
 
 
 def dtype(args) -> torch.dtype | None:
@@ -120,9 +128,13 @@ class MeshMnistRun:
     coupled-L2 Adam and the update count."""
 
     def __init__(self, args, samples: list[dict], batch_fn, kind: str, fmt: str, store: bool,
-                 model: torch.nn.Module, log):
+                 model: torch.nn.Module, log, mesh: mesh_setup.Mesh | None = None):
         self.args, self.log = args, log
-        self.device = resolve_device(args.device)
+        n_dp = mesh_setup.axis_ranks(args.data_parallel)
+        if n_dp > 1 and (mesh is None or mesh.n_data != n_dp):
+            raise ValueError(f"--data-parallel {n_dp} needs a grid of {n_dp} ranks (the trainer's main makes it)")
+        self.mesh = mesh if n_dp > 1 else None
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(args.device)
         log_environment(log, self.device)
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
         # (--bf16) summed in fp32 throughout, as XLA sums them
@@ -149,11 +161,21 @@ class MeshMnistRun:
             log(self.store.stats())
         init_weights(model, torch.Generator().manual_seed(0))
         self.model = model.to(self.device)
+        if self.mesh is not None:
+            data_parallel.replicate(self.mesh, self.model)
         log(f"Num parameters {count_params(self.model)}")
         self.opt = optim.adam(self.model.parameters(), args.lr, weight_decay=1e-5)
 
-    def batch(self, samples: list[dict]):
-        """The batch of ``samples`` on the device."""
+    def shard(self, rows):
+        """This rank's slice of a global batch's samples (or of a tensor's
+        leading axis); everything on one device."""
+        return data_parallel.shard_batch(self.mesh, rows) if self.mesh is not None else rows
+
+    def batch(self, samples: list[dict], shard: bool = False):
+        """The batch of ``samples`` on the device (this rank's slice of them
+        with ``shard``)."""
+        if shard:
+            samples = self.shard(samples)
         if self.store is None:
             return to_device(self.packed.batch(samples), self.device)
         return self.store.batch(samples).gather()
@@ -164,8 +186,12 @@ class MeshMnistRun:
         thread (the sampler's draws too, in the same order) and uploaded
         without blocking."""
         if self.store is None:
-            return host_route(self.train_sampler.next_batch, self.packed, n, self.device)
-        return (self.batch(self.train_sampler.next_batch()) for _ in range(n))
+            return host_route(lambda: self.shard(self.train_sampler.next_batch()), self.packed, n, self.device)
+        return (self.batch(self.train_sampler.next_batch(), shard=True) for _ in range(n))
+
+    def global_batch(self, batch) -> int:
+        """The global batch size of a rank's (or the only) batch."""
+        return batch.inputs.shape[0] * (self.mesh.n_data if self.mesh is not None else 1)
 
     def save(self, path: str, epoch: int) -> None:
         checkpoint.save_checkpoint(path, self.model, self.opt, epoch, self.step)
@@ -177,15 +203,14 @@ def classify(model, batch, deterministic: bool, keep=None) -> tuple[torch.Tensor
     return losses.nll_loss(logp, batch.targets), losses.accuracy(logp, batch.targets)
 
 
-def train_step(model, opt, batch, keep) -> tuple[torch.Tensor, torch.Tensor]:
+def train_step(model, opt, batch, keep, mesh: mesh_setup.Mesh | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One update with the dropout keep mask ``keep [B, 64]``: the loss, its
     gradients and the Adam step.  Returns the loss and the accuracy (on the
-    device); the gradients stay in ``.grad`` until the next step."""
-    opt.zero_grad(set_to_none=True)
-    loss, acc = classify(model, batch, False, keep)
-    loss.backward()
-    opt.step()
-    return loss.detach(), acc
+    device); the gradients stay in ``.grad`` until the next step.  With
+    ``mesh`` the batch and ``keep`` are this rank's slices: the body runs
+    batch-sharded, the gradients are summed over the ranks, and the global
+    loss and accuracy are returned."""
+    return loop.update(model, opt, lambda: classify(model, batch, False, keep), mesh=mesh)
 
 
 @torch.no_grad()
@@ -198,21 +223,23 @@ class MnistTrainer(MeshMnistRun):
     dataset of one run; ``samples`` (sample dicts) replace the ones the
     flags name, and ``fmt`` is the Laplacian's operator format."""
 
-    def __init__(self, args, samples: list[dict] | None = None, fmt: str = "auto", log=print):
+    def __init__(self, args, samples: list[dict] | None = None, fmt: str = "auto", log=print,
+                 mesh: mesh_setup.Mesh | None = None):
         refuse_unported(args, "train_mnist")
         key = model_key(args.model, MODELS)
         super().__init__(args, load_data(args) if samples is None else samples, mnist_batch,
                          "dirac" if key == "dirac" else "lap", fmt, True, MODELS[key](layers=args.layer, dtype=dtype(args)),
-                         log)
+                         log, mesh)
         self.last_keep = None
 
     def update(self, batch, keep=None) -> tuple[torch.Tensor, torch.Tensor]:
-        """One update; the keep mask is drawn from the run's generator
-        unless given, and kept as ``last_keep``."""
+        """One update; the keep mask (of the global batch) is drawn from the
+        run's generator unless given, and kept as ``last_keep``; a rank
+        takes its slice."""
         if keep is None:
-            keep = dropout_keep((batch.inputs.shape[0], WIDTH), self.gen, self.device)
+            keep = dropout_keep((self.global_batch(batch), WIDTH), self.gen, self.device)
         self.last_keep = keep
-        out = train_step(self.model, self.opt, batch, keep)
+        out = train_step(self.model, self.opt, batch, self.shard(keep), self.mesh)
         self.step += 1
         return out
 
@@ -243,20 +270,30 @@ class MnistTrainer(MeshMnistRun):
         return loss, acc
 
 
-def main(argv=None) -> dict:
-    """Train; returns each epoch's train and test (loss, accuracy)."""
-    args = config.parse_with_config(parser, argv)
-    log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"))
+def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
+    """Train on one rank (or alone, ``mesh`` None); rank 0 writes the log,
+    the metrics and the checkpoints.  Returns each epoch's train and test
+    (loss, accuracy)."""
+    rank0 = mesh is None or mesh.rank == 0
+    log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log")) if rank0 else (lambda _: None)
     log(args)
-    trainer = MnistTrainer(args, log=log)
-    metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log"))
+    trainer = MnistTrainer(args, log=log, mesh=mesh)
+    metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log")) if rank0 else None
     ckpt = os.path.join(args.result_dir, "pts", f"{args.result_prefix}.pt")
     history: dict = {"train": [], "test": []}
     for epoch in range(args.num_epoch):
         history["train"].append(trainer.train_epoch(epoch, metrics_log))
         history["test"].append(trainer.test_pass(epoch, metrics_log))
-        trainer.save(ckpt, epoch)
+        if rank0:
+            trainer.save(ckpt, epoch)
     return history
+
+
+def main(argv=None) -> dict:
+    """Train; returns each epoch's train and test (loss, accuracy)."""
+    args = config.parse_with_config(parser, argv)
+    refuse_unported(args, "train_mnist")
+    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel), 1, args.device, args)
 
 
 if __name__ == "__main__":

@@ -60,9 +60,24 @@ the loss, the gradients and the optimizer state stay fp32) and BSR blocks
 are stored in bf16.  ``--jax-profile DIR`` (the JAX flag's name) records
 a ``torch.profiler`` trace of the first trained epoch, CPU and CUDA
 activities, as a Chrome-trace JSON file in ``DIR`` (``train/timing.py``);
-not with ``--only-forward-test``, as in the JAX trainer.  The JAX trainer's
-multi-device flags (``--data-parallel``, ``--graph-parallel``,
-``--multihost`` and its coordinator flags) are refused when given.
+not with ``--only-forward-test``, as in the JAX trainer.
+
+``--data-parallel N`` (N > 1; 0 and 1 mean off) shards each batch's meshes
+over N ranks (not with ``cas``, as in the JAX trainer);
+``--graph-parallel G`` row-partitions every ``--model lap`` operator over G
+ranks (RCM order first; ELL interiors, or BSR ones with ``--operator-format
+bsr``; each ``--buckets`` tier partitioned at its own row count, with a
+dataset-wide halo); both together train on an (N, G) rank grid.  ``main``
+then starts N x G ranks (``dist.mesh_setup.launch``: one process each, over
+gloo on the CPU and nccl on cards of their own, refused when fewer cards are
+visible).  Every rank draws the same global batch and keeps its shard; the
+step computes the JAX trainer's global function (batch norm, the global
+average and the loss normalisers over the global batch and rows, the
+rotations drawn for the global batch, gradients summed over the ranks).
+Rank 0 writes the log, the metrics and the checkpoints.  Evaluation under
+pure data parallelism runs each whole test batch on every rank.
+``--graph-parallel`` with ``dirac`` or ``gat`` and ``--multihost`` with its
+coordinator flags are refused: they come with the next slice of the port.
 """
 
 from __future__ import annotations
@@ -78,7 +93,7 @@ import tempfile
 import numpy as np
 import torch
 
-from surfacenetworks_tpu_torch import config, native
+from surfacenetworks_tpu_torch import config, native, parallel_context
 from surfacenetworks_tpu_torch.cli.common import (
     count_params,
     dump_config,
@@ -90,6 +105,7 @@ from surfacenetworks_tpu_torch.cli.common import (
     TieredSampler,
 )
 from surfacenetworks_tpu_torch.data import BucketSet, cascade_batch, datasets, dirac_batch, laplacian_batch, round_up
+from surfacenetworks_tpu_torch.data.batching import MeshBatch
 from surfacenetworks_tpu_torch.data.batching import choose_operator_format, fit_bsr_k, rcm_reorder_sample
 from surfacenetworks_tpu_torch.data.pipeline import (
     DeviceDataset,
@@ -99,6 +115,7 @@ from surfacenetworks_tpu_torch.data.pipeline import (
     padded_vertex_count,
     to_device,
 )
+from surfacenetworks_tpu_torch.dist import data_parallel, edge_partition, graph_parallel, mesh_setup
 from surfacenetworks_tpu_torch.geometry import igl_style_laplacian, repair, vertex_normals
 from surfacenetworks_tpu_torch.models import (
     AvgModel,
@@ -111,7 +128,7 @@ from surfacenetworks_tpu_torch.models import (
     init_weights,
 )
 from surfacenetworks_tpu_torch.serve import resolve_device
-from surfacenetworks_tpu_torch.train import checkpoint, losses, optim, prng, timing
+from surfacenetworks_tpu_torch.train import checkpoint, loop, losses, optim, prng, timing
 
 parser = argparse.ArgumentParser(description="Normal Predictor (PyTorch, one device)")
 parser.add_argument("--model", default="lap", help="lap | dirac | avg | mlp | id | gat | cas")
@@ -156,9 +173,14 @@ parser.add_argument("--rotate-augment", action="store_true",
 config.add_config_flags(parser)
 parser.add_argument("--jax-profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the first training epoch into DIR (the JAX flag's name)")
-# flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--data-parallel", type=int, default=0)
-parser.add_argument("--graph-parallel", type=int, default=0)
+# multi-device flags: --data-parallel and --graph-parallel (lap) run on a grid of ranks; --graph-parallel with
+# dirac or gat, --multihost and its coordinator flags are refused until the next slice of the port
+parser.add_argument("--data-parallel", type=int, default=0,
+                    help="shard each batch's meshes over this many ranks (0 or 1: off); the batch size must be "
+                         "divisible by it")
+parser.add_argument("--graph-parallel", type=int, default=0,
+                    help="row-partition every operator over this many ranks (--model lap; 0 or 1: off): halo "
+                         "exchange per apply, overlapped with the interior product")
 parser.add_argument("--multihost", action="store_true")
 parser.add_argument("--coordinator-address", default=None)
 parser.add_argument("--num-processes", type=int, default=None)
@@ -191,16 +213,31 @@ def build_model(args, dtype: torch.dtype | None = None):
 
 
 def refuse_unported(args) -> None:
-    """Raise on any flag whose path this slice does not port."""
+    """Raise on any flag whose path the port does not run yet (the next
+    slice brings them)."""
     refused = {
-        "--data-parallel": args.data_parallel != 0,
-        "--graph-parallel": args.graph_parallel != 0,
+        f"--graph-parallel with --model {args.model}": args.graph_parallel > 1 and args.model in ("dirac", "gat"),
         "--multihost and its coordinator flags": args.multihost or any(
             v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)),
     }
     given = [k for k, v in refused.items() if v]
     if given:
-        raise SystemExit(f"train_normal (PyTorch port): not ported yet: {', '.join(given)}")
+        raise SystemExit(f"train_normal (PyTorch port): not ported yet: {', '.join(given)} (the next slice of the "
+                         "port brings them)")
+
+
+def check_parallel(args) -> None:
+    """The JAX trainer's refusals of the multi-device flags."""
+    refuse_unported(args)
+    n_dp, n_gp = mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel)
+    if n_gp > 1 and args.model not in ("lap", "dirac", "gat"):
+        raise SystemExit("--graph-parallel supports the lap, dirac and gat models")
+    if n_gp > 1 and args.operator_format not in ("auto", "ell", "bsr"):
+        raise SystemExit("--graph-parallel supports ell or bsr operator formats")
+    if n_dp > 1 and n_gp == 1 and args.model == "cas":
+        raise SystemExit("--data-parallel does not support the cascade model")
+    if n_dp > 1 and args.batch_size % n_dp:
+        raise SystemExit(f"batch size {args.batch_size} not divisible by --data-parallel {n_dp}")
 
 
 def load_samples(args, rnd: random.Random, log) -> tuple[list[dict], list[dict]]:
@@ -284,43 +321,75 @@ def step_rotations(seed: int, step: int, batch_size: int, device) -> torch.Tenso
     return rotations(torch.from_numpy(angles).to(device))
 
 
-def train_step(model, opt, batch, schedule=None, rotation: torch.Tensor | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+def train_step(model, opt, batch, schedule=None, rotation: torch.Tensor | None = None,
+               mesh: mesh_setup.Mesh | None = None, vertex: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """One update on a batch on the model's device: the cosine loss, its
     gradients, the scheduled LR and the optimizer step; with ``rotation``
     (``[B, 3, 3]``) the inputs and targets rotated first, ``x @ R`` row by
     row.  Returns the loss and the mean angle deviation (on the device); the
-    gradients stay in each parameter's ``.grad`` until the next step."""
-    opt.zero_grad(set_to_none=True)
+    gradients stay in each parameter's ``.grad`` until the next step.
+
+    With ``mesh`` the batch is this rank's shard (of the mesh batch over the
+    data axis, and of the vertex rows over the graph axis with ``vertex``):
+    the body runs in the grid's sharded context, the gradients are summed
+    over the ranks before the update, and the returned loss and deviation
+    are the global ones."""
     inputs, targets = batch.inputs, batch.targets
     if rotation is not None:
         inputs, targets = torch.bmm(inputs, rotation), torch.bmm(targets, rotation)
-    out = model(batch.operator, batch.mask, inputs)
-    loss = losses.normal_cosine_loss(out, batch.mask, targets)
-    mad = losses.mean_angle_deviation(out, batch.mask, targets)
-    loss.backward()
-    optim.apply_schedule(opt, schedule)
-    opt.step()
-    return loss.detach(), mad
+
+    def body():
+        out = model(batch.operator, batch.mask, inputs)
+        return losses.normal_cosine_loss(out, batch.mask, targets), losses.mean_angle_deviation(out, batch.mask, targets)
+
+    return loop.update(model, opt, body, schedule, mesh, vertex)
 
 
 @torch.no_grad()
-def eval_step(model, batch) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    out = model(batch.operator, batch.mask, batch.inputs)
-    return losses.normal_cosine_loss(out, batch.mask, batch.targets), losses.mean_angle_deviation(
-        out, batch.mask, batch.targets), out
+def eval_step(model, batch, mesh: mesh_setup.Mesh | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Loss, deviation and outputs of a batch; with ``mesh`` on this rank's
+    graph-sharded shard (the global loss and deviation, this rank's rows of
+    the outputs)."""
+    with mesh.context(vertex=True) if mesh is not None else contextlib.nullcontext():
+        out = model(batch.operator, batch.mask, batch.inputs)
+        loss = losses.normal_cosine_loss(out, batch.mask, batch.targets)
+        mad = losses.mean_angle_deviation(out, batch.mask, batch.targets)
+    if mesh is not None:
+        loss, mad = parallel_context.total(torch.stack([loss, mad]), [mesh.world]).unbind(0)
+    return loss, mad, out
+
+
+class _ShardedPack:
+    """``batch(samples)``: ``packed``'s host batch cut to this rank's shard
+    by ``shard`` (what the host route builds, pins and uploads)."""
+
+    def __init__(self, packed: PackedSamples, shard):
+        self.packed, self.shard, self.cache = packed, shard, packed.cache
+
+    def batch(self, samples: list) -> MeshBatch:
+        return self.shard(self.packed.batch(samples))
 
 
 class NormalTrainer:
     """Data, model, optimizer, samplers and the device datasets of one run
     (``store``: one ``DeviceDataset`` per size tier, or None on the host
-    path)."""
+    path; under ``--graph-parallel`` one ``GraphStore`` of this rank's rows
+    per tier).  ``mesh`` is this rank's grid when the run has more than one
+    rank (``main`` makes it)."""
 
-    def __init__(self, args, log=print):
-        refuse_unported(args)
+    def __init__(self, args, log=print, mesh: mesh_setup.Mesh | None = None):
+        check_parallel(args)
         self.args, self.log = args, log
-        self.device = resolve_device(args.device)
+        self.n_dp, self.n_gp = mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel)
+        if self.n_dp * self.n_gp > 1 and (mesh is None or (mesh.n_data, mesh.n_graph) != (self.n_dp, self.n_gp)):
+            raise ValueError(f"a run on a ({self.n_dp}, {self.n_gp}) grid of ranks needs that grid's mesh "
+                             "(train_normal.main or dist.launch makes it)")
+        self.mesh = mesh if self.n_dp * self.n_gp > 1 else None
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(args.device)
         log_environment(log, self.device)
+        if self.mesh is not None:
+            log(f"rank grid: {self.n_dp} data x {self.n_gp} graph ranks over {self.mesh.backend}")
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
         # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -336,6 +405,10 @@ class NormalTrainer:
             log(f"flip augmentation: +{len(extra)} variants ({args.flip_variants} per train mesh)")
         log(f"Train size: {len(train)} Test size: {len(test)}")
         fmt = args.operator_format
+        gp = self.n_gp > 1
+        self.gp_interior = "bsr" if gp and fmt == "bsr" else "ell"
+        if gp:
+            fmt = "ell"  # the rest of the batch; the operator is partitioned
         if dirac:
             # as in the JAX trainer: no 'auto' resolution and no RCM order for
             # Dirac; 'bsr' still rounds the buckets to 128 rows
@@ -348,15 +421,17 @@ class NormalTrainer:
         if args.model == "gat" and fmt != "ell":
             fmt = "ell"
             log("operator format -> ell (gat attends over the operator pattern)")
-        if (fmt == "bsr" and not dirac) or args.model == "gat":
+        if (fmt == "bsr" and not dirac) or args.model == "gat" or gp:
             train = [rcm_reorder_sample(s) for s in train]
             test = [rcm_reorder_sample(s) for s in test]
         self.train_samples, self.test_samples = train, test
         all_samples = train + test
         if args.buckets > 1 and args.model == "cas":
             raise SystemExit("--buckets > 1 does not support the cascade model (one pyramid bucket chain per run)")
-        self.bucketset = BucketSet.for_samples(all_samples, n_tiers=max(args.buckets, 1),
-                                               multiple=128 if fmt == "bsr" else 8)
+        multiple = 128 if fmt == "bsr" else 8
+        if gp:  # each partition a whole number of rows (of 128-row blocks for BSR interiors)
+            multiple = (128 if self.gp_interior == "bsr" else 8) * self.n_gp
+        self.bucketset = BucketSet.for_samples(all_samples, n_tiers=max(args.buckets, 1), multiple=multiple)
         self.buckets = self.bucketset.tiers[-1]  # the dataset's largest
         tiers = self.bucketset.tiers
         if len(tiers) > 1:
@@ -377,6 +452,15 @@ class NormalTrainer:
             log(f"cascade: {levels} pyramid levels of {[n_bucket >> (levels - 1 - i) for i in range(levels)]} rows, "
                 f"ELL at K=32")
             self.packed = PackedSamples(lambda s: cascade_batch([s], levels, n_bucket))
+        elif gp:
+            self.fmt = "ell"
+            self._prepartition(all_samples)
+
+            def pack(s):
+                ti = self.bucketset.tier_index([s])
+                op = edge_partition.stack_partitioned([self._parts[id(s)]], **self._floors[ti])
+                return laplacian_batch([s], tiers[ti], operator=op)
+            self.packed = PackedSamples(pack)
         else:
             self.fmt = tier_fmt[-1]
             op_dtype = dtype if fmt == "bsr" else None  # bf16 blocks under --bf16, as in the JAX trainer
@@ -389,6 +473,8 @@ class NormalTrainer:
             fit_bsr_k(all_samples, self.bucketset)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
+        if self.mesh is not None:
+            data_parallel.replicate(self.mesh, self.model)
         log(f"Num parameters {count_params(self.model)}")
         self.schedule = (optim.epoch_halving_schedule(args.lr, args.num_updates, 100, args.half_lr)
                          if args.half_lr > 0 else None)
@@ -417,37 +503,102 @@ class NormalTrainer:
             by_tier = {}
             for s in all_samples:
                 by_tier.setdefault(self.bucketset.tier_index([s]), []).append(s)
-            self.store = {ti: DeviceDataset.build(items, self.packed, self.device) for ti, items in by_tier.items()}
+            if gp:
+                self.store = {}
+                for ti, items in by_tier.items():
+                    host = self.packed.batch(items)
+                    self.store[ti] = graph_parallel.GraphStore.build(
+                        self.mesh, items, host.operator,
+                        {"inputs": host.inputs, "targets": host.targets, "mask": host.mask},
+                        batch_sharded=self.n_dp > 1)
+            else:
+                self.store = {ti: DeviceDataset.build(items, self.packed, self.device)
+                              for ti, items in by_tier.items()}
             if any(ds is None for ds in self.store.values()):
                 self.store = None
         if self.store is None:
             why = "--no-device-store" if args.no_device_store else "the dataset exceeds the device budget"
             log(f"batches assembled on the host and uploaded per step ({why})")
 
-    def batch(self, samples: list[dict]):
-        """The batch of ``samples`` (of one tier) on the device."""
+    def _prepartition(self, samples: list[dict]) -> None:
+        """Each sample's operator row-partitioned once at its tier's row
+        count, with the tier's dataset-wide halo and width floors (the JAX
+        trainer's per-tier prepartition)."""
+        self._parts, self._floors = {}, {}
+        for ti, tb in enumerate(self.bucketset.tiers):
+            items = [s for s in samples if self.bucketset.tier_index([s]) == ti]
+            if not items:
+                continue
+            ops, floors = graph_parallel.prepartition_ell([s["L"] for s in items], self.n_gp, n_rows=tb.n_vertices,
+                                                          k=tb.ell_k, interior_fmt=self.gp_interior)
+            self._floors[ti] = floors
+            self._parts.update({id(s): o for s, o in zip(items, ops)})
+            self.log(f"graph parallel: tier of {tb.n_vertices} rows in {self.n_gp} partitions, "
+                     f"{self.gp_interior} interiors, halo {ops[0].fwd.halo}, "
+                     f"{floors['min_mb']} boundary rows per partition")
+
+    def _dp_samples(self, samples: list) -> list:
+        """This rank's slice of a global batch's samples (data axis)."""
+        return data_parallel.shard_batch(self.mesh, samples) if self.n_dp > 1 else samples
+
+    def _gp_shard(self, b: MeshBatch) -> MeshBatch:
+        """This rank's shard of a host batch under ``--graph-parallel``: its
+        rows of every array and of the partitioned operator, of its data
+        slice of the mesh batch under DP x GP."""
+        sl = mesh_setup.batch_sharding(self.mesh, b.inputs.shape[0]) if self.n_dp > 1 else slice(None)
+        g = self.mesh.graph_index
+
+        def rows(t):
+            return edge_partition.shard_rows(t[sl], self.n_gp, g)
+
+        return MeshBatch(inputs=rows(b.inputs), targets=rows(b.targets), mask=rows(b.mask),
+                         operator=edge_partition.shard_partitioned(b.operator, g, sl if self.n_dp > 1 else None),
+                         names=b.names[sl])
+
+    def batch(self, samples: list[dict], shard: bool = True):
+        """The batch of ``samples`` (of one tier) on the device: this rank's
+        shard of it on a grid of ranks (under pure data parallelism the whole
+        batch with ``shard=False``, which evaluation takes)."""
+        if self.n_gp > 1:
+            if self.store is None:
+                return to_device(self._gp_shard(self.packed.batch(samples)), self.device)
+            op, arrs = self.store[self.bucketset.tier_index(samples)].gather(samples)
+            names = [s.get("name") for s in self._dp_samples(samples)]
+            return MeshBatch(inputs=arrs["inputs"], targets=arrs["targets"], mask=arrs["mask"], operator=op,
+                             names=names)
+        if shard:
+            samples = self._dp_samples(samples)
         if self.store is None:
             return to_device(self.packed.batch(samples), self.device)
         return self.store[self.bucketset.tier_index(samples)].batch(samples).gather()
 
     def train_batches(self, n: int):
-        """The next ``n`` train batches on the device: gathered from the
-        device store, or on the host route built and pinned on a worker
-        thread (the sampler's draws too, in the same order) and uploaded
-        without blocking."""
+        """The next ``n`` train batches on the device (this rank's shards):
+        gathered from the device store, or on the host route built and
+        pinned on a worker thread (the sampler's draws too, in the same
+        order) and uploaded without blocking."""
         if self.store is None:
-            return host_route(self.train_sampler.next_batch, self.packed, n, self.device)
+            draw, packed = self.train_sampler.next_batch, self.packed
+            if self.n_gp > 1:
+                packed = _ShardedPack(self.packed, self._gp_shard)
+            elif self.n_dp > 1:
+                def draw():
+                    return self._dp_samples(self.train_sampler.next_batch())
+            return host_route(draw, packed, n, self.device)
         return (self.batch(self.train_sampler.next_batch()) for _ in range(n))
 
     def rotation(self, batch_size: int) -> torch.Tensor | None:
         """The next update's rotations under ``--rotate-augment``, keyed by
-        the updates taken; None without the flag."""
+        the updates taken; None without the flag.  ``batch_size`` is this
+        rank's: the rotations are drawn for the global batch and sliced."""
         if not self.args.rotate_augment:
             return None
-        return step_rotations(self.args.seed, self.step, batch_size, self.device)
+        rot = step_rotations(self.args.seed, self.step, batch_size * self.n_dp, self.device)
+        return data_parallel.shard_batch(self.mesh, rot) if self.n_dp > 1 else rot
 
     def update(self, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        loss, mad = train_step(self.model, self.opt, batch, self.schedule, self.rotation(batch.inputs.shape[0]))
+        loss, mad = train_step(self.model, self.opt, batch, self.schedule, self.rotation(batch.inputs.shape[0]),
+                               mesh=self.mesh, vertex=self.n_gp > 1)
         self.step += 1
         return loss, mad
 
@@ -482,14 +633,18 @@ class NormalTrainer:
         ``<dump_dir>/<basename of its name>.csv``."""
         trials = max(math.ceil(len(self.test_samples) / self.args.batch_size), 1)
         loss_sum = mad_sum = 0.0
+        gp = self.n_gp > 1
         for _ in range(trials):
-            batch = self.batch(self.test_sampler.next_batch())
-            loss, mad, out = eval_step(self.model, batch)
+            samples = self.test_sampler.next_batch()
+            batch = self.batch(samples, shard=False)
+            loss, mad, out = eval_step(self.model, batch, self.mesh if gp else None)
             loss_sum += float(loss)
             mad_sum += float(mad)
-            if dump_dir is not None:
+            if dump_dir is not None and gp:  # this rank's rows (and batch slice): gather the whole batch
+                out = mesh_setup.all_gather(mesh_setup.all_gather(out, self.mesh.graph, -2), self.mesh.data, 0)
+            if dump_dir is not None and (self.mesh is None or self.mesh.rank == 0):
                 os.makedirs(dump_dir, exist_ok=True)
-                for name, pred in zip(batch.names, out.cpu().numpy()):
+                for name, pred in zip([s.get("name") for s in samples], out.cpu().numpy()):
                     np.savetxt(os.path.join(dump_dir, os.path.basename(str(name)) + ".csv"), pred, delimiter=",")
         self.log("Eval {}, loss {}, mad {}".format(epoch, loss_sum / trials, mad_sum / trials))
         if metrics_log is not None:
@@ -500,21 +655,16 @@ class NormalTrainer:
         checkpoint.save_checkpoint(path, self.model, self.opt, epoch, self.step)
 
 
-def main(argv=None) -> dict:
-    """Train (or, with ``--only-forward-test``, evaluate once); returns each
-    epoch's train and test (loss, mad)."""
-    args = config.parse_with_config(parser, argv)
-    log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"), args.debug)
-    log(args)
-    if not args.debug:
-        dump_config(args, os.path.join(args.result_dir, "cfg", f"{args.result_prefix}.json"))
-    trainer = NormalTrainer(args, log)
+def run(trainer: NormalTrainer, args, log, rank0: bool = True) -> dict:
+    """The epochs of a run (or, with ``--only-forward-test``, one test
+    pass); returns each epoch's train and test (loss, mad).  Only ``rank0``
+    writes metrics, traces and checkpoints."""
     ckpt_path = os.path.join(args.result_dir, "pts", f"{args.result_prefix}_normal_state.pt")
-    metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log"), args.debug)
+    metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log"), args.debug) if rank0 else None
     history: dict = {"train": [], "test": []}
     for epoch in range(trainer.start_epoch, args.num_epoch):
         if not args.only_forward_test:
-            profiled = args.jax_profile is not None and epoch == trainer.start_epoch
+            profiled = args.jax_profile is not None and epoch == trainer.start_epoch and rank0
             with timing.trace(args.jax_profile) if profiled else contextlib.nullcontext():
                 history["train"].append(trainer.train_epoch(epoch, metrics_log))
             if profiled:
@@ -524,11 +674,35 @@ def main(argv=None) -> dict:
             history["test"].append(trainer.test_pass(epoch, metrics_log, dump))
         if args.only_forward_test:
             return history
-        if epoch % 10 == 9 and not args.debug:
+        if epoch % 10 == 9 and not args.debug and rank0:
             trainer.save(ckpt_path, epoch)
-    trainer.save(ckpt_path, args.num_epoch - 1)
+    if rank0:
+        trainer.save(ckpt_path, args.num_epoch - 1)
     log("done")
     return history
+
+
+def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
+    """The run on one rank of a grid (rank 0 logs, the others are silent),
+    or alone (``mesh`` None)."""
+    rank0 = mesh is None or mesh.rank == 0
+    log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"), args.debug) if rank0 else (
+        lambda _: None)
+    log(args)
+    return run(NormalTrainer(args, log, mesh), args, log, rank0)
+
+
+def main(argv=None) -> dict:
+    """Train (or, with ``--only-forward-test``, evaluate once); returns each
+    epoch's train and test (loss, mad).  With ``--data-parallel`` and/or
+    ``--graph-parallel`` it starts one process per rank and returns rank
+    0's history; a rank that fails makes it raise."""
+    args = config.parse_with_config(parser, argv)
+    check_parallel(args)
+    if not args.debug:
+        dump_config(args, os.path.join(args.result_dir, "cfg", f"{args.result_prefix}.json"))
+    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel),
+                                mesh_setup.axis_ranks(args.graph_parallel), args.device, args)
 
 
 if __name__ == "__main__":

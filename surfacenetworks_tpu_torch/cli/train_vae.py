@@ -31,8 +31,15 @@ blocking, ``data.pipeline.host_route``).  ``--config``/``--preset`` layer a
 JSON file or a named preset under the flags.  ``VaeTrainer`` also
 takes samples and an operator format from code.  ``--bf16`` trains in mixed
 precision as the JAX trainer does (bf16 blocks and convolutions; the latent
-heads, the noise, the reconstruction mean and the ELBO fp32).  Flags of the
-JAX trainer that later slices bring are refused when given.
+heads, the noise, the reconstruction mean and the ELBO fp32).
+``--data-parallel N`` (N > 1; 0 and 1 mean off) starts N ranks
+(``dist.mesh_setup.launch``): every rank draws the same batches and the
+noise for the whole batch, and trains on its slice; the ELBO terms are the
+global batch's means and the gradients are summed over the ranks, as the JAX
+trainer's data-parallel step computes them; rank 0 writes the log, the
+metrics, the samples and the checkpoints; the test batches run whole on
+every rank.  ``--graph-parallel`` is refused: it comes with the next slice
+of the port.
 """
 
 from __future__ import annotations
@@ -50,8 +57,9 @@ from surfacenetworks_tpu_torch.cli.common import MetricsLogger, make_logger
 from surfacenetworks_tpu_torch.cli.train_mnist import MeshMnistRun, dtype, refuse_unported
 from surfacenetworks_tpu_torch.data import datasets, vae_batch
 from surfacenetworks_tpu_torch.data.pipeline import to_device
+from surfacenetworks_tpu_torch.dist import mesh_setup
 from surfacenetworks_tpu_torch.models.vae import LATENT, MODELS
-from surfacenetworks_tpu_torch.train import losses
+from surfacenetworks_tpu_torch.train import loop, losses
 
 parser = argparse.ArgumentParser(description="Mesh VAE (PyTorch, one device)")
 parser.add_argument("--batch-size", type=int, default=64)
@@ -72,8 +80,9 @@ parser.add_argument("--bf16", action="store_true",
                     help="mixed-precision training: bf16 activations and matmuls, fp32 parameters, "
                          "optimizer state and losses")
 config.add_config_flags(parser)
-# flags of the JAX trainer that later slices bring: refused when given
-parser.add_argument("--data-parallel", type=int, default=0)
+parser.add_argument("--data-parallel", type=int, default=0,
+                    help="shard each batch over this many ranks (0 or 1: off); the batch size must be divisible by it")
+# refused when given: --graph-parallel comes with the next slice of the port
 parser.add_argument("--graph-parallel", type=int, default=0)
 
 FIXED_NOISE_SEED = 999
@@ -101,14 +110,14 @@ def elbo(model, batch, eps, kw: float) -> tuple[torch.Tensor, torch.Tensor, torc
     return bce + kld * kw, bce, kld
 
 
-def train_step(model, opt, batch, eps, kw: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def train_step(model, opt, batch, eps, kw: float, mesh: mesh_setup.Mesh | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One update: the ELBO, its gradients and the Adam step.  Returns the
-    loss, bce and kld (on the device); the gradients stay in ``.grad``."""
-    opt.zero_grad(set_to_none=True)
-    loss, bce, kld = elbo(model, batch, eps, kw)
-    loss.backward()
-    opt.step()
-    return loss.detach(), bce.detach(), kld.detach()
+    loss, bce and kld (on the device); the gradients stay in ``.grad``.
+    With ``mesh`` the batch and ``eps`` are this rank's slices: the body runs
+    batch-sharded, the gradients are summed over the ranks, and the global
+    terms are returned."""
+    return loop.update(model, opt, lambda: elbo(model, batch, eps, kw), mesh=mesh)
 
 
 @torch.no_grad()
@@ -121,23 +130,28 @@ class VaeTrainer(MeshMnistRun):
     dataset of one run; ``samples`` replace the ones the flags name, and
     ``fmt`` is the Laplacians' operator format."""
 
-    def __init__(self, args, samples: list[dict] | None = None, fmt: str = "auto", log=print):
+    def __init__(self, args, samples: list[dict] | None = None, fmt: str = "auto", log=print,
+                 mesh: mesh_setup.Mesh | None = None):
         refuse_unported(args, "train_vae")
         key = "dirac" if args.model.startswith("dir") else "lap"  # any other name is lap, as in JAX
         super().__init__(args, load_data(args) if samples is None else samples, vae_batch, key, fmt,
-                         not args.no_device_store, MODELS[key](num_layers=args.num_layers, dtype=dtype(args)), log)
+                         not args.no_device_store, MODELS[key](num_layers=args.num_layers, dtype=dtype(args)), log,
+                         mesh)
         gen = torch.Generator().manual_seed(FIXED_NOISE_SEED)
         self.fixed_noise = torch.randn(args.batch_size, 1, LATENT, generator=gen).to(self.device)
         self.last_eps = None
 
-    def draw_eps(self, batch) -> torch.Tensor:
-        return torch.randn(batch.inputs.shape[0], LATENT, generator=self.gen, device=self.device)
+    def draw_eps(self, batch, n: int | None = None) -> torch.Tensor:
+        """Noise ``[n, LATENT]`` from the run's generator (default: the
+        batch's own size)."""
+        return torch.randn(n or batch.inputs.shape[0], LATENT, generator=self.gen, device=self.device)
 
     def update(self, batch, kw: float, eps=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """One update at KLD weight ``kw``; ``eps`` is drawn from the run's
-        generator unless given, and kept as ``last_eps``."""
-        self.last_eps = self.draw_eps(batch) if eps is None else eps
-        out = train_step(self.model, self.opt, batch, self.last_eps, kw)
+        """One update at KLD weight ``kw``; ``eps`` (of the global batch) is
+        drawn from the run's generator unless given, and kept as
+        ``last_eps``; a rank takes its slice."""
+        self.last_eps = self.draw_eps(batch, self.global_batch(batch)) if eps is None else eps
+        out = train_step(self.model, self.opt, batch, self.shard(self.last_eps), kw, self.mesh)
         self.step += 1
         return out
 
@@ -189,22 +203,32 @@ class VaeTrainer(MeshMnistRun):
         return paths
 
 
-def main(argv=None) -> dict:
-    """Train; returns each epoch's train and test (loss, bce, kld)."""
-    args = config.parse_with_config(parser, argv)
-    log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"))
+def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
+    """Train on one rank (or alone, ``mesh`` None); rank 0 writes the log,
+    the metrics, the samples and the checkpoints.  Returns each epoch's
+    train and test (loss, bce, kld)."""
+    rank0 = mesh is None or mesh.rank == 0
+    log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log")) if rank0 else (lambda _: None)
     log(args)
-    trainer = VaeTrainer(args, log=log)
-    metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log"))
+    trainer = VaeTrainer(args, log=log, mesh=mesh)
+    metrics_log = MetricsLogger(args.result_prefix, os.path.join(args.result_dir, "log")) if rank0 else None
     ckpt = os.path.join(args.result_dir, "pts", f"{args.result_prefix}.pt")
     history: dict = {"train": [], "test": []}
     for epoch in range(args.num_epoch):
         history["train"].append(trainer.train_epoch(epoch, metrics_log))
         history["test"].append(trainer.test_pass(epoch, metrics_log))
-        if args.dump_ply:
+        if args.dump_ply and rank0:
             trainer.dump_samples(epoch, args.dump_ply, os.path.join(args.result_dir, f"results_{args.model}"))
-        trainer.save(ckpt, epoch)
+        if rank0:
+            trainer.save(ckpt, epoch)
     return history
+
+
+def main(argv=None) -> dict:
+    """Train; returns each epoch's train and test (loss, bce, kld)."""
+    args = config.parse_with_config(parser, argv)
+    refuse_unported(args, "train_vae")
+    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel), 1, args.device, args)
 
 
 if __name__ == "__main__":

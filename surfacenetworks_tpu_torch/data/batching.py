@@ -285,20 +285,25 @@ def laplacian_batch(
     target_key: str = "target",
     fmt: str = "ell",
     op_dtype: torch.dtype | None = None,
+    operator=None,
 ) -> MeshBatch:
     """Assemble a Laplacian-operator batch from per-mesh sample dicts
     (``V [n,3]``, ``F [m,3]``, ``L`` scipy sparse, ``input``, ``target``).
     ``fmt`` is ``'ell'``, ``'bsr'`` (samples RCM-ordered, ``bsr_k`` fitted),
     ``'dense'`` or ``'auto'``.  ``op_dtype`` (BSR only, as in the JAX
     package) stores the packed blocks at a narrower dtype: bf16 under
-    mixed precision."""
+    mixed precision.  ``operator`` replaces the packing with a caller-built
+    operator (a graph-parallel ``PartitionedOperator``), as in the JAX
+    package."""
     N = buckets.n_vertices
     inputs, targets, mask = _padded_arrays(samples, N, input_key, target_key)
+    if operator is None:
+        operator = _lap_operator_batch([s["L"] for s in samples], buckets, N, fmt, op_dtype)
     return MeshBatch(
         inputs=torch.from_numpy(inputs),
         targets=torch.from_numpy(targets),
         mask=torch.from_numpy(mask),
-        operator=_lap_operator_batch([s["L"] for s in samples], buckets, N, fmt, op_dtype),
+        operator=operator,
         faces=_pad_faces(samples, buckets),
         names=[s.get("name") for s in samples],
     )

@@ -55,6 +55,8 @@ def _concat(objs: list) -> Any:
         return {k: _concat([o[k] for o in objs]) for k in first}
     if isinstance(first, int):
         return max(objs)
+    if isinstance(first, str) and all(o == first for o in objs):  # an axis name
+        return first
     if first is None:
         return None
     raise TypeError(f"cannot concatenate {type(first).__name__}")

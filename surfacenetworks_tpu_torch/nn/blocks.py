@@ -22,7 +22,9 @@ Every block takes ``dtype``, the computation dtype of its ``GraphConv1x1``s
 batch norm reads the operator result unrounded.
 
 ``op`` is an ``EllOperator``, a ``BsrOperator``, a dense ``[B, N, N]``
-tensor, or any callable ``x -> L x`` (dispatch in ``apply_operator``).  A
+tensor, a rank's shard of a row-partitioned ``PartitionedOperator`` (inside
+the graph-sharded context: ``dist.edge_partition.partitioned_spmm``), or any
+callable ``x -> L x`` (dispatch in ``apply_operator``).  A
 Dirac operator is a structured ``DiracOperator`` or a dense pair ``(Di [B,
 4M, 4N], DiA [B, 4N, 4M])`` (dispatch in ``apply_dirac_vf`` /
 ``apply_dirac_fv``).
@@ -37,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from surfacenetworks_tpu_torch.dist.edge_partition import PartitionedOperator, partitioned_spmm
 from surfacenetworks_tpu_torch.nn.layers import GraphBatchNorm, GraphConv1x1, global_average
 from surfacenetworks_tpu_torch.sparse.bsr import BsrOperator
 from surfacenetworks_tpu_torch.sparse.ell import DiracOperator, EllOperator
@@ -53,6 +56,8 @@ def apply_operator(op: Any, x: torch.Tensor) -> torch.Tensor:
         return bsr_spmm(op, x)
     if isinstance(op, torch.Tensor):
         return dense_bmm(op, x)
+    if isinstance(op, PartitionedOperator):
+        return partitioned_spmm(op, x)
     if callable(op):
         return op(x)
     raise TypeError(f"unsupported operator {type(op).__name__}")

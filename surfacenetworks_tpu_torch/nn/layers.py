@@ -8,6 +8,14 @@
   reference; ``masked=True`` weights rows by the mask instead.
 * ``global_average``: masked mean over the vertex axis, keepdim.
 
+Inside a sharded context (``parallel_context.sharded_axes``: a rank holds a
+slice of the vertex rows, of the mesh batch, or both) the global average
+sums its masked sums over the vertex axis, and batch norm takes its
+statistics over the global (batch x vertex) rows in two passes (count and
+sum, then the squared deviations), each summed over the context's axes, as
+the JAX package's graph-parallel body does; both sums are differentiable
+(``parallel_context.psum``).
+
 Parameter names follow the JAX package's flax names (``fc``, ``bn``) so that
 ``convert.params_from_flax`` maps a flax tree onto ``state_dict`` keys.
 
@@ -23,6 +31,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from surfacenetworks_tpu_torch import parallel_context
 
 
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:
@@ -42,6 +52,9 @@ def global_average(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mf = mask.to(xf.dtype)
     num = (xf * mf).sum(dim=-2, keepdim=True)
     den = (mf * torch.ones_like(xf)).sum(dim=-2, keepdim=True)
+    axis = parallel_context.vertex_reduction_axis()
+    if axis is not None:
+        num, den = parallel_context.psum(torch.stack([num, den]), [axis]).unbind(0)
     return (num / den).to(x.dtype)
 
 
@@ -60,7 +73,17 @@ class GraphBatchNorm(nn.Module):
         out_dtype = x.dtype
         x = x.to(_stat_dtype(x))
         dims = tuple(range(x.dim() - 1))
-        if self.masked and mask is not None:
+        axes = parallel_context.reduction_axes_for_stats()
+        if axes:
+            # statistics over the GLOBAL rows: count and sum, then the
+            # squared deviations (the single-pass E[x^2] - E[x]^2 loses
+            # too much fp32 precision)
+            w = mask.to(x.dtype) * torch.ones_like(x) if self.masked and mask is not None else torch.ones_like(x)
+            cnt, s1 = parallel_context.psum(torch.stack([w.sum(dim=dims), (x * w).sum(dim=dims)]), axes).unbind(0)
+            denom = cnt.clamp_min(1.0)
+            mean = s1 / denom
+            var = parallel_context.psum((w * (x - mean) ** 2).sum(dim=dims), axes) / denom
+        elif self.masked and mask is not None:
             w = mask.to(x.dtype) * torch.ones_like(x)
             denom = w.sum(dim=dims).clamp_min(1.0)
             mean = (x * w).sum(dim=dims) / denom

@@ -29,6 +29,14 @@ classifier's and VAE's losses).
 * ``streaming_corr_argmax``, ``corr_metrics_from_pred`` and
   ``corr_accuracy_metrics``: the FAUST accuracy metrics.
 
+Inside a sharded context (``parallel_context``: a rank holds a slice of the
+batch or of the vertex rows) each loss and metric returns this rank's
+share: its own terms over the GLOBAL normaliser (the mask sum over every
+sharded axis, or the global batch over the batch axis), so the global value
+is the sum of the shares (``parallel_context.total``) and the gradients of
+the shares, summed over the ranks, are the global loss's.
+``smooth_l1_sum`` takes the global batch size from its caller.
+
 Under mixed precision the losses take their inputs at fp32 or wider
 (``at_least_fp32`` at entry); the one exception is
 ``corr_feature_smoothness``, which runs its SDDMM on the bf16 features, as
@@ -42,6 +50,7 @@ import math
 import numpy as np
 import torch
 
+from surfacenetworks_tpu_torch import parallel_context
 from surfacenetworks_tpu_torch.nn.layers import at_least_fp32
 from surfacenetworks_tpu_torch.sparse import kernels
 from surfacenetworks_tpu_torch.sparse.ell import transpose_slot_map
@@ -53,7 +62,17 @@ BLOCK = 512  # rows per tile of the streaming head
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of ``values [B,N]`` over the entries where ``mask [B,N,1]`` is 1."""
     m = mask[..., 0]
-    return (values * m).sum() / m.sum().clamp_min(1.0)
+    return (values * m).sum() / parallel_context.total(m.sum()).clamp_min(1.0)
+
+
+def _batch_mean(values: torch.Tensor) -> torch.Tensor:
+    """Mean of ``values [B]`` over the global batch (this rank's share in a
+    batch-sharded context)."""
+    axis = parallel_context.batch_reduction_axis()
+    if axis is None:
+        return values.mean()
+    n = parallel_context.total(torch.tensor(float(values.shape[0]), device=values.device), [axis])
+    return values.sum() / n
 
 
 def _unit(outputs: torch.Tensor) -> torch.Tensor:
@@ -76,13 +95,13 @@ def smooth_l1_sum(outputs: torch.Tensor, targets: torch.Tensor, batch_size: int)
 
 def nll_loss(log_probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean over the batch of ``-log_probs[b, targets[b]]``."""
-    return -at_least_fp32(log_probs).gather(1, targets.long()[:, None]).mean()
+    return -_batch_mean(at_least_fp32(log_probs).gather(1, targets.long()[:, None])[:, 0])
 
 
 @torch.no_grad()
 def accuracy(log_probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Share of the batch whose argmax class is its target (fp32)."""
-    return (torch.argmax(log_probs, dim=1) == targets.long()).float().mean()
+    return _batch_mean((torch.argmax(log_probs, dim=1) == targets.long()).float())
 
 
 def log_normal_diag(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
@@ -99,9 +118,9 @@ def vae_elbo_terms(recon_mu, recon_logvar, mask, x, z, mu, logvar) -> tuple[torc
     recon_mu, recon_logvar, z, mu, logvar = map(at_least_fp32, (recon_mu, recon_logvar, z, mu, logvar))
     mk = mask.expand(*mask.shape[:-1], x.shape[-1]).reshape(b, -1)
     rec = log_normal_diag(x.reshape(b, -1), recon_mu.reshape(b, -1), recon_logvar.reshape(b, -1))
-    bce = -(rec * mk).sum(dim=1).mean()
+    bce = -_batch_mean((rec * mk).sum(dim=1))
     zero = torch.zeros_like(z)
-    kld = (log_normal_diag(z, mu, logvar) - log_normal_diag(z, zero, zero)).sum(dim=1).mean()
+    kld = _batch_mean((log_normal_diag(z, mu, logvar) - log_normal_diag(z, zero, zero)).sum(dim=1))
     return bce, kld
 
 

@@ -1,0 +1,242 @@
+"""Runs the port's multi-rank cases for ``tests/test_torch_dist_train.py``.
+
+    python tests/_torch_dist_worker.py SPEC.json OUT_DIR
+
+It imports only the port (never JAX).  ``SPEC.json`` holds ``ranks`` (the
+gloo ranks started once, on the CPU) and a list of ``cases``.  A case of
+``kind`` ``pspmm`` applies a row-partitioned operator and its backward on
+each rank's rows, one of ``kind`` ``layers`` the sharded batch norm and
+global average (inputs from an ``.npz`` file, each rank's outputs to
+``OUT_DIR/<case>_r<rank>.npz``).  Any other case
+names a trainer (``normal``, ``arap``, ``mnist``, ``vae``), its command
+line, its ``(n_data, n_graph)`` grid (taken from the first ranks), an
+optional ``.npz`` of initial parameters (``state_dict`` keys) and an
+optional mutant (``local_bn``: batch-norm statistics rank-local).  Every
+rank of a case's grid builds the trainer, draws the first global batch and
+takes one update on its shard, once in fp64 (the model and the batch in
+fp64) and once in fp32 (the trainer's own ``update``); rank 0 of the grid
+also takes both updates alone on the whole batch (the single-device
+reference).  Each rank writes ``OUT_DIR/<case>_r<rank>.npz``: the losses,
+the fp64 gradients and the parameters after each update.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import json
+import os
+import sys
+from unittest import mock
+
+import numpy as np
+import torch
+
+from surfacenetworks_tpu_torch import parallel_context
+from surfacenetworks_tpu_torch.dist import mesh_setup
+from surfacenetworks_tpu_torch.nn.layers import GraphBatchNorm
+from surfacenetworks_tpu_torch.train import optim
+
+
+def _cast(batch, dtype):
+    """The batch's float arrays in ``dtype`` (the operator keeps its own)."""
+    b = copy.copy(batch)
+    b.inputs, b.mask = batch.inputs.to(dtype), batch.mask.to(dtype)
+    if batch.targets.is_floating_point():
+        b.targets = batch.targets.to(dtype)
+    if batch.aux is not None:
+        b.aux = {k: (v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else v)
+                 for k, v in batch.aux.items()}
+    if isinstance(batch.operator, torch.Tensor):
+        b.operator = batch.operator.to(dtype)
+    return b
+
+
+class _Case:
+    """One trainer family: how to build it, draw the first global batch,
+    shard it, and take one update."""
+
+    def __init__(self, spec: dict, mesh):
+        self.spec, self.mesh = spec, mesh
+        kind, argv = spec["trainer"], spec["argv"] + ["--device", "cpu"]
+        if kind == "normal":
+            from surfacenetworks_tpu_torch.cli import train_normal as m
+            self.trainer = m.NormalTrainer(m.parser.parse_args(argv), log=lambda _: None, mesh=mesh)
+            self.samples = self.trainer.train_sampler.next_batch()
+        elif kind == "arap":
+            from surfacenetworks_tpu_torch.cli import train_arap as m
+            self.trainer = m.ArapTrainer(m.parser.parse_args(argv), log=lambda _: None, mesh=mesh)
+            self.samples = self.trainer.sample_train_picks()
+        elif kind == "mnist":
+            from surfacenetworks_tpu_torch.cli import train_mnist as m
+            self.trainer = m.MnistTrainer(m.parser.parse_args(argv), log=lambda _: None, mesh=mesh)
+            self.samples = self.trainer.train_sampler.next_batch()
+        else:
+            from surfacenetworks_tpu_torch.cli import train_vae as m
+            self.trainer = m.VaeTrainer(m.parser.parse_args(argv), log=lambda _: None, mesh=mesh)
+            self.samples = self.trainer.train_sampler.next_batch()
+        self.module, self.kind = m, kind
+        if spec.get("state"):
+            state = {k: torch.from_numpy(v) for k, v in np.load(spec["state"]).items()}
+            self.trainer.model.load_state_dict(state, strict=True)
+        self.state0 = copy.deepcopy(self.trainer.model.state_dict())
+        n = len(self.samples)
+        if kind in ("mnist", "vae"):
+            width = self.module.WIDTH if kind == "mnist" else self.module.LATENT
+            gen = torch.Generator().manual_seed(spec.get("draw_seed", 5))
+            self.draw = (torch.rand(n, width, generator=gen) < 0.5).float() if kind == "mnist" else torch.randn(
+                n, width, generator=gen)
+
+    def local_batch(self):
+        t = self.trainer
+        if self.kind == "normal":
+            return t.batch(self.samples)
+        return t.batch(self.samples, shard=True)
+
+    def whole_batch(self):
+        """The global batch on one device (unpartitioned ELL under
+        ``--graph-parallel``, over the same padded, RCM-ordered rows)."""
+        t = self.trainer
+        if self.kind == "normal" and t.n_gp > 1:
+            from surfacenetworks_tpu_torch.data import laplacian_batch
+            tier = t.bucketset.tiers[t.bucketset.tier_index(self.samples)]
+            return laplacian_batch(self.samples, tier, fmt="ell")
+        if self.kind == "normal":
+            return t.batch(self.samples, shard=False)
+        return t.batch(self.samples)
+
+    def step(self, model, opt, batch, mesh, dtype):
+        """One update; returns the (global) loss."""
+        m, draw = self.module, getattr(self, "draw", None)
+        if mesh is not None and draw is not None:
+            draw = draw[mesh_setup.batch_sharding(mesh, draw.shape[0])]
+        if self.kind == "normal":
+            vertex = mesh is not None and mesh.n_graph > 1
+            return m.train_step(model, opt, batch, mesh=mesh, vertex=vertex)[0]
+        if self.kind == "arap":
+            return m.train_step(model, opt, batch, mesh=mesh)
+        if self.kind == "mnist":
+            return m.train_step(model, opt, batch, draw.to(dtype), mesh=mesh)[0]
+        return m.train_step(model, opt, batch, draw.to(dtype), 0.5, mesh=mesh)[0]
+
+    def optimizer(self, model):
+        wd = 0.0 if self.kind == "normal" else 1e-5
+        return optim.adam(model.parameters(), 1e-3, weight_decay=wd)
+
+    def run(self, model, batch, mesh, dtype) -> dict:
+        model = model.to(dtype)
+        model.load_state_dict(self.state0)
+        opt = self.optimizer(model)
+        loss = self.step(model, opt, _cast(batch, dtype), mesh, dtype)
+        out = {"loss": np.asarray(float(loss))}
+        for k, p in model.named_parameters():
+            out[f"p.{k}"] = p.detach().double().numpy()
+            if dtype == torch.float64:
+                out[f"g.{k}"] = p.grad.detach().double().numpy()
+        return out
+
+
+def _local_bn():
+    """The mutant: every batch norm takes its statistics over this rank's
+    rows only (a different model from the global one)."""
+    forward = GraphBatchNorm.forward
+
+    def local(self, x, mask=None):
+        with parallel_context.sharded_axes():
+            return forward(self, x, mask)
+
+    return mock.patch.object(GraphBatchNorm, "forward", local)
+
+
+def _pspmm(case: dict, mesh) -> dict:
+    """A partitioned apply and its backward on this rank's rows: the
+    operator (csr arrays in the input file) partitioned on every rank,
+    ``x`` and the cotangent ``g`` cut to the rank's rows, the apply through
+    ``nn.blocks.apply_operator`` inside ``make_graph_sharded_apply``."""
+    import scipy.sparse as sp
+
+    from surfacenetworks_tpu_torch.dist import edge_partition as ep
+    from surfacenetworks_tpu_torch.dist.graph_parallel import make_graph_sharded_apply
+    from surfacenetworks_tpu_torch.nn.blocks import apply_operator
+
+    f = np.load(case["input"])
+    L = sp.csr_matrix((f["data"], f["indices"], f["indptr"]), shape=tuple(f["shape"]))
+    op = ep.partition_operator(L, mesh.n_graph, halo=int(f["halo"]), k=int(f["k"]), interior_fmt=case["fmt"])
+    g_idx = mesh.graph_index
+    x = ep.shard_rows(torch.from_numpy(f["x"]), mesh.n_graph, g_idx).requires_grad_(True)
+    run = make_graph_sharded_apply(mesh, lambda o, mask, v: apply_operator(o, v))
+    y = run(ep.shard_partitioned(op, g_idx), None, x)
+    y.backward(ep.shard_rows(torch.from_numpy(f["g"]), mesh.n_graph, g_idx))
+    return {"y": y.detach().numpy(), "x_bar": x.grad.numpy()}
+
+
+def _layers(case: dict, mesh) -> dict:
+    """``GraphBatchNorm`` and ``global_average`` on this rank's block of
+    ``[B, N, C]`` (its batch slice and rows) in the grid's sharded context,
+    and their backward from the cotangents in the input file (the global
+    average's, replicated over the graph axis, on its first rank only); the
+    parameter gradients are this rank's shares."""
+    from surfacenetworks_tpu_torch.nn.layers import global_average
+
+    f = np.load(case["input"])
+    sl = mesh_setup.batch_sharding(mesh, f["x"].shape[0])
+
+    def block(a):
+        a = torch.from_numpy(a)[sl]
+        n = a.shape[1] // mesh.n_graph
+        return a[:, mesh.graph_index * n:(mesh.graph_index + 1) * n].contiguous()
+
+    x, mask = block(f["x"]).requires_grad_(True), block(f["mask"])
+    bn = GraphBatchNorm(x.shape[-1], masked=bool(case.get("masked", False))).double()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(f["scale"]))
+        bn.bias.copy_(torch.from_numpy(f["bias"]))
+    with mesh.context(vertex=True):
+        y = bn(x, mask)
+        ga = global_average(x, mask)
+    gga = torch.from_numpy(f["gga"])[sl]  # the replicated average's cotangent enters once: on graph rank 0
+    torch.autograd.backward([y, ga], [block(f["gy"]), gga if mesh.graph_index == 0 else torch.zeros_like(gga)])
+    return {"y": y.detach().numpy(), "ga": ga.detach().numpy(), "x_bar": x.grad.numpy(),
+            "scale_bar": bn.weight.grad.numpy(), "bias_bar": bn.bias.grad.numpy()}
+
+
+def _rank(full_mesh, spec: dict, out_dir: str) -> None:
+    import torch.distributed as dist
+
+    rank = full_mesh.rank
+    devices = ["cpu"] * full_mesh.size
+    for case in spec["cases"]:
+        nd, ng = case["n_data"], case["n_graph"]
+        mesh = mesh_setup.make_mesh(nd, ng, devices)
+        if mesh is not None and case.get("kind") in ("pspmm", "layers"):
+            res = (_pspmm if case["kind"] == "pspmm" else _layers)(case, mesh)
+            np.savez(os.path.join(out_dir, f"{case['name']}_r{rank}.npz"), **res)
+        elif mesh is not None:
+            c = _Case(case, mesh if nd * ng > 1 else None)
+            batch = c.local_batch()
+            res = {}
+            with _local_bn() if case.get("mutant") == "local_bn" else contextlib.nullcontext():
+                for tag, dt in (("64", torch.float64), ("32", torch.float32)):
+                    res.update({f"{k}{tag}": v for k, v in c.run(c.trainer.model, batch, c.mesh, dt).items()})
+            if rank == 0:
+                whole = c.whole_batch()
+                ref = copy.deepcopy(c.trainer.model)
+                for tag, dt in (("64", torch.float64), ("32", torch.float32)):
+                    res.update({f"ref.{k}{tag}": v for k, v in c.run(ref, whole, None, dt).items()})
+                res["names"] = np.asarray([str(s.get("name")) if isinstance(s, dict) else str(s)
+                                           for s in c.samples])
+            np.savez(os.path.join(out_dir, f"{case['name']}_r{rank}.npz"), **res)
+        dist.barrier()
+
+
+def main() -> None:
+    spec_path, out_dir = sys.argv[1], sys.argv[2]
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.set_num_threads(1)
+    mesh_setup.launch(_rank, 1, spec["ranks"], device="cpu", args=(spec, out_dir), timeout_s=spec.get("timeout", 120),
+                      threads=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -424,12 +424,20 @@ def test_port_reads_a_jax_arap_checkpoint(case, jax_runs, tmp_path):
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"],
                                   ["--dump-rollout", "x"], ["--config", "c.json"], ["--preset", "arap-lap"]])
 def test_train_arap_refuses_unported_flags(flag, tmp_path):
-    """The multi-device flags (and the paths later slices bring) are refused
-    by name; ``--config`` and ``--preset``, refused before they were ported,
-    are taken (``tests/test_torch_config.py`` holds each preset to the JAX
-    package's resolution)."""
+    """``--graph-parallel`` and ``--dump-rollout`` are refused by name;
+    ``--data-parallel``, refused before it was ported, runs
+    (``tests/test_torch_dist_train.py``) and refuses a batch its ranks
+    cannot split with the JAX trainer's message; ``--config`` and
+    ``--preset``, refused before they were ported, are taken
+    (``tests/test_torch_config.py`` holds each preset to the JAX package's
+    resolution)."""
     if flag[0] in ("--config", "--preset"):
         config_flag_taken(ttrain.parser, flag, tmp_path, ttrain.refuse_unported)
+        return
+    if flag[0] == "--data-parallel":
+        with pytest.raises(SystemExit, match="batch size 3 not divisible by --data-parallel 2"):
+            ttrain.main(["--device", "cpu", "--data-path", str(ARAP), "--result-dir", str(tmp_path), *flag,
+                         "--batch-size", "3"])
         return
     with pytest.raises(SystemExit, match="not ported yet"):
         ttrain.main(["--device", "cpu", "--data-path", str(ARAP), "--result-dir", str(tmp_path), *flag])

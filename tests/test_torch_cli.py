@@ -80,7 +80,8 @@ def test_train_correspondence_refuses_config_flags(flag, tmp_path):
 @pytest.mark.parametrize("name", TRAINERS)
 def test_bf16_is_not_refused(name):
     """``--bf16`` (mixed precision) is on no trainer's refused list, while a
-    flag that is still refused (``--graph-parallel``) is, by name, in the
+    flag that is still refused (``--graph-parallel``; in the normal trainer
+    with ``--model dirac``, its Laplacian path runs) is, by name, in the
     same call."""
     mod = importlib.import_module(f"surfacenetworks_tpu_torch.cli.{name}")
     refuse = mod.refuse_unported if name not in ("train_mnist", "train_vae") else (
@@ -88,5 +89,6 @@ def test_bf16_is_not_refused(name):
     args = mod.parser.parse_args(["--bf16"])
     assert args.bf16
     refuse(args)
+    still = ["--model", "dirac"] if name == "train_normal" else []
     with pytest.raises(SystemExit, match="not ported yet: --graph-parallel"):
-        refuse(mod.parser.parse_args(["--bf16", "--graph-parallel", "2"]))
+        refuse(mod.parser.parse_args(["--bf16", "--graph-parallel", "2", *still]))

@@ -7,29 +7,24 @@ checkpoint the JAX trainer wrote against the JAX trainer's ``--eval-only``
 on it, the host metrics against the device's, and two repairs: the test
 pass's loss is the chosen ``--loss`` (it was dcel whatever the flag), and
 the streaming head, by flag or by default, is dcel's only (it also took
-sl1 and cel at buckets of 4,096 vertices and more)."""
+sl1 and cel at buckets of 4,096 vertices and more).  The ``--bf16`` trunk
+steps are in ``test_torch_faust_bf16.py`` (split so that ``--dist
+loadfile`` balances the files)."""
 
 import pathlib
 import re
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from surfacenetworks_tpu.cli import train_correspondence as jtrain
-from surfacenetworks_tpu.models import SiameseModel as JSiameseModel
-from surfacenetworks_tpu.train import losses as jlosses
-from surfacenetworks_tpu.train import optim as joptim
 from surfacenetworks_tpu_torch.cli import train_correspondence as ttrain
-from surfacenetworks_tpu_torch.convert import params_from_flax
 from surfacenetworks_tpu_torch.data import datasets as tdatasets
 from surfacenetworks_tpu_torch.train import losses as tlosses
 
-from test_torch_faust_trunks import check_step, jax_pair, jops
-from test_torch_bf16_train import _hold_step, _jax_loss
-from torch_parity import BF16, assert_close, perturbed_params, unit_calls
+from test_torch_faust_trunks import check_step
+from torch_parity import assert_close
 
 FAUST = pathlib.Path(__file__).parent / "fixtures" / "faust"
 
@@ -62,43 +57,6 @@ def test_loss_step_matches_jax(loss):
 # the new trunks under --bf16: (flags, layers); amp at 3 layers reads levels 0 and 1
 BF16_CASES = {"amp": (["--model", "amp"], 3), "avg": (["--model", "avg"], 2), "mlp": (["--model", "mlp"], 2),
               "dir": (["--model", "dir"], 2)}
-
-
-@pytest.mark.parametrize("case", list(BF16_CASES))
-def test_trunk_bf16_step_matches_jax(case, tmp_path):
-    """The trainer's ``--bf16`` update (ELL, the full-logits dcel head, 0.1
-    x smoothness on the bf16 features) against the JAX trainer's objective
-    at ``dtype=bf16``: the loss within 8U (U = 2^-8) of JAX's, every layer
-    and block held unit by unit, the parameters after the update optax's
-    (``test_torch_bf16_train._hold_step``)."""
-    flags, layers = BF16_CASES[case]
-    trainer = _trainer(["--datapath", str(FAUST), "--device", "cpu", "--layer", str(layers), "--operator-format",
-                        "ell", "--smooth-reg", "0.1", "--num-updates", "1", "--num-epoch", "1", "--bf16",
-                        "--result-dir", str(tmp_path), *flags])
-    batches, regs, target = jax_pair(trainer.model_key)
-    regs = [jax.tree_util.tree_map(jnp.asarray, r) for r in regs]
-    tgt = jnp.asarray(target)
-    rots = (0.7, 0.0, 2.3, 0.0)
-    xs = [jnp.asarray(np.asarray(b.inputs) @ ttrain.rot_matrix(rots[2 * i], rots[2 * i + 1], "cpu").numpy())
-          for i, b in enumerate(batches)]
-    ops = [jops(b) for b in batches]
-    j16 = JSiameseModel(model=trainer.args.model, layers=layers, dtype=BF16)
-
-    def obj(p):
-        fa, fb = j16.apply({"params": p}, ops[0], ops[1], *xs, method=JSiameseModel.features)
-        loss = jlosses.corr_delta_cross_entropy_from_target(
-            jnp.einsum("bnc,bmc->bnm", fa, fb, preferred_element_type=jnp.float32)[0], tgt)
-        return loss + 0.1 * (jlosses.corr_feature_smoothness(regs[0], fa) + jlosses.corr_feature_smoothness(regs[1], fb))
-
-    params = perturbed_params(j16.init(jax.random.key(0), ops[0], ops[0], xs[0], xs[0])["params"], 15)
-    state = params_from_flax(params, like=trainer.model)
-    trainer.model.load_state_dict(state, strict=True)
-    jloss, _ = _jax_loss(obj, params)
-    with unit_calls(trainer.model) as recorded:
-        loss = trainer.update(0, 1, rots)
-    assert trainer.step == 1
-    _hold_step(f"FAUST {case} bf16", trainer.model, state, loss, jloss, recorded, obj, params,
-               joptim.adam(1e-3, weight_decay=1e-5))
 
 
 def _run(trainer) -> tuple[list, dict]:

@@ -4,7 +4,9 @@ package, msgpack and matplotlib cannot be imported (as on the machine with
 the card, which has none of them), and no port source names them (the
 config presets, the launcher, the export entry point, the native runtime's
 bindings, ``preprocess``, the sampler, the spectral descriptors and the
-timing tools among them).  Also:
+timing tools and the distributed runtime among them, ``torch.distributed``
+allowed), also in a rank that ``dist.mesh_setup.launch`` spawns for
+``tests/_torch_dist_worker.py``.  Also:
 the port's entry points refuse to run on the CPU unless asked
 (``export_model`` without ``--platforms cpu`` too), and ``chip_smoke.py`` fails without a card or without the
 package beside it."""
@@ -37,7 +39,8 @@ sys.meta_path.insert(0, Refuse())
 import surfacenetworks_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for want in ("config", "cli.launch", "cli.export_model", "serve", "native", "cli.preprocess", "geometry.sampling",
-             "geometry.spectral", "train.timing"):
+             "geometry.spectral", "train.timing", "dist", "dist.mesh_setup", "dist.data_parallel", "dist.edge_partition",
+             "dist.graph_parallel", "parallel_context", "train.loop"):
     assert pkg.__name__ + "." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -63,13 +66,55 @@ def test_port_and_chip_smoke_import_without_jax():
     assert n >= 15, res.stdout
 
 
+_REFUSE_SITE = f"""
+import importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {BLOCKED!r}:
+            raise ModuleNotFoundError(f"import of {{name}} refused")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+"""
+
+
+def test_dist_rank_imports_without_jax(tmp_path):
+    """The worker script and a rank it spawns (a partitioned apply on a
+    one-rank grid) run with jax, flax, optax and the JAX package refused in
+    every process: a ``sitecustomize`` on ``PYTHONPATH`` installs the
+    refusal in the spawned interpreter too."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    (tmp_path / "site").mkdir()
+    (tmp_path / "site" / "sitecustomize.py").write_text(_REFUSE_SITE)
+    L = sp.random(64, 64, density=0.05, format="csr", random_state=0, dtype=np.float32) + sp.eye(64, dtype=np.float32)
+    L = L.tocsr()
+    rng = np.random.default_rng(0)
+    np.savez(tmp_path / "in.npz", data=L.data, indices=L.indices, indptr=L.indptr, shape=np.asarray(L.shape),
+             halo=64, k=16, x=rng.normal(size=(64, 4)).astype(np.float32), g=rng.normal(size=(64, 4)).astype(np.float32))
+    spec = {"ranks": 1, "timeout": 60, "cases": [{"name": "one", "kind": "pspmm", "n_data": 1, "n_graph": 1,
+                                                   "fmt": "ell", "input": str(tmp_path / "in.npz")}]}
+    (tmp_path / "spec.json").write_text(__import__("json").dumps(spec))
+    env = _env(PYTHONPATH=f"{tmp_path / 'site'}{os.pathsep}{REPO}")
+    res = subprocess.run([sys.executable, str(REPO / "tests" / "_torch_dist_worker.py"), str(tmp_path / "spec.json"),
+                          str(tmp_path)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
+    y = np.load(tmp_path / "one_r0.npz")["y"]
+    np.testing.assert_allclose(y, L.toarray() @ np.load(tmp_path / "in.npz")["x"], rtol=1e-5, atol=1e-5)
+    probe = subprocess.run([sys.executable, "-c", "import jax"], env=env, capture_output=True, text=True, timeout=60)
+    assert probe.returncode != 0 and "refused" in probe.stderr  # the refusal is live in a fresh interpreter
+
+
 def test_port_sources_name_no_jax():
     # the port, and the scripts that run it on the card
     sources = sorted(PACKAGE.rglob("*.py")) + [REPO / n for n in ("chip_smoke.py", "bsr_bf16_sweep.py",
-                                                                 "sddmm_bf16_check.py")]
+                                                                 "sddmm_bf16_check.py",
+                                                                 "tests/_torch_dist_worker.py")]
     assert len(sources) >= 15
     for want in ("native/__init__.py", "cli/preprocess.py", "geometry/sampling.py", "geometry/spectral.py",
-                 "train/timing.py"):
+                 "train/timing.py", "dist/edge_partition.py", "dist/mesh_setup.py", "parallel_context.py"):
         assert PACKAGE / want in sources, want
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))

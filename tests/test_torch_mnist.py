@@ -434,12 +434,18 @@ def test_train_mnist_main_cpu(model, tmp_path):
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"],
                                   ["--config", "c.json"], ["--preset", "mnist"]])
 def test_train_mnist_refuses_unported_flags(flag, tmp_path):
-    """The multi-device flags (and the paths later slices bring) are refused
-    by name; ``--config`` and ``--preset``, refused before they were ported,
-    are taken (``tests/test_torch_config.py`` holds each preset to the JAX
-    package's resolution)."""
+    """``--graph-parallel`` is refused by name; ``--data-parallel``,
+    refused before it was ported, runs (``tests/test_torch_dist_train.py``)
+    and refuses a batch its ranks cannot split with the JAX trainer's
+    message; ``--config`` and ``--preset``, refused before they were
+    ported, are taken (``tests/test_torch_config.py`` holds each preset to
+    the JAX package's resolution)."""
     if flag[0] in ("--config", "--preset"):
         config_flag_taken(ttrain.parser, flag, tmp_path, lambda a: ttrain.refuse_unported(a, "train_mnist"))
+        return
+    if flag[0] == "--data-parallel":
+        with pytest.raises(SystemExit, match="batch size 3 not divisible by --data-parallel 2"):
+            ttrain.main(_argv(tmp_path, *flag, "--batch-size", "3"))
         return
     with pytest.raises(SystemExit, match="not ported yet"):
         ttrain.main(_argv(tmp_path, *flag))

@@ -438,7 +438,11 @@ def test_train_normal_resumes_from_a_jax_checkpoint(tmp_path):
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"], ["--config", "c"],
                                   ["--jax-profile", "x"], ["--preset", "p"], ["--multihost"]])
 def test_train_normal_refuses_unported_flags(flag, tmp_path):
-    """The multi-device flags are refused by name; ``--config`` and
+    """``--multihost`` and ``--graph-parallel`` with the Dirac model are
+    refused by name; ``--data-parallel`` and ``--graph-parallel`` with
+    ``--model lap``, refused before they were ported, run
+    (``tests/test_torch_dist_train.py``): a batch the data ranks cannot
+    split exits with the JAX trainer's message.  ``--config`` and
     ``--preset``, refused before they were ported, are taken
     (``tests/test_torch_config.py`` holds each preset to the JAX package's
     resolution), and so is ``--jax-profile``, which writes a trace of the
@@ -451,5 +455,11 @@ def test_train_normal_refuses_unported_flags(flag, tmp_path):
                                                 "--num-epoch", "2", "--num-updates", "1", "--batch-size", "2"],
                                   tmp_path)
         return
+    if flag[0] == "--data-parallel":
+        with pytest.raises(SystemExit, match="batch size 3 not divisible by --data-parallel 2"):
+            ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag,
+                         "--batch-size", "3"])
+        return
+    still = ["--model", "dirac"] if flag[0] == "--graph-parallel" else []
     with pytest.raises(SystemExit, match="not ported yet"):
-        ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag])
+        ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag, *still])

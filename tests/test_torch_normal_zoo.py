@@ -20,7 +20,9 @@ hands JAX the pattern with ``window=0``, its slot gather, and the banded
 formulation (the JAX trainer's own, on RCM order) is held in fp32, to
 GAT_FP32_RTOL.  The bf16 models are held as
 ``tests/test_torch_bf16_models.py`` holds the others
-(``torch_parity.hold_bf16_model``)."""
+(``torch_parity.hold_bf16_model``).  The trainer's steps and the bf16
+models are in ``test_torch_normal_zoo_steps.py`` (split so that ``--dist
+loadfile`` balances the files)."""
 
 import copy
 import random
@@ -28,13 +30,11 @@ import random
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
 from surfacenetworks_tpu import geometry as jgeo
 from surfacenetworks_tpu.cli import train_normal as jtrain
-from surfacenetworks_tpu.cli.common import EpochSampler as JEpochSampler
 from surfacenetworks_tpu.data import batching as jbat
 from surfacenetworks_tpu.data import datasets as jdatasets
 from surfacenetworks_tpu.geometry import graph_ops as jgraph
@@ -42,7 +42,6 @@ from surfacenetworks_tpu.geometry import repair as jrepair
 from surfacenetworks_tpu.models import normal_models as jmodels
 from surfacenetworks_tpu.nn import blocks as jblocks
 from surfacenetworks_tpu.train import losses as jlosses
-from surfacenetworks_tpu.train import optim as joptim
 from surfacenetworks_tpu_torch.cli import train_normal as ttrain
 from surfacenetworks_tpu_torch.convert import params_from_flax
 from surfacenetworks_tpu_torch.geometry import graph_ops as tgraph
@@ -50,11 +49,10 @@ from surfacenetworks_tpu_torch.geometry import repair as trepair
 from surfacenetworks_tpu_torch.models import normal_models as tmodels
 from surfacenetworks_tpu_torch.nn import blocks as tblocks
 from surfacenetworks_tpu_torch.train import losses as tlosses
-from surfacenetworks_tpu_torch.train import optim as toptim
 
 from test_torch_normal_train import OBJS, _objs
-from torch_parity import (BF16, assert_close, bf16_mesh, blob_laplacian, hold_bf16_model, hold_grads, operators,
-                          perturbed_params, profile_flag_writes_trace, rcm, to_jax)
+from torch_parity import (assert_close, blob_laplacian, hold_grads, operators, perturbed_params, profile_flag_writes_trace,
+                          rcm)
 
 FP64_RTOL = 1e-6
 STEP_RTOL = 1e-4  # the trainer's fp32 loss against JAX's fp32 loss
@@ -341,117 +339,13 @@ def _fro(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
 
 
-@pytest.mark.parametrize("model", sorted(JMODELS))
-def test_model_step_matches_jax(model, tmp_path):
-    """The trainer with ``--model <model>`` on the fixture meshes (2 layers,
-    batch 2, the default format: ELL over RCM order for gat, dense per
-    sample for the others):
-
-    * the split and six batches' order equal the JAX trainer's name for
-      name, and the first batch's inputs, targets and mask equal the JAX
-      package's packing (gat's ELL operator, forward and stored transpose,
-      the same matrices);
-    * fp64, both packages (JAX under ``enable_x64``), the flax params moved
-      off init by seeded noise and converted in: the loss, every gradient
-      (null ones within 1e-12 of the largest) and the parameters after one
-      Adam update (against optax) agree to 1e-6;
-    * fp32, the trainer's own ``update``: the loss within 1e-4 of JAX's fp32
-      loss; each gradient no farther (relative Frobenius) from the fp64 step
-      than FP32_RATIO x JAX's own fp32 distance from it, plus 1e-6 (a null
-      one within 1e-4 of the largest gradient); the parameters after the update equal
-      optax's Adam applied to the port's gradients (3e-7 absolute)."""
-    trainer = ttrain.NormalTrainer(ttrain.parser.parse_args(_argv(model, tmp_path, "--device", "cpu")),
-                                   log=lambda _: None)
-    jargs, jtrain_s, jtest_s, jbuckets = _jax_run(model, tmp_path)
-    assert trainer.fmt == ("ell" if model == "gat" else "dense")
-    assert isinstance(trainer.model, TMODELS[model])
-    names = lambda ss: [s["name"] for s in ss]  # noqa: E731
-    assert names(trainer.train_samples) == names(jtrain_s) and names(trainer.test_samples) == names(jtest_s)
-    jsampler = JEpochSampler(jtrain_s, 2, seed=17)
-    assert [names(trainer.train_sampler.next_batch()) for _ in range(6)] == [names(jsampler.next_batch())
-                                                                              for _ in range(6)]
-    trainer.train_sampler = ttrain.EpochSampler(trainer.train_samples, 2, seed=17)
-    samples = trainer.train_sampler.next_batch()
-    batch = trainer.batch(samples)
-    by_name = {s["name"]: s for s in jtrain_s}
-    jb = jbat.laplacian_batch([by_name[n] for n in names(samples)], jbuckets, fmt=trainer.fmt)
-    for k in ("inputs", "targets", "mask"):
-        np.testing.assert_array_equal(getattr(batch, k).numpy(), np.asarray(getattr(jb, k)), err_msg=k)
-    if model == "gat":
-        # the same matrices; the slots of a row may lie in another order (the JAX package's native packer keeps
-        # the RCM-permuted CSR's order, the port packs as its NumPy packer does, in sorted column order)
-        for part in ("fwd", "bwd"):
-            t, j = getattr(batch.operator, part), getattr(jb.operator, part)
-            np.testing.assert_array_equal(_dense(t.cols.numpy(), t.vals.numpy()),
-                                          _dense(np.asarray(j.cols), np.asarray(j.vals)))
-
-    jmodel = jtrain.build_model(jargs)
-    assert isinstance(jmodel, JMODELS[model])
-    jop = jax.tree_util.tree_map(jnp.asarray, jb.operator)
-    params = perturbed_params(jmodel.init(jax.random.key(0), jop, jnp.asarray(jb.mask),
-                                          jnp.asarray(jb.inputs))["params"], 31)
-    state = params_from_flax(params, like=trainer.model)
-    trainer.model.load_state_dict(state, strict=True)
-    model64 = copy.deepcopy(trainer.model).double()
-    null = _null_grads(model)
-
-    def jrun(p, dtype):
-        op = jop if dtype == jnp.float32 or model != "gat" else _gather_form(jop)
-
-        def objective(q):
-            out = jmodel.apply({"params": q}, op, jnp.asarray(jb.mask, dtype), jnp.asarray(jb.inputs, dtype))
-            return jlosses.normal_cosine_loss(out, jnp.asarray(jb.mask, dtype), jnp.asarray(jb.targets, dtype))
-        return jax.value_and_grad(objective)(p)
-
-    def as_state(tree):
-        return {k: v.double().numpy() for k, v in params_from_flax(jax.tree_util.tree_map(np.asarray, tree),
-                                                                   like=trainer.model).items()}
-
-    with jax.enable_x64(True):
-        jp64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), params)
-        jloss64, jg64 = jrun(jp64, jnp.float64)
-        tx = joptim.adam(1e-3)
-        upd, _ = tx.update(jg64, tx.init(jp64), jp64)
-        jnew64 = as_state(optax.apply_updates(jp64, upd))
-        jg64 = as_state(jg64)
-    b64 = copy.copy(batch)
-    b64.inputs, b64.targets, b64.mask = batch.inputs.double(), batch.targets.double(), batch.mask.double()
-    if model != "gat":
-        b64.operator = batch.operator.double()
-    loss64, _ = ttrain.train_step(model64, toptim.adam(model64.parameters(), 1e-3), b64)
-    assert_close(loss64.numpy(), jloss64, FP64_RTOL, "fp64 loss")
-    hold_grads({k: p.grad.numpy() for k, p in model64.named_parameters()}, jg64, FP64_RTOL, null, "fp64 gradient")
-    for k, p in model64.named_parameters():
-        assert_close(p.detach().numpy(), jnew64[k], FP64_RTOL, f"fp64 after Adam {k}")
-
-    jloss, jg = jrun(to_jax(params), jnp.float32)
-    jg = as_state(jg)
-    loss, mad = trainer.update(batch)
-    assert trainer.step == 1 and np.isfinite(float(mad))
-    assert_close(loss.numpy(), jloss, STEP_RTOL, "fp32 loss")
-    tg = {k: p.grad.numpy() for k, p in trainer.model.named_parameters()}
-    tx = joptim.adam(1e-3)
-    upd, _ = tx.update(to_jax(tg), tx.init(to_jax(state)), to_jax(state))
-    new = optax.apply_updates(to_jax(state), upd)
-    top = max(float(np.linalg.norm(g)) for g in jg64.values())
-    for k, p in trainer.model.named_parameters():
-        g, ref = tg[k], jg64[k]
-        assert np.isfinite(g).all(), f"{k}: not finite"
-        if k in null:
-            assert np.linalg.norm(g) <= NULL_FP32 * top, f"fp32 null grad {k}: {np.linalg.norm(g):.3e}"
-        else:
-            assert (g != 0).any(), f"{k}: no gradient"
-            bound = FP32_RATIO * _fro(jg[k], ref) + 1e-6
-            assert _fro(g, ref) <= bound, f"fp32 grad {k}: {_fro(g, ref):.3e} from fp64 > {bound:.3e}"
-        err = float(np.abs(p.detach().numpy() - np.asarray(new[k])).max())
-        assert err <= ADAM_ATOL, f"{k}: after one Adam update max|err|={err:.3e}"
-
-
 def test_train_normal_zoo_main_cpu(tmp_path):
     """``main`` end to end on the fixtures with ``--flip-variants 1`` (gat,
     also with ``--bf16``, and mlp; the step of every model is held above):
     finite losses, the log's flip and format lines, and a checkpoint of the
-    right model; ``--data-parallel`` stays refused by name, and
+    right model; ``--data-parallel`` with the cascade exits with the JAX
+    trainer's message and ``--graph-parallel`` with gat is refused by name,
+    and
     ``--jax-profile`` writes a trace of the first epoch (gat)."""
     for model, extra in (("mlp", []), ("gat", []), ("gat", ["--bf16"])):
         out = tmp_path / f"{model}{len(extra)}"
@@ -466,8 +360,12 @@ def test_train_normal_zoo_main_cpu(tmp_path):
             assert "operator format -> ell" in log
         keys = torch.load(out / "pts" / "debug_normal_state.pt", weights_only=True)["params"].keys()
         assert sorted(keys) == sorted(TMODELS[model](3, 3, 2).state_dict())
-    with pytest.raises(SystemExit, match="not ported yet: --data-parallel"):
-        ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), "--data-parallel", "2"])
+    with pytest.raises(SystemExit, match="--data-parallel does not support the cascade model"):
+        ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), "--data-parallel", "2",
+                     "--model", "cas"])
+    with pytest.raises(SystemExit, match="not ported yet: --graph-parallel with --model gat"):
+        ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), "--graph-parallel",
+                     "2", "--model", "gat"])
     trace = profile_flag_writes_trace(ttrain.main, ["--device", "cpu", "--data-path", str(OBJS), "--model", "gat",
                                                     "--layer", "2", "--num-epoch", "1", "--num-updates", "1",
                                                     "--batch-size", "2"], tmp_path)
@@ -477,20 +375,3 @@ def test_train_normal_zoo_main_cpu(tmp_path):
 # ---------------------------------------------------------------------------
 # bf16
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("name", ["gat", "id"])
-def test_zoo_bf16_matches_flax(name):
-    """GatDeepModel-3 and IdDeepModel-3 at ``dtype=bf16`` against the JAX
-    package's, on an RCM-ordered 150-vertex blob in ELL (GAT's attends in
-    fp32 on the bf16 features, its scores in fp32): the output within
-    BF16_OUT_RTOL and the step unit by unit (``hold_bf16_model``)."""
-    L, mask, rng = bf16_mesh(N=256)
-    jop, top = operators(L, 256, "ell", 2)
-    x = (rng.normal(size=(2, 256, 3)) * mask).astype(np.float32)
-    tgt = np.random.default_rng(4).normal(size=(2, 256, 3)).astype(np.float32)
-    tm, tt = torch.from_numpy(mask), torch.from_numpy(tgt)
-    worst = hold_bf16_model(f"{name} bf16", JMODELS[name](3, 3, 3, dtype=BF16),
-                            TMODELS[name](3, 3, 3, dtype=torch.bfloat16), (jop, jnp.asarray(mask), jnp.asarray(x)),
-                            (top, tm, torch.from_numpy(x)), lambda o: tlosses.normal_cosine_loss(o, tm, tt), 17)
-    assert worst["model_out"] > 0
