@@ -160,6 +160,16 @@ and read just after:
   step 0 against the same step on one rank over the whole batch (loss,
   gradient, parameters; a rank-local batch norm refused), launches a step,
   and per rank the wall, device busy, idle share and the halo exchanged;
+  the row-partitioned Dirac pair (``Di v``, ``DiA f`` and both backwards,
+  each rank's rows bit-identical to the single-card structured applies,
+  held within 1e-5 of ``|D||x|``; a dropped boundary face and a zeroed face
+  halo refused) and the partitioned GAT attend (a zeroed payload halo
+  refused); ``--graph-parallel 2`` in ``train_normal --model dirac|gat``,
+  ``train_arap`` (batch 32), ``train_mnist`` (batch 64), ``train_vae
+  --model dirac`` and ``train_correspondence`` (lap ELL and BSR, dir) at 7
+  layers (5 for mesh-MNIST and the VAE): step 0 module by module against
+  one rank, a rank-local batch norm refused on each, then 2 updates with
+  their launches asserted;
   then one rank over NCCL takes a DP step and runs NCCL's ``all_reduce``
   and ``broadcast`` on the card (collectives across cards and NCCL's
   peer-to-peer sends are not exercised on one card).
@@ -3850,10 +3860,10 @@ def arap_phase(device, smi: str) -> tuple[dict, dict]:
 
 
 def _is_operator(a) -> bool:
-    from surfacenetworks_tpu_torch.dist import PartitionedOperator
+    from surfacenetworks_tpu_torch.dist import PartitionedDirac, PartitionedOperator
     from surfacenetworks_tpu_torch.sparse import BsrOperator, DiracOperator, EllOperator
 
-    return isinstance(a, (EllOperator, BsrOperator, DiracOperator, PartitionedOperator))
+    return isinstance(a, (EllOperator, BsrOperator, DiracOperator, PartitionedOperator, PartitionedDirac))
 
 
 def mesh_objective(family: str, model, b, noise, kw: float = 0.0):
@@ -5612,6 +5622,43 @@ DIST_SINGLE_CARD_RTOL = {"gp ell": {"loss": 0.1}, "gp bsr": {"loss": 0.1}, "dp n
 # 16 backward; a partitioned apply is one interior and one boundary launch
 DIST_PER_STEP = {"gp ell": launches_of(ell_matmul=64), "gp bsr": launches_of(bsr_matmul=32, ell_matmul=32),
                  "dp normal": launches_of(ell_matmul=32), "dp arap": launches_of(ell_matmul=32)}
+# The graph-parallel runs of every other trainer (2 updates each after step
+# 0, at DIST_GP_LAYERS layers where the trainer's own depth is 15, printed):
+# the Dirac and GAT models launch no kernel (their applies and attends are
+# plain PyTorch, as in the JAX package); a partitioned Laplacian apply is one
+# interior and one boundary launch, forward and backward: ARAP-7 has 4 Lap
+# blocks of 2 applies, the classifier 5, the FAUST lap trunk 4 for each of
+# the two shapes, whose streaming dcel head adds one ell_matmul (the mirror
+# of its target) a step.
+DIST_GP_LAYERS = 7
+DIST_GP_STEPS_NEW = 2
+DIST_MNIST_DATA = {"num": 80, "seed": SEED, "n_points": 210}  # 64 train meshes: one batch of 64
+DIST_FAUST_DATA = {"num": 2, "n_points": DIST_POINTS, "seed": SEED}
+DIST_PER_STEP.update({
+    "gp normal dirac": launches_of(), "gp normal gat": launches_of(), "gp arap": launches_of(ell_matmul=32),
+    "gp mnist": launches_of(ell_matmul=40), "gp vae dirac": launches_of(), "gp faust lap": launches_of(ell_matmul=65),
+    "gp faust bsr": launches_of(bsr_matmul=32, ell_matmul=33), "gp faust dir": launches_of(ell_matmul=1)})
+# Against the single-card step (loss relative; the update only for ARAP,
+# whose fp32 step is not chaotic): the step-0 bounds are those of the first
+# graph-parallel runs above; the loss bounds below are theirs for the normal
+# and ARAP models and, where the run
+# is new, set above the real reading and, for mesh-MNIST and the VAE, below
+# the rank-local batch-norm mutant's (measured on NVIDIA H100 80GB
+# HBM3 cards at 700.00 W, real / mutant: normal Dirac 1.1e-6 / 0.100, GAT 9.4e-7
+# / 0.047, ARAP 2.1e-7 / 0.042 (update 0.013 / 1.16), mesh-MNIST 1.6e-5 /
+# 0.011, VAE Dirac 1.2e-5 / 0.0020, FAUST lap 0.021 / 0.22, BSR 0.0024 /
+# 0.22, dir 5.4e-6 / 0.26: the dcel head's near-one-hot softmax turns fp32
+# rounding into other argmax rows, as in the FAUST phases).  Module by
+# module the real runs' worst chain / parameter readings are 4.8e-6-0.140 /
+# 1.8e-5-0.302 (FAUST BSR's first block) and the mutants' 0.31-3.95 /
+# 0.86-22.2: the bounds of the first graph-parallel runs hold them.
+DIST_SINGLE_CARD_RTOL.update({
+    "gp normal dirac": {"loss": 0.1}, "gp normal gat": {"loss": 0.1}, "gp arap": {"loss": 1e-4, "update": 0.1},
+    "gp mnist": {"loss": 1e-3}, "gp vae dirac": {"loss": 1e-3}, "gp faust lap": {"loss": 0.1},
+    "gp faust bsr": {"loss": 0.1}, "gp faust dir": {"loss": 0.1}})
+# the partitioned GAT attend against the single-card one: each output and
+# gradient within this share of its largest element
+DIST_GAT_RTOL = 1e-5
 
 
 def _dist_log(mesh, msg: str) -> None:
@@ -5794,22 +5841,32 @@ def _loss_of(out) -> float:
 def _gathered(cap, axis, dim: int):
     """``cap`` (a ``ModuleCapture`` of this rank's shard) with every
     captured array gathered over ``axis`` along ``dim`` (every rank calls it,
-    in the same order)."""
+    in the same order).  Along the rows (``dim`` -2) only per-row arrays
+    (``[B, n, C]``) are sharded: a pooled value (``[B, C]``: a classifier's
+    log-probabilities, the VAE's latent statistics, a dropout mask) is the
+    same on every rank and kept, and its cotangent, of which each rank holds
+    its share of the loss's, is summed over the axis."""
     import torch
 
+    from surfacenetworks_tpu_torch import parallel_context
     from surfacenetworks_tpu_torch.dist import mesh_setup
 
-    def g(t):
-        return mesh_setup.all_gather(t.contiguous(), axis, dim) if isinstance(t, torch.Tensor) else t
+    def g(t, cot=False):
+        if not isinstance(t, torch.Tensor):
+            return t
+        if dim == -2 and t.dim() < 3:
+            return parallel_context.total(t, [axis]) if cot else t
+        return mesh_setup.all_gather(t.contiguous(), axis, dim)
 
     out = copy.copy(cap)
     out.calls = {name: [{"needs": r["needs"], "args": [g(a) for a in r["args"]], "out": [g(o) for o in r["out"]],
-                         "g": [g(t) for t in r["g"]], "gin": [g(t) for t in r["gin"]]} for r in recs]
+                         "g": [g(t, True) for t in r["g"]], "gin": [g(t, True) for t in r["gin"]]} for r in recs]
                  for name, recs in cap.calls.items()}
     return out
 
 
-def _dist_step0(mesh, label: str, trainer, batch, whole, head, make_opt, vertex: bool) -> dict:
+def _dist_step0(mesh, label: str, trainer, batch, whole, head, make_opt, vertex: bool, capture=None, single=None,
+                head_errs=None, replay=None, null=frozenset()) -> dict:
     """Step 0 on every rank's shard (``trainer.update(batch)``) against the
     same step on one rank, module by module (see DIST_STEP0_BOUNDS): the
     captured modules gathered over the graph axis (rows, ``vertex``) or the
@@ -5820,7 +5877,15 @@ def _dist_step0(mesh, label: str, trainer, batch, whole, head, make_opt, vertex:
     ``make_opt(model)`` (the trainer's optimizer, made afresh) from step 0's
     weights with the summed gradients; the loss and the update against the
     single-card step on ``whole``.  The trainer's weights, optimizer and
-    update count are put back after each."""
+    update count are put back after each.  For models that are not called
+    ``model(op, mask, inputs)``: ``capture(model)`` makes the
+    ``ModuleCapture`` (default ``StepCapture``), ``single(model)`` is the
+    single-card step's loss on ``whole``, ``head_errs(cap, loss, grads)``
+    holds the step's head (default ``output_head`` with ``head``), and
+    ``replay = (submodule of the model, key prefix, operator of (name,
+    call))`` what the modules are replayed on (default the model, its keys,
+    ``whole.operator``); ``null`` names parameters whose gradient is zero in
+    exact arithmetic, held to NULL_GRAD_RTOL of the largest gradient."""
     import torch
 
     from surfacenetworks_tpu_torch.dist import mesh_setup
@@ -5836,7 +5901,7 @@ def _dist_step0(mesh, label: str, trainer, batch, whole, head, make_opt, vertex:
 
     def captured(ctx):
         restart()
-        cap = StepCapture(trainer.model)
+        cap = (capture or StepCapture)(trainer.model)
         try:
             with ctx():
                 loss = _loss_of(trainer.update(batch))
@@ -5872,15 +5937,16 @@ def _dist_step0(mesh, label: str, trainer, batch, whole, head, make_opt, vertex:
         # the single-card trainer's step on the whole batch from the same weights
         model.load_state_dict(state0)
         p0 = flat(model)
-        (one,) = loop.update(model, make_opt(model),
-                             lambda: (head(model(whole.operator, whole.mask, whole.inputs), whole),), trainer.schedule)
+        (one,) = loop.update(model, make_opt(model), lambda: ((single or (
+            lambda m: head(m(whole.operator, whole.mask, whole.inputs), whole)))(model),), trainer.schedule)
         single = {"loss": float(one), "update": flat(model) - p0}
         model.load_state_dict(state0)
         failures, runs, bounds = [], {}, DIST_SINGLE_CARD_RTOL[label]
+        sub, prefix, apply = replay or (lambda m: m, "", lambda name, k, op: whole.operator)
         for lab, (lo, gr, c, af) in (("real", (loss, grads, cap, after)), ("mutant rank-local batch norm", mutant)):
             norms = {}
-            runs[lab] = errs = {**output_head(c, lo, lambda out: head(out, whole)),
-                                **replay_modules(c, gr, model, lambda name, k, op: whole.operator, norms=norms)}
+            runs[lab] = errs = {**(head_errs(c, lo, gr) if head_errs else output_head(c, lo, lambda out: head(out, whole))),
+                                **replay_modules(c, gr, sub(model), apply, prefix=prefix, null=null, norms=norms)}
             if lab == "real":
                 leaves = sorted((k[:-len(" gradient")] for k in errs if k.endswith(" gradient")),
                                 key=lambda k: -errs[k + " gradient"])[:4]
@@ -5898,7 +5964,8 @@ def _dist_step0(mesh, label: str, trainer, batch, whole, head, make_opt, vertex:
             if word in ("FAIL", "NOT refused"):
                 failures.append(f"{label} {lab}: step 0 against the single-card step: {step}")
         verdict = {"step0": {}}
-        failures += judge_step0(label, runs, DIST_STEP0_BOUNDS, verdict, against="one rank on the whole batch")
+        failures += judge_step0(label, runs, {**DIST_STEP0_BOUNDS, "null": NULL_GRAD_RTOL}, verdict,
+                                against="one rank on the whole batch")
         res["step0"] = verdict["step0"]
         for lab, errs in runs.items():
             med = {g: float(np.median([v for k, v in errs.items() if k.endswith("gradient") == (g == "parameter")]))
@@ -5973,7 +6040,8 @@ def dist_rank(mesh, out_dir: str) -> dict:
     """One of DIST_RANKS ranks on the card: the partitioned applies, then
     ``train_normal --graph-parallel 2`` (ELL and BSR interiors),
     ``train_normal --data-parallel 2`` at batch 2 and ``train_arap
-    --data-parallel 2`` at batch 32; writes its report to
+    --data-parallel 2`` at batch 32, then the graph-parallel work of the
+    other families (``dist_gp_rank``); writes its report to
     ``out_dir/rank<r>.json``."""
     import torch
 
@@ -6024,6 +6092,7 @@ def dist_rank(mesh, out_dir: str) -> dict:
                                  arap_head, lambda m: optim.adam(m.parameters(), trainer.schedule, weight_decay=1e-5),
                                  vertex=False)
     rep["dp arap"].update(_dist_run(dp, "dp arap", _ArapShards(trainer), trainer.sample_train_picks, DIST_DP_STEPS))
+    rep.update(dist_gp_rank(mesh, device))
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
         json.dump(rep, f)
     return rep
@@ -6041,6 +6110,393 @@ class _ArapShards:
 
     def update(self, batch):
         return self.trainer.update(batch)
+
+
+class _Steps:
+    """A trainer as ``_dist_step0`` and ``_dist_run`` see it: its model,
+    optimizer and schedule, ``batch(x)`` (default the trainer's) and
+    ``update(batch)`` as given (a fixed random draw, a FAUST pair)."""
+
+    def __init__(self, trainer, update, batch=None):
+        self.trainer, self._update, self._batch = trainer, update, batch or trainer.batch
+        self.model, self.opt, self.schedule = trainer.model, trainer.opt, getattr(trainer, "schedule", None)
+        self.step = 0
+
+    def batch(self, x):
+        return self._batch(x)
+
+    def update(self, batch):
+        return self._update(batch)
+
+
+def _zeroed_halos():
+    """The mutant exchange: every halo arrives as zeros (the exchange itself
+    runs and is waited on, so no send is left pending)."""
+    import torch
+
+    from surfacenetworks_tpu_torch.dist import edge_partition as ep
+
+    wait = ep._Exchange.wait
+    return swapped(ep._Exchange, "wait", lambda self: tuple(torch.zeros_like(t) for t in wait(self)))
+
+
+def _dirac_mesh():
+    """The smoke's 7,000-vertex synthetic mesh as ``--graph-parallel`` reads
+    it: RCM-ordered, its faces sorted by their smallest vertex."""
+    from surfacenetworks_tpu_torch.data import datasets
+    from surfacenetworks_tpu_torch.data.batching import rcm_reorder_sample
+    from surfacenetworks_tpu_torch.dist import dirac_partition as dp
+
+    s = rcm_reorder_sample(datasets.synthetic_normal_dataset(1, n_points=DIST_POINTS, seed=SEED, operator="lap")[0])
+    s["F"] = np.asarray(s["F"])[dp.sort_faces_for_partition(s["F"])]
+    return s
+
+
+def dist_dirac_checks(mesh, device, s: dict) -> dict:
+    """The partitioned Dirac pair on this rank's rows (vertex and face rows
+    each halved; ``nn.blocks.apply_dirac_vf`` / ``_fv`` in the graph-sharded
+    context), C=128: ``Di v`` and ``DiA f`` and both backwards against the
+    single-card structured applies on the whole operator (the same
+    coefficients), element by element within DIRAC_APPLY_RTOL of the sum
+    |q||x| of each (the fp64 scipy pair's |D| on |x|, on the host); a
+    boundary face dropped and the face halo zeroed refused; the halos, the
+    boundary widths and the bytes sent per apply (gloo on one card)."""
+    import dataclasses
+
+    import torch
+
+    from surfacenetworks_tpu_torch import geometry as geo
+    from surfacenetworks_tpu_torch import native
+    from surfacenetworks_tpu_torch.data import round_up
+    from surfacenetworks_tpu_torch.dist import dirac_partition as dp
+    from surfacenetworks_tpu_torch.dist import edge_partition as ep
+    from surfacenetworks_tpu_torch.nn.blocks import apply_dirac_fv, apply_dirac_vf
+    from surfacenetworks_tpu_torch.sparse import dirac_apply_fv, dirac_apply_vf, dirac_from_coeffs, stack_dirac
+
+    G, g = mesh.n_graph, mesh.graph_index
+    n, m = s["V"].shape[0], s["F"].shape[0]
+    N, M, C = round_up(n, 8 * G), round_up(m, 8 * G), WIDTH
+    coeffs = native.dirac_coeffs(s["V"], s["F"])
+    pop = dp.stack_partitioned_dirac([dp.partition_dirac(coeffs, G, N, M)])
+    loc = dp.shard_partitioned_dirac(pop, g).to(device)
+    whole = stack_dirac([dirac_from_coeffs(coeffs, N, M)]).to(device)
+    gen = torch.Generator().manual_seed(SEED + 901)
+    v, f, gf, gv = (torch.randn(1, r, C, generator=gen).to(device) for r in (N, M, M, N))
+    vr, fr = slice(g * N // G, (g + 1) * N // G), slice(g * M // G, (g + 1) * M // G)
+    D, DA = geo.dirac(np.asarray(s["V"], np.float64), s["F"])
+
+    def absapply(Mx, t, rows_out, r):
+        """|Mx| on |t| (the first real rows of t), padded to ``rows_out`` and cut to ``r``."""
+        out = np.zeros((rows_out, C))
+        k = Mx.shape[1] // 4
+        out[: Mx.shape[0] // 4] = _quaternion_apply(abs(Mx), np.abs(t[0, :k].double().cpu().numpy()))
+        return out[r]
+
+    scales = {"vf": absapply(D, v, M, fr), "fv": absapply(DA, f, N, vr),
+              "vf backward": absapply(D.T.tocsr(), gf, N, vr), "fv backward": absapply(DA.T.tocsr(), gv, M, fr)}
+
+    def sharded(op):
+        vl, fl = v[:, vr].clone().requires_grad_(), f[:, fr].clone().requires_grad_()
+        with mesh.context(vertex=True, batch=False):
+            yf, yv = apply_dirac_vf(op, vl), apply_dirac_fv(op, fl)
+        torch.autograd.backward([yf, yv], [gf[:, fr], gv[:, vr]])
+        return {"vf": yf.detach(), "fv": yv.detach(), "vf backward": vl.grad, "fv backward": fl.grad}
+
+    vw, fw = v.clone().requires_grad_(), f.clone().requires_grad_()
+    yf, yv = dirac_apply_vf(whole, vw), dirac_apply_fv(whole, fw)
+    torch.autograd.backward([yf, yv], [gf, gv])
+    ref = {"vf": yf.detach()[:, fr], "fv": yv.detach()[:, vr], "vf backward": vw.grad[:, vr], "fv backward": fw.grad[:, fr]}
+    got = sharded(loc)
+    what = f"rank {mesh.rank}: partitioned Dirac"
+    r = {"N": N, "M": M, "halo_v": pop.halo_v, "halo_f": pop.halo_f, "Mbf": int(loc.fbnd_rows.shape[-1]),
+         "Mbv": int(loc.vbnd_rows.shape[-1]),
+         "max_abs_err": {k: check(f"{what} {k}", got[k][0], ref[k][0], scales[k], DIRAC_APPLY_RTOL) for k in got}}
+    # mutants: one boundary face dropped (a face of this partition whose vertices reach a neighbour), the face halo zeroed
+    bad_q = loc.fbnd_q_fv.clone()
+    bad_q[0, 0] = 0.0
+    bad = sharded(dataclasses.replace(loc, fbnd_q_fv=bad_q))
+    refused(f"{what} vf, one boundary face dropped", bad["vf"][0], ref["vf"][0], scales["vf"], DIRAC_APPLY_RTOL)
+    with _zeroed_halos():
+        zeroed = sharded(loc)
+    refused(f"{what} fv, the face halo zeroed", zeroed["fv"][0], ref["fv"][0], scales["fv"], DIRAC_APPLY_RTOL)
+    # the applies, both ranks together: wall, CUDA-event and the halo per apply
+    vl, fl = v[:, vr].contiguous(), f[:, fr].contiguous()
+    with mesh.context(vertex=True, batch=False), torch.no_grad():
+        for side, fn, x in (("vf", apply_dirac_vf, vl), ("fv", apply_dirac_fv, fl)):
+            for _ in range(3):
+                fn(loc, x)
+            torch.cuda.synchronize()
+            ep.reset_exchange_stats()
+            reps = 20
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(reps):
+                fn(loc, x)
+            end.record()
+            end.synchronize()
+            st = dict(ep.exchange_stats)
+            r[side] = {"wall_ms": (time.perf_counter() - t0) * 1e3 / reps, "device_ms": start.elapsed_time(end) / reps,
+                       "halo_rows": st["rows"] / reps, "halo_bytes": st["bytes"] / reps,
+                       "exchange_host_ms": st["host_s"] * 1e3 / reps}
+    _dist_log(mesh, f"partitioned Dirac pair ({N} vertex rows, {M} face rows, C={C}): halo_v {r['halo_v']}, halo_f "
+                    f"{r['halo_f']}, Mbf {r['Mbf']}, Mbv {r['Mbv']}; vf {r['vf']['wall_ms']:.3f} ms wall, "
+                    f"{r['vf']['halo_bytes']:.0f} bytes sent per apply; fv {r['fv']['wall_ms']:.3f} ms wall, "
+                    f"{r['fv']['halo_bytes']:.0f} bytes sent per apply (gloo on one card, staged through pinned host "
+                    f"buffers; not NCCL); errors {r['max_abs_err']}")
+    return r
+
+
+def dist_gat_checks(mesh, device, s: dict) -> dict:
+    """The partitioned GAT attend (4 heads of 32 channels) on this rank's
+    rows of the 7,000-vertex mesh's RCM-ordered Laplacian pattern, forward
+    and the gradients of its three inputs, against the single-card
+    ``gat_attend`` on the whole pattern, within DIST_GAT_RTOL of each
+    tensor's largest element; the payload halo zeroed refused."""
+    import torch
+
+    from surfacenetworks_tpu_torch.data import round_up
+    from surfacenetworks_tpu_torch.dist import edge_partition as ep
+    from surfacenetworks_tpu_torch.dist import graph_parallel as gpar
+    from surfacenetworks_tpu_torch.nn.blocks import gat_attend
+    from surfacenetworks_tpu_torch.sparse import operator_from_scipy, stack_operators
+
+    G, g = mesh.n_graph, mesh.graph_index
+    L = s["L"]
+    N = round_up(L.shape[0], 8 * G)
+    halo = min(ep.suggest_halo(L), N // G)
+    loc = gpar.shard_operator(gpar.partition_batch_operator([L], G, n_rows=N, halo=halo, k=16), g).to(device)
+    whole = stack_operators([operator_from_scipy(L, k=16, n_rows=N, n_cols=N)]).to(device)
+    gen = torch.Generator().manual_seed(SEED + 902)
+    xh, ss, sd, go = (torch.randn(shape, generator=gen).to(device) for shape in
+                      ((1, N, 4, 32), (1, N, 4), (1, N, 4), (1, N, 4, 32)))
+    rows = slice(g * N // G, (g + 1) * N // G)
+
+    def sharded():
+        a = [t[:, rows].clone().requires_grad_() for t in (xh, ss, sd)]
+        with mesh.context(vertex=True, batch=False):
+            o = gat_attend(loc, *a)
+        o.backward(go[:, rows])
+        return [o.detach()] + [t.grad for t in a]
+
+    A = [t.clone().requires_grad_() for t in (xh, ss, sd)]
+    O = gat_attend(whole, *A)
+    O.backward(go)
+    ref = [O.detach()[:, rows]] + [t.grad[:, rows] for t in A]
+    names = ("out", "xh gradient", "source score gradient", "destination score gradient")
+    what = f"rank {mesh.rank}: partitioned GAT attend"
+
+    def errs(got):
+        return {k: float((a - b).abs().max() / b.abs().max()) for k, a, b in zip(names, got, ref)}
+
+    real = errs(sharded())
+    with _zeroed_halos():
+        mutant = errs(sharded())
+    if max(real.values()) > DIST_GAT_RTOL:
+        raise AssertionError(f"{what}: {real} above {DIST_GAT_RTOL}")
+    if max(mutant.values()) <= DIST_GAT_RTOL:
+        raise AssertionError(f"{what}: the payload halo zeroed passes ({mutant})")
+    _dist_log(mesh, f"partitioned GAT attend (rows {N}, halo {halo}, {int(loc.fwd.bnd_rows.shape[-1])} boundary rows, "
+                    f"4 heads x 32): worst share of the largest element {max(real.values()):.3e} (tol {DIST_GAT_RTOL:g}); "
+                    f"the payload halo zeroed {max(mutant.values()):.3e}, refused")
+    return {"rows": N, "halo": halo, "rel_err": real, "mutant_rel_err": mutant}
+
+
+def _dist_gp_normal(mesh, device, model: str) -> dict:
+    """``train_normal --graph-parallel 2 --model dirac|gat`` at
+    DIST_GP_LAYERS layers on the 7,000-vertex meshes: step 0 against one
+    rank on the whole batch (Dirac: the unpartitioned tables of the same
+    coefficients; GAT: the ELL pattern), then DIST_GP_STEPS_NEW updates."""
+    from surfacenetworks_tpu_torch import native
+    from surfacenetworks_tpu_torch.cli import train_normal
+    from surfacenetworks_tpu_torch.data import dirac_batch, laplacian_batch
+    from surfacenetworks_tpu_torch.data.pipeline import to_device
+    from surfacenetworks_tpu_torch.sparse import dirac_from_coeffs, stack_dirac
+    from surfacenetworks_tpu_torch.train import optim
+
+    label = f"gp normal {model}"
+    argv = DIST_NORMAL_ARGS + ["--layer", str(DIST_GP_LAYERS), "--batch-size", "1", "--graph-parallel", "2",
+                               "--model", model, "--operator-format", "ell", "--num-updates", str(DIST_GP_STEPS_NEW)]
+    trainer = train_normal.NormalTrainer(train_normal.parser.parse_args(argv), lambda m: None, mesh)
+    samples = trainer.train_sampler.next_batch()
+    tier = trainer.bucketset.tiers[trainer.bucketset.tier_index(samples)]
+    if model == "dirac":
+        op = stack_dirac([dirac_from_coeffs(native.dirac_coeffs(x["V"], x["F"]), tier.n_vertices, tier.n_faces,
+                                            tier.max_valence) for x in samples])
+        whole = to_device(dirac_batch(samples, tier, operator=op), device)
+    else:
+        whole = to_device(laplacian_batch(samples, tier, fmt="ell"), device)
+    # DirDeepModel's last block adds its vertex biases right before conv2's batch norm, which removes them
+    null = {f"rn{DIST_GP_LAYERS - 1}.bn_fc1.fc.bias", f"rn{DIST_GP_LAYERS - 1}.bn_fc1.bn.bias"} if model == "dirac" else ()
+    rep = _dist_step0(mesh, label, trainer, trainer.batch(samples), whole, _cosine_head,
+                      lambda m: optim.adam(m.parameters(), 1e-3), vertex=True, null=frozenset(null))
+    rep.update(_dist_run(mesh, label, trainer, trainer.train_sampler.next_batch, DIST_GP_STEPS_NEW))
+    rep["layers"] = DIST_GP_LAYERS
+    return rep
+
+
+def _dist_gp_arap(mesh, device) -> dict:
+    """``train_arap --graph-parallel 2 --model lap`` at batch 32 and
+    DIST_GP_LAYERS layers on the 2,000-vertex sequences."""
+    from surfacenetworks_tpu_torch.cli import train_arap
+    from surfacenetworks_tpu_torch.data import arap_batch, datasets
+    from surfacenetworks_tpu_torch.data.pipeline import to_device
+    from surfacenetworks_tpu_torch.train import losses, optim
+
+    seqs = datasets.synthetic_arap_sequences(**DIST_ARAP_SEQUENCES)
+    argv = ["--layer", str(DIST_GP_LAYERS), "--batch-size", "32", "--num-updates", str(DIST_GP_STEPS_NEW),
+            "--num-epoch", "1", "--seed", str(SEED), "--device", "cuda", "--graph-parallel", "2"]
+    trainer = train_arap.ArapTrainer(train_arap.parser.parse_args(argv), seqs, lambda m: None, mesh)
+    picks = trainer.sample_train_picks()
+    whole = to_device(arap_batch(trainer.sequences, picks, trainer.buckets, model="lap", fmt="ell"), device)
+
+    def head(out, b):
+        return losses.smooth_l1_sum(out * b.mask, b.targets, b.inputs.shape[0])
+
+    rep = _dist_step0(mesh, "gp arap", trainer, trainer.batch(picks, shard=True), whole, head,
+                      lambda m: optim.adam(m.parameters(), trainer.schedule, weight_decay=1e-5), vertex=True)
+    rep.update(_dist_run(mesh, "gp arap", _ArapShards(trainer), trainer.sample_train_picks, DIST_GP_STEPS_NEW))
+    rep["layers"] = DIST_GP_LAYERS
+    return rep
+
+
+def _dist_gp_mesh(mesh, device, family: str) -> dict:
+    """``train_mnist --graph-parallel 2 --model lap`` at batch 64 and
+    ``train_vae --graph-parallel 2 --model dirac`` at batch 1, both at
+    MESH_LAYERS on 210-vertex height fields: step 0 with a fixed draw (the
+    keep mask, the noise) against one rank on the whole batch (the pooled
+    head held through ``mesh_head``), then DIST_GP_STEPS_NEW updates with the
+    trainer's own draws."""
+    import dataclasses
+
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_mnist, train_vae
+    from surfacenetworks_tpu_torch.data import datasets, mnist_batch, vae_batch
+    from surfacenetworks_tpu_torch.data.pipeline import to_device
+    from surfacenetworks_tpu_torch.models.mnist_models import WIDTH as MW, dropout_keep
+    from surfacenetworks_tpu_torch.models.vae import LATENT
+    from surfacenetworks_tpu_torch.train import losses, optim
+
+    samples = datasets.synthetic_mnist_dataset(**DIST_MNIST_DATA)
+    mod = train_mnist if family == "mnist" else train_vae
+    model = "lap" if family == "mnist" else "dirac"
+    label = "gp mnist" if family == "mnist" else "gp vae dirac"
+    argv = MESH_ARGS[family] + ["--graph-parallel", "2", "--model", model]
+    if family == "vae":
+        argv += ["--batch-size", "1"]
+    cls = train_mnist.MnistTrainer if family == "mnist" else train_vae.VaeTrainer
+    trainer = cls(mod.parser.parse_args(argv), samples, fmt="ell", log=lambda m: None, mesh=mesh)
+    drawn = trainer.train_sampler.next_batch()
+    B = len(drawn)
+    gen = torch.Generator(device=device).manual_seed(SEED + 903)
+    paths = _mesh_capture_paths(family)
+    if family == "mnist":
+        draw = dropout_keep((B, MW), gen, device)
+        whole = to_device(mnist_batch(drawn, trainer.buckets, model=model, fmt="ell"), device)
+        steps = _Steps(trainer, lambda b: trainer.update(b, keep=draw), lambda x: trainer.batch(x, shard=True))
+
+        def single(m):
+            return losses.nll_loss(m(whole.operator, whole.mask, whole.inputs, deterministic=False, keep=draw),
+                                   whole.targets)
+
+        def head_errs(cap, lo, gr):
+            return mesh_head("mnist", cap, lo, gr, None, whole, None, 0.0)
+
+        run = _Steps(trainer, trainer.update, lambda x: trainer.batch(x, shard=True))
+    else:
+        draw = torch.randn(B, LATENT, generator=gen, device=device)
+        kw = train_vae.kld_weight(0)
+        whole = to_device(vae_batch(drawn, trainer.buckets, model=model, fmt="auto"), device)
+        steps = _Steps(trainer, lambda b: trainer.update(b, kw, eps=draw), lambda x: trainer.batch(x, shard=True))
+
+        def single(m):
+            return mesh_objective("vae", m, whole, draw, kw)[0]
+
+        def head_errs(cap, lo, gr):
+            b64 = dataclasses.replace(whole, inputs=whole.inputs.double(), mask=whole.mask.double(),
+                                      aux={"flat_inputs": whole.aux["flat_inputs"].double()})
+            return mesh_head("vae", cap, lo, gr, copy.deepcopy(trainer.model).double(), b64, draw.double(), kw)
+
+        run = _Steps(trainer, lambda b: trainer.update(b, kw), lambda x: trainer.batch(x, shard=True))
+    apply = (lambda name, k, op: whole.aux["flat_operator"] if name.startswith("decoder.") else whole.operator)
+    rep = _dist_step0(mesh, label, steps, steps.batch(drawn), whole, None,
+                      lambda m: optim.adam(m.parameters(), 1e-3, weight_decay=1e-5), vertex=True,
+                      capture=lambda m: ModuleCapture(m, paths), single=single, head_errs=head_errs,
+                      replay=(lambda m: m, "", apply))
+    rep.update(_dist_run(mesh, label, run, trainer.train_sampler.next_batch, DIST_GP_STEPS_NEW))
+    rep["layers"] = MESH_LAYERS
+    return rep
+
+
+def _dist_gp_faust(mesh, device, data: list, fmt: str) -> dict:
+    """``train_correspondence --graph-parallel 2`` with the lap trunk (ELL,
+    or BSR interiors with ``fmt`` bsr) or the dir trunk (``fmt`` dir), dcel
+    on the streaming head, at DIST_GP_LAYERS layers on two 7,000-vertex
+    scans: step 0 (the epoch plan's first pair and rotations) against one
+    rank on both whole shapes (the trunk replayed module by module on the
+    unpartitioned operators, the head in fp64 on the gathered features),
+    then DIST_GP_STEPS_NEW updates of the plan."""
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_correspondence as tc
+    from surfacenetworks_tpu_torch.data import correspondence_batch
+    from surfacenetworks_tpu_torch.train import losses
+
+    label = {"ell": "gp faust lap", "bsr": "gp faust bsr", "dir": "gp faust dir"}[fmt]
+    argv = TRAIN_ARGS + ["--layer", str(DIST_GP_LAYERS), "--smooth-reg", "0", "--graph-parallel", "2",
+                         "--num-updates", str(DIST_GP_STEPS_NEW + 1)]  # step 0, then the run
+    argv += ["--model", "dir"] if fmt == "dir" else ["--operator-format", fmt]
+    trainer = tc.CorrespondenceTrainer(tc.parser.parse_args(argv), lambda m: None, data=data, mesh=mesh)
+    pairs, rots = trainer.epoch_plan()
+    plan = iter([(int(a), int(b), [float(r) for r in rr]) for (a, b), rr in zip(pairs, rots)])
+    ia, ib, r0 = next(plan)
+    target = trainer.pair_target(ia, ib)
+
+    def entry(i):
+        pack = correspondence_batch(trainer.data[i], trainer.buckets, fmt="ell", model=trainer.model_key)
+        return {"op": pack.operator.to(device), "mask": pack.mask.to(device), "inputs": pack.inputs.to(device)}
+
+    ends = [entry(ia), entry(ib)]
+    steps = _Steps(trainer, lambda p: trainer.update(*p), lambda p: p)
+
+    def single(m):
+        return tc.objective(m, ends[0], ends[1], r0, target, 0.0, trainer.use_stream, None, trainer.loss_fn)
+
+    def head_errs(cap, lo, gr):
+        return output_head(cap, lo, lambda fa, fb: losses.corr_delta_cross_entropy_from_target(
+            torch.einsum("bnc,bmc->bnm", fa, fb)[0], target))
+
+    rep = _dist_step0(mesh, label, steps, (ia, ib, r0), None, None,
+                      lambda m: tc.optim.adam(m.parameters(), float(trainer.args.lr), weight_decay=1e-5), vertex=True,
+                      capture=lambda m: StepCapture(m.trunk), single=single, head_errs=head_errs,
+                      replay=(lambda m: m.trunk, "trunk.", lambda name, k, op: ends[k]["op"]))
+    rep.update(_dist_run(mesh, label, steps, lambda: next(plan), DIST_GP_STEPS_NEW))
+    rep["layers"] = DIST_GP_LAYERS
+    return rep
+
+
+def dist_gp_rank(mesh, device) -> dict:
+    """This rank's share of the graph-parallel work of every other trainer
+    (after the first graph-parallel runs): the partitioned Dirac applies and
+    GAT attend, then the graph-parallel train runs."""
+    from surfacenetworks_tpu_torch.data import datasets
+
+    t0 = time.perf_counter()
+    s = _dirac_mesh()
+    rep = {"dirac apply": dist_dirac_checks(mesh, device, s), "gat attend": dist_gat_checks(mesh, device, s)}
+    for model in ("dirac", "gat"):
+        rep[f"gp normal {model}"] = _dist_gp_normal(mesh, device, model)
+    rep["gp arap"] = _dist_gp_arap(mesh, device)
+    rep["gp mnist"] = _dist_gp_mesh(mesh, device, "mnist")
+    rep["gp vae dirac"] = _dist_gp_mesh(mesh, device, "vae")
+    faust = datasets.synthetic_correspondence_dataset(**DIST_FAUST_DATA)
+    for fmt in ("lap", "bsr", "dir"):
+        rep[f"gp faust {fmt}"] = _dist_gp_faust(mesh, device, faust, "ell" if fmt == "lap" else fmt)
+    rep["seconds"] = time.perf_counter() - t0
+    _dist_log(mesh, f"graph-parallel checks and runs of the Dirac pair, the GAT attend and every trainer: "
+                    f"{rep['seconds']:.2f} s")
+    return rep
 
 
 def nccl_check(device) -> dict:

@@ -36,8 +36,17 @@ on its slice of the batch, the step computing the JAX trainer's global
 function (batch norm over the global batch, the loss over the global batch
 size, gradients summed over the ranks); rank 0 writes the log, the metrics
 and the checkpoints; the test batches run whole on every rank.
-``--graph-parallel`` (the next slice of the port) and ``--dump-rollout``
-(matplotlib) are refused.
+``--graph-parallel G`` (G > 1; ``lap`` and ``dir``, not with ``--dense`` or
+``--data-parallel``, as in the JAX trainer) starts G ranks that
+row-partition every frame: each sequence RCM-ordered by its first frame's
+permutation (``rcm_reorder_sequence``; ``dir``: the faces sorted by their
+smallest vertex, the coefficients recomputed), the bucket rounded to ``8
+G`` rows, the operator frames (the first 10 of each sequence) partitioned
+once with dataset-wide halos and floors, each rank holding its rows of
+every pick (the device store, or the host route, of its shards); the init
+batch draws no picks, as in the JAX trainer's graph-parallel run; the loss
+is each rank's rows' share over the global batch, and the test batches run
+on the ranks' rows too.  ``--dump-rollout`` (matplotlib) is refused.
 """
 
 from __future__ import annotations
@@ -50,12 +59,12 @@ import sys
 import numpy as np
 import torch
 
-from surfacenetworks_tpu_torch import config
+from surfacenetworks_tpu_torch import config, native, parallel_context
 from surfacenetworks_tpu_torch.cli.common import MetricsLogger, Throughput, count_params, log_environment, make_logger
-from surfacenetworks_tpu_torch.data import Buckets, arap_batch, datasets
+from surfacenetworks_tpu_torch.data import Buckets, arap_batch, datasets, rcm_reorder_sequence
 from surfacenetworks_tpu_torch.data.batching import IN_FRAMES, OUT_FRAMES
 from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, host_route, to_device
-from surfacenetworks_tpu_torch.dist import data_parallel, mesh_setup
+from surfacenetworks_tpu_torch.dist import data_parallel, dirac_partition, edge_partition, graph_parallel, mesh_setup
 from surfacenetworks_tpu_torch.models import init_weights
 from surfacenetworks_tpu_torch.models.arap_models import MODELS
 from surfacenetworks_tpu_torch.serve import resolve_device
@@ -84,24 +93,44 @@ parser.add_argument("--bf16", action="store_true",
 config.add_config_flags(parser)
 parser.add_argument("--data-parallel", type=int, default=0,
                     help="shard each batch over this many ranks (0 or 1: off); the batch size must be divisible by it")
-# refused when given: --graph-parallel comes with the next slice of the port, --dump-rollout draws with matplotlib
-parser.add_argument("--graph-parallel", type=int, default=0)
+parser.add_argument("--graph-parallel", type=int, default=0,
+                    help="row-partition every frame over this many ranks (lap, dir; 0 or 1: off)")
+# refused when given: --dump-rollout draws with matplotlib, which the next slice of the port replaces
 parser.add_argument("--dump-rollout", default=None)
 
 
 def refuse_unported(args) -> None:
-    """Raise on any flag whose path the port does not run, and on a batch
-    the data-parallel ranks cannot split (the JAX trainer's message)."""
-    refused = {
-        "--graph-parallel (the next slice of the port brings it)": args.graph_parallel > 1,
-        "--dump-rollout (it draws with matplotlib)": args.dump_rollout is not None,
-    }
-    given = [k for k, v in refused.items() if v]
-    if given:
-        raise SystemExit(f"train_arap (PyTorch port): not ported yet: {', '.join(given)}")
-    n_dp = mesh_setup.axis_ranks(args.data_parallel)
+    """Raise on the flag whose path the port does not run (``--dump-rollout``,
+    which the next slice of the port brings), and with the JAX trainer's
+    messages on the multi-device flags it refuses."""
+    if args.dump_rollout is not None:
+        raise SystemExit("train_arap (PyTorch port): not ported yet: --dump-rollout (it draws with matplotlib; the "
+                         "next slice of the port brings it)")
+    n_dp, n_gp = mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel)
+    if n_gp > 1:
+        if args.model not in ("lap", "dir"):
+            raise SystemExit("--graph-parallel supports the lap and dir models")
+        if args.dense:
+            raise SystemExit("--graph-parallel partitions sparse operators; drop --dense")
+        if n_dp > 1:
+            raise SystemExit("--graph-parallel and --data-parallel are mutually exclusive here")
     if n_dp > 1 and args.batch_size % n_dp:
         raise SystemExit(f"batch size {args.batch_size} not divisible by --data-parallel {n_dp}")
+
+
+def gp_order(sequences: list[list[dict]], kind: str) -> list[list[dict]]:
+    """The sequences as ``--graph-parallel`` reads them (JAX's order): each
+    RCM-ordered by its first frame's permutation and, for Dirac data, every
+    frame's faces sorted by the first frame's smallest vertex (the
+    coefficients, which bake in the order, dropped)."""
+    out = [rcm_reorder_sequence(s) for s in sequences]
+    if kind == "dirac":
+        for seq in out:
+            fperm = dirac_partition.sort_faces_for_partition(seq[0]["F"])
+            for f in seq:
+                f["F"] = np.asarray(f["F"])[fperm]
+                f.pop("dirac", None)
+    return out
 
 
 def load_sequences(args) -> list[list[dict]]:
@@ -131,17 +160,25 @@ def train_step(model, opt, batch, schedule=None, mesh: mesh_setup.Mesh | None = 
     """One update on a batch on the model's device: the loss, its
     gradients, the scheduled LR and the optimizer step.  Returns the loss
     (on the device); the gradients stay in ``.grad`` until the next step.
-    With ``mesh`` the batch is this rank's slice of the global batch: the
-    body runs batch-sharded, the gradients are summed over the ranks and the
-    global loss is returned."""
+    With ``mesh`` the batch is this rank's slice of the global batch (of its
+    items over the data axis, or of its rows over the graph axis): the body
+    runs sharded, the gradients are summed over the ranks and the global
+    loss is returned."""
     n = mesh.n_data * batch.inputs.shape[0] if mesh is not None else None
-    (loss,) = loop.update(model, opt, lambda: (masked_loss(model, batch, n),), schedule, mesh)
+    (loss,) = loop.update(model, opt, lambda: (masked_loss(model, batch, n),), schedule, mesh,
+                          vertex=mesh is not None and mesh.n_graph > 1)
     return loss
 
 
 @torch.no_grad()
-def eval_step(model, batch) -> torch.Tensor:
-    return masked_loss(model, batch)
+def eval_step(model, batch, mesh: mesh_setup.Mesh | None = None) -> torch.Tensor:
+    """The test loss of a batch; with a graph-parallel ``mesh`` on this
+    rank's rows (the global loss)."""
+    if mesh is None or mesh.n_graph == 1:
+        return masked_loss(model, batch)
+    with mesh.context(vertex=True):
+        loss = masked_loss(model, batch)
+    return parallel_context.total(loss, [mesh.graph])
 
 
 class ArapTrainer:
@@ -153,10 +190,11 @@ class ArapTrainer:
                  mesh: mesh_setup.Mesh | None = None):
         refuse_unported(args)
         self.args, self.log = args, log
-        n_dp = mesh_setup.axis_ranks(args.data_parallel)
-        if n_dp > 1 and (mesh is None or mesh.n_data != n_dp):
-            raise ValueError(f"--data-parallel {n_dp} needs a grid of {n_dp} ranks (train_arap.main makes it)")
-        self.mesh = mesh if n_dp > 1 else None
+        n_dp, self.n_gp = mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel)
+        if n_dp * self.n_gp > 1 and (mesh is None or (mesh.n_data, mesh.n_graph) != (n_dp, self.n_gp)):
+            raise ValueError(f"a run on a ({n_dp}, {self.n_gp}) grid of ranks needs that grid's mesh "
+                             "(train_arap.main makes it)")
+        self.mesh = mesh if n_dp * self.n_gp > 1 else None
         self.device = self.mesh.device if self.mesh is not None else resolve_device(args.device)
         log_environment(log, self.device)
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
@@ -165,13 +203,24 @@ class ArapTrainer:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.sequences = load_sequences(args) if sequences is None else sequences
-        self.n_train = max(len(self.sequences) * 8 // 10, 1)
-        self.buckets = Buckets.for_samples([{"V": s[0]["V"], "F": s[0]["F"]} for s in self.sequences])
-        self.fmt = "dense" if args.dense else "ell"
         kind = "dirac" if args.model == "dir" else "lap"
-        self.packed = PackedSamples(
-            lambda pick: arap_batch(self.sequences, [pick], self.buckets, model=kind, fmt=self.fmt),
-            value_keys=True)
+        if self.n_gp > 1:
+            self.sequences = gp_order(self.sequences, kind)
+        self.n_train = max(len(self.sequences) * 8 // 10, 1)
+        self.buckets = Buckets.for_samples([{"V": s[0]["V"], "F": s[0]["F"]} for s in self.sequences],
+                                           multiple=8 * self.n_gp)
+        self.fmt = "dense" if args.dense else "ell"
+        if self.n_gp > 1:
+            op_of = self._prepartition(kind)
+
+            def pack(pick):
+                host = arap_batch(self.sequences, [pick], self.buckets, model=kind, operator=op_of(pick))
+                return graph_parallel.shard_batch_rows(host, self.n_gp, self.mesh.graph_index)
+            self.packed = PackedSamples(pack, value_keys=True)
+        else:
+            self.packed = PackedSamples(
+                lambda pick: arap_batch(self.sequences, [pick], self.buckets, model=kind, fmt=self.fmt),
+                value_keys=True)
         self.rng = np.random.default_rng(args.seed)
         self.test_counter = 0
         self.model = MODELS[args.model](layers=args.layer, dtype=torch.bfloat16 if args.bf16 else None)
@@ -179,8 +228,10 @@ class ArapTrainer:
         self.model.to(self.device)
         if self.mesh is not None:
             data_parallel.replicate(self.mesh, self.model)
-        # the JAX trainer initialises from one batch of train picks: its draws are used up here too
-        self.sample_train_picks()
+        # the JAX trainer initialises from one batch of train picks (on one device; under --graph-parallel
+        # from a fixed batch): its draws are used up here too
+        if self.n_gp == 1:
+            self.sample_train_picks()
         log(f"Num parameters {count_params(self.model)}")
         self.schedule = optim.epoch_halving_schedule(args.lr, args.num_updates, 50, 10)
         self.opt = optim.adam(self.model.parameters(), self.schedule, weight_decay=1e-5)
@@ -195,6 +246,29 @@ class ArapTrainer:
             log(f"batches assembled on the host and uploaded per step ({why})")
         else:
             log(self.store.stats())
+
+    def _prepartition(self, kind: str):
+        """Every operator frame (the first 10 of each sequence) row-partitioned
+        once with dataset-wide halos and floors, as the JAX trainer does;
+        returns ``op_of(pick)``, the stacked partitioned operator of a
+        pick's last input frame."""
+        b, n = self.buckets, self.n_gp
+        frames = [(si, fi) for si, seq in enumerate(self.sequences) for fi in range(min(10, len(seq)))
+                  if kind == "dirac" or "L" in seq[fi]]
+        if kind == "dirac":
+            ops, floors = graph_parallel.prepartition_dirac(
+                [native.dirac_coeffs(self.sequences[si][fi]["V"], self.sequences[si][fi]["F"]) for si, fi in frames],
+                n, b.n_vertices, b.n_faces, max_valence=b.max_valence)
+            stack = dirac_partition.stack_partitioned_dirac
+            self.log(f"graph parallel: {b.n_vertices} rows and {b.n_faces} faces in {n} partitions, halos "
+                     f"{ops[0].halo_v} vertex and {ops[0].halo_f} face rows")
+        else:
+            ops, floors = graph_parallel.prepartition_ell([self.sequences[si][fi]["L"] for si, fi in frames], n,
+                                                          n_rows=b.n_vertices, k=b.ell_k)
+            stack = edge_partition.stack_partitioned
+            self.log(f"graph parallel: {b.n_vertices} rows in {n} partitions, halo {ops[0].fwd.halo}")
+        parts = dict(zip(frames, ops))
+        return lambda pick: stack([parts[(pick[0], pick[1] + IN_FRAMES - 1)]], **floors)
 
     def sample_train_picks(self) -> list[tuple[int, int]]:
         """A batch of (sequence, offset) picks from the train sequences,
@@ -217,7 +291,8 @@ class ArapTrainer:
         return picks
 
     def _shard(self, picks: list) -> list:
-        """This rank's slice of a global batch's picks."""
+        """This rank's slice of a global batch's picks (all of them on a
+        graph axis, whose ranks hold rows)."""
         return data_parallel.shard_batch(self.mesh, picks) if self.mesh is not None else picks
 
     def batch(self, picks: list[tuple[int, int]], shard: bool = False):
@@ -263,7 +338,8 @@ class ArapTrainer:
         trials = max(len(self.sequences) // 5 // self.args.batch_size, 1)
         loss_sum = 0.0
         for _ in range(trials):
-            loss_sum += float(eval_step(self.model, self.batch(self.sample_test_picks())))
+            loss_sum += float(eval_step(self.model, self.batch(self.sample_test_picks()),
+                                        self.mesh if self.n_gp > 1 else None))
         self.log(f"Test epoch {epoch}, loss {loss_sum / trials}")
         if metrics_log is not None:
             metrics_log.write(epoch, "test", loss=loss_sum / trials)
@@ -294,10 +370,12 @@ def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
 
 def main(argv=None) -> dict:
     """Train; returns each epoch's train and test loss (rank 0's under
-    ``--data-parallel``, whose ranks ``main`` starts)."""
+    ``--data-parallel`` or ``--graph-parallel``, whose ranks ``main``
+    starts)."""
     args = config.parse_with_config(parser, argv)
     refuse_unported(args)
-    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel), 1, args.device, args)
+    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel),
+                                mesh_setup.axis_ranks(args.graph_parallel), args.device, args)
 
 
 if __name__ == "__main__":

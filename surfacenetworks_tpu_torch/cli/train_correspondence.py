@@ -1,6 +1,5 @@
-"""FAUST dense-correspondence siamese trainer on one device (counterpart of
-``surfacenetworks_tpu/cli/train_correspondence.py``: its single-device
-paths).
+"""FAUST dense-correspondence siamese trainer (counterpart of
+``surfacenetworks_tpu/cli/train_correspondence.py``).
 
 Two shapes per step through a shared trunk (``--model lap|amp|avg|mlp|dir``,
 ``models.correspondence.TRUNKS``); the loss (``--loss``) is dcel against the
@@ -52,13 +51,32 @@ trainer's files: ``log/<prefix>.log``, ``log/<prefix>.metrics.jsonl``,
 ``force`` it resumes from ``--deser-path`` or that checkpoint where the
 file exists (the port's ``.pt`` or the JAX package's ``.msgpack``).
 ``--config``/``--preset`` layer a JSON file or a named preset under the
-flags (``config.py``).  The multi-device flags (``--graph-parallel``,
-``--multihost`` and its coordinator flags) are refused.
+flags (``config.py``).
+
+``--graph-parallel G`` (G > 1; the ``lap`` key, whose trunks are lap, avg
+and mlp, and the ``dir`` trunk, as in the JAX trainer) starts G ranks that
+row-partition both shapes of every pair: the scans RCM-ordered (``dir``:
+the faces sorted by their smallest vertex, the coefficients recomputed),
+the bucket rounded to ``8 G`` rows (``128 G`` with ``--operator-format
+bsr``, which then packs the partitions' interiors as BSR), each scan's
+operator partitioned once at its own halo.  A rank holds its rows of both
+shapes' features and gathers the second shape's whole
+(``parallel_context.gather_rows``, whose backward sums every rank's
+cotangent back to the owner rows), so its logits are its rows of ``FA
+FB^T``; the loss is this rank's rows' share of the global loss (the streaming
+head tiles the rank's rows only).  dcel takes the fast path with each
+pair's target computed on the host and cached; sl1 and cel take the host
+path, as in the JAX trainer.  The test pass and ``--eval-only`` gather both
+shapes' features and score them whole on every rank.  ``--smooth-reg``
+is refused under ``--graph-parallel`` with the JAX trainer's message;
+``--multihost`` and its coordinator flags are refused: they come with the
+next slice of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import itertools
 import os
@@ -68,7 +86,7 @@ import sys
 import numpy as np
 import torch
 
-from surfacenetworks_tpu_torch import config
+from surfacenetworks_tpu_torch import config, native, parallel_context
 from surfacenetworks_tpu_torch.cli.common import (
     MetricFetcher,
     MetricsLogger,
@@ -86,12 +104,13 @@ from surfacenetworks_tpu_torch.data.batching import (
     rcm_reorder_sample,
 )
 from surfacenetworks_tpu_torch.data.pipeline import Uploads, prefetch
+from surfacenetworks_tpu_torch.dist import data_parallel, dirac_partition, edge_partition, graph_parallel, mesh_setup
 from surfacenetworks_tpu_torch.geometry import graph_ops, intrinsic
 from surfacenetworks_tpu_torch.models import SiameseModel, init_weights
 from surfacenetworks_tpu_torch.nn.layers import at_least_fp32
 from surfacenetworks_tpu_torch.serve import resolve_device
 from surfacenetworks_tpu_torch.sparse import stack_operators
-from surfacenetworks_tpu_torch.train import checkpoint, losses, optim
+from surfacenetworks_tpu_torch.train import checkpoint, loop, losses, optim
 
 parser = argparse.ArgumentParser(description="Dense correspondence (PyTorch, one device)")
 parser.add_argument("--batch-size", type=int, default=1, help="accepted and not read, as in the JAX trainer")
@@ -138,8 +157,9 @@ parser.add_argument("--eval-only", action="store_true",
                     help="no training: restore the checkpoint and report FAUST metrics over the test pairs, "
                          "computed on the host")
 config.add_config_flags(parser)
-# flags of the JAX trainer's multi-device paths: refused when given
-parser.add_argument("--graph-parallel", type=int, default=0)
+parser.add_argument("--graph-parallel", type=int, default=0,
+                    help="row-partition both shapes over this many ranks (lap and dir trunks; 0 or 1: off)")
+# --multihost and its coordinator flags: refused when given, until the next slice of the port
 parser.add_argument("--multihost", action="store_true")
 parser.add_argument("--coordinator-address", default=None)
 parser.add_argument("--num-processes", type=int, default=None)
@@ -159,19 +179,25 @@ LOSSES = {
 _FORCE_LIGHT = False
 
 
+# each loss over a rank's rows of the logits times (1 / G) ** ROW_SHARE_POWER is its share of the global
+# loss: dcel is a mean over the N rows, sl1 an element mean over N x N divided by N, cel a sum
+ROW_SHARE_POWER = {"dcel": 1, "sl1": 2, "cel": 0}
+
+
 def refuse_unported(args) -> None:
-    """Raise on any flag whose path the port does not have yet: the
-    multi-device paths, which the next slice of the port brings
-    (``--graph-parallel`` 0 and 1 mean off, as in the JAX trainer)."""
-    refused = {
-        "--graph-parallel": args.graph_parallel > 1,
-        "--multihost and its coordinator flags": args.multihost or any(
-            v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)),
-    }
-    given = [k for k, v in refused.items() if v]
-    if given:
-        raise SystemExit(f"train_correspondence (PyTorch port): not ported yet: {', '.join(given)} (the next "
-                         "slice of the port brings them)")
+    """Raise on the flags whose path the port does not have yet
+    (``--multihost`` and its coordinator flags, which the next slice of the
+    port brings), and with the JAX trainer's messages on what it refuses
+    under ``--graph-parallel`` (0 and 1 mean off): a trunk other than the
+    lap key's and dir, and ``--smooth-reg``."""
+    if args.multihost or any(v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)):
+        raise SystemExit("train_correspondence (PyTorch port): not ported yet: --multihost and its coordinator "
+                         "flags (the next slice of the port brings them)")
+    if mesh_setup.axis_ranks(args.graph_parallel) > 1:
+        if model_key_of(args.model) not in ("lap", "dirac"):
+            raise SystemExit("--graph-parallel supports the lap and dir trunks")
+        if args.smooth_reg > 0:
+            raise SystemExit("--smooth-reg requires the single-device fast path (no --graph-parallel / --multihost)")
 
 
 def model_key_of(model: str) -> str:
@@ -263,14 +289,18 @@ def rot_matrix(txz: float, txy: float, device, dtype=torch.float32) -> torch.Ten
 
 
 def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stream: bool,
-              target_inv=None, loss_fn=None, GAB=None) -> torch.Tensor:
+              target_inv=None, loss_fn=None, GAB=None, mesh: mesh_setup.Mesh | None = None,
+              loss_name: str = "dcel") -> torch.Tensor:
     """The training loss of one pair: dcel against ``target`` (streaming or
     over the full logits), or, given the pair's padded cost ``GAB``,
     ``loss_fn(logits, GAB)`` over the full logits (sl1, cel); plus
     ``smooth_w`` times both shapes' smoothness terms.  ``target_inv`` is the
     target's cached inverse for the streaming head's backward
     (``losses.target_inverse``).  With ``rots`` None the inputs are taken as
-    they are (the host path rotates them on the host)."""
+    they are (the host path rotates them on the host).  With a
+    graph-parallel ``mesh`` the shapes, ``target`` and ``GAB`` are this
+    rank's rows: the second shape's features are gathered whole and the
+    loss is this rank's share of ``loss_name``'s global loss."""
     dt, dev = da["inputs"].dtype, da["inputs"].device
     if rots is None:
         inx, iny = da["inputs"], db["inputs"]
@@ -278,6 +308,9 @@ def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stre
         inx = da["inputs"] @ rot_matrix(rots[0], rots[1], dev, dt)
         iny = db["inputs"] @ rot_matrix(rots[2], rots[3], dev, dt)
     fa, fb = model.features((da["op"], da["mask"]), (db["op"], db["mask"]), inx, iny)
+    gp = mesh is not None and mesh.n_graph > 1
+    if gp:
+        fb = parallel_context.gather_rows(fb, mesh.graph)
     # the dcel head in fp32 whatever the features' dtype (bf16 under --bf16)
     fa32, fb32 = at_least_fp32(fa), at_least_fp32(fb)
     if use_stream:
@@ -285,6 +318,8 @@ def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stre
     else:
         logits = torch.einsum("bnc,bmc->bnm", fa32, fb32)[0]
         loss = losses.corr_delta_cross_entropy_from_target(logits, target) if GAB is None else loss_fn(logits, GAB)
+    if gp:
+        loss = loss * (1.0 / mesh.n_graph) ** ROW_SHARE_POWER[loss_name]
     if smooth_w > 0:
         loss = loss + smooth_w * (
             losses.corr_feature_smoothness(da["reg_op"], fa) + losses.corr_feature_smoothness(db["reg_op"], fb)
@@ -293,15 +328,16 @@ def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stre
 
 
 def train_step(model, opt, da: dict, db: dict, rots, target, smooth_w: float, use_stream: bool,
-               target_inv=None, loss_fn=None, GAB=None) -> torch.Tensor:
-    """One update (``objective``'s arguments); returns the loss (on the
-    device).  The gradients stay in each parameter's ``.grad`` until the
+               target_inv=None, loss_fn=None, GAB=None, mesh: mesh_setup.Mesh | None = None,
+               loss_name: str = "dcel") -> torch.Tensor:
+    """One update (``objective``'s arguments; ``train/loop.py::update``);
+    returns the loss (on the device, the global one over a graph-parallel
+    ``mesh``).  The gradients stay in each parameter's ``.grad`` until the
     next step."""
-    opt.zero_grad(set_to_none=True)
-    loss = objective(model, da, db, rots, target, smooth_w, use_stream, target_inv, loss_fn, GAB)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+    (loss,) = loop.update(model, opt, lambda: (objective(model, da, db, rots, target, smooth_w, use_stream,
+                                                         target_inv, loss_fn, GAB, mesh, loss_name),),
+                          mesh=mesh, vertex=mesh is not None)
+    return loss
 
 
 class CorrespondenceTrainer:
@@ -310,11 +346,19 @@ class CorrespondenceTrainer:
     (they are copied where the run changes them: ``--intrinsic``, the amp
     pyramid, RCM order)."""
 
-    def __init__(self, args, log=print, data: list | None = None):
+    def __init__(self, args, log=print, data: list | None = None, mesh: mesh_setup.Mesh | None = None):
         refuse_unported(args)
         self.args, self.log = args, log
-        self.device = resolve_device(args.device)
+        self.n_gp = mesh_setup.axis_ranks(args.graph_parallel)
+        gp = self.n_gp > 1
+        if gp and (mesh is None or (mesh.n_data, mesh.n_graph) != (1, self.n_gp)):
+            raise ValueError(f"--graph-parallel {self.n_gp} needs a (1, {self.n_gp}) grid of ranks "
+                             "(train_correspondence.main makes it)")
+        self.mesh = mesh if gp else None
+        self.device = self.mesh.device if gp else resolve_device(args.device)
         log_environment(log, self.device)
+        if gp:
+            log(f"rank grid: 1 data x {self.n_gp} graph ranks over {self.mesh.backend}")
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
         # (--bf16) summed in fp32 throughout, as XLA sums them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -341,15 +385,26 @@ class CorrespondenceTrainer:
         fmt = args.operator_format
         if fmt == "auto":
             nv_max = max(s["V"].shape[0] for s in data)
-            resolved = choose_operator_format(1, round_up(nv_max, 8), rcm_ok=self.model_key == "lap")
+            resolved = choose_operator_format(1, round_up(nv_max, 8), rcm_ok=self.model_key == "lap" and not gp)
             fmt = "bsr" if resolved == "bsr" else "ell"
             log(f"operator format auto -> {fmt}")
-        # BSR under the lap key only; the other keys pack their own operators
+        # BSR under the lap key only; the other keys pack their own operators.  Under --graph-parallel 'bsr'
+        # packs the partitions' interiors as BSR and the rest of the pair is ELL
         self.fmt = "bsr" if fmt == "bsr" and self.model_key == "lap" else "ell"
-        if self.fmt == "bsr":
+        self.gp_interior = "bsr" if gp and self.fmt == "bsr" else "ell"
+        if gp:
+            self.fmt = "ell"
+        if self.fmt == "bsr" or gp:
             data = [rcm_reorder_sample(s) for s in data]
+        if gp and self.model_key == "dirac":
+            # narrow Dirac halos need the face index to follow the (RCM) vertex index
+            data = [dict(s, F=np.asarray(s["F"])[dirac_partition.sort_faces_for_partition(s["F"])], dirac=None)
+                    for s in data]
         self.data = data
-        self.buckets = Buckets.for_samples(data, multiple=128 if self.fmt == "bsr" else 8)
+        multiple = 128 if self.fmt == "bsr" else 8
+        if gp:
+            multiple = (128 if self.gp_interior == "bsr" else 8) * self.n_gp
+        self.buckets = Buckets.for_samples(data, multiple=multiple)
         if self.model_key == "amp":
             # every pyramid level, and the smoothness pattern, at the widest row of any level
             kmax = max(int(np.diff(Lk.tocsr().indptr).max()) for s in data for Lk in s["L_pyr"])
@@ -359,15 +414,16 @@ class CorrespondenceTrainer:
         self.N = self.buckets.n_vertices
         est_bytes = len(data) * (self.N * self.N * 4 + 40 * self.N * 4)
         fits = est_bytes < DEVICE_BUDGET_BYTES
-        # sl1 and cel past the budget: the JAX trainer's host path
-        self.host_path = not fits and args.loss != "dcel"
+        # sl1 and cel past the budget, or under --graph-parallel: the JAX trainer's host path
+        self.host_path = (not fits or gp) and args.loss != "dcel"
         if self.host_path:
             if args.smooth_reg > 0:
                 raise SystemExit("--smooth-reg requires the single-device fast path (no --graph-parallel / --multihost)")
             if args.eval_only:
                 raise SystemExit("--eval-only needs the single-device fast path")
-            log(f"host path: geodesic matrices stay on host (est {est_bytes / 1e9:.1f} GB > HBM budget); each "
-                f"pair's [N, N] cost is built on a prefetch thread and uploaded every step")
+            why = "--graph-parallel" if fits else f"est {est_bytes / 1e9:.1f} GB > HBM budget"
+            log(f"host path: geodesic matrices stay on host ({why}); each pair's [N, N] cost is built on a prefetch "
+                "thread and uploaded every step")
         self.light = args.loss == "dcel" and (not fits or _FORCE_LIGHT)
         if self.light:
             log(f"light fast path: geodesic matrices stay on host (est {est_bytes / 1e9:.1f} GB > HBM budget); "
@@ -379,6 +435,8 @@ class CorrespondenceTrainer:
         self.model = SiameseModel(args.model, args.layer, self.dtype, remat=args.remat)
         init_weights(self.model, torch.Generator().manual_seed(0))
         self.model.to(self.device)
+        if gp:
+            data_parallel.replicate(self.mesh, self.model)
         self.opt = optim.adam(self.model.parameters(), float(args.lr), weight_decay=1e-5)
         log(f"Num parameters {count_params(self.model)}")
         self.step = 0  # updates taken (the JAX trainer's TrainState.step)
@@ -402,18 +460,49 @@ class CorrespondenceTrainer:
             float(np.float32(self.rng.uniform(0, 2 * np.pi))) if a.xy_rotate else 0.0,
         )
 
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (axis 1) of a whole shape's ``[1, N, ...]`` array
+        under ``--graph-parallel``; the array itself otherwise."""
+        return edge_partition.shard_rows(t, self.n_gp, self.mesh.graph_index) if self.mesh is not None else t
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows (axis 1) of a row-sharded ``[1, n, ...]`` array
+        under ``--graph-parallel``, without a gradient; the array itself
+        otherwise."""
+        return mesh_setup.all_gather(t, self.mesh.graph, 1) if self.mesh is not None else t
+
+    def partitioned_op(self, sample: dict):
+        """The scan's operator row-partitioned over the graph axis (the JAX
+        trainer's ``partitioned_op_of``: the Laplacian at its own halo, ELL or
+        BSR interiors, or the Dirac pair of its sorted faces), this rank's
+        shard."""
+        N, n = self.N, self.n_gp
+        if self.model_key == "dirac":
+            op = graph_parallel.partition_batch_dirac([native.dirac_coeffs(sample["V"], sample["F"])], n, N,
+                                                      self.buckets.n_faces, max_valence=self.buckets.max_valence)
+        else:
+            halo = min(edge_partition.suggest_halo(sample["L"]), N // n)
+            op = graph_parallel.partition_batch_operator([sample["L"]], n, n_rows=N, halo=halo, k=self.buckets.ell_k,
+                                                         interior_fmt=self.gp_interior)
+        return graph_parallel.shard_operator(op, self.mesh.graph_index)
+
     def dev_sample(self, i: int) -> dict:
         """Sample ``i``'s operator, mask, inputs, padded geodesic matrix and
         label tables (none of those three on the light path and the host
-        path) and the smoothness pattern on the device, built once."""
+        path) and the smoothness pattern on the device, built once; under
+        ``--graph-parallel`` this rank's shard of the partitioned operator and
+        its rows of the mask and inputs (the rest whole)."""
         hit = self._dev.get(i)
         if hit is not None:
             return hit
         sample, N, dev = self.data[i], self.N, self.device
-        pack = correspondence_batch(sample, self.buckets, fmt=self.fmt, op_dtype=self.dtype, model=self.model_key)
+        op = self.partitioned_op(sample) if self.mesh is not None else None
+        pack = correspondence_batch(sample, self.buckets, fmt=self.fmt, op_dtype=self.dtype, model=self.model_key,
+                                    operator=op)
         entry = {"op": pack.operator.to(dev) if not isinstance(pack.operator, list)
                  else [o.to(dev) for o in pack.operator],
-                 "mask": pack.mask.to(dev), "inputs": pack.inputs.to(dev), "n": sample["V"].shape[0]}
+                 "mask": self.rows(pack.mask).to(dev), "inputs": self.rows(pack.inputs).to(dev),
+                 "n": sample["V"].shape[0]}
         if not (self.light or self.host_path):
             G, lab, li = pack.targets
             G_pad = np.zeros((N, N), np.float32)
@@ -445,12 +534,12 @@ class CorrespondenceTrainer:
         return torch.where(r[None, :] >= db["n"], torch.full_like(GAB, 1e9), GAB)
 
     def pair_target(self, ia: int, ib: int) -> torch.Tensor:
-        """The pair's dcel target, argmin of its cost (on the light path on
-        the host, ``host_pair_target``): fixed per pair, so computed once
-        and cached on the device."""
+        """The pair's dcel target, argmin of its cost (on the light path and
+        under ``--graph-parallel`` on the host, ``host_pair_target``): fixed
+        per pair, so computed once and cached on the device."""
         t = self._targets.get((ia, ib))
         if t is None:
-            if self.light:
+            if self.light or self.mesh is not None:
                 t = torch.from_numpy(host_pair_target(self.data[ia], self.data[ib], self.N)).to(self.device)
             else:
                 t = torch.argmin(self.aggregate_padded(self.dev_sample(ia), self.dev_sample(ib)), dim=-1)
@@ -458,15 +547,25 @@ class CorrespondenceTrainer:
         return t
 
     def pair_inverse(self, ia: int, ib: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """The inverse of the pair's target (``losses.target_inverse``),
-        built once on the host and cached on the device: the streaming
-        head's backward sums ``fa`` by target through it in a fixed order.
-        Its width is the target's largest multiplicity."""
+        """The inverse of the pair's target (``losses.target_inverse``; of
+        this rank's rows of it under ``--graph-parallel``), built once on the
+        host and cached on the device: the streaming head's backward sums
+        ``fa`` by target through it in a fixed order.  Its width is the
+        target's largest multiplicity."""
         inv = self._inverses.get((ia, ib))
         if inv is None:
-            inv = losses.target_inverse(self.pair_target(ia, ib), self.N)
+            inv = losses.target_inverse(self.local_rows(self.pair_target(ia, ib)), self.N)
             self._inverses[(ia, ib)] = inv
         return inv
+
+    def local_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows (axis 0) of a per-row array of the first shape
+        (a target, a cost) under ``--graph-parallel``; the array itself
+        otherwise."""
+        if self.mesh is None:
+            return t
+        n = t.shape[0] // self.n_gp
+        return t[self.mesh.graph_index * n:(self.mesh.graph_index + 1) * n]
 
     def epoch_plan(self) -> tuple[np.ndarray, np.ndarray]:
         """The epoch's pair indices and rotation angles, in the JAX
@@ -485,11 +584,11 @@ class CorrespondenceTrainer:
         da, db = self.dev_sample(ia), self.dev_sample(ib)
         inv = self.pair_inverse(ia, ib) if self.use_stream else None
         if self.args.loss == "dcel":
-            target, GAB = self.pair_target(ia, ib), None
+            target, GAB = self.local_rows(self.pair_target(ia, ib)), None
         else:
             target, GAB = None, self.aggregate_padded(da, db)
         loss = train_step(self.model, self.opt, da, db, [float(r) for r in rots], target, self.smooth_w,
-                          self.use_stream, inv, self.loss_fn, GAB)
+                          self.use_stream, inv, self.loss_fn, GAB, self.mesh, self.args.loss)
         self.step += 1
         return loss
 
@@ -529,9 +628,10 @@ class CorrespondenceTrainer:
         its inputs and cost uploaded without blocking, then sl1 or cel over
         the full logits."""
         d = self.uploads(item, _upload_tree)
-        da = dict(self.dev_sample(d["ia"]), inputs=d["xa"])
-        db = dict(self.dev_sample(d["ib"]), inputs=d["xb"])
-        loss = train_step(self.model, self.opt, da, db, None, None, 0.0, False, None, self.loss_fn, d["GAB"])
+        da = dict(self.dev_sample(d["ia"]), inputs=self.rows(d["xa"]))
+        db = dict(self.dev_sample(d["ib"]), inputs=self.rows(d["xb"]))
+        loss = train_step(self.model, self.opt, da, db, None, None, 0.0, False, None, self.loss_fn,
+                          self.local_rows(d["GAB"]), self.mesh, self.args.loss)
         self.step += 1
         return loss
 
@@ -591,15 +691,26 @@ class CorrespondenceTrainer:
         else:
             d = self.uploads(item, _upload_tree)
             inx, iny, GAB, lA, lB, liB, GB = (d[k] for k in ("xa", "xb", "GAB", "lA", "lB", "liB", "GB"))
-        fa, fb = self.model.features((da["op"], da["mask"]), (db["op"], db["mask"]), inx, iny)
-        fa, fb = at_least_fp32(fa), at_least_fp32(fb)
+            inx, iny = self.rows(inx), self.rows(iny)
+        fa, fb, mask_a, mask_b = self.features(da, db, inx, iny)
         if self.use_stream:
-            pred = losses.streaming_corr_argmax(fa[0], fb[0], db["mask"][0, :, 0])
-            metrics = losses.corr_metrics_from_pred(pred, lA, lB, liB, GB, da["mask"][0, :, 0])
+            pred = losses.streaming_corr_argmax(fa[0], fb[0], mask_b[0, :, 0])
+            metrics = losses.corr_metrics_from_pred(pred, lA, lB, liB, GB, mask_a[0, :, 0])
             return losses.corr_dcel_streaming(fa[0], fb[0], torch.argmin(GAB, dim=-1)), metrics
         logits = torch.einsum("bnc,bmc->bnm", fa, fb)[0]
-        metrics = losses.corr_accuracy_metrics(logits, lA, lB, liB, GB, da["mask"][0, :, 0], db["mask"][0, :, 0])
+        metrics = losses.corr_accuracy_metrics(logits, lA, lB, liB, GB, mask_a[0, :, 0], mask_b[0, :, 0])
         return self.loss_fn(logits, GAB), metrics
+
+    def features(self, da: dict, db: dict, inx: torch.Tensor, iny: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """Both shapes' features (at least fp32) and masks, whole: under
+        ``--graph-parallel`` the trunk runs graph-sharded on this rank's rows
+        and every rank's rows are gathered, so the heads and the metrics
+        score the whole pair on every rank."""
+        ctx = self.mesh.context(vertex=True) if self.mesh is not None else contextlib.nullcontext()
+        with ctx:
+            fa, fb = self.model.features((da["op"], da["mask"]), (db["op"], db["mask"]), inx, iny)
+        return (at_least_fp32(self.whole(fa)), at_least_fp32(self.whole(fb)), self.whole(da["mask"]),
+                self.whole(db["mask"]))
 
     def test_pass(self, epoch: int, metrics_log: MetricsLogger | None = None) -> dict | None:
         """Mean loss and metrics over the test pairs (20 drawn ones unless
@@ -638,8 +749,8 @@ class CorrespondenceTrainer:
         streaming argmax of the unrotated shapes' features over B's
         vertices, on the device."""
         da, db = self.dev_sample(ia), self.dev_sample(ib)
-        fa, fb = self.model.features((da["op"], da["mask"]), (db["op"], db["mask"]), da["inputs"], db["inputs"])
-        return losses.streaming_corr_argmax(at_least_fp32(fa)[0], at_least_fp32(fb)[0], db["mask"][0, :, 0])
+        fa, fb, _, mask_b = self.features(da, db, da["inputs"], db["inputs"])
+        return losses.streaming_corr_argmax(fa[0], fb[0], mask_b[0, :, 0])
 
     def eval_only(self) -> dict:
         """``--eval-only``: the mean of ``host_corr_metrics`` over every
@@ -660,15 +771,14 @@ class CorrespondenceTrainer:
         checkpoint.save_checkpoint(path, self.model, self.opt, epoch, self.step)
 
 
-def main(argv=None) -> dict:
-    """Train; returns each epoch's mean train loss and test results (with
-    ``--eval-only``, ``{"eval": metrics}`` and no training)."""
-    args = config.parse_with_config(parser, argv)
+def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
+    """The run on one rank of the graph axis (rank 0 logs and writes the
+    metrics and the checkpoints), or alone (``mesh`` None)."""
+    rank0 = mesh is None or mesh.rank == 0
     log_dir = os.path.join(args.result_dir, "log")
-    log = make_logger(args.result_prefix, log_dir)
+    log = make_logger(args.result_prefix, log_dir) if rank0 else (lambda _: None)
     log(args)
-    dump_config(args, os.path.join(args.result_dir, "cfg", f"{args.result_prefix}.json"))
-    trainer = CorrespondenceTrainer(args, log)
+    trainer = CorrespondenceTrainer(args, log, mesh=mesh)
     ckpt_path = os.path.join(args.result_dir, "pts", f"{args.result_prefix}_state.pt")
     if args.deser_option != "no":
         path = args.deser_path or ckpt_path
@@ -677,15 +787,27 @@ def main(argv=None) -> dict:
             _, trainer.step, _ = checkpoint.restore_training(path, trainer.model, trainer.opt)
     if args.eval_only:
         return {"eval": trainer.eval_only()}
-    metrics_log = MetricsLogger(args.result_prefix, log_dir)
+    metrics_log = MetricsLogger(args.result_prefix, log_dir) if rank0 else None
     history: dict = {"train_loss": [], "test": []}
     for epoch in range(args.num_epoch):
         history["train_loss"].append(trainer.train_epoch(epoch, metrics_log))
         history["test"].append(trainer.test_pass(epoch, metrics_log))
-        if epoch % 10 == 9:
+        if epoch % 10 == 9 and rank0:
             trainer.save(ckpt_path, epoch)
-    trainer.save(ckpt_path, args.num_epoch - 1)
+    if rank0:
+        trainer.save(ckpt_path, args.num_epoch - 1)
     return history
+
+
+def main(argv=None) -> dict:
+    """Train; returns each epoch's mean train loss and test results (with
+    ``--eval-only``, ``{"eval": metrics}`` and no training).  With
+    ``--graph-parallel G`` it starts G ranks and returns rank 0's; a rank
+    that fails makes it raise."""
+    args = config.parse_with_config(parser, argv)
+    refuse_unported(args)
+    dump_config(args, os.path.join(args.result_dir, "cfg", f"{args.result_prefix}.json"))
+    return mesh_setup.run_ranks(run_rank, 1, mesh_setup.axis_ranks(args.graph_parallel), args.device, args)
 
 
 if __name__ == "__main__":

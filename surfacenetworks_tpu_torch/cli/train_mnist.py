@@ -39,8 +39,18 @@ draws the same batches and the dropout masks for the whole batch, and
 trains on its slice; batch norm, the loss and the accuracy are the global
 batch's and the gradients are summed over the ranks, as the JAX trainer's
 data-parallel step computes them; rank 0 writes the log, the metrics and the
-checkpoints; the test batches run whole on every rank.  ``--graph-parallel``
-is refused: it comes with the next slice of the port.
+checkpoints; the test batches run whole on every rank.  ``--graph-parallel
+G`` (G > 1, ``lap`` and ``dirac``, not with ``--data-parallel``, as in the
+JAX trainer) starts G ranks that row-partition every mesh: the samples
+RCM-ordered (Dirac: the faces sorted by their smallest vertex and the
+coefficients recomputed), the bucket rounded to ``8 G`` rows, each
+sample's operator partitioned once with dataset-wide halos and floors and
+each rank holding its rows of every sample (the device dataset, or the host
+route, of its shards).  The pooled head, summed over the ranks, is the same
+on every rank, and so is its dropout mask, drawn from ``trainer.gen`` in
+the same order everywhere; its loss and accuracy enter each rank's share
+once (``parallel_context.replicated_share``); the test batches run on the
+ranks' rows too.
 """
 
 from __future__ import annotations
@@ -49,13 +59,15 @@ import argparse
 import os
 import sys
 
+import numpy as np
 import torch
 
-from surfacenetworks_tpu_torch import config
+from surfacenetworks_tpu_torch import config, parallel_context
 from surfacenetworks_tpu_torch.cli.common import EpochSampler, MetricsLogger, count_params, log_environment, make_logger
-from surfacenetworks_tpu_torch.data import Buckets, datasets, mnist_batch
+from surfacenetworks_tpu_torch.data import Buckets, datasets, mnist_batch, rcm_reorder_sample, vae_batch
+from surfacenetworks_tpu_torch.data.batching import _dirac_coeffs_of
 from surfacenetworks_tpu_torch.data.pipeline import DeviceDataset, PackedSamples, host_route, to_device
-from surfacenetworks_tpu_torch.dist import data_parallel, mesh_setup
+from surfacenetworks_tpu_torch.dist import data_parallel, dirac_partition, edge_partition, graph_parallel, mesh_setup
 from surfacenetworks_tpu_torch.models import init_weights
 from surfacenetworks_tpu_torch.models.mnist_models import MODELS, WIDTH, dropout_keep
 from surfacenetworks_tpu_torch.serve import resolve_device
@@ -81,18 +93,21 @@ parser.add_argument("--bf16", action="store_true",
 config.add_config_flags(parser)
 parser.add_argument("--data-parallel", type=int, default=0,
                     help="shard each batch over this many ranks (0 or 1: off); the batch size must be divisible by it")
-# refused when given: --graph-parallel comes with the next slice of the port
-parser.add_argument("--graph-parallel", type=int, default=0)
+parser.add_argument("--graph-parallel", type=int, default=0,
+                    help="row-partition every mesh over this many ranks (lap, dirac; 0 or 1: off)")
 
 
 def refuse_unported(args, trainer: str) -> None:
-    """Raise on a flag whose path the port does not run yet (the flags the
-    classifier and the VAE share), and on a batch the data-parallel ranks
-    cannot split (the JAX trainer's message)."""
-    if args.graph_parallel > 1:
-        raise SystemExit(f"{trainer} (PyTorch port): not ported yet: --graph-parallel (the next slice of the port "
-                         "brings it)")
-    n_dp = mesh_setup.axis_ranks(args.data_parallel)
+    """The multi-device flags' refusals the classifier and the VAE share,
+    the JAX trainers' own: ``--graph-parallel`` with ``--data-parallel``
+    (and, for the classifier, with a model other than lap or dirac), and a
+    batch the data-parallel ranks cannot split.  The port runs every path
+    of these trainers; ``trainer`` names the one asking."""
+    n_dp, n_gp = mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel)
+    if n_gp > 1 and trainer == "train_mnist" and not (args.model.startswith("dir") or args.model == "lap"):
+        raise SystemExit("--graph-parallel supports the lap and dirac models")
+    if n_gp > 1 and n_dp > 1:
+        raise SystemExit("--graph-parallel and --data-parallel are mutually exclusive here")
     if n_dp > 1 and args.batch_size % n_dp:
         raise SystemExit(f"batch size {args.batch_size} not divisible by --data-parallel {n_dp}")
 
@@ -130,10 +145,11 @@ class MeshMnistRun:
     def __init__(self, args, samples: list[dict], batch_fn, kind: str, fmt: str, store: bool,
                  model: torch.nn.Module, log, mesh: mesh_setup.Mesh | None = None):
         self.args, self.log = args, log
-        n_dp = mesh_setup.axis_ranks(args.data_parallel)
-        if n_dp > 1 and (mesh is None or mesh.n_data != n_dp):
-            raise ValueError(f"--data-parallel {n_dp} needs a grid of {n_dp} ranks (the trainer's main makes it)")
-        self.mesh = mesh if n_dp > 1 else None
+        n_dp, self.n_gp = mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel)
+        if n_dp * self.n_gp > 1 and (mesh is None or (mesh.n_data, mesh.n_graph) != (n_dp, self.n_gp)):
+            raise ValueError(f"a run on a ({n_dp}, {self.n_gp}) grid of ranks needs that grid's mesh (the trainer's "
+                             "main makes it)")
+        self.mesh = mesh if n_dp * self.n_gp > 1 else None
         self.device = self.mesh.device if self.mesh is not None else resolve_device(args.device)
         log_environment(log, self.device)
         # fp32 matmuls and convolutions in full fp32 (no TF32), and bf16 ones
@@ -141,11 +157,21 @@ class MeshMnistRun:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        if self.n_gp > 1:
+            samples = gp_order(samples, kind)
         sep = max(1, int(len(samples) * 0.8))
         self.train_samples, self.test_samples = samples[:sep], samples[sep:]
-        self.kind, self.fmt = kind, fmt
-        self.buckets = Buckets.for_samples(samples, multiple=8)
-        self.packed = PackedSamples(lambda s: batch_fn([s], self.buckets, model=kind, fmt=fmt))
+        self.kind, self.fmt = kind, fmt  # under --graph-parallel the plain format of the VAE's decoded samples
+        self.buckets = Buckets.for_samples(samples, multiple=8 * self.n_gp)
+        if self.n_gp > 1:
+            operators = self._prepartition(samples, batch_fn is vae_batch)
+
+            def pack(s):
+                host = batch_fn([s], self.buckets, model=kind, **operators(s))
+                return graph_parallel.shard_batch_rows(host, self.n_gp, self.mesh.graph_index)
+            self.packed = PackedSamples(pack)
+        else:
+            self.packed = PackedSamples(lambda s: batch_fn([s], self.buckets, model=kind, fmt=fmt))
         B = args.batch_size
         self.train_sampler = EpochSampler(self.train_samples, B, seed=args.seed)
         self.test_sampler = EpochSampler(self.test_samples, B, shuffle=False)
@@ -165,6 +191,34 @@ class MeshMnistRun:
             data_parallel.replicate(self.mesh, self.model)
         log(f"Num parameters {count_params(self.model)}")
         self.opt = optim.adam(self.model.parameters(), args.lr, weight_decay=1e-5)
+
+    def _prepartition(self, samples: list[dict], flat: bool):
+        """Each sample's operator (and, for the VAE, ``flat``, its flat
+        operator) row-partitioned once with dataset-wide halos and floors,
+        as the JAX trainers partition them; returns ``operators(sample) ->
+        kwargs`` of the batch function for one sample."""
+        N, M, n = self.buckets.n_vertices, self.buckets.n_faces, self.n_gp
+        keys = ["L", "flat_L"] if self.kind != "dirac" else ["dirac", "flat_dirac"]
+        parts = []
+        for key in keys[: 2 if flat else 1]:
+            if self.kind == "dirac":
+                ops, floors = graph_parallel.prepartition_dirac([_dirac_coeffs_of(s, key) for s in samples], n, N, M,
+                                                                max_valence=self.buckets.max_valence)
+                stack = dirac_partition.stack_partitioned_dirac
+                self.log(f"graph parallel ({key}): {N} rows and {M} faces in {n} partitions, halos {ops[0].halo_v} "
+                         f"vertex and {ops[0].halo_f} face rows")
+            else:
+                ops, floors = graph_parallel.prepartition_ell([s[key] for s in samples], n, n_rows=N,
+                                                              k=self.buckets.ell_k)
+                stack = edge_partition.stack_partitioned
+                self.log(f"graph parallel ({key}): {N} rows in {n} partitions, halo {ops[0].fwd.halo}")
+            parts.append(({id(s): o for s, o in zip(samples, ops)}, floors, stack))
+
+        def operators(s):
+            built = [stack([by_id[id(s)]], **floors) for by_id, floors, stack in parts]
+            return {"operator": built[0], "flat_operator": built[1]} if flat else {"operator": built[0]}
+
+        return operators
 
     def shard(self, rows):
         """This rank's slice of a global batch's samples (or of a tensor's
@@ -189,12 +243,30 @@ class MeshMnistRun:
             return host_route(lambda: self.shard(self.train_sampler.next_batch()), self.packed, n, self.device)
         return (self.batch(self.train_sampler.next_batch(), shard=True) for _ in range(n))
 
+    @property
+    def gp_mesh(self) -> mesh_setup.Mesh | None:
+        """The grid when the meshes are row-partitioned, else None."""
+        return self.mesh if self.n_gp > 1 else None
+
     def global_batch(self, batch) -> int:
         """The global batch size of a rank's (or the only) batch."""
         return batch.inputs.shape[0] * (self.mesh.n_data if self.mesh is not None else 1)
 
     def save(self, path: str, epoch: int) -> None:
         checkpoint.save_checkpoint(path, self.model, self.opt, epoch, self.step)
+
+
+def gp_order(samples: list[dict], kind: str) -> list[dict]:
+    """The samples as ``--graph-parallel`` reads them (JAX's order): RCM
+    vertex order and, for Dirac data, the faces sorted by their smallest
+    vertex, the coefficients (which bake in the order) recomputed from
+    them."""
+    out = [rcm_reorder_sample(s) for s in samples]
+    if kind == "dirac":
+        for s in out:
+            s["F"] = np.asarray(s["F"])[dirac_partition.sort_faces_for_partition(s["F"])]
+            s["dirac"] = s["flat_dirac"] = None
+    return out
 
 
 def classify(model, batch, deterministic: bool, keep=None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -209,13 +281,28 @@ def train_step(model, opt, batch, keep, mesh: mesh_setup.Mesh | None = None) -> 
     device); the gradients stay in ``.grad`` until the next step.  With
     ``mesh`` the batch and ``keep`` are this rank's slices: the body runs
     batch-sharded, the gradients are summed over the ranks, and the global
-    loss and accuracy are returned."""
-    return loop.update(model, opt, lambda: classify(model, batch, False, keep), mesh=mesh)
+    loss and accuracy are returned; on a graph axis (``--graph-parallel``)
+    the batch is this rank's rows, the body runs graph-sharded and ``keep``
+    is the whole batch's."""
+    return loop.update(model, opt, lambda: classify(model, batch, False, keep), mesh=mesh,
+                       vertex=mesh is not None and mesh.n_graph > 1)
 
 
 @torch.no_grad()
-def eval_step(model, batch) -> tuple[torch.Tensor, torch.Tensor]:
-    return classify(model, batch, True)
+def eval_step(model, batch, mesh: mesh_setup.Mesh | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Loss and accuracy of a test batch; with a graph-parallel ``mesh``
+    on this rank's rows (the global values)."""
+    return sharded_eval(lambda: classify(model, batch, True), mesh)
+
+
+def sharded_eval(body, mesh: mesh_setup.Mesh | None) -> tuple[torch.Tensor, ...]:
+    """``body()``'s metrics: alone, or on a graph axis each rank's shares
+    in the graph-sharded context, summed over the ranks."""
+    if mesh is None or mesh.n_graph == 1:
+        return body()
+    with mesh.context(vertex=True):
+        values = body()
+    return tuple(parallel_context.total(torch.stack(values), [mesh.graph]).unbind(0))
 
 
 class MnistTrainer(MeshMnistRun):
@@ -260,7 +347,7 @@ class MnistTrainer(MeshMnistRun):
         logs and returns the mean loss and accuracy."""
         loss_sum = acc_sum = 0.0
         for _ in range(self.test_steps):
-            loss, acc = eval_step(self.model, self.batch(self.test_sampler.next_batch()))
+            loss, acc = eval_step(self.model, self.batch(self.test_sampler.next_batch()), self.gp_mesh)
             loss_sum += float(loss)
             acc_sum += float(acc)
         loss, acc = loss_sum / self.test_steps, acc_sum / self.test_steps
@@ -293,7 +380,8 @@ def main(argv=None) -> dict:
     """Train; returns each epoch's train and test (loss, accuracy)."""
     args = config.parse_with_config(parser, argv)
     refuse_unported(args, "train_mnist")
-    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel), 1, args.device, args)
+    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel),
+                                mesh_setup.axis_ranks(args.graph_parallel), args.device, args)
 
 
 if __name__ == "__main__":

@@ -64,10 +64,14 @@ not with ``--only-forward-test``, as in the JAX trainer.
 
 ``--data-parallel N`` (N > 1; 0 and 1 mean off) shards each batch's meshes
 over N ranks (not with ``cas``, as in the JAX trainer);
-``--graph-parallel G`` row-partitions every ``--model lap`` operator over G
-ranks (RCM order first; ELL interiors, or BSR ones with ``--operator-format
-bsr``; each ``--buckets`` tier partitioned at its own row count, with a
-dataset-wide halo); both together train on an (N, G) rank grid.  ``main``
+``--graph-parallel G`` row-partitions every operator over G ranks, for
+``--model lap``, ``dirac`` and ``gat`` (RCM order first; ``lap``: ELL
+interiors, or BSR ones with ``--operator-format bsr``; ``gat``: ELL, its
+attend exchanging its payload once; ``dirac``: the faces sorted by their
+smallest vertex and the coefficients recomputed, a ``PartitionedDirac`` of
+vertex and face rows, ELL only; each ``--buckets`` tier partitioned at its
+own row count, with a dataset-wide halo); both together train on an (N, G)
+rank grid.  ``main``
 then starts N x G ranks (``dist.mesh_setup.launch``: one process each, over
 gloo on the CPU and nccl on cards of their own, refused when fewer cards are
 visible).  Every rank draws the same global batch and keeps its shard; the
@@ -76,8 +80,8 @@ average and the loss normalisers over the global batch and rows, the
 rotations drawn for the global batch, gradients summed over the ranks).
 Rank 0 writes the log, the metrics and the checkpoints.  Evaluation under
 pure data parallelism runs each whole test batch on every rank.
-``--graph-parallel`` with ``dirac`` or ``gat`` and ``--multihost`` with its
-coordinator flags are refused: they come with the next slice of the port.
+``--multihost`` with its coordinator flags is refused: it comes with the
+next slice of the port.
 """
 
 from __future__ import annotations
@@ -115,7 +119,7 @@ from surfacenetworks_tpu_torch.data.pipeline import (
     padded_vertex_count,
     to_device,
 )
-from surfacenetworks_tpu_torch.dist import data_parallel, edge_partition, graph_parallel, mesh_setup
+from surfacenetworks_tpu_torch.dist import data_parallel, dirac_partition, edge_partition, graph_parallel, mesh_setup
 from surfacenetworks_tpu_torch.geometry import igl_style_laplacian, repair, vertex_normals
 from surfacenetworks_tpu_torch.models import (
     AvgModel,
@@ -173,14 +177,14 @@ parser.add_argument("--rotate-augment", action="store_true",
 config.add_config_flags(parser)
 parser.add_argument("--jax-profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the first training epoch into DIR (the JAX flag's name)")
-# multi-device flags: --data-parallel and --graph-parallel (lap) run on a grid of ranks; --graph-parallel with
-# dirac or gat, --multihost and its coordinator flags are refused until the next slice of the port
+# multi-device flags: --data-parallel and --graph-parallel (lap, dirac, gat) run on a grid of ranks; --multihost
+# and its coordinator flags are refused until the next slice of the port
 parser.add_argument("--data-parallel", type=int, default=0,
                     help="shard each batch's meshes over this many ranks (0 or 1: off); the batch size must be "
                          "divisible by it")
 parser.add_argument("--graph-parallel", type=int, default=0,
-                    help="row-partition every operator over this many ranks (--model lap; 0 or 1: off): halo "
-                         "exchange per apply, overlapped with the interior product")
+                    help="row-partition every operator over this many ranks (--model lap, dirac, gat; 0 or 1: "
+                         "off): halo exchange per apply, overlapped with the interior product")
 parser.add_argument("--multihost", action="store_true")
 parser.add_argument("--coordinator-address", default=None)
 parser.add_argument("--num-processes", type=int, default=None)
@@ -215,15 +219,9 @@ def build_model(args, dtype: torch.dtype | None = None):
 def refuse_unported(args) -> None:
     """Raise on any flag whose path the port does not run yet (the next
     slice brings them)."""
-    refused = {
-        f"--graph-parallel with --model {args.model}": args.graph_parallel > 1 and args.model in ("dirac", "gat"),
-        "--multihost and its coordinator flags": args.multihost or any(
-            v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)),
-    }
-    given = [k for k, v in refused.items() if v]
-    if given:
-        raise SystemExit(f"train_normal (PyTorch port): not ported yet: {', '.join(given)} (the next slice of the "
-                         "port brings them)")
+    if args.multihost or any(v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)):
+        raise SystemExit("train_normal (PyTorch port): not ported yet: --multihost and its coordinator flags (the "
+                         "next slice of the port brings them)")
 
 
 def check_parallel(args) -> None:
@@ -232,7 +230,9 @@ def check_parallel(args) -> None:
     n_dp, n_gp = mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel)
     if n_gp > 1 and args.model not in ("lap", "dirac", "gat"):
         raise SystemExit("--graph-parallel supports the lap, dirac and gat models")
-    if n_gp > 1 and args.operator_format not in ("auto", "ell", "bsr"):
+    # gat's format is ELL whatever the flag says; Dirac data has no BSR interior
+    if n_gp > 1 and args.model != "gat" and args.operator_format not in (
+            ("auto", "ell") if dirac_data(args) else ("auto", "ell", "bsr")):
         raise SystemExit("--graph-parallel supports ell or bsr operator formats")
     if n_dp > 1 and n_gp == 1 and args.model == "cas":
         raise SystemExit("--data-parallel does not support the cascade model")
@@ -406,7 +406,7 @@ class NormalTrainer:
         log(f"Train size: {len(train)} Test size: {len(test)}")
         fmt = args.operator_format
         gp = self.n_gp > 1
-        self.gp_interior = "bsr" if gp and fmt == "bsr" else "ell"
+        self.gp_interior = "bsr" if gp and fmt == "bsr" and args.model != "gat" else "ell"
         if gp:
             fmt = "ell"  # the rest of the batch; the operator is partitioned
         if dirac:
@@ -424,6 +424,12 @@ class NormalTrainer:
         if (fmt == "bsr" and not dirac) or args.model == "gat" or gp:
             train = [rcm_reorder_sample(s) for s in train]
             test = [rcm_reorder_sample(s) for s in test]
+        if gp and dirac:
+            # narrow Dirac halos need the face index to follow the (RCM) vertex index; the coefficients,
+            # which bake in the face order, are recomputed
+            for s in train + test:
+                s["F"] = np.asarray(s["F"])[dirac_partition.sort_faces_for_partition(s["F"])]
+                s.pop("dirac", None)
         self.train_samples, self.test_samples = train, test
         all_samples = train + test
         if args.buckets > 1 and args.model == "cas":
@@ -442,7 +448,19 @@ class NormalTrainer:
         if fmt == "auto" and not dirac and args.model != "cas":
             log(f"operator format auto -> {'/'.join(tier_fmt)} (per sample)")
         self.model = build_model(args, dtype)
-        if dirac:
+        if gp:
+            self.fmt = "partitioned Dirac" if dirac else "ell"
+            self._prepartition(all_samples, dirac)
+
+            def pack(s):
+                ti = self.bucketset.tier_index([s])
+                if dirac:
+                    op = dirac_partition.stack_partitioned_dirac([self._parts[id(s)]], **self._floors[ti])
+                    return dirac_batch([s], tiers[ti], operator=op)
+                op = edge_partition.stack_partitioned([self._parts[id(s)]], **self._floors[ti])
+                return laplacian_batch([s], tiers[ti], operator=op)
+            self.packed = PackedSamples(pack)
+        elif dirac:
             self.fmt = "structured"
             self.packed = PackedSamples(lambda s: dirac_batch([s], self.bucketset.select([s])))
         elif args.model == "cas":
@@ -452,15 +470,6 @@ class NormalTrainer:
             log(f"cascade: {levels} pyramid levels of {[n_bucket >> (levels - 1 - i) for i in range(levels)]} rows, "
                 f"ELL at K=32")
             self.packed = PackedSamples(lambda s: cascade_batch([s], levels, n_bucket))
-        elif gp:
-            self.fmt = "ell"
-            self._prepartition(all_samples)
-
-            def pack(s):
-                ti = self.bucketset.tier_index([s])
-                op = edge_partition.stack_partitioned([self._parts[id(s)]], **self._floors[ti])
-                return laplacian_batch([s], tiers[ti], operator=op)
-            self.packed = PackedSamples(pack)
         else:
             self.fmt = tier_fmt[-1]
             op_dtype = dtype if fmt == "bsr" else None  # bf16 blocks under --bf16, as in the JAX trainer
@@ -520,22 +529,31 @@ class NormalTrainer:
             why = "--no-device-store" if args.no_device_store else "the dataset exceeds the device budget"
             log(f"batches assembled on the host and uploaded per step ({why})")
 
-    def _prepartition(self, samples: list[dict]) -> None:
-        """Each sample's operator row-partitioned once at its tier's row
-        count, with the tier's dataset-wide halo and width floors (the JAX
+    def _prepartition(self, samples: list[dict], dirac: bool) -> None:
+        """Each sample's operator (Dirac: its coefficients, computed from its
+        sorted faces) row-partitioned once at its tier's row (and face)
+        count, with the tier's dataset-wide halos and width floors (the JAX
         trainer's per-tier prepartition)."""
         self._parts, self._floors = {}, {}
         for ti, tb in enumerate(self.bucketset.tiers):
             items = [s for s in samples if self.bucketset.tier_index([s]) == ti]
             if not items:
                 continue
-            ops, floors = graph_parallel.prepartition_ell([s["L"] for s in items], self.n_gp, n_rows=tb.n_vertices,
-                                                          k=tb.ell_k, interior_fmt=self.gp_interior)
+            if dirac:
+                ops, floors = graph_parallel.prepartition_dirac(
+                    [native.dirac_coeffs(s["V"], s["F"]) for s in items], self.n_gp, tb.n_vertices, tb.n_faces,
+                    max_valence=tb.max_valence)
+                what = (f"Dirac pair, halos {ops[0].halo_v} vertex and {ops[0].halo_f} face rows, "
+                        f"{floors['min_mbf']} boundary face and {floors['min_mbv']} boundary vertex rows per partition")
+            else:
+                ops, floors = graph_parallel.prepartition_ell([s["L"] for s in items], self.n_gp,
+                                                              n_rows=tb.n_vertices, k=tb.ell_k,
+                                                              interior_fmt=self.gp_interior)
+                what = (f"{self.gp_interior} interiors, halo {ops[0].fwd.halo}, {floors['min_mb']} boundary rows per "
+                        "partition")
             self._floors[ti] = floors
             self._parts.update({id(s): o for s, o in zip(items, ops)})
-            self.log(f"graph parallel: tier of {tb.n_vertices} rows in {self.n_gp} partitions, "
-                     f"{self.gp_interior} interiors, halo {ops[0].fwd.halo}, "
-                     f"{floors['min_mb']} boundary rows per partition")
+            self.log(f"graph parallel: tier of {tb.n_vertices} rows in {self.n_gp} partitions, {what}")
 
     def _dp_samples(self, samples: list) -> list:
         """This rank's slice of a global batch's samples (data axis)."""
@@ -552,7 +570,7 @@ class NormalTrainer:
             return edge_partition.shard_rows(t[sl], self.n_gp, g)
 
         return MeshBatch(inputs=rows(b.inputs), targets=rows(b.targets), mask=rows(b.mask),
-                         operator=edge_partition.shard_partitioned(b.operator, g, sl if self.n_dp > 1 else None),
+                         operator=graph_parallel.shard_operator(b.operator, g, sl if self.n_dp > 1 else None),
                          names=b.names[sl])
 
     def batch(self, samples: list[dict], shard: bool = True):

@@ -38,8 +38,17 @@ noise for the whole batch, and trains on its slice; the ELBO terms are the
 global batch's means and the gradients are summed over the ranks, as the JAX
 trainer's data-parallel step computes them; rank 0 writes the log, the
 metrics, the samples and the checkpoints; the test batches run whole on
-every rank.  ``--graph-parallel`` is refused: it comes with the next slice
-of the port.
+every rank.  ``--graph-parallel G`` (G > 1, not with ``--data-parallel``,
+as in the JAX trainer) starts G ranks that row-partition every mesh, as the
+classifier's (``cli/train_mnist.py``), with two partitioned operators a
+sample, the lifted and the flat one (``L`` and ``flat_L``, or the Dirac
+coefficients of both), each with its own halos and floors; the encoder
+and the decoder run graph-sharded, the latent statistics summed over the
+ranks are the same on every rank, and so is the noise, drawn from
+``trainer.gen`` in the same order everywhere; the KLD enters each rank's
+share once.  The samples are decoded on rank 0 with plain operators, as
+the JAX trainer decodes them (every rank draws the batch, so the samplers
+stay in step).
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ import torch
 from surfacenetworks_tpu_torch import geometry as geo
 from surfacenetworks_tpu_torch import config
 from surfacenetworks_tpu_torch.cli.common import MetricsLogger, make_logger
-from surfacenetworks_tpu_torch.cli.train_mnist import MeshMnistRun, dtype, refuse_unported
+from surfacenetworks_tpu_torch.cli.train_mnist import MeshMnistRun, dtype, refuse_unported, sharded_eval
 from surfacenetworks_tpu_torch.data import datasets, vae_batch
 from surfacenetworks_tpu_torch.data.pipeline import to_device
 from surfacenetworks_tpu_torch.dist import mesh_setup
@@ -82,8 +91,8 @@ parser.add_argument("--bf16", action="store_true",
 config.add_config_flags(parser)
 parser.add_argument("--data-parallel", type=int, default=0,
                     help="shard each batch over this many ranks (0 or 1: off); the batch size must be divisible by it")
-# refused when given: --graph-parallel comes with the next slice of the port
-parser.add_argument("--graph-parallel", type=int, default=0)
+parser.add_argument("--graph-parallel", type=int, default=0,
+                    help="row-partition every mesh over this many ranks (0 or 1: off)")
 
 FIXED_NOISE_SEED = 999
 
@@ -116,13 +125,19 @@ def train_step(model, opt, batch, eps, kw: float, mesh: mesh_setup.Mesh | None =
     loss, bce and kld (on the device); the gradients stay in ``.grad``.
     With ``mesh`` the batch and ``eps`` are this rank's slices: the body runs
     batch-sharded, the gradients are summed over the ranks, and the global
-    terms are returned."""
-    return loop.update(model, opt, lambda: elbo(model, batch, eps, kw), mesh=mesh)
+    terms are returned; on a graph axis (``--graph-parallel``) the batch is
+    this rank's rows, the body runs graph-sharded and ``eps`` is the whole
+    batch's."""
+    return loop.update(model, opt, lambda: elbo(model, batch, eps, kw), mesh=mesh,
+                       vertex=mesh is not None and mesh.n_graph > 1)
 
 
 @torch.no_grad()
-def eval_step(model, batch, eps) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    return elbo(model, batch, eps, 1.0)
+def eval_step(model, batch, eps, mesh: mesh_setup.Mesh | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The ELBO at KLD weight 1; with a graph-parallel ``mesh`` on this
+    rank's rows (the global terms)."""
+    return sharded_eval(lambda: elbo(model, batch, eps, 1.0), mesh)
 
 
 class VaeTrainer(MeshMnistRun):
@@ -175,7 +190,7 @@ class VaeTrainer(MeshMnistRun):
         sums = torch.zeros(3, device=self.device)
         for _ in range(self.test_steps):
             batch = self.batch(self.test_sampler.next_batch())
-            sums += torch.stack(eval_step(self.model, batch, self.draw_eps(batch)))
+            sums += torch.stack(eval_step(self.model, batch, self.draw_eps(batch), self.gp_mesh))
         loss, bce, kld = (v / self.test_steps for v in sums.tolist())
         self.log(f"Test epoch {epoch}, loss {loss}, bce {bce}, kld {kld}")
         if metrics_log is not None:
@@ -183,11 +198,13 @@ class VaeTrainer(MeshMnistRun):
         return loss, bce, kld
 
     @torch.no_grad()
-    def dump_samples(self, epoch: int, n: int, out_dir: str) -> list[str]:
-        """Decode the fixed noise on the next test batch's flat meshes and
-        write the first ``n`` as PLYs (padded rows and faces, as the JAX
-        trainer writes them); returns their paths."""
-        host = vae_batch(self.test_sampler.next_batch(), self.buckets, model=self.kind, fmt=self.fmt)
+    def dump_samples(self, epoch: int, n: int, out_dir: str, samples: list[dict] | None = None) -> list[str]:
+        """Decode the fixed noise on the flat meshes of ``samples`` (default:
+        the next test batch) with plain operators and write the first ``n``
+        as PLYs (padded rows and faces, as the JAX trainer writes them);
+        returns their paths."""
+        samples = self.test_sampler.next_batch() if samples is None else samples
+        host = vae_batch(samples, self.buckets, model=self.kind, fmt=self.fmt)
         b = to_device(host, self.device)
         B, N = b.inputs.shape[:2]
         noise = self.fixed_noise[:B].expand(-1, N, -1)
@@ -217,8 +234,11 @@ def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
     for epoch in range(args.num_epoch):
         history["train"].append(trainer.train_epoch(epoch, metrics_log))
         history["test"].append(trainer.test_pass(epoch, metrics_log))
-        if args.dump_ply and rank0:
-            trainer.dump_samples(epoch, args.dump_ply, os.path.join(args.result_dir, f"results_{args.model}"))
+        if args.dump_ply:
+            samples = trainer.test_sampler.next_batch()  # drawn on every rank: the samplers stay in step
+            if rank0:
+                trainer.dump_samples(epoch, args.dump_ply, os.path.join(args.result_dir, f"results_{args.model}"),
+                                     samples)
         if rank0:
             trainer.save(ckpt, epoch)
     return history
@@ -228,7 +248,8 @@ def main(argv=None) -> dict:
     """Train; returns each epoch's train and test (loss, bce, kld)."""
     args = config.parse_with_config(parser, argv)
     refuse_unported(args, "train_vae")
-    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel), 1, args.device, args)
+    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel),
+                                mesh_setup.axis_ranks(args.graph_parallel), args.device, args)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ _BATCHING = (
     "mnist_batch",
     "pad_rows",
     "rcm_reorder_sample",
+    "rcm_reorder_sequence",
     "round_up",
     "vae_batch",
 )

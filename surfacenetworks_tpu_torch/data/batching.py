@@ -177,15 +177,48 @@ def pad_rows(a: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
+def _rcm_perm_of(sample: dict) -> np.ndarray:
+    """The RCM permutation of a sample's Laplacian or, for a sample without
+    one (Dirac data), of its faces' edge graph."""
+    if "L" in sample:
+        return rcm_permutation(sample["L"])
+    F = np.asarray(sample["F"])
+    n = sample["V"].shape[0]
+    r = np.concatenate([F[:, 0], F[:, 1], F[:, 2], F[:, 1], F[:, 2], F[:, 0]])
+    c = np.concatenate([F[:, 1], F[:, 2], F[:, 0], F[:, 0], F[:, 1], F[:, 2]])
+    return rcm_permutation(sp.coo_matrix((np.ones_like(r, np.float32), (r, c)), shape=(n, n)).tocsr())
+
+
+def rcm_reorder_sequence(seq: list[dict]) -> list[dict]:
+    """An ARAP frame sequence reordered by one RCM permutation (of its first
+    frame) applied to every frame's ``V``, ``F`` and ``L``, so the frames'
+    partitioned operators share the banded structure; Dirac coefficients,
+    which bake in the order, are dropped."""
+    perm = _rcm_perm_of(seq[0])
+    inv = geo.invert_permutation(perm)
+    out = []
+    for f in seq:
+        g = dict(f)
+        g["V"] = np.asarray(f["V"])[perm]
+        if "F" in f:
+            g["F"] = inv[np.asarray(f["F"])].astype(np.int32)
+        if "L" in f:
+            g["L"] = f["L"].tocsr()[perm][:, perm].tocsr()
+        g.pop("dirac", None)
+        out.append(g)
+    return out
+
+
 def rcm_reorder_sample(sample: dict) -> dict:
-    """Reorder a sample's vertices by reverse-Cuthill-McKee on its Laplacian,
-    so the operator is banded and few BSR blocks cover it.  Faces are
+    """Reorder a sample's vertices by reverse-Cuthill-McKee on its Laplacian
+    (on its faces' edge graph when it has none), so the operator is banded
+    and few BSR blocks cover it.  Faces are
     reindexed; per-vertex arrays, square operators and the geodesic matrix
     ``G`` are permuted (``G`` along both axes); ``label_inv``, whose values
     are vertex indices, is remapped; Dirac coefficients, which bake in the
     vertex order, become ``None``.  The permutation is kept as ``rcm_perm``
     (new row i holds old vertex ``rcm_perm[i]``)."""
-    perm = rcm_permutation(sample["L"])
+    perm = _rcm_perm_of(sample)
     inv = geo.invert_permutation(perm)
     n = sample["V"].shape[0]
     out = dict(sample)
@@ -429,12 +462,17 @@ def dirac_batch(
     input_key: str = "input",
     target_key: str = "target",
     fmt: str = "structured",
+    operator=None,
 ) -> MeshBatch:
     """A Dirac batch: ``fmt='structured'`` (quaternion coefficient tables)
-    or ``'dense'`` (the padded dense pair)."""
+    or ``'dense'`` (the padded dense pair); ``operator`` replaces the
+    packing with a caller-built one (a graph-parallel ``PartitionedDirac``),
+    as in the JAX package."""
     N, M = buckets.n_vertices, buckets.n_faces
     inputs, targets, mask = _padded_arrays(samples, N, input_key, target_key)
-    if fmt == "dense":
+    if operator is not None:
+        pass
+    elif fmt == "dense":
         operator = dense_dirac_pair(samples, N, M)
     elif fmt == "structured":
         operator = stack_dirac([_dirac_sample_operator(s, buckets, N, M) for s in samples])
@@ -470,50 +508,58 @@ def _lifted_inputs(samples: list[dict], N: int) -> tuple[np.ndarray, np.ndarray]
     return inputs, mask
 
 
-def mnist_batch(samples: list[dict], buckets: Buckets, model: str = "lap", fmt: str = "auto") -> MeshBatch:
+def mnist_batch(samples: list[dict], buckets: Buckets, model: str = "lap", fmt: str = "auto",
+                operator=None) -> MeshBatch:
     """A classification batch: the lifted vertices as inputs, the int32
     labels ``[B]`` as targets, and the lifted operator (packed Dirac tables
-    for ``model='dirac'``, else the Laplacian in ``fmt``)."""
+    for ``model='dirac'``, else the Laplacian in ``fmt``; ``operator``
+    replaces the packing with a caller-built, e.g. partitioned, one)."""
     inputs, mask = _lifted_inputs(samples, buckets.n_vertices)
     return MeshBatch(
         inputs=torch.from_numpy(inputs),
         targets=torch.from_numpy(np.asarray([s["label"] for s in samples], dtype=np.int32)),
         mask=torch.from_numpy(mask),
-        operator=_mesh_operator_batch(samples, buckets, model, fmt),
+        operator=operator if operator is not None else _mesh_operator_batch(samples, buckets, model, fmt),
         faces=_pad_faces(samples, buckets),
         names=[s.get("name") for s in samples],
     )
 
 
-def vae_batch(samples: list[dict], buckets: Buckets, model: str = "lap", fmt: str = "auto") -> MeshBatch:
+def vae_batch(samples: list[dict], buckets: Buckets, model: str = "lap", fmt: str = "auto", operator=None,
+              flat_operator=None) -> MeshBatch:
     """A VAE batch: the lifted vertices as inputs and as targets, the lifted
     operator, and in ``aux`` the flat inputs (z set to 0) as
     ``flat_inputs`` and the flat operator (``flat_L`` or ``flat_dirac``)
-    as ``flat_operator``."""
+    as ``flat_operator``.  ``operator`` and ``flat_operator``, given
+    together, replace the packing with caller-built (e.g. partitioned)
+    ones."""
     inputs, mask = _lifted_inputs(samples, buckets.n_vertices)
     flat_inputs = inputs.copy()
     flat_inputs[:, :, 2] = 0.0
     x = torch.from_numpy(inputs)
+    if operator is None or flat_operator is None:
+        operator = _mesh_operator_batch(samples, buckets, model, fmt)
+        flat_operator = _mesh_operator_batch(samples, buckets, model, fmt, flat=True)
     return MeshBatch(
         inputs=x,
         targets=x,
         mask=torch.from_numpy(mask),
-        operator=_mesh_operator_batch(samples, buckets, model, fmt),
+        operator=operator,
         faces=_pad_faces(samples, buckets),
         names=[s.get("name") for s in samples],
-        aux={"flat_inputs": torch.from_numpy(flat_inputs),
-             "flat_operator": _mesh_operator_batch(samples, buckets, model, fmt, flat=True)},
+        aux={"flat_inputs": torch.from_numpy(flat_inputs), "flat_operator": flat_operator},
     )
 
 
 def arap_batch(sequences: list[list[dict]], picks: list[tuple[int, int]], buckets: Buckets, model: str = "lap",
-               fmt: str = "ell") -> MeshBatch:
+               fmt: str = "ell", operator=None) -> MeshBatch:
     """A temporal batch: ``picks`` holds one (sequence, frame offset) pair
     per batch item; the inputs are IN_FRAMES frames (3 channels each), the
     targets the next OUT_FRAMES, and the operator comes
     from the last input frame: its Laplacian in ``fmt`` for ``model='lap'``,
-    its packed Dirac tables for ``'dirac'``.  The faces are each sequence's
-    first frame's; ``names`` holds the picks."""
+    its packed Dirac tables for ``'dirac'`` (``operator`` replaces the
+    packing with a caller-built, e.g. partitioned, one).  The faces are each
+    sequence's first frame's; ``names`` holds the picks."""
     B, N = len(picks), buckets.n_vertices
     inputs = np.zeros((B, N, 3 * IN_FRAMES), dtype=np.float32)
     targets = np.zeros((B, N, 3 * OUT_FRAMES), dtype=np.float32)
@@ -529,7 +575,9 @@ def arap_batch(sequences: list[list[dict]], picks: list[tuple[int, int]], bucket
         mask[b, :n] = 1.0
         op_frames.append(seq[off + IN_FRAMES - 1])
         faces.append({"F": seq[0]["F"]})
-    if model == "dirac":
+    if operator is not None:
+        pass
+    elif model == "dirac":
         operator = stack_dirac([_dirac_sample_operator(s, buckets, N, buckets.n_faces) for s in op_frames])
     else:
         operator = _lap_operator_batch([s["L"] for s in op_frames], buckets, N, fmt)
@@ -538,7 +586,7 @@ def arap_batch(sequences: list[list[dict]], picks: list[tuple[int, int]], bucket
 
 
 def correspondence_batch(sample: dict, buckets: Buckets, fmt: str = "ell",
-                         op_dtype: torch.dtype | None = None, model: str = "lap") -> MeshBatch:
+                         op_dtype: torch.dtype | None = None, model: str = "lap", operator=None) -> MeshBatch:
     """Single-shape batch (B=1) for the siamese trainer; ``targets`` is
     ``(G, label, label_inv)`` as the sample holds them.
 
@@ -548,13 +596,17 @@ def correspondence_batch(sample: dict, buckets: Buckets, fmt: str = "ell",
     Dirac tables (``fmt`` is not read for either).  ``fmt='bsr'`` packs the
     block-sparse operator: the sample must be RCM-ordered
     (``rcm_reorder_sample``), the bucket a multiple of 128 and
-    ``buckets.bsr_k`` fitted; its blocks are stored at ``op_dtype``."""
+    ``buckets.bsr_k`` fitted; its blocks are stored at ``op_dtype``.
+    ``operator`` replaces the packing with a caller-built (e.g. partitioned)
+    one, as in the JAX package."""
     N = buckets.n_vertices
     n = sample["V"].shape[0]
     inputs = pad_rows(np.asarray(sample["input"], np.float32), N)[None]
     mask = np.zeros((1, N, 1), dtype=np.float32)
     mask[0, :n] = 1.0
-    if model == "dirac":
+    if operator is not None:
+        pass
+    elif model == "dirac":
         operator = stack_dirac([_dirac_sample_operator(sample, buckets, N, buckets.n_faces)])
     elif model == "amp":
         operator = [stack_operators([_fixed_k_operator(Lk, buckets, N)]) for Lk in sample["L_pyr"]]

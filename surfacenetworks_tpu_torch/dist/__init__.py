@@ -1,13 +1,25 @@
-"""Distribution: the rank grid, data parallelism and row-partitioned
-Laplacians (counterpart of the Laplacian half of
-``surfacenetworks_tpu/dist``).  The Dirac partition, the partitioned GAT
-attend and the overlap analysis are not ported yet."""
+"""Distribution: the rank grid, data parallelism, row-partitioned
+Laplacians and Dirac pairs, and the graph-sharded model run (counterpart of
+``surfacenetworks_tpu/dist``; the partitioned GAT attend is
+``nn.blocks.gat_attend`` on a ``PartitionedOperator``).  Not ported yet:
+the overlap analysis (``dist/analysis.py``) and ``--multihost`` in the
+trainers (``initialize_multihost`` is here as a library call)."""
 
-from surfacenetworks_tpu_torch.dist import data_parallel, edge_partition, graph_parallel, mesh_setup
+from surfacenetworks_tpu_torch.dist import data_parallel, dirac_partition, edge_partition, graph_parallel, mesh_setup
 from surfacenetworks_tpu_torch.dist.data_parallel import make_dp_train_step, replicate, shard_batch
+from surfacenetworks_tpu_torch.dist.dirac_partition import (
+    PartitionedDirac,
+    partition_dirac,
+    partitioned_dirac_fv,
+    partitioned_dirac_vf,
+    shard_partitioned_dirac,
+    sort_faces_for_partition,
+    stack_partitioned_dirac,
+)
 from surfacenetworks_tpu_torch.dist.edge_partition import (
     PartitionedEll,
     PartitionedOperator,
+    halo_exchange,
     make_partitioned_spmm,
     partition_ell,
     partition_operator,
@@ -20,9 +32,13 @@ from surfacenetworks_tpu_torch.dist.edge_partition import (
 from surfacenetworks_tpu_torch.dist.graph_parallel import (
     GraphStore,
     make_graph_sharded_apply,
+    partition_batch_dirac,
     partition_batch_operator,
     place_graph_batch,
+    prepartition_dirac,
     prepartition_ell,
+    shard_batch_rows,
+    shard_operator,
 )
 from surfacenetworks_tpu_torch.dist.mesh_setup import (
     Mesh,
@@ -37,13 +53,16 @@ from surfacenetworks_tpu_torch.dist.mesh_setup import (
 __all__ = [
     "GraphStore",
     "Mesh",
+    "PartitionedDirac",
     "PartitionedEll",
     "PartitionedOperator",
     "batch_sharding",
     "choose_backend",
     "data_parallel",
+    "dirac_partition",
     "edge_partition",
     "graph_parallel",
+    "halo_exchange",
     "initialize_multihost",
     "launch",
     "make_dp_train_step",
@@ -51,17 +70,27 @@ __all__ = [
     "make_mesh",
     "make_partitioned_spmm",
     "mesh_setup",
+    "partition_batch_dirac",
     "partition_batch_operator",
+    "partition_dirac",
     "partition_ell",
     "partition_operator",
+    "partitioned_dirac_fv",
+    "partitioned_dirac_vf",
     "partitioned_spmm",
     "place_graph_batch",
+    "prepartition_dirac",
     "prepartition_ell",
     "replicate",
     "replicated",
     "shard_batch",
+    "shard_batch_rows",
+    "shard_operator",
     "shard_partitioned",
+    "shard_partitioned_dirac",
     "shard_rows",
+    "sort_faces_for_partition",
     "stack_partitioned",
+    "stack_partitioned_dirac",
     "suggest_halo",
 ]

@@ -331,23 +331,26 @@ def reset_exchange_stats() -> None:
 
 
 class _Exchange:
-    """One halo exchange in flight: ``start`` issues it (the sends of this
-    rank's edge rows and the receives of its neighbours'), ``wait`` returns
-    ``(from_left, from_right)`` on ``x``'s device, zeros at the chain's
-    ends."""
+    """One halo exchange in flight: the constructor issues it (the sends of
+    this rank's edge rows and the receives of its neighbours'), ``wait``
+    returns ``(from_left, from_right)`` on ``x``'s device, zeros at the
+    chain's ends.  ``sends=(to_left, to_right)`` sends those ``[..., halo,
+    C]`` tensors instead of ``x_loc``'s first and last ``halo`` rows (the
+    backward of ``halo_exchange``: each halo's cotangent goes back to the
+    rank that owns its rows)."""
 
-    def __init__(self, x_loc: torch.Tensor, halo: int, axis: Axis):
+    def __init__(self, x_loc: torch.Tensor | None, halo: int, axis: Axis,
+                 sends: tuple[torch.Tensor, torch.Tensor] | None = None):
         import torch.distributed as dist
 
         t0 = time.perf_counter()
-        self.device, self.dtype = x_loc.device, x_loc.dtype
-        shape = x_loc.shape[:-2] + (halo, x_loc.shape[-1])
-        self.staged = axis.staged and x_loc.is_cuda
+        send_left, send_right = sends if sends is not None else (x_loc[..., :halo, :], x_loc[..., -halo:, :])
+        self.device, self.dtype = send_left.device, send_left.dtype
+        shape, itemsize = send_left.shape, send_left.element_size()
+        self.staged = axis.staged and send_left.is_cuda
         host = self.staged
         nxt = axis.index + 1 < axis.size
         prv = axis.index > 0
-        send_right = x_loc[..., -halo:, :]
-        send_left = x_loc[..., :halo, :]
         if host:  # pinned copies out, then the interior can be queued while they land
             pin = {"pin_memory": True}
             send_right_h = torch.empty(shape, dtype=self.dtype, **pin) if nxt else None
@@ -381,7 +384,7 @@ class _Exchange:
         n_rows = (int(nxt) + int(prv)) * halo * int(np.prod(shape[:-2], dtype=np.int64))
         exchange_stats["exchanges"] += 1
         exchange_stats["rows"] += n_rows
-        exchange_stats["bytes"] += n_rows * shape[-1] * x_loc.element_size()
+        exchange_stats["bytes"] += n_rows * shape[-1] * itemsize
         exchange_stats["host_s"] += time.perf_counter() - t0
 
     def wait(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -399,6 +402,36 @@ class _Exchange:
             right = right.to(self.device, non_blocking=True)
         exchange_stats["host_s"] += time.perf_counter() - t0
         return left, right
+
+
+class _HaloExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_loc: torch.Tensor, halo: int, axis: Axis) -> torch.Tensor:
+        ctx.halo, ctx.axis = halo, axis
+        left, right = _Exchange(x_loc, halo, axis).wait()
+        return torch.cat([left, x_loc, right], dim=-2)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        h = ctx.halo
+        g = g.contiguous()
+        # each halo's cotangent goes back to the rank that sent its rows; the
+        # chain's ends received zeros, and their cotangents are dropped
+        from_prev, from_next = _Exchange(None, h, ctx.axis, sends=(g[..., :h, :], g[..., -h:, :])).wait()
+        x_bar = g[..., h:-h, :].clone()
+        x_bar[..., :h, :] += from_prev
+        x_bar[..., -h:, :] += from_next
+        return x_bar, None, None
+
+
+def halo_exchange(x_loc: torch.Tensor, halo: int, axis: Axis) -> torch.Tensor:
+    """``[from_left | x_loc | from_right]``: this rank's rows framed by its
+    neighbours' ``halo`` edge rows (zeros at the chain's ends), as an
+    autograd Function.  Its backward sends each halo's cotangent back to the
+    rank that owns those rows, which adds it into its first or last ``halo``
+    rows (the transpose of the exchange, what JAX differentiates through
+    ``ppermute``)."""
+    return _HaloExchange.apply(x_loc.contiguous(), halo, axis)
 
 
 def _interior(m: PartitionedEll, x_loc: torch.Tensor) -> torch.Tensor:

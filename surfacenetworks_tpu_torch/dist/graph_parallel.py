@@ -1,4 +1,4 @@
-"""Whole-model graph-sharded execution (counterpart of the Laplacian half of
+"""Whole-model graph-sharded execution (counterpart of
 ``surfacenetworks_tpu/dist/graph_parallel.py``).
 
 A model runs with its operator row-partitioned over the graph axis of the
@@ -7,7 +7,10 @@ the model body runs in the graph-sharded context (``parallel_context``):
 
 * every ``apply_operator`` on a ``PartitionedOperator`` exchanges the halo
   with the neighbouring ranks and runs the local products
-  (``edge_partition.partitioned_spmm``);
+  (``edge_partition.partitioned_spmm``); every Dirac apply on a
+  ``PartitionedDirac`` exchanges a vertex or a face halo
+  (``dirac_partition``), and a GAT attend on a ``PartitionedOperator``
+  exchanges its payload once;
 * ``global_average`` and batch-norm statistics sum over the sharded axes,
   so each rank's rows see the global statistics;
 * parameters are replicated; the update sums their gradients over every
@@ -15,16 +18,21 @@ the model body runs in the graph-sharded context (``parallel_context``):
 
 With a data axis of more than one rank (DP x GP) the mesh batch is sharded
 over it too.  ``GraphStore`` keeps every sample's rows of this rank on the
-device, so a step gathers its batch there.
+device, so a step gathers its batch there.  A ``PartitionedDirac`` shards
+its vertex rows and its face rows each by its own count (``N / G`` and ``M
+/ G`` a rank), and the batch's per-vertex arrays by the vertex count.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 
 from surfacenetworks_tpu_torch.data.pipeline import DEVICE_BUDGET_BYTES, _nbytes
+from surfacenetworks_tpu_torch.dist import dirac_partition as dp
+from surfacenetworks_tpu_torch.dist.dirac_partition import PartitionedDirac, shard_partitioned_dirac
 from surfacenetworks_tpu_torch.dist.edge_partition import (
     PartitionedOperator,
     partition_operator,
@@ -47,6 +55,21 @@ def partition_batch_operator(Ls, n_parts: int, n_rows: int, halo: int | None = N
     return stack_partitioned(ops)
 
 
+def partition_batch_dirac(coeffs_list, n_parts: int, n_vertices: int, n_faces: int, max_valence: int | None = None,
+                          axis: str = "graph") -> PartitionedDirac:
+    """Partition a list of per-mesh ``DiracCoeffs`` (vertices RCM-ordered,
+    faces sorted by ``sort_faces_for_partition``) into one batched
+    ``PartitionedDirac`` with shared (largest-need) halos."""
+    ops = [dp.partition_dirac(c, n_parts, n_vertices, n_faces, max_valence=max_valence, axis=axis)
+           for c in coeffs_list]
+    halo_v = max(o.halo_v for o in ops)
+    halo_f = max(o.halo_f for o in ops)
+    if any(o.halo_v != halo_v or o.halo_f != halo_f for o in ops):
+        ops = [dp.partition_dirac(c, n_parts, n_vertices, n_faces, halo_v=halo_v, halo_f=halo_f,
+                                  max_valence=max_valence, axis=axis) for c in coeffs_list]
+    return dp.stack_partitioned_dirac(ops)
+
+
 def prepartition_ell(Ls, n_parts: int, n_rows: int, k: int = 16, interior_fmt: str = "ell", axis: str = "graph"):
     """Partition each operator once with a dataset-wide halo and width
     floors.  Returns ``(ops, floors)``, ``floors = {'min_mb': ...,
@@ -61,6 +84,56 @@ def prepartition_ell(Ls, n_parts: int, n_rows: int, k: int = 16, interior_fmt: s
                    if interior_fmt == "bsr" else 0),
     }
     return ops, floors
+
+
+def prepartition_dirac(coeffs_list, n_parts: int, n_vertices: int, n_faces: int, max_valence: int | None = None,
+                       axis: str = "graph"):
+    """Partition each ``DiracCoeffs`` once with shared halos and width
+    floors.  Returns ``(ops, floors)``, ``floors = {'min_mbf': ...,
+    'min_mbv': ...}`` for ``dirac_partition.stack_partitioned_dirac``."""
+    ops = [dp.partition_dirac(c, n_parts, n_vertices, n_faces, max_valence=max_valence, axis=axis)
+           for c in coeffs_list]
+    halo_v = max(o.halo_v for o in ops)
+    halo_f = max(o.halo_f for o in ops)
+    ops = [o if (o.halo_v == halo_v and o.halo_f == halo_f) else
+           dp.partition_dirac(c, n_parts, n_vertices, n_faces, halo_v=halo_v, halo_f=halo_f, max_valence=max_valence,
+                              axis=axis) for o, c in zip(ops, coeffs_list)]
+    floors = {"min_mbf": max(o.fbnd_rows.shape[0] // n_parts for o in ops),
+              "min_mbv": max(o.vbnd_rows.shape[0] // n_parts for o in ops)}
+    return ops, floors
+
+
+def shard_operator(op, index: int, batch: slice | None = None):
+    """Partition ``index``'s shard of a partitioned operator (a
+    ``PartitionedOperator`` or a ``PartitionedDirac``), of the mesh-batch
+    slice ``batch`` where given."""
+    if isinstance(op, PartitionedDirac):
+        return shard_partitioned_dirac(op, index, batch)
+    return shard_partitioned(op, index, batch)
+
+
+def _n_parts(op) -> int:
+    return op.n_parts if isinstance(op, PartitionedDirac) else op.fwd.n_parts
+
+
+def shard_batch_rows(batch, n_parts: int, index: int):
+    """Partition ``index``'s rows of a host batch (a ``MeshBatch``): every
+    per-vertex array (``[B, N, ...]``, ``N`` the inputs' rows) cut along its
+    rows, every partitioned operator (the batch's and the operators in
+    ``aux``) to its shard; per-sample arrays (class labels) and the faces
+    stay whole."""
+    n = batch.inputs.shape[1]
+
+    def cut(v):
+        if isinstance(v, (PartitionedOperator, PartitionedDirac)):
+            return shard_operator(v, index)
+        if isinstance(v, torch.Tensor) and v.dim() >= 2 and v.shape[1] == n:
+            return v.narrow(1, index * (n // n_parts), n // n_parts).contiguous()
+        return v
+
+    return dataclasses.replace(batch, inputs=cut(batch.inputs), targets=cut(batch.targets), mask=cut(batch.mask),
+                               operator=cut(batch.operator),
+                               aux=None if batch.aux is None else {k: cut(v) for k, v in batch.aux.items()})
 
 
 def make_graph_sharded_apply(mesh: Mesh, apply_fn: Callable, batch_sharded: bool = False) -> Callable:
@@ -79,15 +152,18 @@ def make_graph_sharded_apply(mesh: Mesh, apply_fn: Callable, batch_sharded: bool
     return run
 
 
-def place_graph_batch(mesh: Mesh, op: PartitionedOperator, arrays: dict, batch_sharded: bool = False):
-    """This rank's shards of a global batched operator and of ``[B, N, ...]``
-    arrays, on its device: rows of its graph position, and of its data
-    position's batch slice with ``batch_sharded``.  Returns (op, dict)."""
-    B, N = op.fwd.cols.shape[:2]
+def place_graph_batch(mesh: Mesh, op, arrays: dict, batch_sharded: bool = False):
+    """This rank's shards of a global batched operator (a
+    ``PartitionedOperator`` or a ``PartitionedDirac``) and of ``[B, N,
+    ...]`` arrays, on its device: rows of its graph position, and of its
+    data position's batch slice with ``batch_sharded``.  Returns (op,
+    dict)."""
+    arrays = {k: torch.as_tensor(v) for k, v in arrays.items()}
+    B, N = next(iter(arrays.values())).shape[:2]
     sl = batch_sharding(mesh, B) if batch_sharded else replicated(mesh, B)
-    rows = shard_slice(N, op.fwd.n_parts, mesh.graph_index)
-    op_loc = shard_partitioned(op, mesh.graph_index, sl).to(mesh.device)
-    return op_loc, {k: put_global(torch.as_tensor(v)[sl], rows, mesh.device, dim=1) for k, v in arrays.items()}
+    rows = shard_slice(N, _n_parts(op), mesh.graph_index)
+    op_loc = shard_operator(op, mesh.graph_index, sl).to(mesh.device)
+    return op_loc, {k: put_global(v[sl], rows, mesh.device, dim=1) for k, v in arrays.items()}
 
 
 class GraphStore:
@@ -96,7 +172,7 @@ class GraphStore:
     ``[S, ...]``), placed once; a batch is an index gather on the device
     (``gather``), of this rank's batch slice under DP x GP."""
 
-    def __init__(self, mesh: Mesh, op: PartitionedOperator, arrays: dict, index_of: dict, items: list,
+    def __init__(self, mesh: Mesh, op, arrays: dict, index_of: dict, items: list,
                  batch_sharded: bool):
         self.mesh = mesh
         self.op = op
@@ -106,10 +182,11 @@ class GraphStore:
         self.batch_sharded = batch_sharded
 
     @classmethod
-    def build(cls, mesh: Mesh, samples: list, op_stacked: PartitionedOperator, arrays: dict,
+    def build(cls, mesh: Mesh, samples: list, op_stacked, arrays: dict,
               batch_sharded: bool = False, budget_bytes: int = DEVICE_BUDGET_BYTES) -> "GraphStore | None":
         """``op_stacked``: the ``[S, ...]``-stacked partitioned operator of
-        all ``samples``; ``arrays``: ``[S, N, ...]`` host arrays.  None past
+        all ``samples`` (a ``PartitionedOperator`` or a
+        ``PartitionedDirac``); ``arrays``: ``[S, N, ...]`` host arrays.  None past
         ``budget_bytes`` of the whole store, as in the JAX package (the
         caller keeps the host route); else every sample's rows of this rank,
         placed on its device."""

@@ -25,9 +25,14 @@ batch norm reads the operator result unrounded.
 tensor, a rank's shard of a row-partitioned ``PartitionedOperator`` (inside
 the graph-sharded context: ``dist.edge_partition.partitioned_spmm``), or any
 callable ``x -> L x`` (dispatch in ``apply_operator``).  A
-Dirac operator is a structured ``DiracOperator`` or a dense pair ``(Di [B,
-4M, 4N], DiA [B, 4N, 4M])`` (dispatch in ``apply_dirac_vf`` /
-``apply_dirac_fv``).
+Dirac operator is a structured ``DiracOperator``, a rank's shard of a
+row-partitioned ``PartitionedDirac`` (inside the graph-sharded context:
+``dist.dirac_partition.partitioned_dirac_vf`` / ``_fv``), or a pair ``(Di,
+DiA)`` on quaternion rows, each a dense ``[B, 4M, 4N]`` tensor or an
+``EllOperator`` (applied through ``spmm``, the ``ell_matmul`` kernel)
+(dispatch in ``apply_dirac_vf`` / ``apply_dirac_fv``).  ``gat_attend``
+takes an ``EllOperator`` or, inside the graph-sharded context, a rank's
+shard of a ``PartitionedOperator``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from surfacenetworks_tpu_torch.dist.edge_partition import PartitionedOperator, partitioned_spmm
+from surfacenetworks_tpu_torch import parallel_context
+from surfacenetworks_tpu_torch.dist.dirac_partition import PartitionedDirac, partitioned_dirac_fv, partitioned_dirac_vf
+from surfacenetworks_tpu_torch.dist.edge_partition import PartitionedOperator, halo_exchange, partitioned_spmm
 from surfacenetworks_tpu_torch.nn.layers import GraphBatchNorm, GraphConv1x1, global_average
 from surfacenetworks_tpu_torch.sparse.bsr import BsrOperator
 from surfacenetworks_tpu_torch.sparse.ell import DiracOperator, EllOperator
@@ -63,41 +70,53 @@ def apply_operator(op: Any, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"unsupported operator {type(op).__name__}")
 
 
-def _dense_pair(op: Any) -> tuple[torch.Tensor, torch.Tensor]:
-    if isinstance(op, tuple) and len(op) == 2 and all(isinstance(t, torch.Tensor) for t in op):
-        return op
-    raise TypeError(f"unsupported Dirac operator {type(op).__name__}: a DiracOperator or a dense (Di, DiA) pair")
+def _pair(op: Any, side: int) -> Any:
+    """Matrix ``side`` (0: ``Di``, 1: ``DiA``) of a ``(Di, DiA)`` pair; the
+    other may be None where only one direction is applied."""
+    if isinstance(op, tuple) and len(op) == 2 and isinstance(op[side], (torch.Tensor, EllOperator)):
+        return op[side]
+    raise TypeError(f"unsupported Dirac operator {type(op).__name__}: a DiracOperator, a PartitionedDirac, or a "
+                    "(Di, DiA) pair of dense tensors or of EllOperators")
 
 
-def _dense_dirac(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A dense Dirac matrix ``[B, 4R, 4S]`` on ``x [B, S, C]`` in quaternion
-    layout: ``x`` viewed ``[B, 4S, C/4]``; the product is in the wider of
-    the two dtypes (fp32 on bf16 ``x``, fp64 on fp64 ``x``), as in the JAX
-    package."""
+def _quaternion_rows(d: Any, x: torch.Tensor) -> torch.Tensor:
+    """One matrix of a Dirac pair on ``x [B, S, C]`` in quaternion layout:
+    ``x`` viewed ``[B, 4S, C/4]``, through ``spmm`` (``ell_matmul``) for an
+    ``EllOperator`` or ``dense_bmm`` for a dense ``[B, 4R, 4S]`` tensor; a
+    dense product is in the wider of the two dtypes (fp32 on bf16 ``x``,
+    fp64 on fp64 ``x``), as in the JAX package."""
     *lead, n, c = x.shape
-    out = dense_bmm(d, x.reshape(*lead, n * 4, c // 4))
+    xq = x.reshape(*lead, n * 4, c // 4)
+    out = spmm(d, xq) if isinstance(d, EllOperator) else dense_bmm(d, xq)
     return out.reshape(*lead, out.shape[-2] // 4, c)
 
 
 def apply_dirac_vf(op: Any, v: torch.Tensor) -> torch.Tensor:
-    """``Di @ v`` (vertices -> faces) for a structured or a dense operator."""
+    """``Di @ v`` (vertices -> faces) for a structured, a partitioned, an
+    ELL-pair or a dense operator."""
     if isinstance(op, DiracOperator):
         return dirac_apply_vf(op, v)
-    return _dense_dirac(_dense_pair(op)[0], v)
+    if isinstance(op, PartitionedDirac):
+        return partitioned_dirac_vf(op, v)
+    return _quaternion_rows(_pair(op, 0), v)
 
 
 def apply_dirac_fv(op: Any, f: torch.Tensor) -> torch.Tensor:
     """``DiA @ f`` (faces -> vertices)."""
     if isinstance(op, DiracOperator):
         return dirac_apply_fv(op, f)
-    return _dense_dirac(_dense_pair(op)[1], f)
+    if isinstance(op, PartitionedDirac):
+        return partitioned_dirac_fv(op, f)
+    return _quaternion_rows(_pair(op, 1), f)
 
 
 def dirac_num_faces(op: Any) -> int:
-    """Face count of a structured or a dense Dirac operator."""
-    if isinstance(op, DiracOperator):
-        return op.n_faces
-    return _dense_pair(op)[0].shape[-2] // 4
+    """Face count of a Dirac operator; of a ``PartitionedDirac`` shard the
+    LOCAL face count, which the zero face stream needs there."""
+    if isinstance(op, (DiracOperator, PartitionedDirac)):
+        return op.faces.shape[-2]
+    di = _pair(op, 0)
+    return (di.fwd.n_rows if isinstance(di, EllOperator) else di.shape[-2]) // 4
 
 
 def _cat_op(x: torch.Tensor, ox: torch.Tensor) -> torch.Tensor:
@@ -288,7 +307,64 @@ class _SlotGather(torch.autograd.Function):
         return None, per.sum(dim=2)
 
 
-def gat_attend(op: EllOperator, xh: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
+def _attend_slots(g: torch.Tensor, live: torch.Tensor, s_src: torch.Tensor, heads: int, ch: int,
+                  negative_slope: float) -> torch.Tensor:
+    """The attention of rows over their gathered slots: ``g [B, R, K, H *
+    ch + H]`` (features and destination scores), ``live [B, R, K]``,
+    ``s_src [B, R, H]`` -> ``[B, R, H, ch]``; dead slots score -1e9, rows
+    without a live slot give zero."""
+    live = live[..., None]
+    e = F.leaky_relu(s_src[:, :, None, :] + g[..., heads * ch:], negative_slope)
+    a = torch.softmax(torch.where(live, e, torch.full_like(e, -1e9)), dim=2)  # [B, R, K, H]
+    out = (a[..., None] * g[..., : heads * ch].unflatten(-1, (heads, ch))).sum(dim=2)  # [B, R, H, ch]
+    return out * live.any(dim=2)[..., None].to(out.dtype)
+
+
+def _slots(payload: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``payload [B, N, P]`` at each slot of ``cols [B, R, K]``: ``[B, R, K,
+    P]`` (one gather; its backward is autograd's)."""
+    B, R, K = cols.shape
+    P = payload.shape[-1]
+    return torch.gather(payload, 1, cols.reshape(B, R * K, 1).long().expand(B, R * K, P)).view(B, R, K, P)
+
+
+def _gat_attend_partitioned(pop: PartitionedOperator, xh: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
+                            negative_slope: float) -> torch.Tensor:
+    """The attend on a rank's shard of a row-partitioned operator, inside
+    the graph-sharded context (JAX's ``_gat_attend_partitioned``).  The
+    partition's split is softmax-exact: each row's whole slot list lives in
+    one table (interior rows in the local table, whose boundary rows are
+    all dead, boundary rows in the side table), so the two tables' outputs
+    are computed apart and added.  The payload (features and destination
+    scores, ``[rows, H * ch + H]``) crosses the partition once per attend,
+    through the differentiable ``halo_exchange``; the gradients are
+    autograd's through the gathers and the exchange."""
+    m = pop.fwd
+    batched = m.cols.dim() == 3
+    if not batched:
+        m = dataclasses.replace(m, **{f: getattr(m, f)[None] for f in ("cols", "vals", "bnd_rows", "bnd_cols",
+                                                                       "bnd_vals")})
+        xh, s_src, s_dst = xh[None], s_src[None], s_dst[None]
+    B, N, H, ch = xh.shape
+    dt = torch.promote_types(xh.dtype, s_dst.dtype)
+    payload = torch.cat([xh.reshape(B, N, H * ch).to(dt), s_dst.to(dt)], dim=-1)
+    s_src = s_src.to(dt)
+    out = _attend_slots(_slots(payload, m.cols), m.vals != 0, s_src, H, ch, negative_slope)
+    if m.halo > 0 and m.bnd_rows.shape[-1] > 0:
+        axis = parallel_context.vertex_reduction_axis()
+        if axis is None or axis.size != m.n_parts:
+            raise RuntimeError(f"gat_attend: an operator of {m.n_parts} partitions needs a graph axis of "
+                               f"{m.n_parts} ranks in the sharded context, got {None if axis is None else axis.size}")
+        pext = halo_exchange(payload, m.halo, axis)
+        rows = m.bnd_rows.long()
+        s_b = torch.gather(s_src, 1, rows[..., None].expand(B, rows.shape[1], H))
+        out_b = _attend_slots(_slots(pext, m.bnd_cols), m.bnd_vals != 0, s_b, H, ch, negative_slope)
+        flat = (rows + torch.arange(B, device=rows.device)[:, None] * N).reshape(-1)
+        out = out.reshape(B * N, H, ch).index_add(0, flat, out_b.reshape(-1, H, ch)).view(B, N, H, ch)
+    return out if batched else out[0]
+
+
+def gat_attend(op, xh: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
                negative_slope: float = 0.2) -> torch.Tensor:
     """Masked multi-head graph attention over ``op.fwd``'s ELL pattern:
     per-slot additive scores ``e[r, k] = leaky_relu(s_src[r] + s_dst[cols[r,
@@ -302,9 +378,14 @@ def gat_attend(op: EllOperator, xh: torch.Tensor, s_src: torch.Tensor, s_dst: to
     destination scores together), as the JAX package's gather formulation
     (``nn/blocks.py::_gat_slots_attend``); its banded formulation computes
     the same function (the same finite support).  Plain PyTorch: the
-    backward is autograd's, but for the gather's (``_SlotGather``)."""
+    backward is autograd's, but for the gather's (``_SlotGather``).  A
+    ``PartitionedOperator`` shard attends on this rank's rows
+    (``_gat_attend_partitioned``)."""
+    if isinstance(op, PartitionedOperator):
+        return _gat_attend_partitioned(op, xh, s_src, s_dst, negative_slope)
     if not isinstance(op, EllOperator):
-        raise TypeError(f"gat_attend needs an EllOperator (the pattern), got {type(op).__name__}")
+        raise TypeError(f"gat_attend needs an EllOperator (the pattern) or a PartitionedOperator shard, got "
+                        f"{type(op).__name__}")
     batched = op.fwd.cols.dim() == 3
     if not batched:
         op = EllOperator(fwd=dataclasses.replace(op.fwd, cols=op.fwd.cols[None], vals=op.fwd.vals[None]),
@@ -314,11 +395,7 @@ def gat_attend(op: EllOperator, xh: torch.Tensor, s_src: torch.Tensor, s_dst: to
     dt = torch.promote_types(xh.dtype, s_dst.dtype)
     payload = torch.cat([xh.reshape(B, N, H * ch).to(dt), s_dst.to(dt)], dim=-1)
     g = _SlotGather.apply(op, payload)  # [B, R, K, H * ch + H]
-    live = (op.fwd.vals != 0)[..., None]  # [B, R, K, 1]
-    e = F.leaky_relu(s_src.to(dt)[:, :, None, :] + g[..., H * ch:], negative_slope)
-    a = torch.softmax(torch.where(live, e, torch.full_like(e, -1e9)), dim=2)  # [B, R, K, H]
-    out = (a[..., None] * g[..., : H * ch].unflatten(-1, (H, ch))).sum(dim=2)  # [B, R, H, ch]
-    out = out * live.any(dim=2)[..., None].to(dt)
+    out = _attend_slots(g, op.fwd.vals != 0, s_src.to(dt), H, ch, negative_slope)
     return out if batched else out[0]
 
 

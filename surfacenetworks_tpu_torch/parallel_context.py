@@ -21,7 +21,10 @@ single-device path).
 
 ``psum`` is ``all_reduce(SUM)`` as an autograd Function: its backward sums
 the cotangents over the same axes, which is the gradient of the global loss
-when that loss is the sum of the ranks' shares.  ``total`` is the same sum
+when that loss is the sum of the ranks' shares (a value every rank of the
+vertex axis holds whole, such as a pooled head's loss, enters as its
+``replicated_share``).  ``gather_rows`` is the differentiable all-gather of
+a row-sharded value that every rank reads whole.  ``total`` is the same sum
 without a graph (normalisers and reported metrics), and ``sum_gradients``
 sums the replicated parameters' gradients before an update.  On an axis whose group
 runs over gloo while the tensors live on a card (``Axis.staged``), each
@@ -100,6 +103,14 @@ def batch_reduction_axis() -> Axis | None:
     return current_axes().batch_axis
 
 
+def replicated_share(x: torch.Tensor) -> torch.Tensor:
+    """This rank's share of a value that every rank of the vertex axis
+    holds whole (a loss of pooled, graph-replicated outputs): ``x`` over the
+    axis's size, so the shares sum to ``x`` and its gradient enters once."""
+    axis = vertex_reduction_axis()
+    return x if axis is None else x / axis.size
+
+
 def all_reduce_(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``all_reduce(SUM)`` of ``t`` in place over ``axis`` (also over a
     group of one rank); a CUDA tensor on a staged axis goes through a host
@@ -141,6 +152,45 @@ def psum(x: torch.Tensor, axes: Sequence[Axis | None]) -> torch.Tensor:
     if not axes:
         return x
     return _Psum.apply(x, axes)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, axis: Axis) -> torch.Tensor:
+        import torch.distributed as dist
+
+        ctx.axis, ctx.n = axis, x.shape[-2]
+        src = x.detach().cpu() if axis.staged and x.is_cuda else x.detach().contiguous()
+        parts = [torch.empty_like(src) for _ in range(axis.size)]
+        dist.all_gather(parts, src, group=axis.group)
+        return torch.cat(parts, dim=-2).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        import torch.distributed as dist
+
+        axis, n = ctx.axis, ctx.n
+        if axis.staged or dist.get_backend(axis.group) != "nccl":
+            # gloo: the whole cotangent summed over the axis, then the owner's rows
+            full = all_reduce_(g.clone().contiguous(), axis)
+            return full.narrow(-2, axis.index * n, n).contiguous(), None
+        out = g.new_empty(g.shape[:-2] + (n, g.shape[-1]))
+        chunks = [c.contiguous() for c in g.split(n, dim=-2)]
+        dist.reduce_scatter(out, chunks, group=axis.group)
+        return out, None
+
+
+def gather_rows(x: torch.Tensor, axis: Axis | None) -> torch.Tensor:
+    """Every rank's rows of ``x`` along ``axis``, concatenated along the row
+    axis (-2) in the axis's order, differentiable: the backward sums every
+    rank's cotangent of the whole and returns this rank's rows of the sum (a
+    reduce-scatter: NCCL's own; on a gloo axis an ``all_reduce`` of the
+    whole cotangent and this rank's slice, staged through the host on a
+    card).  What a row-sharded value read whole by every rank needs, as the
+    FAUST logits read the second shape's features."""
+    if axis is None or axis.size == 1:
+        return x
+    return _GatherRows.apply(x, axis)
 
 
 @torch.no_grad()

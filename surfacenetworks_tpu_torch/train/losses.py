@@ -34,7 +34,9 @@ batch or of the vertex rows) each loss and metric returns this rank's
 share: its own terms over the GLOBAL normaliser (the mask sum over every
 sharded axis, or the global batch over the batch axis), so the global value
 is the sum of the shares (``parallel_context.total``) and the gradients of
-the shares, summed over the ranks, are the global loss's.
+the shares, summed over the ranks, are the global loss's.  A term of pooled
+outputs, which every rank of the vertex axis holds whole (the classifier's
+NLL and accuracy, the VAE's KLD), enters as its ``replicated_share``.
 ``smooth_l1_sum`` takes the global batch size from its caller.
 
 Under mixed precision the losses take their inputs at fp32 or wider
@@ -95,13 +97,14 @@ def smooth_l1_sum(outputs: torch.Tensor, targets: torch.Tensor, batch_size: int)
 
 def nll_loss(log_probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean over the batch of ``-log_probs[b, targets[b]]``."""
-    return -_batch_mean(at_least_fp32(log_probs).gather(1, targets.long()[:, None])[:, 0])
+    return -parallel_context.replicated_share(
+        _batch_mean(at_least_fp32(log_probs).gather(1, targets.long()[:, None])[:, 0]))
 
 
 @torch.no_grad()
 def accuracy(log_probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Share of the batch whose argmax class is its target (fp32)."""
-    return _batch_mean((torch.argmax(log_probs, dim=1) == targets.long()).float())
+    return parallel_context.replicated_share(_batch_mean((torch.argmax(log_probs, dim=1) == targets.long()).float()))
 
 
 def log_normal_diag(z: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
@@ -120,7 +123,8 @@ def vae_elbo_terms(recon_mu, recon_logvar, mask, x, z, mu, logvar) -> tuple[torc
     rec = log_normal_diag(x.reshape(b, -1), recon_mu.reshape(b, -1), recon_logvar.reshape(b, -1))
     bce = -_batch_mean((rec * mk).sum(dim=1))
     zero = torch.zeros_like(z)
-    kld = _batch_mean((log_normal_diag(z, mu, logvar) - log_normal_diag(z, zero, zero)).sum(dim=1))
+    kld = parallel_context.replicated_share(
+        _batch_mean((log_normal_diag(z, mu, logvar) - log_normal_diag(z, zero, zero)).sum(dim=1)))
     return bce, kld
 
 

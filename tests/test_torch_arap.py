@@ -421,18 +421,24 @@ def test_port_reads_a_jax_arap_checkpoint(case, jax_runs, tmp_path):
     assert abs(loss - jloss) <= CKPT_RTOL * abs(jloss), (loss, jloss)
 
 
-@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"],
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2", "--data-parallel", "2"],
                                   ["--dump-rollout", "x"], ["--config", "c.json"], ["--preset", "arap-lap"]])
 def test_train_arap_refuses_unported_flags(flag, tmp_path):
-    """``--graph-parallel`` and ``--dump-rollout`` are refused by name;
-    ``--data-parallel``, refused before it was ported, runs
-    (``tests/test_torch_dist_train.py``) and refuses a batch its ranks
-    cannot split with the JAX trainer's message; ``--config`` and
+    """``--dump-rollout`` is refused by name; ``--data-parallel``, refused
+    before it was ported, runs (``tests/test_torch_dist_train.py``) and
+    refuses a batch its ranks cannot split with the JAX trainer's message;
+    ``--graph-parallel``, refused before it was ported, runs
+    (``tests/test_torch_dist_gp_train.py``) and refuses ``--data-parallel``
+    beside it with the JAX trainer's message; ``--config`` and
     ``--preset``, refused before they were ported, are taken
     (``tests/test_torch_config.py`` holds each preset to the JAX package's
     resolution)."""
     if flag[0] in ("--config", "--preset"):
         config_flag_taken(ttrain.parser, flag, tmp_path, ttrain.refuse_unported)
+        return
+    if flag[0] == "--graph-parallel":
+        with pytest.raises(SystemExit, match="--graph-parallel and --data-parallel are mutually exclusive here"):
+            ttrain.main(["--device", "cpu", "--data-path", str(ARAP), "--result-dir", str(tmp_path), *flag])
         return
     if flag[0] == "--data-parallel":
         with pytest.raises(SystemExit, match="batch size 3 not divisible by --data-parallel 2"):

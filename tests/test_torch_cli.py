@@ -42,9 +42,10 @@ JAX_FAUST_LINES = [
 @pytest.mark.parametrize("line", range(len(JAX_FAUST_LINES)))
 def test_jax_faust_command_lines_parse(line):
     """Each line parses to what the JAX parser makes of it, and the port
-    refuses by name exactly what it does not run (graph-parallel) and
-    nothing else; the sl1 loss with the streaming head exits as the JAX
-    trainer does (the streaming head is dcel's only)."""
+    refuses none of them (the graph-parallel line runs since the port's
+    graph-parallel FAUST trainer, ``tests/test_torch_dist_gp_train.py``);
+    the sl1 loss with the streaming head exits as the JAX trainer does (the
+    streaming head is dcel's only)."""
     from surfacenetworks_tpu.cli import train_correspondence as jtrain
     from surfacenetworks_tpu_torch.cli import train_correspondence as ttrain
 
@@ -53,12 +54,7 @@ def test_jax_faust_command_lines_parse(line):
     for key in ("synthetic", "layer", "num_epoch", "num_updates", "num_vertices", "batch_size", "no_epoch_scan",
                 "streaming_head", "graph_parallel", "loss", "deser_option"):
         assert got[key] == ref[key], key
-    args = ttrain.parser.parse_args(argv)
-    if "--graph-parallel" in argv:
-        with pytest.raises(SystemExit, match="not ported yet: --graph-parallel"):
-            ttrain.refuse_unported(args)
-    else:
-        ttrain.refuse_unported(args)
+    ttrain.refuse_unported(ttrain.parser.parse_args(argv))
     if "sl1" in argv:
         with pytest.raises(SystemExit, match="--streaming-head supports --loss dcel only"):
             ttrain.CorrespondenceTrainer(ttrain.parser.parse_args(argv + ["--device", "cpu"]), log=lambda _: None)
@@ -80,15 +76,19 @@ def test_train_correspondence_refuses_config_flags(flag, tmp_path):
 @pytest.mark.parametrize("name", TRAINERS)
 def test_bf16_is_not_refused(name):
     """``--bf16`` (mixed precision) is on no trainer's refused list, while a
-    flag that is still refused (``--graph-parallel``; in the normal trainer
-    with ``--model dirac``, its Laplacian path runs) is, by name, in the
-    same call."""
+    flag that is still refused is, in the same call: ``--multihost`` (normal,
+    FAUST) and ``--dump-rollout`` (ARAP) by name; the mesh-MNIST and VAE
+    trainers run every flag of theirs, and the JAX trainers' own refusal of
+    ``--graph-parallel`` beside ``--data-parallel`` stands in for them."""
     mod = importlib.import_module(f"surfacenetworks_tpu_torch.cli.{name}")
     refuse = mod.refuse_unported if name not in ("train_mnist", "train_vae") else (
         lambda args: mod.refuse_unported(args, name))
     args = mod.parser.parse_args(["--bf16"])
     assert args.bf16
     refuse(args)
-    still = ["--model", "dirac"] if name == "train_normal" else []
-    with pytest.raises(SystemExit, match="not ported yet: --graph-parallel"):
-        refuse(mod.parser.parse_args(["--bf16", "--graph-parallel", "2", *still]))
+    still, msg = {"train_arap": (["--dump-rollout", "x"], "not ported yet: --dump-rollout"),
+                  "train_mnist": (["--graph-parallel", "2", "--data-parallel", "2"], "mutually exclusive"),
+                  "train_vae": (["--graph-parallel", "2", "--data-parallel", "2"], "mutually exclusive")}.get(
+        name, (["--multihost"], "not ported yet: --multihost"))
+    with pytest.raises(SystemExit, match=msg):
+        refuse(mod.parser.parse_args(["--bf16", *still]))

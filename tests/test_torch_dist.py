@@ -332,16 +332,20 @@ def test_train_normal_main_runs_ranks(tmp_path):
 
 
 REFUSED = [
-    ("train_normal", ["--graph-parallel", "2", "--model", "dirac"], "not ported yet: --graph-parallel with --model dirac"),
-    ("train_normal", ["--graph-parallel", "2", "--model", "gat"], "not ported yet: --graph-parallel with --model gat"),
+    ("train_normal", ["--graph-parallel", "2", "--model", "dirac", "--operator-format", "bsr"], "supports ell or bsr"),
+    ("train_normal", ["--graph-parallel", "2", "--model", "cas"], "supports the lap, dirac and gat models"),
     ("train_normal", ["--multihost"], "not ported yet: --multihost"),
     ("train_normal", ["--graph-parallel", "2", "--model", "avg"], "supports the lap, dirac and gat models"),
     ("train_normal", ["--graph-parallel", "2", "--operator-format", "dense"], "supports ell or bsr"),
     ("train_normal", ["--data-parallel", "2", "--model", "cas"], "does not support the cascade model"),
-    ("train_arap", ["--graph-parallel", "2"], "not ported yet: --graph-parallel"),
-    ("train_mnist", ["--graph-parallel", "2"], "not ported yet: --graph-parallel"),
-    ("train_vae", ["--graph-parallel", "2"], "not ported yet: --graph-parallel"),
-    ("train_correspondence", ["--graph-parallel", "2"], "not ported yet: --graph-parallel"),
+    ("train_arap", ["--graph-parallel", "2", "--dense"], "partitions sparse operators; drop --dense"),
+    ("train_mnist", ["--graph-parallel", "2", "--model", "avg"], "supports the lap and dirac models"),
+    ("train_vae", ["--graph-parallel", "2", "--data-parallel", "2"], "mutually exclusive here"),
+    ("train_correspondence", ["--graph-parallel", "2", "--model", "amp"], "supports the lap and dir trunks"),
+    ("train_arap", ["--graph-parallel", "2", "--model", "gcn"], "supports the lap and dir models"),
+    ("train_mnist", ["--graph-parallel", "2", "--data-parallel", "2"], "mutually exclusive here"),
+    ("train_correspondence", ["--graph-parallel", "2", "--smooth-reg", "0.1"], "requires the single-device fast path"),
+    ("train_correspondence", ["--multihost"], "not ported yet: --multihost"),
 ]
 
 

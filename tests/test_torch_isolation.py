@@ -4,7 +4,8 @@ package, msgpack and matplotlib cannot be imported (as on the machine with
 the card, which has none of them), and no port source names them (the
 config presets, the launcher, the export entry point, the native runtime's
 bindings, ``preprocess``, the sampler, the spectral descriptors and the
-timing tools and the distributed runtime among them, ``torch.distributed``
+timing tools and the distributed runtime, the Dirac partition included,
+among them, ``torch.distributed``
 allowed), also in a rank that ``dist.mesh_setup.launch`` spawns for
 ``tests/_torch_dist_worker.py``.  Also:
 the port's entry points refuse to run on the CPU unless asked
@@ -40,7 +41,7 @@ import surfacenetworks_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for want in ("config", "cli.launch", "cli.export_model", "serve", "native", "cli.preprocess", "geometry.sampling",
              "geometry.spectral", "train.timing", "dist", "dist.mesh_setup", "dist.data_parallel", "dist.edge_partition",
-             "dist.graph_parallel", "parallel_context", "train.loop"):
+             "dist.graph_parallel", "dist.dirac_partition", "parallel_context", "train.loop"):
     assert pkg.__name__ + "." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -114,7 +115,8 @@ def test_port_sources_name_no_jax():
                                                                  "tests/_torch_dist_worker.py")]
     assert len(sources) >= 15
     for want in ("native/__init__.py", "cli/preprocess.py", "geometry/sampling.py", "geometry/spectral.py",
-                 "train/timing.py", "dist/edge_partition.py", "dist/mesh_setup.py", "parallel_context.py"):
+                 "train/timing.py", "dist/edge_partition.py", "dist/mesh_setup.py", "dist/dirac_partition.py",
+                 "parallel_context.py"):
         assert PACKAGE / want in sources, want
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -431,15 +431,17 @@ def test_train_mnist_main_cpu(model, tmp_path):
     assert ckpt["epoch"] == 0 and ckpt["step"] == 1 and "opt_state" in ckpt
 
 
-@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"],
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2", "--model", "avg"],
                                   ["--config", "c.json"], ["--preset", "mnist"]])
 def test_train_mnist_refuses_unported_flags(flag, tmp_path):
-    """``--graph-parallel`` is refused by name; ``--data-parallel``,
-    refused before it was ported, runs (``tests/test_torch_dist_train.py``)
-    and refuses a batch its ranks cannot split with the JAX trainer's
-    message; ``--config`` and ``--preset``, refused before they were
-    ported, are taken (``tests/test_torch_config.py`` holds each preset to
-    the JAX package's resolution)."""
+    """``--data-parallel`` and ``--graph-parallel``, refused before they were
+    ported, run (``tests/test_torch_dist_train.py``,
+    ``tests/test_torch_dist_gp_mesh.py``) and refuse what the JAX trainer
+    refuses with its messages: a batch the data ranks cannot split, a
+    graph-parallel model other than lap or dirac; ``--config`` and
+    ``--preset``, refused before they were ported, are taken
+    (``tests/test_torch_config.py`` holds each preset to the JAX package's
+    resolution)."""
     if flag[0] in ("--config", "--preset"):
         config_flag_taken(ttrain.parser, flag, tmp_path, lambda a: ttrain.refuse_unported(a, "train_mnist"))
         return
@@ -447,7 +449,7 @@ def test_train_mnist_refuses_unported_flags(flag, tmp_path):
         with pytest.raises(SystemExit, match="batch size 3 not divisible by --data-parallel 2"):
             ttrain.main(_argv(tmp_path, *flag, "--batch-size", "3"))
         return
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="--graph-parallel supports the lap and dirac models"):
         ttrain.main(_argv(tmp_path, *flag))
 
 

@@ -438,11 +438,12 @@ def test_train_normal_resumes_from_a_jax_checkpoint(tmp_path):
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"], ["--config", "c"],
                                   ["--jax-profile", "x"], ["--preset", "p"], ["--multihost"]])
 def test_train_normal_refuses_unported_flags(flag, tmp_path):
-    """``--multihost`` and ``--graph-parallel`` with the Dirac model are
-    refused by name; ``--data-parallel`` and ``--graph-parallel`` with
-    ``--model lap``, refused before they were ported, run
-    (``tests/test_torch_dist_train.py``): a batch the data ranks cannot
-    split exits with the JAX trainer's message.  ``--config`` and
+    """``--multihost`` is refused by name; ``--data-parallel`` and
+    ``--graph-parallel``, refused before they were ported, run
+    (``tests/test_torch_dist_train.py``, ``tests/test_torch_dist_gp_train.py``):
+    a batch the data ranks cannot split and the Dirac model with a BSR
+    format under ``--graph-parallel`` exit with the JAX trainer's
+    messages.  ``--config`` and
     ``--preset``, refused before they were ported, are taken
     (``tests/test_torch_config.py`` holds each preset to the JAX package's
     resolution), and so is ``--jax-profile``, which writes a trace of the
@@ -460,6 +461,10 @@ def test_train_normal_refuses_unported_flags(flag, tmp_path):
             ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag,
                          "--batch-size", "3"])
         return
-    still = ["--model", "dirac"] if flag[0] == "--graph-parallel" else []
+    if flag[0] == "--graph-parallel":
+        with pytest.raises(SystemExit, match="--graph-parallel supports ell or bsr operator formats"):
+            ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag,
+                         "--model", "dirac", "--operator-format", "bsr"])
+        return
     with pytest.raises(SystemExit, match="not ported yet"):
-        ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag, *still])
+        ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag])

@@ -343,10 +343,11 @@ def test_train_normal_zoo_main_cpu(tmp_path):
     """``main`` end to end on the fixtures with ``--flip-variants 1`` (gat,
     also with ``--bf16``, and mlp; the step of every model is held above):
     finite losses, the log's flip and format lines, and a checkpoint of the
-    right model; ``--data-parallel`` with the cascade exits with the JAX
-    trainer's message and ``--graph-parallel`` with gat is refused by name,
-    and
-    ``--jax-profile`` writes a trace of the first epoch (gat)."""
+    right model; ``--data-parallel`` with the cascade and
+    ``--graph-parallel`` with mlp exit with the JAX trainer's messages
+    (``--graph-parallel`` with gat, refused by name before it was ported,
+    runs: ``tests/test_torch_dist_gp_train.py``), and ``--jax-profile``
+    writes a trace of the first epoch (gat)."""
     for model, extra in (("mlp", []), ("gat", []), ("gat", ["--bf16"])):
         out = tmp_path / f"{model}{len(extra)}"
         hist = ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--model", model, "--layer", "2",
@@ -363,9 +364,9 @@ def test_train_normal_zoo_main_cpu(tmp_path):
     with pytest.raises(SystemExit, match="--data-parallel does not support the cascade model"):
         ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), "--data-parallel", "2",
                      "--model", "cas"])
-    with pytest.raises(SystemExit, match="not ported yet: --graph-parallel with --model gat"):
+    with pytest.raises(SystemExit, match="--graph-parallel supports the lap, dirac and gat models"):
         ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), "--graph-parallel",
-                     "2", "--model", "gat"])
+                     "2", "--model", "mlp"])
     trace = profile_flag_writes_trace(ttrain.main, ["--device", "cpu", "--data-path", str(OBJS), "--model", "gat",
                                                     "--layer", "2", "--num-epoch", "1", "--num-updates", "1",
                                                     "--batch-size", "2"], tmp_path)

@@ -303,10 +303,12 @@ def test_trainer_takes_its_scans_from_code(fmt):
     assert torch.equal(code.update(0, 1, rots), flags.update(0, 1, rots))
 
 
-@pytest.mark.parametrize("flag", [["--graph-parallel", "2"], ["--multihost"], ["--config", "any.json"],
-                                  ["--loss", "sl1", "past the budget"]])
+@pytest.mark.parametrize("flag", [["--graph-parallel", "2", "--model", "amp"], ["--multihost"],
+                                  ["--config", "any.json"], ["--loss", "sl1", "past the budget"]])
 def test_train_correspondence_refuses_unported_flags(flag, tmp_path, monkeypatch):
-    """The multi-device flags are refused by name.  ``--config`` and sl1
+    """``--multihost`` is refused by name; ``--graph-parallel``, refused
+    before it was ported, runs (``tests/test_torch_dist_gp_train.py``) and
+    refuses the amp trunk with the JAX trainer's message.  ``--config`` and sl1
     (or cel) with geodesic matrices past the device budget (the budget set
     below the fixtures' 115 KB here), refused before they were ported, now
     run: the config file's values are taken, and sl1 trains through the JAX
@@ -327,6 +329,10 @@ def test_train_correspondence_refuses_unported_flags(flag, tmp_path, monkeypatch
         args = config.parse_with_config(ttrain.parser, ["--config", str(tmp_path / flag[1])])
         assert (args.seed, args.loss) == (23, "cel")
         ttrain.refuse_unported(args)
+        return
+    if flag[0] == "--graph-parallel":
+        with pytest.raises(SystemExit, match="--graph-parallel supports the lap and dir trunks"):
+            ttrain.main(argv + flag)
         return
     with pytest.raises(SystemExit, match="not ported yet"):
         ttrain.main(argv + flag)

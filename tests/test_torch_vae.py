@@ -331,13 +331,14 @@ def test_train_vae_main_cpu(model, tmp_path):
         np.testing.assert_array_equal(F[: test["F"].shape[0]], test["F"])
 
 
-@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"],
+@pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2", "--data-parallel", "2"],
                                   ["--config", "c.json"], ["--preset", "vae"]])
 def test_train_vae_refuses_unported_flags(flag, tmp_path):
-    """``--graph-parallel`` is refused by name; ``--data-parallel``,
-    refused before it was ported, runs (``tests/test_torch_dist_train.py``)
-    and refuses a batch its ranks cannot split with the JAX trainer's
-    message; ``--config`` and ``--preset``, refused before they were
+    """``--data-parallel`` and ``--graph-parallel``, refused before they were
+    ported, run (``tests/test_torch_dist_train.py``,
+    ``tests/test_torch_dist_gp_mesh.py``) and refuse what the JAX trainer
+    refuses with its messages: a batch the data ranks cannot split, both
+    flags together; ``--config`` and ``--preset``, refused before they were
     ported, are taken (``tests/test_torch_config.py`` holds each preset to
     the JAX package's resolution)."""
     if flag[0] in ("--config", "--preset"):
@@ -347,7 +348,7 @@ def test_train_vae_refuses_unported_flags(flag, tmp_path):
         with pytest.raises(SystemExit, match="batch size 3 not divisible by --data-parallel 2"):
             ttrain.main(_argv(tmp_path, *flag, "--batch-size", "3"))
         return
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="--graph-parallel and --data-parallel are mutually exclusive here"):
         ttrain.main(_argv(tmp_path, *flag))
 
 
