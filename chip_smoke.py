@@ -10,8 +10,9 @@ the paths' shapes and more (the SDDMM also with padding between live slots,
 K from 5 to 33 and C from 3 to 264, and two launches bit for bit), times
 both (and each kernel again with a cold L2 cache), and holds each autograd
 Function's backward against autograd through the plain versions.  Then it
-drives nineteen paths, each with the launch counts set to 0 just before it
-and read just after:
+drives twenty paths, each with the launch counts set to 0 just before it
+and read just after (in the processes of the ``--multihost`` runs, each
+process's own):
 
 * serving: LapDeepModel-15 at width 128 through ``NormalServer`` on four
   ~7,000-vertex meshes in the ELL and the BSR operator format, checked
@@ -170,9 +171,25 @@ and read just after:
   layers (5 for mesh-MNIST and the VAE): step 0 module by module against
   one rank, a rank-local batch norm refused on each, then 2 updates with
   their launches asserted;
-  then one rank over NCCL takes a DP step and runs NCCL's ``all_reduce``
+  the overlap check (``dist/analysis.py``) of one partitioned ELL apply on
+  each rank, which must issue its interior before the halo wait, and a
+  ``torch.profiler`` trace of it in that order: the interior
+  ``ell_spmm_kernel``, the halo's host-to-device copies, the boundary
+  kernel; then one rank over NCCL takes a DP step and runs NCCL's ``all_reduce``
   and ``broadcast`` on the card (collectives across cards and NCCL's
-  peer-to-peer sends are not exercised on one card).
+  peer-to-peer sends are not exercised on one card);
+* ``--multihost``: ``train_normal`` Lap-15 (``--graph-parallel 2`` with ELL
+  and BSR interiors, ``--data-parallel 2`` at batch 2, 2 updates) and
+  ``train_correspondence --graph-parallel 2`` (lap-7 ELL, sl1 and dcel),
+  each as two processes started apart that meet at a coordinator on
+  ``127.0.0.1`` (one rank each, both on the card over gloo), beside the
+  one-launch run of the same flags: checkpoints and metrics bit-identical
+  (dcel, which takes the host path under ``--multihost``, within the
+  FAUST loss bound of the one-launch fast path), each process's launches
+  asserted.  The ARAP ELL run also writes its ``--dump-rollout`` arrays
+  (``train_arap.dump_rollout``): one forward's launches, the targets bit
+  for bit, the prediction against the plain forward; without matplotlib the
+  CLI must refuse the flag at its start.
 
 Before the kernels, the native host runtime (``native/``, its own ``g++``
 build) is held against the NumPy route bit for bit on a 7,000-vertex mesh
@@ -3779,6 +3796,60 @@ def _arap_frames64(sequences) -> dict:
     return out
 
 
+def rollout_check(trainer, smi: str) -> dict:
+    """``--dump-rollout``'s ``.npy`` part (``train_arap.dump_rollout``) on
+    the trained ELL trainer: one forward of the first test batch (counts at
+    0 just before it: its ``ell_matmul`` launches, ARAP_PER_STEP's forward
+    half); the targets written must equal the test pick's bit for bit, the
+    prediction lie within SERVE_FRO_RTOL (relative Frobenius) of the same
+    forward with the kernels' plain versions.  With matplotlib the GIF is
+    drawn; without it (as here, usually) the CLI must refuse the flag at its
+    start, naming matplotlib."""
+    import importlib.util
+
+    import torch
+
+    from surfacenetworks_tpu_torch.cli import train_arap
+
+    with tempfile.TemporaryDirectory() as tmp:
+        port_kernels.reset_launch_counts()
+        pred, gt, faces = train_arap.dump_rollout(trainer, tmp)
+        launched = dict(port_kernels.launches)
+        files = sorted(os.listdir(tmp))
+        trainer.test_counter = 0
+        batch = trainer.batch(trainer.sample_test_picks())
+        n = gt.shape[1]
+        with swapped(port_kernels, "ell_matmul", lambda cols, vals, x, window=0: port_kernels.ell_matmul_plain(
+                cols, vals, x)), torch.no_grad():
+            plain = (trainer.model(batch.operator, batch.mask, batch.inputs) * batch.mask)[0, :n].cpu()
+        frames = range(gt.shape[0])
+        plain = torch.stack([plain[:, 3 * i:3 * (i + 1)] for i in frames])
+        targets = batch.targets[0, :n].cpu()
+        gt_ref = torch.stack([targets[:, 3 * i:3 * (i + 1)] for i in frames]).numpy()
+        err = _rel_fro(torch.from_numpy(pred), plain.double())
+        have = importlib.util.find_spec("matplotlib") is not None
+        if have:
+            from surfacenetworks_tpu_torch import viz
+
+            gif = viz.animate_sequence(list(gt), faces, os.path.join(tmp, "rollout.gif"), pred_frames=list(pred))
+            drawn = f"GIF drawn ({os.path.getsize(gif)} bytes)"
+        else:
+            try:
+                train_arap.main(["--dump-rollout", tmp, "--data-path", os.path.join(tmp, "absent")])
+                drawn = "NOT REFUSED"
+            except SystemExit as e:
+                drawn = f"the CLI refuses --dump-rollout at its start: {e}"
+    want = {k: v // 2 for k, v in ARAP_PER_STEP["ell"].items()}  # one forward
+    log(f"  arap rollout: {files}, pred {pred.shape}; launches {dict((k, v) for k, v in launched.items() if v)}; "
+        f"against the plain forward {err:.3e} (relative Frobenius); targets bit-identical: "
+        f"{np.array_equal(gt, gt_ref)}; matplotlib {'present' if have else 'absent'}: {drawn} ({smi})")
+    if (launched != want or files != ["rollout_gt.npy", "rollout_pred.npy"] or not np.array_equal(gt, gt_ref)
+            or not err <= SERVE_FRO_RTOL or drawn == "NOT REFUSED" or not np.isfinite(pred).all()):
+        raise AssertionError(f"arap rollout: launches {launched} (expected {want}), files {files}, prediction "
+                             f"{err:.3e} from the plain forward, {drawn}")
+    return {"launches": launched, "plain_rel_fro": err, "matplotlib": have, "gif": drawn}
+
+
 def arap_phase(device, smi: str) -> tuple[dict, dict]:
     """The ARAP trainer (``cli/train_arap.py``) at batch 32 on 2,000-vertex
     sequences: ``ell_matmul`` held and timed at the first batch's stacked
@@ -3823,6 +3894,8 @@ def arap_phase(device, smi: str) -> tuple[dict, dict]:
         if cfg == "dir":
             res["applies"] = applies
         repeat_run(f"arap {cfg}", trainer, lambda: _arap_restore(trainer, snap), res, _draw_picks)
+        if cfg == "ell":
+            res["rollout"] = rollout_check(trainer, smi)
         results[cfg] = res
 
         expected = ARAP_PER_STEP[cfg]
@@ -5770,6 +5843,8 @@ def dist_apply_checks(mesh, device) -> dict:
                         f"per apply; {r['halo_rows_per_apply']:.0f} halo rows ({r['halo_bytes_per_apply']:.0f} bytes) "
                         f"sent per apply, the exchange's host time {r['exchange_host_ms_per_apply']:.3f} ms per apply "
                         f"(gloo on one card, staged through pinned host buffers; not NCCL)")
+        if interior == "ell":
+            r["overlap"] = _dist_overlap(mesh, loc, xr)
         # the local products alone, timed on rank 0 while the other rank waits
         dist.barrier(group=mesh.graph.group)
         if mesh.rank == 0:
@@ -5777,6 +5852,51 @@ def dist_apply_checks(mesh, device) -> dict:
         dist.barrier(group=mesh.graph.group)
         rep[interior] = r
     return rep
+
+
+def _dist_overlap(mesh, loc, x_loc) -> dict:
+    """The overlap check on the card (``dist/analysis.py``) of this rank's
+    partitioned ELL apply, which must report the interior issued before the
+    exchange is waited on (and JAX's dataflow split), and one apply's device
+    timeline from a ``torch.profiler`` trace: the interior
+    ``ell_spmm_kernel``, then the halo's host-to-device copies, then the
+    boundary kernel.  On this gloo axis two ranks share the card and the
+    halo goes through the host, so the trace shows the order, not overlap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from surfacenetworks_tpu_torch import parallel_context
+    from surfacenetworks_tpu_torch.dist import analysis
+    from surfacenetworks_tpu_torch.dist import edge_partition as ep
+
+    with parallel_context.sharded_axes(vertex_axis=mesh.graph), torch.no_grad():
+        structure = analysis.check_overlap_structure(ep.partitioned_spmm, loc, x_loc)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ep.partitioned_spmm(loc, x_loc)
+            torch.cuda.synchronize()
+    timeline = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        kind = ("ell_spmm_kernel" if KERNEL_SYMBOLS["ell_matmul"] in e.name else
+                "H2D copy" if "HtoD" in e.name else "D2H copy" if "DtoH" in e.name else e.name[:40])
+        timeline.append((e.time_range.start, kind, e.time_range.elapsed_us()))
+    timeline.sort()
+    ells = [i for i, (_, k, _) in enumerate(timeline) if k == "ell_spmm_kernel"]
+    for i, role in zip(ells, ("interior", "boundary")):  # the first launched is the interior's
+        timeline[i] = (timeline[i][0], f"{role} ell_spmm_kernel", timeline[i][2])
+    kinds = [k for _, k, _ in timeline]
+    h2d = [i for i, k in enumerate(kinds) if k == "H2D copy"]
+    ordered = len(ells) == 2 and bool(h2d) and ells[0] < min(h2d) and ells[1] > max(h2d)
+    _dist_log(mesh, f"overlap check on the card: {structure}; one apply's device timeline: "
+                    + ", ".join(f"{k} {us:.1f} us" for _, k, us in timeline))
+    want = {"interior_before_wait": True, "output_depends_on_halo": True}
+    if not (ordered and all(structure[k] == v for k, v in want.items()) and structure["interior_indep"] >= 1
+            and structure["boundary_dep"] >= 1 and structure["n_ppermute"] >= 1):
+        raise AssertionError(f"rank {mesh.rank}: the partitioned apply does not issue its interior before the halo "
+                             f"wait: {structure}, device order {kinds}")
+    return {**structure, "device_order": kinds}
 
 
 def _dist_local_timing(m, interior: str, x_loc, device) -> dict:
@@ -6530,8 +6650,8 @@ def nccl_check(device) -> dict:
             return fn(t, *a, **k)
         return call
 
-    mesh_setup.initialize_multihost(f"127.0.0.1:{mesh_setup.free_port()}", num_processes=1, process_id=0,
-                                    backend="nccl", timeout_s=120)
+    # one rank on a card of its own: the backend its identity asks for is nccl
+    mesh_setup.initialize_multihost(f"tcp://127.0.0.1:{mesh_setup.free_port()}", 0, 1, device, timeout_s=120)
     try:
         mesh = mesh_setup.make_mesh(1, 1, devices=[device])
         if mesh.backend != "nccl" or mesh.world.staged or mesh.graph.staged:
@@ -6607,6 +6727,220 @@ def dist_phase(device, smi: str) -> tuple[dict, dict]:
             for k, v in rep[label]["launches"].items():
                 counts[k] += v
     return counts, {"ranks": ranks, "nccl": nccl, "card": smi}
+
+
+# --multihost on the one card: each run's two processes started apart
+# (``subprocess.Popen``, the CLI's own flags: ``--coordinator-address
+# 127.0.0.1:<free port> --num-processes 2 --process-id i``), one rank each,
+# beside the one-launch run of the same flags, whose two ranks share the card
+# as the dist phase's do; all fifteen launches at once.  The normal runs
+# (Lap-15, width 128, the dist phase's 7,000-vertex data, 2 updates) and the
+# FAUST sl1 run take the same path either way, so their checkpoints and
+# metrics lines must be equal bit for bit; FAUST dcel takes the host path
+# under --multihost (as the JAX trainer) and the fast path in one launch,
+# so its losses are held to DIST_SINGLE_CARD_RTOL's FAUST bound.  Launches
+# per process (one rank): MH_PER_RUN.
+MH_STEPS = 2
+MH_NORMAL_ARGS = ["--synthetic", "3", "--synthetic-points", str(DIST_POINTS), "--seed", str(SEED), "--layer",
+                  str(LAYERS), "--num-epoch", "1", "--num-updates", str(MH_STEPS), "--no-test", "--result-prefix", "mh"]
+MH_FAUST_ARGS = ["--synthetic", "2", "--synthetic-points", str(DIST_POINTS), "--seed", str(SEED), "--layer",
+                 str(DIST_GP_LAYERS), "--num-epoch", "1", "--num-updates", str(MH_STEPS), "--deser-option", "no",
+                 "--operator-format", "ell", "--graph-parallel", "2", "--result-prefix", "mh"]
+MH_RUNS = {
+    "gp ell": ("train_normal", MH_NORMAL_ARGS + ["--batch-size", "1", "--graph-parallel", "2", "--operator-format",
+                                                 "ell"]),
+    "gp bsr": ("train_normal", MH_NORMAL_ARGS + ["--batch-size", "1", "--graph-parallel", "2", "--operator-format",
+                                                 "bsr"]),
+    "dp normal": ("train_normal", MH_NORMAL_ARGS + ["--batch-size", "2", "--data-parallel", "2", "--operator-format",
+                                                    "ell"]),
+    "gp faust sl1": ("train_correspondence", MH_FAUST_ARGS + ["--loss", "sl1"]),
+    "gp faust dcel": ("train_correspondence", MH_FAUST_ARGS + ["--loss", "dcel"]),
+}
+# a process's launches over its run: the steps (DIST_PER_STEP's; sl1 has no
+# streaming head, so no mirror) and, for FAUST, the test pass's one pair
+# (two trunk forwards: 16 applies of two launches)
+MH_PER_RUN = {
+    "gp ell": launches_of(ell_matmul=64 * MH_STEPS),
+    "gp bsr": launches_of(bsr_matmul=32 * MH_STEPS, ell_matmul=32 * MH_STEPS),
+    "dp normal": launches_of(ell_matmul=32 * MH_STEPS),
+    "gp faust sl1": launches_of(ell_matmul=64 * MH_STEPS + 32),
+    "gp faust dcel": launches_of(ell_matmul=65 * MH_STEPS + 32),
+}
+MH_TIMEOUT_S = 420
+MH_FILES = {"train_normal": ("pts/mh_normal_state.pt", "log/mh.metrics.jsonl"),
+            "train_correspondence": ("pts/mh_state.pt", "log/mh.metrics.jsonl")}
+
+
+def multihost_worker(argv: list) -> int:
+    """One launch of the multihost phase (run as its own process):
+    ``OUT.json TRAINER FLAGS...``; the trainer's ``main`` on its flags, the
+    launch counters (this process's rank under --multihost) and the wall
+    written to OUT.json.  Without --multihost (the one-launch reference) its
+    ranks share card 0, as the dist phase's do."""
+    import importlib
+
+    import torch
+
+    from surfacenetworks_tpu_torch.dist import mesh_setup
+
+    out, trainer, *flags = argv
+    mod = importlib.import_module(f"surfacenetworks_tpu_torch.cli.{trainer}")
+    steps = {"wall_ms": [], "device_ms": []}
+    if "--multihost" not in flags and torch.cuda.is_available():
+        mesh_setup.default_devices = lambda device, n: [torch.device("cuda", 0)] * n
+    else:  # this process's rank: each update timed, the last one profiled
+        cls = mod.NormalTrainer if trainer == "train_normal" else mod.CorrespondenceTrainer
+        for name in ("update", "update_host"):
+            if hasattr(cls, name):
+                setattr(cls, name, _timed_update(getattr(cls, name), steps))
+    port_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mod.main(flags)
+    with open(out, "w") as f:
+        json.dump({"launches": dict(port_kernels.launches), "seconds": time.perf_counter() - t0, **steps}, f)
+    return 0
+
+
+def _timed_update(update, rec: dict):
+    """``update`` with each call's host wall and CUDA-event time kept in
+    ``rec`` (synchronised around it), the MH_STEPS-th under the profiler:
+    its device busy and idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed(self, *args, **kwargs):
+        last = len(rec["wall_ms"]) == MH_STEPS - 1
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last \
+                else contextlib.nullcontext() as prof:
+            out = update(self, *args, **kwargs)
+            end.record()
+            end.synchronize()
+        rec["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["device_ms"].append(start.elapsed_time(end))
+        if last:
+            rec["busy_ms"] = sum(r[0] for r in device_rows(prof)) / 1e3
+            rec["idle_share"] = 1 - rec["busy_ms"] / rec["wall_ms"][-1]
+        return out
+
+    return timed
+
+
+def _tensors_of(obj, prefix: str = "") -> dict:
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    if isinstance(obj, dict):
+        return {k: v for key, val in obj.items() for k, v in _tensors_of(val, f"{prefix}/{key}").items()}
+    return {prefix: torch.tensor(float(obj))} if isinstance(obj, (int, float)) else {}
+
+
+def _metric_lines(path: str) -> list:
+    with open(path) as f:
+        return [{k: v for k, v in json.loads(line).items() if k not in ("time", "steps_per_s")} for line in f]
+
+
+def multihost_phase(smi: str) -> tuple[dict, dict]:
+    """The --multihost runs (MH_RUNS), each against its one-launch run:
+    bit for bit (the FAUST dcel losses within the FAUST bound), the
+    launches of each process asserted.  Returns the launches the multihost
+    processes counted, summed, and a report per run."""
+    import torch
+
+    from surfacenetworks_tpu_torch.dist import mesh_setup
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = "import sys, chip_smoke; sys.exit(chip_smoke.multihost_worker(sys.argv[1:]))"
+    procs, failures, report = {}, [], {}
+    counts = dict.fromkeys(port_kernels.launches, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            for label, (trainer, flags) in MH_RUNS.items():
+                run_dir = os.path.join(tmp, label.replace(" ", "_"))
+                coord = ["--multihost", "--coordinator-address", f"127.0.0.1:{mesh_setup.free_port()}",
+                         "--num-processes", "2"]
+                for who, extra, out in [("one", [], "one")] + [(f"p{i}", coord + ["--process-id", str(i)], "two")
+                                                               for i in range(2)]:
+                    os.makedirs(os.path.join(run_dir, out), exist_ok=True)
+                    stem = os.path.join(run_dir, who)
+                    logf = open(stem + ".log", "w")
+                    procs[(label, who)] = (subprocess.Popen(
+                        [sys.executable, "-c", cmd, stem + ".json", trainer, *flags, "--result-dir",
+                         os.path.join(run_dir, out), *extra], cwd=root, stdout=logf, stderr=subprocess.STDOUT,
+                        start_new_session=True), logf, stem)
+            deadline = time.monotonic() + MH_TIMEOUT_S
+            for (label, who), (proc, logf, stem) in procs.items():
+                try:
+                    proc.wait(timeout=max(deadline - time.monotonic(), 1))
+                except subprocess.TimeoutExpired:
+                    failures.append(f"multihost {label} {who}: not finished in {MH_TIMEOUT_S} s")
+        finally:
+            for proc, logf, _ in procs.values():
+                if proc.poll() is None:
+                    os.killpg(proc.pid, 9)
+                    proc.wait()
+                logf.close()
+        wall = time.perf_counter() - t0
+        for (label, who), (proc, _, stem) in procs.items():
+            if proc.returncode != 0:
+                with open(stem + ".log") as f:
+                    tail = f.read()[-3000:]
+                failures.append(f"multihost {label} {who}: exit {proc.returncode}")
+                log(f"  multihost {label} {who} failed:\n{tail}")
+        if failures:
+            raise AssertionError("; ".join(failures))
+        for label, (trainer, _) in MH_RUNS.items():
+            run_dir = os.path.join(tmp, label.replace(" ", "_"))
+            ckpt, metrics = MH_FILES[trainer]
+            info = {who: json.load(open(os.path.join(run_dir, who + ".json"))) for who in ("one", "p0", "p1")}
+            one_m, two_m = (_metric_lines(os.path.join(run_dir, d, metrics)) for d in ("one", "two"))
+            a, b = (_tensors_of(torch.load(os.path.join(run_dir, d, ckpt), weights_only=True))
+                    for d in ("one", "two"))
+            with open(os.path.join(run_dir, "two", "log", "mh.log")) as f:
+                mh_line = [line.strip() for line in f if line.startswith("multihost:")]
+            r = {"seconds": {who: i["seconds"] for who, i in info.items()}, "metrics_one": one_m, "metrics_two": two_m,
+                 "multihost_line": mh_line}
+            for who in ("p0", "p1"):
+                got = {k: v for k, v in info[who]["launches"].items() if v}
+                if got != {k: v for k, v in MH_PER_RUN[label].items() if v}:
+                    failures.append(f"multihost {label} {who}: launched {got}, not {MH_PER_RUN[label]}")
+                for k, v in info[who]["launches"].items():
+                    counts[k] += v
+            if label == "gp faust dcel":
+                rel = [abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in zip(two_m, one_m)]
+                r["loss_rel"] = rel
+                bound = DIST_SINGLE_CARD_RTOL["gp faust lap"]["loss"]
+                if len(one_m) != len(two_m) or max(rel) > bound:
+                    failures.append(f"multihost {label}: losses {two_m} against the one-launch fast path's {one_m}")
+            else:
+                same = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a) and one_m == two_m
+                r["bit_equal"] = same
+                if not same:
+                    failures.append(f"multihost {label}: the checkpoint or metrics differ from the one-launch run's")
+            if not mh_line:
+                failures.append(f"multihost {label}: no multihost line in the log")
+            report[label] = r
+            r["ranks"] = {who: {k: info[who].get(k) for k in ("wall_ms", "device_ms", "busy_ms", "idle_share")}
+                          for who in ("p0", "p1")}
+            for who, t in r["ranks"].items():
+                log(f"  multihost {label} {who}: per update wall {['%.1f' % v for v in t['wall_ms']]} ms, CUDA-event "
+                    f"{['%.1f' % v for v in t['device_ms']]} ms; last update busy {t['busy_ms']:.3f} ms, idle share "
+                    f"{t['idle_share']:.3f} ({smi})")
+            log(f"  multihost {label}: two processes ({info['p0']['seconds']:.1f} s, {info['p1']['seconds']:.1f} s) "
+                f"against one launch ({info['one']['seconds']:.1f} s): "
+                + (f"losses relative to the fast path {['%.2e' % v for v in r['loss_rel']]}" if "loss_rel" in r else
+                   f"checkpoint and metrics {'bit-identical' if r.get('bit_equal') else 'DIFFER'}")
+                + f"; launches per process {dict((k, v) for k, v in info['p0']['launches'].items() if v)}; "
+                f"{mh_line[:1]}; train loss {[m['loss'] for m in two_m if m['split'] == 'train']} ({smi})")
+        log(f"  multihost: {len(procs)} launches at once, {wall:.2f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return counts, report
 
 
 def main() -> int:
@@ -6784,6 +7118,10 @@ def main() -> int:
     dist_counts, dist_rep = dist_phase(device, smi)
     phase("dist", t0)
 
+    t0 = time.perf_counter()
+    mh_counts, multihost = multihost_phase(smi)
+    phase("multihost", t0)
+
     replaces = {
         "bsr_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:163",
         "ell_matmul": "surfacenetworks_tpu/sparse/pallas_kernels.py:239",
@@ -6833,6 +7171,7 @@ def main() -> int:
             entries[-1]["normal_cascade_levels_batched"] = [{k: v for k, v in r.items() if k != "bf16"}
                                                             for r in cascade["kernel"]["levels_batched"]]
             entries[-1]["arap_batch"] = {k: v for k, v in arap["ell"]["kernel"].items() if k != "bf16"}
+            entries[-1]["arap_rollout_launches"] = arap["ell"]["rollout"]["launches"][kname]
             entries[-1]["mnist_batch"] = {k: v for k, v in mnist["ell"]["kernel"].items() if k != "bf16"}
             amp = fzoo["amp"]["kernel"]
             entries[-1]["faust_amp_levels"] = amp["levels"]
@@ -6844,6 +7183,8 @@ def main() -> int:
         if kname in ("bsr_matmul", "ell_matmul"):
             # per rank, summed over the ranks: GP ELL and BSR interiors, DP normal and ARAP
             entries[-1]["dist_train_launches"] = dist_counts[kname]
+            # the --multihost processes (one rank each), summed
+            entries[-1]["multihost_launches"] = mh_counts[kname]
         if kname == "ell_matmul":
             entries[-1]["partition_local"] = dist_rep["ranks"][0]["apply"]["ell"]["local"]
             entries[-1]["partition_local_bsr_boundary"] = dist_rep["ranks"][0]["apply"]["bsr"]["local"]["boundary"]
@@ -6966,6 +7307,11 @@ def main() -> int:
             f"{r['busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}, a step's exchange {r['exchange']['rows']} rows "
             f"{r['exchange']['bytes']} bytes {r['exchange']['host_s'] * 1e3:.3f} host ms"
             for label, r in rank.items() if label.startswith(("gp", "dp"))) + f" ({smi})")
+    log("multihost: " + ", ".join(
+        f"{label} " + (f"losses within {max(r['loss_rel']):.2e} of the one-launch fast path" if "loss_rel" in r else
+                       f"{'bit-identical to' if r['bit_equal'] else 'DIFFERS from'} the one-launch run")
+        + f" (processes {r['seconds']['p0']:.1f} / {r['seconds']['p1']:.1f} s)" for label, r in multihost.items())
+        + f"; two processes on one card over gloo, NCCL across hosts not exercised ({smi})")
     log(f"dist NCCL: one rank, {dist_rep['nccl']['backend']} {dist_rep['nccl']['nccl']}, a DP step with all_reduce "
         f"and broadcast on the card; cross-card collectives and peer-to-peer not exercised ({smi})")
     log(f"--jax-profile: {jprof['ell_spmm_kernel_events']} ell_spmm_kernel events in {jprof['trace_bytes']} bytes, "

@@ -1,9 +1,12 @@
 """Shared trainer utilities (counterpart of ``surfacenetworks_tpu/cli/common.py``):
 the run's log file, the per-epoch metrics file, the run's config file
 (``config.dump_config``), the environment line and the parameter count
-every trainer logs at its start, the one-step-delayed metric fetch, the
-epoch and the size-tiered samplers and the throughput meter.
-Each writes the same files and lines as the JAX package's.
+every trainer logs at its start, the curves drawn from the metrics file
+after each test epoch (``MetricsLogger.plot``), the one-step-delayed metric
+fetch, the epoch and the size-tiered samplers, the throughput meter, and the
+start of a run's ranks, ``--multihost`` included (``run_grid``,
+``log_multihost``).  Each writes the same files and lines as the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -58,7 +61,10 @@ def count_params(model) -> int:
 class MetricsLogger:
     """``write(epoch, split, **metrics)`` appends one JSON line to
     ``<log_dir>/<prefix>.metrics.jsonl`` (nothing with ``debug``).  NaNs are
-    written as they are, so a diverged run shows in the record."""
+    written as they are, so a diverged run shows in the record.  ``plot()``
+    redraws ``<prefix>_curves.png`` from the whole file (``viz.plot_curves``,
+    matplotlib); any error, matplotlib missing included, returns None, so
+    drawing never stops a run."""
 
     def __init__(self, result_prefix: str, log_dir: str | None, debug: bool = False):
         self.path = None
@@ -73,6 +79,16 @@ class MetricsLogger:
         record.update({k: float(v) for k, v in metrics.items()})
         with open(self.path, "a") as fp:
             fp.write(json.dumps(record) + "\n")
+
+    def plot(self) -> str | None:
+        if self.path is None:
+            return None
+        try:
+            from surfacenetworks_tpu_torch import viz
+
+            return viz.plot_curves(self.path)
+        except Exception:  # drawing must never end a training run
+            return None
 
 
 class MetricFetcher:
@@ -162,3 +178,39 @@ class Throughput:
     def report(self) -> str:
         dt = max(time.perf_counter() - self.t0, 1e-9)
         return f"{self.steps / dt:.2f} steps/s, {self.items / dt:.0f} vertices/s"
+
+
+def process_index(args) -> int:
+    """This process's index among a ``--multihost`` run's launches (0
+    without ``--multihost``; torchrun's ``RANK`` without coordinator
+    flags)."""
+    if not getattr(args, "multihost", False):
+        return 0
+    if args.process_id is not None:
+        return args.process_id
+    return int(os.environ.get("RANK", 0))
+
+
+def run_grid(run, n_data: int, n_graph: int, args):
+    """A trainer's ``run(mesh, args)`` on its ``(n_data, n_graph)`` grid of
+    ranks: started here (``mesh_setup.run_ranks``), or with ``--multihost``
+    this process's share of it, met with the other launches at the
+    coordinator (``mesh_setup.launch_multihost``; the counterpart of the JAX
+    trainers' ``maybe_initialize_multihost``).  The coordinator flags are
+    read only with ``--multihost``, as in the JAX package."""
+    from surfacenetworks_tpu_torch.dist import mesh_setup
+
+    if getattr(args, "multihost", False):
+        return mesh_setup.launch_multihost(run, n_data, n_graph, args.coordinator_address, args.num_processes,
+                                           args.process_id, device=args.device, args=(args,))
+    return mesh_setup.run_ranks(run, n_data, n_graph, args.device, args)
+
+
+def log_multihost(log, mesh) -> None:
+    """The JAX trainers' line of a ``--multihost`` run: ``multihost: process
+    i/P, N global devices (n local)`` (a device is a rank's card)."""
+    if mesh is not None and mesh.processes is not None:
+        pid, processes, local = mesh.processes
+        import torch.distributed as dist
+
+        log(f"multihost: process {pid}/{processes}, {dist.get_world_size()} global devices ({local} local)")

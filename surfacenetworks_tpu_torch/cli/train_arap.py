@@ -46,13 +46,24 @@ once with dataset-wide halos and floors, each rank holding its rows of
 every pick (the device store, or the host route, of its shards); the init
 batch draws no picks, as in the JAX trainer's graph-parallel run; the loss
 is each rank's rows' share over the global batch, and the test batches run
-on the ranks' rows too.  ``--dump-rollout`` (matplotlib) is refused.
+on the ranks' rows too.  After each test epoch rank 0 redraws
+``log/<id>_curves.png`` (``MetricsLogger.plot``).
+
+``--dump-rollout DIR``, after training: the first test batch's first
+item predicted, its 40 frames written to ``DIR/rollout_pred.npy`` and the
+ground truth to ``DIR/rollout_gt.npy`` (``dump_rollout``, no matplotlib),
+then drawn side by side into ``DIR/rollout.gif`` (``viz.animate_sequence``),
+as the JAX trainer does.  Where matplotlib is missing (as on the machine
+with the card) the flag is refused at the start, not after training as the
+JAX trainer would fail.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
+import importlib.util
 import os
 import sys
 
@@ -95,17 +106,26 @@ parser.add_argument("--data-parallel", type=int, default=0,
                     help="shard each batch over this many ranks (0 or 1: off); the batch size must be divisible by it")
 parser.add_argument("--graph-parallel", type=int, default=0,
                     help="row-partition every frame over this many ranks (lap, dir; 0 or 1: off)")
-# refused when given: --dump-rollout draws with matplotlib, which the next slice of the port replaces
-parser.add_argument("--dump-rollout", default=None)
+parser.add_argument("--dump-rollout", default=None, metavar="DIR",
+                    help="after training, write a test sequence's predicted and true 40-frame rollouts as .npy and "
+                         "draw them as a GIF (matplotlib)")
+
+
+def _have_matplotlib() -> bool:
+    try:
+        return importlib.util.find_spec("matplotlib") is not None
+    except ImportError:  # an import hook that refuses it
+        return False
 
 
 def refuse_unported(args) -> None:
-    """Raise on the flag whose path the port does not run (``--dump-rollout``,
-    which the next slice of the port brings), and with the JAX trainer's
-    messages on the multi-device flags it refuses."""
-    if args.dump_rollout is not None:
-        raise SystemExit("train_arap (PyTorch port): not ported yet: --dump-rollout (it draws with matplotlib; the "
-                         "next slice of the port brings it)")
+    """Raise where matplotlib, which ``--dump-rollout``'s GIF needs, is
+    missing (at the start, where the JAX trainer would fail after
+    training), and with the JAX trainer's messages on the multi-device flags
+    it refuses."""
+    if args.dump_rollout is not None and not _have_matplotlib():
+        raise SystemExit("train_arap: --dump-rollout draws its GIF with matplotlib, which is not installed here "
+                         "(train_arap.dump_rollout writes the .npy rollouts without it)")
     n_dp, n_gp = mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel)
     if n_gp > 1:
         if args.model not in ("lap", "dir"):
@@ -348,6 +368,42 @@ class ArapTrainer:
     def save(self, path: str, epoch: int) -> None:
         checkpoint.save_checkpoint(path, self.model, self.opt, epoch, self.step)
 
+    @torch.no_grad()
+    def rollout(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``--dump-rollout``'s frames, as the JAX trainer takes them: the
+        test counter reset, the first test batch's masked prediction and
+        targets, item 0's first test sequence's vertices, as ``(pred, gt)``
+        ``[OUT_FRAMES, n, 3]`` and that sequence's faces; under
+        ``--graph-parallel`` every rank's rows gathered (every rank must
+        call it)."""
+        self.test_counter = 0
+        batch = self.batch(self.sample_test_picks())
+        gp = self.mesh is not None and self.n_gp > 1
+        with self.mesh.context(vertex=True) if gp else contextlib.nullcontext():
+            out = self.model(batch.operator, batch.mask, batch.inputs) * batch.mask
+        targets = batch.targets
+        if gp:
+            out = mesh_setup.all_gather(out, self.mesh.graph, -2)
+            targets = mesh_setup.all_gather(targets, self.mesh.graph, -2)
+        seq = self.sequences[self.n_train if len(self.sequences) > self.n_train else 0]
+        n = seq[0]["V"].shape[0]
+        out, targets = out[0, :n].cpu().numpy(), targets[0, :n].cpu().numpy()
+        frames = range(OUT_FRAMES)
+        return (np.stack([out[:, 3 * i:3 * (i + 1)] for i in frames]),
+                np.stack([targets[:, 3 * i:3 * (i + 1)] for i in frames]), np.asarray(seq[0]["F"], np.int32))
+
+
+def dump_rollout(trainer: ArapTrainer, out_dir: str | None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``trainer.rollout()`` written to ``out_dir/rollout_pred.npy`` and
+    ``out_dir/rollout_gt.npy`` (the JAX trainer's files; nothing with
+    ``out_dir`` None); returns ``(pred, gt, faces)``."""
+    pred, gt, faces = trainer.rollout()
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        np.save(os.path.join(out_dir, "rollout_pred.npy"), pred)
+        np.save(os.path.join(out_dir, "rollout_gt.npy"), gt)
+    return pred, gt, faces
+
 
 def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
     """Train on one rank (or alone, ``mesh`` None); rank 0 writes the log,
@@ -364,7 +420,16 @@ def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
         history["train"].append(trainer.train_epoch(epoch, metrics_log))
         history["test"].append(trainer.test_pass(epoch, metrics_log))
         if rank0:
+            metrics_log.plot()
             trainer.save(ckpt, epoch)
+    if args.dump_rollout:
+        pred, gt, faces = dump_rollout(trainer, args.dump_rollout if rank0 else None)
+        if rank0:
+            from surfacenetworks_tpu_torch import viz
+
+            gif = viz.animate_sequence(list(gt), faces, os.path.join(args.dump_rollout, "rollout.gif"),
+                                       pred_frames=list(pred))
+            log(f"rollout dumped to {gif}")
     return history
 
 

@@ -68,9 +68,18 @@ head tiles the rank's rows only).  dcel takes the fast path with each
 pair's target computed on the host and cached; sl1 and cel take the host
 path, as in the JAX trainer.  The test pass and ``--eval-only`` gather both
 shapes' features and score them whole on every rank.  ``--smooth-reg``
-is refused under ``--graph-parallel`` with the JAX trainer's message;
-``--multihost`` and its coordinator flags are refused: they come with the
-next slice of the port.
+is refused under ``--graph-parallel`` with the JAX trainer's message.
+
+``--multihost`` (the coordinator flags, or torchrun's environment) starts
+this launch's share of the graph axis's ranks, which meet the other
+launches' at the coordinator (``cli.common.run_grid``); without
+``--graph-parallel`` every process trains a replica and process 0 writes.
+As in the JAX trainer, whose fast path needs one process, every loss then
+takes the host path, dcel included (its target the argmin of the uploaded
+cost, the light path off): each process assembles the same pairs from the
+shared seed.  ``--smooth-reg`` and ``--eval-only`` are refused there with
+the JAX trainer's messages.  After each epoch rank 0 redraws
+``log/<prefix>_curves.png`` (``MetricsLogger.plot``).
 """
 
 from __future__ import annotations
@@ -94,7 +103,10 @@ from surfacenetworks_tpu_torch.cli.common import (
     count_params,
     dump_config,
     log_environment,
+    log_multihost,
     make_logger,
+    process_index,
+    run_grid,
 )
 from surfacenetworks_tpu_torch.data import Buckets, correspondence_batch, datasets, round_up
 from surfacenetworks_tpu_torch.data.batching import (
@@ -159,9 +171,10 @@ parser.add_argument("--eval-only", action="store_true",
 config.add_config_flags(parser)
 parser.add_argument("--graph-parallel", type=int, default=0,
                     help="row-partition both shapes over this many ranks (lap and dir trunks; 0 or 1: off)")
-# --multihost and its coordinator flags: refused when given, until the next slice of the port
-parser.add_argument("--multihost", action="store_true")
-parser.add_argument("--coordinator-address", default=None)
+parser.add_argument("--multihost", action="store_true",
+                    help="spread the graph axis's ranks over --num-processes launches met at the coordinator (or "
+                         "torchrun's environment)")
+parser.add_argument("--coordinator-address", default=None, help="host:port of process 0's rendezvous")
 parser.add_argument("--num-processes", type=int, default=None)
 parser.add_argument("--process-id", type=int, default=None)
 
@@ -184,20 +197,21 @@ _FORCE_LIGHT = False
 ROW_SHARE_POWER = {"dcel": 1, "sl1": 2, "cel": 0}
 
 
+SMOOTH_REG_FAST_PATH = "--smooth-reg requires the single-device fast path (no --graph-parallel / --multihost)"
+
+
 def refuse_unported(args) -> None:
-    """Raise on the flags whose path the port does not have yet
-    (``--multihost`` and its coordinator flags, which the next slice of the
-    port brings), and with the JAX trainer's messages on what it refuses
-    under ``--graph-parallel`` (0 and 1 mean off): a trunk other than the
-    lap key's and dir, and ``--smooth-reg``."""
-    if args.multihost or any(v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)):
-        raise SystemExit("train_correspondence (PyTorch port): not ported yet: --multihost and its coordinator "
-                         "flags (the next slice of the port brings them)")
+    """Raise, with the JAX trainer's messages, on what it refuses under
+    ``--graph-parallel`` (0 and 1 mean off) and ``--multihost``: a trunk
+    other than the lap key's and dir, and ``--smooth-reg`` off the
+    single-device fast path."""
     if mesh_setup.axis_ranks(args.graph_parallel) > 1:
         if model_key_of(args.model) not in ("lap", "dirac"):
             raise SystemExit("--graph-parallel supports the lap and dir trunks")
         if args.smooth_reg > 0:
-            raise SystemExit("--smooth-reg requires the single-device fast path (no --graph-parallel / --multihost)")
+            raise SystemExit(SMOOTH_REG_FAST_PATH)
+    if args.multihost and args.smooth_reg > 0:
+        raise SystemExit(SMOOTH_REG_FAST_PATH)
 
 
 def model_key_of(model: str) -> str:
@@ -293,7 +307,9 @@ def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stre
               loss_name: str = "dcel") -> torch.Tensor:
     """The training loss of one pair: dcel against ``target`` (streaming or
     over the full logits), or, given the pair's padded cost ``GAB``,
-    ``loss_fn(logits, GAB)`` over the full logits (sl1, cel); plus
+    ``loss_fn(logits, GAB)`` over the full logits (sl1, cel, and dcel on the
+    host path; the streaming head then takes the argmin of ``GAB`` as its
+    target, as the JAX trainer's host step does); plus
     ``smooth_w`` times both shapes' smoothness terms.  ``target_inv`` is the
     target's cached inverse for the streaming head's backward
     (``losses.target_inverse``).  With ``rots`` None the inputs are taken as
@@ -314,6 +330,8 @@ def objective(model, da: dict, db: dict, rots, target, smooth_w: float, use_stre
     # the dcel head in fp32 whatever the features' dtype (bf16 under --bf16)
     fa32, fb32 = at_least_fp32(fa), at_least_fp32(fb)
     if use_stream:
+        if target is None:
+            target = torch.argmin(GAB, dim=-1)
         loss = losses.corr_dcel_streaming(fa32[0], fb32[0], target, target_inv=target_inv)
     else:
         logits = torch.einsum("bnc,bmc->bnm", fa32, fb32)[0]
@@ -414,17 +432,19 @@ class CorrespondenceTrainer:
         self.N = self.buckets.n_vertices
         est_bytes = len(data) * (self.N * self.N * 4 + 40 * self.N * 4)
         fits = est_bytes < DEVICE_BUDGET_BYTES
-        # sl1 and cel past the budget, or under --graph-parallel: the JAX trainer's host path
-        self.host_path = (not fits or gp) and args.loss != "dcel"
+        # sl1 and cel past the budget, or under --graph-parallel, and every loss under --multihost: the JAX
+        # trainer's host path (its fast path needs one process)
+        self.host_path = args.multihost or ((not fits or gp) and args.loss != "dcel")
         if self.host_path:
             if args.smooth_reg > 0:
-                raise SystemExit("--smooth-reg requires the single-device fast path (no --graph-parallel / --multihost)")
+                raise SystemExit(SMOOTH_REG_FAST_PATH)
             if args.eval_only:
                 raise SystemExit("--eval-only needs the single-device fast path")
-            why = "--graph-parallel" if fits else f"est {est_bytes / 1e9:.1f} GB > HBM budget"
+            why = ("--multihost" if args.multihost else "--graph-parallel" if fits
+                   else f"est {est_bytes / 1e9:.1f} GB > HBM budget")
             log(f"host path: geodesic matrices stay on host ({why}); each pair's [N, N] cost is built on a prefetch "
                 "thread and uploaded every step")
-        self.light = args.loss == "dcel" and (not fits or _FORCE_LIGHT)
+        self.light = not args.multihost and args.loss == "dcel" and (not fits or _FORCE_LIGHT)
         if self.light:
             log(f"light fast path: geodesic matrices stay on host (est {est_bytes / 1e9:.1f} GB > HBM budget); "
                 "dcel targets computed host-side per pair and cached on device")
@@ -630,7 +650,7 @@ class CorrespondenceTrainer:
         d = self.uploads(item, _upload_tree)
         da = dict(self.dev_sample(d["ia"]), inputs=self.rows(d["xa"]))
         db = dict(self.dev_sample(d["ib"]), inputs=self.rows(d["xb"]))
-        loss = train_step(self.model, self.opt, da, db, None, None, 0.0, False, None, self.loss_fn,
+        loss = train_step(self.model, self.opt, da, db, None, None, 0.0, self.use_stream, None, self.loss_fn,
                           self.local_rows(d["GAB"]), self.mesh, self.args.loss)
         self.step += 1
         return loss
@@ -778,6 +798,7 @@ def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
     log_dir = os.path.join(args.result_dir, "log")
     log = make_logger(args.result_prefix, log_dir) if rank0 else (lambda _: None)
     log(args)
+    log_multihost(log, mesh)
     trainer = CorrespondenceTrainer(args, log, mesh=mesh)
     ckpt_path = os.path.join(args.result_dir, "pts", f"{args.result_prefix}_state.pt")
     if args.deser_option != "no":
@@ -792,6 +813,8 @@ def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
     for epoch in range(args.num_epoch):
         history["train_loss"].append(trainer.train_epoch(epoch, metrics_log))
         history["test"].append(trainer.test_pass(epoch, metrics_log))
+        if metrics_log is not None:
+            metrics_log.plot()
         if epoch % 10 == 9 and rank0:
             trainer.save(ckpt_path, epoch)
     if rank0:
@@ -802,12 +825,14 @@ def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
 def main(argv=None) -> dict:
     """Train; returns each epoch's mean train loss and test results (with
     ``--eval-only``, ``{"eval": metrics}`` and no training).  With
-    ``--graph-parallel G`` it starts G ranks and returns rank 0's; a rank
-    that fails makes it raise."""
+    ``--graph-parallel G`` it starts G ranks (with ``--multihost`` this
+    launch's share of them) and returns its first rank's; a rank that fails
+    makes it raise."""
     args = config.parse_with_config(parser, argv)
     refuse_unported(args)
-    dump_config(args, os.path.join(args.result_dir, "cfg", f"{args.result_prefix}.json"))
-    return mesh_setup.run_ranks(run_rank, 1, mesh_setup.axis_ranks(args.graph_parallel), args.device, args)
+    if process_index(args) == 0:
+        dump_config(args, os.path.join(args.result_dir, "cfg", f"{args.result_prefix}.json"))
+    return run_grid(run_rank, 1, mesh_setup.axis_ranks(args.graph_parallel), args)
 
 
 if __name__ == "__main__":

@@ -19,9 +19,10 @@ all of them (vertex and face counts rounded to 8); the train batches from
 from the test set; Adam at ``--lr`` with coupled L2 weight decay 1e-5 and
 no schedule; dropout in the update, none in the test pass (batch norms take
 batch statistics in both); the log lines ``Train epoch ...`` and ``Test
-epoch ...`` in ``log/<prefix>.log``, ``log/<prefix>.metrics.jsonl`` (the
-plot is not drawn: the card's machine has no matplotlib) and a checkpoint
-each epoch, here ``pts/<prefix>.pt`` in the port's format.  Every sample is
+epoch ...`` in ``log/<prefix>.log``, ``log/<prefix>.metrics.jsonl``, its
+curves redrawn after each test epoch into ``log/<prefix>_curves.png``
+(``MetricsLogger.plot``; nothing where matplotlib is missing, as on the
+machine with the card) and a checkpoint each epoch, here ``pts/<prefix>.pt`` in the port's format.  Every sample is
 packed alone with ``fmt='auto'`` (dense at mesh-MNIST sizes) and the
 dataset uploaded once; a batch is an index gather on the device (past the
 6 GiB budget each train batch is built and pinned on a prefetch thread and
@@ -372,6 +373,7 @@ def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
         history["train"].append(trainer.train_epoch(epoch, metrics_log))
         history["test"].append(trainer.test_pass(epoch, metrics_log))
         if rank0:
+            metrics_log.plot()
             trainer.save(ckpt, epoch)
     return history
 

@@ -79,9 +79,24 @@ step computes the JAX trainer's global function (batch norm, the global
 average and the loss normalisers over the global batch and rows, the
 rotations drawn for the global batch, gradients summed over the ranks).
 Rank 0 writes the log, the metrics and the checkpoints.  Evaluation under
-pure data parallelism runs each whole test batch on every rank.
-``--multihost`` with its coordinator flags is refused: it comes with the
-next slice of the port.
+pure data parallelism runs each whole test batch on every rank.  As in the
+JAX trainer, ``--rotate-augment`` under pure data parallelism needs the
+device store: the host route refuses it, with the JAX trainer's message.
+
+``--multihost`` (with ``--coordinator-address``, ``--num-processes`` and
+``--process-id``, or under torchrun with none of them) starts this
+launch's share of the grid, ``N x G / num_processes`` ranks, which meet the
+other launches' at the coordinator (``cli.common.run_grid``): the grid
+spans the processes exactly as it spans one launch's ranks, so the same
+flags give the same run bit for bit; global rank 0 writes the log, the
+metrics and the checkpoints.  Without ``--data-parallel`` or
+``--graph-parallel`` every process trains a replica on its own card, as the
+JAX trainer's processes do, and process 0 writes.  After each test epoch
+rank 0 redraws ``log/<prefix>_curves.png`` from the metrics
+(``MetricsLogger.plot``; nothing where matplotlib is missing)::
+
+    python -m surfacenetworks_tpu_torch.cli.train_normal --device cpu --multihost \\
+        --coordinator-address 127.0.0.1:29500 --num-processes 2 --process-id 0 --data-parallel 2 ...
 """
 
 from __future__ import annotations
@@ -103,8 +118,11 @@ from surfacenetworks_tpu_torch.cli.common import (
     dump_config,
     EpochSampler,
     log_environment,
+    log_multihost,
     make_logger,
     MetricsLogger,
+    process_index,
+    run_grid,
     Throughput,
     TieredSampler,
 )
@@ -177,16 +195,18 @@ parser.add_argument("--rotate-augment", action="store_true",
 config.add_config_flags(parser)
 parser.add_argument("--jax-profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the first training epoch into DIR (the JAX flag's name)")
-# multi-device flags: --data-parallel and --graph-parallel (lap, dirac, gat) run on a grid of ranks; --multihost
-# and its coordinator flags are refused until the next slice of the port
+# multi-device flags: --data-parallel and --graph-parallel (lap, dirac, gat) run on a grid of ranks, which
+# --multihost spreads over --num-processes launches
 parser.add_argument("--data-parallel", type=int, default=0,
                     help="shard each batch's meshes over this many ranks (0 or 1: off); the batch size must be "
                          "divisible by it")
 parser.add_argument("--graph-parallel", type=int, default=0,
                     help="row-partition every operator over this many ranks (--model lap, dirac, gat; 0 or 1: "
                          "off): halo exchange per apply, overlapped with the interior product")
-parser.add_argument("--multihost", action="store_true")
-parser.add_argument("--coordinator-address", default=None)
+parser.add_argument("--multihost", action="store_true",
+                    help="spread the rank grid over --num-processes launches met at the coordinator (or torchrun's "
+                         "environment)")
+parser.add_argument("--coordinator-address", default=None, help="host:port of process 0's rendezvous")
 parser.add_argument("--num-processes", type=int, default=None)
 parser.add_argument("--process-id", type=int, default=None)
 
@@ -216,17 +236,12 @@ def build_model(args, dtype: torch.dtype | None = None):
     return LapDeepModel(3, 3, layers=args.layer, dtype=dtype)
 
 
-def refuse_unported(args) -> None:
-    """Raise on any flag whose path the port does not run yet (the next
-    slice brings them)."""
-    if args.multihost or any(v is not None for v in (args.coordinator_address, args.num_processes, args.process_id)):
-        raise SystemExit("train_normal (PyTorch port): not ported yet: --multihost and its coordinator flags (the "
-                         "next slice of the port brings them)")
+ROTATE_DP_HOST = ("--rotate-augment under --data-parallel needs the device-store fast path (dataset exceeded the "
+                  "HBM budget); the host DP route has no step counter to key the in-jit rotation off")
 
 
 def check_parallel(args) -> None:
     """The JAX trainer's refusals of the multi-device flags."""
-    refuse_unported(args)
     n_dp, n_gp = mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel)
     if n_gp > 1 and args.model not in ("lap", "dirac", "gat"):
         raise SystemExit("--graph-parallel supports the lap, dirac and gat models")
@@ -238,6 +253,8 @@ def check_parallel(args) -> None:
         raise SystemExit("--data-parallel does not support the cascade model")
     if n_dp > 1 and args.batch_size % n_dp:
         raise SystemExit(f"batch size {args.batch_size} not divisible by --data-parallel {n_dp}")
+    if args.rotate_augment and n_dp > 1 and n_gp == 1 and args.no_device_store:
+        raise SystemExit(ROTATE_DP_HOST)  # the host route; past the budget the trainer refuses it too
 
 
 def load_samples(args, rnd: random.Random, log) -> tuple[list[dict], list[dict]]:
@@ -526,6 +543,8 @@ class NormalTrainer:
             if any(ds is None for ds in self.store.values()):
                 self.store = None
         if self.store is None:
+            if args.rotate_augment and self.n_dp > 1 and not gp:
+                raise SystemExit(ROTATE_DP_HOST)
             why = "--no-device-store" if args.no_device_store else "the dataset exceeds the device budget"
             log(f"batches assembled on the host and uploaded per step ({why})")
 
@@ -690,6 +709,8 @@ def run(trainer: NormalTrainer, args, log, rank0: bool = True) -> dict:
         if not args.no_test and trainer.test_samples:
             dump = os.path.join(args.dump_dir, args.result_prefix) if args.only_forward_test else None
             history["test"].append(trainer.test_pass(epoch, metrics_log, dump))
+        if metrics_log is not None:
+            metrics_log.plot()
         if args.only_forward_test:
             return history
         if epoch % 10 == 9 and not args.debug and rank0:
@@ -707,20 +728,22 @@ def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
     log = make_logger(args.result_prefix, os.path.join(args.result_dir, "log"), args.debug) if rank0 else (
         lambda _: None)
     log(args)
+    log_multihost(log, mesh)
     return run(NormalTrainer(args, log, mesh), args, log, rank0)
 
 
 def main(argv=None) -> dict:
     """Train (or, with ``--only-forward-test``, evaluate once); returns each
     epoch's train and test (loss, mad).  With ``--data-parallel`` and/or
-    ``--graph-parallel`` it starts one process per rank and returns rank
-    0's history; a rank that fails makes it raise."""
+    ``--graph-parallel`` it starts one process per rank (with
+    ``--multihost`` this launch's share of them) and returns its first
+    rank's history; a rank that fails makes it raise."""
     args = config.parse_with_config(parser, argv)
     check_parallel(args)
-    if not args.debug:
+    if not args.debug and process_index(args) == 0:
         dump_config(args, os.path.join(args.result_dir, "cfg", f"{args.result_prefix}.json"))
-    return mesh_setup.run_ranks(run_rank, mesh_setup.axis_ranks(args.data_parallel),
-                                mesh_setup.axis_ranks(args.graph_parallel), args.device, args)
+    return run_grid(run_rank, mesh_setup.axis_ranks(args.data_parallel), mesh_setup.axis_ranks(args.graph_parallel),
+                    args)
 
 
 if __name__ == "__main__":

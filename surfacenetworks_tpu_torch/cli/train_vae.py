@@ -17,7 +17,8 @@ optimizer are the classifier's (``cli/train_mnist.py``); the test pass
 takes the ELBO with KLD weight 1 and sampled noise, without an update (and,
 here, without a gradient); the log lines ``Train epoch ...`` and ``Test
 epoch ...`` (loss, bce, kld) in ``log/<prefix>.log``,
-``log/<prefix>.metrics.jsonl`` (no plot) and a checkpoint each epoch at
+``log/<prefix>.metrics.jsonl``, its curves redrawn after each test epoch
+(``log/<prefix>_curves.png``, ``MetricsLogger.plot``) and a checkpoint each epoch at
 ``pts/<prefix>.pt`` in the port's format.  With ``--dump-ply N`` each epoch
 decodes a fixed noise ``[B, 1, 100]``, repeated over the vertices, on the
 flat meshes of the next test batch and writes the first N as
@@ -234,6 +235,8 @@ def run_rank(mesh: mesh_setup.Mesh | None, args) -> dict:
     for epoch in range(args.num_epoch):
         history["train"].append(trainer.train_epoch(epoch, metrics_log))
         history["test"].append(trainer.test_pass(epoch, metrics_log))
+        if rank0:
+            metrics_log.plot()
         if args.dump_ply:
             samples = trainer.test_sampler.next_batch()  # drawn on every rank: the samplers stay in step
             if rank0:

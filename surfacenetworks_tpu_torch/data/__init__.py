@@ -2,8 +2,9 @@
 ``surfacenetworks_tpu/data``).
 
 ``datasets`` imports no torch, so the offline stage (``cli.preprocess``,
-whose pool forks) reads and writes files without it; the batching names
-below load ``data/batching.py`` (and torch) on first use.
+whose pool forks) reads and writes files without it; the batching and
+pipeline names below load ``data/batching.py`` or ``data/pipeline.py`` (and
+torch) on first use.
 """
 
 from surfacenetworks_tpu_torch.data import datasets
@@ -23,13 +24,24 @@ _BATCHING = (
     "laplacian_batch",
     "mnist_batch",
     "pad_rows",
+    "padded_vertex_fraction",
     "rcm_reorder_sample",
     "rcm_reorder_sequence",
     "round_up",
     "vae_batch",
 )
 
-__all__ = sorted(_BATCHING + ("datasets",), key=str.lower)
+_PIPELINE = (
+    "DeviceDataset",
+    "IndexedBatch",
+    "MetricAccumulator",
+    "OperatorCache",
+    "padded_vertex_count",
+    "prefetch",
+    "prefetch_over",
+)
+
+__all__ = sorted(_BATCHING + _PIPELINE + ("datasets",), key=str.lower)
 
 
 def __getattr__(name: str):
@@ -37,4 +49,8 @@ def __getattr__(name: str):
         from surfacenetworks_tpu_torch.data import batching
 
         return getattr(batching, name)
+    if name in _PIPELINE:
+        from surfacenetworks_tpu_torch.data import pipeline
+
+        return getattr(pipeline, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -130,6 +130,19 @@ class BucketSet:
         return self.tiers.index(self.select(samples))
 
 
+def padded_vertex_fraction(samples, pick) -> float:
+    """The share of padded (wasted) vertex rows when each sample pads alone
+    to ``pick(sample)`` (a ``Buckets``), over all the samples' rows
+    (diagnostics)."""
+    total = padded = 0
+    for s in samples:
+        n = s["V"].shape[0]
+        N = pick(s).n_vertices
+        total += N
+        padded += N - n
+    return padded / max(total, 1)
+
+
 def _dirac_packing(samples) -> tuple[int, int]:
     """(base_valence, n_overflow) from the dataset's vertex valences: base
     is the 95th percentile (at least 4, even), the overflow rows the most

@@ -1,11 +1,18 @@
-"""Distribution: the rank grid, data parallelism, row-partitioned
-Laplacians and Dirac pairs, and the graph-sharded model run (counterpart of
-``surfacenetworks_tpu/dist``; the partitioned GAT attend is
-``nn.blocks.gat_attend`` on a ``PartitionedOperator``).  Not ported yet:
-the overlap analysis (``dist/analysis.py``) and ``--multihost`` in the
-trainers (``initialize_multihost`` is here as a library call)."""
+"""Distribution: the rank grid and its start across launches
+(``--multihost``), data parallelism, row-partitioned Laplacians and Dirac
+pairs, the graph-sharded model run and the overlap check of the partitioned
+applies (counterpart of ``surfacenetworks_tpu/dist``; the partitioned GAT
+attend is ``nn.blocks.gat_attend`` on a ``PartitionedOperator``)."""
 
-from surfacenetworks_tpu_torch.dist import data_parallel, dirac_partition, edge_partition, graph_parallel, mesh_setup
+from surfacenetworks_tpu_torch.dist import (
+    analysis,
+    data_parallel,
+    dirac_partition,
+    edge_partition,
+    graph_parallel,
+    mesh_setup,
+)
+from surfacenetworks_tpu_torch.dist.analysis import check_overlap_structure
 from surfacenetworks_tpu_torch.dist.data_parallel import make_dp_train_step, replicate, shard_batch
 from surfacenetworks_tpu_torch.dist.dirac_partition import (
     PartitionedDirac,
@@ -46,6 +53,7 @@ from surfacenetworks_tpu_torch.dist.mesh_setup import (
     choose_backend,
     initialize_multihost,
     launch,
+    launch_multihost,
     make_mesh,
     replicated,
 )
@@ -53,10 +61,12 @@ from surfacenetworks_tpu_torch.dist.mesh_setup import (
 __all__ = [
     "GraphStore",
     "Mesh",
+    "analysis",
     "PartitionedDirac",
     "PartitionedEll",
     "PartitionedOperator",
     "batch_sharding",
+    "check_overlap_structure",
     "choose_backend",
     "data_parallel",
     "dirac_partition",
@@ -65,6 +75,7 @@ __all__ = [
     "halo_exchange",
     "initialize_multihost",
     "launch",
+    "launch_multihost",
     "make_dp_train_step",
     "make_graph_sharded_apply",
     "make_mesh",

@@ -2,6 +2,7 @@
 
 from surfacenetworks_tpu_torch.nn.blocks import (
     AvgResNet2,
+    DenseLapResNet2,
     DirResNet2,
     GatResNet2,
     IdResNet2,
@@ -25,6 +26,7 @@ from surfacenetworks_tpu_torch.nn.layers import (
 
 __all__ = [
     "AvgResNet2",
+    "DenseLapResNet2",
     "DirResNet2",
     "GatResNet2",
     "GraphBatchNorm",

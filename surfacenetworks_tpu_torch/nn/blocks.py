@@ -153,6 +153,10 @@ class LapResNet2(nn.Module):
         return x + inputs
 
 
+# the dense-operator block is LapResNet2: ``apply_operator`` dispatches on the operator's type
+DenseLapResNet2 = LapResNet2
+
+
 class AvgResNet2(nn.Module):
     """Global-average residual block."""
 

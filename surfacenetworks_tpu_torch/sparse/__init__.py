@@ -13,6 +13,7 @@ from surfacenetworks_tpu_torch.sparse.ell import (
     DiracOperator,
     EllMatrix,
     EllOperator,
+    EllSpec,
     dirac_from_coeffs,
     ell_from_scipy,
     operator_from_scipy,
@@ -24,8 +25,11 @@ from surfacenetworks_tpu_torch.sparse.ops import (
     dense_bmm,
     dirac_apply_fv,
     dirac_apply_vf,
+    from_quaternion_layout,
+    quaternion_mul,
     sddmm,
     spmm,
+    to_quaternion_layout,
 )
 
 __all__ = [
@@ -34,6 +38,7 @@ __all__ = [
     "DiracOperator",
     "EllMatrix",
     "EllOperator",
+    "EllSpec",
     "bsr_from_scipy",
     "bsr_operator_from_scipy",
     "bsr_spmm",
@@ -42,11 +47,14 @@ __all__ = [
     "dirac_apply_vf",
     "dirac_from_coeffs",
     "ell_from_scipy",
+    "from_quaternion_layout",
     "operator_from_scipy",
+    "quaternion_mul",
     "rcm_permutation",
     "sddmm",
     "spmm",
     "stack_dirac",
     "stack_bsr_operators",
     "stack_operators",
+    "to_quaternion_layout",
 ]

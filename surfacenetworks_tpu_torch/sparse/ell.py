@@ -375,3 +375,12 @@ def stack_dirac(ops: list[DiracOperator]) -> DiracOperator:
     return DiracOperator(**{f.name: None if getattr(ops[0], f.name) is None
                             else torch.stack([getattr(o, f.name) for o in ops])
                             for f in dataclasses.fields(DiracOperator)})
+
+
+@dataclasses.dataclass(frozen=True)
+class EllSpec:
+    """A dataset's static ELL bucket (chosen once, reused for every batch)."""
+
+    n_rows: int
+    n_cols: int
+    k: int

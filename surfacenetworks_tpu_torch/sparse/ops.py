@@ -272,3 +272,36 @@ def dirac_apply_fv(op: DiracOperator, f: torch.Tensor) -> torch.Tensor:
     ``[..., N, C]``."""
     _check_dirac(op, f, op.n_faces, "dirac_apply_fv")
     return _DiracFV.apply(op, f)
+
+
+# ---------------------------------------------------------------------------
+# quaternion algebra on the channel layout the Dirac blocks use
+# ---------------------------------------------------------------------------
+
+
+def quaternion_mul(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The Hamilton product ``q (x) x`` broadcast over channels: ``q [...,
+    4]`` (coefficients), ``x [..., 4, C]`` (quaternion features) -> ``[...,
+    4, C]``; the same as multiplying by ``q``'s left-multiplication matrix."""
+    a, b, c, d = (q[..., i, None] for i in range(4))
+    xw, xx, xy, xz = (x[..., i, :] for i in range(4))
+    return torch.stack([
+        a * xw - b * xx - c * xy - d * xz,
+        a * xx + b * xw + c * xz - d * xy,
+        a * xy - b * xz + c * xw + d * xx,
+        a * xz + b * xy - c * xx + d * xw,
+    ], dim=-2)
+
+
+def to_quaternion_layout(x: torch.Tensor) -> torch.Tensor:
+    """``[..., N, C]`` -> ``[..., N, 4, C // 4]``."""
+    *lead, n, ch = x.shape
+    if ch % 4:
+        raise ValueError(f"channels {ch} not divisible by 4")
+    return x.reshape(*lead, n, 4, ch // 4)
+
+
+def from_quaternion_layout(x: torch.Tensor) -> torch.Tensor:
+    """``[..., N, 4, C // 4]`` -> ``[..., N, C]``."""
+    *lead, n, four, c4 = x.shape
+    return x.reshape(*lead, n, four * c4)

@@ -15,9 +15,14 @@ names a trainer (``normal``, ``arap``, ``mnist``, ``vae``,
 ``correspondence``), its command
 line, its ``(n_data, n_graph)`` grid (taken from the first ranks), an
 optional ``.npz`` of initial parameters (``state_dict`` keys) and an
-optional mutant (``local_bn``: batch-norm statistics rank-local) and an
+optional mutant (``local_bn``: batch-norm statistics rank-local), an
 optional ``.npz`` of the first update's random draw (``draw``: the
-mesh-MNIST dropout keep mask or the VAE's noise, of the whole batch).
+mesh-MNIST dropout keep mask or the VAE's noise, of the whole batch) and
+optional ``dtypes`` (``["32"]`` for a ``--bf16`` model, which computes in
+bf16 whatever its parameters' dtype).  Under ``--rotate-augment`` the
+normal trainer's update rotates by the trainer's own rotations (drawn for
+the global batch, each rank's slice), and rank 0 also writes the global
+batch's (``rotation``).
 Every rank of a case's grid builds the trainer, draws the first global
 batch (FAUST: the epoch plan's first pair and rotations) and takes one
 update on its shard, once in fp64 (the model and the batch in fp64) and
@@ -166,12 +171,24 @@ class _Case:
                                 None, t.loss_fn, None, mesh, t.args.loss)
         if self.kind == "normal":
             vertex = mesh is not None and mesh.n_graph > 1
-            return m.train_step(model, opt, batch, mesh=mesh, vertex=vertex)[0]
+            return m.train_step(model, opt, batch, rotation=self.rotation(batch, mesh, dtype), mesh=mesh,
+                                vertex=vertex)[0]
         if self.kind == "arap":
             return m.train_step(model, opt, batch, mesh=mesh)
         if self.kind == "mnist":
             return m.train_step(model, opt, batch, draw.to(dtype), mesh=mesh)[0]
         return m.train_step(model, opt, batch, draw.to(dtype), 0.5, mesh=mesh)[0]
+
+    def rotation(self, batch, mesh, dtype):
+        """Under ``--rotate-augment`` the first update's rotations in
+        ``dtype``: the trainer's own (drawn for the global batch, this
+        rank's slice) on a grid, the global batch's alone."""
+        t = self.trainer
+        if not t.args.rotate_augment:
+            return None
+        rot = t.rotation(batch.inputs.shape[0]) if mesh is not None else self.module.step_rotations(
+            t.args.seed, t.step, batch.inputs.shape[0], "cpu")
+        return rot.to(dtype)
 
     def optimizer(self, model):
         wd = 0.0 if self.kind == "normal" else 1e-5
@@ -339,15 +356,20 @@ def _rank(full_mesh, spec: dict, out_dir: str) -> None:
         elif mesh is not None:
             c = _Case(case, mesh if nd * ng > 1 else None)
             batch = c.local_batch()
+            # a --bf16 model computes in bf16 whatever its parameters' dtype: its fp32 step alone
+            dtypes = [(tag, dt) for tag, dt in (("64", torch.float64), ("32", torch.float32))
+                      if tag in case.get("dtypes", ("64", "32"))]
             res = {}
             with _local_bn() if case.get("mutant") == "local_bn" else contextlib.nullcontext():
-                for tag, dt in (("64", torch.float64), ("32", torch.float32)):
+                for tag, dt in dtypes:
                     res.update({f"{k}{tag}": v for k, v in c.run(c.trainer.model, batch, c.mesh, dt).items()})
             if rank == 0:
                 whole = c.whole_batch()
                 ref = copy.deepcopy(c.trainer.model)
-                for tag, dt in (("64", torch.float64), ("32", torch.float32)):
+                for tag, dt in dtypes:
                     res.update({f"ref.{k}{tag}": v for k, v in c.run(ref, whole, None, dt).items()})
+                if c.kind == "normal" and c.trainer.args.rotate_augment:
+                    res["rotation"] = c.rotation(whole, None, torch.float32).numpy()
                 res["names"] = np.asarray([str(s.get("name")) if isinstance(s, dict) else str(s)
                                            for s in c.samples])
                 if c.kind == "correspondence":

@@ -423,8 +423,10 @@ def test_port_reads_a_jax_arap_checkpoint(case, jax_runs, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2", "--data-parallel", "2"],
                                   ["--dump-rollout", "x"], ["--config", "c.json"], ["--preset", "arap-lap"]])
-def test_train_arap_refuses_unported_flags(flag, tmp_path):
-    """``--dump-rollout`` is refused by name; ``--data-parallel``, refused
+def test_train_arap_refuses_unported_flags(flag, tmp_path, monkeypatch):
+    """``--dump-rollout``, refused before it was ported, runs
+    (``tests/test_torch_rollout.py``) and is refused at the start where
+    matplotlib, which its GIF needs, is missing; ``--data-parallel``, refused
     before it was ported, runs (``tests/test_torch_dist_train.py``) and
     refuses a batch its ranks cannot split with the JAX trainer's message;
     ``--graph-parallel``, refused before it was ported, runs
@@ -445,5 +447,9 @@ def test_train_arap_refuses_unported_flags(flag, tmp_path):
             ttrain.main(["--device", "cpu", "--data-path", str(ARAP), "--result-dir", str(tmp_path), *flag,
                          "--batch-size", "3"])
         return
-    with pytest.raises(SystemExit, match="not ported yet"):
+    import importlib.util
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: None if name == "matplotlib" else real(name, *a))
+    with pytest.raises(SystemExit, match="--dump-rollout draws its GIF with matplotlib, which is not installed"):
         ttrain.main(["--device", "cpu", "--data-path", str(ARAP), "--result-dir", str(tmp_path), *flag])

@@ -1,7 +1,7 @@
 """The port's trainers take every command line the JAX package's take: each
-flag of a JAX trainer's parser is accepted by the port's, which runs it or
-refuses it by name ("not ported yet"), ``--config``/``--preset`` among the
-run ones; and the JAX FAUST command lines of
+flag of a JAX trainer's parser is accepted by the port's, which runs it
+(``--config``/``--preset`` and ``--multihost`` among them; a combination the
+JAX trainer refuses exits with its message); and the JAX FAUST command lines of
 ``tests/test_streaming_head.py`` parse with the port's parser, where
 ``--batch-size`` and ``--num-vertices`` are read by neither trainer and
 ``--no-epoch-scan`` is the order the port always runs.  ``--bf16`` is run,
@@ -76,19 +76,23 @@ def test_train_correspondence_refuses_config_flags(flag, tmp_path):
 @pytest.mark.parametrize("name", TRAINERS)
 def test_bf16_is_not_refused(name):
     """``--bf16`` (mixed precision) is on no trainer's refused list, while a
-    flag that is still refused is, in the same call: ``--multihost`` (normal,
-    FAUST) and ``--dump-rollout`` (ARAP) by name; the mesh-MNIST and VAE
-    trainers run every flag of theirs, and the JAX trainers' own refusal of
-    ``--graph-parallel`` beside ``--data-parallel`` stands in for them."""
+    combination the JAX trainer refuses is, in the same call, with its
+    message: the cascade under ``--data-parallel`` (normal), ``--smooth-reg``
+    under ``--multihost`` (FAUST), ``--dense`` under ``--graph-parallel``
+    (ARAP) and ``--graph-parallel`` beside ``--data-parallel`` (mesh-MNIST,
+    VAE).  No trainer refuses a flag as unported any more."""
     mod = importlib.import_module(f"surfacenetworks_tpu_torch.cli.{name}")
-    refuse = mod.refuse_unported if name not in ("train_mnist", "train_vae") else (
-        lambda args: mod.refuse_unported(args, name))
+    refuse = {"train_normal": mod.__dict__.get("check_parallel"),
+              "train_mnist": lambda args: mod.refuse_unported(args, name),
+              "train_vae": lambda args: mod.refuse_unported(args, name)}.get(name) or mod.refuse_unported
     args = mod.parser.parse_args(["--bf16"])
     assert args.bf16
     refuse(args)
-    still, msg = {"train_arap": (["--dump-rollout", "x"], "not ported yet: --dump-rollout"),
+    still, msg = {"train_normal": (["--data-parallel", "2", "--model", "cas"], "does not support the cascade model"),
+                  "train_correspondence": (["--multihost", "--smooth-reg", "0.1"],
+                                           "requires the single-device fast path"),
+                  "train_arap": (["--graph-parallel", "2", "--dense"], "partitions sparse operators"),
                   "train_mnist": (["--graph-parallel", "2", "--data-parallel", "2"], "mutually exclusive"),
-                  "train_vae": (["--graph-parallel", "2", "--data-parallel", "2"], "mutually exclusive")}.get(
-        name, (["--multihost"], "not ported yet: --multihost"))
+                  "train_vae": (["--graph-parallel", "2", "--data-parallel", "2"], "mutually exclusive")}[name]
     with pytest.raises(SystemExit, match=msg):
         refuse(mod.parser.parse_args(["--bf16", *still]))

@@ -13,11 +13,12 @@
   under ``parallel_context.sharded_axes`` (the graph-parallel body of
   ``tests/test_dist.py``'s partitioned layer), forward and backward, fp64
   within 1e-10.
-* ``initialize_multihost`` fails loudly; ``make_mesh`` refuses a grid
+* ``initialize_multihost`` fails loudly (``--multihost`` itself:
+  ``tests/test_torch_multihost.py``); ``make_mesh`` refuses a grid
   larger than its devices; the backend follows the devices; a rank that
   raises fails ``launch``; ``train_normal.main --data-parallel 2`` runs its
-  ranks end to end, rank 0 writing the log and the checkpoint; the flags
-  still refused exit with a message.
+  ranks end to end, rank 0 writing the log and the checkpoint; the JAX
+  trainers' refusals exit with their messages.
 
 The ranks run in ``tests/_torch_dist_worker.py`` (four gloo ranks started
 once for the file, under a hard timeout that kills them)."""
@@ -256,20 +257,31 @@ def test_sharded_layers_match_jax(grid, masked, ranks):
 
 
 def test_initialize_multihost_fails_loudly(monkeypatch):
-    """A misconfigured bootstrap raises (a refused connection, missing
-    arguments); only a process group already up is a no-op."""
+    """A misconfigured bootstrap raises (a refused connection at the
+    rendezvous, missing or partial coordinator flags, an address without a
+    port); only a process group already up is a no-op; the ranks agree on
+    the backend from the device identities each posts."""
     import torch.distributed as dist
 
     def refuse(*args, **kwargs):
-        raise RuntimeError("Failed to connect to coordinator 10.0.0.99:1234")
+        raise RuntimeError("Failed to connect to coordinator 127.0.0.1:1234")
 
-    monkeypatch.setattr(dist, "init_process_group", refuse)
+    monkeypatch.setattr(dist, "rendezvous", refuse)
     with pytest.raises(RuntimeError, match="Failed to connect"):
-        mesh_setup.initialize_multihost("10.0.0.99:1234", num_processes=2, process_id=0)
-    with pytest.raises(ValueError, match="needs coordinator_address"):
-        mesh_setup.initialize_multihost("10.0.0.99:1234")
+        mesh_setup.initialize_multihost("tcp://127.0.0.1:1234", 0, 2, torch.device("cpu"))
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="needs all of"):
+        mesh_setup.multihost_process("127.0.0.1:1234")
+    with pytest.raises(SystemExit, match="torchrun's environment"):
+        mesh_setup.multihost_process()
+    with pytest.raises(SystemExit, match="is not host:port"):
+        mesh_setup.multihost_process("127.0.0.1", 2, 0)
+    assert mesh_setup.multihost_process("127.0.0.1:1234", 2, 1) == ("tcp://127.0.0.1:1234", 2, 1, None)
+    assert mesh_setup.choose_backend_of(["a", "b"]) == "nccl" and mesh_setup.choose_backend_of(["a", "a"]) == "gloo"
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    mesh_setup.initialize_multihost("10.0.0.99:1234", num_processes=2, process_id=0)  # no-op
+    monkeypatch.setattr(dist, "get_backend", lambda: "gloo")
+    assert mesh_setup.initialize_multihost("tcp://127.0.0.1:1234", 0, 2, torch.device("cpu")) == "gloo"  # no-op
 
 
 def test_mesh_and_backend_rules(monkeypatch):
@@ -334,7 +346,8 @@ def test_train_normal_main_runs_ranks(tmp_path):
 REFUSED = [
     ("train_normal", ["--graph-parallel", "2", "--model", "dirac", "--operator-format", "bsr"], "supports ell or bsr"),
     ("train_normal", ["--graph-parallel", "2", "--model", "cas"], "supports the lap, dirac and gat models"),
-    ("train_normal", ["--multihost"], "not ported yet: --multihost"),
+    ("train_normal", ["--data-parallel", "2", "--batch-size", "2", "--rotate-augment", "--no-device-store"],
+     "needs the device-store fast path"),
     ("train_normal", ["--graph-parallel", "2", "--model", "avg"], "supports the lap, dirac and gat models"),
     ("train_normal", ["--graph-parallel", "2", "--operator-format", "dense"], "supports ell or bsr"),
     ("train_normal", ["--data-parallel", "2", "--model", "cas"], "does not support the cascade model"),
@@ -345,14 +358,14 @@ REFUSED = [
     ("train_arap", ["--graph-parallel", "2", "--model", "gcn"], "supports the lap and dir models"),
     ("train_mnist", ["--graph-parallel", "2", "--data-parallel", "2"], "mutually exclusive here"),
     ("train_correspondence", ["--graph-parallel", "2", "--smooth-reg", "0.1"], "requires the single-device fast path"),
-    ("train_correspondence", ["--multihost"], "not ported yet: --multihost"),
+    ("train_correspondence", ["--multihost", "--smooth-reg", "0.1"], "requires the single-device fast path"),
 ]
 
 
 @pytest.mark.parametrize("name,flags,msg", REFUSED, ids=[f"{n}-{'-'.join(f)}" for n, f, _ in REFUSED])
 def test_still_refused_flags_exit(name, flags, msg):
-    """What the port does not run yet exits with a message naming it (and
-    the next slice that brings it); JAX's own refusals keep its messages;
+    """The JAX trainers' refusals of flag combinations exit with their
+    messages (the port runs every flag now: none is refused as unported);
     ``--data-parallel 1`` and ``--graph-parallel 1`` mean off."""
     import importlib
 
@@ -361,9 +374,6 @@ def test_still_refused_flags_exit(name, flags, msg):
         (lambda a: mod.refuse_unported(a, name)) if name in ("train_mnist", "train_vae") else mod.refuse_unported)
     with pytest.raises(SystemExit, match=msg):
         refuse(mod.parser.parse_args(flags))
-    if "not ported yet" in msg:
-        with pytest.raises(SystemExit, match="next slice"):
-            refuse(mod.parser.parse_args(flags))
     refuse(mod.parser.parse_args(["--data-parallel", "1"] if name != "train_correspondence" else []))
     refuse(mod.parser.parse_args(["--graph-parallel", "1"]))
 

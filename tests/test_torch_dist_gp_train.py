@@ -67,9 +67,12 @@ import torch_dist_gp as gp
 NAMES = [c for c in gp.CASES if gp.CASES[c][0] in ("normal", "arap", "correspondence")]
 
 
+EXTRA = sorted(c for c in gp.EXTRA if gp.EXTRA[c][0] in ("normal", "arap", "correspondence"))
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return gp.run_cases(tmp_path_factory.mktemp("dist_gp_train"), NAMES + sorted(gp.EXTRA))
+    return gp.run_cases(tmp_path_factory.mktemp("dist_gp_train"), NAMES + EXTRA)
 
 
 @pytest.mark.parametrize("case", sorted(NAMES))
@@ -77,6 +80,16 @@ def test_gp_step_matches_single_device(case, runs):
     """One update on every rank's rows equals the update alone on the whole
     batch (see the module docstring for the tolerances), and every rank of
     the grid holds the same parameters afterwards, bit for bit."""
+    gp.hold_single_device(case, runs)
+
+
+@pytest.mark.parametrize("case", ["faust_lap_remat", "normal_dirac_bf16"])
+def test_gp_remat_and_bf16_match_single_device(case, runs):
+    """``--remat`` (FAUST's lap trunk) and ``--bf16`` (normal Dirac) under
+    ``--graph-parallel``, which JAX's graph-parallel paths take: the remat
+    step by the fp64 and fp32 rules, the bf16 step by the sharded steps' fp32 rules
+    (loss 3e-5 relative, parameters 2 lr + 1e-7), against the same step
+    alone on the whole batch."""
     gp.hold_single_device(case, runs)
 
 

@@ -9,7 +9,10 @@ run under a hard timeout that kills the ranks.  Cases: ``train_normal``
 2``, ``--graph-parallel 2`` with ELL and BSR interiors, both on a 2 x 2
 grid, ``--no-device-store`` beside the device store, a rank-local
 batch-norm mutant; ``train_arap``, ``train_mnist`` and ``train_vae`` at
-``--data-parallel 2`` (batch 4).  Each rank takes one update on its shard
+``--data-parallel 2`` (batch 4); ``train_normal --data-parallel 2
+--rotate-augment`` on the device store (the rotations drawn for the global
+batch and sliced; the host route refuses the flag, as JAX's does).  Each
+rank takes one update on its shard
 of the first global batch, in fp64 and in fp32; rank 0 also takes it alone
 on the whole batch (for ``--graph-parallel``: the same RCM-ordered, padded
 rows through the unpartitioned ELL operator).
@@ -77,6 +80,8 @@ MNIST = ["--data-path", str(FIX / "mnist_plus.np"), "--batch-size", "4", "--num-
 
 CASES = {
     "normal_dp2": ("normal", 2, 1, NORMAL + ["--operator-format", "ell", "--data-parallel", "2"]),
+    "normal_dp2_rotate": ("normal", 2, 1, NORMAL + ["--operator-format", "ell", "--data-parallel", "2",
+                                                    "--rotate-augment"]),
     "normal_gp2_ell": ("normal", 1, 2, NORMAL + ["--graph-parallel", "2"]),
     "normal_gp2_bsr": ("normal", 1, 2, NORMAL + ["--graph-parallel", "2", "--operator-format", "bsr"]),
     "normal_dp2_gp2": ("normal", 2, 2, NORMAL + ["--graph-parallel", "2", "--data-parallel", "2"]),
@@ -89,7 +94,7 @@ EXTRA = {
     "normal_dp2_host": ("normal", 2, 1, CASES["normal_dp2"][3] + ["--no-device-store"]),
     "normal_dp2_local_bn": ("normal", 2, 1, CASES["normal_dp2"][3]),
 }
-JAX_CASES = ["normal_dp2", "normal_gp2_ell", "normal_gp2_bsr", "normal_dp2_gp2", "arap_dp2"]
+JAX_CASES = ["normal_dp2", "normal_dp2_rotate", "normal_gp2_ell", "normal_gp2_bsr", "normal_dp2_gp2", "arap_dp2"]
 
 
 def _normal_params():
@@ -215,9 +220,11 @@ def _adam64(params, grads, wd=0.0):
     return optax.apply_updates(params, upd)
 
 
-def _jax_normal(case, names, jparams):
+def _jax_normal(case, names, jparams, rotation=None):
     """JAX's DP or GP fp64 step on the batch ``names``: (loss, grads, new
-    params) as ``state_dict`` keys."""
+    params) as ``state_dict`` keys; with ``rotation`` (``[B, 3, 3]``, the
+    global batch's) the inputs and targets rotated first, as the JAX
+    trainer's ``_maybe_rotate``."""
     _, nd, ng, argv = CASES[case]
     args = jnormal.parser.parse_args(argv)
     random.seed(args.seed)
@@ -265,9 +272,12 @@ def _jax_normal(case, names, jparams):
             def dp_loss(out, b):
                 return jlosses.normal_cosine_loss(out, b["mask"], b["targets"]), {}
 
-            b = shard_batch(mesh, {"operator": jax.tree_util.tree_map(jnp.asarray, jb.operator),
-                                   **{k: jnp.asarray(getattr(jb, k), jnp.float64)
-                                      for k in ("mask", "inputs", "targets")}})
+            arrs = {k: jnp.asarray(getattr(jb, k), jnp.float64) for k in ("mask", "inputs", "targets")}
+            if rotation is not None:
+                R = jnp.asarray(rotation, jnp.float64)
+                arrs["inputs"] = jnp.einsum("bnc,bcd->bnd", arrs["inputs"], R)
+                arrs["targets"] = jnp.einsum("bnc,bcd->bnd", arrs["targets"], R)
+            b = shard_batch(mesh, {"operator": jax.tree_util.tree_map(jnp.asarray, jb.operator), **arrs})
             new_state, metrics = make_dp_train_step(dp_apply, dp_loss, mesh, donate=False)(state, b)
             loss, new = metrics["loss"], new_state.params
             g = jax.jit(jax.grad(lambda p: dp_loss(dp_apply(p, b), b)[0]))(p64)
@@ -305,13 +315,15 @@ def test_dist_step_matches_jax(case, runs):
     the same batch and weights (``make_dp_train_step`` /
     ``make_graph_sharded_apply`` over the virtual CPU devices, under
     ``enable_x64``): the loss, every gradient and the parameters after one
-    Adam update within 1e-6."""
+    Adam update within 1e-6.  ``--rotate-augment`` on the device store
+    hands JAX's DP step the rotations the ranks drew (the global batch's;
+    each rank rotates its slice)."""
     r = runs(case)
     names = [str(n) for n in r["names"]]
     if case.startswith("arap"):
         loss, g, new = _jax_arap(names, runs.jax["arap"])
     else:
-        loss, g, new = _jax_normal(case, names, runs.jax["normal"])
+        loss, g, new = _jax_normal(case, names, runs.jax["normal"], r.get("rotation"))
     assert_close(float(r["loss64"]), loss, JAX_RTOL, f"{case}: loss")
     for k in _keys(r):
         assert_close(r[f"g.{k}64"], g[k], JAX_RTOL, f"{case}: gradient {k}")

@@ -437,8 +437,10 @@ def test_train_normal_resumes_from_a_jax_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--graph-parallel", "2"], ["--config", "c"],
                                   ["--jax-profile", "x"], ["--preset", "p"], ["--multihost"]])
-def test_train_normal_refuses_unported_flags(flag, tmp_path):
-    """``--multihost`` is refused by name; ``--data-parallel`` and
+def test_train_normal_refuses_unported_flags(flag, tmp_path, monkeypatch):
+    """``--multihost``, refused before it was ported, runs
+    (``tests/test_torch_multihost.py``) and, with neither its coordinator
+    flags nor torchrun's environment, exits naming them; ``--data-parallel`` and
     ``--graph-parallel``, refused before they were ported, run
     (``tests/test_torch_dist_train.py``, ``tests/test_torch_dist_gp_train.py``):
     a batch the data ranks cannot split and the Dirac model with a BSR
@@ -449,7 +451,7 @@ def test_train_normal_refuses_unported_flags(flag, tmp_path):
     resolution), and so is ``--jax-profile``, which writes a trace of the
     first epoch."""
     if flag[0] in ("--config", "--preset"):
-        config_flag_taken(ttrain.parser, flag, tmp_path, ttrain.refuse_unported)
+        config_flag_taken(ttrain.parser, flag, tmp_path, ttrain.check_parallel)
         return
     if flag[0] == "--jax-profile":
         profile_flag_writes_trace(ttrain.main, ["--device", "cpu", "--data-path", str(OBJS), "--layer", "2",
@@ -466,5 +468,8 @@ def test_train_normal_refuses_unported_flags(flag, tmp_path):
             ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag,
                          "--model", "dirac", "--operator-format", "bsr"])
         return
-    with pytest.raises(SystemExit, match="not ported yet"):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="--multihost needs --coordinator-address, --num-processes and --process-id, "
+                                         "or torchrun's environment"):
         ttrain.main(["--device", "cpu", "--data-path", str(OBJS), "--result-dir", str(tmp_path), *flag])

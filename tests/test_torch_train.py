@@ -306,7 +306,9 @@ def test_trainer_takes_its_scans_from_code(fmt):
 @pytest.mark.parametrize("flag", [["--graph-parallel", "2", "--model", "amp"], ["--multihost"],
                                   ["--config", "any.json"], ["--loss", "sl1", "past the budget"]])
 def test_train_correspondence_refuses_unported_flags(flag, tmp_path, monkeypatch):
-    """``--multihost`` is refused by name; ``--graph-parallel``, refused
+    """``--multihost``, refused before it was ported, runs
+    (``tests/test_torch_multihost_faust.py``) and, with neither its
+    coordinator flags nor torchrun's environment, exits naming them; ``--graph-parallel``, refused
     before it was ported, runs (``tests/test_torch_dist_gp_train.py``) and
     refuses the amp trunk with the JAX trainer's message.  ``--config`` and sl1
     (or cel) with geodesic matrices past the device budget (the budget set
@@ -334,7 +336,10 @@ def test_train_correspondence_refuses_unported_flags(flag, tmp_path, monkeypatch
         with pytest.raises(SystemExit, match="--graph-parallel supports the lap and dir trunks"):
             ttrain.main(argv + flag)
         return
-    with pytest.raises(SystemExit, match="not ported yet"):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="--multihost needs --coordinator-address, --num-processes and --process-id, "
+                                         "or torchrun's environment"):
         ttrain.main(argv + flag)
 
 

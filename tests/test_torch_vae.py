@@ -290,6 +290,104 @@ def test_vae_step_matches_jax(name, jax_steps, tmp_path):
         assert err <= ADAM_ATOL, f"{k}: after one Adam update max|err|={err:.3e}"
 
 
+GAP_SEED, GAP_KW = 31, 0.5  # the graph-parallel VAE test's weights seed and KLD weight
+CAST_RTOL = 1e-10  # the fp64 sums in another order, where JAX's fp32 casts are replayed (measured 6e-12)
+
+
+def _jax_casts(model, name: str):
+    """``model`` (the port's fp64 VAE) with the JAX package's fp32 casts
+    inside its fp64 step replayed, value and cotangent: the encoder's pooled
+    features rounded to fp32 before the latent heads (the Lap encoder casts
+    once per head, ``x.astype(jnp.float32)`` in each call; the Dirac encoder
+    once for both, so both heads' cotangents are summed in fp32) and the
+    decoder's ``fc_mu`` output rounded to fp32 before the flat inputs are
+    added (``mu.astype(jnp.float32) + inputs``)."""
+    enc = model.encoder
+    if name == "lap":
+        for head in (enc.fc_mu, enc.fc_logvar):
+            head.register_forward_pre_hook(lambda mod, args: (args[0].float().double(),))
+    else:
+        shared = {}
+
+        def first(mod, args):
+            shared["x32"] = args[0].float()
+            return (shared["x32"].double(),)
+
+        enc.fc_mu.register_forward_pre_hook(first)
+        enc.fc_logvar.register_forward_pre_hook(lambda mod, args: (shared["x32"].double(),))
+    model.decoder.fc_mu.register_forward_hook(lambda mod, args, out: out.float().double())
+    return model
+
+
+@pytest.mark.parametrize("name", sorted(JMODELS))
+def test_vae_fp64_step_leaf_by_leaf(name, data, tmp_path):
+    """The fp64 step's gradients, leaf by leaf, against the JAX package's
+    single-device step under ``enable_x64``, on the trainer's first batch,
+    the graph-parallel test's weights (seed 31) and KLD weight 0.5, JAX's
+    noise recorded as drawn.  Every leaf is within JAX_RTOL (1e-6) of
+    JAX's; the largest gap, measured 7.2e-7 on the Lap VAE's
+    ``encoder.rn1.bn_fc0.fc.weight`` (1.5e-7 on the Dirac VAE's
+    ``encoder.rn0.bn_fc0.fc.weight``), is the JAX package's own: its fp64
+    step casts to fp32 inside (``_jax_casts``).  With those casts replayed
+    in the port, every leaf agrees within 1e-10 (6e-12 measured) and the
+    loss to 1e-15: the port's fp64 step is the exact one, and the
+    graph-parallel check's VAE bound (``tests/torch_dist_gp.py``) widens
+    by this gap for this reason."""
+    from unittest import mock
+
+    _, j, _, jbk = data
+    sep = max(1, int(len(j) * 0.8))
+    jb = jbat.vae_batch(JEpochSampler(j[:sep], BATCH, seed=17).next_batch(), jbk, model=name)
+    jmod = JMODELS[name](num_layers=LAYERS[name])
+    shapes = jax.eval_shape(lambda: jmod.init({"params": jax.random.key(0), "sample": jax.random.key(1)},
+                                              *_jax_arrays(jb, jnp.float32)))["params"]
+    params = random_params(shapes, GAP_SEED)
+    normal = jax.random.normal
+    with jax.enable_x64(True):
+        arrays = _jax_arrays(jb, jnp.float64)
+
+        def objective(p):
+            drawn = []
+
+            def recorded(*a, **k):  # the noise itself, not (z - mu) / std, which loses digits
+                drawn.append(normal(*a, **k))
+                return drawn[-1]
+
+            with mock.patch.object(jax.random, "normal", recorded):
+                res = jmod.apply({"params": p}, *arrays, rngs={"sample": jax.random.key(9)})
+            bce, kld = jlosses.vae_elbo_terms(res[0], res[1], arrays[-1], arrays[0], *res[2:])
+            return bce + kld * GAP_KW, drawn[0]
+
+        (jloss, eps), jg = jax.jit(jax.value_and_grad(objective, has_aux=True))(
+            jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), params))
+        jg, eps = state64(jg), np.asarray(eps)
+    trainer = _trainer(tmp_path, model=name)
+    trainer.model.load_state_dict(params_from_flax(params, like=trainer.model), strict=True)
+    batch = batch_as(trainer.batch(trainer.train_sampler.next_batch()), torch.float64)
+
+    def step(model):
+        res = model(batch.inputs, batch.aux["flat_inputs"], batch.operator, batch.aux["flat_operator"], batch.mask,
+                    eps=torch.from_numpy(eps))
+        bce, kld = tlosses.vae_elbo_terms(res[0], res[1], batch.mask, batch.inputs, *res[2:])
+        loss = bce + kld * GAP_KW
+        loss.backward()
+        return float(loss), {k: p.grad.numpy() for k, p in model.named_parameters()}
+
+    def gaps(g):
+        return {k: float(np.abs(g[k] - jg[k]).max() / max(np.abs(jg[k]).max(), 1e-300)) for k in g}
+
+    loss, g = step(copy.deepcopy(trainer.model).double())
+    plain = gaps(g)
+    leaf = max(plain, key=plain.get)
+    assert_close(loss, float(jloss), LOSS_RTOL, "fp64 loss")
+    hold_grads(g, jg, FP64_RTOL, set(), f"fp64 gradient (largest gap {plain[leaf]:.2e} at {leaf})")
+    assert plain[leaf] > 100 * CAST_RTOL, (leaf, plain[leaf])  # a real gap, which the casts below account for
+    loss, g = step(_jax_casts(copy.deepcopy(trainer.model).double(), name))
+    cast = gaps(g)
+    assert abs(loss - float(jloss)) <= 1e-15 * abs(float(jloss)), (loss, float(jloss))
+    assert max(cast.values()) <= CAST_RTOL, (max(cast, key=cast.get), max(cast.values()))
+
+
 @pytest.mark.parametrize("model", sorted(JMODELS))
 def test_device_store_and_host_path_give_the_same_batches(model, data, tmp_path):
     """The device store's index gather and ``--no-device-store``'s host
