@@ -446,7 +446,7 @@ ZOO_NULL_GRADS = {
     "mlp": {"conv1.fc.bias"} | {f"rn{i}.fc{j}.fc.bias" for i in range(ZOO_LAYERS) for j in (0, 1)},
     "id": {f"rn{ZOO_LAYERS - 1}.bn_fc1.fc.bias", f"rn{ZOO_LAYERS - 1}.bn_fc1.bn.bias"},
 }
-GAT_RANGE = "gat attend"  # the profiler range around each attend's forward in the profiled step
+GAT_RANGE = "snx:apply:gat"  # the program's span around each attend's forward (nn/blocks.py::gat_attend)
 GAT_ATTENDS = 2 * ((ZOO_LAYERS + 1) // 2)  # two a GAT block, GAT blocks on even layers
 # The multiresolution cascade (``--model cas``): EfficientCascade(3, 3) at
 # the JAX trainer's defaults (4 pyramid levels, width 128, 2 inner layers),
@@ -514,7 +514,7 @@ NULL_GRAD_RTOL = 1e-4
 # the normal phase's module-wise bounds (also the zoo's, whose Mlp and Id
 # models have null gradients of their own)
 NORMAL_STEP0_BOUNDS = {"chain": STEP0_CHAIN_RTOL, "parameter": STEP0_PARAM_RTOL, "null": NULL_GRAD_RTOL}
-DIRAC_RANGE = "dirac apply"  # the profiler range around each apply in the profiled step
+DIRAC_RANGE = "snx:apply:dirac"  # the program's span around each apply, forward and backward (sparse/ops.py)
 DIRAC_NULL_GRADS = {f"rn{LAYERS - 1}.bn_fc1.fc.bias", f"rn{LAYERS - 1}.bn_fc1.bn.bias"}
 # ARAP training: the JAX trainer's defaults but for the run length and the
 # data.  Model-15 (8 Lap blocks, 7 Avg blocks) at width 128, batch 32, Adam
@@ -2369,11 +2369,11 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
     then the test pass; the launch counts of each step and of the test pass;
     the peak device memory of the updates; step 0 under the module-wise
     capture ``capture(model)``, the last step under the profiler, a
-    checkpoint after ``save_after`` updates.  ``annotate``, a pair
-    (context manager, range name), is entered around the profiled step, and
-    the device time of that range's kernels is kept as ``range_ms``.
-    ``update(trainer, batch, u)`` takes update ``u`` where
-    ``trainer.update(batch)`` does not fit.  With a third element in
+    checkpoint after ``save_after`` updates.  ``annotate`` names one of the
+    program's spans (``surfacenetworks_tpu_torch/spans.py``), whose ranges
+    the profiled step records; the device time of their kernels is kept as
+    ``range_ms``.  ``update(trainer, batch, u)`` takes update ``u`` where
+    ``trainer.update(batch)`` does not fit.  With a second element in
     ``annotate``, the kernels of autograd's backward of the ranges'
     operations (``backward_device_ms``) are kept as ``range_bwd_ms``."""
     import torch
@@ -2399,8 +2399,7 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
             cap.remove()
             res.update(capture=cap, batch0=batch, drawn0=drawn)
         elif profile_last and u == steps - 1:
-            ranges = annotate[0]() if annotate else contextlib.nullcontext()
-            with ranges, counted_profile() as prof:
+            with counted_profile() as prof:
                 out = step(trainer, batch, u)
                 torch.cuda.synchronize()
         else:
@@ -2430,9 +2429,9 @@ def _train_run(trainer, steps: int, draw=_draw_samples, capture=None, profile_la
         res["device_ops"] = sum(r[1] for r in rows)
         res["top"] = rows[:8] + [r for r in rows[8:] if "spmm_" in r[2] or "sddmm_" in r[2]]
         if annotate:
-            res["range_ms"], res["range_ops"] = range_device_ms(prof, annotate[1])
-            if len(annotate) > 2:  # autograd's backward of the ranges' operations, which runs outside them
-                res["range_bwd_ms"], res["range_bwd_ops"] = backward_device_ms(prof, annotate[1])
+            res["range_ms"], res["range_ops"] = range_device_ms(prof, annotate[0])
+            if len(annotate) > 1:  # autograd's backward of the ranges' operations, which runs outside them
+                res["range_bwd_ms"], res["range_bwd_ops"] = backward_device_ms(prof, annotate[0])
     steady = slice(1, steps - 1)  # not the first step, not the profiled one
     res["device_ms_median"] = float(np.median(res["device_ms"][steady]))
     res["wall_ms_median"] = float(np.median(res["wall_ms"][steady]))
@@ -2827,37 +2826,6 @@ def detached_dirac_applies():
         blocks.apply_dirac_vf, blocks.apply_dirac_fv = saved
 
 
-@contextlib.contextmanager
-def annotated_dirac_applies():
-    """Each Dirac apply (forward or backward, its overflow included) inside
-    a profiler range named DIRAC_RANGE, so that the kernels of a profiled
-    step can be told apart.  Reading only."""
-    import torch
-
-    from surfacenetworks_tpu_torch.sparse import ops
-
-    saved = ops._gather_apply, ops._vertex_side
-    depth = [0]  # the overflow's gather runs inside _vertex_side's range
-
-    def ranged(fn):
-        def call(*args):
-            if depth[0]:
-                return fn(*args)
-            depth[0] += 1
-            try:
-                with torch.profiler.record_function(DIRAC_RANGE):
-                    return fn(*args)
-            finally:
-                depth[0] -= 1
-        return call
-
-    ops._gather_apply, ops._vertex_side = (ranged(fn) for fn in saved)
-    try:
-        yield
-    finally:
-        ops._gather_apply, ops._vertex_side = saved
-
-
 def range_device_ms(prof, name: str) -> tuple[float, int]:
     """Device time (ms) and count of the kernels that the host operators
     inside the profiler ranges called ``name`` launched."""
@@ -2891,27 +2859,6 @@ def backward_device_ms(prof, name: str) -> tuple[float, int]:
             if seq in seqs:
                 found += kernels(e)
     return sum(k.duration for k in found) / 1e3, len(found)
-
-
-@contextlib.contextmanager
-def annotated_attends():
-    """Each attend's forward (``blocks.gat_attend``) inside a profiler range
-    named GAT_RANGE.  Reading only."""
-    import torch
-
-    from surfacenetworks_tpu_torch.nn import blocks
-
-    saved = blocks.gat_attend
-
-    def ranged(*args, **kwargs):
-        with torch.profiler.record_function(GAT_RANGE):
-            return saved(*args, **kwargs)
-
-    blocks.gat_attend = ranged
-    try:
-        yield
-    finally:
-        blocks.gat_attend = saved
 
 
 @contextlib.contextmanager
@@ -3029,7 +2976,7 @@ def dirac_phase(device, smi: str) -> dict:
         kernels.reset_launch_counts()
         res = _train_run(trainer, DIRAC_STEPS, capture=StepCapture, profile_last=True,
                           save_after=NORMAL_RESUME_AFTER, ckpt=os.path.join(tmp, "dirac.pt"),
-                          annotate=(annotated_dirac_applies, DIRAC_RANGE))
+                          annotate=(DIRAC_RANGE,))
         path_counts = dict(kernels.launches)
         res["applies"] = applies
         res["apply_share"] = res["range_ms"] / res["busy_ms"]
@@ -3104,7 +3051,7 @@ def zoo_phase(device, smi: str) -> dict:
         # the main path of this run: every count is 0 just before it and read just after
         kernels.reset_launch_counts()
         res = _train_run(trainer, ZOO_STEPS, capture=StepCapture, profile_last=True,
-                         annotate=(annotated_attends, GAT_RANGE, "backward") if gat else None)
+                         annotate=(GAT_RANGE, "backward") if gat else None)
         counts = dict(kernels.launches)
         repeat_run(f"zoo {label}", trainer, lambda: _normal_restore(trainer, snap), res)
         log(f"  zoo {label}: losses {[repr(v) for v in res['loss']]}, mad {['%.4f' % v for v in res['mad']]}; test "
@@ -4189,7 +4136,7 @@ def mesh_phase(family: str, device, smi: str, samples: list) -> tuple[dict, dict
             return out
 
         capture = (lambda m: ModuleCapture(m, _mesh_capture_paths(family))) if cfg != "dense" else None
-        annotate = (annotated_dirac_applies, DIRAC_RANGE) if cfg == "dirac" else None
+        annotate = (DIRAC_RANGE,) if cfg == "dirac" else None
         # the main path of this configuration: every count is 0 just before it and read just after
         kernels.reset_launch_counts()
         res = _train_run(trainer, steps, capture=capture, profile_last=True, annotate=annotate, update=update)

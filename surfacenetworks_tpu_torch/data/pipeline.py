@@ -17,7 +17,10 @@ copies have passed.  Both routes run the step on the device.
 ``MetricAccumulator`` sums a loop's metrics on the device and fetches them
 once.  Samples are keyed by the object (sample dicts) or, with
 ``value_keys``, by their value (the ARAP trainer's (sequence, offset)
-picks: the JAX package's ``value_keys=True``).
+picks: the JAX package's ``value_keys=True``).  A batch's assembly runs
+inside the span ``snx:batch`` (``spans.py``): on the device route the index
+upload (``DeviceDataset.batch``) and the gather (``IndexedBatch.gather``),
+each a span; on the host route the wait for the worker and the upload.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from surfacenetworks_tpu_torch.data.batching import MeshBatch
+from surfacenetworks_tpu_torch.spans import span
 
 DEVICE_BUDGET_BYTES = 6 << 30
 HOST_BUDGET_BYTES = 8 << 30  # OperatorCache's, as in the JAX package
@@ -359,8 +363,17 @@ def host_route(draw: Callable[[], Any], packed: PackedSamples, n_steps: int, dev
         host = packed.batch(draw())
         return pinned(host) if pin else host
 
-    for host in prefetch(make, n_steps, depth=depth):
-        yield uploads(host)
+    batches = prefetch(make, n_steps, depth=depth)
+    try:
+        while True:
+            with span("snx:batch"):  # the wait for the worker and the upload
+                host = next(batches, _DONE)
+                if host is _DONE:
+                    return
+                out = uploads(host)
+            yield out
+    finally:
+        batches.close()
 
 
 @dataclasses.dataclass
@@ -373,7 +386,8 @@ class IndexedBatch:
     names: list
 
     def gather(self) -> MeshBatch:
-        return MeshBatch(**{k: _take(getattr(self.tree, k), self.idx) for k in _FIELDS}, names=self.names)
+        with span("snx:batch"):
+            return MeshBatch(**{k: _take(getattr(self.tree, k), self.idx) for k in _FIELDS}, names=self.names)
 
 
 class DeviceDataset:
@@ -397,9 +411,10 @@ class DeviceDataset:
         return cls(to_device(host, device), items, packed.key)
 
     def batch(self, items: list) -> IndexedBatch:
-        idx = np.asarray([self._index_of[self._key(s)] for s in items], np.int64)
-        return IndexedBatch(self.tree, torch.from_numpy(idx).to(self.tree.inputs.device),
-                            [self.tree.names[i] for i in idx])
+        with span("snx:batch"):
+            idx = np.asarray([self._index_of[self._key(s)] for s in items], np.int64)
+            return IndexedBatch(self.tree, torch.from_numpy(idx).to(self.tree.inputs.device),
+                                [self.tree.names[i] for i in idx])
 
     def stats(self) -> str:
         nbytes = sum(_nbytes(getattr(self.tree, k)) for k in _FIELDS)

@@ -41,6 +41,7 @@ from surfacenetworks_tpu_torch.dist.edge_partition import (
     suggest_halo,
 )
 from surfacenetworks_tpu_torch.dist.mesh_setup import Mesh, batch_sharding, put_global, replicated, shard_slice
+from surfacenetworks_tpu_torch.spans import span
 
 
 def partition_batch_operator(Ls, n_parts: int, n_rows: int, halo: int | None = None, k: int = 16,
@@ -202,11 +203,13 @@ class GraphStore:
         return idx.to(self.mesh.device)
 
     def gather(self, samples: list):
-        """This rank's shards of the batch of ``samples``: (op, arrays)."""
+        """This rank's shards of the batch of ``samples``: (op, arrays),
+        inside the span ``snx:batch``."""
         from surfacenetworks_tpu_torch.data.pipeline import _take
 
-        idx = self.indices(samples)
-        return _take(self.op, idx), {k: v.index_select(0, idx) for k, v in self.arrays.items()}
+        with span("snx:batch"):
+            idx = self.indices(samples)
+            return _take(self.op, idx), {k: v.index_select(0, idx) for k, v in self.arrays.items()}
 
     def stats(self) -> str:
         nbytes = _nbytes(self.op) + _nbytes(self.arrays)

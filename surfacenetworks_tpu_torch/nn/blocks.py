@@ -51,6 +51,7 @@ from surfacenetworks_tpu_torch.nn.layers import GraphBatchNorm, GraphConv1x1, gl
 from surfacenetworks_tpu_torch.sparse.bsr import BsrOperator
 from surfacenetworks_tpu_torch.sparse.ell import DiracOperator, EllOperator
 from surfacenetworks_tpu_torch.sparse.ops import bsr_spmm, dense_bmm, dirac_apply_fv, dirac_apply_vf, spmm
+from surfacenetworks_tpu_torch.spans import span
 
 GAT_HEADS = 4
 
@@ -384,7 +385,15 @@ def gat_attend(op, xh: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
     the same function (the same finite support).  Plain PyTorch: the
     backward is autograd's, but for the gather's (``_SlotGather``).  A
     ``PartitionedOperator`` shard attends on this rank's rows
-    (``_gat_attend_partitioned``)."""
+    (``_gat_attend_partitioned``).  The attend runs inside the span
+    ``snx:apply:gat`` (``spans.py``); its backward is put down to the span
+    by the readers of a trace."""
+    with span("snx:apply:gat"):
+        return _gat_attend(op, xh, s_src, s_dst, negative_slope)
+
+
+def _gat_attend(op, xh: torch.Tensor, s_src: torch.Tensor, s_dst: torch.Tensor,
+                negative_slope: float) -> torch.Tensor:
     if isinstance(op, PartitionedOperator):
         return _gat_attend_partitioned(op, xh, s_src, s_dst, negative_slope)
     if not isinstance(op, EllOperator):

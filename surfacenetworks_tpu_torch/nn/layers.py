@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from surfacenetworks_tpu_torch import parallel_context
+from surfacenetworks_tpu_torch.spans import span
 
 
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:
@@ -60,7 +61,8 @@ def global_average(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 class GraphBatchNorm(nn.Module):
     """Batch normalization over all (batch, vertex) rows per channel, with
-    biased variance and eps 1e-5; statistics in fp32 (fp64 for fp64 x)."""
+    biased variance and eps 1e-5; statistics in fp32 (fp64 for fp64 x).
+    Runs inside the span ``snx:bn``."""
 
     def __init__(self, features: int, eps: float = 1e-5, masked: bool = False):
         super().__init__()
@@ -70,6 +72,10 @@ class GraphBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        with span("snx:bn"):
+            return self._normalize(x, mask)
+
+    def _normalize(self, x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
         out_dtype = x.dtype
         x = x.to(_stat_dtype(x))
         dims = tuple(range(x.dim() - 1))
@@ -104,7 +110,8 @@ class GraphConv1x1(nn.Module):
     fp32): with ``torch.bfloat16`` the input and the weight are cast to
     bf16, multiplied with fp32 accumulation into a bf16 product, and the
     bias is added in bf16, two roundings as in flax's ``nn.Dense`` (a fused
-    ``F.linear`` bias would round once).
+    ``F.linear`` bias would round once).  The linear map runs inside the
+    span ``snx:linear``.
     """
 
     def __init__(self, num_inputs: int, num_outputs: int, batch_norm: str | None = None,
@@ -119,10 +126,11 @@ class GraphConv1x1(nn.Module):
             self.bn = GraphBatchNorm(num_outputs, masked=masked_bn)
 
     def _linear(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dtype is None:
-            return self.fc(x)
-        dt = self.dtype
-        return torch.matmul(x.to(dt), self.fc.weight.to(dt).t()) + self.fc.bias.to(dt)
+        with span("snx:linear"):
+            if self.dtype is None:
+                return self.fc(x)
+            dt = self.dtype
+            return torch.matmul(x.to(dt), self.fc.weight.to(dt).t()) + self.fc.bias.to(dt)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         if self.batch_norm == "pre":

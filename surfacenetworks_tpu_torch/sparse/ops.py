@@ -37,6 +37,12 @@ Hamilton matrices ``L(q)``, expanded on the device from the ``[..., 4]``
 tables.  Their backwards apply the stored adjoint tables the same way, so
 every sum is a gather and a product in a fixed order: no scatter, and the
 same bits on every run.
+
+The forward and the backward of each operator and Dirac apply run inside a
+span (``spans.py``): ``snx:apply:lap`` for ``spmm`` and ``bsr_spmm``,
+``snx:apply:dirac`` for the Dirac pair.  ``_gather_apply`` and
+``_vertex_side`` stay module globals that the Functions look up at each
+call.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
 from surfacenetworks_tpu_torch.sparse import kernels
 from surfacenetworks_tpu_torch.sparse.bsr import BsrOperator
 from surfacenetworks_tpu_torch.sparse.ell import DiracOperator, EllOperator
+from surfacenetworks_tpu_torch.spans import span
 
 
 class _EllApply(torch.autograd.Function):
@@ -58,12 +65,14 @@ class _EllApply(torch.autograd.Function):
     def forward(ctx, op: EllOperator, x: torch.Tensor) -> torch.Tensor:
         ctx.op, ctx.dtype = op, x.dtype
         m = op.fwd
-        return kernels.ell_matmul(m.cols, m.vals, x.contiguous(), m.window)
+        with span("snx:apply:lap"):
+            return kernels.ell_matmul(m.cols, m.vals, x.contiguous(), m.window)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         m = ctx.op.bwd
-        return None, kernels.ell_matmul(m.cols, m.vals, g.contiguous(), m.window).to(ctx.dtype)
+        with span("snx:apply:lap"):
+            return None, kernels.ell_matmul(m.cols, m.vals, g.contiguous(), m.window).to(ctx.dtype)
 
 
 class _BsrApply(torch.autograd.Function):
@@ -71,12 +80,14 @@ class _BsrApply(torch.autograd.Function):
     def forward(ctx, op: BsrOperator, x: torch.Tensor) -> torch.Tensor:
         ctx.op, ctx.dtype = op, x.dtype
         m = op.fwd
-        return kernels.bsr_matmul(m.block_cols, m.block_vals, x.contiguous(), op.fwd_live)
+        with span("snx:apply:lap"):
+            return kernels.bsr_matmul(m.block_cols, m.block_vals, x.contiguous(), op.fwd_live)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         m = ctx.op.bwd
-        return None, kernels.bsr_matmul(m.block_cols, m.block_vals, g.contiguous(), ctx.op.bwd_live).to(ctx.dtype)
+        with span("snx:apply:lap"):
+            return None, kernels.bsr_matmul(m.block_cols, m.block_vals, g.contiguous(), ctx.op.bwd_live).to(ctx.dtype)
 
 
 def spmm(op: EllOperator, x: torch.Tensor) -> torch.Tensor:
@@ -230,26 +241,30 @@ class _DiracVF(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op: DiracOperator, v: torch.Tensor) -> torch.Tensor:
         ctx.op, ctx.dtype = op, v.dtype
-        return _gather_apply(op.faces, op.q_fv, v)
+        with span("snx:apply:dirac"):
+            return _gather_apply(op.faces, op.q_fv, v)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         # v_bar[j] = sum over incident (face, corner): conj(q_fv) (x) g[face]
         op = ctx.op
-        return None, _vertex_side(op, op.q_bwd_v, op.q_ov_bwd_v, g).to(ctx.dtype)
+        with span("snx:apply:dirac"):
+            return None, _vertex_side(op, op.q_bwd_v, op.q_ov_bwd_v, g).to(ctx.dtype)
 
 
 class _DiracFV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, op: DiracOperator, f: torch.Tensor) -> torch.Tensor:
         ctx.op, ctx.dtype = op, f.dtype
-        return _vertex_side(op, op.q_vf, op.q_ov_vf, f)
+        with span("snx:apply:dirac"):
+            return _vertex_side(op, op.q_vf, op.q_ov_vf, f)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         # f_bar[i] = sum_c conj(q_vf at (faces[i,c], slot)) (x) g[faces[i,c]]
         op = ctx.op
-        return None, _gather_apply(op.faces, op.q_bwd_f, g).to(ctx.dtype)
+        with span("snx:apply:dirac"):
+            return None, _gather_apply(op.faces, op.q_bwd_f, g).to(ctx.dtype)
 
 
 def _check_dirac(op: DiracOperator, x: torch.Tensor, rows: int, what: str) -> None:

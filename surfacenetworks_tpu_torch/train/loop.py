@@ -19,6 +19,7 @@ from typing import TYPE_CHECKING, Any, Callable
 import torch
 
 from surfacenetworks_tpu_torch import parallel_context
+from surfacenetworks_tpu_torch.spans import span
 from surfacenetworks_tpu_torch.train import optim
 from surfacenetworks_tpu_torch.train.checkpoint import check_finite
 
@@ -49,18 +50,23 @@ def update(model: torch.nn.Module, opt: torch.optim.Optimizer, body: Callable, s
     ``body`` runs in the grid's sharded context, so its loss is this rank's
     share of the global loss; the gradients are summed over every rank of
     the grid before the update, and the values returned are the global
-    ones."""
-    opt.zero_grad(set_to_none=True)
-    with mesh.context(vertex=vertex) if mesh is not None else contextlib.nullcontext():
-        loss, *metrics = body()
-        loss.backward()
-    values = (loss.detach(), *(m.detach() for m in metrics))
-    if mesh is not None:
-        parallel_context.sum_gradients(model.parameters(), mesh.world)
-    optim.apply_schedule(opt, schedule)
-    opt.step()
-    if mesh is not None:
-        values = tuple(parallel_context.total(torch.stack(values), [mesh.world]).unbind(0))
+    ones.  The update, and in it the forward, the backward and the
+    optimizer's phase, each run inside a span (``spans.py``)."""
+    with span("snx:update"):
+        opt.zero_grad(set_to_none=True)
+        with mesh.context(vertex=vertex) if mesh is not None else contextlib.nullcontext():
+            with span("snx:forward"):
+                loss, *metrics = body()
+            with span("snx:backward"):
+                loss.backward()
+        values = (loss.detach(), *(m.detach() for m in metrics))
+        with span("snx:optimizer"):
+            if mesh is not None:
+                parallel_context.sum_gradients(model.parameters(), mesh.world)
+            optim.apply_schedule(opt, schedule)
+            opt.step()
+        if mesh is not None:
+            values = tuple(parallel_context.total(torch.stack(values), [mesh.world]).unbind(0))
     return values
 
 

@@ -8,7 +8,9 @@ made in the region before it reads the clock.  ``trace`` records a
 ``torch.profiler`` trace of a region (CPU and CUDA activities) as a
 Chrome-trace JSON file; ``train_normal --jax-profile DIR`` traces its first
 trained epoch through it.  The interesting rates are steps/s and edges/s
-(``ThroughputMeter``).
+(``ThroughputMeter``).  ``span`` (from ``spans.py``, re-exported here)
+names the port's layers inside such a trace: it opens a profiler range only
+while the profiler records, and counts every span in ``span_counts``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import datetime
 import os
 import time
 from dataclasses import dataclass, field
+
+from surfacenetworks_tpu_torch.spans import reset_span_counts, span, span_counts  # noqa: F401
 
 
 def time_string() -> str:
